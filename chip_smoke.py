@@ -5,15 +5,18 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the bit-pack kernel K1 from h264lab_tpu_torch/csrc/bitpack.cu;
+  2. build the bit-pack kernel K1 from h264lab_tpu_torch/csrc/bitpack.cu
+     and print what ptxas reports (registers, shared memory, spills);
   3. encode 1920x1088 chessboard input, all-intra, 16 GOP lanes in one
      dispatch at QP 33, encode_speed 2: one untimed step, two timed steps
      for frames/s (no synchronization inside a step), then one step with
      per-stage times (each stage between device synchronizations);
   4. hold K1 against the plain PyTorch packer on the last step's real
      (16, 1, 8160, 952) symbol grids, at the IDR capacity and at a small
-     capacity that overflows: the words must be equal; the launch count
-     of the encode steps must be > 0;
+     capacity that overflows, and on a synthetic 16 x 8160-MB grid with
+     what the real grid lacks (runs of empty MBs, an empty frame, MBs over
+     4096 bits, units over 704 bits): the words and bit counts must be
+     equal; the launch count of the encode steps must be > 0;
   5. encode lane 0's first frame with the port on the CPU: its bytes must
      equal lane 0 of the card's first step;
   6. print the kernels line (JSON), then the result line (JSON).
@@ -34,6 +37,7 @@ sys.path.insert(0, ROOT)
 WIDTH, HEIGHT, QP, LANES = 1920, 1088, 33, 16
 TIMED_STEPS = 2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
+SYNTH_SEED = 7
 
 
 def _require(ok: bool, what: str):
@@ -69,6 +73,55 @@ def main_path_setup():
 
 def lane_frames(frames, t, lanes=LANES):
     return [frames[(g + t) % len(frames)] for g in range(lanes)]
+
+
+def synthetic_grid(n_frames=LANES, nmb=(WIDTH // 16) * (HEIGHT // 16),
+                   seed=SYNTH_SEED):
+    """A (n_frames, nmb, 952) symbol grid (vals uint32, lens int32), built
+    with numpy from a fixed seed, with what an all-intra grid lacks: runs
+    of empty MBs, one empty frame, MBs over 4096 bits and units over 704
+    bits (K1's drop boundaries)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (n_frames, nmb, 952)
+    lens = rng.integers(1, 29, shape, dtype=np.int32)
+    lens[rng.random(shape, dtype=np.float32) < 0.9] = 0
+    f = np.arange(n_frames)[:, None]
+    big = rng.integers(0, nmb, (n_frames, 64))       # ~9600 bits each
+    lens[f, big] = (rng.integers(1, 29, (n_frames, 64, 952), dtype=np.int32)
+                    * (rng.random((n_frames, 64, 952)) < 0.7))
+    wide = rng.integers(0, nmb, (n_frames, 64))      # one unit of ~820 bits
+    unit = rng.integers(0, 28, (n_frames, 64))
+    lens.reshape(n_frames, nmb, 28, 34)[f, wide, unit] = rng.integers(
+        16, 33, (n_frames, 64, 34), dtype=np.int32)
+    for i in range(n_frames):                        # runs of empty MBs
+        for a, n in zip(rng.integers(0, nmb, 24), rng.integers(1, 300, 24)):
+            lens[i, a:a + n] = 0
+    lens[3] = 0                                      # one empty frame
+    vals = rng.integers(0, 1 << 32, shape, dtype=np.uint32)
+    return vals, lens
+
+
+def check_k1(vals, lens, caps, what):
+    """K1 against the plain packer at each capacity: the words and bit
+    counts must be equal. Returns (largest |difference| of a word, the bit
+    counts)."""
+    import torch
+    from h264lab_tpu_torch.ops import bitpack
+
+    max_err = 0
+    for c in caps:
+        wk, nk = bitpack.pack_frames(vals, lens, c)
+        wp, np_ = bitpack.pack_frames_plain(vals, lens, c)
+        torch.cuda.synchronize()
+        _require(torch.equal(nk, np_), f"K1 bit counts differ ({what})")
+        diff = (wk.long() & 0xFFFFFFFF) - (wp.long() & 0xFFFFFFFF)
+        max_err = max(max_err, int(diff.abs().max()))
+        _require(torch.equal(wk, wp), f"K1 words differ at cap {c} ({what})")
+        print(f"  {what}, cap {c}: K1 == plain on all {nk.numel()} frames "
+              f"(overflowing: {int((nk > 32 * c).sum())})")
+    return max_err, nk
 
 
 def main() -> int:
@@ -135,25 +188,34 @@ def main() -> int:
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _require(launches > 0, "the main path never launched K1")
 
-    # 4. K1 against the plain packer on the step's real symbol grids
+    # 4. K1 against the plain packer on the step's real symbol grids and
+    # on a synthetic grid past the drop boundaries
     vals = pending.out["sym_vals"]
     lens = pending.out["sym_lens"]
     cap = enc.idr_cap_words
     print(f"symbol grid {tuple(vals.shape)}, cap_words {cap}, launches "
           f"in the encode steps: {launches}")
-    max_err = 0
-    for c in (cap, 1024):
-        wk, nk = bitpack.pack_frames(vals, lens, c)
-        wp, np_ = bitpack.pack_frames_plain(vals, lens, c)
-        torch.cuda.synchronize()
-        _require(torch.equal(nk, np_), "K1 bit counts differ")
-        diff = (wk.long() & 0xFFFFFFFF) - (wp.long() & 0xFFFFFFFF)
-        max_err = max(max_err, int(diff.abs().max()))
-        _require(torch.equal(wk, wp), f"K1 words differ at cap {c}")
-        overflow = int(nk.max()) > 32 * c
-        print(f"  cap {c}: K1 == plain on all {nk.numel()} frames "
-              f"(overflowing: {overflow})")
+    max_err, nk = check_k1(vals, lens, (cap, 1024), "step grid")
     _require(int(nk.max()) > 32 * 1024, "the small cap did not overflow")
+    print(f"  step grid: largest MB {int(lens.sum(-1).max())} bits; frame "
+          f"bits {int(nk.min())} .. {int(nk.max())}")
+    t0 = time.perf_counter()
+    s_vals, s_lens = synthetic_grid()
+    units = s_lens.reshape(s_lens.shape[:2] + (28, 34)).sum(-1)
+    s_mb = units.sum(-1)
+    features = dict(empty_mbs=int((s_mb == 0).sum()),
+                    empty_frames=int((s_mb.sum(-1) == 0).sum()),
+                    mbs_over_4096=int((s_mb > 4096).sum()),
+                    units_over_704=int((units > 704).sum()))
+    print(f"synthetic grid {s_lens.shape} (seed {SYNTH_SEED}, "
+          f"{time.perf_counter() - t0:.1f} s): {features}")
+    _require(all(features.values()), "the synthetic grid lacks a feature")
+    s_vals = torch.from_numpy(s_vals.view("int32")).to(vals.device)
+    s_lens = torch.from_numpy(s_lens).to(vals.device)
+    s_cap = bitpack.bucket_words(int(s_lens.sum((1, 2)).max()))
+    err, _ = check_k1(s_vals, s_lens, (s_cap, 1024), "synthetic grid")
+    max_err = max(max_err, err)
+    del s_vals, s_lens
     k1_ms = _cuda_ms(lambda: bitpack.pack_frames(vals, lens, cap), 20)
     plain_ms = _cuda_ms(lambda: bitpack.pack_frames_plain(vals, lens, cap), 2)
     # bytes the function must move on this step's data: every length, the
@@ -166,6 +228,11 @@ def main() -> int:
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     print(f"  slots holding a symbol: {n_sym} of {lens.numel()} "
           f"({100 * n_sym / lens.numel():.2f}%)")
+    # what a gather of those values moves: whole 32-byte sectors
+    sectors = int((lens.reshape(-1, 8) > 0).any(-1).sum())
+    print(f"  32-byte sectors of values holding a symbol: {sectors} of "
+          f"{lens.numel() // 8} ({800 * sectors / lens.numel():.2f}%), "
+          f"{32 * sectors / 1e9:.3f} GB")
 
     # 5. lane 0's first frame on the CPU
     t0 = time.perf_counter()

@@ -1,54 +1,81 @@
 // K1 of h264lab_tpu_torch: device-side bit packing of the CAVLC symbol
-// grid, written by hand for NVIDIA Hopper (sm_90a).
+// grid, one fused single-pass kernel written by hand for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel `_stitch_kernel` (h264lab_tpu/ops/bitpack.py:152,
 // reached through pack_frame_pallas) together with the XLA levels around
-// it, and returns what `pack_frame_fast` (bitpack.py:199-236) returns: the
-// frame's symbols concatenated MSB-first into uint32 words, (cap_words +
-// 256) words per frame, writes at or past that length dropped.
+// it, and returns what `pack_frame_fast` (bitpack.py:199-236) returns: each
+// frame's symbols concatenated MSB-first into (cap_words + 256) uint32
+// words, and the frame's bit count. It follows that packer's drop rules: a
+// bit at offset 704 or more of its 34-slot unit (L1 keeps 22 words,
+// bitpack.py:121-124), at offset 4096 or more of its MB (L2 keeps 128
+// words, :143-148), or in frame word cap_words + 256 or later (L3, :235)
+// reads as 0, while every offset and the bit count count all bits
+// (:101-102, :134, :194-195).
 //
-// The TPU kernel walks the MBs of a frame in order on one core and rolls
-// each MB's word buffer into place with power-of-two rotations. Hopper
-// runs blocks in parallel and in no order, so the design is two
-// order-free passes instead:
-//   (a) mb_words_kernel — one block per (frame, MB): an exclusive scan of
-//       the MB's slot lengths in shared memory, then every slot ORs its
-//       <= 2 word pieces into a 128-word shared buffer (levels L1 + L2 of
-//       the JAX packer fused: bits simply concatenate, so unit boundaries
-//       need no separate pass). Writes mb_words and mb_bits.
-//   torch.cumsum of mb_bits then gives each MB's frame bit offset (the
-//   JAX packer scans outside its kernel too, bitpack.py:194).
-//   (b) stitch_kernel — one block per (frame, MB): thread i forms output
-//       word i of the MB from (w[i] >> s) | (w[i-1] << (32 - s)), with
-//       s = off & 31 and the s == 0 case guarded (a shift by 32 is
-//       undefined), and ORs it into word (off >> 5) + i.
-// Bits of different symbols and MBs never overlap, so OR equals the JAX
-// packer's add and the result does not depend on the order of atomics.
+// Bound: bytes. Every length is read once (16 x 8160 x 952 x 4 B = 0.50 GB
+// at 1080p x 16 lanes), a value only where its length is non-zero (9% of
+// the slots at QP 33), and the (cap_words + 256)-word frames are written
+// once (67 MB at the IDR capacity): 0.61 GB, 0.18 ms at 3.35 TB/s
+// (chip_smoke.py counts it from each run's data).
 //
-// Bound: bytes. Every length must be read (16 x 8160 x 952 x 4 B = 0.50 GB
-// at 1080p x 16 lanes), but a value only where its length is non-zero (a
-// few percent of the slots at QP 33), and the (cap_words + 256)-word
-// frames are written once (67 MB at the IDR capacity): about 0.58 GB, or
-// ~0.17 ms at the H100's 3.35 TB/s. The design reads each length once
-// (each thread a contiguous run of slots) and a value only for a non-empty
-// slot, keeps the per-MB word assembly in shared memory, and makes the
-// 128-word MB buffers the only intermediate in device memory.
+// Design. A block of kTile warps packs a tile of kTile consecutive MBs of
+// one frame, one warp per MB:
+//   1. The block draws its tile from a global ticket, so every tile it may
+//      wait on belongs to a block that started earlier (no deadlock).
+//   2. One thread brings the tile's lengths, one contiguous span of
+//      kTile x 3808 B, into shared memory with a 1-D bulk copy (TMA) on an
+//      mbarrier. Every length is read from device memory once.
+//   3. Each lane takes one segment of the MB's slots, in slot order: lanes
+//      0-4 share the header unit (mb_type, the 16 intra 4x4 modes and 3
+//      more symbols), lanes 5-31 take units 1-27. The lanes walk their
+//      slots in step, sum the lengths and list their symbols (slot, offset
+//      in the segment, length) at the front of their own segment. A warp
+//      scan of the segment sums gives offsets in the MB and its bit count.
+//   4. Decoupled look-back over the frame's tiles: a tile publishes its
+//      aggregate at once, then its inclusive prefix, each with its flag in
+//      one 64-bit word and one release store. Warp 0 reads 32 tiles back
+//      at a time and waits only for those up to the nearest prefix. The
+//      frame's last tile writes nbits.
+//   5. Before that, each warp places its MB's symbols 32 at a time, the
+//      load of kRounds rounds of values first: symbol e goes to lane e % 32,
+//      which finds the segment that listed it by a binary search over the
+//      lanes' counts. Each symbol's kept bits are ORed into the MB's
+//      128-word buffer in shared memory. The buffer then goes to the frame
+//      shifted by off & 31: plain stores for the words that hold only this
+//      MB's bits, atomicOr for its first and last word, which a neighbour
+//      may share. Writes at or past cap_words + 256 are dropped; an MB
+//      with no bits writes nothing.
+// Against the two-pass kernel it replaces (0.586 ms, 31% of the bound):
+// no per-MB word buffers in device memory (134 MB of traffic), no cumsum,
+// subtraction or sum around it (one launch beside the zero fills of the
+// output and of the 8 B-per-tile look-back state), 30 KB bulk loads in
+// place of 3.8 KB blocks of scalar loads, 2 global atomics per MB in place
+// of one per word, and work spread evenly over the lanes: a unit holds up
+// to 34 symbols, many units none.
 //
 // Inputs: vals are uint32 bit patterns (int32 tensors on the Python side),
-// lens in [0, 32], and each MB's symbols fit in 128 words (the spec's
-// 3200-bit macroblock bound leaves headroom). Plain C interface, loaded
-// with ctypes; each entry point launches on the given stream and returns
-// cudaGetLastError().
+// lens in [0, 32], 952 slots per MB, both 16-byte aligned. Plain C
+// interface, loaded with ctypes; the entry point launches on the given
+// stream and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMbWords = 128;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kStitchThreads = 160;  // >= kMbWords + 1, whole warps
+constexpr int kUnitSlots = 34;
+constexpr int kUnits = 28;
+constexpr int kSlots = kUnits * kUnitSlots;   // 952 slots per MB
+constexpr int kUnitKeep = 22 * 32;            // bits kept of a unit
+constexpr int kMbKeep = 128 * 32;             // bits kept of an MB
+constexpr int kBufWords = 129;                // kept MB bits after a shift
+constexpr int kBufStride = 132;               // 128 MB words, then zeros
+constexpr int kTile = 8;                      // MBs per block
+constexpr int kRounds = 4;                    // of 32 symbols, values first
+constexpr int kThreads = kTile * 32;
+constexpr unsigned long long kFlagAggregate = 1ull << 32;
+constexpr unsigned long long kFlagPrefix = 2ull << 32;
 
 __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v) {
   const int lane = threadIdx.x & 31;
@@ -60,103 +87,251 @@ __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-mb_words_kernel(const uint32_t* __restrict__ vals,
-                const int32_t* __restrict__ lens, int nslots,
-                uint32_t* __restrict__ mb_words,
-                int32_t* __restrict__ mb_bits) {
-  __shared__ uint32_t words[kMbWords];
-  __shared__ uint32_t warp_sums[kWarps];
-  const long long mb = blockIdx.x;
-  const uint32_t* v = vals + mb * nslots;
-  const int32_t* l = lens + mb * nslots;
-  const int tid = threadIdx.x;
-  const int per = (nslots + kThreads - 1) / kThreads;
-  const int first = tid * per;
-  const int last = min(first + per, nslots);
-
-  for (int i = tid; i < kMbWords; i += kThreads) words[i] = 0u;
-
-  // block-wide exclusive scan of the per-thread bit counts
-  uint32_t local = 0;
-  for (int s = first; s < last; ++s) local += (uint32_t)l[s];
-  const uint32_t incl = warp_inclusive_scan(local);
-  if ((tid & 31) == 31) warp_sums[tid >> 5] = incl;
-  __syncthreads();
-  if (tid < 32) {
-    uint32_t ws = tid < kWarps ? warp_sums[tid] : 0u;
-    ws = warp_inclusive_scan(ws);
-    if (tid < kWarps) warp_sums[tid] = ws;
-  }
-  __syncthreads();
-  uint32_t off = incl - local + ((tid >> 5) ? warp_sums[(tid >> 5) - 1] : 0u);
-
-  for (int s = first; s < last; ++s) {
-    const int len = l[s];
-    if (len > 0) {
-      uint32_t val = v[s];
-      if (len < 32) val &= (1u << len) - 1u;
-      const uint32_t sh = off & 31u;
-      const uint32_t w = off >> 5;
-      // the symbol left-aligned at bit `sh` of a 64-bit window over words
-      // w, w+1; the shift is in [1, 63] for len in [1, 32]
-      const unsigned long long x =
-          (unsigned long long)val << (64 - len - (int)sh);
-      const uint32_t hi = (uint32_t)(x >> 32);
-      const uint32_t lo = (uint32_t)x;
-      if (hi && w < kMbWords) atomicOr(&words[w], hi);
-      if (lo && w + 1 < kMbWords) atomicOr(&words[w + 1], lo);
-    }
-    off += (uint32_t)len;
-  }
-  __syncthreads();
-  for (int i = tid; i < kMbWords; i += kThreads)
-    mb_words[mb * kMbWords + i] = words[i];
-  if (tid == kThreads - 1) mb_bits[mb] = (int32_t)off;  // = the MB total
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-__global__ void __launch_bounds__(kStitchThreads)
-stitch_kernel(const uint32_t* __restrict__ mb_words,
-              const int32_t* __restrict__ offs, int nmb,
-              long long out_words, uint32_t* __restrict__ out) {
-  const long long mb = blockIdx.x;
-  const int i = threadIdx.x;
-  if (i > kMbWords) return;
-  const uint32_t off = (uint32_t)offs[mb];
-  const uint32_t s = off & 31u;
-  const uint32_t* w = mb_words + mb * kMbWords;
-  const uint32_t cur = i < kMbWords ? w[i] : 0u;
-  uint32_t word = cur;
-  if (s != 0u) {
-    const uint32_t prev = i > 0 ? w[i - 1] : 0u;
-    word = (cur >> s) | (prev << (32u - s));
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// OR the k (1..32) bits of v, MSB first, into buf at bit p: the bits
+// left-aligned at bit p & 31 of a 64-bit window over words p >> 5 and
+// (p >> 5) + 1, a shift in [1, 63]
+__device__ __forceinline__ void place(uint32_t* buf, uint32_t p, int k,
+                                      uint32_t v) {
+  const unsigned long long x =
+      (unsigned long long)v << (64 - k - (int)(p & 31u));
+  const uint32_t hi = (uint32_t)(x >> 32);
+  const uint32_t lo = (uint32_t)x;
+  if (hi) atomicOr(&buf[p >> 5], hi);
+  if (lo) atomicOr(&buf[(p >> 5) + 1], lo);
+}
+
+__device__ __forceinline__ uint32_t low_bits(uint32_t v, int len) {
+  return len < 32 ? v & ((1u << len) - 1u) : v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const uint32_t* __restrict__ vals,
+            const int32_t* __restrict__ lens, int nmb, int tiles_per_frame,
+            long long out_words, uint32_t* __restrict__ out,
+            int32_t* __restrict__ nbits, unsigned long long* status,
+            unsigned int* ticket) {
+  // the tile's lengths as loaded; step 3 lists each segment's symbols at
+  // its front
+  __shared__ __align__(16) int32_t s_lens[kTile * kSlots];
+  __shared__ uint32_t s_words[kTile][kBufStride];   // per MB, MB-local
+  __shared__ uint32_t s_mb_bits[kTile];
+  __shared__ uint32_t s_mb_off[kTile];
+  __shared__ unsigned long long s_bar;
+  __shared__ unsigned int s_tile;
+  __shared__ uint32_t s_prefix;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const uint32_t bar = smem_addr(&s_bar);
+
+  // 1-2. a tile from the ticket, its lengths by one bulk copy
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    const uint32_t t = atomicAdd(ticket, 1u);
+    const uint32_t f = t / (uint32_t)tiles_per_frame;
+    const int mb0 = (int)(t - f * tiles_per_frame) * kTile;
+    const uint32_t bytes = (uint32_t)(min(kTile, nmb - mb0) * kSlots * 4);
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+        "r"(bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(s_lens)),
+        "l"(lens + ((long long)f * nmb + mb0) * kSlots), "r"(bytes), "r"(bar)
+        : "memory");
+    s_tile = t;
   }
-  const long long idx = (long long)(off >> 5) + i;
-  if (word != 0u && idx < out_words)
-    atomicOr(&out[(mb / nmb) * out_words + idx], word);
+  for (int i = tid; i < kTile * kBufStride; i += kThreads)
+    (&s_words[0][0])[i] = 0u;
+  __syncthreads();
+  const uint32_t tile = s_tile;
+  const uint32_t frame = tile / (uint32_t)tiles_per_frame;
+  const int ti = (int)(tile - frame * tiles_per_frame);
+  const bool active = warp < min(kTile, nmb - ti * kTile);
+  int32_t* sl_mb = s_lens + warp * kSlots;
+  const uint32_t* v_mb =
+      vals + ((long long)frame * nmb + ti * kTile + warp) * kSlots;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(bar)
+      : "memory");
+
+  // 3. per lane one segment of the MB's slots; the symbols it lists go
+  // over lengths it has already read
+  const int seg = lane < 5 ? 8 * lane : kUnitSlots * (lane - 4);
+  const int seg_pairs = lane < 4 ? 4 : (lane == 4 ? 1 : kUnitSlots / 2);
+  int32_t* sl = sl_mb + seg;
+  uint32_t so = 0;                               // offset in the segment
+  int n_sym = 0;
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < kUnitSlots / 2; ++k) {
+      if (k < seg_pairs) {
+        const int2 l2 = reinterpret_cast<const int2*>(sl)[k];
+        if (l2.x > 0)
+          sl[n_sym++] = (seg + 2 * k) | (so << 10) | (l2.x << 21);
+        so += (uint32_t)l2.x;
+        if (l2.y > 0)
+          sl[n_sym++] = (seg + 2 * k + 1) | (so << 10) | (l2.y << 21);
+        so += (uint32_t)l2.y;
+      }
+    }
+  }
+  const uint32_t sincl = warp_inclusive_scan(so);
+  const uint32_t mb_bits = __shfl_sync(0xffffffffu, sincl, 31);
+  const uint32_t seg_start = sincl - so;         // offset in the MB
+  const uint32_t unit_start = lane < 5 ? 0u : seg_start;
+  const int n_incl = (int)warp_inclusive_scan((uint32_t)n_sym);
+  const int n_mb = __shfl_sync(0xffffffffu, n_incl, 31);
+  if (lane == 0) s_mb_bits[warp] = active ? mb_bits : 0u;
+  __syncthreads();
+
+  // 4a. the tile's aggregate, published at once for the tiles after it
+  uint32_t agg = 0;
+  if (warp == 0) {
+    const uint32_t b = lane < kTile ? s_mb_bits[lane] : 0u;
+    const uint32_t incl = warp_inclusive_scan(b);
+    if (lane < kTile) s_mb_off[lane] = incl - b;
+    agg = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane == 0)
+      store_release(status + tile,
+                    (ti == 0 ? kFlagPrefix : kFlagAggregate) | agg);
+  }
+
+  // 5. the MB's symbols into its buffer, 32 at a time: symbol e is the
+  // (e - first listed of L)-th symbol listed by lane L, the first lane
+  // whose inclusive count exceeds e. Each keeps its bits below the unit
+  // and MB drop boundaries.
+  uint32_t* buf = s_words[warp];
+  for (int e0 = 0; e0 < n_mb; e0 += 32 * kRounds) {
+    uint32_t meta[kRounds], val[kRounds], start[kRounds], ustart[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int e = e0 + 32 * r + lane;
+      int owner = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(0xffffffffu, n_incl, owner + step - 1) <= e)
+          owner += step;
+      owner = min(owner, 31);
+      const int first_e = __shfl_sync(0xffffffffu, n_incl - n_sym, owner);
+      start[r] = __shfl_sync(0xffffffffu, seg_start, owner);
+      ustart[r] = __shfl_sync(0xffffffffu, unit_start, owner);
+      const int o_seg = owner < 5 ? 8 * owner : kUnitSlots * (owner - 4);
+      meta[r] = e < n_mb ? (uint32_t)sl_mb[o_seg + e - first_e] : 0u;
+      val[r] = e < n_mb ? __ldg(v_mb + (meta[r] & 1023u)) : 0u;
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int len = (int)(meta[r] >> 21);
+      const uint32_t mo = start[r] + ((meta[r] >> 10) & 2047u);
+      const int k = min(len, min(kUnitKeep - (int)(mo - ustart[r]),
+                                 kMbKeep - (int)mo));
+      if (k > 0) place(buf, mo, k, low_bits(val[r], len) >> (len - k));
+    }
+  }
+
+  // 4b. the tile's place in the frame, by warp 0 after its own step 5:
+  // lane i reads tile t - 1 - i, and the window moves back 32 tiles at a
+  // time; only the tiles up to the nearest one with a prefix are waited for
+  if (warp == 0) {
+    uint32_t excl = 0;
+    const int first = (int)tile - ti;           // the frame's first tile
+    for (int j = (int)tile - 1; j >= first; j -= 32) {
+      const int k = j - lane;                   // before the frame: prefix 0
+      unsigned long long s = k >= first ? load_acquire(status + k)
+                                        : kFlagPrefix;
+      unsigned pmask, need;
+      for (;;) {
+        pmask = __ballot_sync(0xffffffffu, (s >> 32) == 2);
+        need = pmask ? pmask ^ (pmask - 1) : 0xffffffffu;  // lanes <= it
+        const unsigned wait =
+            need & __ballot_sync(0xffffffffu, (s >> 32) == 0);
+        if (!wait) break;
+        if (wait >> lane & 1u) s = load_acquire(status + k);
+      }
+      excl += warp_sum(need >> lane & 1u ? (uint32_t)s : 0u);
+      if (pmask) break;
+    }
+    if (lane == 0) {
+      if (ti > 0) store_release(status + tile, kFlagPrefix | (excl + agg));
+      if (ti == tiles_per_frame - 1) nbits[frame] = (int32_t)(excl + agg);
+      s_prefix = excl;
+    }
+  }
+  __syncthreads();
+  if (!active || mb_bits == 0) return;
+
+  // the buffer into the frame at bit offset off: word j of the MB's span
+  // is (w[j] >> s) | (w[j - 1] << (32 - s)), s = off & 31, with s == 0
+  // apart (a shift by 32 is undefined)
+  const uint32_t off = s_prefix + s_mb_off[warp];
+  const uint32_t s = off & 31u;
+  const uint32_t end = s + mb_bits;              // bits from word 0's start
+  const int n_words = (int)min((end + 31u) >> 5, (uint32_t)kBufWords);
+  const int last = (int)((end - 1u) >> 5);
+  uint32_t* fout = out + (long long)frame * out_words;
+  const long long base = off >> 5;
+  for (int j = lane; j < n_words; j += 32) {
+    const long long idx = base + j;
+    if (idx >= out_words) break;
+    uint32_t w = buf[j];                         // buf[128] is 0
+    if (s) w = (w >> s) | (j ? buf[j - 1] << (32u - s) : 0u);
+    if (j == 0 || j == last) {
+      if (w) atomicOr(&fout[idx], w);
+    } else {
+      fout[idx] = w;
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int h264lab_bitpack_mb_words(const void* vals, const void* lens,
-                                        long long n_mb, int nslots,
-                                        void* mb_words, void* mb_bits,
-                                        void* stream) {
-  if (n_mb <= 0) return 0;
-  mb_words_kernel<<<(unsigned)n_mb, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)vals, (const int32_t*)lens, nslots,
-      (uint32_t*)mb_words, (int32_t*)mb_bits);
-  return (int)cudaGetLastError();
+extern "C" long long h264lab_bitpack_tiles(long long n_frames, int nmb) {
+  return n_frames * ((nmb + kTile - 1) / kTile);
 }
 
-extern "C" int h264lab_bitpack_stitch(const void* mb_words, const void* offs,
-                                      long long n_frames, int nmb,
-                                      long long out_words, void* out,
-                                      void* stream) {
-  if (n_frames <= 0 || nmb <= 0) return 0;
-  stitch_kernel<<<(unsigned)(n_frames * nmb), kStitchThreads, 0,
-                  (cudaStream_t)stream>>>(
-      (const uint32_t*)mb_words, (const int32_t*)offs, nmb, out_words,
-      (uint32_t*)out);
+extern "C" int h264lab_bitpack(const void* vals, const void* lens,
+                               long long n_frames, int nmb,
+                               long long out_words, void* out, void* nbits,
+                               void* status, void* stream) {
+  const long long n_tiles = h264lab_bitpack_tiles(n_frames, nmb);
+  if (n_tiles <= 0) return 0;
+  if (n_tiles >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  // status: n_tiles look-back words, then the ticket counter, all zero
+  pack_kernel<<<(unsigned)n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)vals, (const int32_t*)lens, nmb,
+      (nmb + kTile - 1) / kTile, out_words, (uint32_t*)out, (int32_t*)nbits,
+      (unsigned long long*)status,
+      (unsigned int*)((unsigned long long*)status + n_tiles));
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,29 @@
 """Device-side variable-length bit packing of the CAVLC symbol grid.
 
 PyTorch counterpart of `h264lab_tpu/ops/bitpack.py`. Two packers give the
-words of `pack_frame_fast`, (cap_words + 256,) per frame with writes past
-that length dropped:
+words of `pack_frame_fast`, (cap_words + 256,) per frame:
 
 - `pack_frames_plain`: plain PyTorch, the translation of the JAX
   `pack_bits_device` (exclusive bit prefix sum + non-overlapping
-  scatter-add), one frame at a time. The CPU path and the reference the
-  CUDA kernel is held against.
+  scatter-add) with `pack_frame_fast`'s drop rules, one frame at a time.
+  The CPU path and the reference the CUDA kernel is held against.
 - `pack_frames`: the wrapper of K1, the CUDA kernel in `csrc/bitpack.cu`
   (the port of the TPU kernel `_stitch_kernel`); it takes the plain
   version only for tensors on the CPU.
+
+The drop rules. A frame's (nmb, S) grid is MBs of S / 34 units of 34
+slots, and the symbols are concatenated MSB-first in slot order. Every
+offset and the returned total count every bit of every symbol, but a bit
+is left out of the words (it reads as 0) if
+  - its offset within its unit is 22 x 32 = 704 or more: JAX level L1
+    keeps UNIT_WORDS = 22 words of a unit (h264lab_tpu/ops/bitpack.py:121-124);
+  - its offset within its MB is 128 x 32 = 4096 or more: level L2 keeps
+    MB_WORDS = 128 words of an MB (:143-148);
+  - its frame word is cap_words + 256 or more: level L3 drops rows past the
+    end (:234-235).
+The offsets and totals count the dropped bits (:101-102, :134, :194-195).
+A symbol across a boundary keeps its bits below it. All three boundaries
+fall on word boundaries, so this is the JAX packer's word-granular drop.
 
 Symbol values travel as int32 tensors holding uint32 bit patterns (torch
 has no full uint32 support and `>>` on int32 is arithmetic); the plain
@@ -31,8 +44,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-MB_WORDS = 128      # per-MB word cap (spec 7.4.5: <= 3200 bits per MB)
+UNIT_SLOTS = 34     # symbol slots per unit (cavlc.N_SLOTS; header padded)
+UNIT_WORDS = 22     # words kept of a unit (630-bit worst-case block + spill)
+MB_WORDS = 128      # words kept of an MB (spec 7.4.5: <= 3200 bits per MB)
 SLACK_WORDS = 256   # tail slack of every packed frame (pack_frame_fast)
+K1_SLOTS = 28 * UNIT_SLOTS  # slots per MB that K1 takes (mbscan.symbolize)
 
 # launches of each kernel wrapper; a run sets them to 0 and reads them to
 # show that its main path went through the kernels
@@ -53,23 +69,38 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
 
 def pack_frame_plain(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
                      cap_words: int):
-    """Pack one frame's (nmb, S) symbol grid. Returns (words
-    (cap_words + 256,) int32, total_bits int32)."""
+    """Pack one frame's (nmb, S) symbol grid, S a multiple of 34, with the
+    drop rules of the module docstring. Returns (words (cap_words + 256,)
+    int32, total_bits int32)."""
     n_out = cap_words + SLACK_WORDS
+    nmb, nslots = sym_lens.shape[-2:]
+    if nslots % UNIT_SLOTS:
+        raise ValueError(f"pack_frame_plain: {nslots} slots per MB is not "
+                         f"a multiple of {UNIT_SLOTS}")
+    lens = sym_lens.reshape(nmb, -1, UNIT_SLOTS).long()
+    uoffs = torch.cumsum(lens, 2) - lens                # offset in the unit
+    ubits = lens.sum(2)
+    moffs = (torch.cumsum(ubits, 1) - ubits)[..., None] + uoffs  # in the MB
+    mbits = ubits.sum(1)
+    offs = ((torch.cumsum(mbits, 0) - mbits)[:, None, None]
+            + moffs).reshape(-1)                        # in the frame
+    # the leading bits of each symbol that lie below both drop boundaries
+    keep = torch.minimum(lens, torch.minimum(32 * UNIT_WORDS - uoffs,
+                                             32 * MB_WORDS - moffs))
+    keep = torch.clamp(keep, min=0).reshape(-1)
+    lens = lens.reshape(-1)
     vals = sym_vals.reshape(-1).long() & U32
-    lens = sym_lens.reshape(-1).long()
-    mask = U32 >> (32 - torch.clamp(lens, 1, 32))
-    vals = torch.where(lens > 0, vals & mask, 0)
-    offs = torch.cumsum(lens, 0) - lens                 # exclusive prefix sum
+    mask = U32 >> (32 - torch.clamp(keep, 1, 32))
+    vals = torch.where(keep > 0, (vals >> (lens - keep)) & mask, 0)
     w = offs >> 5
     s = offs & 31
-    hb = lens + s - 32                                  # bits spilling to w+1
+    hb = keep + s - 32                                  # bits spilling to w+1
     fits = hb <= 0
-    hi = torch.where(fits, vals << torch.clamp(32 - s - lens, 0, 31),
+    hi = torch.where(fits, vals << torch.clamp(32 - s - keep, 0, 31),
                      vals >> torch.clamp(hb, 0, 31)) & U32
     lo = torch.where(fits, 0, vals << torch.clamp(32 - hb, 1, 31)) & U32
     # empty slots and words past the end go to a dump word that is cut off
-    w = torch.where(lens > 0, w, n_out)
+    w = torch.where(keep > 0, w, n_out)
     words = torch.zeros((n_out + 1,), dtype=torch.long, device=vals.device)
     words.index_add_(0, torch.clamp(w, max=n_out), hi)
     words.index_add_(0, torch.clamp(w + 1, max=n_out), lo)
@@ -94,10 +125,11 @@ def pack_frames_plain(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
 # K1: the CUDA kernel, built with nvcc at first use and bound with ctypes
 # ---------------------------------------------------------------------------
 
-def build() -> tuple[Path, str]:
-    """Compile `csrc/bitpack.cu` for sm_90a into `_build/` (once per source
-    version). Returns (library path, compiler log; empty if cached)."""
-    src = _SRC.read_bytes()
+def build(src_path: Path = _SRC) -> tuple[Path, str]:
+    """Compile `csrc/bitpack.cu` (or another source given) for sm_90a into
+    `_build/`, once per source version. Returns (library path, compiler
+    log; empty if cached)."""
+    src = Path(src_path).read_bytes()
     digest = hashlib.sha256(src).hexdigest()[:16]
     out = _BUILD_DIR / f"libh264lab_bitpack_{digest}.so"
     if out.exists():
@@ -107,7 +139,7 @@ def build() -> tuple[Path, str]:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
+           "-o", str(tmp), str(src_path)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n"
@@ -122,10 +154,10 @@ def _lib():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.h264lab_bitpack_mb_words.argtypes = [vp, vp, ll, ci, vp, vp, vp]
-        lib.h264lab_bitpack_mb_words.restype = ci
-        lib.h264lab_bitpack_stitch.argtypes = [vp, vp, ll, ci, ll, vp, vp]
-        lib.h264lab_bitpack_stitch.restype = ci
+        lib.h264lab_bitpack_tiles.argtypes = [ll, ci]
+        lib.h264lab_bitpack_tiles.restype = ll
+        lib.h264lab_bitpack.argtypes = [vp, vp, ll, ci, ll, vp, vp, vp, vp]
+        lib.h264lab_bitpack.restype = ci
         _lib_handle = lib
     return _lib_handle
 
@@ -139,8 +171,9 @@ def pack_frames(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
                 cap_words: int):
     """Pack (..., nmb, S) int32 symbol grids (values as uint32 bit
     patterns, lengths in [0, 32]) into (words (..., cap_words + 256)
-    int32, nbits (...) int32). CUDA tensors go through K1; CPU tensors
-    through `pack_frames_plain`."""
+    int32, nbits (...) int32). CUDA tensors go through K1, one launch,
+    and need S = 952 and 16-byte aligned grids; CPU tensors go through
+    `pack_frames_plain`."""
     if sym_vals.device.type == "cpu" and sym_lens.device.type == "cpu":
         return pack_frames_plain(sym_vals, sym_lens, cap_words)
     dev = sym_vals.device
@@ -158,25 +191,28 @@ def pack_frames(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
         raise ValueError("pack_frames: cap_words must be a multiple of 128")
     lead = sym_vals.shape[:-2]
     nmb, nslots = sym_vals.shape[-2:]
+    if nslots != K1_SLOTS:
+        raise ValueError(f"pack_frames: K1 takes {K1_SLOTS} slots per MB, "
+                         f"not {nslots}")
+    if sym_vals.data_ptr() % 16 or sym_lens.data_ptr() % 16:
+        raise ValueError("pack_frames: grids must be 16-byte aligned")
     n_frames = math.prod(lead)
     n_out = cap_words + SLACK_WORDS
     lib = _lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        mb_words = torch.empty((n_frames, nmb, MB_WORDS), dtype=torch.int32,
-                               device=dev)
-        mb_bits = torch.empty((n_frames, nmb), dtype=torch.int32, device=dev)
-        _check(lib.h264lab_bitpack_mb_words(
-            sym_vals.data_ptr(), sym_lens.data_ptr(), n_frames * nmb, nslots,
-            mb_words.data_ptr(), mb_bits.data_ptr(), stream),
-            "bitpack mb_words")
-        offs = torch.cumsum(mb_bits, dim=1, dtype=torch.int32) - mb_bits
         words = torch.zeros((n_frames, n_out), dtype=torch.int32, device=dev)
-        _check(lib.h264lab_bitpack_stitch(
-            mb_words.data_ptr(), offs.data_ptr(), n_frames, nmb, n_out,
-            words.data_ptr(), stream), "bitpack stitch")
+        n_tiles = lib.h264lab_bitpack_tiles(n_frames, nmb)
+        if n_tiles == 0:                          # no MB: nothing to pack
+            return (words.reshape(lead + (n_out,)),
+                    torch.zeros(lead, dtype=torch.int32, device=dev))
+        nbits = torch.empty((n_frames,), dtype=torch.int32, device=dev)
+        # per tile one look-back word, then the tile ticket
+        status = torch.zeros((n_tiles + 1,), dtype=torch.int64, device=dev)
+        _check(lib.h264lab_bitpack(
+            sym_vals.data_ptr(), sym_lens.data_ptr(), n_frames, nmb, n_out,
+            words.data_ptr(), nbits.data_ptr(), status.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "bitpack")
         LAUNCH_COUNTS["bitpack"] += 1
-        nbits = mb_bits.sum(1, dtype=torch.int32)
     return words.reshape(lead + (n_out,)), nbits.reshape(lead)
 
 

@@ -4,7 +4,8 @@ The same seeded random grids (tests/torch_grids.py) go through
 `pack_frame_fast`, the Pallas stitch in interpret mode and
 `h264lab_tpu_torch.ops.bitpack` on the CPU.
 Tolerance: exact equality of the whole (cap_words + 256,) word array,
-including a capacity the stream overflows.
+including a capacity the stream overflows, and on unclamped grids that
+pass `pack_frame_fast`'s unit and MB drop boundaries.
 """
 
 import jax.numpy as jnp
@@ -14,7 +15,7 @@ import torch
 
 from h264lab_tpu.ops import bitpack as jbp
 from h264lab_tpu_torch.ops import bitpack as tbp
-from tests.torch_grids import UNIT_SLOTS, random_grid
+from tests.torch_grids import UNIT_SLOTS, edge_grid, random_grid
 
 S = jbp.UNIT_SLOTS
 assert S == UNIT_SLOTS
@@ -48,6 +49,41 @@ def test_plain_packer_matches_jax(nmb, zero_frac, overflow):
         # last rows instead of dropping it, so it matches pack_frame_fast
         # (the main path's packer) only while the stream fits
         np.testing.assert_array_equal(got, np.asarray(wp))
+
+
+@pytest.mark.parametrize("case,drops", [
+    ("mb_4096", False), ("mb_7616", True), ("straddle_4096", True),
+    ("unit_over_704", True), ("empty_runs", False), ("all_empty", False),
+    ("unclamped", True)])
+def test_plain_packer_matches_jax_past_drop_boundaries(case, drops):
+    """Grids that pass `pack_frame_fast`'s drop boundaries (704 bits of a
+    unit, 4096 bits of an MB) or hold empty MBs: the plain packer follows
+    its drop rules. `drops` says whether the frame loses bits, which the
+    undropping scatter packer then shows."""
+    rng = np.random.default_rng(len(case))
+    if case == "unclamped":
+        vals, lens = random_grid(rng, 12, 0.5, clamp=False)
+    else:
+        vals, lens = edge_grid(rng, case)
+    mb = lens.reshape(lens.shape[0], 28, S)
+    features = {"mb_4096": mb[1].sum() == 4096, "mb_7616": mb[1].sum() == 7616,
+                "straddle_4096": {4080, 4112} <= set(np.cumsum(mb[1])),
+                "unit_over_704": mb[1].sum(-1).max() > 704,
+                "empty_runs": (mb.sum((1, 2)) == 0).sum() >= 5,
+                "all_empty": lens.sum() == 0,
+                "unclamped": mb.sum((1, 2)).max() > 4096}
+    assert features[case]
+    total = int(lens.sum())
+    cap = 128
+    while cap * 32 < total:
+        cap *= 2
+    wf, tf = jbp.pack_frame_fast(jnp.asarray(vals), jnp.asarray(lens), cap)
+    ws, _ = jbp.pack_frame_scatter(jnp.asarray(vals), jnp.asarray(lens),
+                                   cap + 256)
+    tw, tt = tbp.pack_frame_plain(*_torch(vals, lens), cap)
+    assert int(tt) == int(tf) == total
+    np.testing.assert_array_equal(tw.numpy().view(np.uint32), np.asarray(wf))
+    assert (not np.array_equal(np.asarray(ws), np.asarray(wf))) == drops
 
 
 def test_batched_cpu_wrapper_and_host_helpers():

@@ -5,8 +5,11 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
         tests/test_torch_cuda.py
 
 - K1 (the CUDA bit-pack kernel) equals the plain PyTorch packer on seeded
-  random grids, including 32-bit symbols and an overflowing capacity, and
-  counts one launch per call;
+  random grids, including 32-bit symbols and an overflowing capacity; on
+  unclamped grids past the unit and MB drop boundaries, with empty MBs and
+  an empty frame; on 16 frames, on an MB count that is no multiple of
+  K1's 8-MB tile, and on frames of equal bit counts. It counts one launch
+  per call;
 - the all-intra encoder gives the same lane bytes on the card as on the
   CPU, at a small size with two bands.
 Tolerance: exact equality (integer arithmetic).
@@ -20,7 +23,7 @@ from h264lab_tpu_torch.config import EncoderConfig, RunConfig
 from h264lab_tpu_torch.ops import bitpack
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder
 from h264lab_tpu_torch.utils.synthetic import noise_pan_sequence
-from tests.torch_grids import random_grid
+from tests.torch_grids import EDGE_CASES, edge_grid, random_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -32,13 +35,41 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("nmb,zero_frac,cap", [
-    (48, 0.97, 1024), (48, 0.6, 8192), (6, 0.0, 1024), (48, 0.6, 128)])
-def test_k1_matches_plain_packer(card, nmb, zero_frac, cap):
+def _k1_grids(kind, nmb, zero_frac):
+    """Numpy (vals, lens) of shape (frames..., nmb, 952) for one case."""
     rng = np.random.default_rng(nmb + int(zero_frac * 100))
-    grids = [random_grid(rng, nmb, zero_frac) for _ in range(3)]
-    vals = torch.from_numpy(np.stack([g[0] for g in grids]).view(np.int32))
-    lens = torch.from_numpy(np.stack([g[1] for g in grids]))
+    if kind == "random":
+        grids = [random_grid(rng, nmb, zero_frac) for _ in range(3)]
+    elif kind == "edge":
+        grids = [edge_grid(rng, c, nmb) for c in EDGE_CASES]
+    elif kind == "frames16":
+        grids = ([edge_grid(rng, c, nmb) for c in EDGE_CASES]
+                 + [random_grid(rng, nmb, zero_frac + 0.04 * i, clamp=False)
+                    for i in range(10)])
+    elif kind == "equal_nbits":
+        grids = [random_grid(rng, nmb, zero_frac, clamp=False)] * 4
+    else:                                       # "unclamped"
+        grids = [random_grid(rng, nmb, zero_frac, clamp=False)
+                 for _ in range(5)]
+    vals = np.stack([g[0] for g in grids])
+    lens = np.stack([g[1] for g in grids])
+    if kind == "frames16":
+        vals, lens = (a.reshape((4, 4) + a.shape[1:]) for a in (vals, lens))
+    return vals, lens
+
+
+@pytest.mark.parametrize("kind,nmb,zero_frac,cap", [
+    ("random", 48, 0.97, 1024), ("random", 48, 0.6, 8192),
+    ("random", 6, 0.0, 1024), ("random", 48, 0.6, 128),
+    ("edge", 48, 0.0, 8192),            # every EDGE_CASES frame
+    ("frames16", 61, 0.5, 16384),       # (4, 4) frames
+    ("unclamped", 61, 0.5, 16384),      # 61 MBs: 7 tiles and 5 MBs
+    ("unclamped", 48, 0.5, 128),        # overflows cap 128
+    ("equal_nbits", 40, 0.7, 8192)])
+def test_k1_matches_plain_packer(card, kind, nmb, zero_frac, cap):
+    vals_np, lens_np = _k1_grids(kind, nmb, zero_frac)
+    vals = torch.from_numpy(vals_np.view(np.int32))
+    lens = torch.from_numpy(lens_np)
     before = bitpack.LAUNCH_COUNTS["bitpack"]
     wk, nk = bitpack.pack_frames(vals.to(card), lens.to(card), cap)
     torch.cuda.synchronize()
@@ -46,6 +77,10 @@ def test_k1_matches_plain_packer(card, nmb, zero_frac, cap):
     wp, np_ = bitpack.pack_frames_plain(vals, lens, cap)
     assert torch.equal(nk.cpu(), np_)
     assert torch.equal(wk.cpu(), wp)
+    if cap == 128:
+        assert int(np_.min()) > 32 * (cap + bitpack.SLACK_WORDS)
+    if kind == "equal_nbits":
+        assert int(np_.min()) == int(np_.max()) > 0
 
 
 def test_k1_rejects_bad_inputs(card):
@@ -58,6 +93,13 @@ def test_k1_rejects_bad_inputs(card):
         bitpack.pack_frames(v, v, 100)
     with pytest.raises(ValueError):
         bitpack.pack_frames(v.t(), v.t(), 128)
+    with pytest.raises(ValueError):                 # not 952 slots per MB
+        bitpack.pack_frames(v[:, :476].contiguous(), v[:, :476].contiguous(),
+                            128)
+    shifted = torch.zeros(2 * 952 + 1, dtype=torch.int32,
+                          device=card)[1:].view(2, 952)
+    with pytest.raises(ValueError):                 # not 16-byte aligned
+        bitpack.pack_frames(shifted, shifted, 128)
 
 
 def test_card_lanes_equal_cpu_lanes(card):

@@ -5,25 +5,40 @@ the CUDA card.
 
 It runs `chip_smoke.py`'s main path (1920x1088 chessboard, gop=1, QP 33,
 encode_speed 2, the same frame schedule) and prints a summary and one JSON
-line. Two measurements:
+line. Three measurements, the third one first:
 
 1. lane scaling: one step at 1 lane and one at 16 lanes, each after a
    warm-up step, with per-stage wall times (each stage between device
    synchronizations). A stage whose time does not grow with the lanes is
    bound by kernel launches, not by device work;
 2. launches: one more 1-lane step in which every stage runs under its own
-   `torch.profiler` pass (CUDA activity only). Per stage: the device
-   operations launched (kernels, copies, fills), per wavefront diagonal
-   for `select` (slope 2) and `deblock` (slope 1), and the union of their
-   device intervals (busy ms). The busy ms over the untraced stage time of
-   measurement 1 estimates the share of the stage the device works.
+   `torch.profiler` pass (CUDA activity only), which synchronizes before it
+   closes. Per stage: the device operations launched (kernels, copies,
+   fills), per wavefront diagonal for `select` (slope 2) and `deblock`
+   (slope 1), and the union of their device intervals (busy ms). The busy
+   ms over the untraced stage time of measurement 1 estimates the share of
+   the stage the device works. The passes of the short stages (`pre`,
+   `pack`, `host`) record no operation in some runs: their counts are a
+   lower bound;
+3. K1 on the symbol grid of one 16-lane step at the IDR capacity: the
+   wrapper's time from CUDA events (zero fills included) beside the
+   kernel's device time in a `torch.profiler` trace of one call. With
+   `--k1-baseline SRC`, SRC is an earlier two-pass build of K1 (entry
+   points `h264lab_bitpack_mb_words` and `h264lab_bitpack_stitch`): the
+   script times each launch of its wrapper on its own, checks that its
+   words equal the current K1's, and times the two wrappers in turns
+   (old, new, new, old).
+
+    python tools/torch_trace_step.py [--k1-baseline SRC]
 
 Needs a CUDA device; every line names the card and its power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import json
 import os
 import sys
@@ -36,6 +51,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from h264lab_tpu_torch.models import wavefront  # noqa: E402
+from h264lab_tpu_torch.ops import bitpack  # noqa: E402
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder  # noqa: E402
 from h264lab_tpu_torch.utils.device import card_label  # noqa: E402
 
@@ -74,6 +90,11 @@ def _busy_us(events):
     return busy
 
 
+def _k1_kernel_us(ops):
+    return sum(e.time_range.end - e.time_range.start for e in ops
+               if "pack_kernel" in e.name)
+
+
 def launch_counts():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -87,6 +108,9 @@ def launch_counts():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             with stage(name):
                 yield
+            # the stage's launches are asynchronous: let them finish while
+            # the profiler still records
+            torch.cuda.synchronize()
         ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         out[name] = dict(device_ops=len(ops), busy_ms=_busy_us(ops) / 1e3)
 
@@ -101,13 +125,99 @@ def launch_counts():
     return out
 
 
+def _baseline_k1(src, vals, lens, cap):
+    """The wrapper of the two-pass K1 built from `src`, as its launches in
+    order (name -> function; they share one set of buffers) and the whole
+    wrapper, which returns (words, nbits)."""
+    lib = ctypes.CDLL(str(bitpack.build(src)[0]))
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.h264lab_bitpack_mb_words.argtypes = [vp, vp, ll, ci, vp, vp, vp]
+    lib.h264lab_bitpack_stitch.argtypes = [vp, vp, ll, ci, ll, vp, vp]
+    n_frames, (nmb, nslots) = vals.shape[:-2].numel(), vals.shape[-2:]
+    n_out = cap + bitpack.SLACK_WORDS
+    stream = torch.cuda.current_stream().cuda_stream
+    b = {}
+
+    def mb_words_kernel():
+        b["mb_words"] = torch.empty((n_frames, nmb, 128), dtype=torch.int32,
+                                    device=vals.device)
+        b["mb_bits"] = torch.empty((n_frames, nmb), dtype=torch.int32,
+                                   device=vals.device)
+        bitpack._check(lib.h264lab_bitpack_mb_words(
+            vals.data_ptr(), lens.data_ptr(), n_frames * nmb, nslots,
+            b["mb_words"].data_ptr(), b["mb_bits"].data_ptr(), stream),
+            "baseline mb_words")
+
+    def cumsum_sub():
+        b["offs"] = (torch.cumsum(b["mb_bits"], dim=1, dtype=torch.int32)
+                     - b["mb_bits"])
+
+    def zeros():
+        b["words"] = torch.zeros((n_frames, n_out), dtype=torch.int32,
+                                 device=vals.device)
+
+    def stitch_kernel():        # ORs the same bits again when repeated
+        bitpack._check(lib.h264lab_bitpack_stitch(
+            b["mb_words"].data_ptr(), b["offs"].data_ptr(), n_frames, nmb,
+            n_out, b["words"].data_ptr(), stream), "baseline stitch")
+
+    def total():
+        b["nbits"] = b["mb_bits"].sum(1, dtype=torch.int32)
+
+    launches = dict(mb_words_kernel=mb_words_kernel, cumsum_sub=cumsum_sub,
+                    zeros=zeros, stitch_kernel=stitch_kernel, sum=total)
+
+    def whole():
+        for fn in launches.values():
+            fn()
+        return b["words"], b["nbits"]
+    return launches, whole
+
+
+def k1_timing(baseline=None, reps=20):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, run, frames = chip_smoke.main_path_setup()
+    enc = GopBandEncoder(cfg, n_gop=chip_smoke.LANES)
+    p = enc.encode_step_async(chip_smoke.lane_frames(frames, 0), run)
+    vals, lens, cap = p.out["sym_vals"], p.out["sym_lens"], enc.idr_cap_words
+    new = lambda: bitpack.pack_frames(vals, lens, cap)  # noqa: E731
+    out = dict(grid=list(vals.shape), cap_words=cap,
+               ms=chip_smoke._cuda_ms(new, reps))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        new()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out.update(trace_kernel_ms=_k1_kernel_us(ops) / 1e3,
+               trace_busy_ms=_busy_us(ops) / 1e3, trace_device_ops=len(ops))
+    if baseline:
+        launches, old = _baseline_k1(baseline, vals, lens, cap)
+        wo, no = old()
+        wn, nn = new()
+        out["baseline_equal"] = bool(torch.equal(wo.reshape(wn.shape), wn)
+                                     and torch.equal(no.reshape(nn.shape), nn))
+        out["baseline_launch_ms"] = {name: chip_smoke._cuda_ms(fn, reps)
+                                     for name, fn in launches.items()}
+        turns = [chip_smoke._cuda_ms(fn, reps) for fn in (old, new, new, old)]
+        out["turns_ms"] = dict(old=[turns[0], turns[3]],
+                               new=[turns[1], turns[2]])
+    return out
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k1-baseline", metavar="SRC",
+                    help="an earlier two-pass K1 source to time against")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_trace_step: no CUDA device", file=sys.stderr)
         return 2
     card = card_label()
     print(card)
     size = f"{chip_smoke.WIDTH}x{chip_smoke.HEIGHT}"
+    result = {"card": card, "frame": size}
+    k1 = k1_timing(args.k1_baseline)      # first: a fresh profiler
     scaling = lane_scaling()
     for lanes, r in scaling.items():
         print(f"{size} x {lanes:2d} lanes [{card}]: step "
@@ -118,11 +228,24 @@ def main() -> int:
         untraced = scaling[1]["stages_ms"][name]
         per_diag = (f", {r['ops_per_diagonal']:.1f} per diagonal of "
                     f"{r['diagonals']}" if "diagonals" in r else "")
-        print(f"{size} x 1 lane [{card}]: {name:8s} {r['device_ops']:8d} "
-              f"device ops{per_diag}; busy {r['busy_ms']:.1f} ms of "
-              f"{untraced:.1f} ms untraced")
-    print(json.dumps({"card": card, "frame": size,
-                      "lane_scaling": scaling, "launches_1_lane": counts}))
+        print(f"{size} x 1 lane [{card}]: {name:8s} "
+              f"{r['device_ops']:8d} device ops{per_diag}; busy "
+              f"{r['busy_ms']:.1f} ms of {untraced:.1f} ms untraced")
+    result.update(lane_scaling=scaling, launches_1_lane=counts)
+    print(f"K1 {k1['grid']} cap {k1['cap_words']} [{card}]: {k1['ms']:.3f} "
+          f"ms (events, fills included); trace: kernel "
+          f"{k1['trace_kernel_ms']:.3f} ms, {k1['trace_device_ops']} device "
+          f"ops busy {k1['trace_busy_ms']:.3f} ms")
+    if args.k1_baseline:
+        print(f"  baseline launches [{card}]: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in k1["baseline_launch_ms"].items())
+            + f" ms; words equal: {k1['baseline_equal']}")
+        print(f"  in turns old, new, new, old [{card}]: "
+              f"{k1['turns_ms']['old'][0]:.3f}, {k1['turns_ms']['new'][0]:.3f}"
+              f", {k1['turns_ms']['new'][1]:.3f}, "
+              f"{k1['turns_ms']['old'][1]:.3f} ms")
+    result["k1"] = k1
+    print(json.dumps(result))
     return 0
 
 
