@@ -7,18 +7,23 @@ Phases (any failure exits non-zero; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
   2. build the bit-pack kernel K1 from h264lab_tpu_torch/csrc/bitpack.cu
      and print what ptxas reports (registers, shared memory, spills);
-  3. encode 1920x1088 chessboard input, all-intra, 16 GOP lanes in one
-     dispatch at QP 33, encode_speed 2: one untimed step, two timed steps
-     for frames/s (no synchronization inside a step), then one step with
-     per-stage times (each stage between device synchronizations);
-  4. hold K1 against the plain PyTorch packer on the last step's real
-     (16, 1, 8160, 952) symbol grids, at the IDR capacity and at a small
-     capacity that overflows, and on a synthetic 16 x 8160-MB grid with
-     what the real grid lacks (runs of empty MBs, an empty frame, MBs over
+  3. the main path, the bench configuration: 1920x1088 chessboard input,
+     IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
+     encode_speed 2, lane g walking consecutive frames g, g+1, ...:
+     step 0 (IDR) and step 1 (the first P step), untimed; four timed P
+     steps (no synchronization inside a step) for P frames/s; one P step
+     with per-stage times (each stage between device synchronizations);
+     one forced FrameType.KEY step with per-stage times; one more forced
+     KEY step without synchronization inside it, timed as t_IDR. From
+     these a GOP-20 frames/s, derived as 16 * 20 / (t_IDR + 19 * t_P);
+  4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
+     952) symbol grids of the IDR step and of a P step, each at its
+     capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
+     what the real grids lack (runs of empty MBs, an empty frame, MBs over
      4096 bits, units over 704 bits): the words and bit counts must be
-     equal; the launch count of the encode steps must be > 0;
-  5. encode lane 0's first frame with the port on the CPU: its bytes must
-     equal lane 0 of the card's first step;
+     equal; the main path must have launched K1;
+  5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
+     their bytes must equal lane 0 of the card's steps 0 and 1;
   6. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
@@ -26,6 +31,7 @@ device, or without the port beside it, it exits non-zero and prints no
 result.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -34,8 +40,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-WIDTH, HEIGHT, QP, LANES = 1920, 1088, 33, 16
-TIMED_STEPS = 2
+WIDTH, HEIGHT, QP, LANES, GOP = 1920, 1088, 33, 16, 20
+TIMED_STEPS = 4
+STEPS = 2 + TIMED_STEPS + 3          # the main path's steps
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 SYNTH_SEED = 7
 
@@ -61,18 +68,20 @@ def _cuda_ms(fn, reps):
 
 
 def main_path_setup():
-    """The main path's inputs: (EncoderConfig, RunConfig, LANES frames).
-    Lane g encodes frames[(g + t) % LANES] at step t (`lane_frames`)."""
+    """The main path's inputs: (EncoderConfig, RunConfig, LANES + STEPS - 1
+    consecutive frames). Lane g encodes frames[g + t] at step t
+    (`lane_frames`)."""
     from h264lab_tpu_torch.config import EncoderConfig, RunConfig
     from h264lab_tpu_torch.utils.synthetic import chessboard_sequence
 
-    cfg = EncoderConfig(width=WIDTH, height=HEIGHT, gop=1, qp=QP)
+    cfg = EncoderConfig(width=WIDTH, height=HEIGHT, gop=GOP, qp=QP)
     run = RunConfig(qp_min=QP, qp_max=QP, encode_speed=2)
-    return cfg, run, list(chessboard_sequence(WIDTH, HEIGHT, LANES))
+    return cfg, run, list(chessboard_sequence(WIDTH, HEIGHT,
+                                              LANES + STEPS - 1))
 
 
 def lane_frames(frames, t, lanes=LANES):
-    return [frames[(g + t) % len(frames)] for g in range(lanes)]
+    return [frames[g + t] for g in range(lanes)]
 
 
 def synthetic_grid(n_frames=LANES, nmb=(WIDTH // 16) * (HEIGHT // 16),
@@ -124,12 +133,31 @@ def check_k1(vals, lens, caps, what):
     return max_err, nk
 
 
+def k1_numbers(vals, lens, cap, nk):
+    """K1's wrapper ms, the plain packer's ms and the bound ms on one grid.
+    The bound counts the bytes the function must move on this grid's
+    data: every length, the value of every slot that holds a symbol (an
+    empty slot's value never reaches the words), the words and bit counts
+    written once."""
+    from h264lab_tpu_torch.ops import bitpack
+
+    k1_ms = _cuda_ms(lambda: bitpack.pack_frames(vals, lens, cap), 20)
+    plain_ms = _cuda_ms(lambda: bitpack.pack_frames_plain(vals, lens, cap), 2)
+    n_sym = int((lens > 0).sum())
+    moved = 4 * (lens.numel() + n_sym
+                 + nk.numel() * (cap + bitpack.SLACK_WORDS + 1))
+    return dict(ms=k1_ms, plain_ms=plain_ms,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3, moved=moved,
+                n_sym=n_sym)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from h264lab_tpu_torch.config import FrameType
     from h264lab_tpu_torch.ops import bitpack
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
@@ -150,55 +178,82 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    # 3. the main path: 16 lanes of 1080p all-intra
+    # 3. the main path: 16 lanes of 1080p IPPP, GOP 20
     t0 = time.perf_counter()
     cfg, run, frames = main_path_setup()
-    print(f"input: {LANES} frames {WIDTH}x{HEIGHT} in "
+    print(f"input: {len(frames)} frames {WIDTH}x{HEIGHT} in "
           f"{time.perf_counter() - t0:.1f} s")
     enc = GopBandEncoder(cfg, n_gop=LANES)
 
-    def step(t):
-        p = enc.encode_step_async(lane_frames(frames, t), run)
+    def step(t, kind, r=run):
+        t0 = time.perf_counter()
+        p = enc.encode_step_async(lane_frames(frames, t), r)
         res = enc.finish_step(p)
-        _require(len(res) == LANES and all(len(r.payload) > 0 for r in res),
+        s = time.perf_counter() - t0
+        _require(len(res) == LANES and all(len(x.payload) > 0 for x in res),
                  f"step {t} returned empty lanes")
-        return p, res
+        _require(all(x.frame_type == kind for x in res),
+                 f"step {t} is {res[0].frame_type}, not {kind}")
+        return p, res, s
+
+    def stage_table(name, s, res):
+        print(f"{name} stage step {label}: {s:.3f} s")
+        for k, v in enc.stage_times.items():
+            print(f"  stage {k:8s} {1e3 * v:10.1f} ms {label}")
+        print(f"  bytes lane 0: {len(res[0].payload)}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     bitpack.LAUNCH_COUNTS["bitpack"] = 0
-    t0 = time.perf_counter()
-    _, first = step(0)
-    print(f"step 0 (untimed, first use): {time.perf_counter() - t0:.2f} s")
-    step_s = []
-    for t in range(1, 1 + TIMED_STEPS):
-        t0 = time.perf_counter()
-        step(t)
-        step_s.append(time.perf_counter() - t0)
-    fps = LANES * TIMED_STEPS / sum(step_s)
-    print(f"timed steps {label}: " + ", ".join(f"{s:.3f} s" for s in step_s)
-          + f"; {fps:.3f} frames/s ({LANES} lanes x {TIMED_STEPS} steps)")
-    # one more step with a device synchronization around every stage
+    _, first, s0 = step(0, "IDR")
+    print(f"step 0 (IDR, untimed, first use): {s0:.2f} s")
+    _, second, s1 = step(1, "P")
+    print(f"step 1 (P, untimed, first use): {s1:.2f} s")
+    step_s = [step(t, "P")[2] for t in range(2, 2 + TIMED_STEPS)]
+    t_p = sum(step_s) / TIMED_STEPS
+    print(f"timed P steps {label}: " + ", ".join(f"{s:.3f} s" for s in step_s)
+          + f"; {LANES / t_p:.3f} P frames/s ({LANES} lanes x "
+          f"{TIMED_STEPS} steps)")
     enc.stage_times = {}
-    t0 = time.perf_counter()
-    pending, res = step(1 + TIMED_STEPS)
-    print(f"stage step {label}: {time.perf_counter() - t0:.3f} s")
-    for name, s in enc.stage_times.items():
-        print(f"  stage {name:8s} {1e3 * s:10.1f} ms {label}")
+    p_pending, res, s = step(2 + TIMED_STEPS, "P")
+    stage_table("P", s, res)
+    enc.stage_times = {}
+    key = dataclasses.replace(run, frame_type=FrameType.KEY)
+    idr_pending, res, s = step(3 + TIMED_STEPS, "IDR", key)
+    stage_table("IDR", s, res)
+    enc.stage_times = None
+    t_idr = step(4 + TIMED_STEPS, "IDR", key)[2]
     launches = bitpack.LAUNCH_COUNTS["bitpack"]
-    print(f"  bytes/frame lane 0: {len(res[0].payload)}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _require(launches > 0, "the main path never launched K1")
+    print(f"GOP-{GOP} frames/s {label}, derived as {LANES} * {GOP} / (t_IDR"
+          f" + {GOP - 1} * t_P) with t_IDR {t_idr:.3f} s (an IDR step "
+          f"without stage syncs) and t_P {t_p:.3f} s: "
+          f"{LANES * GOP / (t_idr + (GOP - 1) * t_p):.3f}")
+    print(f"K1 launches in the main path's {STEPS} steps: {launches}")
+    _require(launches >= STEPS, "the main path did not launch K1 each step")
 
-    # 4. K1 against the plain packer on the step's real symbol grids and
-    # on a synthetic grid past the drop boundaries
-    vals = pending.out["sym_vals"]
-    lens = pending.out["sym_lens"]
-    cap = enc.idr_cap_words
-    print(f"symbol grid {tuple(vals.shape)}, cap_words {cap}, launches "
-          f"in the encode steps: {launches}")
-    max_err, nk = check_k1(vals, lens, (cap, 1024), "step grid")
-    _require(int(nk.max()) > 32 * 1024, "the small cap did not overflow")
-    print(f"  step grid: largest MB {int(lens.sum(-1).max())} bits; frame "
-          f"bits {int(nk.min())} .. {int(nk.max())}")
+    # 4. K1 against the plain packer on the real IDR and P grids and on a
+    # synthetic grid past the drop boundaries
+    max_err = 0
+    numbers = {}
+    for name, pend, cap in (("IDR", idr_pending, enc.idr_cap_words),
+                            ("P", p_pending, enc.p_cap_words)):
+        vals, lens = pend.out["sym_vals"], pend.out["sym_lens"]
+        print(f"{name} symbol grid {tuple(vals.shape)}, cap_words {cap}")
+        err, nk = check_k1(vals, lens, (cap, 1024), f"{name} grid")
+        max_err = max(max_err, err)
+        if name == "IDR":
+            _require(int(nk.max()) > 32 * 1024, "the small cap did not "
+                     "overflow")
+        numbers[name] = k1_numbers(vals, lens, cap, nk)
+        n = numbers[name]
+        print(f"  {name} grid: largest MB {int(lens.sum(-1).max())} bits; "
+              f"frame bits {int(nk.min())} .. {int(nk.max())}; slots "
+              f"holding a symbol {n['n_sym']} of {lens.numel()} "
+              f"({100 * n['n_sym'] / lens.numel():.2f}%)")
+        print(f"  K1 on the {name} grid {label}: {n['ms']:.3f} ms (plain "
+              f"{n['plain_ms']:.3f} ms, bound {n['bound_ms']:.3f} ms for "
+              f"{n['moved'] / 1e9:.3f} GB, "
+              f"{100 * n['bound_ms'] / n['ms']:.0f}% of it reached)")
+    del idr_pending, p_pending, vals, lens
     t0 = time.perf_counter()
     s_vals, s_lens = synthetic_grid()
     units = s_lens.reshape(s_lens.shape[:2] + (28, 34)).sum(-1)
@@ -210,50 +265,35 @@ def main() -> int:
     print(f"synthetic grid {s_lens.shape} (seed {SYNTH_SEED}, "
           f"{time.perf_counter() - t0:.1f} s): {features}")
     _require(all(features.values()), "the synthetic grid lacks a feature")
-    s_vals = torch.from_numpy(s_vals.view("int32")).to(vals.device)
-    s_lens = torch.from_numpy(s_lens).to(vals.device)
+    s_vals = torch.from_numpy(s_vals.view("int32")).to(enc.device)
+    s_lens = torch.from_numpy(s_lens).to(enc.device)
     s_cap = bitpack.bucket_words(int(s_lens.sum((1, 2)).max()))
     err, _ = check_k1(s_vals, s_lens, (s_cap, 1024), "synthetic grid")
     max_err = max(max_err, err)
     del s_vals, s_lens
-    k1_ms = _cuda_ms(lambda: bitpack.pack_frames(vals, lens, cap), 20)
-    plain_ms = _cuda_ms(lambda: bitpack.pack_frames_plain(vals, lens, cap), 2)
-    # bytes the function must move on this step's data: every length, the
-    # value of every slot that holds a symbol (an empty slot's value never
-    # reaches the words), the words and bit counts written once
-    n_frames = nk.numel()
-    n_sym = int((lens > 0).sum())
-    moved = 4 * (lens.numel() + n_sym
-                 + n_frames * (cap + bitpack.SLACK_WORDS + 1))
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    print(f"  slots holding a symbol: {n_sym} of {lens.numel()} "
-          f"({100 * n_sym / lens.numel():.2f}%)")
-    # what a gather of those values moves: whole 32-byte sectors
-    sectors = int((lens.reshape(-1, 8) > 0).any(-1).sum())
-    print(f"  32-byte sectors of values holding a symbol: {sectors} of "
-          f"{lens.numel() // 8} ({800 * sectors / lens.numel():.2f}%), "
-          f"{32 * sectors / 1e9:.3f} GB")
 
-    # 5. lane 0's first frame on the CPU
+    # 5. lane 0's first two frames on the CPU
     t0 = time.perf_counter()
-    cpu = GopBandEncoder(cfg, n_gop=1, device="cpu").encode_step(
-        [frames[0]], run)
-    _require(cpu[0].payload == first[0].payload,
-             "lane 0 bytes differ between the card and the CPU")
-    print(f"lane 0 frame 0: card bytes == CPU bytes ({len(cpu[0].payload)} "
-          f"B; CPU encode {time.perf_counter() - t0:.1f} s)")
+    cpu = GopBandEncoder(cfg, n_gop=1, device="cpu")
+    for t, want in enumerate((first, second)):
+        got = cpu.encode_step([frames[t]], run)
+        _require(got[0].payload == want[0].payload,
+                 f"lane 0 step {t} bytes differ between the card and the CPU")
+        print(f"lane 0 step {t} ({got[0].frame_type}): card bytes == CPU "
+              f"bytes ({len(got[0].payload)} B)")
+    print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
 
-    # 6. results
+    # 6. results: K1's line holds the P grid (19 of 20 frames of a GOP)
+    p, i = numbers["P"], numbers["IDR"]
     kernels = [dict(
         name="bitpack", route="cuda",
         source="h264lab_tpu_torch/csrc/bitpack.cu",
         replaces="h264lab_tpu/ops/bitpack.py:152",
         launches=launches, equal=True, max_abs_err=max_err,
-        ms=k1_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-        library_ms=None)]
-    print(f"K1 {label}: {k1_ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms for {moved / 1e9:.3f} GB, "
-          f"{100 * bound_ms / k1_ms:.0f}% of it reached)")
+        ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+        bound_by="bytes", library_ms=None, grid="P step",
+        idr_ms=i["ms"], idr_plain_ms=i["plain_ms"],
+        idr_bound_ms=i["bound_ms"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,11 @@ imports torch and numpy, never jax and nothing of `h264lab_tpu`; the
 numpy-only modules it needs (configuration, spec tables, bitstream
 writers, rate control) are its own copies.
 
-Implemented so far: all-intra GOP-lane encoding
-(`parallel.gop.GopBandEncoder`), with the bit-pack stage as a CUDA kernel
-(`ops/bitpack.py`, `csrc/bitpack.cu`). Entry points run on the CUDA card
-unless the caller passes `device="cpu"`.
+Implemented so far: GOP-lane encoding (`parallel.gop.GopBandEncoder`)
+of IDR, I and P frames, P frames with the speed 2-7 toolset, with the
+bit-pack stage as a CUDA kernel (`ops/bitpack.py`, `csrc/bitpack.cu`).
+Entry points run on the CUDA card unless the caller passes
+`device="cpu"`.
 """
 
 from h264lab_tpu_torch.config import (

@@ -4,8 +4,9 @@ An encoder has no weights: its parameters are the configuration and the
 constant tables. `config_from_reference` turns any object with the
 `EncoderConfig` or `RunConfig` fields (duck-typed, so the JAX package's
 own dataclasses work without being imported here) into the port's
-dataclass. `check_constants` holds the port's tables, tuning constants
-and lambda LUT against values the caller passes in as numpy arrays.
+dataclass. `check_constants` holds the port's tables, tuning constants,
+lambda LUT and motion-search geometry against values the caller passes
+in as numpy arrays.
 """
 
 from __future__ import annotations
@@ -16,7 +17,11 @@ from typing import Mapping
 import numpy as np
 
 from h264lab_tpu_torch.config import EncoderConfig, FrameType, RunConfig
-from h264lab_tpu_torch.ops import me, tables, tables_cavlc, tuning
+from h264lab_tpu_torch.ops import me, qpel, tables, tables_cavlc, tuning
+
+# the motion-search and sub-pel geometry (window sizes, radii, guard ring)
+ME_GEOMETRY = ("COARSE_R4", "REFINE_R", "WIN_M", "WIN_S", "ALN_S", "SUB",
+               "MAX_CAND_FP")
 
 
 def config_from_reference(obj):
@@ -35,7 +40,8 @@ def config_from_reference(obj):
 
 def constants() -> dict:
     """The port's constants by name: spec tables as `tables.X` /
-    `tables_cavlc.X`, tuning constants as `tuning.X`, and `LAMBDA_ME`."""
+    `tables_cavlc.X`, tuning constants as `tuning.X`, `LAMBDA_ME`, the ME
+    geometry as `me.X` and the guard ring as `qpel.GUARD`."""
     out = {}
     for prefix, mod in (("tables", tables), ("tables_cavlc", tables_cavlc)):
         for name, val in vars(mod).items():
@@ -45,6 +51,9 @@ def constants() -> dict:
         if name[:1].isupper() and isinstance(val, int):
             out[f"tuning.{name}"] = np.asarray(val)
     out["LAMBDA_ME"] = me.LAMBDA_ME
+    for name in ME_GEOMETRY:
+        out[f"me.{name}"] = np.asarray(getattr(me, name))
+    out["qpel.GUARD"] = np.asarray(qpel.GUARD)
     return out
 
 

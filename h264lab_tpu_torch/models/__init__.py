@@ -1,1 +1,2 @@
-"""Frame pipeline stages: wavefront plan and the macroblock engine."""
+"""Frame pipeline stages: wavefront plan, the macroblock engine and the
+reference pictures."""

@@ -1,12 +1,16 @@
-"""Macroblock engine, intra part: the slope-2 wavefront mode selection
-(Intra_16x16, Intra_4x4, chroma), CAVLC symbolization and in-loop
-deblocking of I slices.
+"""Macroblock engine: motion search, inter transform and the fully parallel
+P mode selection; the slope-2 wavefront mode selection of I slices
+(Intra_16x16, Intra_4x4, chroma); CAVLC symbolization of I and P slices;
+in-loop deblocking.
 
-PyTorch counterpart of the intra path of `h264lab_tpu/models/mbscan.py`.
+PyTorch counterpart of `h264lab_tpu/models/mbscan.py` for the speed-2
+toolset: I slices through the wavefront, P slices through the fully
+parallel path (qpel ME, 16x16 partitions only, no Intra_4x4 in P).
 Every function takes a leading frame axis N (the GOP lanes times the
 slice bands, which JAX vmapped over) followed by the per-frame MB axis;
 per-frame QPs are (N,) int tensors. Within a wavefront step all live MBs
-of all N frames form one flat batch.
+of all N frames form one flat batch; the parallel stages run over all
+N * nmb MBs at once.
 
 Form differences from the JAX module, none of them in the result:
 - the wavefront `lax.scan` is a Python loop over the diagonals; plan
@@ -19,7 +23,8 @@ Form differences from the JAX module, none of them in the result:
   MB of padding above and to the left) instead of a row-indexed carry;
   it keeps the same slope-1 order with the V pass of a whole diagonal
   before its H pass, which is what makes the result equal the spec's
-  raster order.
+  raster order;
+- the skip-run `associative_scan(max)` is `torch.cummax`.
 """
 
 from __future__ import annotations
@@ -27,11 +32,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from h264lab_tpu_torch.ops import cavlc, deblock, intra, intra4, tables, \
-    transform
+from h264lab_tpu_torch.ops import cavlc, deblock, intra, intra4, me, qpel, \
+    tables, transform
 from h264lab_tpu_torch.ops.intra import INVALID_COST
-from h264lab_tpu_torch.ops.me import lambda_me
-from h264lab_tpu_torch.ops.tuning import I4_PENALTY_BITS, INTRA_DEADZONE_Q8
+from h264lab_tpu_torch.ops.me import bitlen32, lambda_me, median3
+from h264lab_tpu_torch.ops.tuning import (I4_PENALTY_BITS, INTER_DEADZONE_Q8,
+                                          INTER_ZERO_THR2_Q8,
+                                          INTER_ZERO_THR_Q8,
+                                          INTRA_DEADZONE_Q8,
+                                          INTRA_IN_P_PENALTY_BITS)
 
 SEL_INTER, SEL_I16, SEL_I4 = 0, 1, 2
 I32 = torch.int32
@@ -58,27 +67,26 @@ def blocks_to_mb(blocks: torch.Tensor) -> torch.Tensor:
     return blocks.permute(0, 1, 3, 2, 4).reshape(k, n * 4, n * 4)
 
 
-def _bitlen32(x: torch.Tensor) -> torch.Tensor:
-    """Bit length of non-negative ints < 2^32 (the JAX `32 - clz`), by
-    binary search in exact integer arithmetic."""
-    x = x.long()
-    n = torch.zeros_like(x)
-    for s in (16, 8, 4, 2, 1):
-        hi = x >> s
-        big = hi > 0
-        x = torch.where(big, hi, x)
-        n = n + big.long() * s
-    return (n + (x > 0).long()).to(I32)
-
-
 def _ue_codes(v: torch.Tensor):
+    """ue(v) codes (value, length) of non-negative int tensors; the values
+    are the int32 bit patterns of the JAX module's uint32 codes."""
     code = v.to(I32) + 1
-    return code, 2 * _bitlen32(code) - 1
+    return code, 2 * bitlen32(code) - 1
+
+
+def _se_codes(v: torch.Tensor):
+    v = v.to(I32)
+    return _ue_codes(torch.where(v > 0, 2 * v - 1, -2 * v))
 
 
 def _per_item(x: torch.Tensor, k: int) -> torch.Tensor:
     """(N,) per-frame values -> (N*k,) per MB of a step (frame-major)."""
     return x[:, None].expand(x.shape[0], k).reshape(-1)
+
+
+def _frames(x: torch.Tensor, n: int, nmb: int) -> torch.Tensor:
+    """(N*nmb, ...) per-MB values -> (N, nmb, ...)."""
+    return x.reshape((n, nmb) + x.shape[1:])
 
 
 def _encode_luma_i16(src, pred, qp):
@@ -114,9 +122,215 @@ def _encode_chroma(src, pred, qpc, deadzone):
     return dc_lev, ac_lev, blocks_to_mb(recon)
 
 
+def _encode_inter_luma(src, pred, qp):
+    """Inter luma TQ + recon of (K, 16, 16) MBs at per-MB qp (K,), with the
+    zero-block kills: a 4x4 block whose coefficients all sit at or under
+    INTER_ZERO_THR_Q8/256 quant steps, and a whole 8x8 quarter under
+    INTER_ZERO_THR2_Q8/256, is zeroed. Returns (levels (K, 4, 4, 4, 4),
+    recon (K, 16, 16) uint8)."""
+    sb = mb_to_blocks(src.to(I32), 4)
+    pb = mb_to_blocks(pred.to(I32), 4)
+    coef = transform.fdct4x4(sb - pb)
+    qb = qp[:, None, None]
+    lev = transform.quant4x4(coef, qb, INTER_DEADZONE_Q8)
+    deq = transform.dequant4x4(lev, qb)
+    if INTER_ZERO_THR_Q8 > 0:
+        thr1 = transform.zero_thr4x4(qp, INTER_ZERO_THR_Q8)[:, None, None]
+        thr2 = transform.zero_thr4x4(qp, INTER_ZERO_THR2_Q8)[:, None, None]
+        a = coef.abs()                                    # (K, 4, 4, 4, 4)
+        z1 = (a <= thr1).all(-1).all(-1)                  # (K, 4, 4) blocks
+        z2b = (a <= thr2).all(-1).all(-1)
+        # 8x8 quarters = 2x2 block groups
+        z2q = (z2b.reshape(-1, 2, 2, 2, 2).permute(0, 1, 3, 2, 4)
+               .reshape(-1, 4, 4).all(-1).reshape(-1, 2, 2))
+        z2 = z2q.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        kill = (z1 | z2)[..., None, None]
+        lev = torch.where(kill, 0, lev)
+        deq = torch.where(kill, 0, deq)
+    recon = torch.clamp(transform.idct4x4(deq) + pb, 0, 255).to(torch.uint8)
+    return lev, blocks_to_mb(recon)
+
+
 # ---------------------------------------------------------------------------
-# stage 2: mode selection (intra slices: the slope-2 wavefront)
+# stage 1 (P slices): dense ME + chroma MC + inter transform, fully parallel
 # ---------------------------------------------------------------------------
+
+def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
+                     mb_row_offset, prev_my, prev_mx, mb_width: int,
+                     mb_height: int):
+    """ME + MC + inter TQ of N P frames/bands with the speed 2-7 toolset
+    (16x16 partitions, quarter-pel).
+
+    src_*_mb (N, nmb, t, t) uint8; ref: the lanes' reference planes
+    (`refstate.prepare_reference`: y_pad, u_pad, v_pad, y4_pad, leading
+    axis L); lane, qp, qpc, mb_row_offset (N,): each band's reference lane,
+    QPs and first MB row in the lane's frame; prev_my/prev_mx (N, nmb)
+    full-pel previous MVs or None."""
+    N, nmb = src_y_mb.shape[:2]
+    dev = src_y_mb.device
+    K = N * nmb
+    qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
+    qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N)
+    lane = torch.as_tensor(lane, device=dev).reshape(N)
+    row0 = torch.as_tensor(mb_row_offset, dtype=I32, device=dev).reshape(N)
+    idx = torch.arange(nmb, dtype=I32, device=dev)
+    rr = idx // mb_width
+    cc = idx % mb_width
+    base_y = qpel.GUARD + 16 * (rr[None] + row0[:, None])
+    base_x = (qpel.GUARD + 16 * cc).expand(N, nmb)
+    cur_plane = (src_y_mb.reshape(N, mb_height, mb_width, 16, 16)
+                 .permute(0, 1, 3, 2, 4)
+                 .reshape(N, mb_height * 16, mb_width * 16))
+    mv_y, mv_x, cost16, pred16, aux = me.motion_search_dense(
+        cur_plane, src_y_mb, ref["y_pad"], ref["y4_pad"], lane, base_y,
+        base_x, qp, mb_height, mb_width, row0, prev_my, prev_mx)
+    mv4_y = mv_y[..., None, None].expand(N, nmb, 4, 4)
+    mv4_x = mv_x[..., None, None].expand(N, nmb, 4, 4)
+
+    cb_y = qpel.GUARD // 2 + 8 * (rr[None] + row0[:, None])
+    cb_x = (qpel.GUARD // 2 + 8 * cc).expand(N, nmb)
+    pred_u, pred_v = qpel.mc_chroma_uniform(
+        ref["u_pad"], ref["v_pad"], _per_item(lane, nmb),
+        cb_y.reshape(K), cb_x.reshape(K), aux["full_my"].reshape(K),
+        aux["full_mx"].reshape(K), mv_y.reshape(K), mv_x.reshape(K))
+    qp_k, qpc_k = _per_item(qp, nmb), _per_item(qpc, nmb)
+    lev_inter, recon_y = _encode_inter_luma(
+        src_y_mb.reshape(K, 16, 16), pred16.reshape(K, 16, 16), qp_k)
+    # u and v batched through one chroma TQ
+    cdc, cac, recon_uv = _encode_chroma(
+        torch.cat([src_u_mb.reshape(K, 8, 8), src_v_mb.reshape(K, 8, 8)]),
+        torch.cat([pred_u, pred_v]), torch.cat([qpc_k, qpc_k]),
+        INTER_DEADZONE_Q8)
+
+    def frames(x):
+        return _frames(x, N, nmb)
+    return dict(mv_y=mv_y, mv_x=mv_x, mv4_y=mv4_y, mv4_x=mv4_x,
+                shape=torch.zeros((N, nmb), dtype=I32, device=dev),
+                inter_cost=cost16, lev_inter=frames(lev_inter),
+                recon_y_inter=frames(recon_y),
+                recon_u_inter=frames(recon_uv[:K]),
+                recon_v_inter=frames(recon_uv[K:]),
+                cdc_inter=frames(torch.stack([cdc[:K], cdc[K:]], dim=1)),
+                cac_inter=frames(torch.stack([cac[:K], cac[K:]], dim=1)))
+
+
+# ---------------------------------------------------------------------------
+# stage 2: mode selection (P slices: fully parallel; I slices: the slope-2
+# wavefront)
+# ---------------------------------------------------------------------------
+
+def select_stage_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
+                      avail_top, avail_left, inter, mb_width: int,
+                      mb_height: int):
+    """Mode selection + intra encode of N frames/bands.
+
+    src_*_mb (N, nmb, t, t) uint8; qp/qpc (N,) int; steps: the slope-2
+    `wavefront.make_plan` steps (I slices); avail_top/avail_left (nmb,)
+    bool; inter: `inter_stage_core`'s output (P slices) or None (I
+    slices). P slices take the fully parallel path without Intra_4x4, I
+    slices the wavefront with Intra_4x4 on. Returns the JAX stage's dict,
+    each entry with the leading N axis; MVs of intra MBs are zero."""
+    if inter is None:
+        out = _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
+                                steps, avail_top, avail_left, mb_width)
+        inter = _inter_dummies(*src_y_mb.shape[:2], src_y_mb.device)
+    else:
+        out = _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
+                                 avail_top, avail_left, inter, mb_width)
+    is_intra = out["sel"] != SEL_INTER
+    m4 = is_intra[..., None, None]
+    m6 = m4[..., None, None]
+    out["cdc_lev"] = torch.where(m4[..., None], out["cdc_lev"],
+                                 inter["cdc_inter"])
+    out["cac_lev"] = torch.where(m6[..., None], out["cac_lev"],
+                                 inter["cac_inter"])
+    for k in ("mv_y", "mv_x", "shape"):
+        out[k] = torch.where(is_intra, 0, inter[k])
+    for k in ("mv4_y", "mv4_x"):
+        out[k] = torch.where(m4, 0, inter[k])
+    out["lev_inter"] = inter["lev_inter"]
+    return out
+
+
+def _inter_dummies(N: int, nmb: int, dev) -> dict:
+    """Zero stage-1 outputs of intra frames (no inter candidate)."""
+    def z(shape):
+        return torch.zeros((N, nmb) + shape, dtype=I32, device=dev)
+    return dict(mv_y=z(()), mv_x=z(()), mv4_y=z((4, 4)), mv4_x=z((4, 4)),
+                shape=z(()), lev_inter=z((4, 4, 4, 4)),
+                cdc_inter=z((2, 2, 2)), cac_inter=z((2, 2, 2, 4, 4)))
+
+
+def _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
+                       avail_left, inter, mb_width: int):
+    """The fully parallel P path: an MB may be Intra_16x16 only if its
+    in-slice left and top neighbours are inter (decided on the pre-
+    selection "wants intra" mask), so every intra prediction reads inter
+    recon from stage 1 and all MBs encode in one batch."""
+    N, nmb = src_y_mb.shape[:2]
+    dev = src_y_mb.device
+    K = N * nmb
+    qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
+    qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N)
+    at = torch.as_tensor(avail_top, device=dev).bool()
+    al = torch.as_tensor(avail_left, device=dev).bool()
+    at_k, al_k = at.repeat(N), al.repeat(N)
+    qp_k, qpc_k = _per_item(qp, nmb), _per_item(qpc, nmb)
+    lam_k = lambda_me(qp_k)
+    ry, ru, rv = (inter[k] for k in ("recon_y_inter", "recon_u_inter",
+                                     "recon_v_inter"))
+
+    def above(edge, n):                  # the MB above's edge; zeros on row 0
+        return torch.cat([torch.zeros_like(edge[:, :mb_width]),
+                          edge[:, :-mb_width]], dim=1).reshape(K, n)
+
+    def left(edge, n):                   # the previous MB's edge
+        return torch.cat([torch.zeros_like(edge[:, :1]), edge[:, :-1]],
+                         dim=1).reshape(K, n)
+
+    src_y = src_y_mb.reshape(K, 16, 16)
+    preds, valid16 = intra.predict_16x16(above(ry[:, :, 15, :], 16),
+                                         left(ry[:, :, :, 15], 16),
+                                         at_k, al_k)
+    mode16, pred_y16, cost16 = intra.select_mode(src_y, preds, valid16)
+    icost16 = cost16 + lam_k * INTRA_IN_P_PENALTY_BITS
+    want = (icost16 < inter["inter_cost"].reshape(K)).reshape(N, nmb)
+    want_l = torch.cat([torch.zeros_like(want[:, :1]), want[:, :-1]], dim=1)
+    want_t = torch.cat([torch.zeros_like(want[:, :mb_width]),
+                        want[:, :-mb_width]], dim=1)
+    is_i16 = want & ~(want_l & al) & ~(want_t & at)
+    sel = torch.where(is_i16, SEL_I16, SEL_INTER).to(I32)
+    dc_lev, ac_lev, rec_y16 = _encode_luma_i16(src_y, pred_y16, qp_k)
+
+    # chroma intra (u and v batched), edges from inter recon
+    top_c = torch.cat([above(ru[:, :, 7, :], 8), above(rv[:, :, 7, :], 8)])
+    left_c = torch.cat([left(ru[:, :, :, 7], 8), left(rv[:, :, :, 7], 8)])
+    preds_c, valid_c = intra.predict_chroma(top_c, left_c,
+                                            torch.cat([at_k, at_k]),
+                                            torch.cat([al_k, al_k]))
+    src_c = torch.cat([src_u_mb.reshape(K, 8, 8), src_v_mb.reshape(K, 8, 8)])
+    ccost2 = intra.sad(src_c[:, None], preds_c)
+    ccost = torch.where(valid_c[:K], ccost2[:K] + ccost2[K:], INVALID_COST)
+    cmode = ccost.argmin(dim=1).to(I32)
+    pred_c = intra.pick(preds_c, torch.cat([cmode, cmode]))
+    cdc_c, cac_c, rec_c = _encode_chroma(src_c, pred_c,
+                                         torch.cat([qpc_k, qpc_k]),
+                                         INTRA_DEADZONE_Q8)
+
+    def frames(x):
+        return _frames(x, N, nmb)
+    m = is_i16[..., None, None]
+    return dict(
+        sel=sel, mode16=frames(mode16), cmode=frames(cmode),
+        dc_lev=frames(dc_lev), ac_lev=frames(ac_lev),
+        cdc_lev=frames(torch.stack([cdc_c[:K], cdc_c[K:]], dim=1)),
+        cac_lev=frames(torch.stack([cac_c[:K], cac_c[K:]], dim=1)),
+        recon_y=torch.where(m, frames(rec_y16), ry),
+        recon_u=torch.where(m, frames(rec_c[:K]), ru),
+        recon_v=torch.where(m, frames(rec_c[K:]), rv),
+        i4modes=torch.full((N, nmb, 16), 2, dtype=I32, device=dev),
+        i4sym_v=torch.zeros((N, nmb, 16), dtype=I32, device=dev),
+        i4sym_l=torch.zeros((N, nmb, 16), dtype=I32, device=dev))
 
 def _wave_steps(steps, avail_top, avail_left, mb_width: int, device):
     """Per-step index and availability tensors for the live MBs of each
@@ -143,14 +357,10 @@ def _wave_steps(steps, avail_top, avail_left, mb_width: int, device):
             if b > a]
 
 
-def select_stage_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
+def _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
                       steps, avail_top, avail_left, mb_width: int):
-    """Mode selection + intra encode of N intra frames/bands.
-
-    src_*_mb (N, nmb, 16, 16)/(N, nmb, 8, 8) uint8; qp/qpc (N,) int;
-    steps: the slope-2 `wavefront.make_plan` steps; avail_top/avail_left
-    (nmb,) bool. Returns the dict of the JAX stage's intra outputs, each
-    with the leading N axis."""
+    """The slope-2 wavefront of I slices (Intra_16x16, Intra_4x4, chroma)
+    over N frames/bands; no inter candidate."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
     qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
@@ -358,17 +568,21 @@ def deblock_frame(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
     return df_y, df_c[:, :, 0], df_c[:, :, 1]
 
 
-def deblock_stage_core(recon_y, recon_u, recon_v, sel, qp, qpc,
-                       avail_top, avail_left, mb_width: int, mb_height: int):
-    """Stage 4 for intra frames: no coded inter blocks, zero motion."""
-    N, nmb = sel.shape
-    zeros = torch.zeros((N, nmb, 4, 4), dtype=I32, device=sel.device)
-    return deblock_frame(recon_y, recon_u, recon_v, sel, zeros, zeros, zeros,
-                         qp, qpc, avail_top, avail_left, mb_width, mb_height)
+def deblock_stage_core(recon_y, recon_u, recon_v, sel, lev_inter, mv4_y,
+                       mv4_x, qp, qpc, avail_top, avail_left, mb_width: int,
+                       mb_height: int):
+    """Stage 4: in-loop deblocking of N frames/bands; bS sees the coded
+    inter blocks (nonzero counts of `lev_inter`) and the MVs."""
+    nnz_inter_blk = (lev_inter != 0).sum((-2, -1), dtype=I32)
+    return deblock_frame(recon_y, recon_u, recon_v, sel, nnz_inter_blk,
+                         mv4_y, mv4_x, qp, qpc, avail_top, avail_left,
+                         mb_width, mb_height)
+
+
 
 
 # ---------------------------------------------------------------------------
-# stage 3: symbolization (I slices)
+# stage 3: symbolization (I and P slices)
 # ---------------------------------------------------------------------------
 
 def _block_nc(nnz_grid, blk_avail_left, blk_avail_top):
@@ -392,15 +606,118 @@ def _nc_grid(nnz, mbh, mbw, n):
         N, mbh * mbw, n, n)
 
 
-def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, dc_lev, ac_lev,
-              cdc_lev, cac_lev, mb_width: int, mb_height: int):
-    """CAVLC + syntax symbol assembly of N I slices.
+def _mv_predictors(mv4_y, mv4_x, is_intra, mb_width: int, mb_height: int):
+    """Per-partition MV predictors over the 4x4-block MV grid of N slices
+    (spec 8.4.1.3 with the directional 16x8/8x16 rules and the neighbour
+    availability of partitions in decode order) and the P_Skip predictor
+    (8.4.1.1). mv4_* (N, nmb, 4, 4); is_intra (N, nmb). Returns (mvp,
+    skip_y, skip_x): mvp[shape][part] = (mvp_y, mvp_x), each (N, nmb)."""
+    mbh, mbw = mb_height, mb_width
+    N = mv4_y.shape[0]
+    BH, BW = 4 * mbh, 4 * mbw
+
+    def grid(x):
+        return (x.reshape(N, mbh, mbw, 4, 4).permute(0, 1, 3, 2, 4)
+                .reshape(N, BH, BW))
+
+    def pad(x):                             # offsets -1..7 stay in range
+        return torch.nn.functional.pad(x, (1, 4, 1, 4))
+
+    mvy_p, mvx_p = pad(grid(mv4_y)), pad(grid(mv4_x))
+    ref0 = (~is_intra).to(I32).reshape(N, mbh, mbw)
+    ref0_p = pad(ref0.repeat_interleave(4, 1).repeat_interleave(4, 2)) > 0
+    avail_p = pad(torch.ones((1, BH, BW), dtype=I32,
+                             device=mv4_y.device)) > 0
+
+    def blk(dy, dx, static_avail=True):
+        """The neighbour block at MB-relative block offset (dy, dx)."""
+        def at(arr):
+            return arr[:, 1 + dy:1 + dy + BH:4,
+                       1 + dx:1 + dx + BW:4].reshape(arr.shape[0], -1)
+        avail = at(avail_p) & static_avail
+        ref = at(ref0_p) & avail
+        return (torch.where(ref, at(mvy_p), 0), torch.where(ref, at(mvx_p), 0),
+                ref, avail)
+
+    def derive(a, b, c, d, directional=None):
+        """a/b/c/d = (dy, dx, static_avail). Returns (mvp_y, mvp_x)."""
+        ay, ax, aref, aav = blk(*a)
+        by, bx, bref, bav = blk(*b)
+        cy, cx, cref, cav = blk(*c)
+        dy_, dx_, dref, dav = blk(*d)
+        # C unavailable -> D (8.4.1.3.2)
+        cy = torch.where(cav, cy, dy_)
+        cx = torch.where(cav, cx, dx_)
+        cref = torch.where(cav, cref, dref)
+        cav2 = cav | dav
+        # B and C unavailable, A available -> A
+        subst = (~bav) & (~cav2) & aav
+        by = torch.where(subst, ay, by)
+        bx = torch.where(subst, ax, bx)
+        bref = torch.where(subst, aref, bref)
+        cy = torch.where(subst, ay, cy)
+        cx = torch.where(subst, ax, cx)
+        cref = torch.where(subst, aref, cref)
+        cnt = aref.to(I32) + bref.to(I32) + cref.to(I32)
+        only_a = (cnt == 1) & aref
+        only_b = (cnt == 1) & bref
+        only_c = (cnt == 1) & cref
+        mvp_y = torch.where(only_a, ay, torch.where(
+            only_b, by, torch.where(only_c, cy, median3(ay, by, cy))))
+        mvp_x = torch.where(only_a, ax, torch.where(
+            only_b, bx, torch.where(only_c, cx, median3(ax, bx, cx))))
+        for name, (ry, rx, rref) in (("A", (ay, ax, aref)),
+                                     ("B", (by, bx, bref)),
+                                     ("C", (cy, cx, cref))):
+            if directional == name:
+                mvp_y = torch.where(rref, ry, mvp_y)
+                mvp_x = torch.where(rref, rx, mvp_x)
+        return mvp_y, mvp_x
+
+    def A(dy, dx):
+        return (dy, dx, True)
+    NO = (0, 0, False)
+    out = {
+        0: [derive(A(0, -1), A(-1, 0), A(-1, 4), A(-1, -1))],
+        1: [derive(A(0, -1), A(-1, 0), A(-1, 4), A(-1, -1), "B"),
+            derive(A(2, -1), A(1, 0), NO, A(1, -1), "A")],
+        2: [derive(A(0, -1), A(-1, 0), A(-1, 2), A(-1, -1), "A"),
+            derive(A(0, 1), A(-1, 2), A(-1, 4), A(-1, 1), "C")],
+        3: [derive(A(0, -1), A(-1, 0), A(-1, 2), A(-1, -1)),
+            derive(A(0, 1), A(-1, 2), A(-1, 4), A(-1, 1)),
+            derive(A(2, -1), A(1, 0), A(1, 2), A(1, -1)),
+            derive(A(2, 1), A(1, 2), NO, A(1, 1))],
+    }
+    # P_Skip predictor (8.4.1.1) from the 16x16 A/B neighbours
+    ay, ax, aref, aav = blk(0, -1)
+    by, bx, bref, bav = blk(-1, 0)
+    force0 = ((~aav) | (~bav) | (aref & (ay == 0) & (ax == 0))
+              | (bref & (by == 0) & (bx == 0)))
+    skip_y = torch.where(force0, 0, out[0][0][0])
+    skip_x = torch.where(force0, 0, out[0][0][1])
+    return out, skip_y, skip_x
+
+
+# partition layouts: top-left block (by, bx) per partition, per shape
+_PART_BLOCKS = {
+    0: [(0, 0)],
+    1: [(0, 0), (2, 0)],
+    2: [(0, 0), (0, 2)],
+    3: [(0, 0), (0, 2), (2, 0), (2, 2)],
+}
+_N_PARTS = (1, 2, 2, 4)
+
+
+def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
+              dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev, mb_width: int,
+              mb_height: int, has_inter: bool):
+    """CAVLC + syntax symbol assembly of N I or P slices.
 
     Returns dict(sym_vals (N, nmb, 952) int32 (uint32 bit patterns),
     sym_lens (N, nmb, 952) int32, tail_val/tail_len (N,) (the trailing
-    skip run; zero in I slices), total_bits (N,) int32). The unit layout
-    is the JAX module's: unit 0 = 34 MB-header slots, units 1..27 = the
-    CAVLC blocks in decode order."""
+    skip run of a P slice, appended after the MB bits), total_bits (N,)
+    int32, tail included). The unit layout is the JAX module's: unit 0 =
+    34 MB-header slots, units 1..27 = the CAVLC blocks in decode order."""
     N, nmb = sel.shape
     dev = sel.device
     ns = cavlc.N_SLOTS
@@ -408,27 +725,57 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, dc_lev, ac_lev,
     blk_scan = torch.as_tensor(tables.BLOCK_SCAN_4x4, dtype=torch.long,
                                device=dev)
     cbp_code_t = torch.as_tensor(tables.CBP_TO_CODENUM, device=dev)
+    is_inter = sel == SEL_INTER
     is_i16 = sel == SEL_I16
     is_i4 = sel == SEL_I4
+    is_intra = ~is_inter
 
-    # nnz and cbp (ac_lev: i16 AC levels with DC zeroed, or i4 levels)
+    # nnz and cbp (ac_lev: i16 AC levels with DC zeroed, or i4 levels;
+    # lev_inter: inter levels)
     nnz_intra = (ac_lev != 0).sum((-2, -1), dtype=I32)         # (N,nmb,4,4)
+    nnz_inter = (lev_inter != 0).sum((-2, -1), dtype=I32)
     cdc_nnz = (cdc_lev != 0).sum((-2, -1), dtype=I32)          # (N,nmb,2)
     cac_nnz = (cac_lev != 0).sum((-2, -1), dtype=I32)          # (N,nmb,2,2,2)
-    gnz = nnz_intra.reshape(N, nmb, 2, 2, 2, 2).permute(
-        0, 1, 2, 4, 3, 5).sum((4, 5)) > 0
-    cbpl_i4 = (gnz[..., 0, 0].to(I32) + 2 * gnz[..., 0, 1]
-               + 4 * gnz[..., 1, 0] + 8 * gnz[..., 1, 1])
+
+    def group_bits(nnz):
+        gnz = nnz.reshape(N, nmb, 2, 2, 2, 2).permute(
+            0, 1, 2, 4, 3, 5).sum((4, 5)) > 0
+        return (gnz[..., 0, 0].to(I32) + 2 * gnz[..., 0, 1]
+                + 4 * gnz[..., 1, 0] + 8 * gnz[..., 1, 1])
+
     cbpl_i16 = nnz_intra.sum((2, 3)) > 0                       # all or none
     cbpc = torch.where(cac_nnz.sum((2, 3, 4)) > 0, 2,
                        torch.where(cdc_nnz.sum(2) > 0, 1, 0)).to(I32)
-    cbp_luma = torch.where(is_i4, cbpl_i4,
-                           torch.where(cbpl_i16, 15, 0)).to(I32)
+    cbp_luma = torch.where(is_i4, group_bits(nnz_intra), torch.where(
+        is_inter, group_bits(nnz_inter),
+        torch.where(cbpl_i16, 15, 0))).to(I32)
     cbp = cbp_luma + (cbpc << 4)
 
+    # MV predictors, MVDs of the coded partitions, P_Skip
+    mvd_py = torch.zeros((N, nmb, 4), dtype=I32, device=dev)
+    mvd_px = torch.zeros((N, nmb, 4), dtype=I32, device=dev)
+    if has_inter:
+        mvps, skip_y, skip_x = _mv_predictors(mv4_y, mv4_x, is_intra,
+                                              mb_width, mb_height)
+        for sh in range(4):
+            for p, (by, bx) in enumerate(_PART_BLOCKS[sh]):
+                mvp_y, mvp_x = mvps[sh][p]
+                sel_sh = shape == sh
+                mvd_py[..., p] = torch.where(sel_sh, mv4_y[..., by, bx] - mvp_y,
+                                             mvd_py[..., p])
+                mvd_px[..., p] = torch.where(sel_sh, mv4_x[..., by, bx] - mvp_x,
+                                             mvd_px[..., p])
+        skip = (is_inter & (shape == 0) & (cbp == 0)
+                & (mv4_y[..., 0, 0] == skip_y) & (mv4_x[..., 0, 0] == skip_x))
+    else:
+        skip = torch.zeros_like(is_inter)
+    coded = ~skip
+
     # nC contexts from the coded nnz
-    luma_nnz = torch.where((is_i4 | cbpl_i16)[..., None, None], nnz_intra, 0)
-    cac_nnz_coded = torch.where((cbpc == 2)[..., None, None, None],
+    luma_nnz = torch.where(is_inter[..., None, None], nnz_inter, torch.where(
+        (is_i4 | cbpl_i16)[..., None, None], nnz_intra, 0))
+    luma_nnz = torch.where(skip[..., None, None], 0, luma_nnz)
+    cac_nnz_coded = torch.where(((cbpc == 2) & coded)[..., None, None, None],
                                 cac_nnz, 0)
     nc_luma = _nc_grid(luma_nnz, mb_height, mb_width, 4)
     nc_chroma = torch.stack([
@@ -441,13 +788,15 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, dc_lev, ac_lev,
         16)
     dc_lens = torch.where(is_i16.reshape(-1, 1), dc_lens, 0)
 
-    # luma: i16 blocks code their AC-15 view, i4 blocks all 16
-    scan = ac_lev.reshape(N * nmb * 16, 16)[:, zz]
+    # luma: i16 blocks code their AC-15 view, inter and i4 blocks all 16
+    full_lev = torch.where(is_inter[..., None, None, None, None], lev_inter,
+                           ac_lev)
+    acn = full_lev.reshape(N * nmb * 16, 16)[:, zz]
+    aci = ac_lev.reshape(N * nmb * 16, 16)[:, zz]
+    aci = torch.cat([aci[:, 1:], torch.zeros_like(aci[:, :1])], dim=1)
     i16_blk = is_i16.repeat_interleave(16).reshape(-1)
-    scan_lv = torch.where(
-        i16_blk[:, None],
-        torch.cat([scan[:, 1:], torch.zeros_like(scan[:, :1])], dim=1), scan)
-    vv, ll, _ = cavlc.encode_blocks(scan_lv, nc_luma.reshape(-1),
+    vv, ll, _ = cavlc.encode_blocks(torch.where(i16_blk[:, None], aci, acn),
+                                    nc_luma.reshape(-1),
                                     torch.where(i16_blk, 15, 16))
     luma_vals = vv.reshape(N, nmb, 16, ns)
     ll = ll.reshape(N, nmb, 16, ns)
@@ -455,45 +804,80 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, dc_lev, ac_lev,
     grp_of_block = (blk // 8) * 2 + (blk % 4) // 2
     bit = (cbp_luma[..., None] >> grp_of_block) & 1
     blk_coded = torch.where(is_i16[..., None], cbpl_i16[..., None],
-                            is_i4[..., None] & (bit > 0))
+                            (coded & (is_inter | is_i4))[..., None]
+                            & (bit > 0))
     luma_lens = torch.where(blk_coded[..., None], ll, 0)
 
     # chroma DC
     cdc_vals, cdc_lens, _ = cavlc.encode_blocks(
         torch.nn.functional.pad(cdc_lev.reshape(N * nmb * 2, 4), (0, 12)),
         torch.full((N * nmb * 2,), -1, dtype=I32, device=dev), 4)
-    cdc_lens = torch.where((cbpc >= 1)[..., None, None],
+    cdc_lens = torch.where(((cbpc >= 1) & coded)[..., None, None],
                            cdc_lens.reshape(N, nmb, 2, ns), 0)
 
     # chroma AC
     cacf = cac_lev.reshape(N * nmb * 8, 16)[:, zz][:, 1:]
     cac_vals, cac_lens, _ = cavlc.encode_blocks(
         torch.nn.functional.pad(cacf, (0, 1)), nc_chroma.reshape(-1), 15)
-    cac_lens = torch.where((cbpc == 2)[..., None, None],
+    cac_lens = torch.where(((cbpc == 2) & coded)[..., None, None],
                            cac_lens.reshape(N, nmb, 8, ns), 0)
 
-    # MB header symbols; the slot layout of the JAX module (skip run,
-    # base_mode, mb_type, 4 sub_mb_type, 8 mvd, 16 i4 modes, chroma mode,
-    # cbp, dQP) with the inter-only slots zero-length
-    mb_type = torch.where(is_i4, 0,
-                          1 + mode16 + 4 * cbpc + 12 * cbpl_i16.to(I32))
+    # MB header symbols: skip run, base_mode, mb_type, 4 sub_mb_type, 8
+    # mvd, 16 i4 modes, chroma mode, cbp, dQP (the JAX slot layout)
+    i16code = 1 + mode16 + 4 * cbpc + 12 * cbpl_i16.to(I32)
+    zero = torch.zeros((N,), dtype=I32, device=dev)
+    if has_inter:
+        skip_i = skip.to(I32)
+        s_cum = torch.cumsum(skip_i, dim=1, dtype=I32)
+        marker = torch.where(coded, s_cum, -1)
+        run_base = torch.cummax(marker, dim=1).values
+        run_base_prev = torch.cat([torch.zeros_like(run_base[:, :1]),
+                                   run_base[:, :-1].clamp(min=0)], dim=1)
+        skip_run = torch.where(coded, s_cum - skip_i - run_base_prev, 0)
+        sr_v, sr_l = _ue_codes(skip_run.clamp(min=0))
+        sr_l = torch.where(coded, sr_l, 0)
+        trailing = s_cum[:, -1] - marker.max(dim=1).values.clamp(min=0)
+        tr_v, tr_l = _ue_codes(trailing.clamp(min=0))
+        tr_l = torch.where(trailing > 0, tr_l, 0)
+        mb_type = torch.where(is_inter, shape,
+                              torch.where(is_i4, 5, 5 + i16code))
+    else:
+        sr_v = sr_l = torch.zeros((N, nmb), dtype=I32, device=dev)
+        tr_v = tr_l = zero
+        mb_type = torch.where(is_i4, 0, i16code)
     mt_v, mt_l = _ue_codes(mb_type)
+    mt_l = torch.where(coded, mt_l, 0)
+
+    inter_coded = coded & is_inter
+    n_parts = torch.as_tensor(_N_PARTS, device=dev)[shape.clamp(0, 3).long()]
+    # sub_mb_type: P_8x8 emits four ue(0) ("1") entries
+    sub_l = (inter_coded & (shape == 3))[..., None].to(I32).expand(N, nmb, 4)
+    # per-partition MVDs, interleaved (x, y) per partition
+    part_active = ((torch.arange(4, device=dev) < n_parts[..., None])
+                   & inter_coded[..., None])
+    mvdx_v, mvdx_l = _se_codes(mvd_px)
+    mvdy_v, mvdy_l = _se_codes(mvd_py)
+    mvd_vals = torch.stack([mvdx_v, mvdy_v], dim=3).reshape(N, nmb, 8)
+    mvd_lens = torch.stack([torch.where(part_active, mvdx_l, 0),
+                            torch.where(part_active, mvdy_l, 0)],
+                           dim=3).reshape(N, nmb, 8)
+
     cm_v, cm_l = _ue_codes(cmode)
-    # (column 0 intra, 1 inter: the JAX module takes the inter code for
-    # I16 MBs, whose cbp slot is zero-length)
     cbp_c = torch.clamp(cbp, 0, 47).long()
     cbpv, cbpl_ = _ue_codes(torch.where(is_i4, cbp_code_t[cbp_c, 0],
                                         cbp_code_t[cbp_c, 1]))
     zero1 = torch.zeros((N, nmb, 1), dtype=I32, device=dev)
     one1 = torch.ones((N, nmb, 1), dtype=I32, device=dev)
     hdr_vals = torch.cat([
-        zero1, zero1, mt_v[..., None], one1.expand(N, nmb, 12),
-        i4sym_v.to(I32), cm_v[..., None], cbpv[..., None], one1], dim=2)
+        sr_v[..., None], zero1, mt_v[..., None], one1.expand(N, nmb, 4),
+        mvd_vals, i4sym_v.to(I32), cm_v[..., None], cbpv[..., None], one1],
+        dim=2)
     hdr_lens = torch.cat([
-        zero1, zero1, mt_l[..., None], zero1.expand(N, nmb, 12),
-        torch.where(is_i4[..., None], i4sym_l, 0).to(I32), cm_l[..., None],
-        torch.where(is_i4, cbpl_, 0)[..., None],
-        (is_i16 | (cbp != 0)).to(I32)[..., None]], dim=2)
+        sr_l[..., None], zero1, mt_l[..., None], sub_l, mvd_lens,
+        torch.where(is_i4[..., None], i4sym_l, 0).to(I32),
+        torch.where(coded & is_intra, cm_l, 0)[..., None],
+        torch.where(coded & (is_inter | is_i4), cbpl_, 0)[..., None],
+        (coded & (is_i16 | (cbp != 0))).to(I32)[..., None]], dim=2)
 
     sym_vals = torch.cat([
         hdr_vals, dc_vals.reshape(N, nmb, ns),
@@ -505,7 +889,6 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, dc_lev, ac_lev,
         luma_lens[:, :, blk_scan].reshape(N, nmb, 16 * ns),
         cdc_lens.reshape(N, nmb, 2 * ns), cac_lens.reshape(N, nmb, 8 * ns),
     ], dim=2)
-    zero = torch.zeros((N,), dtype=I32, device=dev)
     return dict(sym_vals=sym_vals, sym_lens=sym_lens,
-                tail_val=zero, tail_len=zero,
-                total_bits=sym_lens.sum((1, 2), dtype=I32))
+                tail_val=tr_v, tail_len=tr_l,
+                total_bits=sym_lens.sum((1, 2), dtype=I32) + tr_l)

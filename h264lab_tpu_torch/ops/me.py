@@ -1,11 +1,30 @@
-"""Motion-estimation constants needed by the intra slice.
+"""Motion estimation of the speed-2 P path: hierarchical dense search,
+batched over the macroblocks of N frames (bands) at once.
 
-Only the mode-decision lambda lives here so far. The JAX package computes
-it as `max(sqrt(0.85 * 2^((qp - 12) / 3)), 1)` truncated to int in
-float32 (`h264lab_tpu/ops/me.py:lambda_me`); the port stores the 52
-integers that function returns instead of recomputing them, so no
-float rounding can differ. The tests check the table against the JAX
-function.
+PyTorch counterpart of `h264lab_tpu/ops/me.py`: the same three-stage
+funnel, the same costs and the same tie rules, so every MV and prediction
+is identical.
+
+1. coarse: dense full search on the 4x box pyramid, +-8 coarse px, one
+   loop trip per dy with the 17 dx shifts batched (`coarse_search_4x`);
+2. candidate centres (coarse winner, zero MV, the previous frame's MV) by
+   full-resolution 16x16 SAD + lambda * mv bits, then a dense +-3 full-pel
+   sweep of the winner's (34, 34) window;
+3. sub-pel: the window re-centred on the full-pel winner, 6-tap half-pel
+   planes from it, the 16 quarter-pel phase planes, and a dense +-3
+   quarter-pel sweep with the early-skip bias.
+
+Where the JAX package avoided TPU gathers (nine strided reshapes for the
+zero-MV windows, shift-select chains for re-centring), the port reads each
+per-MB window with one indexed gather (`qpel.windows`,
+`qpel.shift_window`); the results are the same integers. Every sweep
+updates on a strict `<`, so the first-visited best wins ties on both
+sides, and `min(dim)` returns the first minimum, as `jnp.argmin` does.
+
+The mode-decision lambda is a stored table: the JAX package computes it
+as `max(sqrt(0.85 * 2^((qp - 12) / 3)), 1)` truncated to int in float32;
+the port keeps the 52 integers that function returns, so no float
+rounding can differ. The tests check the table against the JAX function.
 """
 
 from __future__ import annotations
@@ -14,6 +33,21 @@ import functools
 
 import numpy as np
 import torch
+
+from h264lab_tpu_torch.ops import qpel
+from h264lab_tpu_torch.ops.qpel import GUARD
+from h264lab_tpu_torch.ops.tuning import (SKIP_BIAS_BITS, SKIP_THR_BASE,
+                                          SKIP_THR_QP)
+
+I32 = torch.int32
+
+COARSE_R4 = 8        # coarse search radius in 4x-downsampled pixels (=32)
+REFINE_R = 3         # full-pel refinement radius around the coarse winner
+WIN_M = 9            # window margin each side of the candidate centre
+WIN_S = 16 + 2 * WIN_M          # = 34: window side
+ALN_S = 27           # aligned window side: winner-5 .. winner+21
+SUB = 22             # aligned qpel plane side: winner-3 .. winner+18
+MAX_CAND_FP = GUARD - WIN_M - 3   # full-pel candidate-centre clip (52)
 
 LAMBDA_ME = np.array([
     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2,
@@ -29,3 +63,307 @@ def _lut(device: torch.device) -> torch.Tensor:
 def lambda_me(qp: torch.Tensor) -> torch.Tensor:
     """Integer mode-decision lambda for int QP tensors in [0, 51]."""
     return _lut(qp.device)[qp.long()]
+
+
+def bitlen32(x: torch.Tensor) -> torch.Tensor:
+    """Bit length of non-negative ints < 2^32 (the JAX `32 - clz`), by
+    binary search in exact integer arithmetic."""
+    x = x.long()
+    n = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        hi = x >> s
+        big = hi > 0
+        x = torch.where(big, hi, x)
+        n = n + big.long() * s
+    return (n + (x > 0).long()).to(I32)
+
+
+def mv_bits(v: torch.Tensor) -> torch.Tensor:
+    """Exp-Golomb bit count of se(v) (an MV component in quarter-pel)."""
+    code = torch.where(v > 0, 2 * v - 1, -2 * v) + 1
+    return 2 * bitlen32(torch.clamp(code, min=1)) - 1
+
+
+def downsample4(plane: torch.Tensor) -> torch.Tensor:
+    """4x box downsample (..., h, w) uint8 -> uint8, `(sum + 8) >> 4`."""
+    h, w = plane.shape[-2:]
+    x = plane[..., :h - h % 4, :w - w % 4].to(I32)
+    x = x.reshape(x.shape[:-2] + (h // 4, 4, w // 4, 4)).sum((-3, -1),
+                                                            dtype=I32)
+    return ((x + 8) >> 4).to(torch.uint8)
+
+
+def coarse_search_4x(cur4, ref4_pad, lane, lam, mb_height: int,
+                     mb_width: int, row_offset, mvp_y, mvp_x,
+                     radius: int = COARSE_R4):
+    """Dense full search on the 4x pyramid.
+
+    cur4 (N, mbh*4, mbw*4) band planes; ref4_pad (L, ., .) lane-batched
+    full-frame 4x planes with a GUARD//4 guard; lane, lam, row_offset
+    (N,); mvp_y/mvp_x (N, nmb) quarter-pel predictors. The dx axis is a
+    batch axis and the loop runs over dy; a later dy must be strictly
+    cheaper. Returns per-MB coarse-pixel (dy4, dx4), each (N, nmb) int32."""
+    n = cur4.shape[0]
+    g4 = GUARD // 4
+    h4, w4 = mb_height * 4, mb_width * 4
+    side = 2 * radius + 1
+    dev = cur4.device
+    cur = cur4.to(I32)[:, None]
+    mvp_y2 = mvp_y.reshape(n, 1, mb_height, mb_width)
+    mvp_x2 = mvp_x.reshape(n, 1, mb_height, mb_width)
+    lam4 = lam.reshape(n, 1, 1, 1)
+    dx_all = torch.arange(-radius, radius + 1, dtype=I32,
+                          device=dev).reshape(1, side, 1, 1)
+    dx_bits = lam4 * mv_bits(dx_all * 16 - mvp_x2)         # (N, side, ., .)
+    shape = (n, mb_height, mb_width)
+    best = torch.full(shape, 1 << 30, dtype=I32, device=dev)
+    best_dy = torch.zeros(shape, dtype=I32, device=dev)
+    best_dx = torch.zeros(shape, dtype=I32, device=dev)
+    oy0 = g4 + row_offset.long() * 4
+    ox = torch.full_like(oy0, g4 - radius)
+    for i in range(side):
+        dy = i - radius
+        row = qpel.windows(ref4_pad, lane, oy0 + dy, ox, h4, w4 + 2 * radius)
+        subs = row.unfold(2, w4, 1).permute(0, 2, 1, 3).to(I32)
+        sad = (cur - subs).abs().reshape(
+            n, side, mb_height, 4, mb_width, 4).sum((3, 5), dtype=I32)
+        cost = sad * 16 + lam4 * mv_bits(dy * 16 - mvp_y2) + dx_bits
+        cmin, k = cost.min(dim=1)
+        upd = cmin < best
+        best = torch.where(upd, cmin, best)
+        best_dy = torch.where(upd, dy, best_dy)
+        best_dx = torch.where(upd, k.to(I32) - radius, best_dx)
+    return best_dy.reshape(n, -1), best_dx.reshape(n, -1)
+
+
+def median3(a, b, c):
+    """Elementwise median of three int tensors."""
+    return torch.maximum(torch.minimum(torch.maximum(a, b), c),
+                         torch.minimum(a, b))
+
+
+def spatial_predictor(dy, dx, mb_height: int, mb_width: int):
+    """Quarter-pel MV predictor per MB from the dense coarse field (N, nmb):
+    the median of the left, top and top-right coarse winners within the
+    band; top-right falls back to top-left on the last column, and row 0
+    takes the left neighbour alone. Returns (mvp_y, mvp_x), (N, nmb)."""
+    pad = torch.nn.functional.pad
+
+    def shifts(q):
+        q = q.reshape(-1, mb_height, mb_width)
+        a = pad(q, (1, 0))[..., :-1]                       # left
+        b = pad(q, (0, 0, 1, 0))[..., :-1, :]              # top
+        c = pad(q, (0, 1, 1, 0))[..., :-1, 1:]             # top-right
+        d = pad(q, (1, 0, 1, 1))[..., :-2, :-1]            # top-left
+        c[..., -1] = d[..., -1]
+        med = median3(a, b, c)
+        med[:, 0, :] = a[:, 0, :]
+        return med.reshape(q.shape[0], -1)
+    return shifts(dy * 16), shifts(dx * 16)
+
+
+def _hpel_from_window(win):
+    """6-tap half-pel values of aligned (K, 27, 27) int32 windows (spec
+    8.4.2.2.1). With the winner at coord 5, returns the (F, B, H, J)
+    planes, (K, 22, 22) each, aligned on coord i == full-pel i + 2."""
+    def f6_h(x):
+        return (x[..., :, 0:-5] - 5 * x[..., :, 1:-4] + 20 * x[..., :, 2:-3]
+                + 20 * x[..., :, 3:-2] - 5 * x[..., :, 4:-1] + x[..., :, 5:])
+
+    def f6_v(x):
+        return (x[..., 0:-5, :] - 5 * x[..., 1:-4, :] + 20 * x[..., 2:-3, :]
+                + 20 * x[..., 3:-2, :] - 5 * x[..., 4:-1, :] + x[..., 5:, :])
+
+    f = win[:, 2:24, 2:24]
+    b = torch.clamp((f6_h(win) + 16) >> 5, 0, 255)[:, 2:24, :]
+    h_raw = f6_v(win)                                       # (K, 22, 27)
+    h = torch.clamp((h_raw + 16) >> 5, 0, 255)[:, :, 2:24]
+    j = torch.clamp((f6_h(h_raw) + 512) >> 10, 0, 255)
+    return f, b, h, j
+
+
+def _phase_planes(wins):
+    """The 16 quarter-pel phase planes of the (F, B, H, J) planes as one
+    (4, 4, K, S, S) uint8 stack: stack[fy, fx][., y, x] is the sample at
+    (4y + fy, 4x + fx) from the planes' full-pel origin (spec Figure 8-4).
+    Each plane becomes uint8 before the stack."""
+    sy, sx = wins[0].shape[1:]
+
+    def pad(w):                          # one edge row and column
+        w = torch.cat([w, w[:, -1:]], dim=1)
+        return torch.cat([w, w[:, :, -1:]], dim=2)
+
+    f, b, h, j = (pad(w) for w in wins)
+
+    def avg(p, q):
+        return (p + q + 1) >> 1
+
+    def s(w, ey=0, ex=0):
+        return w[:, ey:ey + sy, ex:ex + sx]
+
+    # keyed (fx, fy), as the JAX table
+    tab = {
+        (0, 0): lambda: s(f),
+        (1, 0): lambda: avg(s(f), s(b)),
+        (2, 0): lambda: s(b),
+        (3, 0): lambda: avg(s(b), s(f, 0, 1)),
+        (0, 1): lambda: avg(s(f), s(h)),
+        (1, 1): lambda: avg(s(b), s(h)),
+        (2, 1): lambda: avg(s(b), s(j)),
+        (3, 1): lambda: avg(s(b), s(h, 0, 1)),
+        (0, 2): lambda: s(h),
+        (1, 2): lambda: avg(s(h), s(j)),
+        (2, 2): lambda: s(j),
+        (3, 2): lambda: avg(s(j), s(h, 0, 1)),
+        (0, 3): lambda: avg(s(h), s(f, 1, 0)),
+        (1, 3): lambda: avg(s(h), s(b, 1, 0)),
+        (2, 3): lambda: avg(s(j), s(b, 1, 0)),
+        (3, 3): lambda: avg(s(h, 0, 1), s(b, 1, 0)),
+    }
+    return torch.stack([torch.stack([tab[(fx, fy)]().to(torch.uint8)
+                                     for fx in range(4)])
+                        for fy in range(4)])
+
+
+def _sweep_fullpel(cur_i, win, base_y: int, base_x: int, radius: int,
+                   cost_fn):
+    """Dense (2r+1)^2 full-pel SAD sweep over per-MB windows (K, S, S):
+    the block at (base_y + dy, base_x + dx). cost_fn(sad, dy, dx) -> cost.
+    Returns (cost, dy, dx), the best per MB."""
+    k, bh, bw = cur_i.shape
+    dev = cur_i.device
+    best = torch.full((k,), 1 << 30, dtype=I32, device=dev)
+    bdy = torch.zeros((k,), dtype=I32, device=dev)
+    bdx = torch.zeros((k,), dtype=I32, device=dev)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            blk = win[:, base_y + dy:base_y + dy + bh,
+                      base_x + dx:base_x + dx + bw]
+            sad = (cur_i - blk.to(I32)).abs().sum((1, 2), dtype=I32)
+            cost = cost_fn(sad, dy, dx)
+            upd = cost < best
+            best = torch.where(upd, cost, best)
+            bdy = torch.where(upd, dy, bdy)
+            bdx = torch.where(upd, dx, bdx)
+    return best, bdy, bdx
+
+
+def _sweep_qpel(cur_i, phases, center: int, cost_fn, radius: int = 3):
+    """Dense (2r+1)^2 quarter-pel sweep over the (4, 4, K, S, S) phase
+    stack, the full-pel winner at plane coord `center`. cost_fn(sad, dyq,
+    dxq) -> cost. Returns (cost, dyq, dxq, pred (K, bh, bw) int32)."""
+    k, bh, bw = cur_i.shape
+    dev = cur_i.device
+    best = torch.full((k,), 1 << 30, dtype=I32, device=dev)
+    byq = torch.zeros((k,), dtype=I32, device=dev)
+    bxq = torch.zeros((k,), dtype=I32, device=dev)
+    bpred = torch.zeros((k, bh, bw), dtype=I32, device=dev)
+    for dyq in range(-radius, radius + 1):
+        for dxq in range(-radius, radius + 1):
+            oy = center + (dyq >> 2)
+            ox = center + (dxq >> 2)
+            pred = phases[dyq & 3, dxq & 3, :, oy:oy + bh,
+                          ox:ox + bw].to(I32)
+            sad = (cur_i - pred).abs().sum((1, 2), dtype=I32)
+            cost = cost_fn(sad, dyq, dxq)
+            upd = cost < best
+            best = torch.where(upd, cost, best)
+            byq = torch.where(upd, dyq, byq)
+            bxq = torch.where(upd, dxq, bxq)
+            bpred = torch.where(upd[:, None, None], pred, bpred)
+    return best, byq, bxq, bpred
+
+
+def motion_search_dense(cur_plane, cur_tiles, ref_pad, ref4_pad, lane,
+                        base_y, base_x, qp, mb_height: int, mb_width: int,
+                        row_offset, prev_my=None, prev_mx=None):
+    """Hierarchical dense ME with quarter-pel refinement (module
+    docstring), for N frames or bands at once.
+
+    cur_plane (N, mbh*16, mbw*16) and cur_tiles (N, nmb, 16, 16) uint8;
+    ref_pad/ref4_pad (L, ., .) lane-batched guard-padded luma and 4x
+    planes; lane, qp, row_offset (N,): each frame's reference lane, QP and
+    MB-row offset in the lane's frame; base_y/base_x (N, nmb) MB origins in
+    padded coordinates; prev_my/prev_mx (N, nmb) full-pel previous-frame
+    MVs (a third candidate centre, clipped to +-MAX_CAND_FP) or None.
+
+    Returns (mv_y, mv_x, cost, pred, aux): quarter-pel MVs and costs (N,
+    nmb), pred (N, nmb, 16, 16) uint8, aux = dict(cy4, cx4, full_my,
+    full_mx, mvp_y, mvp_x), each (N, nmb)."""
+    n = cur_plane.shape[0]
+    nmb = mb_height * mb_width
+    dev = cur_plane.device
+    kk = n * nmb
+    lam = lambda_me(qp)
+    zero_n = torch.zeros((n, nmb), dtype=I32, device=dev)
+    cy4, cx4 = coarse_search_4x(downsample4(cur_plane), ref4_pad, lane, lam,
+                                mb_height, mb_width, row_offset,
+                                zero_n, zero_n)
+    mvp_y, mvp_x = spatial_predictor(cy4, cx4, mb_height, mb_width)
+
+    # everything below is per MB: the K = N * nmb MBs of all frames
+    def flat(x):
+        return x.reshape(kk)
+    lam_k = lam.repeat_interleave(nmb)
+    lane_k = lane.long().repeat_interleave(nmb)
+    by, bx = flat(base_y), flat(base_x)
+    pvy, pvx = flat(mvp_y), flat(mvp_x)
+    cur_i = cur_tiles.reshape(kk, 16, 16).to(I32)
+
+    def centre_cost(win, cy, cx):
+        blk = win[:, WIN_M:WIN_M + 16, WIN_M:WIN_M + 16].to(I32)
+        return ((cur_i - blk).abs().sum((1, 2), dtype=I32)
+                + lam_k * (mv_bits(cy * 4 - pvy) + mv_bits(cx * 4 - pvx)))
+
+    # candidate centres: zero MV first, then the coarse winner and the
+    # previous frame's MV, each replacing the best on a strictly lower cost
+    win = qpel.windows(ref_pad, lane_k, by - WIN_M, bx - WIN_M, WIN_S, WIN_S)
+    zero = torch.zeros((kk,), dtype=I32, device=dev)
+    best_ccost = centre_cost(win, zero, zero)
+    cm_y, cm_x = zero, zero
+    cands = [(4 * flat(cy4), 4 * flat(cx4))]
+    if prev_my is not None:
+        cands.append((flat(prev_my).clamp(-MAX_CAND_FP, MAX_CAND_FP),
+                      flat(prev_mx).clamp(-MAX_CAND_FP, MAX_CAND_FP)))
+    for cy, cx in cands:
+        win_c = qpel.windows(ref_pad, lane_k, by + cy - WIN_M,
+                             bx + cx - WIN_M, WIN_S, WIN_S)
+        cost = centre_cost(win_c, cy, cx)
+        upd = cost < best_ccost
+        best_ccost = torch.where(upd, cost, best_ccost)
+        cm_y = torch.where(upd, cy, cm_y)
+        cm_x = torch.where(upd, cx, cm_x)
+        win = torch.where(upd[:, None, None], win_c, win)
+
+    def refine_cost(sad, dy, dx):
+        return sad + lam_k * (mv_bits((cm_y + dy) * 4 - pvy)
+                              + mv_bits((cm_x + dx) * 4 - pvx))
+
+    _, best_dy, best_dx = _sweep_fullpel(cur_i, win, WIN_M, WIN_M, REFINE_R,
+                                         refine_cost)
+    full_my = cm_y + best_dy
+    full_mx = cm_x + best_dx
+
+    # re-centre the window on the refined winner: a[p] = win[winner-5+p]
+    a = qpel.shift_window(win, best_dy, WIN_M - 5, ALN_S, 1)
+    a = qpel.shift_window(a, best_dx, WIN_M - 5, ALN_S, 2).to(I32)
+    phases = _phase_planes(_hpel_from_window(a))
+    skip_thr = SKIP_THR_BASE + qp.to(I32).repeat_interleave(nmb) * SKIP_THR_QP
+
+    def qpel_cost(sad, dyq, dxq):
+        mvy = full_my * 4 + dyq
+        mvx = full_mx * 4 + dxq
+        cost = sad + lam_k * (mv_bits(mvy - pvy) + mv_bits(mvx - pvx))
+        # early-skip bias: the predictor position with a SAD under the
+        # skip threshold gets a bits bonus
+        at_pred = (mvy == pvy) & (mvx == pvx) & (sad < skip_thr)
+        return torch.where(at_pred, cost - lam_k * SKIP_BIAS_BITS, cost)
+
+    best_cost, dyq, dxq, pred = _sweep_qpel(cur_i, phases, 3, qpel_cost)
+
+    def frames(x):
+        return x.reshape((n, nmb) + x.shape[1:])
+    aux = dict(cy4=cy4, cx4=cx4, full_my=frames(full_my),
+               full_mx=frames(full_mx), mvp_y=mvp_y, mvp_x=mvp_x)
+    return (frames(full_my * 4 + dyq), frames(full_mx * 4 + dxq),
+            frames(best_cost), frames(pred.to(torch.uint8)), aux)

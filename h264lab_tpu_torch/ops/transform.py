@@ -107,6 +107,17 @@ def hadamard2x2(x: torch.Tensor) -> torch.Tensor:
 # AC quant / dequant
 # ---------------------------------------------------------------------------
 
+def zero_thr4x4(qp, thr_q8: int) -> torch.Tensor:
+    """Per-coefficient zero thresholds at `thr_q8`/256 quantization steps
+    (the inter path's block-kill decisions): (2^(15+qp//6) * thr_q8/256)
+    // MF[qp%6, class]. Returns (..., 4, 4) int32 for qp of shape (...)."""
+    qp = _qp(qp, None)                    # keeps a tensor's device
+    mf_grid, _, _, _ = _consts(qp.device)
+    mf = mf_grid[qp % 6]                                  # (..., 4, 4)
+    qbits = (15 + qp // 6)[..., None, None]
+    return ((torch.full_like(qbits, thr_q8) << (qbits - 8)) // mf).to(I32)
+
+
 def quant4x4(coef: torch.Tensor, qp, deadzone_q8: int) -> torch.Tensor:
     """level = sign(W) * ((|W| * MF[qp%6, class] + f) >> (15 + qp//6)),
     f = deadzone_q8/256 * 2^(15+qp//6); int32 throughout (see the JAX

@@ -1,19 +1,25 @@
 """GOP-lane x slice-band encoding on one CUDA device.
 
 PyTorch counterpart of `h264lab_tpu/parallel/gop.py`: G independent GOP
-lanes advance in lockstep, each encoding one frame per step, and every
-frame is cut into B slice bands. The (lane, band) pairs form one leading
-batch axis of G*B frames that every stage runs over at once, where the
-JAX package vmapped twice.
+lanes advance in lockstep, each encoding one frame per step against its
+own reference picture, and every frame is cut into B slice bands. The
+(lane, band) pairs form one leading batch axis of G*B frames that every
+stage runs over at once, where the JAX package vmapped twice.
 
-This slice of the port encodes all-intra streams: every step is an IDR
-(or an I frame on request). A step is four device stages — tiling, the
-slope-2 wavefront mode selection, CAVLC symbolization and deblocking —
-then the bit-pack kernel (`ops/bitpack.py`), and the host stage
-`finish_step` (slice headers, NAL escaping, rate control). Requests the
-slice does not implement raise `NotImplementedError`: P frames (from
-`gop` > 1 or a P-type `FrameType`), a device `mesh`, temporal denoising,
-and the speeds that turn deblocking off (8, 10).
+A step is the device stages — tiling (`pre`); for P frames the dense
+motion search, chroma MC and inter transform (`inter`); mode selection
+(`select`: the slope-2 wavefront for I frames, the fully parallel path
+for P frames); CAVLC symbolization (`sym`); deblocking (`deblock`); the
+bit-pack kernel (`pack`, `ops/bitpack.py`); the next reference pictures
+and MV candidates (`ref`) — and the host stage `finish_step` (slice
+headers, NAL escaping, rate control, transparent frames).
+
+Frame types: IDR, I, P, GOLDEN, RECOVERY, DROPPABLE and CUSTOM, with
+lane-batched reference slots (0 = short-term, 1..N = long-term). P frames
+run the speed 2-7 toolset (quarter-pel ME, 16x16 partitions, no Intra_4x4,
+deblocking on). Requests the port does not implement raise
+`NotImplementedError`: P frames at speeds 0, 1, 9 and 10, speeds 8 and 10
+(deblocking off), a device `mesh`, temporal denoising.
 
 With fixed QP, lane streams are byte-identical to the JAX package's.
 """
@@ -30,15 +36,19 @@ import torch
 from h264lab_tpu_torch.bitstream import BitWriter, headers
 from h264lab_tpu_torch.bitstream.nal import annexb_nal
 from h264lab_tpu_torch.config import EncoderConfig, FrameType, RunConfig
-from h264lab_tpu_torch.models import mbscan, wavefront
+from h264lab_tpu_torch.models import mbscan, refstate, wavefront
 from h264lab_tpu_torch.models.encoder import PIC_INIT_QP, FrameResult
-from h264lab_tpu_torch.ops import bitpack, tables
+from h264lab_tpu_torch.ops import bitpack, qpel, tables
 from h264lab_tpu_torch.rc.ratecontrol import RateControl, filler_nal
 from h264lab_tpu_torch.utils.device import resolve_device
 
 # worst-case packed words per MB: spec 7.4.5 caps macroblock_layer() at
 # 3200 bits; 128 words = 4096 bits of headroom
 WORDS_PER_MB = 128
+
+# encode speeds whose P toolset the port implements (quarter-pel ME,
+# 16x16 partitions only, no Intra_4x4 in P, deblocking on)
+P_SPEEDS = range(2, 8)
 
 
 @dataclasses.dataclass
@@ -51,6 +61,8 @@ class _PendingStep:
     n_bands: int
     frame_num: int
     return_recon: bool
+    transparent: list = None     # per-lane: emit an all-skip frame
+    old_refs: dict = None        # the reference predicted from
     is_intra: bool = True        # I or IDR
     ft_name: str = "IDR"
     lt_use: int = 0              # long-term policy for the slice headers
@@ -63,12 +75,14 @@ class GopBandEncoder:
     """G lockstep GOP lanes x B slice bands in one batched dispatch.
 
     Every lane is an independent H.264 stream (closed GOPs). All lanes
-    share the frame schedule but carry their own rate-control state.
+    share the frame schedule but carry their own rate-control state and
+    reference pictures.
 
     `device`: None means the CUDA card (and raises without one); pass
     "cpu" to run the same code on the CPU. `stage_times`: set it to a
     dict to have each stage synchronize the device and add its wall
-    seconds under its name (pre, select, sym, deblock, pack, host).
+    seconds under its name (pre, inter, select, sym, deblock, pack, ref,
+    host).
     """
 
     def __init__(self, config: EncoderConfig, n_gop: int | None = None,
@@ -103,15 +117,19 @@ class GopBandEncoder:
                 self.band_rows * cfg.mb_width * 8 + 1))))
         self.frame_num = 0
         self.step_idx = 0
+        # previous-frame full-pel MV fields (G*B, nmb_band), the ME's third
+        # candidate centre; None right after an intra frame
+        self._prev_mv = None
         self.rc = [RateControl(cfg.n_mb, cfg.gop, cfg.vbv_size_bytes, cfg.qp)
                    for _ in range(n_gop)]
-        # DPB slots holding a picture (0 = short-term, 1..N = long-term);
-        # the port keeps no reference pictures until the P slice lands
-        self._ref_slots = set()
+        # reference slots, lane-batched: 0 = short-term, 1..N = long-term
+        # (slot k holds LongTermFrameIdx k-1 on every lane)
+        self._refs = {}
         self._gop_pos = 0
         self._most_recent_idx = 0
         self._short_term_used = False
         self._lt_used = [False] * cfg.max_long_term_reference_frames
+        self._force_transparent = [False] * n_gop
         self._sps = headers.SpsParams(
             width=cfg.width, height=cfg.height,
             mb_width=cfg.mb_width, mb_height=cfg.mb_height,
@@ -123,6 +141,12 @@ class GopBandEncoder:
         r = np.arange(nmb) // cfg.mb_width
         c = np.arange(nmb) % cfg.mb_width
         self._plan = (plan.steps, r > 0, c > 0)
+        # each band's reference lane and first MB row in the lane's frame
+        self._lane = torch.arange(n_gop, device=self.device
+                                  ).repeat_interleave(self.n_bands)
+        self._row0 = (torch.arange(self.n_bands, dtype=torch.int32,
+                                   device=self.device) * self.band_rows
+                      ).repeat(n_gop)
         self.stage_times = None
 
     @contextlib.contextmanager
@@ -157,7 +181,7 @@ class GopBandEncoder:
         n_lt = cfg.max_long_term_reference_frames
         ftype = run.frame_type
         if ftype == FrameType.DEFAULT:
-            if self.step_idx == 0 or not self._ref_slots:
+            if self.step_idx == 0 or not self._refs:
                 ftype = FrameType.KEY
             elif cfg.gop and self._gop_pos >= cfg.gop:
                 ftype = FrameType.KEY
@@ -182,7 +206,7 @@ class GopBandEncoder:
         else:  # P
             lt_use, lt_update = self._most_recent_idx, 0
         if ftype not in (FrameType.KEY, FrameType.I) \
-                and max(lt_use, 0) not in self._ref_slots:
+                and self._refs.get(max(lt_use, 0)) is None:
             ftype = FrameType.KEY
             lt_use, lt_update = -1, (1 if n_lt > 0 else 0)
         return ftype, lt_use, lt_update
@@ -196,49 +220,89 @@ class GopBandEncoder:
         G, B = self.n_gop, self.n_bands
         if len(frames) != G:
             raise ValueError(f"expected {G} lane frames, got {len(frames)}")
-        ftype, lt_use, lt_update = self._frame_type(run)
-        is_idr = ftype == FrameType.KEY
-        is_intra = ftype in (FrameType.KEY, FrameType.I)
-        if not is_intra:
-            raise NotImplementedError(
-                f"frame type {ftype.name} needs inter prediction, which the "
-                "PyTorch port does not implement yet (all-intra only: "
-                "gop=1 or FrameType.KEY/I)")
         if run.encode_speed in (8, 10):
             raise NotImplementedError(
                 "encode_speed 8 and 10 (deblocking off) are not ported")
+        ftype, lt_use, lt_update = self._frame_type(run)
+        is_idr = ftype == FrameType.KEY
+        is_intra = ftype in (FrameType.KEY, FrameType.I)
+        has_inter = not is_intra
+        if has_inter and run.encode_speed not in P_SPEEDS:
+            raise NotImplementedError(
+                f"P frames at encode_speed {run.encode_speed}: the port "
+                "implements the speed 2-7 P toolset only (partition search "
+                "at speed 0, Intra_4x4 in P at speeds 0-1 and full-pel ME "
+                "at speeds 9-10 are not ported)")
+
+        # VBV overflow policy per lane: the lane's frame is replaced by an
+        # all-skip transparent frame in finish_step (the batched step still
+        # computes it; its payload and reference are discarded)
+        transparent = [self._force_transparent[g] and has_inter
+                       and cfg.vbv_overflow_empty_frame_flag
+                       for g in range(G)]
+        self._force_transparent = [False] * G
 
         qmin = int(np.clip(run.qp_min, 10, 51))
         qmax = int(np.clip(run.qp_max, 10, 51))
         qps, band_qps = [], []
         for g in range(G):
-            qp = self.rc[g].frame_start(True, run.desired_frame_bytes,
+            qp = self.rc[g].frame_start(is_intra, run.desired_frame_bytes,
                                         qmin, qmax)
             qps.append(qp)
             if cfg.fine_rate_control_flag and B > 1:
                 band_qps.append(self.rc[g].band_qp_offsets(
-                    B, True, run.desired_frame_bytes, qmin, qmax))
+                    B, is_intra, run.desired_frame_bytes, qmin, qmax))
             else:
                 band_qps.append([qp] * B)
 
-        out = self._encode_intra(frames, np.asarray(band_qps, np.int32),
-                                 self.idr_cap_words)
+        # the previous-MV candidate is valid only on the short-term chain
+        if has_inter and lt_use == 0 and self._prev_mv is not None:
+            prev_mv = self._prev_mv
+        else:
+            z = torch.zeros((G * B, self.band_rows * cfg.mb_width),
+                            dtype=torch.int32, device=self.device)
+            prev_mv = (z, z)
+        ref_used = self._refs.get(max(lt_use, 0)) if has_inter else None
+        cap = self.idr_cap_words if is_intra else self.p_cap_words
+        out, new_refs = self._encode(frames, np.asarray(band_qps, np.int32),
+                                     ref_used, prev_mv, cap)
 
+        # pre-marking DPB flags go into the slice headers (finish_step)
         hdr_st_used = self._short_term_used
         hdr_lt_in_use = (self._lt_used[lt_update - 1]
                          if lt_update > 0 else False)
         n_lt = cfg.max_long_term_reference_frames
         if is_idr:
-            self._ref_slots = set()
+            self._refs = {}
             self._short_term_used = False
             self._lt_used = [False] * n_lt
+        mask = torch.as_tensor(transparent, device=self.device)
         if lt_update >= 0:
-            self._ref_slots.add(lt_update)
+            old_slot = self._refs.get(lt_update)
+            if any(transparent) and old_slot is not None:
+                # transparent lanes keep the slot's previous picture
+                new_refs = {k: torch.where(
+                    mask.reshape((G,) + (1,) * (v.ndim - 1)), old_slot[k], v)
+                    for k, v in new_refs.items()}
+            self._refs[lt_update] = new_refs
             self._most_recent_idx = lt_update
             if lt_update == 0:
                 self._short_term_used = True
             else:
                 self._lt_used[lt_update - 1] = True
+
+        if is_intra or lt_use != 0:
+            self._prev_mv = None
+        else:
+            new_prev = (out["pmv_y"], out["pmv_x"])
+            if any(transparent):
+                # transparent lanes keep their previous MV field too
+                m = mask.repeat_interleave(B)[:, None]
+                old = self._prev_mv or tuple(torch.zeros_like(x)
+                                             for x in new_prev)
+                new_prev = tuple(torch.where(m, o, n)
+                                 for o, n in zip(old, new_prev))
+            self._prev_mv = new_prev
 
         self.step_idx += 1
         self._gop_pos = 1 if is_idr else self._gop_pos + 1
@@ -247,20 +311,26 @@ class GopBandEncoder:
         return _PendingStep(out=out, qps=qps, band_qps=band_qps,
                             is_idr=is_idr, run=run, n_bands=B,
                             frame_num=fn_use, return_recon=return_recon,
+                            transparent=transparent, old_refs=ref_used,
                             is_intra=is_intra,
-                            ft_name="IDR" if is_idr else "I",
+                            ft_name=("IDR" if is_idr else
+                                     ("I" if is_intra else "P")),
                             lt_use=lt_use, lt_update=lt_update,
                             hdr_st_used=hdr_st_used,
                             hdr_lt_in_use=hdr_lt_in_use)
 
-    def _encode_intra(self, frames, band_qps: np.ndarray, cap_words: int):
-        """Device stages of one all-intra step. band_qps (G, B)."""
+    def _encode(self, frames, band_qps: np.ndarray, ref, prev_mv,
+                cap_words: int):
+        """Device stages of one step. band_qps (G, B); ref: the lanes'
+        reference planes (P frames) or None (I frames); prev_mv: the
+        (G*B, nmb_band) full-pel MV candidates. Returns (out, new refs)."""
         cfg = self.config
         G, B = self.n_gop, self.n_bands
         dev = self.device
         mbw, rows = cfg.mb_width, self.band_rows
         N, nmb = G * B, rows * mbw
         ph, pw = cfg.padded_height, cfg.padded_width
+        has_inter = ref is not None
 
         def upload(i, h, w):
             return torch.from_numpy(np.stack([
@@ -278,35 +348,46 @@ class GopBandEncoder:
             qpc = torch.as_tensor(tables.QPC_FROM_QPY[band_qps.reshape(-1)],
                                   device=dev)
         steps, a_top, a_left = self._plan
+        inter = None
+        if has_inter:
+            with self._stage("inter"):
+                inter = mbscan.inter_stage_core(
+                    src[0], src[1], src[2], ref, self._lane, qp, qpc,
+                    self._row0, prev_mv[0], prev_mv[1], mbw, rows)
         with self._stage("select"):
-            st = mbscan.select_stage_core(src[0], src[1], src[2], qp, qpc,
-                                          steps, a_top, a_left, mbw)
+            st = mbscan.select_stage_core(
+                src[0], src[1], src[2], qp, qpc, steps, a_top, a_left,
+                inter, mbw, rows)
+        del inter                # its recon planes are not needed past here
         with self._stage("sym"):
             sym = mbscan.symbolize(
                 st["sel"], st["mode16"], st["cmode"], st["i4sym_v"],
-                st["i4sym_l"], st["dc_lev"], st["ac_lev"], st["cdc_lev"],
-                st["cac_lev"], mbw, rows)
+                st["i4sym_l"], st["mv4_y"], st["mv4_x"], st["shape"],
+                st["dc_lev"], st["ac_lev"], st["lev_inter"], st["cdc_lev"],
+                st["cac_lev"], mbw, rows, has_inter)
         with self._stage("deblock"):
             df = mbscan.deblock_stage_core(
                 st["recon_y"], st["recon_u"], st["recon_v"], st["sel"],
-                qp, qpc, a_top, a_left, mbw, rows)
+                st["lev_inter"], st["mv4_y"], st["mv4_x"], qp, qpc,
+                a_top, a_left, mbw, rows)
         with self._stage("pack"):
             words, nbits = bitpack.pack_frames(sym["sym_vals"],
                                                sym["sym_lens"], cap_words)
+        with self._stage("ref"):
+            new_refs, flat, pmv_y, pmv_x = refstate.ref_stage(
+                *df, st["mv_y"], st["mv_x"], G, mbw, cfg.mb_height)
 
         def lanes(x):
             return x.reshape((G, B) + x.shape[1:])
 
-        def lane_tiles(x):
-            return x.reshape((G, B * nmb) + x.shape[2:])
-
-        return dict(words=lanes(words), nbits=lanes(nbits),
-                    tail_val=lanes(sym["tail_val"]),
-                    tail_len=lanes(sym["tail_len"]),
-                    df_y=lane_tiles(df[0]), df_u=lane_tiles(df[1]),
-                    df_v=lane_tiles(df[2]),
-                    sym_vals=lanes(sym["sym_vals"]),
-                    sym_lens=lanes(sym["sym_lens"]))
+        out = dict(words=lanes(words), nbits=lanes(nbits),
+                   tail_val=lanes(sym["tail_val"]),
+                   tail_len=lanes(sym["tail_len"]),
+                   df_y=flat[0], df_u=flat[1], df_v=flat[2],
+                   pmv_y=pmv_y, pmv_x=pmv_x,
+                   sym_vals=lanes(sym["sym_vals"]),
+                   sym_lens=lanes(sym["sym_lens"]))
+        return out, new_refs
 
     def finish_step(self, p: _PendingStep):
         """Wait for a dispatched step and write per-lane Annex-B bytes."""
@@ -337,60 +418,100 @@ class GopBandEncoder:
         deblock_idc = 2 if B > 1 else 0
         results = []
         for g in range(G):
+            is_transparent = bool(p.transparent and p.transparent[g])
             payload = b""
             band_bytes = []
             if p.is_idr:
                 payload += headers.sps_nal(self._sps)
                 payload += headers.pps_nal(cfg.sps_id, 0, PIC_INIT_QP)
-            for b in range(B):
-                bw = BitWriter(capacity=1 << 16)
-                shp = headers.SliceHeaderParams(
-                    slice_type=(headers.SLICE_TYPE_I if p.is_intra
-                                else headers.SLICE_TYPE_P),
-                    is_idr=p.is_idr,
-                    frame_num=p.frame_num,
-                    first_mb=b * self.band_rows * cfg.mb_width,
-                    pps_id=cfg.sps_id * 4,
-                    idr_pic_id=(self.idr_pic_id_base
-                                + (g if self.per_lane_idr_pic_id
-                                   else 0)) % 16,
-                    slice_qp=p.band_qps[g][b],
-                    pic_init_qp=PIC_INIT_QP,
-                    disable_deblocking_filter_idc=deblock_idc,
-                    long_term_idx_use=(max(p.lt_use, 0)
-                                       if not p.is_intra else 0),
-                    long_term_idx_update=p.lt_update,
-                    short_term_used=p.hdr_st_used,
-                    lt_slot_in_use=p.hdr_lt_in_use,
-                    max_long_term_frames=cfg.max_long_term_reference_frames)
-                headers.write_slice_header_rbsp(bw, shp)
-                mb_bits = int(nbits[g, b])
-                bw.append_bits_bytes(
-                    bitpack.words_to_bytes(words[g, b], mb_bits), mb_bits)
-                if int(tails_l[g, b]):
-                    bw.u(int(tails_l[g, b]), int(tails_v[g, b]))
-                bw.rbsp_trailing_bits()
-                ref_idc, nal_type = headers.slice_nal_header_byte(shp)
-                nal = annexb_nal(ref_idc, nal_type, bw.to_bytes())
-                payload += nal
-                band_bytes.append(len(nal))
+            if is_transparent:
+                payload += self._transparent_nal(p.frame_num, p.qps[g])
+            else:
+                for b in range(B):
+                    nal = self._slice_nal(p, g, b, words[g, b],
+                                          int(nbits[g, b]),
+                                          int(tails_v[g, b]),
+                                          int(tails_l[g, b]), deblock_idc)
+                    payload += nal
+                    band_bytes.append(len(nal))
             actions = self.rc[g].frame_end(
                 p.is_intra, len(payload), p.run.desired_frame_bytes,
                 band_bytes=band_bytes or None)
             if (actions["stuffing_bytes"]
                     and cfg.vbv_underflow_stuffing_flag):
                 payload += filler_nal(actions["stuffing_bytes"])
+            if actions["overflow"]:
+                self._force_transparent[g] = True
             recon = None
             if p.return_recon:
-                planes = [wavefront.tiles_to_plane(
-                    p.out[k][g].cpu().numpy(), cfg.mb_height, cfg.mb_width)
-                    for k in ("df_y", "df_u", "df_v")]
+                if is_transparent:
+                    # recon == the lane's (unchanged) reference picture
+                    gy, gc = qpel.GUARD, qpel.GUARD // 2
+                    planes = [p.old_refs[k][g, gd:-gd, gd:-gd].cpu().numpy()
+                              for k, gd in (("y_pad", gy), ("u_pad", gc),
+                                            ("v_pad", gc))]
+                else:
+                    planes = [wavefront.tiles_to_plane(
+                        p.out[k][g].cpu().numpy(), cfg.mb_height,
+                        cfg.mb_width) for k in ("df_y", "df_u", "df_v")]
                 recon = (planes[0][:cfg.height, :cfg.width],
                          planes[1][:cfg.height // 2, :cfg.width // 2],
                          planes[2][:cfg.height // 2, :cfg.width // 2])
             results.append(FrameResult(payload=payload, frame_type=p.ft_name,
                                        qp=p.qps[g], recon=recon))
         return results
+
+    def _slice_nal(self, p: _PendingStep, g: int, b: int, words, mb_bits: int,
+                   tail_val: int, tail_len: int, deblock_idc: int) -> bytes:
+        """One band's slice NAL: header, the packed MB bits, the trailing
+        skip run and the RBSP trailing bits."""
+        cfg = self.config
+        bw = BitWriter(capacity=1 << 16)
+        shp = headers.SliceHeaderParams(
+            slice_type=(headers.SLICE_TYPE_I if p.is_intra
+                        else headers.SLICE_TYPE_P),
+            is_idr=p.is_idr,
+            frame_num=p.frame_num,
+            first_mb=b * self.band_rows * cfg.mb_width,
+            pps_id=cfg.sps_id * 4,
+            idr_pic_id=(self.idr_pic_id_base
+                        + (g if self.per_lane_idr_pic_id else 0)) % 16,
+            slice_qp=p.band_qps[g][b],
+            pic_init_qp=PIC_INIT_QP,
+            disable_deblocking_filter_idc=deblock_idc,
+            long_term_idx_use=(max(p.lt_use, 0) if not p.is_intra else 0),
+            long_term_idx_update=p.lt_update,
+            short_term_used=p.hdr_st_used,
+            lt_slot_in_use=p.hdr_lt_in_use,
+            max_long_term_frames=cfg.max_long_term_reference_frames)
+        headers.write_slice_header_rbsp(bw, shp)
+        bw.append_bits_bytes(bitpack.words_to_bytes(words, mb_bits), mb_bits)
+        if tail_len:
+            bw.u(tail_len, tail_val & 0xFFFFFFFF)
+        bw.rbsp_trailing_bits()
+        ref_idc, nal_type = headers.slice_nal_header_byte(shp)
+        return annexb_nal(ref_idc, nal_type, bw.to_bytes())
+
+    def _transparent_nal(self, frame_num: int, qp: int) -> bytes:
+        """All-skip P frame for one lane: one slice covering the picture,
+        whose reconstruction equals the reference picture exactly."""
+        cfg = self.config
+        bw = BitWriter()
+        shp = headers.SliceHeaderParams(
+            slice_type=headers.SLICE_TYPE_P,
+            is_idr=False,
+            frame_num=frame_num,
+            pps_id=cfg.sps_id * 4,
+            slice_qp=qp,
+            pic_init_qp=PIC_INIT_QP,
+            disable_deblocking_filter_idc=1,
+            long_term_idx_update=0,
+            max_long_term_frames=cfg.max_long_term_reference_frames)
+        headers.write_slice_header_rbsp(bw, shp)
+        bw.ue(cfg.n_mb)          # mb_skip_run covering the whole picture
+        bw.rbsp_trailing_bits()
+        ref_idc, nal_type = headers.slice_nal_header_byte(shp)
+        return annexb_nal(ref_idc, nal_type, bw.to_bytes())
 
 
 def encode_stream(frames, config: EncoderConfig, n_gop: int | None = None,

@@ -10,8 +10,11 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   an empty frame; on 16 frames, on an MB count that is no multiple of
   K1's 8-MB tile, and on frames of equal bit counts. It counts one launch
   per call;
-- the all-intra encoder gives the same lane bytes on the card as on the
-  CPU, at a small size with two bands.
+- the encoder gives the same lane bytes and reconstructions on the card
+  as on the CPU, at a small size with two bands: all-intra, and IPPP
+  (IDR, P steps, a forced re-pack of a P step and a second IDR);
+- K1 equals the plain packer on the symbol grids of a real P step, at the
+  P capacity and at one that overflows.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -118,3 +121,45 @@ def test_card_lanes_equal_cpu_lanes(card):
             assert a.payload == b.payload
             for pa, pb in zip(a.recon, b.recon):
                 np.testing.assert_array_equal(pa, pb)
+
+
+def test_card_ippp_lanes_equal_cpu_lanes(card):
+    w, h = 72, 56
+    cfg = EncoderConfig(width=w, height=h, gop=3, qp=12, slice_bands=2)
+    run = RunConfig(qp_min=12, qp_max=12, encode_speed=2)
+    frames = list(noise_pan_sequence(w, h, 6))
+    on_card = GopBandEncoder(cfg, n_gop=3)
+    on_cpu = GopBandEncoder(cfg, n_gop=3, device="cpu")
+    kinds = []
+    for t in range(4):
+        if t == 2:                      # force a re-pack of this P step
+            on_card.p_cap_words = on_cpu.p_cap_words = 128
+        lanes = frames[t:t + 3]
+        got = on_card.encode_step(lanes, run, return_recon=True)
+        want = on_cpu.encode_step(lanes, run, return_recon=True)
+        kinds.append(got[0].frame_type)
+        for a, b in zip(got, want):
+            assert a.payload == b.payload
+            for pa, pb in zip(a.recon, b.recon):
+                np.testing.assert_array_equal(pa, pb)
+    assert kinds == ["IDR", "P", "P", "IDR"]
+    assert on_card.p_cap_words == on_cpu.p_cap_words > 128
+
+
+def test_k1_matches_plain_packer_on_a_p_grid(card):
+    w, h = 128, 64
+    cfg = EncoderConfig(width=w, height=h, gop=4, qp=20)
+    run = RunConfig(qp_min=20, qp_max=20, encode_speed=2)
+    frames = list(noise_pan_sequence(w, h, 5))
+    enc = GopBandEncoder(cfg, n_gop=4)
+    enc.encode_step(frames[:4], run)
+    p = enc.encode_step_async(frames[1:], run)
+    assert not p.is_intra
+    vals, lens = p.out["sym_vals"], p.out["sym_lens"]
+    for cap in (enc.p_cap_words, 128):
+        wk, nk = bitpack.pack_frames(vals, lens, cap)
+        wp, np_ = bitpack.pack_frames_plain(vals.cpu(), lens.cpu(), cap)
+        assert torch.equal(nk.cpu(), np_)
+        assert torch.equal(wk.cpu(), wp)
+    assert int(np_.max()) > 32 * 128
+    enc.finish_step(p)

@@ -20,6 +20,7 @@ import torch
 import h264lab_tpu.config as jcfg
 from h264lab_tpu.decoder.decoder import H264Decoder
 from h264lab_tpu.ops import me as jme
+from h264lab_tpu.ops import qpel as jqp
 from h264lab_tpu.ops import tables as jtb
 from h264lab_tpu.ops import tables_cavlc as jtc
 from h264lab_tpu.ops import tuning as jtu
@@ -140,15 +141,19 @@ def test_unsupported_requests_raise(monkeypatch):
     w, h = 64, 48
     f = next(chessboard_sequence(w, h, 1))
     run = RunConfig(qp_min=30, qp_max=30, encode_speed=2)
-    enc = tgop.GopBandEncoder(EncoderConfig(width=w, height=h, gop=2),
+    enc = tgop.GopBandEncoder(EncoderConfig(width=w, height=h, gop=4),
                               n_gop=1, device="cpu")
     enc.encode_step([f], run)                              # the IDR
-    with pytest.raises(NotImplementedError):               # P from gop=2
-        enc.encode_step([f], run)
+    # P frames (from gop=4, or a P-type FrameType) at the speeds whose P
+    # toolset is not ported: partitions, Intra_4x4 in P, full-pel ME
     # (GOLDEN would resolve to an IDR here: no long-term slot is filled)
-    for ft in (FrameType.P, FrameType.DROPPABLE, FrameType.CUSTOM):
-        with pytest.raises(NotImplementedError):
-            enc.encode_step([f], dataclasses.replace(run, frame_type=ft))
+    for speed in (0, 1, 9, 10):
+        for ft in (FrameType.DEFAULT, FrameType.P, FrameType.DROPPABLE,
+                   FrameType.CUSTOM):
+            with pytest.raises(NotImplementedError):
+                enc.encode_step([f], dataclasses.replace(
+                    run, encode_speed=speed, frame_type=ft))
+    assert enc.encode_step([f], run)[0].frame_type == "P"  # speed 2 works
     enc1 = tgop.GopBandEncoder(EncoderConfig(width=w, height=h, gop=1),
                                n_gop=1, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -177,15 +182,21 @@ def _jax_constants():
             ref[f"tuning.{name}"] = np.asarray(val)
     ref["LAMBDA_ME"] = np.asarray(
         [int(jme.lambda_me(jnp.int32(q))) for q in range(52)])
+    for name in convert.ME_GEOMETRY:
+        ref[f"me.{name}"] = np.asarray(getattr(jme, name))
+    ref["qpel.GUARD"] = np.asarray(jqp.GUARD)
     return ref
 
 
 def test_constants_and_configs_carried_across():
     ref = _jax_constants()
     convert.check_constants(ref)
-    bad = dict(ref, LAMBDA_ME=ref["LAMBDA_ME"] + 1)
-    with pytest.raises(ValueError):
-        convert.check_constants(bad)
+    for key in ("LAMBDA_ME", "me.WIN_M", "me.MAX_CAND_FP", "qpel.GUARD"):
+        with pytest.raises(ValueError):          # a changed constant
+            convert.check_constants(dict(ref, **{key: ref[key] + 1}))
+    with pytest.raises(ValueError):              # a missing one
+        convert.check_constants({k: v for k, v in ref.items()
+                                 if k != "me.SUB"})
     jc = jcfg.EncoderConfig(width=96, height=64, gop=3, qp=28,
                             slice_bands=2, max_long_term_reference_frames=1)
     assert dataclasses.asdict(convert.config_from_reference(jc)) == \

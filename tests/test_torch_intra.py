@@ -211,7 +211,7 @@ def test_select_stage(jax_stages, qp):
     c = jax_stages[qp]
     got = tmb.select_stage_core(*(_b(s) for s in c["src"]), torch.tensor([qp]),
                                 torch.tensor([c["qpc"]]), c["steps"],
-                                c["a_top"], c["a_left"], MBW)
+                                c["a_top"], c["a_left"], None, MBW, MBH)
     assert set(got) <= set(c["st"])
     for key, val in got.items():
         _eq(c["st"][key], val[0], key)
@@ -226,8 +226,9 @@ def test_symbolize_stage(jax_stages, qp):
     c = jax_stages[qp]
     st = c["st"]
     got = tmb.symbolize(*(_b(st[k]) for k in (
-        "sel", "mode16", "cmode", "i4sym_v", "i4sym_l", "dc_lev", "ac_lev",
-        "cdc_lev", "cac_lev")), MBW, MBH)
+        "sel", "mode16", "cmode", "i4sym_v", "i4sym_l", "mv4_y", "mv4_x",
+        "shape", "dc_lev", "ac_lev", "lev_inter", "cdc_lev", "cac_lev")),
+        MBW, MBH, False)
     assert got["sym_vals"].shape == (1, NMB, 952)
     for key in ("sym_vals", "sym_lens", "tail_val", "tail_len",
                 "total_bits"):
@@ -239,7 +240,8 @@ def test_deblock_stage(jax_stages, qp):
     c = jax_stages[qp]
     st = c["st"]
     got = tmb.deblock_stage_core(
-        *(_b(st[k]) for k in ("recon_y", "recon_u", "recon_v", "sel")),
+        *(_b(st[k]) for k in ("recon_y", "recon_u", "recon_v", "sel",
+                              "lev_inter", "mv4_y", "mv4_x")),
         torch.tensor([qp]), torch.tensor([c["qpc"]]),
         c["a_top"], c["a_left"], MBW, MBH)
     for a, b in zip(c["df"], got):

@@ -1,26 +1,28 @@
-"""Where an all-intra GOP-lane step of the PyTorch port spends its time on
+"""Where a P step of the PyTorch port's GOP-lane path spends its time on
 the CUDA card.
 
-    python tools/torch_trace_step.py
+    python tools/torch_trace_step.py [--k1-baseline SRC]
 
-It runs `chip_smoke.py`'s main path (1920x1088 chessboard, gop=1, QP 33,
-encode_speed 2, the same frame schedule) and prints a summary and one JSON
-line. Three measurements, the third one first:
+It runs `chip_smoke.py`'s main path (1920x1088 chessboard, IPPP with GOP
+20, QP 33, encode_speed 2, the same frame schedule): each measurement
+encodes the IDR of step 0 untimed and measures the P step that follows.
+It prints a summary and one JSON line. Three measurements, the third one
+first:
 
-1. lane scaling: one step at 1 lane and one at 16 lanes, each after a
-   warm-up step, with per-stage wall times (each stage between device
-   synchronizations). A stage whose time does not grow with the lanes is
-   bound by kernel launches, not by device work;
-2. launches: one more 1-lane step in which every stage runs under its own
+1. lane scaling: the P step at 1 lane and at 16 lanes, with per-stage wall
+   times (each stage between device synchronizations). A stage whose time
+   does not grow with the lanes is bound by kernel launches, not by device
+   work;
+2. launches: one more 1-lane P step in which every stage (`pre`, `inter`,
+   `select`, `sym`, `deblock`, `pack`, `ref`, `host`) runs under its own
    `torch.profiler` pass (CUDA activity only), which synchronizes before it
    closes. Per stage: the device operations launched (kernels, copies,
-   fills), per wavefront diagonal for `select` (slope 2) and `deblock`
-   (slope 1), and the union of their device intervals (busy ms). The busy
-   ms over the untraced stage time of measurement 1 estimates the share of
-   the stage the device works. The passes of the short stages (`pre`,
-   `pack`, `host`) record no operation in some runs: their counts are a
-   lower bound;
-3. K1 on the symbol grid of one 16-lane step at the IDR capacity: the
+   fills), per wavefront diagonal for `deblock` (slope 1), and the union of
+   their device intervals (busy ms). The busy ms over the untraced stage
+   time of measurement 1 estimates the share of the stage the device
+   works. The passes of the short stages record no operation in some runs:
+   their counts are a lower bound;
+3. K1 on the symbol grid of one 16-lane IDR step at the IDR capacity: the
    wrapper's time from CUDA events (zero fills included) beside the
    kernel's device time in a `torch.profiler` trace of one call. With
    `--k1-baseline SRC`, SRC is an earlier two-pass build of K1 (entry
@@ -28,8 +30,6 @@ line. Three measurements, the third one first:
    script times each launch of its wrapper on its own, checks that its
    words equal the current K1's, and times the two wrappers in turns
    (old, new, new, old).
-
-    python tools/torch_trace_step.py [--k1-baseline SRC]
 
 Needs a CUDA device; every line names the card and its power limit.
 """
@@ -57,6 +57,7 @@ from h264lab_tpu_torch.utils.device import card_label  # noqa: E402
 
 
 def _warm_encoder(lanes):
+    """An encoder past its IDR step, and the lanes of its first P step."""
     cfg, run, frames = chip_smoke.main_path_setup()
     enc = GopBandEncoder(cfg, n_gop=lanes)
     enc.encode_step(chip_smoke.lane_frames(frames, 0, lanes), run)
@@ -117,11 +118,11 @@ def launch_counts():
     enc._stage = traced
     enc.encode_step(frames, run)
     cfg = enc.config
-    for name, slope in (("select", 2), ("deblock", 1)):
-        n_diag = wavefront.make_plan(cfg.mb_width, cfg.mb_height,
-                                     slope).steps.shape[0]
-        out[name].update(diagonals=n_diag,
-                         ops_per_diagonal=out[name]["device_ops"] / n_diag)
+    n_diag = wavefront.make_plan(cfg.mb_width, cfg.mb_height,
+                                 1).steps.shape[0]
+    out["deblock"].update(diagonals=n_diag,
+                          ops_per_diagonal=out["deblock"]["device_ops"]
+                          / n_diag)
     return out
 
 
@@ -220,7 +221,7 @@ def main() -> int:
     k1 = k1_timing(args.k1_baseline)      # first: a fresh profiler
     scaling = lane_scaling()
     for lanes, r in scaling.items():
-        print(f"{size} x {lanes:2d} lanes [{card}]: step "
+        print(f"{size} P step x {lanes:2d} lanes [{card}]: step "
               f"{r['step_ms']:.1f} ms; " + ", ".join(
                   f"{k} {v:.1f}" for k, v in r["stages_ms"].items()))
     counts = launch_counts()
@@ -228,7 +229,7 @@ def main() -> int:
         untraced = scaling[1]["stages_ms"][name]
         per_diag = (f", {r['ops_per_diagonal']:.1f} per diagonal of "
                     f"{r['diagonals']}" if "diagonals" in r else "")
-        print(f"{size} x 1 lane [{card}]: {name:8s} "
+        print(f"{size} P step x 1 lane [{card}]: {name:8s} "
               f"{r['device_ops']:8d} device ops{per_diag}; busy "
               f"{r['busy_ms']:.1f} ms of {untraced:.1f} ms untraced")
     result.update(lane_scaling=scaling, launches_1_lane=counts)
