@@ -24,7 +24,21 @@ Phases (any failure exits non-zero; nothing is caught):
      equal; the main path must have launched K1;
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1;
-  6. print the kernels line (JSON), then the result line (JSON).
+  6. the sequential path, the CLI's default: H264Encoder at 1920x1088,
+     chessboard, QP 33, GOP 20, encode_speed 0 (partitions, Intra_4x4 in
+     P through the wavefront with the inter candidate): an IDR (untimed,
+     first use), one P frame timed without synchronization inside it
+     (seconds per frame, frames/s) and one P frame with per-stage times;
+     the main path must have launched K1;
+  7. hold K1 against the plain packer on that P frame's (1, 8160, 952)
+     grid, at its capacity and at 1024 words;
+  8. card bytes against CPU bytes at 352x288 (CIF): H264Encoder at speed
+     0 (IDR, P, P) and at speed 10 (full-pel, deblocking off: IDR, P), and
+     a 2-lane GopBandEncoder at speed 1 (IDR, P);
+  9. the CLI on the card (`h264lab_tpu_torch.cli.main`, --gen 352x288,
+     3 frames, --psnr): it must return 0 and write a stream that starts
+     with an SPS;
+  10. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -35,6 +49,7 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -45,6 +60,8 @@ TIMED_STEPS = 4
 STEPS = 2 + TIMED_STEPS + 3          # the main path's steps
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 SYNTH_SEED = 7
+SEQ_SPEED = 0                    # the CLI's default encode speed
+CIF = (352, 288)
 
 
 def _require(ok: bool, what: str):
@@ -157,10 +174,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from h264lab_tpu_torch.config import FrameType
+    from h264lab_tpu_torch import cli
+    from h264lab_tpu_torch.config import EncoderConfig, FrameType
+    from h264lab_tpu_torch.models.encoder import H264Encoder
     from h264lab_tpu_torch.ops import bitpack
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
+    from h264lab_tpu_torch.utils.synthetic import chessboard_sequence
 
     # 1. the card
     card = card_label()
@@ -283,17 +303,110 @@ def main() -> int:
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
 
-    # 6. results: K1's line holds the P grid (19 of 20 frames of a GOP)
-    p, i = numbers["P"], numbers["IDR"]
+    # 6. the sequential path: H264Encoder, 1080p, speed 0
+    del enc
+    torch.cuda.empty_cache()
+    seq_frames = list(chessboard_sequence(WIDTH, HEIGHT, 3))
+    seq = H264Encoder(cfg)
+    seq_run = dataclasses.replace(run, encode_speed=SEQ_SPEED)
+    torch.cuda.reset_peak_memory_stats()
+    bitpack.LAUNCH_COUNTS["bitpack"] = 0
+
+    def seq_frame(t, kind):
+        t0 = time.perf_counter()
+        p = seq.encode_async(*seq_frames[t], seq_run)
+        res = seq.finish(p)
+        s = time.perf_counter() - t0
+        _require(res.frame_type == kind and len(res.payload) > 0,
+                 f"sequential frame {t} is {res.frame_type}, not {kind}")
+        return p, res, s
+
+    _, res, s = seq_frame(0, "IDR")
+    print(f"sequential speed {SEQ_SPEED}: IDR (untimed, first use) {s:.2f} s, "
+          f"{len(res.payload)} B")
+    _, res, t_seq = seq_frame(1, "P")
+    print(f"sequential speed {SEQ_SPEED} P frame {label}: {t_seq:.3f} s per "
+          f"frame, {1 / t_seq:.4f} frames/s ({len(res.payload)} B)")
+    seq.stage_times = {}
+    seq_pending, res, s = seq_frame(2, "P")
+    print(f"sequential P stage frame {label}: {s:.3f} s")
+    for k, v in seq.stage_times.items():
+        print(f"  stage {k:8s} {1e3 * v:10.1f} ms {label}")
+    print(f"  bytes: {len(res.payload)}; peak device memory of the "
+          f"sequential path {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    seq.stage_times = None
+    seq_launches = bitpack.LAUNCH_COUNTS["bitpack"]
+    print(f"K1 launches in the sequential path's 3 frames: {seq_launches}")
+    _require(seq_launches >= 3, "the sequential path did not launch K1 on "
+             "every frame")
+
+    # 7. K1 against the plain packer on the sequential P frame's grid
+    vals, lens = seq_pending.out["sym_vals"], seq_pending.out["sym_lens"]
+    cap = seq_pending.out["cap_words"]
+    print(f"sequential P symbol grid {tuple(vals.shape)}, cap_words {cap}")
+    err, nk = check_k1(vals, lens, (cap, 1024), "sequential P grid")
+    max_err = max(max_err, err)
+    numbers["seq"] = n = k1_numbers(vals, lens, cap, nk)
+    print(f"  K1 on the sequential P grid {label}: {n['ms']:.3f} ms (plain "
+          f"{n['plain_ms']:.3f} ms, bound {n['bound_ms']:.3f} ms for "
+          f"{n['moved'] / 1e9:.3f} GB, {100 * n['bound_ms'] / n['ms']:.0f}% "
+          f"of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
+    del seq, seq_pending, vals, lens
+    torch.cuda.empty_cache()
+
+    # 8. card bytes against CPU bytes at CIF
+    t0 = time.perf_counter()
+    cif_frames = list(chessboard_sequence(*CIF, 3))
+    cif = EncoderConfig(width=CIF[0], height=CIF[1], gop=GOP, qp=QP)
+    for speed, n_frames in ((0, 3), (10, 2)):
+        r = dataclasses.replace(run, encode_speed=speed)
+        on_card, on_cpu = H264Encoder(cif), H264Encoder(cif, device="cpu")
+        for t in range(n_frames):
+            a = on_card.encode(*cif_frames[t], r)
+            b = on_cpu.encode(*cif_frames[t], r)
+            _require(a.payload == b.payload, f"CIF speed {speed} frame {t}: "
+                     "card bytes differ from CPU bytes")
+            print(f"CIF H264Encoder speed {speed} frame {t} ({a.frame_type}):"
+                  f" card bytes == CPU bytes ({len(a.payload)} B)")
+    r = dataclasses.replace(run, encode_speed=1)
+    on_card = GopBandEncoder(cif, n_gop=2)
+    on_cpu = GopBandEncoder(cif, n_gop=2, device="cpu")
+    for t in range(2):
+        lanes = [cif_frames[t], cif_frames[t + 1]]
+        for a, b in zip(on_card.encode_step(lanes, r),
+                        on_cpu.encode_step(lanes, r)):
+            _require(a.payload == b.payload, f"CIF GOP lanes step {t}: card "
+                     "bytes differ from CPU bytes")
+        print(f"CIF GopBandEncoder 2 lanes speed 1 step {t} "
+              f"({a.frame_type}): card bytes == CPU bytes")
+    print(f"  CIF comparisons {time.perf_counter() - t0:.1f} s")
+
+    # 9. the CLI on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.264")
+        rc = cli.main(["--gen", "--size", f"{CIF[0]}x{CIF[1]}", "--maxframes",
+                       "3", "--psnr", "--output", out])
+        with open(out, "rb") as f:
+            head = f.read(5)
+    _require(rc == 0 and head[:4] == b"\x00\x00\x00\x01"
+             and head[4] & 0x1F == 7, "the CLI did not write an SPS first")
+    print("CLI on the card: exit 0, the stream starts with an SPS")
+
+    # 10. results: K1's line holds the GOP path's P grid (19 of 20 frames
+    # of a GOP); its launches count both paths
+    p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     kernels = [dict(
         name="bitpack", route="cuda",
         source="h264lab_tpu_torch/csrc/bitpack.cu",
         replaces="h264lab_tpu/ops/bitpack.py:152",
-        launches=launches, equal=True, max_abs_err=max_err,
+        launches=launches + seq_launches, equal=True, max_abs_err=max_err,
         ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
         bound_by="bytes", library_ms=None, grid="P step",
         idr_ms=i["ms"], idr_plain_ms=i["plain_ms"],
-        idr_bound_ms=i["bound_ms"])]
+        idr_bound_ms=i["bound_ms"], gop_launches=launches,
+        seq_launches=seq_launches, seq_ms=q["ms"], seq_plain_ms=q["plain_ms"],
+        seq_bound_ms=q["bound_ms"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,12 @@ imports torch and numpy, never jax and nothing of `h264lab_tpu`; the
 numpy-only modules it needs (configuration, spec tables, bitstream
 writers, rate control) are its own copies.
 
-Implemented so far: GOP-lane encoding (`parallel.gop.GopBandEncoder`)
-of IDR, I and P frames, P frames with the speed 2-7 toolset, with the
-bit-pack stage as a CUDA kernel (`ops/bitpack.py`, `csrc/bitpack.cu`).
-Entry points run on the CUDA card unless the caller passes
-`device="cpu"`.
+Implemented so far: the sequential encoder (`H264Encoder`, and its
+command line `python -m h264lab_tpu_torch.cli`) at every encode speed,
+and GOP-lane encoding (`parallel.gop.GopBandEncoder`) of IDR, I and P
+frames at speeds 0 to 7 and 9, with the bit-pack stage as a CUDA kernel
+(`ops/bitpack.py`, `csrc/bitpack.cu`). Entry points run on the CUDA card
+unless the caller passes `device="cpu"`.
 """
 
 from h264lab_tpu_torch.config import (
@@ -21,5 +22,7 @@ from h264lab_tpu_torch.config import (
     RunConfig,
     SpeedPreset,
 )
+from h264lab_tpu_torch.models.encoder import FrameResult, H264Encoder
 
-__all__ = ["EncoderConfig", "FrameType", "RunConfig", "SpeedPreset"]
+__all__ = ["EncoderConfig", "FrameResult", "FrameType", "H264Encoder",
+           "RunConfig", "SpeedPreset"]

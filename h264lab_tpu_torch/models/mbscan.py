@@ -1,16 +1,19 @@
-"""Macroblock engine: motion search, inter transform and the fully parallel
-P mode selection; the slope-2 wavefront mode selection of I slices
-(Intra_16x16, Intra_4x4, chroma); CAVLC symbolization of I and P slices;
-in-loop deblocking.
+"""Macroblock engine: motion search, partition search, inter transform
+and the fully parallel P mode selection; the slope-2 wavefront mode
+selection of I slices and of P slices with Intra_4x4 (Intra_16x16,
+Intra_4x4 and chroma, with the inter candidate in P); CAVLC symbolization
+of I and P slices, with per-MB-row QPs through `mb_qp_delta`; in-loop
+deblocking.
 
-PyTorch counterpart of `h264lab_tpu/models/mbscan.py` for the speed-2
-toolset: I slices through the wavefront, P slices through the fully
-parallel path (qpel ME, 16x16 partitions only, no Intra_4x4 in P).
-Every function takes a leading frame axis N (the GOP lanes times the
-slice bands, which JAX vmapped over) followed by the per-frame MB axis;
-per-frame QPs are (N,) int tensors. Within a wavefront step all live MBs
-of all N frames form one flat batch; the parallel stages run over all
-N * nmb MBs at once.
+PyTorch counterpart of `h264lab_tpu/models/mbscan.py` with every P
+toolset of the JAX stages: partitions (speed 0), Intra_4x4 in P through
+the wavefront (speeds 0 and 1), quarter-pel ME (below 9), and the fully
+parallel P path without Intra_4x4 (speed 2 and up). Every function takes
+a leading frame axis N (the GOP lanes times the slice bands, which JAX
+vmapped over) followed by the per-frame MB axis; QPs are (N,) int tensors
+or, for per-row fine rate control, (N, mb_height). Within a wavefront
+step all live MBs of all N frames form one flat batch; the parallel
+stages run over all N * nmb MBs at once.
 
 Form differences from the JAX module, none of them in the result:
 - the wavefront `lax.scan` is a Python loop over the diagonals; plan
@@ -24,7 +27,7 @@ Form differences from the JAX module, none of them in the result:
   it keeps the same slope-1 order with the V pass of a whole diagonal
   before its H pass, which is what makes the result equal the spec's
   raster order;
-- the skip-run `associative_scan(max)` is `torch.cummax`.
+- the skip-run and dQP-run `associative_scan(max)` are `torch.cummax`.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ from h264lab_tpu_torch.ops.tuning import (I4_PENALTY_BITS, INTER_DEADZONE_Q8,
                                           INTER_ZERO_THR2_Q8,
                                           INTER_ZERO_THR_Q8,
                                           INTRA_DEADZONE_Q8,
-                                          INTRA_IN_P_PENALTY_BITS)
+                                          INTRA_IN_P_PENALTY_BITS,
+                                          PART_16X8_PENALTY_BITS,
+                                          PART_8X8_PENALTY_BITS)
 
 SEL_INTER, SEL_I16, SEL_I4 = 0, 1, 2
 I32 = torch.int32
@@ -87,6 +92,20 @@ def _per_item(x: torch.Tensor, k: int) -> torch.Tensor:
 def _frames(x: torch.Tensor, n: int, nmb: int) -> torch.Tensor:
     """(N*nmb, ...) per-MB values -> (N, nmb, ...)."""
     return x.reshape((n, nmb) + x.shape[1:])
+
+
+def _qp_views(qp, qpc, n: int, nmb: int, mb_width: int, dev):
+    """Per-frame (N,) or per-MB-row (N, mb_height) QPs -> (qp0, qp_k,
+    qpc_k): qp0 (N,) the QP of each frame's first row, which the ME and
+    mode-decision lambdas take, and (N * nmb,) per-MB QPs for the
+    quantizers."""
+    qp = torch.as_tensor(qp, dtype=I32, device=dev)
+    qpc = torch.as_tensor(qpc, dtype=I32, device=dev)
+    if qp.ndim == 2:
+        return (qp[:, 0], qp.repeat_interleave(mb_width, 1).reshape(-1),
+                qpc.repeat_interleave(mb_width, 1).reshape(-1))
+    qp, qpc = qp.reshape(n), qpc.reshape(n)
+    return qp, _per_item(qp, nmb), _per_item(qpc, nmb)
 
 
 def _encode_luma_i16(src, pred, qp):
@@ -157,20 +176,22 @@ def _encode_inter_luma(src, pred, qp):
 
 def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
                      mb_row_offset, prev_my, prev_mx, mb_width: int,
-                     mb_height: int):
-    """ME + MC + inter TQ of N P frames/bands with the speed 2-7 toolset
-    (16x16 partitions, quarter-pel).
+                     mb_height: int, enable_partitions: bool = False,
+                     enable_qpel: bool = True):
+    """ME + MC + inter TQ of N P frames/bands: the 16x16 search, quarter-
+    pel unless `enable_qpel` is off (speeds 9 and 10), and with
+    `enable_partitions` (speed 0, quarter-pel only) the 16x8 / 8x16 / 8x8
+    search, the shape chosen per MB on cost plus its side-info penalty.
 
     src_*_mb (N, nmb, t, t) uint8; ref: the lanes' reference planes
     (`refstate.prepare_reference`: y_pad, u_pad, v_pad, y4_pad, leading
-    axis L); lane, qp, qpc, mb_row_offset (N,): each band's reference lane,
-    QPs and first MB row in the lane's frame; prev_my/prev_mx (N, nmb)
-    full-pel previous MVs or None."""
+    axis L); lane, mb_row_offset (N,): each band's reference lane and
+    first MB row in the lane's frame; qp, qpc (N,) or per MB row (N,
+    mb_height); prev_my/prev_mx (N, nmb) full-pel previous MVs or None."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
     K = N * nmb
-    qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
-    qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N)
+    qp, qp_k, qpc_k = _qp_views(qp, qpc, N, nmb, mb_width, dev)
     lane = torch.as_tensor(lane, device=dev).reshape(N)
     row0 = torch.as_tensor(mb_row_offset, dtype=I32, device=dev).reshape(N)
     idx = torch.arange(nmb, dtype=I32, device=dev)
@@ -183,19 +204,58 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
                  .reshape(N, mb_height * 16, mb_width * 16))
     mv_y, mv_x, cost16, pred16, aux = me.motion_search_dense(
         cur_plane, src_y_mb, ref["y_pad"], ref["y4_pad"], lane, base_y,
-        base_x, qp, mb_height, mb_width, row0, prev_my, prev_mx)
-    mv4_y = mv_y[..., None, None].expand(N, nmb, 4, 4)
-    mv4_x = mv_x[..., None, None].expand(N, nmb, 4, 4)
+        base_x, qp, mb_height, mb_width, row0, prev_my, prev_mx,
+        enable_subpel=enable_qpel)
+    mv4_y = mv_y.reshape(K, 1, 1).expand(K, 4, 4)
+    mv4_x = mv_x.reshape(K, 1, 1).expand(K, 4, 4)
+    shape = torch.zeros((K,), dtype=I32, device=dev)
+    inter_cost = cost16.reshape(K)
+    pred_y = pred16.reshape(K, 16, 16)
+    lane_k = _per_item(lane, nmb)
+    cb_y = (qpel.GUARD // 2 + 8 * (rr[None] + row0[:, None])).reshape(K)
+    cb_x = (qpel.GUARD // 2 + 8 * cc).repeat(N)
+    partitions = enable_partitions and enable_qpel
+    if partitions:
+        lam_k = _per_item(lambda_me(qp), nmb)
+        ps = me.partition_search(
+            src_y_mb.reshape(K, 16, 16), dict(wins=aux["wins"], **{
+                k: aux[k].reshape(K)
+                for k in ("full_my", "full_mx", "mvp_y", "mvp_x")}), lam_k)
+        costs = torch.stack([
+            inter_cost,
+            ps["cost16x8"] + lam_k * PART_16X8_PENALTY_BITS,
+            ps["cost8x16"] + lam_k * PART_16X8_PENALTY_BITS,
+            ps["cost8x8"] + lam_k * PART_8X8_PENALTY_BITS], dim=1)
+        inter_cost, shape = costs.min(dim=1)
+        shape = shape.to(I32)
+        # per-4x4-block MV grids of each shape: block row / column halves
+        # and the raster 8x8 quadrants
+        half = torch.tensor([0, 0, 1, 1], device=dev)
+        quad = torch.tensor([[0, 0, 1, 1], [0, 0, 1, 1], [2, 2, 3, 3],
+                             [2, 2, 3, 3]], device=dev)
+        sh = shape[:, None, None]
 
-    cb_y = qpel.GUARD // 2 + 8 * (rr[None] + row0[:, None])
-    cb_x = (qpel.GUARD // 2 + 8 * cc).expand(N, nmb)
-    pred_u, pred_v = qpel.mc_chroma_uniform(
-        ref["u_pad"], ref["v_pad"], _per_item(lane, nmb),
-        cb_y.reshape(K), cb_x.reshape(K), aux["full_my"].reshape(K),
-        aux["full_mx"].reshape(K), mv_y.reshape(K), mv_x.reshape(K))
-    qp_k, qpc_k = _per_item(qp, nmb), _per_item(qpc, nmb)
+        def grid(c, m4):
+            m168 = ps["mv16x8"][:, half, c][:, :, None].expand(K, 4, 4)
+            m816 = ps["mv8x16"][:, half, c][:, None, :].expand(K, 4, 4)
+            m88 = ps["mv8x8"][:, quad, c]
+            return torch.where(sh == 1, m168, torch.where(
+                sh == 2, m816, torch.where(sh == 3, m88, m4)))
+        mv4_y, mv4_x = grid(0, mv4_y), grid(1, mv4_x)
+        pred_y = torch.where(sh == 1, ps["pred16x8"], torch.where(
+            sh == 2, ps["pred8x16"], torch.where(
+                sh == 3, ps["pred8x8"], pred_y.to(I32)))).to(torch.uint8)
+        # one MV per 4x4 block: the general chroma MC
+        pred_u, pred_v = (qpel.mc_chroma_grid(ref[p], lane_k, mv4_y, mv4_x,
+                                              cb_y, cb_x)
+                          for p in ("u_pad", "v_pad"))
+    else:
+        pred_u, pred_v = qpel.mc_chroma_uniform(
+            ref["u_pad"], ref["v_pad"], lane_k, cb_y, cb_x,
+            aux["full_my"].reshape(K), aux["full_mx"].reshape(K),
+            mv_y.reshape(K), mv_x.reshape(K))
     lev_inter, recon_y = _encode_inter_luma(
-        src_y_mb.reshape(K, 16, 16), pred16.reshape(K, 16, 16), qp_k)
+        src_y_mb.reshape(K, 16, 16), pred_y, qp_k)
     # u and v batched through one chroma TQ
     cdc, cac, recon_uv = _encode_chroma(
         torch.cat([src_u_mb.reshape(K, 8, 8), src_v_mb.reshape(K, 8, 8)]),
@@ -204,9 +264,9 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
 
     def frames(x):
         return _frames(x, N, nmb)
-    return dict(mv_y=mv_y, mv_x=mv_x, mv4_y=mv4_y, mv4_x=mv4_x,
-                shape=torch.zeros((N, nmb), dtype=I32, device=dev),
-                inter_cost=cost16, lev_inter=frames(lev_inter),
+    return dict(mv_y=mv_y, mv_x=mv_x, mv4_y=frames(mv4_y),
+                mv4_x=frames(mv4_x), shape=frames(shape),
+                inter_cost=frames(inter_cost), lev_inter=frames(lev_inter),
                 recon_y_inter=frames(recon_y),
                 recon_u_inter=frames(recon_uv[:K]),
                 recon_v_inter=frames(recon_uv[K:]),
@@ -221,19 +281,27 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
 
 def select_stage_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
                       avail_top, avail_left, inter, mb_width: int,
-                      mb_height: int):
+                      mb_height: int, enable_i4x4: bool = False):
     """Mode selection + intra encode of N frames/bands.
 
-    src_*_mb (N, nmb, t, t) uint8; qp/qpc (N,) int; steps: the slope-2
-    `wavefront.make_plan` steps (I slices); avail_top/avail_left (nmb,)
-    bool; inter: `inter_stage_core`'s output (P slices) or None (I
-    slices). P slices take the fully parallel path without Intra_4x4, I
-    slices the wavefront with Intra_4x4 on. Returns the JAX stage's dict,
+    src_*_mb (N, nmb, t, t) uint8; qp/qpc (N,) int, or per MB row (N,
+    mb_height) on the parallel P path only; steps: the slope-2
+    `wavefront.make_plan` steps; avail_top/avail_left (nmb,) bool; inter:
+    `inter_stage_core`'s output (P slices) or None (I slices). I slices
+    take the wavefront with Intra_4x4; P slices take it too, with the
+    inter candidate, when `enable_i4x4` (speeds 0 and 1), and else the
+    fully parallel path without Intra_4x4. Returns the JAX stage's dict,
     each entry with the leading N axis; MVs of intra MBs are zero."""
-    if inter is None:
+    if torch.as_tensor(qp).ndim == 2 and (inter is None or enable_i4x4):
+        raise NotImplementedError(
+            "per-row QP requires the fully-parallel P path "
+            "(encode_speed >= 2)")
+    if inter is None or enable_i4x4:
         out = _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
-                                steps, avail_top, avail_left, mb_width)
-        inter = _inter_dummies(*src_y_mb.shape[:2], src_y_mb.device)
+                                steps, avail_top, avail_left, mb_width,
+                                inter)
+        if inter is None:
+            inter = _inter_dummies(*src_y_mb.shape[:2], src_y_mb.device)
     else:
         out = _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
                                  avail_top, avail_left, inter, mb_width)
@@ -270,13 +338,11 @@ def _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
     K = N * nmb
-    qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
-    qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N)
+    qp0, qp_k, qpc_k = _qp_views(qp, qpc, N, nmb, mb_width, dev)
     at = torch.as_tensor(avail_top, device=dev).bool()
     al = torch.as_tensor(avail_left, device=dev).bool()
     at_k, al_k = at.repeat(N), al.repeat(N)
-    qp_k, qpc_k = _per_item(qp, nmb), _per_item(qpc, nmb)
-    lam_k = lambda_me(qp_k)
+    lam_k = _per_item(lambda_me(qp0), nmb)
     ry, ru, rv = (inter[k] for k in ("recon_y_inter", "recon_u_inter",
                                      "recon_v_inter"))
 
@@ -358,14 +424,19 @@ def _wave_steps(steps, avail_top, avail_left, mb_width: int, device):
 
 
 def _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
-                      steps, avail_top, avail_left, mb_width: int):
-    """The slope-2 wavefront of I slices (Intra_16x16, Intra_4x4, chroma)
-    over N frames/bands; no inter candidate."""
+                      steps, avail_top, avail_left, mb_width: int,
+                      inter=None):
+    """The slope-2 wavefront (Intra_16x16, Intra_4x4, chroma) over N
+    frames/bands: of I slices, or of P slices with the inter candidate of
+    `inter` (its cost and recon; both intra costs then carry
+    INTRA_IN_P_PENALTY_BITS, and inter wins ties)."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
     qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
     qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N)
     lam = lambda_me(qp)
+    pen = lam * INTRA_IN_P_PENALTY_BITS if inter is not None \
+        else torch.zeros_like(lam)
 
     def buf(shape, dtype=I32):
         return torch.empty((N, nmb) + shape, dtype=dtype, device=dev)
@@ -392,7 +463,8 @@ def _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
         Et, El, Etl, Etr = (gather(E, idx[j]) for j in range(1, 5))
         a_top, a_left, a_tl, a_tr = (a.repeat(N) for a in avail)
         src_y = gather(src_y_mb, cidx)
-        qpk, qpck, lamk = (_per_item(x, k) for x in (qp, qpc, lam))
+        qpk, qpck, lamk, penk = (_per_item(x, k)
+                                 for x in (qp, qpc, lam, pen))
         top_row = Et[:, _E_BOT_Y]
         left_col = El[:, _E_RIGHT_Y]
 
@@ -424,13 +496,21 @@ def _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
         cdc_c, cac_c, rec_c = _encode_chroma(
             src_c, pred_c, torch.cat([qpck, qpck]), INTRA_DEADZONE_Q8)
 
-        # selection over (inter, I16, I4); no inter candidate here
-        costs = torch.stack([torch.full_like(cost16, INVALID_COST),
-                             cost16, cost4], dim=1)
+        # selection over (inter, I16, I4); the first minimum wins ties
+        inter_cost = (gather(inter["inter_cost"], cidx) if inter is not None
+                      else torch.full_like(cost16, INVALID_COST))
+        costs = torch.stack([inter_cost, cost16 + penk, cost4 + penk], dim=1)
         sel = costs.argmin(dim=1).to(I32)
         is_i4 = sel == SEL_I4
         rec_y = torch.where(is_i4[:, None, None], i4["recon"], rec_y16)
         rec_u, rec_v = rec_c[:K], rec_c[K:]
+        if inter is not None:
+            is_inter = (sel == SEL_INTER)[:, None, None]
+            rec_y, rec_u, rec_v = (
+                torch.where(is_inter, gather(inter[name], cidx), rec)
+                for name, rec in (("recon_y_inter", rec_y),
+                                  ("recon_u_inter", rec_u),
+                                  ("recon_v_inter", rec_v)))
         em_b = torch.where(is_i4[:, None], i4["modes"][:, 12:16], 2)
         em_r = torch.where(is_i4[:, None], i4["modes"][:, 3::4], 2)
         ac_store = torch.where(is_i4[:, None, None, None, None],
@@ -504,7 +584,10 @@ def _frame_bs(sel, nnz_blk, mv4_y, mv4_x, avail_top, avail_left,
 def deblock_frame(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
                   qp, qpc, avail_top, avail_left,
                   mb_width: int, mb_height: int):
-    """In-loop deblocking of N frames/bands at per-frame (N,) QPs.
+    """In-loop deblocking of N frames/bands at per-frame (N,) QPs, or at
+    per-MB (N, nmb) decoded QPs (`mb_qp_delta`): then an MB edge takes
+    the two MBs' average QP and the inner edges the MB's own (spec
+    8.7.2.1), chroma likewise from the per-MB chroma QPs.
 
     bS is derived in parallel; the filter walks slope-1 diagonals and runs
     the V pass of the whole diagonal before its H pass: the one raster
@@ -514,8 +597,22 @@ def deblock_frame(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
     N, nmb = sel.shape
     dev = sel.device
     mbh, mbw = mb_height, mb_width
-    qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
-    qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N)
+    qp = torch.as_tensor(qp, dtype=I32, device=dev)
+    qpc = torch.as_tensor(qpc, dtype=I32, device=dev)
+    per_mb = qp.ndim == 2
+    if per_mb:
+        def edge_qps(q, n_edges):
+            """(N, nmb) -> per MB and edge QPs for V and H, (N, nmb, e)."""
+            q2 = q.reshape(N, mbh, mbw)
+            left = torch.cat([q2[:, :, :1], q2[:, :, :-1]], dim=2)
+            top = torch.cat([q2[:, :1], q2[:, :-1]], dim=1)
+            inner = q[..., None].expand(N, nmb, n_edges - 1)
+            return [torch.cat([((q2 + nb + 1) >> 1).reshape(N, nmb, 1),
+                               inner], dim=2) for nb in (left, top)]
+        qv, qh = edge_qps(qp, 4)
+        qcv, qch = edge_qps(qpc, 2)
+    else:
+        qp, qpc = qp.reshape(N), qpc.reshape(N)
     bs_v, bs_h = _frame_bs(sel, nnz_blk, mv4_y, mv4_x, avail_top,
                            avail_left, mb_width, mb_height)
     # MB tiles with one zero MB row above and column to the left: the
@@ -539,27 +636,34 @@ def deblock_frame(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
         K = N * k
         bv = bs_v[:, mbi].reshape(K, 4, 4)
         bh = bs_h[:, mbi].reshape(K, 4, 4)
-        qk, qck = _per_item(qp, k), _per_item(qpc, k)
+        if per_mb:
+            qkv, qkh, qckv, qckh = (x[:, mbi].reshape(K, -1)
+                                    for x in (qv, qh, qcv, qch))
+        else:
+            qkv = qkh = _per_item(qp, k)
+            qckv = qckh = _per_item(qpc, k)
         r1, c1 = r + 1, c + 1
 
         # luma V: 4 left columns from the left neighbour
         strip = torch.cat([ty[:, r1, c, :, 12:16], ty[:, r1, c1]], dim=-1)
-        deblock.filter_luma_v(strip.view(K, 16, 20), bv, qk, edge_x0=4)
+        deblock.filter_luma_v(strip.view(K, 16, 20), bv, qkv, edge_x0=4)
         ty[:, r1, c, :, 13:16] = strip[..., 1:4]
         ty[:, r1, c1] = strip[..., 4:20]
         # luma H: 4 top rows from the top neighbour (after the V writes)
         strip = torch.cat([ty[:, r, c1, 12:16, :], ty[:, r1, c1]], dim=-2)
-        deblock.filter_luma_h(strip.view(K, 20, 16), bh, qk, edge_y0=4)
+        deblock.filter_luma_h(strip.view(K, 20, 16), bh, qkh, edge_y0=4)
         ty[:, r, c1, 13:16, :] = strip[..., 1:4, :]
         ty[:, r1, c1] = strip[..., 4:20, :]
 
         # chroma, u and v on a plane axis
         strip = torch.cat([tc[:, r1, c, :, :, 6:8], tc[:, r1, c1]], dim=-1)
-        deblock.filter_chroma_v(strip.view(K, 2, 8, 10), bv, qck, edge_x0=2)
+        deblock.filter_chroma_v(strip.view(K, 2, 8, 10), bv, qckv,
+                                edge_x0=2)
         tc[:, r1, c, :, :, 7:8] = strip[..., 1:2]
         tc[:, r1, c1] = strip[..., 2:10]
         strip = torch.cat([tc[:, r, c1, :, 6:8, :], tc[:, r1, c1]], dim=-2)
-        deblock.filter_chroma_h(strip.view(K, 2, 10, 8), bh, qck, edge_y0=2)
+        deblock.filter_chroma_h(strip.view(K, 2, 10, 8), bh, qckh,
+                                edge_y0=2)
         tc[:, r, c1, :, 7:8, :] = strip[..., 1:2, :]
         tc[:, r1, c1] = strip[..., 2:10, :]
 
@@ -710,14 +814,21 @@ _N_PARTS = (1, 2, 2, 4)
 
 def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
               dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev, mb_width: int,
-              mb_height: int, has_inter: bool):
+              mb_height: int, has_inter: bool, qp_rows=None):
     """CAVLC + syntax symbol assembly of N I or P slices.
+
+    `qp_rows` ((N, mb_height) or None): a per-MB-row QP plan; every MB
+    that carries `mb_qp_delta` codes the step from the running QP (spec
+    7.4.5), where without a plan it codes se(0).
 
     Returns dict(sym_vals (N, nmb, 952) int32 (uint32 bit patterns),
     sym_lens (N, nmb, 952) int32, tail_val/tail_len (N,) (the trailing
     skip run of a P slice, appended after the MB bits), total_bits (N,)
-    int32, tail included). The unit layout is the JAX module's: unit 0 =
-    34 MB-header slots, units 1..27 = the CAVLC blocks in decode order."""
+    int32, tail included, row_bits (N, mb_height) the MB bits of each row,
+    and with a plan qp_dec (N, nmb): each MB's decoded running QP, which
+    deblocking takes; an MB without `mb_qp_delta` keeps the running QP).
+    The unit layout is the JAX module's: unit 0 = 34 MB-header slots,
+    units 1..27 = the CAVLC blocks in decode order."""
     N, nmb = sel.shape
     dev = sel.device
     ns = cavlc.N_SLOTS
@@ -868,16 +979,40 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
                                         cbp_code_t[cbp_c, 1]))
     zero1 = torch.zeros((N, nmb, 1), dtype=I32, device=dev)
     one1 = torch.ones((N, nmb, 1), dtype=I32, device=dev)
+
+    # mb_qp_delta: se(0) = '1' without a row plan; with one, the step from
+    # the QP of the last MB before this one that carried a dQP
+    dqp_needed = coded & (is_i16 | (cbp != 0))
+    qp_dec = None
+    if qp_rows is None:
+        dqp_v = one1[..., 0]
+        dqp_l = dqp_needed.to(I32)
+    else:
+        qp_rows = torch.as_tensor(qp_rows, dtype=I32, device=dev)
+        qp_mb = qp_rows.repeat_interleave(mb_width, 1)           # (N, nmb)
+        idx = torch.arange(nmb, device=dev).expand(N, nmb)
+        run_idx = torch.cummax(torch.where(dqp_needed, idx, -1),
+                               dim=1).values
+        prev_run = torch.cat([torch.full_like(run_idx[:, :1], -1),
+                              run_idx[:, :-1]], dim=1)
+
+        def running(i):
+            return torch.where(i >= 0, qp_mb.gather(1, i.clamp(min=0)),
+                               qp_rows[:, :1])
+        dqp_v, dqp_l = _se_codes(qp_mb - running(prev_run))
+        dqp_l = torch.where(dqp_needed, dqp_l, 0)
+        qp_dec = running(run_idx)
+
     hdr_vals = torch.cat([
         sr_v[..., None], zero1, mt_v[..., None], one1.expand(N, nmb, 4),
-        mvd_vals, i4sym_v.to(I32), cm_v[..., None], cbpv[..., None], one1],
-        dim=2)
+        mvd_vals, i4sym_v.to(I32), cm_v[..., None], cbpv[..., None],
+        dqp_v[..., None]], dim=2)
     hdr_lens = torch.cat([
         sr_l[..., None], zero1, mt_l[..., None], sub_l, mvd_lens,
         torch.where(is_i4[..., None], i4sym_l, 0).to(I32),
         torch.where(coded & is_intra, cm_l, 0)[..., None],
         torch.where(coded & (is_inter | is_i4), cbpl_, 0)[..., None],
-        (coded & (is_i16 | (cbp != 0))).to(I32)[..., None]], dim=2)
+        dqp_l[..., None]], dim=2)
 
     sym_vals = torch.cat([
         hdr_vals, dc_vals.reshape(N, nmb, ns),
@@ -889,6 +1024,12 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
         luma_lens[:, :, blk_scan].reshape(N, nmb, 16 * ns),
         cdc_lens.reshape(N, nmb, 2 * ns), cac_lens.reshape(N, nmb, 8 * ns),
     ], dim=2)
-    return dict(sym_vals=sym_vals, sym_lens=sym_lens,
-                tail_val=tr_v, tail_len=tr_l,
-                total_bits=sym_lens.sum((1, 2), dtype=I32) + tr_l)
+    mb_bits = sym_lens.sum(2, dtype=I32)
+    out = dict(sym_vals=sym_vals, sym_lens=sym_lens,
+               tail_val=tr_v, tail_len=tr_l,
+               total_bits=mb_bits.sum(1, dtype=I32) + tr_l,
+               row_bits=mb_bits.reshape(N, mb_height, mb_width).sum(
+                   2, dtype=I32))
+    if qp_dec is not None:
+        out["qp_dec"] = qp_dec
+    return out

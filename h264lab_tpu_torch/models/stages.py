@@ -1,0 +1,205 @@
+"""The device stages of one encode step, shared by the two encoders.
+
+`H264Encoder` (one frame, cut into B slice bands) and `GopBandEncoder`
+(G lanes of one frame each, every frame cut into B bands) run the same
+stages over a leading axis of N = G * B bands:
+
+  pre      upload the padded planes and tile them into band MB tiles;
+  inter    P frames: motion search, partitions, chroma MC, inter TQ
+           (`mbscan.inter_stage_core`);
+  select   mode selection and intra TQ (`mbscan.select_stage_core`);
+  sym      CAVLC symbolization (`mbscan.symbolize`);
+  deblock  the in-loop filter, or the recon itself at speeds 8 and 10;
+  pack     the bit-pack kernel K1 (`bitpack.pack_frames`);
+  ref      the next reference planes and MV candidates.
+
+In the JAX package these are `mbscan.encode_frame_banded_staged` and
+`parallel/gop.py` `_gop_banded_staged`. `stage_times`, when set to a dict,
+makes each stage synchronize the device and add its wall seconds under
+its name.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from h264lab_tpu_torch.models import mbscan, refstate, wavefront
+from h264lab_tpu_torch.ops import bitpack, tables
+
+
+@dataclasses.dataclass(frozen=True)
+class Toolset:
+    """What an encode speed turns on (the reference's speed presets)."""
+    enable_i4x4: bool          # Intra_4x4 (always on I frames)
+    enable_partitions: bool    # 16x8 / 8x16 / 8x8 inter partitions
+    enable_qpel: bool          # quarter-pel ME (else full-pel)
+    enable_deblock: bool       # in-loop deblocking
+
+    @classmethod
+    def for_speed(cls, encode_speed: int, is_intra: bool) -> "Toolset":
+        return cls(enable_i4x4=is_intra or encode_speed < 2,
+                   enable_partitions=encode_speed < 1,
+                   enable_qpel=encode_speed < 9,
+                   enable_deblock=encode_speed not in (8, 10))
+
+
+def _pad_to(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Edge-replicate (G, h0, w0) planes to (G, h, w) (`wavefront.pad_plane`
+    on the device)."""
+    h0, w0 = planes.shape[-2:]
+    dev = planes.device
+    iy = torch.arange(h, device=dev).clamp(max=h0 - 1)
+    ix = torch.arange(w, device=dev).clamp(max=w0 - 1)
+    return planes.index_select(-2, iy).index_select(-1, ix)
+
+
+class FrameStages:
+    """The stages of one step on `device` for frames of mb_width x
+    mb_height MBs (module docstring)."""
+
+    def __init__(self, device: torch.device, mb_width: int, mb_height: int):
+        self.device = device
+        self.mb_width = mb_width
+        self.mb_height = mb_height
+        self.stage_times = None
+        self._plans = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """Bracket a stage for `torch.profiler` and, with `stage_times`
+        set, time it between device synchronizations."""
+        with torch.profiler.record_function(f"stage:{name}"):
+            if self.stage_times is None:
+                yield
+                return
+            sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                    else (lambda *_: None))
+            sync(self.device)
+            t0 = time.perf_counter()
+            yield
+            sync(self.device)
+            self.stage_times[name] = (self.stage_times.get(name, 0.0)
+                                      + time.perf_counter() - t0)
+
+    def plan(self, band_rows: int):
+        """(steps, avail_top, avail_left) of a band: the slope-2 wavefront
+        plan (Intra_4x4's top-right dependency) and the in-band neighbour
+        availability of each MB."""
+        if band_rows not in self._plans:
+            nmb = band_rows * self.mb_width
+            r = np.arange(nmb) // self.mb_width
+            c = np.arange(nmb) % self.mb_width
+            self._plans[band_rows] = (
+                wavefront.make_plan(self.mb_width, band_rows, 2).steps,
+                r > 0, c > 0)
+        return self._plans[band_rows]
+
+    def run(self, frames, n_bands: int, qp: np.ndarray, ref, prev_mv,
+            tools: Toolset, cap_words: int | None = None) -> dict:
+        """Encode G frames of B = n_bands equal bands each.
+
+        frames: G (y, u, v) uint8 planes, numpy arrays or tensors on the
+        device, at most the padded size (edge-replicated up to it); qp: the
+        (G * B,) band QPs, or a (G * B, band_rows) per-row plan (fine rate
+        control through `mb_qp_delta`, parallel P path only); ref: the
+        lanes' reference planes (`refstate.prepare_reference`, leading G)
+        or None for I frames; prev_mv: the (G * B, nmb_band) full-pel MV
+        candidates (pair) or None; cap_words: the packed capacity of every
+        band, or None to read the bands' bits and pack at the bucket of the
+        largest.
+
+        Returns a dict: per band (leading G * B) words, nbits (the packed
+        bits), mb_bits and tail_val/tail_len (host numpy with cap_words
+        None, else device), row_bits, sym_vals, sym_lens; per lane
+        (leading G) refs (dict), df and recon (3-tuples of (nmb, t, t)
+        tiles, deblocked and not); pmv_y/pmv_x the next step's MV
+        candidates; cap_words."""
+        G, B = len(frames), n_bands
+        dev = self.device
+        mbw = self.mb_width
+        rows = self.mb_height // B
+        N, nmb = G * B, rows * mbw
+        has_inter = ref is not None
+        qp_np = np.asarray(qp, np.int32)
+
+        with self.stage("pre"):
+            src = []
+            for i, t in ((0, 16), (1, 8), (2, 8)):
+                p = torch.stack([
+                    f[i] if isinstance(f[i], torch.Tensor) else
+                    torch.from_numpy(np.ascontiguousarray(f[i], np.uint8))
+                    for f in frames]).to(dev)
+                p = _pad_to(p, self.mb_height * t, mbw * t)
+                # (G, H, W) -> (G*B, nmb, t, t): band rows are contiguous
+                src.append(p.reshape(G, B * rows, t, mbw, t)
+                           .permute(0, 1, 3, 2, 4).reshape(N, nmb, t, t))
+            qpt = torch.as_tensor(qp_np, device=dev)
+            qpc = torch.as_tensor(tables.QPC_FROM_QPY[qp_np], device=dev)
+            lane = torch.arange(G, device=dev).repeat_interleave(B)
+            row0 = (torch.arange(B, dtype=torch.int32, device=dev)
+                    * rows).repeat(G)
+        steps, a_top, a_left = self.plan(rows)
+        inter = None
+        if has_inter:
+            with self.stage("inter"):
+                if prev_mv is None:
+                    z = torch.zeros((N, nmb), dtype=torch.int32, device=dev)
+                    prev_mv = (z, z)
+                inter = mbscan.inter_stage_core(
+                    src[0], src[1], src[2], ref, lane, qpt, qpc, row0,
+                    prev_mv[0], prev_mv[1], mbw, rows,
+                    enable_partitions=tools.enable_partitions,
+                    enable_qpel=tools.enable_qpel)
+        with self.stage("select"):
+            st = mbscan.select_stage_core(
+                src[0], src[1], src[2], qpt, qpc, steps, a_top, a_left,
+                inter, mbw, rows, enable_i4x4=tools.enable_i4x4)
+        del inter                # its recon planes are not needed past here
+        with self.stage("sym"):
+            sym = mbscan.symbolize(
+                st["sel"], st["mode16"], st["cmode"], st["i4sym_v"],
+                st["i4sym_l"], st["mv4_y"], st["mv4_x"], st["shape"],
+                st["dc_lev"], st["ac_lev"], st["lev_inter"], st["cdc_lev"],
+                st["cac_lev"], mbw, rows, has_inter,
+                qp_rows=qpt if qpt.ndim == 2 else None)
+        recon = (st["recon_y"], st["recon_u"], st["recon_v"])
+        if tools.enable_deblock:
+            with self.stage("deblock"):
+                if "qp_dec" in sym:       # the decoded per-MB QPs
+                    qp_db = sym["qp_dec"]
+                    qpc_db = torch.as_tensor(tables.QPC_FROM_QPY,
+                                             device=dev)[qp_db.long()]
+                else:
+                    qp_db, qpc_db = qpt, qpc
+                df = mbscan.deblock_stage_core(
+                    *recon, st["sel"], st["lev_inter"], st["mv4_y"],
+                    st["mv4_x"], qp_db, qpc_db, a_top, a_left, mbw, rows)
+        else:
+            df = recon
+        out = dict(row_bits=sym["row_bits"], sym_vals=sym["sym_vals"],
+                   sym_lens=sym["sym_lens"], tail_val=sym["tail_val"],
+                   tail_len=sym["tail_len"])
+        with self.stage("pack"):
+            if cap_words is None:
+                # one read of every band's bits sizes the bucket
+                bits = torch.stack([sym["total_bits"],
+                                    sym["tail_len"]]).cpu().numpy()
+                out["mb_bits"] = bits[0] - bits[1]
+                out["tail_val"] = sym["tail_val"].cpu().numpy()
+                out["tail_len"] = bits[1]
+                cap_words = bitpack.bucket_words(int(out["mb_bits"].max()))
+            out["words"], out["nbits"] = bitpack.pack_frames(
+                sym["sym_vals"], sym["sym_lens"], cap_words)
+            out["cap_words"] = cap_words
+        with self.stage("ref"):
+            out["refs"], out["df"], out["pmv_y"], out["pmv_x"] = \
+                refstate.ref_stage(*df, st["mv_y"], st["mv_x"], G, mbw,
+                                   self.mb_height)
+            out["recon"] = tuple(x.reshape((G, -1) + x.shape[2:])
+                                 for x in recon)
+        return out

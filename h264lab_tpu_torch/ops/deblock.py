@@ -5,7 +5,10 @@ PyTorch counterpart of `h264lab_tpu/ops/deblock.py`. The edge filters
 update their (k, rows, cols) int32 strip in place (the JAX module returns
 a new array); `filter_*_h` filters a transposed view of the strip.
 
-QP arguments are a 0-d int tensor or one QP per strip (k,).
+QP arguments are a 0-d int tensor, one QP per strip (k,), or one QP per
+strip and edge (k, 4) for luma, (k, 2) for chroma: with per-MB QPs
+(`mb_qp_delta`) an MB edge takes the two MBs' average QP and the inner
+edges the MB's own (spec 8.7.2.1).
 """
 
 from __future__ import annotations
@@ -123,7 +126,7 @@ def filter_luma_v(strip, bs_edges, qp, edge_x0: int = 16):
     qp = torch.as_tensor(qp, device=strip.device)
     for e in range(4):
         bs = bs_edges[:, e].repeat_interleave(4, dim=1)           # (k, 16)
-        alpha, beta, tc0 = _thresholds(qp, bs)
+        alpha, beta, tc0 = _thresholds(qp[:, e] if qp.ndim == 2 else qp, bs)
         _filter_luma_cols(strip, edge_x0 + 4 * e, bs, alpha, beta, tc0)
     return strip
 
@@ -144,7 +147,8 @@ def filter_chroma_v(strip, bs_edges, qpc, edge_x0: int = 8):
     for ci, e in enumerate((0, 2)):
         bs = bs_edges[:, e].repeat_interleave(2, dim=1)
         bs = bs.reshape(bs.shape[:1] + (1,) * extra + bs.shape[1:])
-        alpha, beta, tc0 = _thresholds(qpc, bs)
+        alpha, beta, tc0 = _thresholds(qpc[:, ci] if qpc.ndim == 2 else qpc,
+                                       bs)
         _filter_chroma_cols(strip, edge_x0 + 4 * ci, bs, alpha, beta, tc0)
     return strip
 

@@ -1,5 +1,6 @@
-"""Motion estimation of the speed-2 P path: hierarchical dense search,
-batched over the macroblocks of N frames (bands) at once.
+"""Motion estimation of the P path: hierarchical dense search, batched
+over the macroblocks of N frames (bands) at once, and the partition
+search.
 
 PyTorch counterpart of `h264lab_tpu/ops/me.py`: the same three-stage
 funnel, the same costs and the same tie rules, so every MV and prediction
@@ -10,9 +11,15 @@ is identical.
 2. candidate centres (coarse winner, zero MV, the previous frame's MV) by
    full-resolution 16x16 SAD + lambda * mv bits, then a dense +-3 full-pel
    sweep of the winner's (34, 34) window;
-3. sub-pel: the window re-centred on the full-pel winner, 6-tap half-pel
-   planes from it, the 16 quarter-pel phase planes, and a dense +-3
-   quarter-pel sweep with the early-skip bias.
+3. sub-pel (speeds below 9): the window re-centred on the full-pel
+   winner, 6-tap half-pel planes from it, the 16 quarter-pel phase planes,
+   and a dense +-3 quarter-pel sweep with the early-skip bias. Speeds 9
+   and 10 stop at the full-pel winner.
+
+`partition_search` (speed 0) searches the 16x8, 8x16 and 8x8 partitions
+of every MB from the same half-pel planes: per block a +-2 full-pel sweep
+around the 16x16 winner, then one +-0.75 quarter-pel sweep of every block
+of a geometry at once.
 
 Where the JAX package avoided TPU gathers (nine strided reshapes for the
 zero-MV windows, shift-select chains for re-centring), the port reads each
@@ -276,9 +283,10 @@ def _sweep_qpel(cur_i, phases, center: int, cost_fn, radius: int = 3):
 
 def motion_search_dense(cur_plane, cur_tiles, ref_pad, ref4_pad, lane,
                         base_y, base_x, qp, mb_height: int, mb_width: int,
-                        row_offset, prev_my=None, prev_mx=None):
-    """Hierarchical dense ME with quarter-pel refinement (module
-    docstring), for N frames or bands at once.
+                        row_offset, prev_my=None, prev_mx=None,
+                        enable_subpel: bool = True):
+    """Hierarchical dense ME (module docstring), for N frames or bands at
+    once, with the quarter-pel stage when `enable_subpel`.
 
     cur_plane (N, mbh*16, mbw*16) and cur_tiles (N, nmb, 16, 16) uint8;
     ref_pad/ref4_pad (L, ., .) lane-batched guard-padded luma and 4x
@@ -289,7 +297,11 @@ def motion_search_dense(cur_plane, cur_tiles, ref_pad, ref4_pad, lane,
 
     Returns (mv_y, mv_x, cost, pred, aux): quarter-pel MVs and costs (N,
     nmb), pred (N, nmb, 16, 16) uint8, aux = dict(cy4, cx4, full_my,
-    full_mx, mvp_y, mvp_x), each (N, nmb)."""
+    full_mx, mvp_y, mvp_x), each (N, nmb), and `wins`: the (F, B, H, J)
+    half-pel planes around the full-pel winner (`_hpel_from_window`, each
+    (N * nmb, 22, 22) int32) that the partition search reads, or None
+    without the sub-pel stage. Without it the MVs are the full-pel winner
+    times 4 and the prediction is the window at the winner."""
     n = cur_plane.shape[0]
     nmb = mb_height * mb_width
     dev = cur_plane.device
@@ -339,15 +351,25 @@ def motion_search_dense(cur_plane, cur_tiles, ref_pad, ref4_pad, lane,
         return sad + lam_k * (mv_bits((cm_y + dy) * 4 - pvy)
                               + mv_bits((cm_x + dx) * 4 - pvx))
 
-    _, best_dy, best_dx = _sweep_fullpel(cur_i, win, WIN_M, WIN_M, REFINE_R,
-                                         refine_cost)
+    full_cost, best_dy, best_dx = _sweep_fullpel(cur_i, win, WIN_M, WIN_M,
+                                                 REFINE_R, refine_cost)
     full_my = cm_y + best_dy
     full_mx = cm_x + best_dx
 
     # re-centre the window on the refined winner: a[p] = win[winner-5+p]
     a = qpel.shift_window(win, best_dy, WIN_M - 5, ALN_S, 1)
     a = qpel.shift_window(a, best_dx, WIN_M - 5, ALN_S, 2).to(I32)
-    phases = _phase_planes(_hpel_from_window(a))
+
+    def frames(x):
+        return x.reshape((n, nmb) + x.shape[1:])
+    aux = dict(cy4=cy4, cx4=cx4, full_my=frames(full_my),
+               full_mx=frames(full_mx), mvp_y=mvp_y, mvp_x=mvp_x, wins=None)
+    if not enable_subpel:
+        return (frames(full_my * 4), frames(full_mx * 4), frames(full_cost),
+                frames(a[:, 5:21, 5:21].to(torch.uint8)), aux)
+
+    aux["wins"] = wins = _hpel_from_window(a)
+    phases = _phase_planes(wins)
     skip_thr = SKIP_THR_BASE + qp.to(I32).repeat_interleave(nmb) * SKIP_THR_QP
 
     def qpel_cost(sad, dyq, dxq):
@@ -360,10 +382,82 @@ def motion_search_dense(cur_plane, cur_tiles, ref_pad, ref4_pad, lane,
         return torch.where(at_pred, cost - lam_k * SKIP_BIAS_BITS, cost)
 
     best_cost, dyq, dxq, pred = _sweep_qpel(cur_i, phases, 3, qpel_cost)
-
-    def frames(x):
-        return x.reshape((n, nmb) + x.shape[1:])
-    aux = dict(cy4=cy4, cx4=cx4, full_my=frames(full_my),
-               full_mx=frames(full_mx), mvp_y=mvp_y, mvp_x=mvp_x)
     return (frames(full_my * 4 + dyq), frames(full_mx * 4 + dxq),
             frames(best_cost), frames(pred.to(torch.uint8)), aux)
+
+
+# ---------------------------------------------------------------------------
+# partition search (16x8, 8x16, 8x8) from the 16x16 search's planes
+# ---------------------------------------------------------------------------
+
+def _search_geometry(cur_tiles, wins, lam, offsets, bh: int, bw: int,
+                     full_my, full_mx, mvp_y, mvp_x):
+    """Search every block of one partition geometry. cur_tiles (K, 16, 16)
+    int32; wins: the (F, B, H, J) planes, (K, 22, 22) with the 16x16
+    winner at coord 3; lam, full_m*, mvp_* (K,); offsets: the blocks'
+    (y, x) in the MB. Per block a +-2 full-pel sweep around the 16x16
+    winner, the (bh + 2, bw + 2) planes re-centred on the block's winner,
+    then one +-0.75 quarter-pel sweep over all blocks (phase planes with
+    the winner at coord 1). Returns (cost, mv_y, mv_x, pred), each with a
+    leading (n_blocks, K)."""
+    k = cur_tiles.shape[0]
+    nb = len(offsets)
+    subs = [[], [], [], []]
+    curs, blk_my, blk_mx = [], [], []
+
+    def part_cost(sad, dy, dx):
+        return sad + lam * (mv_bits((full_my + dy) * 4 - mvp_y)
+                            + mv_bits((full_mx + dx) * 4 - mvp_x))
+
+    for oy0, ox0 in offsets:
+        cur_i = cur_tiles[:, oy0:oy0 + bh, ox0:ox0 + bw]
+        curs.append(cur_i)
+        _, bdy, bdx = _sweep_fullpel(cur_i, wins[0], 3 + oy0, 3 + ox0, 2,
+                                     part_cost)
+        blk_my.append(full_my + bdy)
+        blk_mx.append(full_mx + bdx)
+        for i, w in enumerate(wins):
+            t = qpel.shift_window(w, bdy, 3 + oy0 - 1, bh + 2, 1)
+            subs[i].append(qpel.shift_window(t, bdx, 3 + ox0 - 1, bw + 2, 2))
+
+    bmy, bmx = torch.cat(blk_my), torch.cat(blk_mx)
+    lam_b, mvpy, mvpx = lam.repeat(nb), mvp_y.repeat(nb), mvp_x.repeat(nb)
+
+    def qcost(sad, dyq, dxq):
+        return sad + lam_b * (mv_bits(bmy * 4 + dyq - mvpy)
+                              + mv_bits(bmx * 4 + dxq - mvpx))
+
+    cost, dyq, dxq, pred = _sweep_qpel(
+        torch.cat(curs), _phase_planes([torch.cat(s) for s in subs]), 1,
+        qcost)
+    return (cost.reshape(nb, k), (bmy * 4 + dyq).reshape(nb, k),
+            (bmx * 4 + dxq).reshape(nb, k), pred.reshape(nb, k, bh, bw))
+
+
+def partition_search(cur_tiles, aux, lam):
+    """Quarter-pel search of the 16x8, 8x16 and 8x8 partitions of K MBs.
+    cur_tiles (K, 16, 16) uint8; aux: `motion_search_dense`'s, flattened
+    to K MBs (`wins`, `full_my`, `full_mx`, `mvp_y`, `mvp_x`); lam (K,)
+    the ME lambda. MV costs count against the 16x16 search's predictor.
+
+    Returns dict: mv16x8 (top, bottom) and mv8x16 (left, right) (K, 2, 2)
+    and mv8x8 (raster quadrants) (K, 4, 2), the last axis (y, x) in
+    quarter-pel; cost16x8 / cost8x16 / cost8x8 (K,), the sums over the
+    blocks; pred16x8 / pred8x16 / pred8x8 (K, 16, 16) int32."""
+    cur = cur_tiles.to(I32)
+    args = (aux["full_my"], aux["full_mx"], aux["mvp_y"], aux["mvp_x"])
+    out = {}
+    for name, offsets, bh, bw in (
+            ("16x8", [(0, 0), (8, 0)], 8, 16),
+            ("8x16", [(0, 0), (0, 8)], 16, 8),
+            ("8x8", [(0, 0), (0, 8), (8, 0), (8, 8)], 8, 8)):
+        c, my, mx, pr = _search_geometry(cur, aux["wins"], lam, offsets, bh,
+                                         bw, *args)
+        out[f"mv{name}"] = torch.stack([my, mx], dim=-1).permute(1, 0, 2)
+        out[f"cost{name}"] = c.sum(0)
+        pred = torch.zeros((cur.shape[0], 16, 16), dtype=I32,
+                           device=cur.device)
+        for (oy0, ox0), p in zip(offsets, pr):
+            pred[:, oy0:oy0 + bh, ox0:ox0 + bw] = p
+        out[f"pred{name}"] = pred
+    return out

@@ -1,9 +1,10 @@
 """Guard padding, per-MB reference windows and chroma motion compensation.
 
-PyTorch counterpart of the parts of `h264lab_tpu/ops/qpel.py` that the
-speed-2 P path runs: `GUARD`, `pad_guard` and `mc_chroma_uniform`. Luma
-sub-pel samples come from the ME windows (`ops/me.py`), so no frame-level
-half-pel planes exist.
+PyTorch counterpart of the parts of `h264lab_tpu/ops/qpel.py` that the P
+path runs: `GUARD`, `pad_guard`, `mc_chroma_uniform` (one MV per MB) and
+`mc_chroma` / `mc_chroma_grid` (one MV per 4x4 luma block, partitioned
+MBs). Luma sub-pel samples come from the ME windows (`ops/me.py`), so no
+frame-level half-pel planes exist.
 
 `windows` is the one per-MB window read of the port: where the JAX package
 used `lax.dynamic_slice` per MB (and, for the zero-MV windows, strided
@@ -91,3 +92,50 @@ def mc_chroma_uniform(u_pad, v_pad, lane, cb_y, cb_x, full_my, full_mx,
            + (8 - fx) * fy * c + fx * fy * d + 32) >> 6
     out = out.to(torch.uint8)
     return out[:, 0], out[:, 1]
+
+
+def mc_chroma(planes, lane, mv_y, mv_x, base_y, base_x, bh: int, bw: int):
+    """Chroma MC with the eighth-pel bilinear (spec 8.4.2.2.2) of (K, bh,
+    bw) blocks: block k reads the plane of lane `lane[k]` from (base_y[k],
+    base_x[k]) moved by its MV (luma quarter-pel = chroma eighth-pel).
+
+    The blocks are read with one plain index gather, where the JAX package
+    reads them as `plane[yy, xx]` (`gather_blocks`), which would clamp an
+    index past the end and wrap a negative one. No index of the P path
+    leaves the plane, so the two agree: a chroma plane has a GUARD // 2 =
+    32 pixel guard ring, and an MV is at most the candidate-centre clip
+    me.MAX_CAND_FP = 52 plus the +-3 refine, the +-2 partition sweep and
+    +-0.75 quarter-pel, 57.75 luma = 28.875 chroma pixels; so a read starts
+    at least 32 - 29 = 3 pixels inside the ring and ends at most 29 + 1 of
+    the bilinear's neighbour = 30 pixels into the far one. An index out of
+    the plane would raise here, not read other pixels."""
+    iy = base_y + (mv_y >> 3)
+    ix = base_x + (mv_x >> 3)
+    fy = (mv_y & 7)[:, None, None]
+    fx = (mv_x & 7)[:, None, None]
+    dev = planes.device
+    ry = iy.long()[:, None] + torch.arange(bh + 1, device=dev)
+    rx = ix.long()[:, None] + torch.arange(bw + 1, device=dev)
+    w = planes[lane.long()[:, None, None], ry[:, :, None],
+               rx[:, None, :]].to(I32)
+    a, b = w[:, :bh, :bw], w[:, :bh, 1:]
+    c, d = w[:, 1:, :bw], w[:, 1:, 1:]
+    out = ((8 - fx) * (8 - fy) * a + fx * (8 - fy) * b
+           + (8 - fx) * fy * c + fx * fy * d + 32) >> 6
+    return out.to(torch.uint8)
+
+
+def mc_chroma_grid(planes, lane, mv4_y, mv4_x, cb_base_y, cb_base_x):
+    """Chroma MC of MBs with one MV per 4x4 luma block (2x2 chroma pixels
+    each), so partitions may differ inside an MB. planes (L, h, w); lane,
+    cb_base_y, cb_base_x (K,); mv4_y/mv4_x (K, 4, 4) quarter-pel. Returns
+    (K, 8, 8) uint8."""
+    k = mv4_y.shape[0]
+    o = torch.arange(4, dtype=I32, device=mv4_y.device) * 2
+    by = (cb_base_y[:, None, None] + o[None, :, None]).expand(k, 4, 4)
+    bx = (cb_base_x[:, None, None] + o[None, None, :]).expand(k, 4, 4)
+    blocks = mc_chroma(planes, lane.repeat_interleave(16),
+                       mv4_y.reshape(-1), mv4_x.reshape(-1),
+                       by.reshape(-1), bx.reshape(-1), 2, 2)
+    return (blocks.reshape(k, 4, 4, 2, 2).permute(0, 1, 3, 2, 4)
+            .reshape(k, 8, 8))

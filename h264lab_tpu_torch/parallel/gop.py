@@ -14,21 +14,24 @@ bit-pack kernel (`pack`, `ops/bitpack.py`); the next reference pictures
 and MV candidates (`ref`) — and the host stage `finish_step` (slice
 headers, NAL escaping, rate control, transparent frames).
 
+The device stages are `models/stages.py`'s, which `H264Encoder` runs too.
+
 Frame types: IDR, I, P, GOLDEN, RECOVERY, DROPPABLE and CUSTOM, with
 lane-batched reference slots (0 = short-term, 1..N = long-term). P frames
-run the speed 2-7 toolset (quarter-pel ME, 16x16 partitions, no Intra_4x4,
-deblocking on). Requests the port does not implement raise
-`NotImplementedError`: P frames at speeds 0, 1, 9 and 10, speeds 8 and 10
-(deblocking off), a device `mesh`, temporal denoising.
+run the toolset of their speed as the JAX GOP encoder maps it: partitions
+at speed 0, Intra_4x4 in P through the wavefront at speeds 0 and 1,
+quarter-pel ME below 9, full-pel at 9. Speeds 8 and 10 raise
+`NotImplementedError`: the JAX GOP encoder turns deblocking off there but
+writes a slice header that says it is on (a fault its streams have), and
+the port does not copy it. A device `mesh` raises `NotImplementedError`,
+temporal denoising `ValueError`, as in the JAX GOP encoder.
 
 With fixed QP, lane streams are byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -36,9 +39,11 @@ import torch
 from h264lab_tpu_torch.bitstream import BitWriter, headers
 from h264lab_tpu_torch.bitstream.nal import annexb_nal
 from h264lab_tpu_torch.config import EncoderConfig, FrameType, RunConfig
-from h264lab_tpu_torch.models import mbscan, refstate, wavefront
-from h264lab_tpu_torch.models.encoder import PIC_INIT_QP, FrameResult
-from h264lab_tpu_torch.ops import bitpack, qpel, tables
+from h264lab_tpu_torch.models import wavefront
+from h264lab_tpu_torch.models.encoder import (PIC_INIT_QP, FrameResult,
+                                              long_term_policy)
+from h264lab_tpu_torch.models.stages import FrameStages, Toolset
+from h264lab_tpu_torch.ops import bitpack, qpel
 from h264lab_tpu_torch.rc.ratecontrol import RateControl, filler_nal
 from h264lab_tpu_torch.utils.device import resolve_device
 
@@ -46,9 +51,9 @@ from h264lab_tpu_torch.utils.device import resolve_device
 # 3200 bits; 128 words = 4096 bits of headroom
 WORDS_PER_MB = 128
 
-# encode speeds whose P toolset the port implements (quarter-pel ME,
-# 16x16 partitions only, no Intra_4x4 in P, deblocking on)
-P_SPEEDS = range(2, 8)
+# encode speeds the GOP encoder runs: 8 and 10 turn deblocking off, and
+# the JAX GOP encoder's slice headers do not say so
+SPEEDS = (0, 1, 2, 3, 4, 5, 6, 7, 9)
 
 
 @dataclasses.dataclass
@@ -85,6 +90,14 @@ class GopBandEncoder:
     host).
     """
 
+    @property
+    def stage_times(self):
+        return self.stages.stage_times
+
+    @stage_times.setter
+    def stage_times(self, value):
+        self.stages.stage_times = value
+
     def __init__(self, config: EncoderConfig, n_gop: int | None = None,
                  mesh=None, idr_pic_id_base: int = 0,
                  per_lane_idr_pic_id: bool = False, device=None):
@@ -98,8 +111,9 @@ class GopBandEncoder:
         if cfg.mb_height % cfg.slice_bands:
             raise ValueError("slice_bands must divide mb_height")
         if cfg.temporal_denoise_flag:
-            raise NotImplementedError(
-                "GopBandEncoder does not support temporal denoising")
+            raise ValueError(
+                "GopBandEncoder does not support temporal denoising; "
+                "pre-filter the input or use H264Encoder")
         self.device = resolve_device(device)
         # standalone lanes all use `idr_pic_id_base`; `encode_stream` sets
         # per_lane_idr_pic_id so lane g's IDR uses (base + g) mod 16
@@ -136,35 +150,7 @@ class GopBandEncoder:
             sps_id=cfg.sps_id,
             num_ref_frames=1 + cfg.max_long_term_reference_frames,
             vbv_size_bytes=cfg.vbv_size_bytes)
-        nmb = cfg.mb_width * self.band_rows
-        plan = wavefront.make_plan(cfg.mb_width, self.band_rows, 2)
-        r = np.arange(nmb) // cfg.mb_width
-        c = np.arange(nmb) % cfg.mb_width
-        self._plan = (plan.steps, r > 0, c > 0)
-        # each band's reference lane and first MB row in the lane's frame
-        self._lane = torch.arange(n_gop, device=self.device
-                                  ).repeat_interleave(self.n_bands)
-        self._row0 = (torch.arange(self.n_bands, dtype=torch.int32,
-                                   device=self.device) * self.band_rows
-                      ).repeat(n_gop)
-        self.stage_times = None
-
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        """Bracket a stage for `torch.profiler` and, with `stage_times`
-        set, time it between device synchronizations."""
-        with torch.profiler.record_function(f"stage:{name}"):
-            if self.stage_times is None:
-                yield
-                return
-            sync = (torch.cuda.synchronize if self.device.type == "cuda"
-                    else (lambda *_: None))
-            sync(self.device)
-            t0 = time.perf_counter()
-            yield
-            sync(self.device)
-            self.stage_times[name] = (self.stage_times.get(name, 0.0)
-                                      + time.perf_counter() - t0)
+        self.stages = FrameStages(self.device, cfg.mb_width, cfg.mb_height)
 
     def encode_step(self, frames, run: RunConfig | None = None,
                     return_recon: bool = False):
@@ -178,7 +164,6 @@ class GopBandEncoder:
         (reference `src/h264-lab.h:6726-6754`). Returns (ftype, lt_use,
         lt_update)."""
         cfg = self.config
-        n_lt = cfg.max_long_term_reference_frames
         ftype = run.frame_type
         if ftype == FrameType.DEFAULT:
             if self.step_idx == 0 or not self._refs:
@@ -187,29 +172,8 @@ class GopBandEncoder:
                 ftype = FrameType.KEY
             else:
                 ftype = FrameType.P
-        if ftype == FrameType.I:
-            lt_use, lt_update = -1, 0
-        elif ftype == FrameType.KEY:
-            lt_use, lt_update = -1, (1 if n_lt > 0 else 0)
-        elif ftype == FrameType.GOLDEN:
-            lt_use, lt_update = 1, 1
-        elif ftype == FrameType.RECOVERY:
-            lt_use, lt_update = 1, 0
-        elif ftype == FrameType.DROPPABLE:
-            lt_use, lt_update = self._most_recent_idx, -1
-        elif ftype == FrameType.CUSTOM:
-            lt_use = run.long_term_idx_use or self._most_recent_idx
-            lt_update = run.long_term_idx_update
-            if lt_use < 0:
-                ftype = FrameType.KEY
-                lt_update = 1 if n_lt > 0 else 0
-        else:  # P
-            lt_use, lt_update = self._most_recent_idx, 0
-        if ftype not in (FrameType.KEY, FrameType.I) \
-                and self._refs.get(max(lt_use, 0)) is None:
-            ftype = FrameType.KEY
-            lt_use, lt_update = -1, (1 if n_lt > 0 else 0)
-        return ftype, lt_use, lt_update
+        return long_term_policy(ftype, run, cfg.max_long_term_reference_frames,
+                                self._most_recent_idx, self._refs)
 
     def encode_step_async(self, frames, run: RunConfig | None = None,
                           return_recon: bool = False) -> _PendingStep:
@@ -220,19 +184,17 @@ class GopBandEncoder:
         G, B = self.n_gop, self.n_bands
         if len(frames) != G:
             raise ValueError(f"expected {G} lane frames, got {len(frames)}")
-        if run.encode_speed in (8, 10):
+        if run.encode_speed not in SPEEDS:
             raise NotImplementedError(
-                "encode_speed 8 and 10 (deblocking off) are not ported")
+                f"encode_speed {run.encode_speed} turns deblocking off, and "
+                "the JAX GOP encoder then still writes "
+                "disable_deblocking_filter_idc 0 or 2 into its slice headers "
+                "(h264lab_tpu/parallel/gop.py:434,544): a fault the port does "
+                "not copy; H264Encoder runs these speeds")
         ftype, lt_use, lt_update = self._frame_type(run)
         is_idr = ftype == FrameType.KEY
         is_intra = ftype in (FrameType.KEY, FrameType.I)
         has_inter = not is_intra
-        if has_inter and run.encode_speed not in P_SPEEDS:
-            raise NotImplementedError(
-                f"P frames at encode_speed {run.encode_speed}: the port "
-                "implements the speed 2-7 P toolset only (partition search "
-                "at speed 0, Intra_4x4 in P at speeds 0-1 and full-pel ME "
-                "at speeds 9-10 are not ported)")
 
         # VBV overflow policy per lane: the lane's frame is replaced by an
         # all-skip transparent frame in finish_step (the batched step still
@@ -256,16 +218,18 @@ class GopBandEncoder:
                 band_qps.append([qp] * B)
 
         # the previous-MV candidate is valid only on the short-term chain
-        if has_inter and lt_use == 0 and self._prev_mv is not None:
-            prev_mv = self._prev_mv
-        else:
-            z = torch.zeros((G * B, self.band_rows * cfg.mb_width),
-                            dtype=torch.int32, device=self.device)
-            prev_mv = (z, z)
+        # (zeros otherwise)
+        prev_mv = self._prev_mv if has_inter and lt_use == 0 else None
         ref_used = self._refs.get(max(lt_use, 0)) if has_inter else None
         cap = self.idr_cap_words if is_intra else self.p_cap_words
-        out, new_refs = self._encode(frames, np.asarray(band_qps, np.int32),
-                                     ref_used, prev_mv, cap)
+        out = self.stages.run(frames, B, np.asarray(band_qps).reshape(-1),
+                              ref_used, prev_mv,
+                              Toolset.for_speed(run.encode_speed, is_intra),
+                              cap)
+        for k in ("words", "nbits", "tail_val", "tail_len", "sym_vals",
+                  "sym_lens"):
+            out[k] = out[k].reshape((G, B) + out[k].shape[1:])
+        new_refs = out["refs"]
 
         # pre-marking DPB flags go into the slice headers (finish_step)
         hdr_st_used = self._short_term_used
@@ -319,79 +283,9 @@ class GopBandEncoder:
                             hdr_st_used=hdr_st_used,
                             hdr_lt_in_use=hdr_lt_in_use)
 
-    def _encode(self, frames, band_qps: np.ndarray, ref, prev_mv,
-                cap_words: int):
-        """Device stages of one step. band_qps (G, B); ref: the lanes'
-        reference planes (P frames) or None (I frames); prev_mv: the
-        (G*B, nmb_band) full-pel MV candidates. Returns (out, new refs)."""
-        cfg = self.config
-        G, B = self.n_gop, self.n_bands
-        dev = self.device
-        mbw, rows = cfg.mb_width, self.band_rows
-        N, nmb = G * B, rows * mbw
-        ph, pw = cfg.padded_height, cfg.padded_width
-        has_inter = ref is not None
-
-        def upload(i, h, w):
-            return torch.from_numpy(np.stack([
-                wavefront.pad_plane(np.asarray(f[i], np.uint8), h, w)
-                for f in frames])).to(dev)
-
-        with self._stage("pre"):
-            src = []
-            for i, t in ((0, 16), (1, 8), (2, 8)):
-                p = upload(i, ph * t // 16, pw * t // 16)
-                # (G, H, W) -> (G*B, nmb, t, t): band rows are contiguous
-                src.append(p.reshape(G, B * rows, t, mbw, t)
-                           .permute(0, 1, 3, 2, 4).reshape(N, nmb, t, t))
-            qp = torch.as_tensor(band_qps.reshape(-1), device=dev)
-            qpc = torch.as_tensor(tables.QPC_FROM_QPY[band_qps.reshape(-1)],
-                                  device=dev)
-        steps, a_top, a_left = self._plan
-        inter = None
-        if has_inter:
-            with self._stage("inter"):
-                inter = mbscan.inter_stage_core(
-                    src[0], src[1], src[2], ref, self._lane, qp, qpc,
-                    self._row0, prev_mv[0], prev_mv[1], mbw, rows)
-        with self._stage("select"):
-            st = mbscan.select_stage_core(
-                src[0], src[1], src[2], qp, qpc, steps, a_top, a_left,
-                inter, mbw, rows)
-        del inter                # its recon planes are not needed past here
-        with self._stage("sym"):
-            sym = mbscan.symbolize(
-                st["sel"], st["mode16"], st["cmode"], st["i4sym_v"],
-                st["i4sym_l"], st["mv4_y"], st["mv4_x"], st["shape"],
-                st["dc_lev"], st["ac_lev"], st["lev_inter"], st["cdc_lev"],
-                st["cac_lev"], mbw, rows, has_inter)
-        with self._stage("deblock"):
-            df = mbscan.deblock_stage_core(
-                st["recon_y"], st["recon_u"], st["recon_v"], st["sel"],
-                st["lev_inter"], st["mv4_y"], st["mv4_x"], qp, qpc,
-                a_top, a_left, mbw, rows)
-        with self._stage("pack"):
-            words, nbits = bitpack.pack_frames(sym["sym_vals"],
-                                               sym["sym_lens"], cap_words)
-        with self._stage("ref"):
-            new_refs, flat, pmv_y, pmv_x = refstate.ref_stage(
-                *df, st["mv_y"], st["mv_x"], G, mbw, cfg.mb_height)
-
-        def lanes(x):
-            return x.reshape((G, B) + x.shape[1:])
-
-        out = dict(words=lanes(words), nbits=lanes(nbits),
-                   tail_val=lanes(sym["tail_val"]),
-                   tail_len=lanes(sym["tail_len"]),
-                   df_y=flat[0], df_u=flat[1], df_v=flat[2],
-                   pmv_y=pmv_y, pmv_x=pmv_x,
-                   sym_vals=lanes(sym["sym_vals"]),
-                   sym_lens=lanes(sym["sym_lens"]))
-        return out, new_refs
-
     def finish_step(self, p: _PendingStep):
         """Wait for a dispatched step and write per-lane Annex-B bytes."""
-        with self._stage("host"):
+        with self.stages.stage("host"):
             return self._finish_step(p)
 
     def _finish_step(self, p: _PendingStep):
@@ -452,8 +346,8 @@ class GopBandEncoder:
                                             ("v_pad", gc))]
                 else:
                     planes = [wavefront.tiles_to_plane(
-                        p.out[k][g].cpu().numpy(), cfg.mb_height,
-                        cfg.mb_width) for k in ("df_y", "df_u", "df_v")]
+                        d[g].cpu().numpy(), cfg.mb_height, cfg.mb_width)
+                        for d in p.out["df"]]
                 recon = (planes[0][:cfg.height, :cfg.width],
                          planes[1][:cfg.height // 2, :cfg.width // 2],
                          planes[2][:cfg.height // 2, :cfg.width // 2])

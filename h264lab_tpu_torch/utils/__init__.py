@@ -1,1 +1,2 @@
-"""Device selection and synthetic test input."""
+"""Device selection, synthetic test input, YUV file I/O and PSNR
+metrics."""

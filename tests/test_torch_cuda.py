@@ -14,7 +14,13 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   as on the CPU, at a small size with two bands: all-intra, and IPPP
   (IDR, P steps, a forced re-pack of a P step and a second IDR);
 - K1 equals the plain packer on the symbol grids of a real P step, at the
-  P capacity and at one that overflows.
+  P capacity and at one that overflows;
+- the sequential H264Encoder gives the same bytes and reconstructions on
+  the card as on the CPU at 64x48, at speeds 0, 9 and 10, through a forced
+  rollback (desired_nalu_bytes on a scene cut); with per-row QPs
+  (mb_qp_delta) at speed 2; with per-band QPs and temporal denoising at
+  speed 1; and K1 equals the plain packer on its one-band (N = 1) and
+  two-band (B = 2) grids.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -23,9 +29,11 @@ import pytest
 import torch
 
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig
+from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.ops import bitpack
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder
-from h264lab_tpu_torch.utils.synthetic import noise_pan_sequence
+from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
+                                               noise_pan_sequence)
 from tests.torch_grids import EDGE_CASES, edge_grid, random_grid
 
 pytestmark = pytest.mark.cuda
@@ -163,3 +171,94 @@ def test_k1_matches_plain_packer_on_a_p_grid(card):
         assert torch.equal(wk.cpu(), wp)
     assert int(np_.max()) > 32 * 128
     enc.finish_step(p)
+
+
+@pytest.mark.parametrize("speed", [0, 9, 10])
+def test_card_sequential_equals_cpu(card, speed):
+    """IDR, P, and a scene cut whose NALU overflows desired_nalu_bytes:
+    the frame rolls back and re-encodes with more slices on both."""
+    w, h = 64, 48
+    cfg = EncoderConfig(width=w, height=h, gop=10, qp=26,
+                        desired_nalu_bytes=400)
+    run = RunConfig(qp_min=26, qp_max=26, encode_speed=speed)
+    rng = np.random.default_rng(5)
+    cut = (rng.integers(0, 256, (h, w), np.uint8),
+           np.full((h // 2, w // 2), 128, np.uint8),
+           np.full((h // 2, w // 2), 128, np.uint8))
+    frames = list(chessboard_sequence(w, h, 2)) + [cut]
+    on_card = H264Encoder(cfg)
+    on_cpu = H264Encoder(cfg, device="cpu")
+    assert on_card.device.type == "cuda"
+    before = bitpack.LAUNCH_COUNTS["bitpack"]
+    for f in frames:
+        got = on_card.encode(*f, run, return_recon=True)
+        want = on_cpu.encode(*f, run, return_recon=True)
+        assert got.payload == want.payload
+        for pa, pb in zip(got.recon + got.recon_unfiltered,
+                          want.recon + want.recon_unfiltered):
+            np.testing.assert_array_equal(pa, pb)
+    # one K1 launch per encode, so the rollback added launches
+    assert bitpack.LAUNCH_COUNTS["bitpack"] - before > len(frames)
+    assert got.payload.count(b"\x00\x00\x01") > 1       # several slices
+
+
+@pytest.mark.parametrize("kind", ["row_qps", "band_qps_denoise"])
+def test_card_rate_control_and_denoise_equal_cpu(card, kind):
+    """Fine rate control on the card: per-row QPs (mb_qp_delta, the QPs
+    move inside a slice) at speed 2 on a 96x96 frame of weak and strong
+    noise; per-band QPs with temporal denoising at speed 1 (64x64, two
+    bands)."""
+    if kind == "row_qps":
+        w = h = 96
+        rng = np.random.default_rng(3)
+        base = np.concatenate([
+            128 + rng.integers(-60, 61, (h // 2, w)),
+            rng.integers(0, 256, (h // 2, w))]).astype(np.uint8)
+        u = np.full((h // 2, w // 2), 128, np.uint8)
+        frames = [(np.roll(base, 2 * t, axis=0), u, u) for t in range(4)]
+        cfg = EncoderConfig(width=w, height=h, gop=5, qp=33,
+                            fine_rate_control_flag=True)
+        run = RunConfig(qp_min=20, qp_max=45, desired_frame_bytes=500,
+                        encode_speed=2)
+    else:
+        frames = list(noise_pan_sequence(64, 64, 3))
+        cfg = EncoderConfig(width=64, height=64, gop=8, qp=30,
+                            slice_bands=2, fine_rate_control_flag=True,
+                            temporal_denoise_flag=True)
+        run = RunConfig(desired_frame_bytes=500, qp_min=20, qp_max=44,
+                        encode_speed=1)
+    on_card = H264Encoder(cfg)
+    on_cpu = H264Encoder(cfg, device="cpu")
+    qps = set()
+    for f in frames:
+        got = on_card.encode(*f, run, return_recon=True)
+        want = on_cpu.encode(*f, run, return_recon=True)
+        assert got.payload == want.payload
+        for pa, pb in zip(got.recon, want.recon):
+            np.testing.assert_array_equal(pa, pb)
+        qps.add(got.qp)
+    assert len(qps) > 1
+
+
+@pytest.mark.parametrize("bands", [1, 2])
+def test_k1_matches_plain_packer_on_sequential_grids(card, bands):
+    """A P frame with a scene cut, so its bands overflow 128 words."""
+    w, h = 128, 64
+    cfg = EncoderConfig(width=w, height=h, gop=4, qp=20, slice_bands=bands)
+    run = RunConfig(qp_min=20, qp_max=20, encode_speed=0)
+    f0 = next(noise_pan_sequence(w, h, 1))
+    rng = np.random.default_rng(8)
+    cut = (rng.integers(0, 256, (h, w), np.uint8), f0[1], f0[2])
+    enc = H264Encoder(cfg)
+    enc.encode(*f0, run)
+    p = enc.encode_async(*cut, run)
+    assert p.ft_name == "P"
+    vals, lens = p.out["sym_vals"], p.out["sym_lens"]
+    assert vals.shape[0] == bands
+    for cap in (p.out["cap_words"], 128):
+        wk, nk = bitpack.pack_frames(vals, lens, cap)
+        wp, np_ = bitpack.pack_frames_plain(vals.cpu(), lens.cpu(), cap)
+        assert torch.equal(nk.cpu(), np_)
+        assert torch.equal(wk.cpu(), wp)
+    assert int(np_.max()) > 32 * 128
+    enc.finish(p)

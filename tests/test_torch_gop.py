@@ -19,6 +19,7 @@ import torch
 
 import h264lab_tpu.config as jcfg
 from h264lab_tpu.decoder.decoder import H264Decoder
+from h264lab_tpu.ops import denoise as jdn
 from h264lab_tpu.ops import me as jme
 from h264lab_tpu.ops import qpel as jqp
 from h264lab_tpu.ops import tables as jtb
@@ -141,16 +142,23 @@ def test_unsupported_requests_raise(monkeypatch):
     w, h = 64, 48
     f = next(chessboard_sequence(w, h, 1))
     run = RunConfig(qp_min=30, qp_max=30, encode_speed=2)
-    enc = tgop.GopBandEncoder(EncoderConfig(width=w, height=h, gop=4),
+    enc = tgop.GopBandEncoder(EncoderConfig(width=w, height=h, gop=8),
                               n_gop=1, device="cpu")
     enc.encode_step([f], run)                              # the IDR
-    # P frames (from gop=4, or a P-type FrameType) at the speeds whose P
-    # toolset is not ported: partitions, Intra_4x4 in P, full-pel ME
+    # P frames (from gop=8, or a P-type FrameType) encode at speeds 0, 1
+    # and 9 (partitions, Intra_4x4 in P, full-pel ME); speeds 8 and 10 turn
+    # deblocking off, which the JAX GOP encoder's slice headers do not say
     # (GOLDEN would resolve to an IDR here: no long-term slot is filled)
-    for speed in (0, 1, 9, 10):
+    for speed in (0, 1, 9):
+        for ft in (FrameType.DEFAULT, FrameType.P):
+            res = enc.encode_step([f], dataclasses.replace(
+                run, encode_speed=speed, frame_type=ft))
+            assert res[0].frame_type == "P"
+    for speed in (8, 10):
         for ft in (FrameType.DEFAULT, FrameType.P, FrameType.DROPPABLE,
                    FrameType.CUSTOM):
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(NotImplementedError,
+                               match="disable_deblocking_filter_idc"):
                 enc.encode_step([f], dataclasses.replace(
                     run, encode_speed=speed, frame_type=ft))
     assert enc.encode_step([f], run)[0].frame_type == "P"  # speed 2 works
@@ -161,7 +169,7 @@ def test_unsupported_requests_raise(monkeypatch):
     with pytest.raises(NotImplementedError):
         tgop.GopBandEncoder(EncoderConfig(width=w, height=h), n_gop=1,
                             mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):                  # as the JAX GOP path
         tgop.GopBandEncoder(EncoderConfig(width=w, height=h,
                                           temporal_denoise_flag=True),
                             n_gop=1, device="cpu")
@@ -185,13 +193,16 @@ def _jax_constants():
     for name in convert.ME_GEOMETRY:
         ref[f"me.{name}"] = np.asarray(getattr(jme, name))
     ref["qpel.GUARD"] = np.asarray(jqp.GUARD)
+    ref["denoise.GAIN_Q8"] = jdn.GAIN_Q8
     return ref
 
 
 def test_constants_and_configs_carried_across():
     ref = _jax_constants()
     convert.check_constants(ref)
-    for key in ("LAMBDA_ME", "me.WIN_M", "me.MAX_CAND_FP", "qpel.GUARD"):
+    for key in ("LAMBDA_ME", "me.WIN_M", "me.MAX_CAND_FP", "qpel.GUARD",
+                "denoise.GAIN_Q8", "tuning.PART_16X8_PENALTY_BITS",
+                "tuning.PART_8X8_PENALTY_BITS"):
         with pytest.raises(ValueError):          # a changed constant
             convert.check_constants(dict(ref, **{key: ref[key] + 1}))
     with pytest.raises(ValueError):              # a missing one
@@ -213,7 +224,11 @@ def test_constants_and_configs_carried_across():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "h264lab_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_step.py"]
-    assert len(files) > 15
+    assert len(files) >= 38
+    pkg = ROOT / "h264lab_tpu_torch"
+    for name in ("cli.py", "utils/yuv.py", "utils/metrics.py",
+                 "ops/denoise.py", "models/stages.py", "models/encoder.py"):
+        assert pkg / name in files, name
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

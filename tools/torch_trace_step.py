@@ -1,7 +1,7 @@
 """Where a P step of the PyTorch port's GOP-lane path spends its time on
 the CUDA card.
 
-    python tools/torch_trace_step.py [--k1-baseline SRC]
+    python tools/torch_trace_step.py [--k1-baseline SRC] [--sequential]
 
 It runs `chip_smoke.py`'s main path (1920x1088 chessboard, IPPP with GOP
 20, QP 33, encode_speed 2, the same frame schedule): each measurement
@@ -31,6 +31,12 @@ first:
    words equal the current K1's, and times the two wrappers in turns
    (old, new, new, old).
 
+With `--sequential` it measures only the sequential encoder
+(`H264Encoder`, `chip_smoke.py`'s 1080p speed-0 setting): after an IDR,
+one P frame with per-stage times between syncs, and the next P frame with
+every stage under its own profiler pass as in measurement 2, per
+wavefront diagonal for `select` (slope 2) and `deblock` (slope 1).
+
 Needs a CUDA device; every line names the card and its power limit.
 """
 
@@ -39,6 +45,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import sys
@@ -51,9 +58,11 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from h264lab_tpu_torch.models import wavefront  # noqa: E402
+from h264lab_tpu_torch.models.encoder import H264Encoder  # noqa: E402
 from h264lab_tpu_torch.ops import bitpack  # noqa: E402
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder  # noqa: E402
 from h264lab_tpu_torch.utils.device import card_label  # noqa: E402
+from h264lab_tpu_torch.utils.synthetic import chessboard_sequence  # noqa: E402
 
 
 def _warm_encoder(lanes):
@@ -96,12 +105,14 @@ def _k1_kernel_us(ops):
                if "pack_kernel" in e.name)
 
 
-def launch_counts():
+def _traced_stages(stages, drive):
+    """Run `drive()` with every stage of `stages` (a `FrameStages`) under
+    its own `torch.profiler` pass (CUDA activity only) that synchronizes
+    before it closes. Per stage: device operations and busy ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    enc, run, frames = _warm_encoder(1)
-    stage = enc._stage
+    stage = stages.stage
     out = {}
 
     @contextlib.contextmanager
@@ -115,15 +126,45 @@ def launch_counts():
         ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         out[name] = dict(device_ops=len(ops), busy_ms=_busy_us(ops) / 1e3)
 
-    enc._stage = traced
-    enc.encode_step(frames, run)
-    cfg = enc.config
-    n_diag = wavefront.make_plan(cfg.mb_width, cfg.mb_height,
-                                 1).steps.shape[0]
-    out["deblock"].update(diagonals=n_diag,
-                          ops_per_diagonal=out["deblock"]["device_ops"]
-                          / n_diag)
+    stages.stage = traced
+    try:
+        drive()
+    finally:
+        del stages.stage
     return out
+
+
+def _per_diagonal(counts, name, mb_width, mb_height, slope):
+    n_diag = wavefront.make_plan(mb_width, mb_height, slope).steps.shape[0]
+    counts[name].update(diagonals=n_diag, ops_per_diagonal=counts[name][
+        "device_ops"] / n_diag)
+
+
+def launch_counts():
+    enc, run, frames = _warm_encoder(1)
+    out = _traced_stages(enc.stages, lambda: enc.encode_step(frames, run))
+    _per_diagonal(out, "deblock", enc.config.mb_width, enc.config.mb_height,
+                  1)
+    return out
+
+
+def sequential_counts():
+    """H264Encoder at `chip_smoke.py`'s 1080p sequential setting (speed 0):
+    an IDR, one P frame with per-stage times between syncs, then the next P
+    frame with every stage traced. Returns (stage ms, traced counts)."""
+    cfg, run, _ = chip_smoke.main_path_setup()
+    run = dataclasses.replace(run, encode_speed=chip_smoke.SEQ_SPEED)
+    frames = list(chessboard_sequence(chip_smoke.WIDTH, chip_smoke.HEIGHT, 3))
+    enc = H264Encoder(cfg)
+    enc.encode(*frames[0], run)
+    enc.stage_times = {}
+    enc.encode(*frames[1], run)
+    stage_ms = {k: 1e3 * v for k, v in enc.stage_times.items()}
+    enc.stage_times = None
+    out = _traced_stages(enc.stages, lambda: enc.encode(*frames[2], run))
+    for name, slope in (("select", 2), ("deblock", 1)):
+        _per_diagonal(out, name, cfg.mb_width, cfg.mb_height, slope)
+    return stage_ms, out
 
 
 def _baseline_k1(src, vals, lens, cap):
@@ -210,6 +251,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k1-baseline", metavar="SRC",
                     help="an earlier two-pass K1 source to time against")
+    ap.add_argument("--sequential", action="store_true",
+                    help="trace the sequential encoder's 1080p speed-0 P "
+                         "frame instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_trace_step: no CUDA device", file=sys.stderr)
@@ -218,6 +262,18 @@ def main() -> int:
     print(card)
     size = f"{chip_smoke.WIDTH}x{chip_smoke.HEIGHT}"
     result = {"card": card, "frame": size}
+    if args.sequential:
+        stage_ms, counts = sequential_counts()
+        for name, r in counts.items():
+            per_diag = (f", {r['ops_per_diagonal']:.1f} per diagonal of "
+                        f"{r['diagonals']}" if "diagonals" in r else "")
+            print(f"{size} sequential speed-{chip_smoke.SEQ_SPEED} P frame "
+                  f"[{card}]: {name:8s} {r['device_ops']:8d} device ops"
+                  f"{per_diag}; busy {r['busy_ms']:.1f} ms of "
+                  f"{stage_ms.get(name, 0.0):.1f} ms untraced")
+        result.update(sequential_stage_ms=stage_ms, sequential=counts)
+        print(json.dumps(result))
+        return 0
     k1 = k1_timing(args.k1_baseline)      # first: a fresh profiler
     scaling = lane_scaling()
     for lanes, r in scaling.items():
