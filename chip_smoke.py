@@ -10,7 +10,7 @@ Phases (any failure exits non-zero; nothing is caught):
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
      encode_speed 2, lane g walking consecutive frames g, g+1, ...:
-     step 0 (IDR) and step 1 (the first P step), untimed; four timed P
+     step 0 (IDR) and step 1 (the first P step), untimed; three timed P
      steps (no synchronization inside a step) for P frames/s; one P step
      with per-stage times (each stage between device synchronizations);
      one forced FrameType.KEY step with per-stage times; one more forced
@@ -38,7 +38,20 @@ Phases (any failure exits non-zero; nothing is caught):
   9. the CLI on the card (`h264lab_tpu_torch.cli.main`, --gen 352x288,
      3 frames, --psnr): it must return 0 and write a stream that starts
      with an SPS;
-  10. print the kernels line (JSON), then the result line (JSON).
+  10. two-layer SVC: SvcEncoder at 1920x1088 over 960x544 with
+     inter-layer prediction, chessboard, QP 33, GOP 20, encode_speed 2:
+     an IDR (untimed, first use), a P frame timed without synchronization
+     inside it (seconds per two-layer frame), a P frame and a forced
+     FrameType.KEY frame (the base-mode IDR) with per-stage times of the
+     base layer, the enhancement layer and the resampling; K1 must have
+     launched at least once per layer and frame;
+  11. hold K1 against the plain packer on the base-mode frame's (1, 8160,
+     952) grid and on the base layer's P grid (1, 2040, 952), each at its
+     capacity and at 1024 words;
+  12. card bytes against CPU bytes of SvcEncoder at 352x288 over 176x144:
+     inter-layer prediction at speed 0 (IDR, P, P) and none at speed 2
+     (IDR, P);
+  13. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -56,12 +69,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 WIDTH, HEIGHT, QP, LANES, GOP = 1920, 1088, 33, 16, 20
-TIMED_STEPS = 4
+TIMED_STEPS = 3
 STEPS = 2 + TIMED_STEPS + 3          # the main path's steps
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 SYNTH_SEED = 7
 SEQ_SPEED = 0                    # the CLI's default encode speed
 CIF = (352, 288)
+SVC_FRAMES = 4                   # IDR, timed P, P and IDR with stage times
 
 
 def _require(ok: bool, what: str):
@@ -168,6 +182,112 @@ def k1_numbers(vals, lens, cap, nk):
                 n_sym=n_sym)
 
 
+def svc_phases(cfg, run, label, numbers, cif, cif_frames):
+    """Phases 10 to 12: SvcEncoder at WIDTH x HEIGHT with inter-layer
+    prediction (stage frames timed), K1 on its base-mode and base P grids
+    (their numbers go into `numbers`), and SVC card bytes against CPU bytes
+    at CIF. Returns (K1 launches of the SVC frames, largest K1 error)."""
+    import torch
+    from h264lab_tpu_torch.config import FrameType
+    from h264lab_tpu_torch.models.svc import SvcEncoder
+    from h264lab_tpu_torch.ops import bitpack
+    from h264lab_tpu_torch.utils.synthetic import chessboard_sequence
+
+    key = dataclasses.replace(run, frame_type=FrameType.KEY)
+    max_err = 0
+    svc_cfg = dataclasses.replace(cfg, num_layers=2,
+                                  inter_layer_pred_flag=True)
+    svc_frames = list(chessboard_sequence(WIDTH, HEIGHT, SVC_FRAMES))
+    nmb = (WIDTH // 16) * (HEIGHT // 16)
+    svc = SvcEncoder(svc_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    grids = []                   # (vals, lens, cap) of the stage frames
+    k1 = bitpack.pack_frames
+
+    def recorded(vals, lens, cap):
+        grids.append((vals, lens, cap))
+        return k1(vals, lens, cap)
+
+    def svc_frame(t, kind, r=run):
+        t0 = time.perf_counter()
+        res = svc.encode(*svc_frames[t], r)
+        s = time.perf_counter() - t0
+        _require(res.frame_type == kind and len(res.base_payload) > 0
+                 and len(res.enh_payload) > 0,
+                 f"SVC frame {t} is {res.frame_type}, not {kind}")
+        return res, s
+
+    def svc_table(name, s, res):
+        print(f"SVC {name} stage frame {label}: {s:.3f} s; bytes base "
+              f"{len(res.base_payload)}, enhancement {len(res.enh_payload)}")
+        for layer, times in svc.stage_times.items():
+            for k, v in times.items():
+                print(f"  {layer:4s} stage {k:9s} {1e3 * v:10.1f} ms "
+                      f"{label}")
+
+    bitpack.LAUNCH_COUNTS["bitpack"] = 0
+    res, s = svc_frame(0, "IDR")
+    print(f"SVC IDR (untimed, first use): {s:.2f} s; bytes base "
+          f"{len(res.base_payload)}, enhancement {len(res.enh_payload)}")
+    res, t_svc = svc_frame(1, "P")
+    print(f"SVC P frame {label}: {t_svc:.3f} s per two-layer frame "
+          f"({WIDTH}x{HEIGHT} over {WIDTH // 2}x{HEIGHT // 2}), "
+          f"{1 / t_svc:.4f} frames/s; bytes base {len(res.base_payload)}, "
+          f"enhancement {len(res.enh_payload)}")
+    bitpack.pack_frames = recorded
+    svc.stage_times = {}
+    res, s = svc_frame(2, "P")
+    svc_table("P", s, res)
+    svc.stage_times = {}
+    res, s = svc_frame(3, "IDR", key)
+    svc_table("IDR (base-mode)", s, res)
+    svc.stage_times = None
+    bitpack.pack_frames = k1
+    print(f"  peak device memory of the SVC path "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    svc_launches = bitpack.LAUNCH_COUNTS["bitpack"]
+    print(f"K1 launches in the SVC path's {SVC_FRAMES} frames: "
+          f"{svc_launches}")
+    _require(svc_launches >= 2 * SVC_FRAMES, "the SVC path did not launch "
+             "K1 for both layers on every frame")
+    _require(len(grids) == 4, f"{len(grids)} K1 calls in 2 SVC frames")
+
+    # 11. K1 against the plain packer on the base-mode and base P grids
+    for name, (vals, lens, cap), shape in (
+            ("SVC base-mode", grids[3], (1, nmb, 952)),
+            ("SVC base P", grids[0], (1, nmb // 4, 952))):
+        _require(tuple(vals.shape) == shape,
+                 f"{name} grid {tuple(vals.shape)}, not {shape}")
+        print(f"{name} symbol grid {shape}, cap_words {cap}")
+        err, nk = check_k1(vals, lens, (cap, 1024), f"{name} grid")
+        max_err = max(max_err, err)
+        numbers[name] = n = k1_numbers(vals, lens, cap, nk)
+        print(f"  K1 on the {name} grid {label}: {n['ms']:.3f} ms (plain "
+              f"{n['plain_ms']:.3f} ms, bound {n['bound_ms']:.4f} ms for "
+              f"{n['moved'] / 1e9:.3f} GB, {100 * n['bound_ms'] / n['ms']:.0f}"
+              f"% of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
+    grids.clear()
+    del svc, vals, lens
+    torch.cuda.empty_cache()
+
+    # 12. SVC card bytes against CPU bytes at CIF
+    t0 = time.perf_counter()
+    for ilp, speed, n_frames in ((True, 0, 3), (False, 2, 2)):
+        c = dataclasses.replace(cif, num_layers=2, inter_layer_pred_flag=ilp)
+        r = dataclasses.replace(run, encode_speed=speed)
+        on_card, on_cpu = SvcEncoder(c), SvcEncoder(c, device="cpu")
+        for t in range(n_frames):
+            a = on_card.encode(*cif_frames[t], r)
+            b = on_cpu.encode(*cif_frames[t], r)
+            _require(a.payload == b.payload, f"CIF SVC ilp={ilp} speed "
+                     f"{speed} frame {t}: card bytes differ from CPU bytes")
+            print(f"CIF SvcEncoder ilp={ilp} speed {speed} frame {t} "
+                  f"({a.frame_type}): card bytes == CPU bytes "
+                  f"({len(a.payload)} B)")
+    print(f"  CIF SVC comparisons {time.perf_counter() - t0:.1f} s")
+    return svc_launches, max_err
+
+
 def main() -> int:
     import torch
 
@@ -181,6 +301,8 @@ def main() -> int:
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
     from h264lab_tpu_torch.utils.synthetic import chessboard_sequence
+
+    t_start = time.perf_counter()
 
     # 1. the card
     card = card_label()
@@ -393,20 +515,32 @@ def main() -> int:
              and head[4] & 0x1F == 7, "the CLI did not write an SPS first")
     print("CLI on the card: exit 0, the stream starts with an SPS")
 
-    # 10. results: K1's line holds the GOP path's P grid (19 of 20 frames
-    # of a GOP); its launches count both paths
+    # 10 to 12. two-layer SVC
+    svc_launches, err = svc_phases(cfg, run, label, numbers, cif, cif_frames)
+    max_err = max(max_err, err)
+
+    # 13. results: K1's line holds the GOP path's P grid (19 of 20 frames
+    # of a GOP); its launches count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
+    bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
     kernels = [dict(
         name="bitpack", route="cuda",
         source="h264lab_tpu_torch/csrc/bitpack.cu",
         replaces="h264lab_tpu/ops/bitpack.py:152",
-        launches=launches + seq_launches, equal=True, max_abs_err=max_err,
+        launches=launches + seq_launches + svc_launches, equal=True,
+        max_abs_err=max_err,
         ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
         bound_by="bytes", library_ms=None, grid="P step",
         idr_ms=i["ms"], idr_plain_ms=i["plain_ms"],
         idr_bound_ms=i["bound_ms"], gop_launches=launches,
         seq_launches=seq_launches, seq_ms=q["ms"], seq_plain_ms=q["plain_ms"],
-        seq_bound_ms=q["bound_ms"])]
+        seq_bound_ms=q["bound_ms"], svc_launches=svc_launches,
+        svc_bm_ms=bm["ms"], svc_bm_plain_ms=bm["plain_ms"],
+        svc_bm_bound_ms=bm["bound_ms"], svc_base_p_ms=bp["ms"],
+        svc_base_p_plain_ms=bp["plain_ms"],
+        svc_base_p_bound_ms=bp["bound_ms"])]
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
+          "(the build included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

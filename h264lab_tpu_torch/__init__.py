@@ -9,11 +9,14 @@ numpy-only modules it needs (configuration, spec tables, bitstream
 writers, rate control) are its own copies.
 
 Implemented so far: the sequential encoder (`H264Encoder`, and its
-command line `python -m h264lab_tpu_torch.cli`) at every encode speed,
-and GOP-lane encoding (`parallel.gop.GopBandEncoder`) of IDR, I and P
-frames at speeds 0 to 7 and 9, with the bit-pack stage as a CUDA kernel
-(`ops/bitpack.py`, `csrc/bitpack.cu`). Entry points run on the CUDA card
-unless the caller passes `device="cpu"`.
+command line `python -m h264lab_tpu_torch.cli`) at every encode speed;
+two-layer SVC spatial scalability (`models.svc.SvcEncoder`: the base
+layer at half resolution with prefix NALs, the enhancement layer in NAL
+20 with a subset SPS, base-mode I/IDR frames with inter-layer
+prediction); and GOP-lane encoding (`parallel.gop.GopBandEncoder`) of
+IDR, I and P frames at speeds 0 to 7 and 9, with the bit-pack stage as a
+CUDA kernel (`ops/bitpack.py`, `csrc/bitpack.cu`). Entry points run on
+the CUDA card unless the caller passes `device="cpu"`.
 """
 
 from h264lab_tpu_torch.config import (

@@ -5,8 +5,8 @@ constant tables. `config_from_reference` turns any object with the
 `EncoderConfig` or `RunConfig` fields (duck-typed, so the JAX package's
 own dataclasses work without being imported here) into the port's
 dataclass. `check_constants` holds the port's tables, tuning constants,
-lambda LUT, motion-search geometry and denoise gains against values the
-caller passes in as numpy arrays.
+lambda LUT, motion-search geometry, denoise gains and SVC's luma
+upsampling filter against values the caller passes in as numpy arrays.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from typing import Mapping
 import numpy as np
 
 from h264lab_tpu_torch.config import EncoderConfig, FrameType, RunConfig
-from h264lab_tpu_torch.ops import (denoise, me, qpel, tables, tables_cavlc,
-                                   tuning)
+from h264lab_tpu_torch.ops import (denoise, me, qpel, resample, tables,
+                                   tables_cavlc, tuning)
 
 # the motion-search and sub-pel geometry (window sizes, radii, guard ring)
 ME_GEOMETRY = ("COARSE_R4", "REFINE_R", "WIN_M", "WIN_S", "ALN_S", "SUB",
@@ -43,8 +43,9 @@ def constants() -> dict:
     """The port's constants by name: spec tables as `tables.X` /
     `tables_cavlc.X`, tuning constants as `tuning.X` (the partition
     penalties among them), `LAMBDA_ME`, the ME geometry as `me.X`, the
-    guard ring as `qpel.GUARD` and the denoise gain table as
-    `denoise.GAIN_Q8`."""
+    guard ring as `qpel.GUARD`, the denoise gain table as
+    `denoise.GAIN_Q8` and SVC's 16-phase luma upsampling filter as
+    `resample.FILTER16_LUMA`."""
     out = {}
     for prefix, mod in (("tables", tables), ("tables_cavlc", tables_cavlc)):
         for name, val in vars(mod).items():
@@ -58,6 +59,7 @@ def constants() -> dict:
         out[f"me.{name}"] = np.asarray(getattr(me, name))
     out["qpel.GUARD"] = np.asarray(qpel.GUARD)
     out["denoise.GAIN_Q8"] = denoise.GAIN_Q8
+    out["resample.FILTER16_LUMA"] = resample.FILTER16_LUMA
     return out
 
 

@@ -7,9 +7,11 @@ full-pel ME, deblocking on or off), the long-term reference policy,
 multi-slice bands sized from `desired_nalu_bytes` and enforced by rolling a
 frame back and re-encoding it with more slices, two-level rate control
 (per-band QPs, and per-row QPs through `mb_qp_delta`) with VBV filler and
-transparent frames, temporal denoising, and a host-side state snapshot.
-The device stages are `models/stages.py`'s; every frame's bands are packed
-by one launch of the bit-pack kernel K1 on the card.
+transparent frames, temporal denoising, a host-side state snapshot, and
+the SVC enhancement-layer syntax that `models/svc.py` turns on. Frames
+are numpy planes or uint8 tensors (SvcEncoder passes planes it keeps on
+the device). The device stages are `models/stages.py`'s; every frame's
+bands are packed by one launch of the bit-pack kernel K1 on the card.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ class PendingFrame:
     rollback: dict = None
 
 
-def _planes(tiles, cfg: EncoderConfig):
+def host_planes(tiles, cfg: EncoderConfig):
     """(y, u, v) MB tiles (nmb, t, t) -> cropped host planes."""
     h, w = cfg.height, cfg.width
     out = [wavefront.tiles_to_plane(np.asarray(t), cfg.mb_height,
@@ -138,6 +140,10 @@ class H264Encoder:
         self._last_frame_bytes = 0
         self._in_flight = 0           # encoded frames not yet finished
         self._denoise_prev = None     # the previous denoised planes
+        # set by SvcEncoder on its enhancement layer when
+        # inter_layer_pred_flag is on: slices carry the scalable-extension
+        # header tail and P frames a base_mode_flag bit per coded MB
+        self._svc_ext = False
         self.rc = RateControl(cfg.n_mb, cfg.gop, cfg.vbv_size_bytes, cfg.qp)
         self._sps = headers.SpsParams(
             width=cfg.width, height=cfg.height,
@@ -190,6 +196,8 @@ class H264Encoder:
         return [(i * rows, rows) for i in range(n)]
 
     def _device_plane(self, p) -> torch.Tensor:
+        if isinstance(p, torch.Tensor):
+            return p.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(p, np.uint8)).to(
             self.device)
 
@@ -295,7 +303,8 @@ class H264Encoder:
                     and self._prev_mv[0] == n_bands):
                 prev = self._prev_mv[1:]
         out = self.stages.run([(y, u, v)], n_bands, qp_arg, ref, prev,
-                              tools)
+                              tools, svc_base_mode_bit=(
+                                  self._svc_ext and not is_intra_frame))
         self._prev_mv = (None if is_intra_frame or lt_use != 0 else
                          (n_bands, out["pmv_y"], out["pmv_x"]))
 
@@ -319,7 +328,8 @@ class H264Encoder:
                 short_term_used=self._short_term_used,
                 lt_slot_in_use=(self._lt_used[lt_update - 1]
                                 if lt_update > 0 else False),
-                max_long_term_frames=n_lt)
+                max_long_term_frames=n_lt,
+                svc_ilp=self._svc_ext)
             headers.write_slice_header_rbsp(bw, shp)
             band_hdrs.append((bw, shp))
 
@@ -430,8 +440,8 @@ class H264Encoder:
 
         recon = recon_unf = None
         if pending.return_recon:
-            recon = _planes((d[0].cpu() for d in out["df"]), cfg)
-            recon_unf = _planes((r[0].cpu() for r in out["recon"]), cfg)
+            recon = host_planes((d[0].cpu() for d in out["df"]), cfg)
+            recon_unf = host_planes((r[0].cpu() for r in out["recon"]), cfg)
         return FrameResult(payload=payload, frame_type=pending.ft_name,
                            qp=pending.qp, recon=recon,
                            recon_unfiltered=recon_unf)
@@ -531,6 +541,6 @@ class H264Encoder:
         self.rc.frame_end(False, len(payload), run.desired_frame_bytes)
         recon = None
         if return_recon and self._last_tiles is not None:
-            recon = _planes((t.cpu() for t in self._last_tiles), cfg)
+            recon = host_planes((t.cpu() for t in self._last_tiles), cfg)
         return FrameResult(payload=payload, frame_type="P", qp=self.rc.qp,
                            recon=recon)

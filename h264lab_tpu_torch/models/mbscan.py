@@ -141,19 +141,19 @@ def _encode_chroma(src, pred, qpc, deadzone):
     return dc_lev, ac_lev, blocks_to_mb(recon)
 
 
-def _encode_inter_luma(src, pred, qp):
+def _encode_inter_luma(src, pred, qp, zero_thr: bool = True):
     """Inter luma TQ + recon of (K, 16, 16) MBs at per-MB qp (K,), with the
-    zero-block kills: a 4x4 block whose coefficients all sit at or under
-    INTER_ZERO_THR_Q8/256 quant steps, and a whole 8x8 quarter under
-    INTER_ZERO_THR2_Q8/256, is zeroed. Returns (levels (K, 4, 4, 4, 4),
-    recon (K, 16, 16) uint8)."""
+    zero-block kills unless `zero_thr` is off (base-mode frames): a 4x4
+    block whose coefficients all sit at or under INTER_ZERO_THR_Q8/256
+    quant steps, and a whole 8x8 quarter under INTER_ZERO_THR2_Q8/256, is
+    zeroed. Returns (levels (K, 4, 4, 4, 4), recon (K, 16, 16) uint8)."""
     sb = mb_to_blocks(src.to(I32), 4)
     pb = mb_to_blocks(pred.to(I32), 4)
     coef = transform.fdct4x4(sb - pb)
     qb = qp[:, None, None]
     lev = transform.quant4x4(coef, qb, INTER_DEADZONE_Q8)
     deq = transform.dequant4x4(lev, qb)
-    if INTER_ZERO_THR_Q8 > 0:
+    if zero_thr and INTER_ZERO_THR_Q8 > 0:
         thr1 = transform.zero_thr4x4(qp, INTER_ZERO_THR_Q8)[:, None, None]
         thr2 = transform.zero_thr4x4(qp, INTER_ZERO_THR2_Q8)[:, None, None]
         a = coef.abs()                                    # (K, 4, 4, 4, 4)
@@ -698,6 +698,15 @@ def _block_nc(nnz_grid, blk_avail_left, blk_avail_top):
                                    torch.where(blk_avail_top, nb, 0)))
 
 
+def cbp_luma_bits(nnz):
+    """The coded_block_pattern luma bits of (..., 4, 4) per-block nonzero
+    counts (raster blocks): bit g is set when 8x8 quarter g holds one."""
+    gnz = nnz.reshape(nnz.shape[:-2] + (2, 2, 2, 2)).transpose(-3, -2).sum(
+        (-2, -1)) > 0
+    return (gnz[..., 0, 0].to(I32) + 2 * gnz[..., 0, 1]
+            + 4 * gnz[..., 1, 0] + 8 * gnz[..., 1, 1])
+
+
 def _nc_grid(nnz, mbh, mbw, n):
     """nC of every n x n block of (N, nmb, n, n) nnz counts, raster in-MB."""
     N = nnz.shape[0]
@@ -814,8 +823,14 @@ _N_PARTS = (1, 2, 2, 4)
 
 def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
               dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev, mb_width: int,
-              mb_height: int, has_inter: bool, qp_rows=None):
+              mb_height: int, has_inter: bool, qp_rows=None,
+              svc_base_mode_bit: bool = False):
     """CAVLC + syntax symbol assembly of N I or P slices.
+
+    `svc_base_mode_bit`: the slices are scalable-extension slices with
+    `adaptive_base_mode_flag=1`, so every coded macroblock_layer leads
+    with a base_mode_flag=0 bit (G.7.3.6.1; base-mode frames write
+    base_mode_flag=1 through `models/svc.py` instead).
 
     `qp_rows` ((N, mb_height) or None): a per-MB-row QP plan; every MB
     that carries `mb_qp_delta` codes the step from the running QP (spec
@@ -848,17 +863,11 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
     cdc_nnz = (cdc_lev != 0).sum((-2, -1), dtype=I32)          # (N,nmb,2)
     cac_nnz = (cac_lev != 0).sum((-2, -1), dtype=I32)          # (N,nmb,2,2,2)
 
-    def group_bits(nnz):
-        gnz = nnz.reshape(N, nmb, 2, 2, 2, 2).permute(
-            0, 1, 2, 4, 3, 5).sum((4, 5)) > 0
-        return (gnz[..., 0, 0].to(I32) + 2 * gnz[..., 0, 1]
-                + 4 * gnz[..., 1, 0] + 8 * gnz[..., 1, 1])
-
     cbpl_i16 = nnz_intra.sum((2, 3)) > 0                       # all or none
     cbpc = torch.where(cac_nnz.sum((2, 3, 4)) > 0, 2,
                        torch.where(cdc_nnz.sum(2) > 0, 1, 0)).to(I32)
-    cbp_luma = torch.where(is_i4, group_bits(nnz_intra), torch.where(
-        is_inter, group_bits(nnz_inter),
+    cbp_luma = torch.where(is_i4, cbp_luma_bits(nnz_intra), torch.where(
+        is_inter, cbp_luma_bits(nnz_inter),
         torch.where(cbpl_i16, 15, 0))).to(I32)
     cbp = cbp_luma + (cbpc << 4)
 
@@ -1003,12 +1012,13 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
         dqp_l = torch.where(dqp_needed, dqp_l, 0)
         qp_dec = running(run_idx)
 
+    bm_l = coded.to(I32)[..., None] if svc_base_mode_bit else zero1
     hdr_vals = torch.cat([
         sr_v[..., None], zero1, mt_v[..., None], one1.expand(N, nmb, 4),
         mvd_vals, i4sym_v.to(I32), cm_v[..., None], cbpv[..., None],
         dqp_v[..., None]], dim=2)
     hdr_lens = torch.cat([
-        sr_l[..., None], zero1, mt_l[..., None], sub_l, mvd_lens,
+        sr_l[..., None], bm_l, mt_l[..., None], sub_l, mvd_lens,
         torch.where(is_i4[..., None], i4sym_l, 0).to(I32),
         torch.where(coded & is_intra, cm_l, 0)[..., None],
         torch.where(coded & (is_inter | is_i4), cbpl_, 0)[..., None],

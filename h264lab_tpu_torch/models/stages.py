@@ -48,7 +48,7 @@ class Toolset:
                    enable_deblock=encode_speed not in (8, 10))
 
 
-def _pad_to(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def pad_to(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Edge-replicate (G, h0, w0) planes to (G, h, w) (`wavefront.pad_plane`
     on the device)."""
     h0, w0 = planes.shape[-2:]
@@ -58,16 +58,13 @@ def _pad_to(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return planes.index_select(-2, iy).index_select(-1, ix)
 
 
-class FrameStages:
-    """The stages of one step on `device` for frames of mb_width x
-    mb_height MBs (module docstring)."""
+class StageTimer:
+    """Named stages on `device`: `stage(name)` brackets one (module
+    docstring)."""
 
-    def __init__(self, device: torch.device, mb_width: int, mb_height: int):
+    def __init__(self, device: torch.device):
         self.device = device
-        self.mb_width = mb_width
-        self.mb_height = mb_height
         self.stage_times = None
-        self._plans = {}
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -86,6 +83,17 @@ class FrameStages:
             self.stage_times[name] = (self.stage_times.get(name, 0.0)
                                       + time.perf_counter() - t0)
 
+
+class FrameStages(StageTimer):
+    """The stages of one step on `device` for frames of mb_width x
+    mb_height MBs (module docstring)."""
+
+    def __init__(self, device: torch.device, mb_width: int, mb_height: int):
+        super().__init__(device)
+        self.mb_width = mb_width
+        self.mb_height = mb_height
+        self._plans = {}
+
     def plan(self, band_rows: int):
         """(steps, avail_top, avail_left) of a band: the slope-2 wavefront
         plan (Intra_4x4's top-right dependency) and the in-band neighbour
@@ -100,7 +108,8 @@ class FrameStages:
         return self._plans[band_rows]
 
     def run(self, frames, n_bands: int, qp: np.ndarray, ref, prev_mv,
-            tools: Toolset, cap_words: int | None = None) -> dict:
+            tools: Toolset, cap_words: int | None = None,
+            svc_base_mode_bit: bool = False) -> dict:
         """Encode G frames of B = n_bands equal bands each.
 
         frames: G (y, u, v) uint8 planes, numpy arrays or tensors on the
@@ -111,7 +120,8 @@ class FrameStages:
         or None for I frames; prev_mv: the (G * B, nmb_band) full-pel MV
         candidates (pair) or None; cap_words: the packed capacity of every
         band, or None to read the bands' bits and pack at the bucket of the
-        largest.
+        largest; svc_base_mode_bit: `mbscan.symbolize`'s flag (an SVC
+        enhancement layer with inter-layer prediction).
 
         Returns a dict: per band (leading G * B) words, nbits (the packed
         bits), mb_bits and tail_val/tail_len (host numpy with cap_words
@@ -134,7 +144,7 @@ class FrameStages:
                     f[i] if isinstance(f[i], torch.Tensor) else
                     torch.from_numpy(np.ascontiguousarray(f[i], np.uint8))
                     for f in frames]).to(dev)
-                p = _pad_to(p, self.mb_height * t, mbw * t)
+                p = pad_to(p, self.mb_height * t, mbw * t)
                 # (G, H, W) -> (G*B, nmb, t, t): band rows are contiguous
                 src.append(p.reshape(G, B * rows, t, mbw, t)
                            .permute(0, 1, 3, 2, 4).reshape(N, nmb, t, t))
@@ -166,7 +176,8 @@ class FrameStages:
                 st["i4sym_l"], st["mv4_y"], st["mv4_x"], st["shape"],
                 st["dc_lev"], st["ac_lev"], st["lev_inter"], st["cdc_lev"],
                 st["cac_lev"], mbw, rows, has_inter,
-                qp_rows=qpt if qpt.ndim == 2 else None)
+                qp_rows=qpt if qpt.ndim == 2 else None,
+                svc_base_mode_bit=svc_base_mode_bit)
         recon = (st["recon_y"], st["recon_u"], st["recon_v"])
         if tools.enable_deblock:
             with self.stage("deblock"):

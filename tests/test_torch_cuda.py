@@ -20,7 +20,13 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   rollback (desired_nalu_bytes on a scene cut); with per-row QPs
   (mb_qp_delta) at speed 2; with per-band QPs and temporal denoising at
   speed 1; and K1 equals the plain packer on its one-band (N = 1) and
-  two-band (B = 2) grids.
+  two-band (B = 2) grids;
+- the two-layer SvcEncoder gives the same bytes and both layers'
+  reconstructions on the card as on the CPU at 128x96 over 64x48, with
+  inter-layer prediction at speed 0 (a base-mode IDR, then P frames with
+  the base_mode_flag bit), launching K1 for both layers on every frame;
+  and K1 equals the plain packer on a base-mode frame's grid (952 slots
+  per MB, its luma-DC unit empty), which equals the CPU's grid.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -30,6 +36,7 @@ import torch
 
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig
 from h264lab_tpu_torch.models.encoder import H264Encoder
+from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
 from h264lab_tpu_torch.ops import bitpack
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
@@ -262,3 +269,51 @@ def test_k1_matches_plain_packer_on_sequential_grids(card, bands):
         assert torch.equal(wk.cpu(), wp)
     assert int(np_.max()) > 32 * 128
     enc.finish(p)
+
+
+def test_card_svc_equals_cpu(card):
+    w, h = 128, 96
+    cfg = EncoderConfig(width=w, height=h, gop=10, qp=30, num_layers=2,
+                        inter_layer_pred_flag=True)
+    run = RunConfig(qp_min=30, qp_max=30, encode_speed=0)
+    on_card = SvcEncoder(cfg)
+    on_cpu = SvcEncoder(cfg, device="cpu")
+    assert on_card.base.device.type == on_card.enh.device.type == "cuda"
+    kinds = []
+    for f in chessboard_sequence(w, h, 3):
+        before = bitpack.LAUNCH_COUNTS["bitpack"]
+        got = on_card.encode(*f, run, return_recon=True)
+        assert bitpack.LAUNCH_COUNTS["bitpack"] - before == 2   # both layers
+        want = on_cpu.encode(*f, run, return_recon=True)
+        assert got.payload == want.payload
+        for pa, pb in zip(got.recon + got.base_recon,
+                          want.recon + want.base_recon):
+            np.testing.assert_array_equal(pa, pb)
+        kinds.append(got.frame_type)
+    assert kinds == ["IDR", "P", "P"]
+
+
+def test_k1_matches_plain_packer_on_a_base_mode_grid(card):
+    mbw, mbh = 8, 6
+    rng = np.random.default_rng(11)
+    tiles = []
+    for t in (16, 8, 8):
+        src = rng.integers(0, 256, (1, mbw * mbh, t, t))
+        noise = rng.integers(-40, 41, src.shape)
+        tiles.append(src.astype(np.uint8))
+        tiles.append(np.clip(src + noise, 0, 255).astype(np.uint8))
+    ins = [torch.from_numpy(x) for x in tiles[0::2] + tiles[1::2]]
+    out = base_mode_frame_core(*(x.to(card) for x in ins), [26], [26], mbw,
+                               mbh)
+    ref = base_mode_frame_core(*ins, [26], [26], mbw, mbh)
+    vals, lens = out["sym_vals"], out["sym_lens"]
+    assert vals.shape == (1, mbw * mbh, 952)
+    assert torch.equal(vals.cpu(), ref["sym_vals"])
+    assert torch.equal(lens.cpu(), ref["sym_lens"])
+    assert not lens[..., 34:68].any()            # the empty luma-DC unit
+    for cap in (bitpack.bucket_words(int(out["total_bits"][0])), 128):
+        wk, nk = bitpack.pack_frames(vals, lens, cap)
+        wp, np_ = bitpack.pack_frames_plain(vals.cpu(), lens.cpu(), cap)
+        assert torch.equal(nk.cpu(), np_)
+        assert torch.equal(wk.cpu(), wp)
+    assert int(np_.max()) > 32 * 128

@@ -22,6 +22,7 @@ from h264lab_tpu.decoder.decoder import H264Decoder
 from h264lab_tpu.ops import denoise as jdn
 from h264lab_tpu.ops import me as jme
 from h264lab_tpu.ops import qpel as jqp
+from h264lab_tpu.ops import resample as jrs
 from h264lab_tpu.ops import tables as jtb
 from h264lab_tpu.ops import tables_cavlc as jtc
 from h264lab_tpu.ops import tuning as jtu
@@ -194,6 +195,7 @@ def _jax_constants():
         ref[f"me.{name}"] = np.asarray(getattr(jme, name))
     ref["qpel.GUARD"] = np.asarray(jqp.GUARD)
     ref["denoise.GAIN_Q8"] = jdn.GAIN_Q8
+    ref["resample.FILTER16_LUMA"] = jrs.FILTER16_LUMA
     return ref
 
 
@@ -201,7 +203,8 @@ def test_constants_and_configs_carried_across():
     ref = _jax_constants()
     convert.check_constants(ref)
     for key in ("LAMBDA_ME", "me.WIN_M", "me.MAX_CAND_FP", "qpel.GUARD",
-                "denoise.GAIN_Q8", "tuning.PART_16X8_PENALTY_BITS",
+                "denoise.GAIN_Q8", "resample.FILTER16_LUMA",
+                "tuning.PART_16X8_PENALTY_BITS",
                 "tuning.PART_8X8_PENALTY_BITS"):
         with pytest.raises(ValueError):          # a changed constant
             convert.check_constants(dict(ref, **{key: ref[key] + 1}))
@@ -224,10 +227,11 @@ def test_constants_and_configs_carried_across():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "h264lab_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_step.py"]
-    assert len(files) >= 38
+    assert len(files) >= 40
     pkg = ROOT / "h264lab_tpu_torch"
     for name in ("cli.py", "utils/yuv.py", "utils/metrics.py",
-                 "ops/denoise.py", "models/stages.py", "models/encoder.py"):
+                 "ops/denoise.py", "models/stages.py", "models/encoder.py",
+                 "models/svc.py", "ops/resample.py"):
         assert pkg / name in files, name
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
