@@ -10,12 +10,14 @@ Phases (any failure exits non-zero; nothing is caught):
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
      encode_speed 2, lane g walking consecutive frames g, g+1, ...:
-     step 0 (IDR) and step 1 (the first P step), untimed; three timed P
-     steps (no synchronization inside a step) for P frames/s; one P step
-     with per-stage times (each stage between device synchronizations);
-     one forced FrameType.KEY step with per-stage times; one more forced
-     KEY step without synchronization inside it, timed as t_IDR. From
-     these a GOP-20 frames/s, derived as 16 * 20 / (t_IDR + 19 * t_P);
+     step 0 (IDR) and step 1 (the first P step), untimed, with their
+     reconstructions; three timed P steps (no synchronization inside a
+     step) for P frames/s; one P step with per-stage times (each stage
+     between device synchronizations); one forced FrameType.KEY step with
+     per-stage times; one more forced KEY step without synchronization
+     inside it, timed as t_IDR. From these a GOP-20 frames/s, derived as
+     16 * 20 / (t_IDR + 19 * t_P). The RBSPs that the two stage steps
+     escape are kept for phase 6;
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
@@ -23,35 +25,48 @@ Phases (any failure exits non-zero; nothing is caught):
      4096 bits, units over 704 bits): the words and bit counts must be
      equal; the main path must have launched K1;
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
-     their bytes must equal lane 0 of the card's steps 0 and 1;
-  6. the sequential path, the CLI's default: H264Encoder at 1920x1088,
+     their bytes must equal lane 0 of the card's steps 0 and 1; then
+     decode lane 0's stream of those two steps with the port's decoder
+     (numpy, on the host): both frames must equal the card's
+     reconstruction; print the decode seconds per 1080p frame (a host
+     time);
+  6. NAL escaping on the RBSPs of phase 3's stage steps (16 lanes): the
+     per-byte loop the port used until the numpy escape replaced it,
+     against `nal.escape_rbsp`, in turns (loop, numpy, numpy, loop): equal
+     bytes, and each one's ms beside the steps' `host` stage ms;
+  7. the sequential path, the CLI's default: H264Encoder at 1920x1088,
      chessboard, QP 33, GOP 20, encode_speed 0 (partitions, Intra_4x4 in
      P through the wavefront with the inter candidate): an IDR (untimed,
      first use), one P frame timed without synchronization inside it
      (seconds per frame, frames/s) and one P frame with per-stage times;
      the main path must have launched K1;
-  7. hold K1 against the plain packer on that P frame's (1, 8160, 952)
+  8. hold K1 against the plain packer on that P frame's (1, 8160, 952)
      grid, at its capacity and at 1024 words;
-  8. card bytes against CPU bytes at 352x288 (CIF): H264Encoder at speed
+  9. card bytes against CPU bytes at 352x288 (CIF): H264Encoder at speed
      0 (IDR, P, P) and at speed 10 (full-pel, deblocking off: IDR, P), and
-     a 2-lane GopBandEncoder at speed 1 (IDR, P);
-  9. the CLI on the card (`h264lab_tpu_torch.cli.main`, --gen 352x288,
+     a 2-lane GopBandEncoder at speed 1 (IDR, P); each card stream (both
+     lanes) decodes bit-exactly to the card's reconstruction;
+  10. the CLI on the card (`h264lab_tpu_torch.cli.main`, --gen 352x288,
      3 frames, --psnr): it must return 0 and write a stream that starts
-     with an SPS;
-  10. two-layer SVC: SvcEncoder at 1920x1088 over 960x544 with
+     with an SPS and decodes to 3 frames of 352x288;
+  11. two-layer SVC: SvcEncoder at 1920x1088 over 960x544 with
      inter-layer prediction, chessboard, QP 33, GOP 20, encode_speed 2:
      an IDR (untimed, first use), a P frame timed without synchronization
      inside it (seconds per two-layer frame), a P frame and a forced
      FrameType.KEY frame (the base-mode IDR) with per-stage times of the
      base layer, the enhancement layer and the resampling; K1 must have
      launched at least once per layer and frame;
-  11. hold K1 against the plain packer on the base-mode frame's (1, 8160,
+  12. hold K1 against the plain packer on the base-mode frame's (1, 8160,
      952) grid and on the base layer's P grid (1, 2040, 952), each at its
      capacity and at 1024 words;
-  12. card bytes against CPU bytes of SvcEncoder at 352x288 over 176x144:
+  13. card bytes against CPU bytes of SvcEncoder at 352x288 over 176x144:
      inter-layer prediction at speed 0 (IDR, P, P) and none at speed 2
-     (IDR, P);
-  13. print the kernels line (JSON), then the result line (JSON).
+     (IDR, P); each card stream decodes bit-exactly to the card's
+     reconstructions: the enhancement layer whole, the base layer with
+     NAL types 14, 15 and 20 stripped;
+  14. `entry()` (the driver entry point: the 128x96 wavefront intra
+     encode) on the card: every output equals `entry("cpu")`'s;
+  15. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -96,6 +111,86 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def escape_loop(rbsp: bytes) -> bytes:
+    """The port's `nal.escape_rbsp` before its numpy form: the same fast
+    exit, then a Python loop over the bytes (kept to time against it)."""
+    import numpy as np
+
+    data = np.frombuffer(rbsp, dtype=np.uint8)
+    if len(data) < 3:
+        return rbsp
+    cand = (data[2:] <= 3) & (data[1:-1] == 0) & (data[:-2] == 0)
+    if not cand.any():
+        return rbsp
+    result = bytearray()
+    zeros = 0
+    for b in data:
+        b = int(b)
+        if zeros >= 2 and b <= 3:
+            result.append(3)
+            zeros = 0
+        result.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(result)
+
+
+def escape_turns(rbsps, what, label):
+    """Phase 6 on one step's RBSPs: the loop and `nal.escape_rbsp` must
+    give equal bytes; each one's seconds over all RBSPs, in turns (loop,
+    numpy, numpy, loop). Returns dict(loop=[s, s], numpy=[s, s])."""
+    from h264lab_tpu_torch.bitstream import nal
+
+    fns = dict(loop=escape_loop, numpy=nal.escape_rbsp)
+    outs = {k: [f(r) for r in rbsps] for k, f in fns.items()}
+    _require(outs["loop"] == outs["numpy"], f"escaped bytes differ ({what})")
+    times = dict(loop=[], numpy=[])
+    for k in ("loop", "numpy", "numpy", "loop"):
+        t0 = time.perf_counter()
+        for r in rbsps:
+            fns[k](r)
+        times[k].append(time.perf_counter() - t0)
+    n_bytes = sum(len(r) for r in rbsps)
+    grown = sum(len(o) for o in outs["numpy"]) - n_bytes
+    print(f"escape on the {what} step's {len(rbsps)} RBSPs ({n_bytes} B, "
+          f"{grown} bytes 0x03 inserted) {label}: loop "
+          + ", ".join(f"{1e3 * s:.1f}" for s in times["loop"])
+          + " ms; numpy " + ", ".join(f"{1e3 * s:.2f}" for s in times["numpy"])
+          + " ms (in turns loop, numpy, numpy, loop)")
+    return times
+
+
+def _same_frames(frames, recons, what):
+    """Decoded frames against (y, u, v) reconstructions, plane by plane."""
+    import numpy as np
+
+    _require(len(frames) == len(recons), f"{what}: {len(frames)} frames "
+             f"decoded, not {len(recons)}")
+    for t, (f, r) in enumerate(zip(frames, recons)):
+        _require(all(np.array_equal(a, b)
+                     for a, b in zip(f.cropped(f.sps), r)),
+                 f"{what}: decoded frame {t} differs from the card's "
+                 "reconstruction")
+
+
+def decode_check(stream, recons, what, enh_recons=None):
+    """Decode `stream` with the port's decoder (numpy, on the host): its
+    frames must equal `recons` (and its enhancement-layer frames
+    `enh_recons`), plane by plane. Returns the decode seconds."""
+    from h264lab_tpu_torch.decoder.decoder import H264Decoder
+
+    dec = H264Decoder()
+    t0 = time.perf_counter()
+    dec.decode(stream)
+    s = time.perf_counter() - t0
+    _same_frames(dec.frames, recons, what)
+    _same_frames(dec.enh_frames, enh_recons or [], f"{what}, enhancement")
+    print(f"{what}: {len(dec.frames)} frames"
+          + (f" and {len(dec.enh_frames)} enhancement frames"
+             if enh_recons else "")
+          + f" decode bit-exactly to the card's recon ({s:.1f} s)")
+    return s
 
 
 def main_path_setup():
@@ -183,11 +278,12 @@ def k1_numbers(vals, lens, cap, nk):
 
 
 def svc_phases(cfg, run, label, numbers, cif, cif_frames):
-    """Phases 10 to 12: SvcEncoder at WIDTH x HEIGHT with inter-layer
+    """Phases 11 to 13: SvcEncoder at WIDTH x HEIGHT with inter-layer
     prediction (stage frames timed), K1 on its base-mode and base P grids
     (their numbers go into `numbers`), and SVC card bytes against CPU bytes
     at CIF. Returns (K1 launches of the SVC frames, largest K1 error)."""
     import torch
+    from h264lab_tpu_torch.bitstream.nal import split_annexb
     from h264lab_tpu_torch.config import FrameType
     from h264lab_tpu_torch.models.svc import SvcEncoder
     from h264lab_tpu_torch.ops import bitpack
@@ -252,7 +348,7 @@ def svc_phases(cfg, run, label, numbers, cif, cif_frames):
              "K1 for both layers on every frame")
     _require(len(grids) == 4, f"{len(grids)} K1 calls in 2 SVC frames")
 
-    # 11. K1 against the plain packer on the base-mode and base P grids
+    # 12. K1 against the plain packer on the base-mode and base P grids
     for name, (vals, lens, cap), shape in (
             ("SVC base-mode", grids[3], (1, nmb, 952)),
             ("SVC base P", grids[0], (1, nmb // 4, 952))):
@@ -270,21 +366,32 @@ def svc_phases(cfg, run, label, numbers, cif, cif_frames):
     del svc, vals, lens
     torch.cuda.empty_cache()
 
-    # 12. SVC card bytes against CPU bytes at CIF
+    # 13. SVC card bytes against CPU bytes at CIF, and both layers decoded
     t0 = time.perf_counter()
     for ilp, speed, n_frames in ((True, 0, 3), (False, 2, 2)):
         c = dataclasses.replace(cif, num_layers=2, inter_layer_pred_flag=ilp)
         r = dataclasses.replace(run, encode_speed=speed)
         on_card, on_cpu = SvcEncoder(c), SvcEncoder(c, device="cpu")
+        card_res = []
         for t in range(n_frames):
-            a = on_card.encode(*cif_frames[t], r)
+            a = on_card.encode(*cif_frames[t], r, return_recon=True)
             b = on_cpu.encode(*cif_frames[t], r)
             _require(a.payload == b.payload, f"CIF SVC ilp={ilp} speed "
                      f"{speed} frame {t}: card bytes differ from CPU bytes")
             print(f"CIF SvcEncoder ilp={ilp} speed {speed} frame {t} "
                   f"({a.frame_type}): card bytes == CPU bytes "
                   f"({len(a.payload)} B)")
-    print(f"  CIF SVC comparisons {time.perf_counter() - t0:.1f} s")
+            card_res.append(a)
+        stream = b"".join(a.payload for a in card_res)
+        base_recons = [a.base_recon for a in card_res]
+        decode_check(stream, base_recons, f"CIF SVC ilp={ilp} speed {speed}",
+                     enh_recons=[a.recon for a in card_res])
+        base = b"".join(b"\x00\x00\x00\x01" + m for m in split_annexb(stream)
+                        if m[0] & 0x1F not in (14, 15, 20))
+        decode_check(base, base_recons, f"CIF SVC ilp={ilp} speed {speed}, "
+                     "the base layer without NAL 14, 15, 20")
+    print(f"  CIF SVC comparisons and decodes {time.perf_counter() - t0:.1f}"
+          " s")
     return svc_launches, max_err
 
 
@@ -295,7 +402,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from h264lab_tpu_torch import cli
+    from h264lab_tpu_torch.bitstream import nal
     from h264lab_tpu_torch.config import EncoderConfig, FrameType
+    from h264lab_tpu_torch.decoder.decoder import H264Decoder
+    from h264lab_tpu_torch.entry import entry
     from h264lab_tpu_torch.models.encoder import H264Encoder
     from h264lab_tpu_torch.ops import bitpack
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
@@ -327,9 +437,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     enc = GopBandEncoder(cfg, n_gop=LANES)
 
-    def step(t, kind, r=run):
+    def step(t, kind, r=run, return_recon=False):
         t0 = time.perf_counter()
-        p = enc.encode_step_async(lane_frames(frames, t), r)
+        p = enc.encode_step_async(lane_frames(frames, t), r, return_recon)
         res = enc.finish_step(p)
         s = time.perf_counter() - t0
         _require(len(res) == LANES and all(len(x.payload) > 0 for x in res),
@@ -346,23 +456,36 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     bitpack.LAUNCH_COUNTS["bitpack"] = 0
-    _, first, s0 = step(0, "IDR")
+    _, first, s0 = step(0, "IDR", return_recon=True)
     print(f"step 0 (IDR, untimed, first use): {s0:.2f} s")
-    _, second, s1 = step(1, "P")
+    _, second, s1 = step(1, "P", return_recon=True)
     print(f"step 1 (P, untimed, first use): {s1:.2f} s")
     step_s = [step(t, "P")[2] for t in range(2, 2 + TIMED_STEPS)]
     t_p = sum(step_s) / TIMED_STEPS
     print(f"timed P steps {label}: " + ", ".join(f"{s:.3f} s" for s in step_s)
           + f"; {LANES / t_p:.3f} P frames/s ({LANES} lanes x "
           f"{TIMED_STEPS} steps)")
-    enc.stage_times = {}
-    p_pending, res, s = step(2 + TIMED_STEPS, "P")
-    stage_table("P", s, res)
-    enc.stage_times = {}
+    rbsps, host_ms = {}, {}
+
+    def stage_step(t, kind, r=run):
+        """A step with per-stage times that keeps the RBSPs it escapes."""
+        escape = nal.escape_rbsp
+        rbsps[kind] = []
+        nal.escape_rbsp = lambda rbsp: rbsps[kind].append(rbsp) or escape(
+            rbsp)
+        enc.stage_times = {}
+        try:
+            pending, res, s = step(t, kind, r)
+        finally:
+            nal.escape_rbsp = escape
+        stage_table(kind, s, res)
+        host_ms[kind] = 1e3 * enc.stage_times["host"]
+        enc.stage_times = None
+        return pending
+
+    p_pending = stage_step(2 + TIMED_STEPS, "P")
     key = dataclasses.replace(run, frame_type=FrameType.KEY)
-    idr_pending, res, s = step(3 + TIMED_STEPS, "IDR", key)
-    stage_table("IDR", s, res)
-    enc.stage_times = None
+    idr_pending = stage_step(3 + TIMED_STEPS, "IDR", key)
     t_idr = step(4 + TIMED_STEPS, "IDR", key)[2]
     launches = bitpack.LAUNCH_COUNTS["bitpack"]
     print(f"GOP-{GOP} frames/s {label}, derived as {LANES} * {GOP} / (t_IDR"
@@ -414,7 +537,7 @@ def main() -> int:
     max_err = max(max_err, err)
     del s_vals, s_lens
 
-    # 5. lane 0's first two frames on the CPU
+    # 5. lane 0's first two frames on the CPU, and decoded
     t0 = time.perf_counter()
     cpu = GopBandEncoder(cfg, n_gop=1, device="cpu")
     for t, want in enumerate((first, second)):
@@ -424,8 +547,26 @@ def main() -> int:
         print(f"lane 0 step {t} ({got[0].frame_type}): card bytes == CPU "
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
+    dec, decode_s = H264Decoder(), []
+    for t, want in enumerate((first, second)):
+        t0 = time.perf_counter()
+        dec.decode(want[0].payload)
+        decode_s.append(time.perf_counter() - t0)
+        _same_frames(dec.frames[t:], [want[0].recon], f"lane 0 step {t}")
+    print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon; "
+          f"decode seconds per {WIDTH}x{HEIGHT} frame {label} (the port's "
+          f"numpy decoder, a host time): IDR {decode_s[0]:.2f}, P "
+          f"{decode_s[1]:.2f}")
+    del first, second
 
-    # 6. the sequential path: H264Encoder, 1080p, speed 0
+    # 6. NAL escaping: the per-byte loop against the numpy escape
+    for kind in ("P", "IDR"):
+        escape_turns(rbsps[kind], f"{LANES}-lane {kind}", label)
+        print(f"  the {kind} step's host stage {label}: {host_ms[kind]:.1f}"
+              " ms")
+    del rbsps
+
+    # 7. the sequential path: H264Encoder, 1080p, speed 0
     del enc
     torch.cuda.empty_cache()
     seq_frames = list(chessboard_sequence(WIDTH, HEIGHT, 3))
@@ -463,7 +604,7 @@ def main() -> int:
     _require(seq_launches >= 3, "the sequential path did not launch K1 on "
              "every frame")
 
-    # 7. K1 against the plain packer on the sequential P frame's grid
+    # 8. K1 against the plain packer on the sequential P frame's grid
     vals, lens = seq_pending.out["sym_vals"], seq_pending.out["sym_lens"]
     cap = seq_pending.out["cap_words"]
     print(f"sequential P symbol grid {tuple(vals.shape)}, cap_words {cap}")
@@ -477,49 +618,76 @@ def main() -> int:
     del seq, seq_pending, vals, lens
     torch.cuda.empty_cache()
 
-    # 8. card bytes against CPU bytes at CIF
+    # 9. card bytes against CPU bytes at CIF, and decoded
     t0 = time.perf_counter()
     cif_frames = list(chessboard_sequence(*CIF, 3))
     cif = EncoderConfig(width=CIF[0], height=CIF[1], gop=GOP, qp=QP)
     for speed, n_frames in ((0, 3), (10, 2)):
         r = dataclasses.replace(run, encode_speed=speed)
         on_card, on_cpu = H264Encoder(cif), H264Encoder(cif, device="cpu")
+        card_res = []
         for t in range(n_frames):
-            a = on_card.encode(*cif_frames[t], r)
+            a = on_card.encode(*cif_frames[t], r, return_recon=True)
             b = on_cpu.encode(*cif_frames[t], r)
             _require(a.payload == b.payload, f"CIF speed {speed} frame {t}: "
                      "card bytes differ from CPU bytes")
             print(f"CIF H264Encoder speed {speed} frame {t} ({a.frame_type}):"
                   f" card bytes == CPU bytes ({len(a.payload)} B)")
+            card_res.append(a)
+        decode_check(b"".join(a.payload for a in card_res),
+                     [a.recon for a in card_res],
+                     f"CIF H264Encoder speed {speed}")
     r = dataclasses.replace(run, encode_speed=1)
     on_card = GopBandEncoder(cif, n_gop=2)
     on_cpu = GopBandEncoder(cif, n_gop=2, device="cpu")
+    card_steps = []
     for t in range(2):
         lanes = [cif_frames[t], cif_frames[t + 1]]
-        for a, b in zip(on_card.encode_step(lanes, r),
-                        on_cpu.encode_step(lanes, r)):
+        card_steps.append(on_card.encode_step(lanes, r, return_recon=True))
+        for a, b in zip(card_steps[-1], on_cpu.encode_step(lanes, r)):
             _require(a.payload == b.payload, f"CIF GOP lanes step {t}: card "
                      "bytes differ from CPU bytes")
         print(f"CIF GopBandEncoder 2 lanes speed 1 step {t} "
               f"({a.frame_type}): card bytes == CPU bytes")
-    print(f"  CIF comparisons {time.perf_counter() - t0:.1f} s")
+    for g in range(2):
+        decode_check(b"".join(st[g].payload for st in card_steps),
+                     [st[g].recon for st in card_steps],
+                     f"CIF GopBandEncoder speed 1 lane {g}")
+    print(f"  CIF comparisons and decodes {time.perf_counter() - t0:.1f} s")
 
-    # 9. the CLI on the card
+    # 10. the CLI on the card
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cli.264")
         rc = cli.main(["--gen", "--size", f"{CIF[0]}x{CIF[1]}", "--maxframes",
                        "3", "--psnr", "--output", out])
         with open(out, "rb") as f:
-            head = f.read(5)
-    _require(rc == 0 and head[:4] == b"\x00\x00\x00\x01"
-             and head[4] & 0x1F == 7, "the CLI did not write an SPS first")
-    print("CLI on the card: exit 0, the stream starts with an SPS")
+            stream = f.read()
+    _require(rc == 0 and stream[:4] == b"\x00\x00\x00\x01"
+             and stream[4] & 0x1F == 7, "the CLI did not write an SPS first")
+    dec = H264Decoder()
+    n_dec = len(dec.decode(stream))
+    _require(n_dec == 3 and (dec.sps.width, dec.sps.height) == CIF,
+             f"the CLI's stream decodes to {n_dec} frames of "
+             f"{dec.sps.width}x{dec.sps.height}, not 3 of {CIF}")
+    print("CLI on the card: exit 0, the stream starts with an SPS and "
+          f"decodes to 3 frames of {CIF[0]}x{CIF[1]}")
 
-    # 10 to 12. two-layer SVC
+    # 11 to 13. two-layer SVC
     svc_launches, err = svc_phases(cfg, run, label, numbers, cif, cif_frames)
     max_err = max(max_err, err)
 
-    # 13. results: K1's line holds the GOP path's P grid (19 of 20 frames
+    # 14. entry() on the card against the CPU
+    fn, args = entry()
+    got = fn(*args)
+    cfn, cargs = entry(device="cpu")
+    want = cfn(*cargs)
+    _require(set(got) == set(want) and all(
+        torch.equal(got[k].cpu(), want[k]) for k in want),
+        "entry() on the card differs from the CPU")
+    print(f"entry() on the card: all {len(want)} outputs equal the CPU's "
+          f"({int(got['total_bits'])} bits)")
+
+    # 15. results: K1's line holds the GOP path's P grid (19 of 20 frames
     # of a GOP); its launches count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]

@@ -13,10 +13,14 @@ command line `python -m h264lab_tpu_torch.cli`) at every encode speed;
 two-layer SVC spatial scalability (`models.svc.SvcEncoder`: the base
 layer at half resolution with prefix NALs, the enhancement layer in NAL
 20 with a subset SPS, base-mode I/IDR frames with inter-layer
-prediction); and GOP-lane encoding (`parallel.gop.GopBandEncoder`) of
+prediction); GOP-lane encoding (`parallel.gop.GopBandEncoder`) of
 IDR, I and P frames at speeds 0 to 7 and 9, with the bit-pack stage as a
-CUDA kernel (`ops/bitpack.py`, `csrc/bitpack.cu`). Entry points run on
-the CUDA card unless the caller passes `device="cpu"`.
+CUDA kernel (`ops/bitpack.py`, `csrc/bitpack.cu`); the independent
+decoder (`decoder.decoder.H264Decoder`, numpy on the host, both SVC
+layers), which plays the card's streams where there is no jax; and the
+driver entry point (`entry.entry`: the 128x96 wavefront intra encode and
+its example arguments). Entry points run on the CUDA card unless the
+caller passes `device="cpu"`.
 """
 
 from h264lab_tpu_torch.config import (

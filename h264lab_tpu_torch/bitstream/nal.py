@@ -12,44 +12,43 @@ import numpy as np
 
 def escape_rbsp(rbsp: bytes) -> bytes:
     """Insert emulation_prevention_three_byte (0x03) so the payload never
-    contains 0x000000..0x000003 sequences (spec 7.4.1.1)."""
+    contains 0x000000..0x000003 sequences (spec 7.4.1.1).
+
+    The byte-serial rule (after two zeros, put 0x03 before any byte <= 3
+    and restart the zero count) in closed form over the runs of two or
+    more zeros, found from the rare `00 00` pairs: in a run of L zeros
+    starting at s, 0x03 goes before the zeros at s + 2, s + 4, ... (its
+    3rd, 5th, ... zero), and before the byte after the run when L is even
+    and that byte is 1..3; the restart after each insertion is what makes
+    parity decide."""
     data = np.frombuffer(rbsp, dtype=np.uint8)
-    if len(data) < 3:
-        return rbsp
     # Fast path: no 00 00 0x pattern anywhere → nothing to escape.
     cand = (data[2:] <= 3) & (data[1:-1] == 0) & (data[:-2] == 0)
     if not cand.any():
         return rbsp
-    # Insertions reset the zero run, so evaluate left to right.
-    result = bytearray()
-    zeros = 0
-    for b in data:
-        b = int(b)
-        if zeros >= 2 and b <= 3:
-            result.append(3)
-            zeros = 0
-        result.append(b)
-        zeros = zeros + 1 if b == 0 else 0
-    return bytes(result)
+    pair = np.flatnonzero((data[:-1] == 0) & (data[1:] == 0))
+    cut = np.flatnonzero(np.diff(pair) != 1) + 1
+    start = pair[np.r_[0, cut]]
+    length = np.diff(np.r_[0, cut, len(pair)]) + 1        # zeros per run
+    n_mid = (length - 1) // 2                 # zeros at places 3, 5, ...
+    first = np.repeat(np.cumsum(n_mid) - n_mid, n_mid)
+    mid = np.repeat(start, n_mid) + 2 * (np.arange(len(first)) - first + 1)
+    end = start + length
+    after = end[(length % 2 == 0) & (end < len(data))]
+    after = after[data[after] <= 3]           # nonzero: the run ended
+    bounds = [0, *np.sort(np.r_[mid, after]).tolist(), len(data)]
+    return b"\x03".join(rbsp[a:b] for a, b in zip(bounds[:-1], bounds[1:]))
 
 
 def unescape_rbsp(ebsp: bytes) -> bytes:
-    """Remove emulation-prevention 0x03 bytes (decoder side)."""
+    """Remove emulation-prevention 0x03 bytes (decoder side): every 0x03
+    after two zeros. A removed 0x03 is not a zero, so the zero count that
+    the byte-serial rule restarts never spans it."""
     data = np.frombuffer(ebsp, dtype=np.uint8)
-    if len(data) < 3:
+    drop = (data[2:] == 3) & (data[1:-1] == 0) & (data[:-2] == 0)
+    if not drop.any():
         return ebsp
-    maybe = (data[2:] == 3) & (data[1:-1] == 0) & (data[:-2] == 0)
-    if not maybe.any():
-        return ebsp
-    keep = np.ones(len(data), dtype=bool)
-    zeros = 0
-    for i in range(len(data)):
-        b = int(data[i])
-        if zeros >= 2 and b == 3:
-            keep[i] = False
-            zeros = 0
-            continue
-        zeros = zeros + 1 if b == 0 else 0
+    keep = np.concatenate(([True, True], ~drop))
     return data[keep].tobytes()
 
 

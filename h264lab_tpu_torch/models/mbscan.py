@@ -840,8 +840,10 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
     sym_lens (N, nmb, 952) int32, tail_val/tail_len (N,) (the trailing
     skip run of a P slice, appended after the MB bits), total_bits (N,)
     int32, tail included, row_bits (N, mb_height) the MB bits of each row,
-    and with a plan qp_dec (N, nmb): each MB's decoded running QP, which
-    deblocking takes; an MB without `mb_qp_delta` keeps the running QP).
+    skip (N, nmb) bool, cbp and cbpc (N, nmb), the partitions' MV
+    differences mvd_py/mvd_px (N, nmb, 4), and with a plan qp_dec (N,
+    nmb): each MB's decoded running QP, which deblocking takes; an MB
+    without `mb_qp_delta` keeps the running QP).
     The unit layout is the JAX module's: unit 0 = 34 MB-header slots,
     units 1..27 = the CAVLC blocks in decode order."""
     N, nmb = sel.shape
@@ -1039,7 +1041,39 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
                tail_val=tr_v, tail_len=tr_l,
                total_bits=mb_bits.sum(1, dtype=I32) + tr_l,
                row_bits=mb_bits.reshape(N, mb_height, mb_width).sum(
-                   2, dtype=I32))
+                   2, dtype=I32),
+               skip=skip, cbp=cbp, cbpc=cbpc, mvd_py=mvd_py, mvd_px=mvd_px)
     if qp_dec is not None:
         out["qp_dec"] = qp_dec
     return out
+
+
+# ---------------------------------------------------------------------------
+# one intra frame, whole (the driver entry point's function)
+# ---------------------------------------------------------------------------
+
+def encode_intra_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
+                      avail_top, avail_left, mb_width: int, mb_height: int):
+    """One I frame through the slope-2 wavefront (Intra_16x16, Intra_4x4,
+    chroma) and CAVLC symbolization, without deblocking: JAX's
+    `encode_intra_core` at its defaults, for one frame without the leading
+    frame axis. src_*_mb (nmb, t, t) uint8; qp, qpc 0-d int tensors;
+    steps, avail_top and avail_left the plan (tensors or arrays; the
+    wavefront reads them on the host). Returns JAX's `encode_frame_core`
+    dict: `symbolize`'s outputs, recon_* and df_* (the same planes, as
+    nothing filters them), mv_*, mv4_*, shape, sel and i4modes."""
+    steps, avail_top, avail_left = (torch.as_tensor(x).cpu().numpy()
+                                    for x in (steps, avail_top, avail_left))
+    st = select_stage_core(src_y_mb[None], src_u_mb[None], src_v_mb[None],
+                           qp.reshape(1), qpc.reshape(1), steps, avail_top,
+                           avail_left, None, mb_width, mb_height)
+    out = symbolize(*(st[k] for k in (
+        "sel", "mode16", "cmode", "i4sym_v", "i4sym_l", "mv4_y", "mv4_x",
+        "shape", "dc_lev", "ac_lev", "lev_inter", "cdc_lev", "cac_lev")),
+        mb_width, mb_height, False)
+    for k in ("recon_y", "recon_u", "recon_v", "mv_y", "mv_x", "mv4_y",
+              "mv4_x", "shape", "sel", "i4modes"):
+        out[k] = st[k]
+    for p in "yuv":
+        out[f"df_{p}"] = st[f"recon_{p}"]
+    return {k: v[0] for k, v in out.items()}

@@ -9,7 +9,11 @@ semantics (`(int)x`, `i/16`) are reproduced with trunc operations.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+
+_PAN_PAD = 64                       # noise_pan_frame's texture margin
 
 
 def _pixel_field(x: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -56,17 +60,13 @@ def chessboard_sequence(width: int, height: int, n_frames: int,
         yield chessboard_frame(width, height, t), u, v
 
 
-def noise_pan_frame(width: int, height: int, frame_idx: int,
-                    seed: int = 7, vx: float = 1.5, vy: float = 0.5):
-    """Low-pass-filtered random texture panning at a constant sub-pel
-    velocity — a natural-content stand-in (smooth gradients + global
-    motion) complementing the chessboard's hard periodic edges. The
-    texture is a fixed random field box-filtered twice; frames sample it
-    at a translated origin with bilinear interpolation, so motion
-    estimation must track real sub-pel displacement."""
+@functools.lru_cache(maxsize=4)
+def _noise_texture(width: int, height: int, seed: int) -> np.ndarray:
+    """The box-filtered, contrast-stretched random field that
+    `noise_pan_frame` samples, made once per (width, height, seed) and
+    kept for the last few sizes (read-only: every frame shares it)."""
     rng = np.random.default_rng(seed)
-    pad = 64
-    tex = rng.integers(0, 256, (height + 2 * pad, width + 2 * pad))
+    tex = rng.integers(0, 256, (height + 2 * _PAN_PAD, width + 2 * _PAN_PAD))
     tex = tex.astype(np.float64)
     for _ in range(2):                     # separable 5-tap box, twice
         k = np.ones(5) / 5.0
@@ -75,7 +75,20 @@ def noise_pan_frame(width: int, height: int, frame_idx: int,
         tex = np.apply_along_axis(
             lambda m: np.convolve(m, k, mode="same"), 1, tex)
     tex = np.clip((tex - tex.mean()) * 3.0 + 128.0, 0, 255)
+    tex.flags.writeable = False
+    return tex
 
+
+def noise_pan_frame(width: int, height: int, frame_idx: int,
+                    seed: int = 7, vx: float = 1.5, vy: float = 0.5):
+    """Low-pass-filtered random texture panning at a constant sub-pel
+    velocity — a natural-content stand-in (smooth gradients + global
+    motion) complementing the chessboard's hard periodic edges. The
+    texture is a fixed random field box-filtered twice; frames sample it
+    at a translated origin with bilinear interpolation, so motion
+    estimation must track real sub-pel displacement."""
+    tex = _noise_texture(width, height, seed)
+    pad = _PAN_PAD
     ox = (pad + vx * frame_idx) % pad
     oy = (pad + vy * frame_idx) % pad
     i0, j0 = int(oy), int(ox)
@@ -86,16 +99,10 @@ def noise_pan_frame(width: int, height: int, frame_idx: int,
     return np.clip(s, 0, 255).astype(np.uint8)
 
 
-_NOISE_TEX_CACHE = {}
-
-
 def noise_pan_sequence(width: int, height: int, n_frames: int,
                        start: int = 0):
     """Yield (y, u, v) panning filtered-noise frames (gray chroma)."""
     u = np.full((height // 2, width // 2), 128, dtype=np.uint8)
     v = np.full((height // 2, width // 2), 128, dtype=np.uint8)
     for t in range(start, start + n_frames):
-        key = (width, height, t)
-        if key not in _NOISE_TEX_CACHE:
-            _NOISE_TEX_CACHE[key] = noise_pan_frame(width, height, t)
-        yield _NOISE_TEX_CACHE[key], u, v
+        yield noise_pan_frame(width, height, t), u, v

@@ -26,7 +26,11 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   inter-layer prediction at speed 0 (a base-mode IDR, then P frames with
   the base_mode_flag bit), launching K1 for both layers on every frame;
   and K1 equals the plain packer on a base-mode frame's grid (952 slots
-  per MB, its luma-DC unit empty), which equals the CPU's grid.
+  per MB, its luma-DC unit empty), which equals the CPU's grid;
+- the port's decoder plays the card's streams bit-exactly to the card's
+  reconstruction: H264Encoder at speed 0 and both layers of SvcEncoder
+  (through a base-mode IDR), at 128x96;
+- `entry()` on the card gives the same outputs as `entry(device="cpu")`.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -35,6 +39,8 @@ import pytest
 import torch
 
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig
+from h264lab_tpu_torch.decoder.decoder import H264Decoder
+from h264lab_tpu_torch.entry import entry
 from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
 from h264lab_tpu_torch.ops import bitpack
@@ -317,3 +323,46 @@ def test_k1_matches_plain_packer_on_a_base_mode_grid(card):
         assert torch.equal(nk.cpu(), np_)
         assert torch.equal(wk.cpu(), wp)
     assert int(np_.max()) > 32 * 128
+
+
+@pytest.mark.parametrize("kind", ["speed0", "svc"])
+def test_card_streams_decode_to_the_card_recon(card, kind):
+    """The port's decoder (numpy, on the host) plays the card's streams
+    bit-exactly: H264Encoder at speed 0 (IDR, P, P) and SvcEncoder with
+    inter-layer prediction at speed 2 (gop 2: IDR, P, a base-mode IDR),
+    both layers, at 128x96."""
+    w, h = 128, 96
+    if kind == "speed0":
+        enc = H264Encoder(EncoderConfig(width=w, height=h, gop=10, qp=30))
+        run = RunConfig(qp_min=30, qp_max=30, encode_speed=0)
+    else:
+        enc = SvcEncoder(EncoderConfig(width=w, height=h, gop=2, qp=30,
+                                       num_layers=2,
+                                       inter_layer_pred_flag=True))
+        run = RunConfig(qp_min=30, qp_max=30, encode_speed=2)
+    res = [enc.encode(*f, run, return_recon=True)
+           for f in chessboard_sequence(w, h, 3)]
+    assert [r.frame_type for r in res] == \
+        ["IDR", "P", "P" if kind == "speed0" else "IDR"]
+    dec = H264Decoder()
+    frames = dec.decode(b"".join(r.payload for r in res))
+    layers = [(frames, [r.recon for r in res])]
+    if kind == "svc":
+        layers = [(frames, [r.base_recon for r in res]),
+                  (dec.enh_frames, [r.recon for r in res])]
+    for got, want in layers:
+        assert len(got) == len(want) == 3
+        for f, recon in zip(got, want):
+            for pa, pb in zip(f.cropped(f.sps), recon):
+                np.testing.assert_array_equal(pa, pb)
+
+
+def test_entry_on_the_card_equals_cpu(card):
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    got = fn(*args)
+    cfn, cargs = entry(device="cpu")
+    want = cfn(*cargs)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k

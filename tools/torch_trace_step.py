@@ -2,6 +2,7 @@
 the CUDA card.
 
     python tools/torch_trace_step.py [--k1-baseline SRC] [--sequential]
+                                     [--escape]
 
 It runs `chip_smoke.py`'s main path (1920x1088 chessboard, IPPP with GOP
 20, QP 33, encode_speed 2, the same frame schedule): each measurement
@@ -36,6 +37,12 @@ With `--sequential` it measures only the sequential encoder
 one P frame with per-stage times between syncs, and the next P frame with
 every stage under its own profiler pass as in measurement 2, per
 wavefront diagonal for `select` (slope 2) and `deblock` (slope 1).
+
+With `--escape` it measures only what NAL escaping costs the GOP steps'
+`host` stage (16 lanes): after the untimed IDR and P steps, four P steps
+and then four forced IDR steps with per-stage times, escaping with
+`chip_smoke.escape_loop` (the port's earlier per-byte loop) and with
+`nal.escape_rbsp` (numpy) in turns (loop, numpy, numpy, loop).
 
 Needs a CUDA device; every line names the card and its power limit.
 """
@@ -167,6 +174,36 @@ def sequential_counts():
     return stage_ms, out
 
 
+def escape_turns():
+    """The 16-lane GOP steps' `host` stage ms with each escape, in turns
+    (module docstring): {"P"|"IDR": {"loop": [ms, ms], "numpy": [...]}}."""
+    from h264lab_tpu_torch.bitstream import nal
+    from h264lab_tpu_torch.config import FrameType
+
+    cfg, run, frames = chip_smoke.main_path_setup()
+    enc = GopBandEncoder(cfg, n_gop=chip_smoke.LANES)
+    for t in range(2):
+        enc.encode_step(chip_smoke.lane_frames(frames, t), run)
+    fns = dict(loop=chip_smoke.escape_loop, numpy=nal.escape_rbsp)
+    key = dataclasses.replace(run, frame_type=FrameType.KEY)
+    out = {}
+    try:
+        for kind, r in (("P", run), ("IDR", key)):
+            out[kind] = dict(loop=[], numpy=[])
+            for i, name in enumerate(("loop", "numpy", "numpy", "loop")):
+                nal.escape_rbsp = fns[name]
+                enc.stage_times = {}
+                res = enc.encode_step(chip_smoke.lane_frames(frames, 2 + i),
+                                      r)
+                chip_smoke._require(res[0].frame_type == kind,
+                                    f"{kind} step is {res[0].frame_type}")
+                out[kind][name].append(1e3 * enc.stage_times["host"])
+    finally:
+        nal.escape_rbsp = fns["numpy"]
+        enc.stage_times = None
+    return out
+
+
 def _baseline_k1(src, vals, lens, cap):
     """The wrapper of the two-pass K1 built from `src`, as its launches in
     order (name -> function; they share one set of buffers) and the whole
@@ -254,6 +291,9 @@ def main() -> int:
     ap.add_argument("--sequential", action="store_true",
                     help="trace the sequential encoder's 1080p speed-0 P "
                          "frame instead")
+    ap.add_argument("--escape", action="store_true",
+                    help="time the GOP steps' host stage with the per-byte "
+                         "and the numpy NAL escape instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_trace_step: no CUDA device", file=sys.stderr)
@@ -262,6 +302,16 @@ def main() -> int:
     print(card)
     size = f"{chip_smoke.WIDTH}x{chip_smoke.HEIGHT}"
     result = {"card": card, "frame": size}
+    if args.escape:
+        host = escape_turns()
+        for kind, r in host.items():
+            print(f"{size} {chip_smoke.LANES}-lane {kind} step host stage "
+                  f"[{card}], in turns loop, numpy, numpy, loop: "
+                  f"{r['loop'][0]:.1f}, {r['numpy'][0]:.1f}, "
+                  f"{r['numpy'][1]:.1f}, {r['loop'][1]:.1f} ms")
+        result["host_stage_ms"] = host
+        print(json.dumps(result))
+        return 0
     if args.sequential:
         stage_ms, counts = sequential_counts()
         for name, r in counts.items():
