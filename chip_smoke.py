@@ -27,9 +27,10 @@ Phases (any failure exits non-zero; nothing is caught):
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1; then
      decode lane 0's stream of those two steps with the port's decoder
-     (numpy, on the host): both frames must equal the card's
-     reconstruction; print the decode seconds per 1080p frame (a host
-     time);
+     (numpy, on the host) in a worker process, beside phases 6 to 15:
+     both frames must equal the card's reconstruction; before the results
+     the script waits for it and prints the decode seconds per 1080p
+     frame (a host time, taken while the other phases run);
   6. NAL escaping on the RBSPs of phase 3's stage steps (16 lanes): the
      per-byte loop the port used until the numpy escape replaced it,
      against `nal.escape_rbsp`, in turns (loop, numpy, numpy, loop): equal
@@ -66,7 +67,23 @@ Phases (any failure exits non-zero; nothing is caught):
      NAL types 14, 15 and 20 stripped;
   14. `entry()` (the driver entry point: the 128x96 wavefront intra
      encode) on the card: every output equals `entry("cpu")`'s;
-  15. print the kernels line (JSON), then the result line (JSON).
+  15. the ("gop", "band") mesh: `dryrun_multichip(8)` and `(3)` (64-wide
+     IPPP over (4, 2) and (3, 1) meshes; lane 0 decoded bit-exactly,
+     every lane equal); then GopBandEncoder at 1920x1088 with two slice
+     bands over a (2, 2) mesh, two lanes (one per gop row) walking frames
+     as the main path's, QP 33, speed 2: an IDR and a P step with the
+     per-shard stage table, the exchange ms and the step s (stage syncs
+     inside), then a P step timed without stage syncs (it reads a
+     reference that the exchange built from a P step, and its time
+     compares with the unsharded run's). The meshes use distinct cards
+     when there are
+     enough, else entries that all name cuda:0 (printed). Every lane's
+     bytes of every step must equal an unsharded GopBandEncoder on the
+     card with the same configuration, whose lane 0 IDR and first P
+     must equal a CPU encode; K1 must have launched for every shard and
+     step, and must equal the plain packer on shard (0, 0)'s grid of the
+     last P step;
+  16. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -75,10 +92,12 @@ result.
 
 import dataclasses
 import json
+import multiprocessing
 import os
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -91,6 +110,8 @@ SYNTH_SEED = 7
 SEQ_SPEED = 0                    # the CLI's default encode speed
 CIF = (352, 288)
 SVC_FRAMES = 4                   # IDR, timed P, P and IDR with stage times
+MESH = (2, 2)                    # phase 15's (gop, band) mesh
+MESH_STEPS = ("IDR", "P", "P")
 
 
 def _require(ok: bool, what: str):
@@ -191,6 +212,21 @@ def decode_check(stream, recons, what, enh_recons=None):
              if enh_recons else "")
           + f" decode bit-exactly to the card's recon ({s:.1f} s)")
     return s
+
+
+def decode_lane0(payloads, recons):
+    """Phase 5's decode, in a worker process: lane 0's step payloads in
+    turn, each decoded frame equal to the card's reconstruction. Returns
+    the decode seconds per frame."""
+    from h264lab_tpu_torch.decoder.decoder import H264Decoder
+
+    dec, secs = H264Decoder(), []
+    for t, (payload, recon) in enumerate(zip(payloads, recons)):
+        t0 = time.perf_counter()
+        dec.decode(payload)
+        secs.append(time.perf_counter() - t0)
+        _same_frames(dec.frames[t:], [recon], f"lane 0 step {t}")
+    return secs
 
 
 def main_path_setup():
@@ -395,6 +431,107 @@ def svc_phases(cfg, run, label, numbers, cif, cif_frames):
     return svc_launches, max_err
 
 
+def mesh_devices(n):
+    """`make_mesh` devices for an n-entry mesh: the cards when there are
+    n, else n entries of cuda:0 (a virtual mesh). Returns (devices,
+    what)."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return None, f"{n} distinct cards"
+    return ["cuda:0"] * n, f"a virtual mesh, {n} x cuda:0"
+
+
+def mesh_phases(cfg, run, frames, label, numbers):
+    """Phase 15: the dryruns, then the 1080p mesh run against the unsharded
+    card run (and that against the CPU), and K1 on a shard's grid (its
+    numbers go into `numbers`). Returns (K1 launches of the mesh run,
+    largest K1 error)."""
+    from h264lab_tpu_torch.entry import dryrun_multichip
+    from h264lab_tpu_torch.ops import bitpack
+    from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
+
+    for n in (8, 3):
+        devices, what = mesh_devices(n)
+        t0 = time.perf_counter()
+        streams = dryrun_multichip(n, devices)
+        print(f"dryrun_multichip({n}) on {what}: {len(streams)} equal lane "
+              f"streams of {len(streams[0])} B, lane 0 decoded bit-exactly "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+    n_gop, n_band = MESH
+    mcfg = dataclasses.replace(cfg, slice_bands=n_band)
+    devices, what = mesh_devices(n_gop * n_band)
+    enc = GopBandEncoder(mcfg, n_gop=n_gop,
+                         mesh=make_mesh(n_gop, n_band, devices))
+    print(f"mesh {n_gop}x{n_band} on {what}: {WIDTH}x{HEIGHT}, {n_band} "
+          f"slice bands, {n_gop} lanes, QP {QP}, speed {run.encode_speed}")
+    bitpack.LAUNCH_COUNTS["bitpack"] = 0
+    mesh_res = []
+    for t, kind in enumerate(MESH_STEPS):
+        # the last step runs without stage syncs: the mesh's step time
+        staged = t < len(MESH_STEPS) - 1
+        enc.stage_times = {} if staged else None
+        t0 = time.perf_counter()
+        pending = enc.encode_step_async(lane_frames(frames, t, n_gop), run)
+        res = enc.finish_step(pending)
+        s = time.perf_counter() - t0
+        _require([r.frame_type for r in res] == [kind] * n_gop,
+                 f"mesh step {t} is {res[0].frame_type}, not {kind}")
+        sizes = ", ".join(str(len(r.payload)) for r in res)
+        mesh_res.append(res)
+        if not staged:
+            print(f"mesh step {t} ({kind}) without stage syncs {label}: "
+                  f"{s:.3f} s; bytes {sizes}")
+            continue
+        times = enc.stage_times
+        print(f"mesh step {t} ({kind}) with stage syncs {label}: {s:.3f} s; "
+              f"exchange {1e3 * times['exchange']:.1f} ms, host "
+              f"{1e3 * times['host']:.1f} ms; bytes {sizes}")
+        for name, st in times.items():
+            if isinstance(st, dict):
+                print(f"  {name}: " + ", ".join(
+                    f"{k} {1e3 * v:.1f}" for k, v in st.items())
+                    + f" ms {label}")
+    enc.stage_times = None
+    launches = bitpack.LAUNCH_COUNTS["bitpack"]
+    print(f"K1 launches in the mesh run's {len(MESH_STEPS)} steps over "
+          f"{len(enc.shards)} shards: {launches}")
+    _require(launches >= len(enc.shards) * len(MESH_STEPS),
+             "the mesh run did not launch K1 for every shard and step")
+
+    flat = GopBandEncoder(mcfg, n_gop=n_gop)
+    for t, kind in enumerate(MESH_STEPS):
+        t0 = time.perf_counter()
+        res = flat.encode_step(lane_frames(frames, t, n_gop), run)
+        s = time.perf_counter() - t0
+        _require(all(a.payload == b.payload
+                     for a, b in zip(res, mesh_res[t])),
+                 f"mesh step {t}: lane bytes differ from the unsharded run")
+        print(f"mesh step {t} ({kind}): every lane's bytes == the unsharded "
+              f"card run's ({s:.3f} s unsharded, without stage syncs)")
+    t0 = time.perf_counter()
+    cpu = GopBandEncoder(mcfg, n_gop=1, device="cpu")
+    for t in range(2):
+        got = cpu.encode_step(lane_frames(frames, t, 1), run)
+        _require(got[0].payload == mesh_res[t][0].payload,
+                 f"unsharded {n_band}-band lane 0 step {t}: card bytes differ "
+                 "from CPU bytes")
+    print(f"unsharded {n_band}-band lane 0 steps 0 and 1: card bytes == CPU "
+          f"bytes ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    vals, lens = pending.outs[0]["sym_vals"], pending.outs[0]["sym_lens"]
+    cap = enc.p_cap_words
+    print(f"mesh shard 0,0 P symbol grid {tuple(vals.shape)}, cap_words {cap}")
+    err, nk = check_k1(vals, lens, (cap, 1024), "mesh shard 0,0 P grid")
+    numbers["mesh"] = n = k1_numbers(vals, lens, cap, nk)
+    print(f"  K1 on the mesh shard grid {label}: {n['ms']:.3f} ms (plain "
+          f"{n['plain_ms']:.3f} ms, bound {n['bound_ms']:.4f} ms for "
+          f"{n['moved'] / 1e9:.3f} GB, {100 * n['bound_ms'] / n['ms']:.0f}% "
+          f"of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
+    return launches, err
+
+
 def main() -> int:
     import torch
 
@@ -501,7 +638,7 @@ def main() -> int:
     numbers = {}
     for name, pend, cap in (("IDR", idr_pending, enc.idr_cap_words),
                             ("P", p_pending, enc.p_cap_words)):
-        vals, lens = pend.out["sym_vals"], pend.out["sym_lens"]
+        vals, lens = pend.outs[0]["sym_vals"], pend.outs[0]["sym_lens"]
         print(f"{name} symbol grid {tuple(vals.shape)}, cap_words {cap}")
         err, nk = check_k1(vals, lens, (cap, 1024), f"{name} grid")
         max_err = max(max_err, err)
@@ -547,16 +684,13 @@ def main() -> int:
         print(f"lane 0 step {t} ({got[0].frame_type}): card bytes == CPU "
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
-    dec, decode_s = H264Decoder(), []
-    for t, want in enumerate((first, second)):
-        t0 = time.perf_counter()
-        dec.decode(want[0].payload)
-        decode_s.append(time.perf_counter() - t0)
-        _same_frames(dec.frames[t:], [want[0].recon], f"lane 0 step {t}")
-    print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon; "
-          f"decode seconds per {WIDTH}x{HEIGHT} frame {label} (the port's "
-          f"numpy decoder, a host time): IDR {decode_s[0]:.2f}, P "
-          f"{decode_s[1]:.2f}")
+    # the decode is host work: a worker process runs it beside phases 6 to
+    # 15 (at exit, even a failed one, the pool waits for it and stops it)
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    decoding = pool.submit(decode_lane0, [r[0].payload for r in (first,
+                                                                 second)],
+                           [r[0].recon for r in (first, second)])
     del first, second
 
     # 6. NAL escaping: the per-byte loop against the numpy escape
@@ -687,15 +821,33 @@ def main() -> int:
     print(f"entry() on the card: all {len(want)} outputs equal the CPU's "
           f"({int(got['total_bits'])} bits)")
 
-    # 15. results: K1's line holds the GOP path's P grid (19 of 20 frames
+    # 15. the mesh
+    t0 = time.perf_counter()
+    mesh_launches, err = mesh_phases(cfg, run, frames, label, numbers)
+    max_err = max(max_err, err)
+    print(f"  mesh phase {time.perf_counter() - t0:.1f} s")
+
+    # phase 5's decode
+    t0 = time.perf_counter()
+    decode_s = decoding.result()
+    pool.shutdown()
+    print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon "
+          f"(waited {time.perf_counter() - t0:.1f} s for the worker); decode "
+          f"seconds per {WIDTH}x{HEIGHT} frame {label} (the port's numpy "
+          f"decoder, a host time beside phases 6 to 15): IDR "
+          f"{decode_s[0]:.2f}, P {decode_s[1]:.2f}")
+
+    # 16. results: K1's line holds the GOP path's P grid (19 of 20 frames
     # of a GOP); its launches count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
+    m = numbers["mesh"]
     kernels = [dict(
         name="bitpack", route="cuda",
         source="h264lab_tpu_torch/csrc/bitpack.cu",
         replaces="h264lab_tpu/ops/bitpack.py:152",
-        launches=launches + seq_launches + svc_launches, equal=True,
+        launches=launches + seq_launches + svc_launches + mesh_launches,
+        equal=True,
         max_abs_err=max_err,
         ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
         bound_by="bytes", library_ms=None, grid="P step",
@@ -706,7 +858,9 @@ def main() -> int:
         svc_bm_ms=bm["ms"], svc_bm_plain_ms=bm["plain_ms"],
         svc_bm_bound_ms=bm["bound_ms"], svc_base_p_ms=bp["ms"],
         svc_base_p_plain_ms=bp["plain_ms"],
-        svc_base_p_bound_ms=bp["bound_ms"])]
+        svc_base_p_bound_ms=bp["bound_ms"], mesh_launches=mesh_launches,
+        mesh_ms=m["ms"], mesh_plain_ms=m["plain_ms"],
+        mesh_bound_ms=m["bound_ms"])]
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
           "(the build included)")
     print(json.dumps({"kernels": kernels}))

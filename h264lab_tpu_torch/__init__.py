@@ -15,12 +15,17 @@ layer at half resolution with prefix NALs, the enhancement layer in NAL
 20 with a subset SPS, base-mode I/IDR frames with inter-layer
 prediction); GOP-lane encoding (`parallel.gop.GopBandEncoder`) of
 IDR, I and P frames at speeds 0 to 7 and 9, with the bit-pack stage as a
-CUDA kernel (`ops/bitpack.py`, `csrc/bitpack.cu`); the independent
-decoder (`decoder.decoder.H264Decoder`, numpy on the host, both SVC
-layers), which plays the card's streams where there is no jax; and the
-driver entry point (`entry.entry`: the 128x96 wavefront intra encode and
-its example arguments). Entry points run on the CUDA card unless the
-caller passes `device="cpu"`.
+CUDA kernel (`ops/bitpack.py`, `csrc/bitpack.cu`), on one device or over
+a ("gop", "band") device mesh (`parallel.gop.make_mesh`,
+`encode_stream(mesh=...)`, and the all-intra
+`parallel.sharding.ShardedIntraEncoder`); the independent decoder
+(`decoder.decoder.H264Decoder`, numpy on the host, both SVC layers),
+which plays the card's streams where there is no jax; and the entry
+points (`entry.entry`: the 128x96 wavefront intra encode and its
+example arguments; `entry.dryrun_multichip`: a short IPPP GOP over an
+n-device mesh, decoded and checked). That is every user surface of the
+JAX package. Entry points run on the CUDA cards unless the caller passes
+`device="cpu"` (a mesh: `devices=["cpu"] * n`).
 """
 
 from h264lab_tpu_torch.config import (

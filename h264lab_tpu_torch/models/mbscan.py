@@ -1062,11 +1062,22 @@ def encode_intra_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
     wavefront reads them on the host). Returns JAX's `encode_frame_core`
     dict: `symbolize`'s outputs, recon_* and df_* (the same planes, as
     nothing filters them), mv_*, mv4_*, shape, sel and i4modes."""
+    out = encode_intra_frames(src_y_mb[None], src_u_mb[None], src_v_mb[None],
+                              qp.reshape(1), qpc.reshape(1), steps,
+                              avail_top, avail_left, mb_width, mb_height)
+    return {k: v[0] for k, v in out.items()}
+
+
+def encode_intra_frames(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
+                        avail_top, avail_left, mb_width: int,
+                        mb_height: int):
+    """`encode_intra_core` of N frames at once: src_*_mb (N, nmb, t, t),
+    qp and qpc (N,); every output keeps the leading N axis (JAX vmaps
+    `encode_intra_core` over it)."""
     steps, avail_top, avail_left = (torch.as_tensor(x).cpu().numpy()
                                     for x in (steps, avail_top, avail_left))
-    st = select_stage_core(src_y_mb[None], src_u_mb[None], src_v_mb[None],
-                           qp.reshape(1), qpc.reshape(1), steps, avail_top,
-                           avail_left, None, mb_width, mb_height)
+    st = select_stage_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
+                           avail_top, avail_left, None, mb_width, mb_height)
     out = symbolize(*(st[k] for k in (
         "sel", "mode16", "cmode", "i4sym_v", "i4sym_l", "mv4_y", "mv4_x",
         "shape", "dc_lev", "ac_lev", "lev_inter", "cdc_lev", "cac_lev")),
@@ -1076,4 +1087,4 @@ def encode_intra_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
         out[k] = st[k]
     for p in "yuv":
         out[f"df_{p}"] = st[f"recon_{p}"]
-    return {k: v[0] for k, v in out.items()}
+    return out

@@ -4,7 +4,9 @@ PyTorch counterpart of `h264lab_tpu/models/refstate.py` and of the `ref`
 stage of `h264lab_tpu/parallel/gop.py` (`ref_fn`): the deblocked band
 tiles of each lane are joined into the lane's full frame, then padded with
 a replicated guard ring, and the 4x box pyramid of the luma plane is built
-for the coarse motion search.
+for the coarse motion search. On a ("gop", "band") mesh the bands of a
+lane lie on several devices, and `exchange` gathers them first: the
+all-gather that XLA inserts in the JAX mesh.
 """
 
 from __future__ import annotations
@@ -45,7 +47,35 @@ def ref_stage(df_y, df_u, df_v, mv_y, mv_x, n_gop: int, mb_width: int,
     planes (`prepare_reference` of the full frames, mb_height MB rows),
     the (G, nmb, t, t) full-frame tiles of each lane, and the next step's
     full-pel MV candidates `mv >> 2` (arithmetic shift)."""
-    flat = tuple(d.reshape((n_gop, -1) + d.shape[2:])
-                 for d in (df_y, df_u, df_v))
-    refs = prepare_reference(*flat, mb_width, mb_height)
+    (refs,), flat = exchange([(df_y, df_u, df_v)], [df_y.device], n_gop,
+                             mb_width, mb_height)
     return refs, flat, mv_y >> 2, mv_x >> 2
+
+
+def _join(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def exchange(band_tiles, devices, n_lanes: int, mb_width: int,
+             mb_height: int):
+    """The band-to-reference all-gather of one gop row of a mesh: motion
+    vectors read the whole reference picture, so every device of the row
+    needs every band of its lanes.
+
+    band_tiles: per band shard of the row, in band order, its 3-tuple of
+    (n_lanes * Bl, nmb_band, t, t) deblocked tiles (lane-major) on its
+    device; devices: those shards' devices. Each shard's tiles are copied
+    to each device of the row and joined in band order there; then
+    `prepare_reference` runs once per distinct device. Returns (refs,
+    tiles): per shard, the lanes' reference planes on its device, and the
+    lanes' (n_lanes, nmb, t, t) whole-frame tiles on devices[0]."""
+    joined = {}
+    for dev in devices:
+        if dev not in joined:
+            joined[dev] = tuple(_join([
+                part[p].to(dev, non_blocking=True).reshape(
+                    (n_lanes, -1) + part[p].shape[2:])
+                for part in band_tiles]) for p in range(3))
+    refs = {dev: prepare_reference(*t, mb_width, mb_height)
+            for dev, t in joined.items()}
+    return [refs[dev] for dev in devices], joined[devices[0]]

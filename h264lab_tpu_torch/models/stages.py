@@ -59,11 +59,13 @@ def pad_to(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 class StageTimer:
-    """Named stages on `device`: `stage(name)` brackets one (module
-    docstring)."""
+    """Named stages on `device` (and on the `more` devices a stage also
+    uses): `stage(name)` brackets one (module docstring)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, *more: torch.device):
         self.device = device
+        self._sync_devices = list(dict.fromkeys(
+            d for d in (device,) + more if d.type == "cuda"))
         self.stage_times = None
 
     @contextlib.contextmanager
@@ -74,14 +76,16 @@ class StageTimer:
             if self.stage_times is None:
                 yield
                 return
-            sync = (torch.cuda.synchronize if self.device.type == "cuda"
-                    else (lambda *_: None))
-            sync(self.device)
+            self._sync()
             t0 = time.perf_counter()
             yield
-            sync(self.device)
+            self._sync()
             self.stage_times[name] = (self.stage_times.get(name, 0.0)
                                       + time.perf_counter() - t0)
+
+    def _sync(self):
+        for d in self._sync_devices:
+            torch.cuda.synchronize(d)
 
 
 class FrameStages(StageTimer):
@@ -109,7 +113,8 @@ class FrameStages(StageTimer):
 
     def run(self, frames, n_bands: int, qp: np.ndarray, ref, prev_mv,
             tools: Toolset, cap_words: int | None = None,
-            svc_base_mode_bit: bool = False) -> dict:
+            svc_base_mode_bit: bool = False,
+            band0: int | None = None) -> dict:
         """Encode G frames of B = n_bands equal bands each.
 
         frames: G (y, u, v) uint8 planes, numpy arrays or tensors on the
@@ -121,14 +126,20 @@ class FrameStages(StageTimer):
         candidates (pair) or None; cap_words: the packed capacity of every
         band, or None to read the bands' bits and pack at the bucket of the
         largest; svc_base_mode_bit: `mbscan.symbolize`'s flag (an SVC
-        enhancement layer with inter-layer prediction).
+        enhancement layer with inter-layer prediction); band0: None for
+        whole frames, or, for a mesh shard, the global index of the first
+        band of a block of bands: the frames are then the block's rows
+        (mb_height of this `FrameStages` is the block's), ref still the
+        lanes' whole reference pictures, and the `ref` stage is left to
+        the caller (`refstate.exchange`, which needs every band of a lane).
 
         Returns a dict: per band (leading G * B) words, nbits (the packed
         bits), mb_bits and tail_val/tail_len (host numpy with cap_words
         None, else device), row_bits, sym_vals, sym_lens; per lane
         (leading G) refs (dict), df and recon (3-tuples of (nmb, t, t)
         tiles, deblocked and not); pmv_y/pmv_x the next step's MV
-        candidates; cap_words."""
+        candidates; cap_words. With band0 set, df holds the deblocked
+        band tiles (leading G * B) and there is no refs or recon."""
         G, B = len(frames), n_bands
         dev = self.device
         mbw = self.mb_width
@@ -151,8 +162,9 @@ class FrameStages(StageTimer):
             qpt = torch.as_tensor(qp_np, device=dev)
             qpc = torch.as_tensor(tables.QPC_FROM_QPY[qp_np], device=dev)
             lane = torch.arange(G, device=dev).repeat_interleave(B)
-            row0 = (torch.arange(B, dtype=torch.int32, device=dev)
-                    * rows).repeat(G)
+            row0 = ((band0 or 0) + torch.arange(B, dtype=torch.int32,
+                                                 device=dev)) * rows
+            row0 = row0.repeat(G)
         steps, a_top, a_left = self.plan(rows)
         inter = None
         if has_inter:
@@ -207,6 +219,10 @@ class FrameStages(StageTimer):
             out["words"], out["nbits"] = bitpack.pack_frames(
                 sym["sym_vals"], sym["sym_lens"], cap_words)
             out["cap_words"] = cap_words
+        if band0 is not None:
+            out["df"] = df
+            out["pmv_y"], out["pmv_x"] = st["mv_y"] >> 2, st["mv_x"] >> 2
+            return out
         with self.stage("ref"):
             out["refs"], out["df"], out["pmv_y"], out["pmv_x"] = \
                 refstate.ref_stage(*df, st["mv_y"], st["mv_x"], G, mbw,

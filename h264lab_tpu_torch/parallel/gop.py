@@ -1,4 +1,5 @@
-"""GOP-lane x slice-band encoding on one CUDA device.
+"""GOP-lane x slice-band encoding on CUDA devices, over a ("gop", "band")
+device mesh or on one device.
 
 PyTorch counterpart of `h264lab_tpu/parallel/gop.py`: G independent GOP
 lanes advance in lockstep, each encoding one frame per step against its
@@ -16,6 +17,19 @@ headers, NAL escaping, rate control, transparent frames).
 
 The device stages are `models/stages.py`'s, which `H264Encoder` runs too.
 
+The mesh (`make_mesh`). JAX runs one SPMD program and lets XLA partition
+it; the port keeps one controller and gives each mesh entry (i, j) its
+own block of the batch: lanes i*G/n_gop .. (i+1)*G/n_gop - 1 and bands
+j*B/n_band .. (j+1)*B/n_band - 1, run by its own `FrameStages` on
+`mesh.devices[i, j]` (the shard's planes, QPs, reference slots and MV
+candidates stay there). The one collective is JAX's too: after a step
+each gop row gathers its bands into every device of the row
+(`refstate.exchange`), because motion vectors read the whole reference
+picture. K1 packs each shard's grid on its device, and `finish_step`
+writes the slices in (lane, band) order. Without a mesh the encoder is
+the 1 x 1 case on one device. A mesh entry may repeat a device (JAX's
+`--xla_force_host_platform_device_count`): then the shards share it.
+
 Frame types: IDR, I, P, GOLDEN, RECOVERY, DROPPABLE and CUSTOM, with
 lane-batched reference slots (0 = short-term, 1..N = long-term). P frames
 run the toolset of their speed as the JAX GOP encoder maps it: partitions
@@ -23,15 +37,19 @@ at speed 0, Intra_4x4 in P through the wavefront at speeds 0 and 1,
 quarter-pel ME below 9, full-pel at 9. Speeds 8 and 10 raise
 `NotImplementedError`: the JAX GOP encoder turns deblocking off there but
 writes a slice header that says it is on (a fault its streams have), and
-the port does not copy it. A device `mesh` raises `NotImplementedError`,
-temporal denoising `ValueError`, as in the JAX GOP encoder.
+the port does not copy it. A lane or band count that the mesh does not
+divide raises `ValueError` (JAX's `device_put` refuses such a sharding),
+a `mesh` that is no `Mesh` `TypeError`, temporal denoising `ValueError`,
+as in the JAX GOP encoder.
 
-With fixed QP, lane streams are byte-identical to the JAX package's.
+With fixed QP, lane streams are byte-identical to the JAX package's, with
+or without a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -39,10 +57,10 @@ import torch
 from h264lab_tpu_torch.bitstream import BitWriter, headers
 from h264lab_tpu_torch.bitstream.nal import annexb_nal
 from h264lab_tpu_torch.config import EncoderConfig, FrameType, RunConfig
-from h264lab_tpu_torch.models import wavefront
+from h264lab_tpu_torch.models import refstate, wavefront
 from h264lab_tpu_torch.models.encoder import (PIC_INIT_QP, FrameResult,
                                               long_term_policy)
-from h264lab_tpu_torch.models.stages import FrameStages, Toolset
+from h264lab_tpu_torch.models.stages import FrameStages, StageTimer, Toolset
 from h264lab_tpu_torch.ops import bitpack, qpel
 from h264lab_tpu_torch.rc.ratecontrol import RateControl, filler_nal
 from h264lab_tpu_torch.utils.device import resolve_device
@@ -56,9 +74,52 @@ WORDS_PER_MB = 128
 SPEEDS = (0, 1, 2, 3, 4, 5, 6, 7, 9)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A ("gop", "band") grid of devices (`make_mesh`): `devices` is an
+    (n_gop, n_band) numpy object array of `torch.device`."""
+    devices: np.ndarray
+    axis_names: ClassVar[tuple] = ("gop", "band")
+
+    @property
+    def shape(self) -> dict:
+        """{"gop": n_gop, "band": n_band}, as JAX's `Mesh.shape`."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+def make_mesh(n_gop: int, n_band: int, devices=None) -> Mesh:
+    """An (n_gop, n_band) mesh over the first n_gop * n_band `devices`,
+    row-major as in JAX's `make_mesh`. None means the visible CUDA cards;
+    a list may repeat an entry (`["cpu"] * 8`, `["cuda:0"] * 4`). Too few
+    devices raise `ValueError`; there is no fallback to the CPU."""
+    if devices is None:
+        devices = [torch.device("cuda", k)
+                   for k in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = n_gop * n_band
+    if n_gop < 1 or n_band < 1 or n > len(devices):
+        raise ValueError(f"mesh {n_gop}x{n_band} needs {n} devices, "
+                         f"have {len(devices)}")
+    grid = np.empty((n_gop, n_band), dtype=object)
+    for k in range(n):
+        grid[k // n_band, k % n_band] = devices[k]
+    return Mesh(grid)
+
+
+@dataclasses.dataclass
+class _Shard:
+    """Mesh entry (i, j): the lanes from g0 and the bands from b0 (the
+    encoder's block of lanes x bands), run by `stages` on its device."""
+    name: str
+    g0: int
+    b0: int
+    stages: FrameStages
+
+
 @dataclasses.dataclass
 class _PendingStep:
-    out: dict
+    outs: list                   # per shard, its `FrameStages.run` dict
+    df: tuple                    # per plane, the G lanes' deblocked tiles
     qps: list                    # frame-level QP per lane
     band_qps: list               # per-lane [per-band QP] (fine RC)
     is_idr: bool
@@ -67,7 +128,7 @@ class _PendingStep:
     frame_num: int
     return_recon: bool
     transparent: list = None     # per-lane: emit an all-skip frame
-    old_refs: dict = None        # the reference predicted from
+    old_refs: list = None        # per shard, the reference predicted from
     is_intra: bool = True        # I or IDR
     ft_name: str = "IDR"
     lt_use: int = 0              # long-term policy for the slice headers
@@ -77,50 +138,83 @@ class _PendingStep:
 
 
 class GopBandEncoder:
-    """G lockstep GOP lanes x B slice bands in one batched dispatch.
+    """G lockstep GOP lanes x B slice bands, batched on one device or
+    split over a ("gop", "band") `mesh` (module docstring).
 
     Every lane is an independent H.264 stream (closed GOPs). All lanes
     share the frame schedule but carry their own rate-control state and
     reference pictures.
 
     `device`: None means the CUDA card (and raises without one); pass
-    "cpu" to run the same code on the CPU. `stage_times`: set it to a
-    dict to have each stage synchronize the device and add its wall
-    seconds under its name (pre, inter, select, sym, deblock, pack, ref,
-    host).
+    "cpu" to run the same code on the CPU. With a `mesh`, the devices are
+    the mesh's and `device` stays None. `stage_times`: set it to a dict
+    to have each stage synchronize the device and add its wall seconds
+    under its name (pre, inter, select, sym, deblock, pack, ref, host);
+    with a mesh the dict holds one such dict per shard ("shard i,j":
+    pre .. pack) beside "exchange" (the all-gather and the reference
+    planes) and "host".
     """
 
     @property
     def stage_times(self):
-        return self.stages.stage_times
+        return self.timer.stage_times
 
     @stage_times.setter
     def stage_times(self, value):
-        self.stages.stage_times = value
+        self.timer.stage_times = value
+        if self.mesh is not None:
+            for sh in self.shards:
+                sh.stages.stage_times = (None if value is None else
+                                         value.setdefault(sh.name, {}))
 
     def __init__(self, config: EncoderConfig, n_gop: int | None = None,
-                 mesh=None, idr_pic_id_base: int = 0,
+                 mesh: Mesh | None = None, idr_pic_id_base: int = 0,
                  per_lane_idr_pic_id: bool = False, device=None):
         cfg = config
         self.config = cfg
         self.n_gop = n_gop = (cfg.gop_parallel if n_gop is None else n_gop)
-        if mesh is not None:
-            raise NotImplementedError(
-                "the PyTorch GopBandEncoder runs on one device; a (gop, "
-                "band) mesh is not ported yet")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.gop.Mesh (make_mesh), "
+                            f"not {type(mesh).__name__}")
         if cfg.mb_height % cfg.slice_bands:
             raise ValueError("slice_bands must divide mb_height")
         if cfg.temporal_denoise_flag:
             raise ValueError(
                 "GopBandEncoder does not support temporal denoising; "
                 "pre-filter the input or use H264Encoder")
-        self.device = resolve_device(device)
+        self.n_bands = cfg.slice_bands
+        self.band_rows = cfg.mb_height // cfg.slice_bands
+        if mesh is None:
+            grid = np.empty((1, 1), dtype=object)
+            grid[0, 0] = resolve_device(device)
+        else:
+            if device is not None:
+                raise ValueError("a mesh names its devices; leave device "
+                                 "None")
+            grid = mesh.devices
+            if n_gop % grid.shape[0] or self.n_bands % grid.shape[1]:
+                raise ValueError(
+                    f"{n_gop} lanes x {self.n_bands} bands do not split over "
+                    f"a {grid.shape[0]}x{grid.shape[1]} mesh: the lanes must "
+                    f"divide by {grid.shape[0]} and the bands by "
+                    f"{grid.shape[1]}")
+        self.mesh = mesh
+        self.device = grid[0, 0]
+        gl, bl = n_gop // grid.shape[0], self.n_bands // grid.shape[1]
+        self._block = (gl, bl)
+        self._mesh_shape = grid.shape
+        self.shards = [
+            _Shard(f"shard {i},{j}", i * gl, j * bl,
+                   FrameStages(grid[i, j], cfg.mb_width, bl * self.band_rows))
+            for i in range(grid.shape[0]) for j in range(grid.shape[1])]
+        self.stages = self.shards[0].stages
+        # without a mesh the one shard's timer also times `ref` and `host`
+        self.timer = (self.stages if mesh is None
+                      else StageTimer(*grid.reshape(-1)))
         # standalone lanes all use `idr_pic_id_base`; `encode_stream` sets
         # per_lane_idr_pic_id so lane g's IDR uses (base + g) mod 16
         self.idr_pic_id_base = idr_pic_id_base
         self.per_lane_idr_pic_id = per_lane_idr_pic_id
-        self.n_bands = cfg.slice_bands
-        self.band_rows = cfg.mb_height // cfg.slice_bands
         self.max_cap_words = 1 << int(np.ceil(np.log2(
             self.band_rows * cfg.mb_width * WORDS_PER_MB)))
         # I/IDR frames pack at the spec worst-case bucket; P frames start at
@@ -131,13 +225,15 @@ class GopBandEncoder:
                 self.band_rows * cfg.mb_width * 8 + 1))))
         self.frame_num = 0
         self.step_idx = 0
-        # previous-frame full-pel MV fields (G*B, nmb_band), the ME's third
-        # candidate centre; None right after an intra frame
+        # per shard, the previous-frame full-pel MV fields (Gl*Bl,
+        # nmb_band), the ME's third candidate centre; None right after an
+        # intra frame
         self._prev_mv = None
         self.rc = [RateControl(cfg.n_mb, cfg.gop, cfg.vbv_size_bytes, cfg.qp)
                    for _ in range(n_gop)]
         # reference slots, lane-batched: 0 = short-term, 1..N = long-term
-        # (slot k holds LongTermFrameIdx k-1 on every lane)
+        # (slot k holds LongTermFrameIdx k-1 on every lane); each slot is a
+        # list of per-shard reference dicts, on the shards' devices
         self._refs = {}
         self._gop_pos = 0
         self._most_recent_idx = 0
@@ -150,7 +246,6 @@ class GopBandEncoder:
             sps_id=cfg.sps_id,
             num_ref_frames=1 + cfg.max_long_term_reference_frames,
             vbv_size_bytes=cfg.vbv_size_bytes)
-        self.stages = FrameStages(self.device, cfg.mb_width, cfg.mb_height)
 
     def encode_step(self, frames, run: RunConfig | None = None,
                     return_recon: bool = False):
@@ -175,6 +270,31 @@ class GopBandEncoder:
         return long_term_policy(ftype, run, cfg.max_long_term_reference_frames,
                                 self._most_recent_idx, self._refs)
 
+    def _shard_frames(self, frames, sh: _Shard):
+        """The shard's lanes, cut to its bands' rows (views)."""
+        gl, bl = self._block
+        y0, n = sh.b0 * self.band_rows, bl * self.band_rows
+        return [tuple(p[y0 * t:(y0 + n) * t] for p, t in zip(f, (16, 8, 8)))
+                for f in frames[sh.g0:sh.g0 + gl]]
+
+    def _exchange(self, outs):
+        """`refstate.exchange` for every gop row. Returns (per shard its
+        lanes' reference planes, per plane the G lanes' deblocked
+        whole-frame tiles)."""
+        gl, n_band = self._block[0], self._mesh_shape[1]
+        refs, df = [], ([], [], [])
+        with self.timer.stage("ref" if self.mesh is None else "exchange"):
+            for k in range(0, len(self.shards), n_band):
+                row = range(k, k + n_band)
+                r, tiles = refstate.exchange(
+                    [outs[s]["df"] for s in row],
+                    [self.shards[s].stages.device for s in row], gl,
+                    self.config.mb_width, self.config.mb_height)
+                refs += r
+                for d, t in zip(df, tiles):
+                    d.extend(t.unbind(0))
+        return refs, df
+
     def encode_step_async(self, frames, run: RunConfig | None = None,
                           return_recon: bool = False) -> _PendingStep:
         """Queue the device work for one frame on every lane and return;
@@ -182,6 +302,7 @@ class GopBandEncoder:
         cfg = self.config
         run = run or RunConfig(qp_min=cfg.qp, qp_max=cfg.qp)
         G, B = self.n_gop, self.n_bands
+        gl, bl = self._block
         if len(frames) != G:
             raise ValueError(f"expected {G} lane frames, got {len(frames)}")
         if run.encode_speed not in SPEEDS:
@@ -216,20 +337,27 @@ class GopBandEncoder:
                     B, is_intra, run.desired_frame_bytes, qmin, qmax))
             else:
                 band_qps.append([qp] * B)
+        qp_grid = np.asarray(band_qps, np.int32)                   # (G, B)
 
         # the previous-MV candidate is valid only on the short-term chain
         # (zeros otherwise)
         prev_mv = self._prev_mv if has_inter and lt_use == 0 else None
         ref_used = self._refs.get(max(lt_use, 0)) if has_inter else None
         cap = self.idr_cap_words if is_intra else self.p_cap_words
-        out = self.stages.run(frames, B, np.asarray(band_qps).reshape(-1),
-                              ref_used, prev_mv,
-                              Toolset.for_speed(run.encode_speed, is_intra),
-                              cap)
-        for k in ("words", "nbits", "tail_val", "tail_len", "sym_vals",
-                  "sym_lens"):
-            out[k] = out[k].reshape((G, B) + out[k].shape[1:])
-        new_refs = out["refs"]
+        tools = Toolset.for_speed(run.encode_speed, is_intra)
+        outs = []
+        for k, sh in enumerate(self.shards):
+            out = sh.stages.run(
+                self._shard_frames(frames, sh), bl,
+                qp_grid[sh.g0:sh.g0 + gl, sh.b0:sh.b0 + bl].reshape(-1),
+                None if ref_used is None else ref_used[k],
+                None if prev_mv is None else prev_mv[k], tools, cap,
+                band0=sh.b0)
+            for key in ("words", "nbits", "tail_val", "tail_len",
+                        "sym_vals", "sym_lens"):
+                out[key] = out[key].reshape((gl, bl) + out[key].shape[1:])
+            outs.append(out)
+        new_refs, df = self._exchange(outs)
 
         # pre-marking DPB flags go into the slice headers (finish_step)
         hdr_st_used = self._short_term_used
@@ -240,14 +368,18 @@ class GopBandEncoder:
             self._refs = {}
             self._short_term_used = False
             self._lt_used = [False] * n_lt
-        mask = torch.as_tensor(transparent, device=self.device)
+        # per shard, its lanes' transparent flags
+        masks = [torch.as_tensor(transparent[sh.g0:sh.g0 + gl],
+                                 device=sh.stages.device)
+                 for sh in self.shards] if any(transparent) else None
         if lt_update >= 0:
             old_slot = self._refs.get(lt_update)
-            if any(transparent) and old_slot is not None:
+            if masks and old_slot is not None:
                 # transparent lanes keep the slot's previous picture
-                new_refs = {k: torch.where(
-                    mask.reshape((G,) + (1,) * (v.ndim - 1)), old_slot[k], v)
-                    for k, v in new_refs.items()}
+                new_refs = [{k: torch.where(
+                    m.reshape((gl,) + (1,) * (v.ndim - 1)), old[k], v)
+                    for k, v in new.items()}
+                    for m, old, new in zip(masks, old_slot, new_refs)]
             self._refs[lt_update] = new_refs
             self._most_recent_idx = lt_update
             if lt_update == 0:
@@ -258,21 +390,22 @@ class GopBandEncoder:
         if is_intra or lt_use != 0:
             self._prev_mv = None
         else:
-            new_prev = (out["pmv_y"], out["pmv_x"])
-            if any(transparent):
+            new_prev = [(o["pmv_y"], o["pmv_x"]) for o in outs]
+            if masks:
                 # transparent lanes keep their previous MV field too
-                m = mask.repeat_interleave(B)[:, None]
-                old = self._prev_mv or tuple(torch.zeros_like(x)
-                                             for x in new_prev)
-                new_prev = tuple(torch.where(m, o, n)
-                                 for o, n in zip(old, new_prev))
+                old_prev = self._prev_mv or [
+                    tuple(torch.zeros_like(x) for x in n) for n in new_prev]
+                new_prev = [tuple(
+                    torch.where(m.repeat_interleave(bl)[:, None], o, n)
+                    for o, n in zip(old, new))
+                    for m, old, new in zip(masks, old_prev, new_prev)]
             self._prev_mv = new_prev
 
         self.step_idx += 1
         self._gop_pos = 1 if is_idr else self._gop_pos + 1
         fn_use = 0 if is_idr else self.frame_num
         self.frame_num = (fn_use + 1) % (1 << headers.FRAME_NUM_BITS)
-        return _PendingStep(out=out, qps=qps, band_qps=band_qps,
+        return _PendingStep(outs=outs, df=df, qps=qps, band_qps=band_qps,
                             is_idr=is_idr, run=run, n_bands=B,
                             frame_num=fn_use, return_recon=return_recon,
                             transparent=transparent, old_refs=ref_used,
@@ -285,13 +418,22 @@ class GopBandEncoder:
 
     def finish_step(self, p: _PendingStep):
         """Wait for a dispatched step and write per-lane Annex-B bytes."""
-        with self.stages.stage("host"):
+        with self.timer.stage("host"):
             return self._finish_step(p)
+
+    def _host(self, p: _PendingStep, key: str) -> np.ndarray:
+        """Every shard's (Gl, Bl, ...) `key` on the host, joined into the
+        (G, B, ...) array of the lanes and bands."""
+        n_band = self._mesh_shape[1]
+        parts = [o[key].cpu().numpy() for o in p.outs]
+        return np.concatenate([np.concatenate(parts[k:k + n_band], axis=1)
+                               for k in range(0, len(parts), n_band)])
 
     def _finish_step(self, p: _PendingStep):
         cfg = self.config
         G, B = self.n_gop, p.n_bands
-        nbits = p.out["nbits"].cpu().numpy()                     # (G, B)
+        gl = self._block[0]
+        nbits = self._host(p, "nbits")                           # (G, B)
         # capacity overflow (P frames only; IDR packs at the spec
         # worst-case bucket): re-pack the kept symbol grids at a larger
         # bucket, no re-encode
@@ -302,14 +444,15 @@ class GopBandEncoder:
             need = int(nbits.max()) // 32 + 2
             while self.p_cap_words < min(need * 2, self.max_cap_words):
                 self.p_cap_words *= 2
-            words, nb = bitpack.pack_frames(
-                p.out["sym_vals"], p.out["sym_lens"], self.p_cap_words)
-            p.out["words"], p.out["nbits"] = words, nb
-            nbits = nb.cpu().numpy()
-        words = p.out["words"].cpu().numpy()          # (G, B, cap + 256)
-        tails_v = p.out["tail_val"].cpu().numpy()
-        tails_l = p.out["tail_len"].cpu().numpy()
+            for o in p.outs:
+                o["words"], o["nbits"] = bitpack.pack_frames(
+                    o["sym_vals"], o["sym_lens"], self.p_cap_words)
+            nbits = self._host(p, "nbits")
+        words = self._host(p, "words")                # (G, B, cap + 256)
+        tails_v = self._host(p, "tail_val")
+        tails_l = self._host(p, "tail_len")
         deblock_idc = 2 if B > 1 else 0
+        n_band = self._mesh_shape[1]
         results = []
         for g in range(G):
             is_transparent = bool(p.transparent and p.transparent[g])
@@ -339,15 +482,17 @@ class GopBandEncoder:
             recon = None
             if p.return_recon:
                 if is_transparent:
-                    # recon == the lane's (unchanged) reference picture
+                    # recon == the lane's (unchanged) reference picture,
+                    # held by the first shard of its gop row
+                    ref = p.old_refs[g // gl * n_band]
                     gy, gc = qpel.GUARD, qpel.GUARD // 2
-                    planes = [p.old_refs[k][g, gd:-gd, gd:-gd].cpu().numpy()
+                    planes = [ref[k][g % gl, gd:-gd, gd:-gd].cpu().numpy()
                               for k, gd in (("y_pad", gy), ("u_pad", gc),
                                             ("v_pad", gc))]
                 else:
                     planes = [wavefront.tiles_to_plane(
                         d[g].cpu().numpy(), cfg.mb_height, cfg.mb_width)
-                        for d in p.out["df"]]
+                        for d in p.df]
                 recon = (planes[0][:cfg.height, :cfg.width],
                          planes[1][:cfg.height // 2, :cfg.width // 2],
                          planes[2][:cfg.height // 2, :cfg.width // 2])
@@ -409,10 +554,14 @@ class GopBandEncoder:
 
 
 def encode_stream(frames, config: EncoderConfig, n_gop: int | None = None,
-                  run: RunConfig | None = None, device=None):
+                  run: RunConfig | None = None, mesh: Mesh | None = None,
+                  device=None):
     """Encode a frame sequence with GOP-parallel lanes and return the
     in-order Annex-B stream. Lane g takes GOP g, g+n_gop, ...; with fixed
-    QP the output equals sequential encoding."""
+    QP the output equals sequential encoding. With a `mesh`, every group
+    of lanes must split over it, the last one too (JAX's `device_put`
+    refuses a last group of fewer lanes than the mesh's gop axis divides:
+    `ValueError`, as here)."""
     cfg = config
     n_gop = cfg.gop_parallel if n_gop is None else n_gop
     gop = cfg.gop or len(frames)
@@ -421,7 +570,7 @@ def encode_stream(frames, config: EncoderConfig, n_gop: int | None = None,
     payloads = [[] for _ in range(n_gops_total)]
     for base in range(0, n_gops_total, n_gop):
         group = chunks[base:base + n_gop]
-        enc = GopBandEncoder(cfg, n_gop=len(group),
+        enc = GopBandEncoder(cfg, n_gop=len(group), mesh=mesh,
                              idr_pic_id_base=base % 16,
                              per_lane_idr_pic_id=True, device=device)
         for t in range(max(len(c) for c in group)):

@@ -30,7 +30,12 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
 - the port's decoder plays the card's streams bit-exactly to the card's
   reconstruction: H264Encoder at speed 0 and both layers of SvcEncoder
   (through a base-mode IDR), at 128x96;
-- `entry()` on the card gives the same outputs as `entry(device="cpu")`.
+- `entry()` on the card gives the same outputs as `entry(device="cpu")`;
+- the ("gop", "band") mesh on the card, with entries that all name
+  cuda:0: `dryrun_multichip(8)` gives the CPU mesh's streams, and a
+  (2, 2) mesh at 128x96 with two bands (IDR, P, P at speeds 2 and 0)
+  gives the unsharded card run's bytes and reconstructions, launching K1
+  once per shard and step.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -40,11 +45,11 @@ import torch
 
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig
 from h264lab_tpu_torch.decoder.decoder import H264Decoder
-from h264lab_tpu_torch.entry import entry
+from h264lab_tpu_torch.entry import dryrun_multichip, entry
 from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
 from h264lab_tpu_torch.ops import bitpack
-from h264lab_tpu_torch.parallel.gop import GopBandEncoder
+from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
                                                noise_pan_sequence)
 from tests.torch_grids import EDGE_CASES, edge_grid, random_grid
@@ -176,7 +181,7 @@ def test_k1_matches_plain_packer_on_a_p_grid(card):
     enc.encode_step(frames[:4], run)
     p = enc.encode_step_async(frames[1:], run)
     assert not p.is_intra
-    vals, lens = p.out["sym_vals"], p.out["sym_lens"]
+    vals, lens = p.outs[0]["sym_vals"], p.outs[0]["sym_lens"]
     for cap in (enc.p_cap_words, 128):
         wk, nk = bitpack.pack_frames(vals, lens, cap)
         wp, np_ = bitpack.pack_frames_plain(vals.cpu(), lens.cpu(), cap)
@@ -366,3 +371,30 @@ def test_entry_on_the_card_equals_cpu(card):
     assert set(got) == set(want)
     for k, v in want.items():
         assert torch.equal(got[k].cpu(), v), k
+
+
+def test_dryrun_on_a_virtual_card_mesh(card):
+    got = dryrun_multichip(8, devices=["cuda:0"] * 8)
+    assert len(got) == 4
+    assert got == dryrun_multichip(8, devices=["cpu"] * 8)
+
+
+@pytest.mark.parametrize("speed", [2, 0])
+def test_card_mesh_equals_unsharded_card_run(card, speed):
+    w, h = 128, 96
+    cfg = EncoderConfig(width=w, height=h, gop=3, qp=30, slice_bands=2)
+    run = RunConfig(qp_min=30, qp_max=30, encode_speed=speed)
+    frames = list(chessboard_sequence(w, h, 4))
+    mesh = GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(2, 2, ["cuda:0"] * 4))
+    flat = GopBandEncoder(cfg, n_gop=2)
+    for t in range(3):
+        lanes = frames[t:t + 2]
+        before = bitpack.LAUNCH_COUNTS["bitpack"]
+        got = mesh.encode_step(lanes, run, return_recon=True)
+        assert bitpack.LAUNCH_COUNTS["bitpack"] == before + 4
+        want = flat.encode_step(lanes, run, return_recon=True)
+        assert [r.frame_type for r in got] == [["IDR", "P", "P"][t]] * 2
+        for a, b in zip(got, want):
+            assert a.payload == b.payload
+            for pa, pb in zip(a.recon, b.recon):
+                np.testing.assert_array_equal(pa, pb)

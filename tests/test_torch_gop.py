@@ -167,7 +167,7 @@ def test_unsupported_requests_raise(monkeypatch):
                                n_gop=1, device="cpu")
     with pytest.raises(NotImplementedError):
         enc1.encode_step([f], dataclasses.replace(run, encode_speed=8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):     # a mesh is make_mesh's
         tgop.GopBandEncoder(EncoderConfig(width=w, height=h), n_gop=1,
                             mesh=object(), device="cpu")
     with pytest.raises(ValueError):                  # as the JAX GOP path
@@ -226,10 +226,12 @@ def test_constants_and_configs_carried_across():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "h264lab_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_step.py"]
-    assert len(files) >= 48
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_step.py",
+              ROOT / "tools" / "torch_mesh_cards.py"]
+    assert len(files) >= 50
     pkg = ROOT / "h264lab_tpu_torch"
     for name in ("cli.py", "utils/yuv.py", "utils/metrics.py",
+                 "parallel/sharding.py", "parallel/gop.py",
                  "ops/denoise.py", "models/stages.py", "models/encoder.py",
                  "models/svc.py", "ops/resample.py", "entry.py",
                  "bitstream/nal.py", "decoder/__init__.py",

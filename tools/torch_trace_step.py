@@ -260,7 +260,8 @@ def k1_timing(baseline=None, reps=20):
     cfg, run, frames = chip_smoke.main_path_setup()
     enc = GopBandEncoder(cfg, n_gop=chip_smoke.LANES)
     p = enc.encode_step_async(chip_smoke.lane_frames(frames, 0), run)
-    vals, lens, cap = p.out["sym_vals"], p.out["sym_lens"], enc.idr_cap_words
+    grid = p.outs[0]          # the one shard of an encoder without a mesh
+    vals, lens, cap = grid["sym_vals"], grid["sym_lens"], enc.idr_cap_words
     new = lambda: bitpack.pack_frames(vals, lens, cap)  # noqa: E731
     out = dict(grid=list(vals.shape), cap_words=cap,
                ms=chip_smoke._cuda_ms(new, reps))
