@@ -5,8 +5,10 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the bit-pack kernel K1 from h264lab_tpu_torch/csrc/bitpack.cu
-     and print what ptxas reports (registers, shared memory, spills);
+  2. build the bit-pack kernel K1 (h264lab_tpu_torch/csrc/bitpack.cu) and
+     the deblocking kernel K2 (csrc/deblock.cu), one nvcc each, started
+     together, and print what ptxas reports (registers, shared memory,
+     spills);
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
      encode_speed 2, lane g walking consecutive frames g, g+1, ...:
@@ -17,17 +19,19 @@ Phases (any failure exits non-zero; nothing is caught):
      per-stage times; one more forced KEY step without synchronization
      inside it, timed as t_IDR. From these a GOP-20 frames/s, derived as
      16 * 20 / (t_IDR + 19 * t_P). The RBSPs that the two stage steps
-     escape are kept for phase 6;
+     escape are kept for phase 6, their deblocking inputs for phase 4; the
+     main path must have launched K1 and K2 on every step;
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
      what the real grids lack (runs of empty MBs, an empty frame, MBs over
      4096 bits, units over 704 bits): the words and bit counts must be
-     equal; the main path must have launched K1;
+     equal; hold K2 against the plain filter (`deblock_frame_plain`) on
+     the IDR and P steps' (16, 8160) deblocking inputs: equal tiles;
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1; then
      decode lane 0's stream of those two steps with the port's decoder
-     (numpy, on the host) in a worker process, beside phases 6 to 15:
+     (numpy, on the host) in a worker process, beside phases 6 to 16:
      both frames must equal the card's reconstruction; before the results
      the script waits for it and prints the decode seconds per 1080p
      frame (a host time, taken while the other phases run);
@@ -40,9 +44,10 @@ Phases (any failure exits non-zero; nothing is caught):
      P through the wavefront with the inter candidate): an IDR (untimed,
      first use), one P frame timed without synchronization inside it
      (seconds per frame, frames/s) and one P frame with per-stage times;
-     the main path must have launched K1;
+     the path must have launched K1 and K2 on every frame;
   8. hold K1 against the plain packer on that P frame's (1, 8160, 952)
-     grid, at its capacity and at 1024 words;
+     grid, at its capacity and at 1024 words, and K2 against the plain
+     filter on its deblocking inputs;
   9. card bytes against CPU bytes at 352x288 (CIF): H264Encoder at speed
      0 (IDR, P, P) and at speed 10 (full-pel, deblocking off: IDR, P), and
      a 2-lane GopBandEncoder at speed 1 (IDR, P); each card stream (both
@@ -55,11 +60,13 @@ Phases (any failure exits non-zero; nothing is caught):
      an IDR (untimed, first use), a P frame timed without synchronization
      inside it (seconds per two-layer frame), a P frame and a forced
      FrameType.KEY frame (the base-mode IDR) with per-stage times of the
-     base layer, the enhancement layer and the resampling; K1 must have
-     launched at least once per layer and frame;
+     base layer, the enhancement layer and the resampling; K1 and K2 must
+     have launched at least once per layer and frame, K2 also for the
+     base-mode frame's own deblocking;
   12. hold K1 against the plain packer on the base-mode frame's (1, 8160,
      952) grid and on the base layer's P grid (1, 2040, 952), each at its
-     capacity and at 1024 words;
+     capacity and at 1024 words, and K2 against the plain filter on the
+     base-mode frame's and the base P frame's deblocking inputs;
   13. card bytes against CPU bytes of SvcEncoder at 352x288 over 176x144:
      inter-layer prediction at speed 0 (IDR, P, P) and none at speed 2
      (IDR, P); each card stream decodes bit-exactly to the card's
@@ -80,16 +87,26 @@ Phases (any failure exits non-zero; nothing is caught):
      enough, else entries that all name cuda:0 (printed). Every lane's
      bytes of every step must equal an unsharded GopBandEncoder on the
      card with the same configuration, whose lane 0 IDR and first P
-     must equal a CPU encode; K1 must have launched for every shard and
-     step, and must equal the plain packer on shard (0, 0)'s grid of the
-     last P step;
-  16. print the kernels line (JSON), then the result line (JSON).
+     must equal a CPU encode; K1 and K2 must have launched for every
+     shard and step; K1 must equal the plain packer on shard (0, 0)'s grid
+     of the last P step, K2 the plain filter on shard (0, 1)'s (1, 4080)
+     deblocking inputs of that step;
+  16. hold K2 against the plain filter on seeded inputs
+     (`utils.synthetic.deblock_inputs`: bS 0 to 4, flat areas, per-frame
+     and per-MB QPs) at the main paths' shapes: (16, 8160), (1, 8160) with
+     per-MB QPs, (1, 2040), a (1, 4080) band whose first row and column
+     are unavailable, and (3, 12) at 4 x 3 MBs: equal tiles. For every K2
+     check: K2's wrapper ms (CUDA events over 20 calls), the `deblock`
+     stage's (bS, edge QPs, K2), the plain filter's (one call) and the
+     byte bound;
+  17. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
 result.
 """
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -112,6 +129,17 @@ CIF = (352, 288)
 SVC_FRAMES = 4                   # IDR, timed P, P and IDR with stage times
 MESH = (2, 2)                    # phase 15's (gop, band) mesh
 MESH_STEPS = ("IDR", "P", "P")
+# the bytes K2 moves per MB: pixels read and written (256 + 2 x 64 B each
+# way), bS as uint8 (2 x 16 B), the edge QPs as int32 (2 x (4 + 2) x 4 B)
+K2_BYTES_PER_MB = 2 * (256 + 2 * 64) + 2 * 16 + 12 * 4
+# phase 16: (what, seed, frames, mb_width, mb_height, qp, per-MB QPs, band)
+K2_CASES = (
+    ("16 lanes of 1080p", 21, LANES, 120, 68, QP, False, False),
+    ("1080p, per-MB QPs", 22, 1, 120, 68, QP, True, False),
+    ("the SVC base layer", 23, 1, 60, 34, QP, False, False),
+    ("a mesh band", 24, 1, 120, 34, QP, False, True),
+    ("4 x 3 MBs", 25, 3, 4, 3, 14, True, True),
+)
 
 
 def _require(ok: bool, what: str):
@@ -121,6 +149,7 @@ def _require(ok: bool, what: str):
 
 
 def _cuda_ms(fn, reps):
+    """Device ms per call of `fn` over `reps` calls after one warm-up."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -132,6 +161,74 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0 before a path runs."""
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    for k in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[k] = 0
+
+
+@contextlib.contextmanager
+def deblock_calls(calls):
+    """Append the arguments of every `mbscan.deblock_frame` call made
+    inside the block (every encode path deblocks through it) to `calls`."""
+    from h264lab_tpu_torch.models import mbscan
+
+    fn = mbscan.deblock_frame
+
+    def recorded(*args):
+        calls.append(args)
+        return fn(*args)
+
+    mbscan.deblock_frame = recorded
+    try:
+        yield calls
+    finally:
+        mbscan.deblock_frame = fn
+
+
+def check_k2(args, what, label):
+    """K2 against the plain filter on one call's `deblock_frame` arguments
+    on their card: `deblock_frame` (bS, edge QPs, one K2 launch) and
+    `deblock_frame_plain` must give equal tiles. Returns K2's numbers: ms
+    (its wrapper `deblock_tiles`), stage_ms (`deblock_frame`), both from
+    CUDA events over 20 calls; plain_ms (the checked call); bound_ms (the
+    bytes K2 moves at 3.35 TB/s); max_abs_err."""
+    import torch
+    from h264lab_tpu_torch.models import mbscan
+    from h264lab_tpu_torch.ops import deblock
+
+    with torch.cuda.device(args[0].device):
+        got = mbscan.deblock_frame(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        want = mbscan.deblock_frame_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        err = max(int((a.int() - b.int()).abs().max())
+                  for a, b in zip(got, want))
+        _require(err == 0 and all(a.dtype == b.dtype == torch.uint8
+                                  for a, b in zip(got, want)),
+                 f"K2 differs from the plain filter on {what} (largest "
+                 f"difference {err})")
+        k2_args = mbscan.deblock_tiles_args(*args)
+        out = dict(ms=_cuda_ms(lambda: deblock.deblock_tiles(*k2_args), 20),
+                   stage_ms=_cuda_ms(lambda: mbscan.deblock_frame(*args), 20),
+                   plain_ms=start.elapsed_time(end), max_abs_err=err)
+    n, nmb = args[3].shape
+    moved = n * nmb * K2_BYTES_PER_MB
+    out["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+    print(f"  K2 == plain on {what} ({n}, {nmb}) {label}: K2 {out['ms']:.3f}"
+          f" ms (bS, edge QPs and K2 {out['stage_ms']:.3f} ms; plain "
+          f"{out['plain_ms']:.1f} ms; bound {out['bound_ms']:.4f} ms for "
+          f"{moved / 1e6:.2f} MB, {100 * out['bound_ms'] / out['ms']:.2f}% "
+          "of it reached)")
+    return out
 
 
 def escape_loop(rbsp: bytes) -> bytes:
@@ -313,16 +410,18 @@ def k1_numbers(vals, lens, cap, nk):
                 n_sym=n_sym)
 
 
-def svc_phases(cfg, run, label, numbers, cif, cif_frames):
+def svc_phases(cfg, run, label, numbers, k2_numbers, cif, cif_frames):
     """Phases 11 to 13: SvcEncoder at WIDTH x HEIGHT with inter-layer
     prediction (stage frames timed), K1 on its base-mode and base P grids
-    (their numbers go into `numbers`), and SVC card bytes against CPU bytes
-    at CIF. Returns (K1 launches of the SVC frames, largest K1 error)."""
+    and K2 on their deblocking inputs (their numbers go into `numbers` and
+    `k2_numbers`), and SVC card bytes against CPU bytes at CIF. Returns
+    (K1 launches of the SVC frames, K2 launches, largest K1 error)."""
     import torch
     from h264lab_tpu_torch.bitstream.nal import split_annexb
     from h264lab_tpu_torch.config import FrameType
     from h264lab_tpu_torch.models.svc import SvcEncoder
     from h264lab_tpu_torch.ops import bitpack
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.utils.synthetic import chessboard_sequence
 
     key = dataclasses.replace(run, frame_type=FrameType.KEY)
@@ -357,7 +456,7 @@ def svc_phases(cfg, run, label, numbers, cif, cif_frames):
                 print(f"  {layer:4s} stage {k:9s} {1e3 * v:10.1f} ms "
                       f"{label}")
 
-    bitpack.LAUNCH_COUNTS["bitpack"] = 0
+    reset_launches()
     res, s = svc_frame(0, "IDR")
     print(f"SVC IDR (untimed, first use): {s:.2f} s; bytes base "
           f"{len(res.base_payload)}, enhancement {len(res.enh_payload)}")
@@ -368,21 +467,34 @@ def svc_phases(cfg, run, label, numbers, cif, cif_frames):
           f"enhancement {len(res.enh_payload)}")
     bitpack.pack_frames = recorded
     svc.stage_times = {}
-    res, s = svc_frame(2, "P")
+    p_calls, bm_calls = [], []
+    with deblock_calls(p_calls):
+        res, s = svc_frame(2, "P")
     svc_table("P", s, res)
     svc.stage_times = {}
-    res, s = svc_frame(3, "IDR", key)
+    before = LAUNCH_COUNTS["deblock"]
+    with deblock_calls(bm_calls):
+        res, s = svc_frame(3, "IDR", key)
+    bm_launches = LAUNCH_COUNTS["deblock"] - before
     svc_table("IDR (base-mode)", s, res)
     svc.stage_times = None
     bitpack.pack_frames = k1
     print(f"  peak device memory of the SVC path "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    svc_launches = bitpack.LAUNCH_COUNTS["bitpack"]
+    svc_launches = LAUNCH_COUNTS["bitpack"]
+    svc_db_launches = LAUNCH_COUNTS["deblock"]
     print(f"K1 launches in the SVC path's {SVC_FRAMES} frames: "
-          f"{svc_launches}")
+          f"{svc_launches}; K2 launches {svc_db_launches}, {bm_launches} "
+          "of them in the base-mode frame")
     _require(svc_launches >= 2 * SVC_FRAMES, "the SVC path did not launch "
              "K1 for both layers on every frame")
+    _require(svc_db_launches >= 2 * SVC_FRAMES and bm_launches >= 2,
+             "the SVC path did not launch K2 for both layers on every "
+             "frame, the base-mode frame's own deblocking included")
     _require(len(grids) == 4, f"{len(grids)} K1 calls in 2 SVC frames")
+    db_shapes = [tuple(a[3].shape) for a in p_calls + bm_calls]
+    _require(db_shapes == [(1, nmb // 4), (1, nmb)] * 2,
+             f"deblocking calls of shapes {db_shapes} in 2 SVC frames")
 
     # 12. K1 against the plain packer on the base-mode and base P grids
     for name, (vals, lens, cap), shape in (
@@ -399,7 +511,12 @@ def svc_phases(cfg, run, label, numbers, cif, cif_frames):
               f"{n['moved'] / 1e9:.3f} GB, {100 * n['bound_ms'] / n['ms']:.0f}"
               f"% of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
     grids.clear()
-    del svc, vals, lens
+    # K2 on the base-mode frame's own deblocking and on the base P frame's
+    k2_numbers["SVC base-mode"] = check_k2(bm_calls[1], "the SVC base-mode "
+                                           "frame's deblocking inputs", label)
+    k2_numbers["SVC base P"] = check_k2(p_calls[0], "the SVC base P frame's "
+                                        "deblocking inputs", label)
+    del svc, vals, lens, p_calls, bm_calls
     torch.cuda.empty_cache()
 
     # 13. SVC card bytes against CPU bytes at CIF, and both layers decoded
@@ -428,7 +545,7 @@ def svc_phases(cfg, run, label, numbers, cif, cif_frames):
                      "the base layer without NAL 14, 15, 20")
     print(f"  CIF SVC comparisons and decodes {time.perf_counter() - t0:.1f}"
           " s")
-    return svc_launches, max_err
+    return svc_launches, svc_db_launches, max_err
 
 
 def mesh_devices(n):
@@ -442,13 +559,14 @@ def mesh_devices(n):
     return ["cuda:0"] * n, f"a virtual mesh, {n} x cuda:0"
 
 
-def mesh_phases(cfg, run, frames, label, numbers):
+def mesh_phases(cfg, run, frames, label, numbers, k2_numbers):
     """Phase 15: the dryruns, then the 1080p mesh run against the unsharded
-    card run (and that against the CPU), and K1 on a shard's grid (its
-    numbers go into `numbers`). Returns (K1 launches of the mesh run,
+    card run (and that against the CPU), K1 on a shard's grid and K2 on a
+    shard's deblocking inputs (their numbers go into `numbers` and
+    `k2_numbers`). Returns (K1 launches of the mesh run, K2 launches,
     largest K1 error)."""
     from h264lab_tpu_torch.entry import dryrun_multichip
-    from h264lab_tpu_torch.ops import bitpack
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 
     for n in (8, 3):
@@ -466,15 +584,18 @@ def mesh_phases(cfg, run, frames, label, numbers):
                          mesh=make_mesh(n_gop, n_band, devices))
     print(f"mesh {n_gop}x{n_band} on {what}: {WIDTH}x{HEIGHT}, {n_band} "
           f"slice bands, {n_gop} lanes, QP {QP}, speed {run.encode_speed}")
-    bitpack.LAUNCH_COUNTS["bitpack"] = 0
-    mesh_res = []
+    reset_launches()
+    mesh_res, db_calls = [], []
     for t, kind in enumerate(MESH_STEPS):
         # the last step runs without stage syncs: the mesh's step time
         staged = t < len(MESH_STEPS) - 1
         enc.stage_times = {} if staged else None
+        db_calls.clear()
         t0 = time.perf_counter()
-        pending = enc.encode_step_async(lane_frames(frames, t, n_gop), run)
-        res = enc.finish_step(pending)
+        with deblock_calls(db_calls):
+            pending = enc.encode_step_async(lane_frames(frames, t, n_gop),
+                                            run)
+            res = enc.finish_step(pending)
         s = time.perf_counter() - t0
         _require([r.frame_type for r in res] == [kind] * n_gop,
                  f"mesh step {t} is {res[0].frame_type}, not {kind}")
@@ -494,11 +615,16 @@ def mesh_phases(cfg, run, frames, label, numbers):
                     f"{k} {1e3 * v:.1f}" for k, v in st.items())
                     + f" ms {label}")
     enc.stage_times = None
-    launches = bitpack.LAUNCH_COUNTS["bitpack"]
+    launches = LAUNCH_COUNTS["bitpack"]
+    db_launches = LAUNCH_COUNTS["deblock"]
     print(f"K1 launches in the mesh run's {len(MESH_STEPS)} steps over "
-          f"{len(enc.shards)} shards: {launches}")
+          f"{len(enc.shards)} shards: {launches}; K2 launches {db_launches}")
     _require(launches >= len(enc.shards) * len(MESH_STEPS),
              "the mesh run did not launch K1 for every shard and step")
+    _require(db_launches >= len(enc.shards) * len(MESH_STEPS),
+             "the mesh run did not launch K2 for every shard and step")
+    _require(len(db_calls) == len(enc.shards), f"{len(db_calls)} deblocking"
+             f" calls in a mesh step over {len(enc.shards)} shards")
 
     flat = GopBandEncoder(mcfg, n_gop=n_gop)
     for t, kind in enumerate(MESH_STEPS):
@@ -529,10 +655,13 @@ def mesh_phases(cfg, run, frames, label, numbers):
           f"{n['plain_ms']:.3f} ms, bound {n['bound_ms']:.4f} ms for "
           f"{n['moved'] / 1e9:.3f} GB, {100 * n['bound_ms'] / n['ms']:.0f}% "
           f"of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
-    return launches, err
+    k2_numbers["mesh"] = check_k2(db_calls[1], "mesh shard 1's band of the "
+                                  "last P step", label)
+    return launches, db_launches, err
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -544,10 +673,12 @@ def main() -> int:
     from h264lab_tpu_torch.decoder.decoder import H264Decoder
     from h264lab_tpu_torch.entry import entry
     from h264lab_tpu_torch.models.encoder import H264Encoder
-    from h264lab_tpu_torch.ops import bitpack
+    from h264lab_tpu_torch.ops import bitpack, cuda_build
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
-    from h264lab_tpu_torch.utils.synthetic import chessboard_sequence
+    from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
+                                                   deblock_inputs)
 
     t_start = time.perf_counter()
 
@@ -558,14 +689,16 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # 2. build K1
+    # 2. build K1 and K2, one nvcc each, started together
     t0 = time.perf_counter()
-    lib_path, log = bitpack.build()
-    print(f"K1 built in {time.perf_counter() - t0:.1f} s: "
-          f"{os.path.relpath(lib_path, ROOT)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    built = cuda_build.build_all([cuda_build.CSRC / "bitpack.cu",
+                                  cuda_build.CSRC / "deblock.cu"])
+    print(f"K1 and K2 built in {time.perf_counter() - t0:.1f} s")
+    for name, (lib_path, log) in zip(("K1", "K2"), built):
+        print(f"  {name}: {os.path.relpath(lib_path, ROOT)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name} ptxas:", line.strip())
 
     # 3. the main path: 16 lanes of 1080p IPPP, GOP 20
     t0 = time.perf_counter()
@@ -592,7 +725,7 @@ def main() -> int:
         print(f"  bytes lane 0: {len(res[0].payload)}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    bitpack.LAUNCH_COUNTS["bitpack"] = 0
+    reset_launches()
     _, first, s0 = step(0, "IDR", return_recon=True)
     print(f"step 0 (IDR, untimed, first use): {s0:.2f} s")
     _, second, s1 = step(1, "P", return_recon=True)
@@ -602,19 +735,23 @@ def main() -> int:
     print(f"timed P steps {label}: " + ", ".join(f"{s:.3f} s" for s in step_s)
           + f"; {LANES / t_p:.3f} P frames/s ({LANES} lanes x "
           f"{TIMED_STEPS} steps)")
-    rbsps, host_ms = {}, {}
+    rbsps, host_ms, db_args = {}, {}, {}
 
     def stage_step(t, kind, r=run):
-        """A step with per-stage times that keeps the RBSPs it escapes."""
+        """A step with per-stage times that keeps the RBSPs it escapes and
+        its deblocking inputs."""
         escape = nal.escape_rbsp
-        rbsps[kind] = []
+        rbsps[kind], calls = [], []
         nal.escape_rbsp = lambda rbsp: rbsps[kind].append(rbsp) or escape(
             rbsp)
         enc.stage_times = {}
         try:
-            pending, res, s = step(t, kind, r)
+            with deblock_calls(calls):
+                pending, res, s = step(t, kind, r)
         finally:
             nal.escape_rbsp = escape
+        _require(len(calls) == 1, f"{len(calls)} deblocking calls in a step")
+        db_args[kind] = calls[0]
         stage_table(kind, s, res)
         host_ms[kind] = 1e3 * enc.stage_times["host"]
         enc.stage_times = None
@@ -624,13 +761,17 @@ def main() -> int:
     key = dataclasses.replace(run, frame_type=FrameType.KEY)
     idr_pending = stage_step(3 + TIMED_STEPS, "IDR", key)
     t_idr = step(4 + TIMED_STEPS, "IDR", key)[2]
-    launches = bitpack.LAUNCH_COUNTS["bitpack"]
+    launches = LAUNCH_COUNTS["bitpack"]
+    db_launches = LAUNCH_COUNTS["deblock"]
     print(f"GOP-{GOP} frames/s {label}, derived as {LANES} * {GOP} / (t_IDR"
           f" + {GOP - 1} * t_P) with t_IDR {t_idr:.3f} s (an IDR step "
           f"without stage syncs) and t_P {t_p:.3f} s: "
           f"{LANES * GOP / (t_idr + (GOP - 1) * t_p):.3f}")
-    print(f"K1 launches in the main path's {STEPS} steps: {launches}")
+    print(f"K1 launches in the main path's {STEPS} steps: {launches}; K2 "
+          f"launches {db_launches}")
     _require(launches >= STEPS, "the main path did not launch K1 each step")
+    _require(db_launches >= STEPS, "the main path did not launch K2 each "
+             "step")
 
     # 4. K1 against the plain packer on the real IDR and P grids and on a
     # synthetic grid past the drop boundaries
@@ -656,6 +797,12 @@ def main() -> int:
               f"{n['moved'] / 1e9:.3f} GB, "
               f"{100 * n['bound_ms'] / n['ms']:.0f}% of it reached)")
     del idr_pending, p_pending, vals, lens
+    # K2 on the two stage steps' deblocking inputs
+    k2_numbers = {}
+    for kind in ("P", "IDR"):
+        k2_numbers[kind] = check_k2(db_args[kind], f"the {LANES}-lane {kind} "
+                                    "step's deblocking inputs", label)
+    del db_args
     t0 = time.perf_counter()
     s_vals, s_lens = synthetic_grid()
     units = s_lens.reshape(s_lens.shape[:2] + (28, 34)).sum(-1)
@@ -707,7 +854,7 @@ def main() -> int:
     seq = H264Encoder(cfg)
     seq_run = dataclasses.replace(run, encode_speed=SEQ_SPEED)
     torch.cuda.reset_peak_memory_stats()
-    bitpack.LAUNCH_COUNTS["bitpack"] = 0
+    reset_launches()
 
     def seq_frame(t, kind):
         t0 = time.perf_counter()
@@ -725,7 +872,9 @@ def main() -> int:
     print(f"sequential speed {SEQ_SPEED} P frame {label}: {t_seq:.3f} s per "
           f"frame, {1 / t_seq:.4f} frames/s ({len(res.payload)} B)")
     seq.stage_times = {}
-    seq_pending, res, s = seq_frame(2, "P")
+    seq_calls = []
+    with deblock_calls(seq_calls):
+        seq_pending, res, s = seq_frame(2, "P")
     print(f"sequential P stage frame {label}: {s:.3f} s")
     for k, v in seq.stage_times.items():
         print(f"  stage {k:8s} {1e3 * v:10.1f} ms {label}")
@@ -733,10 +882,14 @@ def main() -> int:
           f"sequential path {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
     seq.stage_times = None
-    seq_launches = bitpack.LAUNCH_COUNTS["bitpack"]
-    print(f"K1 launches in the sequential path's 3 frames: {seq_launches}")
+    seq_launches = LAUNCH_COUNTS["bitpack"]
+    seq_db_launches = LAUNCH_COUNTS["deblock"]
+    print(f"K1 launches in the sequential path's 3 frames: {seq_launches}; "
+          f"K2 launches {seq_db_launches}")
     _require(seq_launches >= 3, "the sequential path did not launch K1 on "
              "every frame")
+    _require(seq_db_launches >= 3 and len(seq_calls) == 1, "the sequential "
+             "path did not launch K2 on every frame")
 
     # 8. K1 against the plain packer on the sequential P frame's grid
     vals, lens = seq_pending.out["sym_vals"], seq_pending.out["sym_lens"]
@@ -749,7 +902,9 @@ def main() -> int:
           f"{n['plain_ms']:.3f} ms, bound {n['bound_ms']:.3f} ms for "
           f"{n['moved'] / 1e9:.3f} GB, {100 * n['bound_ms'] / n['ms']:.0f}% "
           f"of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
-    del seq, seq_pending, vals, lens
+    k2_numbers["seq"] = check_k2(seq_calls[0], "the sequential P frame's "
+                                 "deblocking inputs", label)
+    del seq, seq_pending, vals, lens, seq_calls
     torch.cuda.empty_cache()
 
     # 9. card bytes against CPU bytes at CIF, and decoded
@@ -807,7 +962,8 @@ def main() -> int:
           f"decodes to 3 frames of {CIF[0]}x{CIF[1]}")
 
     # 11 to 13. two-layer SVC
-    svc_launches, err = svc_phases(cfg, run, label, numbers, cif, cif_frames)
+    svc_launches, svc_db_launches, err = svc_phases(
+        cfg, run, label, numbers, k2_numbers, cif, cif_frames)
     max_err = max(max_err, err)
 
     # 14. entry() on the card against the CPU
@@ -823,9 +979,22 @@ def main() -> int:
 
     # 15. the mesh
     t0 = time.perf_counter()
-    mesh_launches, err = mesh_phases(cfg, run, frames, label, numbers)
+    mesh_launches, mesh_db_launches, err = mesh_phases(
+        cfg, run, frames, label, numbers, k2_numbers)
     max_err = max(max_err, err)
     print(f"  mesh phase {time.perf_counter() - t0:.1f} s")
+
+    # 16. K2 against the plain filter on seeded inputs at the main paths'
+    # shapes
+    t0 = time.perf_counter()
+    for what, seed, n, mbw, mbh, qp, per_mb, band in K2_CASES:
+        args = [torch.from_numpy(np.asarray(v)).cuda() for v in
+                deblock_inputs(seed, n, mbw, mbh, qp, per_mb_qp=per_mb,
+                               band=band).values()]
+        k2_numbers[what] = check_k2(args + [mbw, mbh], f"seeded inputs, "
+                                    f"{what} (seed {seed})", label)
+    del args
+    print(f"  K2 on seeded inputs {time.perf_counter() - t0:.1f} s")
 
     # phase 5's decode
     t0 = time.perf_counter()
@@ -834,11 +1003,11 @@ def main() -> int:
     print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon "
           f"(waited {time.perf_counter() - t0:.1f} s for the worker); decode "
           f"seconds per {WIDTH}x{HEIGHT} frame {label} (the port's numpy "
-          f"decoder, a host time beside phases 6 to 15): IDR "
+          f"decoder, a host time beside phases 6 to 16): IDR "
           f"{decode_s[0]:.2f}, P {decode_s[1]:.2f}")
 
-    # 16. results: K1's line holds the GOP path's P grid (19 of 20 frames
-    # of a GOP); its launches count every path
+    # 17. results: K1's and K2's entries hold the GOP path's P step (19 of
+    # 20 frames of a GOP); their launches count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
     m = numbers["mesh"]
@@ -861,6 +1030,23 @@ def main() -> int:
         svc_base_p_bound_ms=bp["bound_ms"], mesh_launches=mesh_launches,
         mesh_ms=m["ms"], mesh_plain_ms=m["plain_ms"],
         mesh_bound_ms=m["bound_ms"])]
+    k2p = k2_numbers["P"]
+    kernels.append(dict(
+        name="deblock", route="cuda",
+        source="h264lab_tpu_torch/csrc/deblock.cu",
+        replaces="h264lab_tpu/models/mbscan.py:793 (XLA scan, no Pallas "
+                 "kernel)",
+        launches=(db_launches + seq_db_launches + svc_db_launches
+                  + mesh_db_launches),
+        equal=True,
+        max_abs_err=max(v["max_abs_err"] for v in k2_numbers.values()),
+        ms=k2p["ms"], plain_ms=k2p["plain_ms"], bound_ms=k2p["bound_ms"],
+        bound_by="bytes", library_ms=None, grid="P step",
+        gop_launches=db_launches, seq_launches=seq_db_launches,
+        svc_launches=svc_db_launches, mesh_launches=mesh_db_launches,
+        inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
+                        plain_ms=v["plain_ms"], bound_ms=v["bound_ms"])
+                for k, v in k2_numbers.items()}))
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
           "(the build included)")
     print(json.dumps({"kernels": kernels}))

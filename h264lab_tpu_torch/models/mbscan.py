@@ -587,7 +587,46 @@ def deblock_frame(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
     """In-loop deblocking of N frames/bands at per-frame (N,) QPs, or at
     per-MB (N, nmb) decoded QPs (`mb_qp_delta`): then an MB edge takes
     the two MBs' average QP and the inner edges the MB's own (spec
-    8.7.2.1), chroma likewise from the per-MB chroma QPs.
+    8.7.2.1), chroma likewise from the per-MB chroma QPs. Returns the
+    filtered (df_y, df_u, df_v) uint8 tiles.
+
+    The one entry of every encode path. On CUDA tensors: bS derived in
+    parallel (`_frame_bs`), the QP of every MB edge (`deblock.edge_qps`),
+    then one launch of K2 (`deblock.deblock_tiles`, `csrc/deblock.cu`) for
+    the whole batch. On CPU tensors: `deblock_frame_plain`."""
+    args = (recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x, qp, qpc,
+            avail_top, avail_left, mb_width, mb_height)
+    if recon_y.device.type == "cpu":
+        return deblock_frame_plain(*args)
+    return deblock.deblock_tiles(*deblock_tiles_args(*args))
+
+
+def deblock_tiles_args(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y,
+                       mv4_x, qp, qpc, avail_top, avail_left,
+                       mb_width: int, mb_height: int):
+    """`deblock_frame`'s arguments in the form K2 (`deblock.deblock_tiles`)
+    takes them: the tiles and bS (`_frame_bs`) as contiguous uint8, the QP
+    of every MB edge (`deblock.edge_qps`), mb_width and mb_height."""
+    N, nmb = sel.shape
+    dev = recon_y.device
+    bs_v, bs_h = _frame_bs(sel, nnz_blk, mv4_y, mv4_x, avail_top,
+                           avail_left, mb_width, mb_height)
+
+    def u8(x, t):
+        return x.reshape(N, nmb, t, t).to(torch.uint8).contiguous()
+
+    return (u8(recon_y, 16), u8(recon_u, 8), u8(recon_v, 8), u8(bs_v, 4),
+            u8(bs_h, 4), *deblock.edge_qps(
+                torch.as_tensor(qp, dtype=I32, device=dev),
+                torch.as_tensor(qpc, dtype=I32, device=dev), N, mb_width,
+                mb_height), mb_width, mb_height)
+
+
+def deblock_frame_plain(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y,
+                        mv4_x, qp, qpc, avail_top, avail_left,
+                        mb_width: int, mb_height: int):
+    """`deblock_frame` in plain PyTorch, on any device: the CPU path and
+    the version K2 is held against.
 
     bS is derived in parallel; the filter walks slope-1 diagonals and runs
     the V pass of the whole diagonal before its H pass: the one raster
@@ -601,16 +640,7 @@ def deblock_frame(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
     qpc = torch.as_tensor(qpc, dtype=I32, device=dev)
     per_mb = qp.ndim == 2
     if per_mb:
-        def edge_qps(q, n_edges):
-            """(N, nmb) -> per MB and edge QPs for V and H, (N, nmb, e)."""
-            q2 = q.reshape(N, mbh, mbw)
-            left = torch.cat([q2[:, :, :1], q2[:, :, :-1]], dim=2)
-            top = torch.cat([q2[:, :1], q2[:, :-1]], dim=1)
-            inner = q[..., None].expand(N, nmb, n_edges - 1)
-            return [torch.cat([((q2 + nb + 1) >> 1).reshape(N, nmb, 1),
-                               inner], dim=2) for nb in (left, top)]
-        qv, qh = edge_qps(qp, 4)
-        qcv, qch = edge_qps(qpc, 2)
+        qv, qh, qcv, qch = deblock.edge_qps(qp, qpc, N, mbw, mbh)
     else:
         qp, qpc = qp.reshape(N), qpc.reshape(N)
     bs_v, bs_h = _frame_bs(sel, nnz_blk, mv4_y, mv4_x, avail_top,

@@ -34,15 +34,14 @@ the same way: int32 carrying the uint32 bits.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from h264lab_tpu_torch.ops import cuda_build
+from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 
 UNIT_SLOTS = 34     # symbol slots per unit (cavlc.N_SLOTS; header padded)
 UNIT_WORDS = 22     # words kept of a unit (630-bit worst-case block + spill)
@@ -50,13 +49,7 @@ MB_WORDS = 128      # words kept of an MB (spec 7.4.5: <= 3200 bits per MB)
 SLACK_WORDS = 256   # tail slack of every packed frame (pack_frame_fast)
 K1_SLOTS = 28 * UNIT_SLOTS  # slots per MB that K1 takes (mbscan.symbolize)
 
-# launches of each kernel wrapper; a run sets them to 0 and reads them to
-# show that its main path went through the kernels
-LAUNCH_COUNTS = {"bitpack": 0}
-
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "bitpack.cu"
-_BUILD_DIR = _PKG / "_build"
+_SRC = cuda_build.CSRC / "bitpack.cu"
 _lib_handle = None
 
 U32 = 0xFFFFFFFF
@@ -127,25 +120,9 @@ def pack_frames_plain(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
 
 def build(src_path: Path = _SRC) -> tuple[Path, str]:
     """Compile `csrc/bitpack.cu` (or another source given) for sm_90a into
-    `_build/`, once per source version. Returns (library path, compiler
-    log; empty if cached)."""
-    src = Path(src_path).read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    out = _BUILD_DIR / f"libh264lab_bitpack_{digest}.so"
-    if out.exists():
-        return out, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(src_path)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n"
-                           f"{r.stderr}")
-    os.replace(tmp, out)
-    return out, r.stdout + r.stderr
+    `_build/`, once per source version (`cuda_build.build`). Returns
+    (library path, compiler log; empty if cached)."""
+    return cuda_build.build(src_path)
 
 
 def _lib():
@@ -160,11 +137,6 @@ def _lib():
         lib.h264lab_bitpack.restype = ci
         _lib_handle = lib
     return _lib_handle
-
-
-def _check(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
 def pack_frames(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
@@ -208,7 +180,7 @@ def pack_frames(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
         nbits = torch.empty((n_frames,), dtype=torch.int32, device=dev)
         # per tile one look-back word, then the tile ticket
         status = torch.zeros((n_tiles + 1,), dtype=torch.int64, device=dev)
-        _check(lib.h264lab_bitpack(
+        cuda_build.check(lib.h264lab_bitpack(
             sym_vals.data_ptr(), sym_lens.data_ptr(), n_frames, nmb, n_out,
             words.data_ptr(), nbits.data_ptr(), status.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream), "bitpack")

@@ -1,23 +1,30 @@
 """In-loop deblocking filter (spec 8.7): boundary strength and the edge
-filters, batched over macroblocks.
+filters, batched over macroblocks, and K2, the filter of a frame batch as
+one CUDA kernel.
 
 PyTorch counterpart of `h264lab_tpu/ops/deblock.py`. The edge filters
 update their (k, rows, cols) int32 strip in place (the JAX module returns
-a new array); `filter_*_h` filters a transposed view of the strip.
+a new array); `filter_*_h` filters a transposed view of the strip. They
+are the plain version: `models/mbscan.deblock_frame_plain` runs them over
+the slope-1 MB diagonals, and K2 (`deblock_tiles`, `csrc/deblock.cu`) is
+held against it.
 
 QP arguments are a 0-d int tensor, one QP per strip (k,), or one QP per
 strip and edge (k, 4) for luma, (k, 2) for chroma: with per-MB QPs
 (`mb_qp_delta`) an MB edge takes the two MBs' average QP and the inner
-edges the MB's own (spec 8.7.2.1).
+edges the MB's own (spec 8.7.2.1; `edge_qps`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from h264lab_tpu_torch.ops import tables
+from h264lab_tpu_torch.ops import cuda_build, tables
+from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,3 +163,96 @@ def filter_chroma_v(strip, bs_edges, qpc, edge_x0: int = 8):
 def filter_chroma_h(strip, bs_edges, qpc, edge_y0: int = 8):
     filter_chroma_v(strip.transpose(-1, -2), bs_edges, qpc, edge_x0=edge_y0)
     return strip
+
+
+def edge_qps(qp: torch.Tensor, qpc: torch.Tensor, n: int, mb_width: int,
+             mb_height: int):
+    """The QP of every MB edge of n frames or bands from per-frame (n,) or
+    per-MB (n, nmb) int32 QPs: luma (n, nmb, 4) for the vertical and the
+    horizontal edges, chroma (n, nmb, 2) for each, from `qpc`. An MB edge
+    takes the rounded average of the MB's QP and its left or upper
+    neighbour's (its own in column or row 0, where bS is 0), an inner edge
+    the MB's own; per-frame QPs give every edge the frame's QP. Returns
+    (qv, qh, qcv, qch), what K2 reads."""
+    nmb = mb_width * mb_height
+
+    def expand(q, n_edges):
+        if q.ndim < 2:
+            q = q.reshape(n, 1).expand(n, nmb)
+        q2 = q.reshape(n, mb_height, mb_width)
+        left = torch.cat([q2[:, :, :1], q2[:, :, :-1]], dim=2)
+        top = torch.cat([q2[:, :1], q2[:, :-1]], dim=1)
+        inner = q.reshape(n, nmb, 1).expand(n, nmb, n_edges - 1)
+        return [torch.cat([((q2 + nb + 1) >> 1).reshape(n, nmb, 1), inner],
+                          dim=2) for nb in (left, top)]
+
+    return (*expand(qp, 4), *expand(qpc, 2))
+
+
+# ---------------------------------------------------------------------------
+# K2: the CUDA kernel, built with nvcc at first use and bound with ctypes
+# ---------------------------------------------------------------------------
+
+_SRC = cuda_build.CSRC / "deblock.cu"
+_lib_handle = None
+# the tables K2 takes by value, host copies that live as long as the module
+_HOST_TABLES = tuple(np.ascontiguousarray(t, dtype=np.uint8) for t in (
+    tables.ALPHA_TABLE, tables.BETA_TABLE, tables.TC0_TABLE))
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        lib = ctypes.CDLL(str(cuda_build.build(_SRC)[0]))
+        vp = ctypes.c_void_p
+        lib.h264lab_deblock.argtypes = [vp] * 15 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+        lib.h264lab_deblock.restype = ctypes.c_int
+        _lib_handle = lib
+    return _lib_handle
+
+
+# K2's arguments: name, dtype, shape after (n, nmb)
+_K2_ARGS = (("recon_y", torch.uint8, (16, 16)),
+            ("recon_u", torch.uint8, (8, 8)), ("recon_v", torch.uint8, (8, 8)),
+            ("bs_v", torch.uint8, (4, 4)), ("bs_h", torch.uint8, (4, 4)),
+            ("qv", torch.int32, (4,)), ("qh", torch.int32, (4,)),
+            ("qcv", torch.int32, (2,)), ("qch", torch.int32, (2,)))
+
+
+def deblock_tiles(recon_y, recon_u, recon_v, bs_v, bs_h, qv, qh, qcv, qch,
+                  mb_width: int, mb_height: int):
+    """K2: deblock n frames or bands of MB tiles in one launch on the
+    card. recon_y (n, nmb, 16, 16), recon_u and recon_v (n, nmb, 8, 8)
+    uint8; bs_v and bs_h (n, nmb, 4 edges, 4 groups of 4 pixels) uint8 as
+    `mbscan._frame_bs` gives them; the edge QPs of `edge_qps`, int32; all
+    contiguous on one CUDA device. Returns new (df_y, df_u, df_v) uint8
+    tiles; the inputs are left as they are. Raises on any other input:
+    the plain version is `mbscan.deblock_frame_plain`."""
+    args = (recon_y, recon_u, recon_v, bs_v, bs_h, qv, qh, qcv, qch)
+    dev = recon_y.device
+    if dev.type != "cuda" or any(x.device != dev for x in args):
+        raise ValueError("deblock_tiles: K2 takes tensors on one CUDA "
+                         f"device, not {[str(x.device) for x in args]}")
+    n, nmb = recon_y.shape[0], mb_width * mb_height
+    for x, (name, dtype, tail) in zip(args, _K2_ARGS):
+        if x.dtype != dtype:
+            raise TypeError(f"deblock_tiles: {name} is {x.dtype}, not "
+                            f"{dtype}")
+        if tuple(x.shape) != (n, nmb) + tail:
+            raise ValueError(f"deblock_tiles: {name} of shape "
+                             f"{tuple(x.shape)}, not {(n, nmb) + tail}")
+        if not x.is_contiguous():
+            raise ValueError(f"deblock_tiles: {name} is not contiguous")
+    with torch.cuda.device(dev):
+        outs = [torch.empty_like(x) for x in args[:3]]
+        if n == 0 or nmb == 0:
+            return tuple(outs)
+        cuda_build.check(_lib().h264lab_deblock(
+            *(x.data_ptr() for x in args[:3]),
+            *(o.data_ptr() for o in outs),
+            *(x.data_ptr() for x in args[3:]),
+            *(t.ctypes.data for t in _HOST_TABLES), n, mb_width, mb_height,
+            torch.cuda.current_stream(dev).cuda_stream), "deblock")
+        LAUNCH_COUNTS["deblock"] += 1
+    return tuple(outs)

@@ -106,3 +106,68 @@ def noise_pan_sequence(width: int, height: int, n_frames: int,
     v = np.full((height // 2, width // 2), 128, dtype=np.uint8)
     for t in range(start, start + n_frames):
         yield noise_pan_frame(width, height, t), u, v
+
+
+def deblock_inputs(seed: int, n: int, mb_width: int, mb_height: int,
+                   qp: int, per_mb_qp: bool = False,
+                   band: bool = False) -> dict:
+    """Seeded inputs of `models.mbscan.deblock_frame` for n frames or bands
+    of mb_width x mb_height MBs, made so that every filter path runs:
+    - recon: a wave that saturates at 0 and 255, with steps between 4x4
+      blocks (small ones that the filters smooth, a few large ones they
+      keep) and low noise; a third of the MBs flat, for the strong luma
+      filter;
+    - intra and inter MBs (sel), coded 4x4 blocks (nnz_blk) and MVs whose
+      blocks differ by 4 or more or not at all: bS 0 to 4;
+    - QPs around `qp` (+-4 per frame; +-6 more per MB with `per_mb_qp`),
+      clipped to 0..51; the chroma QPs from them (spec Table 8-15);
+    - with `band`, the first MB row and column unavailable (avail_top,
+      avail_left false), as in a slice band.
+    Returns numpy arrays keyed by `deblock_frame`'s argument names:
+    recon_y (n, nmb, 16, 16), recon_u and recon_v (n, nmb, 8, 8) uint8;
+    sel (n, nmb), nnz_blk, mv4_y, mv4_x (n, nmb, 4, 4), qp and qpc (n,) or
+    (n, nmb) int32; avail_top, avail_left (nmb,) bool."""
+    from h264lab_tpu_torch.ops.tables import QPC_FROM_QPY
+
+    rng = np.random.default_rng(seed)
+    nmb = mb_width * mb_height
+    flat = rng.random((n, mb_height, mb_width)) < 1 / 3
+
+    def tiles(t):
+        h, w = mb_height * t, mb_width * t
+        yy, xx = np.mgrid[0:h, 0:w]
+        freq = rng.uniform(0.02, 0.08, (n, 2, 1, 1)) * 16 / t
+        phase = rng.uniform(0, 2 * np.pi, (n, 1, 1))
+        wave = 128 + 160 * np.sin(freq[:, 0] * xx + freq[:, 1] * yy + phase)
+        steps = rng.integers(-6, 7, (n, h // 4, w // 4))
+        steps[rng.random(steps.shape) < 0.05] *= 12
+        noise = rng.integers(-1, 2, (n, h, w))
+        rough = np.repeat(np.repeat(~flat, t, 1), t, 2)
+        texture = np.repeat(np.repeat(steps, 4, 1), 4, 2) + noise
+        p = np.clip(np.round(wave) + rough * texture, 0, 255).astype(np.uint8)
+        return p.reshape(n, mb_height, t, mb_width, t).transpose(
+            0, 1, 3, 2, 4).reshape(n, nmb, t, t)
+
+    recon_y, recon_u, recon_v = tiles(16), tiles(8), tiles(8)
+    sel = rng.choice(np.array([0, 0, 0, 1, 2], np.int32), (n, nmb))
+    nnz = (rng.integers(1, 17, (n, nmb, 4, 4))
+           * (rng.random((n, nmb, 4, 4)) < 0.3)).astype(np.int32)
+
+    def mvs():
+        base = rng.integers(-20, 21, (n, nmb, 1, 1))
+        moved = rng.random((n, nmb, 4, 4)) < 0.25
+        return (base + moved * rng.integers(-8, 9, (n, nmb, 4, 4))).astype(
+            np.int32)
+
+    mv4_y, mv4_x = mvs(), mvs()
+    q = np.clip(qp + rng.integers(-4, 5, n), 0, 51)
+    if per_mb_qp:
+        q = np.clip(q[:, None] + rng.integers(-6, 7, (n, nmb)), 0, 51)
+    q = q.astype(np.int32)
+    row = np.arange(nmb) // mb_width
+    col = np.arange(nmb) % mb_width
+    return dict(recon_y=recon_y, recon_u=recon_u, recon_v=recon_v, sel=sel,
+                nnz_blk=nnz, mv4_y=mv4_y, mv4_x=mv4_x, qp=q,
+                qpc=QPC_FROM_QPY[q].astype(np.int32),
+                avail_top=(row > 0) | (not band),
+                avail_left=(col > 0) | (not band))

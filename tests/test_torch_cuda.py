@@ -35,7 +35,13 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   cuda:0: `dryrun_multichip(8)` gives the CPU mesh's streams, and a
   (2, 2) mesh at 128x96 with two bands (IDR, P, P at speeds 2 and 0)
   gives the unsharded card run's bytes and reconstructions, launching K1
-  once per shard and step.
+  once per shard and step;
+- K2 (the CUDA deblocking kernel) equals `deblock_frame_plain` on the card
+  on seeded inputs with bS 0 to 4 at the main paths' shapes: 16 frames of
+  1080p (16, 8160), one frame with per-MB QPs (1, 8160), an SVC base
+  layer (1, 2040), a mesh band whose top row has no upper neighbour (1,
+  4080), and 4 x 3 MBs; one launch per call. It refuses CPU tensors,
+  other dtypes and shapes and non-contiguous inputs.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -46,11 +52,13 @@ import torch
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig
 from h264lab_tpu_torch.decoder.decoder import H264Decoder
 from h264lab_tpu_torch.entry import dryrun_multichip, entry
+from h264lab_tpu_torch.models import mbscan
 from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
-from h264lab_tpu_torch.ops import bitpack
+from h264lab_tpu_torch.ops import bitpack, deblock
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
+                                               deblock_inputs,
                                                noise_pan_sequence)
 from tests.torch_grids import EDGE_CASES, edge_grid, random_grid
 
@@ -398,3 +406,51 @@ def test_card_mesh_equals_unsharded_card_run(card, speed):
             assert a.payload == b.payload
             for pa, pb in zip(a.recon, b.recon):
                 np.testing.assert_array_equal(pa, pb)
+
+
+# (seed, frames, mb_width, mb_height, qp, per-MB QPs, band edges)
+K2_CASES = [
+    (11, 16, 120, 68, 33, False, False),   # the GOP lanes' 16-lane step
+    (12, 1, 120, 68, 30, True, False),     # sequential, per-MB QPs
+    (13, 1, 60, 34, 33, False, False),     # SVC base layer
+    (14, 1, 120, 34, 33, False, True),     # mesh band, no row above
+    (15, 3, 4, 3, 14, True, True),
+]
+
+
+@pytest.mark.parametrize("case", K2_CASES,
+                         ids=lambda c: f"{c[1]}x{c[2] * c[3]}")
+def test_k2_matches_plain_deblock(card, case):
+    seed, n, mbw, mbh, qp, per_mb, band = case
+    d = {k: torch.from_numpy(np.asarray(v)).to(card) for k, v in
+         deblock_inputs(seed, n, mbw, mbh, qp, per_mb_qp=per_mb,
+                        band=band).items()}
+    before = deblock.LAUNCH_COUNTS["deblock"]
+    got = mbscan.deblock_frame(**d, mb_width=mbw, mb_height=mbh)
+    torch.cuda.synchronize()
+    assert deblock.LAUNCH_COUNTS["deblock"] == before + 1
+    want = mbscan.deblock_frame_plain(**d, mb_width=mbw, mb_height=mbh)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.uint8 and torch.equal(a, b)
+
+
+def test_k2_rejects_bad_inputs(card):
+    n, mbw, mbh = 1, 4, 3
+    d = {k: torch.from_numpy(np.asarray(v)).to(card) for k, v in
+         deblock_inputs(16, n, mbw, mbh, 30).items()}
+    bs = torch.zeros((n, mbw * mbh, 4, 4), dtype=torch.uint8, device=card)
+    q = deblock.edge_qps(d["qp"], d["qpc"], n, mbw, mbh)
+    args = [d["recon_y"], d["recon_u"], d["recon_v"], bs, bs, *q]
+    deblock.deblock_tiles(*args, mbw, mbh)
+    for i, bad, err in (
+            (0, args[0].cpu(), ValueError),                 # on the CPU
+            (0, args[0].int(), TypeError),
+            (3, bs.int(), TypeError),
+            (5, q[0].long(), TypeError),
+            (1, args[1][:, :6], ValueError),                # shape
+            (7, q[2][..., :1].contiguous(), ValueError),
+            (0, args[0].transpose(-1, -2), ValueError)):   # not contiguous
+        with pytest.raises(err):
+            deblock.deblock_tiles(*args[:i], bad, *args[i + 1:], mbw, mbh)
+    with pytest.raises(ValueError):                         # nmb != 4 x 3
+        deblock.deblock_tiles(*args, mbw, mbh + 1)

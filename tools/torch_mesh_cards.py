@@ -3,12 +3,13 @@ CUDA cards.
 
     python tools/torch_mesh_cards.py
 
-It builds K1 and runs `chip_smoke.mesh_phases` (phase 15): the dryruns
+It builds K1 and K2 and runs `chip_smoke.mesh_phases` (phase 15): the dryruns
 `dryrun_multichip(8)` and `(3)`, then GopBandEncoder at 1920x1088 with two
 slice bands over a (2, 2) mesh (two lanes, QP 33, speed 2: an IDR and a P
 step with per-shard stage tables, a P step timed without stage syncs),
-held to the unsharded run on the first card and that to the CPU, and K1
-against the plain packer on a shard's grid. A mesh whose entries fit on
+held to the unsharded run on the first card and that to the CPU, K1
+against the plain packer on a shard's grid and K2 against the plain
+filter on a shard's deblocking inputs. A mesh whose entries fit on
 the visible cards takes distinct cards (with four cards: the (2, 2) mesh
 and the 3-entry dryrun); a larger one repeats cuda:0. Every card's name
 and power limit is printed, then one JSON line. Any failed check exits
@@ -29,7 +30,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from h264lab_tpu_torch.ops import bitpack  # noqa: E402
+from h264lab_tpu_torch.ops import cuda_build  # noqa: E402
 
 
 def main() -> int:
@@ -44,14 +45,17 @@ def main() -> int:
         print(line)
     label = f"[{cards[0]} x {torch.cuda.device_count()}]"
     t0 = time.perf_counter()
-    bitpack.build()
+    cuda_build.build_all([cuda_build.CSRC / "bitpack.cu",
+                          cuda_build.CSRC / "deblock.cu"])
     cfg, run, frames = chip_smoke.main_path_setup()
-    numbers = {}
-    launches, err = chip_smoke.mesh_phases(cfg, run, frames, label, numbers)
+    numbers, k2_numbers = {}, {}
+    launches, k2_launches, err = chip_smoke.mesh_phases(
+        cfg, run, frames, label, numbers, k2_numbers)
     print(f"mesh phase and set-up in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(dict(cards=cards, count=torch.cuda.device_count(),
-                          k1_launches=launches, max_abs_err=err,
-                          k1=numbers["mesh"])))
+                          k1_launches=launches, k2_launches=k2_launches,
+                          max_abs_err=err, k1=numbers["mesh"],
+                          k2=k2_numbers["mesh"])))
     return 0
 
 

@@ -18,14 +18,16 @@ first:
    `select`, `sym`, `deblock`, `pack`, `ref`, `host`) runs under its own
    `torch.profiler` pass (CUDA activity only), which synchronizes before it
    closes. Per stage: the device operations launched (kernels, copies,
-   fills), per wavefront diagonal for `deblock` (slope 1), and the union of
-   their device intervals (busy ms). The busy ms over the untraced stage
-   time of measurement 1 estimates the share of the stage the device
-   works. The passes of the short stages record no operation in some runs:
-   their counts are a lower bound;
-3. K1 on the symbol grid of one 16-lane IDR step at the IDR capacity: the
-   wrapper's time from CUDA events (zero fills included) beside the
-   kernel's device time in a `torch.profiler` trace of one call. With
+   fills), the union of their device intervals (busy ms) and the device
+   ms of the hand kernels it launches (K1 in `pack`, K2 in `deblock`).
+   The busy ms over the untraced stage time of measurement 1 estimates the
+   share of the stage the device works. The passes of the short stages
+   record no operation in some runs: their counts are a lower bound;
+3. K1 on the symbol grid of one 16-lane IDR step at the IDR capacity, and
+   K2 (the deblocking kernel) on the deblocking inputs of the 16-lane P
+   step that follows: each wrapper's time from CUDA events (K1's zero
+   fills, K2's output allocation included) beside the kernel's device
+   time in a `torch.profiler` trace of one call. With
    `--k1-baseline SRC`, SRC is an earlier two-pass build of K1 (entry
    points `h264lab_bitpack_mb_words` and `h264lab_bitpack_stitch`): the
    script times each launch of its wrapper on its own, checks that its
@@ -36,7 +38,7 @@ With `--sequential` it measures only the sequential encoder
 (`H264Encoder`, `chip_smoke.py`'s 1080p speed-0 setting): after an IDR,
 one P frame with per-stage times between syncs, and the next P frame with
 every stage under its own profiler pass as in measurement 2, per
-wavefront diagonal for `select` (slope 2) and `deblock` (slope 1).
+wavefront diagonal for `select` (slope 2).
 
 With `--escape` it measures only what NAL escaping costs the GOP steps'
 `host` stage (16 lanes): after the untimed IDR and P steps, four P steps
@@ -64,9 +66,9 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from h264lab_tpu_torch.models import wavefront  # noqa: E402
+from h264lab_tpu_torch.models import mbscan, wavefront  # noqa: E402
 from h264lab_tpu_torch.models.encoder import H264Encoder  # noqa: E402
-from h264lab_tpu_torch.ops import bitpack  # noqa: E402
+from h264lab_tpu_torch.ops import bitpack, cuda_build, deblock  # noqa: E402
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder  # noqa: E402
 from h264lab_tpu_torch.utils.device import card_label  # noqa: E402
 from h264lab_tpu_torch.utils.synthetic import chessboard_sequence  # noqa: E402
@@ -107,9 +109,13 @@ def _busy_us(events):
     return busy
 
 
-def _k1_kernel_us(ops):
+# the hand kernels' names in a trace
+KERNELS = {"K1": "pack_kernel", "K2": "deblock_kernel"}
+
+
+def _kernel_us(ops, kernel):
     return sum(e.time_range.end - e.time_range.start for e in ops
-               if "pack_kernel" in e.name)
+               if KERNELS[kernel] in e.name)
 
 
 def _traced_stages(stages, drive):
@@ -131,7 +137,9 @@ def _traced_stages(stages, drive):
             # the profiler still records
             torch.cuda.synchronize()
         ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        out[name] = dict(device_ops=len(ops), busy_ms=_busy_us(ops) / 1e3)
+        out[name] = dict(device_ops=len(ops), busy_ms=_busy_us(ops) / 1e3,
+                         kernel_ms={k: _kernel_us(ops, k) / 1e3
+                                    for k in KERNELS})
 
     stages.stage = traced
     try:
@@ -149,10 +157,7 @@ def _per_diagonal(counts, name, mb_width, mb_height, slope):
 
 def launch_counts():
     enc, run, frames = _warm_encoder(1)
-    out = _traced_stages(enc.stages, lambda: enc.encode_step(frames, run))
-    _per_diagonal(out, "deblock", enc.config.mb_width, enc.config.mb_height,
-                  1)
-    return out
+    return _traced_stages(enc.stages, lambda: enc.encode_step(frames, run))
 
 
 def sequential_counts():
@@ -169,8 +174,7 @@ def sequential_counts():
     stage_ms = {k: 1e3 * v for k, v in enc.stage_times.items()}
     enc.stage_times = None
     out = _traced_stages(enc.stages, lambda: enc.encode(*frames[2], run))
-    for name, slope in (("select", 2), ("deblock", 1)):
-        _per_diagonal(out, name, cfg.mb_width, cfg.mb_height, slope)
+    _per_diagonal(out, "select", cfg.mb_width, cfg.mb_height, 2)
     return stage_ms, out
 
 
@@ -222,7 +226,7 @@ def _baseline_k1(src, vals, lens, cap):
                                     device=vals.device)
         b["mb_bits"] = torch.empty((n_frames, nmb), dtype=torch.int32,
                                    device=vals.device)
-        bitpack._check(lib.h264lab_bitpack_mb_words(
+        cuda_build.check(lib.h264lab_bitpack_mb_words(
             vals.data_ptr(), lens.data_ptr(), n_frames * nmb, nslots,
             b["mb_words"].data_ptr(), b["mb_bits"].data_ptr(), stream),
             "baseline mb_words")
@@ -236,7 +240,7 @@ def _baseline_k1(src, vals, lens, cap):
                                  device=vals.device)
 
     def stitch_kernel():        # ORs the same bits again when repeated
-        bitpack._check(lib.h264lab_bitpack_stitch(
+        cuda_build.check(lib.h264lab_bitpack_stitch(
             b["mb_words"].data_ptr(), b["offs"].data_ptr(), n_frames, nmb,
             n_out, b["words"].data_ptr(), stream), "baseline stitch")
 
@@ -253,10 +257,25 @@ def _baseline_k1(src, vals, lens, cap):
     return launches, whole
 
 
-def k1_timing(baseline=None, reps=20):
+def _kernel_timing(kernel, fn, reps):
+    """A wrapper's ms from CUDA events over `reps` calls, and one call's
+    device ops, busy ms and kernel ms in a `torch.profiler` trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = dict(ms=chip_smoke._cuda_ms(fn, reps))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out.update(trace_kernel_ms=_kernel_us(ops, kernel) / 1e3,
+               trace_busy_ms=_busy_us(ops) / 1e3, trace_device_ops=len(ops))
+    return out
+
+
+def kernel_timing(baseline=None, reps=20):
+    """Measurement 3: K1 on the 16-lane IDR step's grid (and against an
+    earlier build), K2 on the next P step's deblocking inputs."""
     cfg, run, frames = chip_smoke.main_path_setup()
     enc = GopBandEncoder(cfg, n_gop=chip_smoke.LANES)
     p = enc.encode_step_async(chip_smoke.lane_frames(frames, 0), run)
@@ -264,13 +283,7 @@ def k1_timing(baseline=None, reps=20):
     vals, lens, cap = grid["sym_vals"], grid["sym_lens"], enc.idr_cap_words
     new = lambda: bitpack.pack_frames(vals, lens, cap)  # noqa: E731
     out = dict(grid=list(vals.shape), cap_words=cap,
-               ms=chip_smoke._cuda_ms(new, reps))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        new()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    out.update(trace_kernel_ms=_k1_kernel_us(ops) / 1e3,
-               trace_busy_ms=_busy_us(ops) / 1e3, trace_device_ops=len(ops))
+               **_kernel_timing("K1", new, reps))
     if baseline:
         launches, old = _baseline_k1(baseline, vals, lens, cap)
         wo, no = old()
@@ -282,7 +295,14 @@ def k1_timing(baseline=None, reps=20):
         turns = [chip_smoke._cuda_ms(fn, reps) for fn in (old, new, new, old)]
         out["turns_ms"] = dict(old=[turns[0], turns[3]],
                                new=[turns[1], turns[2]])
-    return out
+    enc.finish_step(p)
+    calls = []
+    with chip_smoke.deblock_calls(calls):
+        enc.encode_step(chip_smoke.lane_frames(frames, 1), run)
+    k2_args = mbscan.deblock_tiles_args(*calls[0])
+    k2 = dict(inputs=list(k2_args[0].shape[:2]), **_kernel_timing(
+        "K2", lambda: deblock.deblock_tiles(*k2_args), reps))
+    return out, k2
 
 
 def main() -> int:
@@ -325,7 +345,7 @@ def main() -> int:
         result.update(sequential_stage_ms=stage_ms, sequential=counts)
         print(json.dumps(result))
         return 0
-    k1 = k1_timing(args.k1_baseline)      # first: a fresh profiler
+    k1, k2 = kernel_timing(args.k1_baseline)   # first: a fresh profiler
     scaling = lane_scaling()
     for lanes, r in scaling.items():
         print(f"{size} P step x {lanes:2d} lanes [{card}]: step "
@@ -334,11 +354,11 @@ def main() -> int:
     counts = launch_counts()
     for name, r in counts.items():
         untraced = scaling[1]["stages_ms"][name]
-        per_diag = (f", {r['ops_per_diagonal']:.1f} per diagonal of "
-                    f"{r['diagonals']}" if "diagonals" in r else "")
+        hand = "".join(f"; {k} {v:.3f} ms" for k, v in r["kernel_ms"].items()
+                       if v)
         print(f"{size} P step x 1 lane [{card}]: {name:8s} "
-              f"{r['device_ops']:8d} device ops{per_diag}; busy "
-              f"{r['busy_ms']:.1f} ms of {untraced:.1f} ms untraced")
+              f"{r['device_ops']:8d} device ops; busy {r['busy_ms']:.1f} ms "
+              f"of {untraced:.1f} ms untraced{hand}")
     result.update(lane_scaling=scaling, launches_1_lane=counts)
     print(f"K1 {k1['grid']} cap {k1['cap_words']} [{card}]: {k1['ms']:.3f} "
           f"ms (events, fills included); trace: kernel "
@@ -352,7 +372,11 @@ def main() -> int:
               f"{k1['turns_ms']['old'][0]:.3f}, {k1['turns_ms']['new'][0]:.3f}"
               f", {k1['turns_ms']['new'][1]:.3f}, "
               f"{k1['turns_ms']['old'][1]:.3f} ms")
-    result["k1"] = k1
+    print(f"K2 on the P step's deblocking inputs {k2['inputs']} [{card}]: "
+          f"{k2['ms']:.3f} ms (events, output allocation included); trace: "
+          f"kernel {k2['trace_kernel_ms']:.3f} ms, {k2['trace_device_ops']} "
+          f"device ops busy {k2['trace_busy_ms']:.3f} ms")
+    result.update(k1=k1, k2=k2)
     print(json.dumps(result))
     return 0
 
