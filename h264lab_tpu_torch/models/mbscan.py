@@ -554,8 +554,8 @@ def _frame_bs(sel, nnz_blk, mv4_y, mv4_x, avail_top, avail_left,
     idx = torch.arange(nmb, device=dev)
     rr = idx // mb_width
     cc = idx % mb_width
-    avail_top = torch.as_tensor(avail_top, device=dev)
-    avail_left = torch.as_tensor(avail_left, device=dev)
+    avail_top = torch.as_tensor(avail_top, device=dev).bool()
+    avail_left = torch.as_tensor(avail_left, device=dev).bool()
     has_left = (cc > 0) & avail_left
     has_top = (rr > 0) & avail_top
     li = torch.where(has_left, idx - 1, nmb)
@@ -587,13 +587,14 @@ def deblock_frame(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
     """In-loop deblocking of N frames/bands at per-frame (N,) QPs, or at
     per-MB (N, nmb) decoded QPs (`mb_qp_delta`): then an MB edge takes
     the two MBs' average QP and the inner edges the MB's own (spec
-    8.7.2.1), chroma likewise from the per-MB chroma QPs. Returns the
-    filtered (df_y, df_u, df_v) uint8 tiles.
+    8.7.2.1), chroma likewise from the per-MB chroma QPs. avail_top and
+    avail_left: a bool, or per MB (nmb,). Returns the filtered (df_y,
+    df_u, df_v) uint8 tiles.
 
-    The one entry of every encode path. On CUDA tensors: bS derived in
-    parallel (`_frame_bs`), the QP of every MB edge (`deblock.edge_qps`),
-    then one launch of K2 (`deblock.deblock_tiles`, `csrc/deblock.cu`) for
-    the whole batch. On CPU tensors: `deblock_frame_plain`."""
+    The one entry of every encode path. On CUDA tensors: one launch of K2
+    (`deblock.deblock_tiles`, `csrc/deblock.cu`), which derives bS and
+    the edge QPs itself, for the whole batch. On CPU tensors:
+    `deblock_frame_plain`."""
     args = (recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x, qp, qpc,
             avail_top, avail_left, mb_width, mb_height)
     if recon_y.device.type == "cpu":
@@ -605,21 +606,36 @@ def deblock_tiles_args(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y,
                        mv4_x, qp, qpc, avail_top, avail_left,
                        mb_width: int, mb_height: int):
     """`deblock_frame`'s arguments in the form K2 (`deblock.deblock_tiles`)
-    takes them: the tiles and bS (`_frame_bs`) as contiguous uint8, the QP
-    of every MB edge (`deblock.edge_qps`), mb_width and mb_height."""
+    takes them, on the tiles' device: the tiles as contiguous uint8, sel,
+    nnz_blk, the MVs and the QPs as contiguous int32 (the QPs (N,) per
+    frame or (N, nmb) per MB), avail_top and avail_left as (nmb,) uint8,
+    mb_width and mb_height. The tiles and the blocks' arrays are 16-byte
+    aligned. On the encode paths every tensor is in that form already, so
+    the packing is one copy of the availability to the device."""
     N, nmb = sel.shape
     dev = recon_y.device
-    bs_v, bs_h = _frame_bs(sel, nnz_blk, mv4_y, mv4_x, avail_top,
-                           avail_left, mb_width, mb_height)
 
-    def u8(x, t):
-        return x.reshape(N, nmb, t, t).to(torch.uint8).contiguous()
+    def packed(x, dtype, shape):
+        x = torch.as_tensor(x, device=dev).reshape(shape).to(
+            dtype).contiguous()
+        return x if x.data_ptr() % 16 == 0 else x.clone()
 
-    return (u8(recon_y, 16), u8(recon_u, 8), u8(recon_v, 8), u8(bs_v, 4),
-            u8(bs_h, 4), *deblock.edge_qps(
-                torch.as_tensor(qp, dtype=I32, device=dev),
-                torch.as_tensor(qpc, dtype=I32, device=dev), N, mb_width,
-                mb_height), mb_width, mb_height)
+    if any(isinstance(a, torch.Tensor) for a in (avail_top, avail_left)):
+        avail = torch.stack([torch.as_tensor(a, device=dev).to(
+            torch.uint8).expand(nmb) for a in (avail_top, avail_left)])
+    else:                       # host flags: one copy
+        avail = torch.from_numpy(np.stack([np.broadcast_to(np.asarray(
+            a, dtype=np.uint8), (nmb,)) for a in (avail_top, avail_left)])
+        ).to(dev)
+    qp_shape = (N, nmb) if torch.as_tensor(qp).ndim == 2 else (N,)
+    return (packed(recon_y, torch.uint8, (N, nmb, 16, 16)),
+            packed(recon_u, torch.uint8, (N, nmb, 8, 8)),
+            packed(recon_v, torch.uint8, (N, nmb, 8, 8)),
+            packed(sel, I32, (N, nmb)),
+            *(packed(x, I32, (N, nmb, 4, 4)) for x in (nnz_blk, mv4_y,
+                                                        mv4_x)),
+            packed(qp, I32, qp_shape), packed(qpc, I32, qp_shape),
+            avail[0], avail[1], mb_width, mb_height)
 
 
 def deblock_frame_plain(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y,

@@ -1,13 +1,14 @@
 """In-loop deblocking filter (spec 8.7): boundary strength and the edge
-filters, batched over macroblocks, and K2, the filter of a frame batch as
-one CUDA kernel.
+filters, batched over macroblocks, and K2, the whole deblocking of a frame
+batch (bS and the edge QPs included) as one CUDA kernel.
 
 PyTorch counterpart of `h264lab_tpu/ops/deblock.py`. The edge filters
 update their (k, rows, cols) int32 strip in place (the JAX module returns
 a new array); `filter_*_h` filters a transposed view of the strip. They
 are the plain version: `models/mbscan.deblock_frame_plain` runs them over
 the slope-1 MB diagonals, and K2 (`deblock_tiles`, `csrc/deblock.cu`) is
-held against it.
+held against it. `mb_edge_bs` and `edge_qps` serve the plain version; K2
+derives bS and the edge QPs itself by the same rules.
 
 QP arguments are a 0-d int tensor, one QP per strip (k,), or one QP per
 strip and edge (k, 4) for luma, (k, 2) for chroma: with per-MB QPs
@@ -173,7 +174,7 @@ def edge_qps(qp: torch.Tensor, qpc: torch.Tensor, n: int, mb_width: int,
     takes the rounded average of the MB's QP and its left or upper
     neighbour's (its own in column or row 0, where bS is 0), an inner edge
     the MB's own; per-frame QPs give every edge the frame's QP. Returns
-    (qv, qh, qcv, qch), what K2 reads."""
+    (qv, qh, qcv, qch)."""
     nmb = mb_width * mb_height
 
     def expand(q, n_edges):
@@ -198,6 +199,8 @@ _lib_handle = None
 # the tables K2 takes by value, host copies that live as long as the module
 _HOST_TABLES = tuple(np.ascontiguousarray(t, dtype=np.uint8) for t in (
     tables.ALPHA_TABLE, tables.BETA_TABLE, tables.TC0_TABLE))
+# K2 loads these in 16-byte chunks
+_ALIGNED = ("recon_y", "recon_u", "recon_v", "nnz_blk", "mv4_y", "mv4_x")
 
 
 def _lib():
@@ -205,54 +208,76 @@ def _lib():
     if _lib_handle is None:
         lib = ctypes.CDLL(str(cuda_build.build(_SRC)[0]))
         vp = ctypes.c_void_p
-        lib.h264lab_deblock.argtypes = [vp] * 15 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+        lib.h264lab_deblock.argtypes = [vp] * 18 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
         lib.h264lab_deblock.restype = ctypes.c_int
         _lib_handle = lib
     return _lib_handle
 
 
-# K2's arguments: name, dtype, shape after (n, nmb)
-_K2_ARGS = (("recon_y", torch.uint8, (16, 16)),
-            ("recon_u", torch.uint8, (8, 8)), ("recon_v", torch.uint8, (8, 8)),
-            ("bs_v", torch.uint8, (4, 4)), ("bs_h", torch.uint8, (4, 4)),
-            ("qv", torch.int32, (4,)), ("qh", torch.int32, (4,)),
-            ("qcv", torch.int32, (2,)), ("qch", torch.int32, (2,)))
+def _k2_args(n: int, nmb: int, per_mb_qp: bool):
+    """K2's tensor arguments in order: name, dtype, shape."""
+    q = (n, nmb) if per_mb_qp else (n,)
+    return (("recon_y", torch.uint8, (n, nmb, 16, 16)),
+            ("recon_u", torch.uint8, (n, nmb, 8, 8)),
+            ("recon_v", torch.uint8, (n, nmb, 8, 8)),
+            ("sel", torch.int32, (n, nmb)),
+            ("nnz_blk", torch.int32, (n, nmb, 4, 4)),
+            ("mv4_y", torch.int32, (n, nmb, 4, 4)),
+            ("mv4_x", torch.int32, (n, nmb, 4, 4)),
+            ("qp", torch.int32, q), ("qpc", torch.int32, q),
+            ("avail_top", torch.uint8, (nmb,)),
+            ("avail_left", torch.uint8, (nmb,)))
 
 
-def deblock_tiles(recon_y, recon_u, recon_v, bs_v, bs_h, qv, qh, qcv, qch,
-                  mb_width: int, mb_height: int):
-    """K2: deblock n frames or bands of MB tiles in one launch on the
-    card. recon_y (n, nmb, 16, 16), recon_u and recon_v (n, nmb, 8, 8)
-    uint8; bs_v and bs_h (n, nmb, 4 edges, 4 groups of 4 pixels) uint8 as
-    `mbscan._frame_bs` gives them; the edge QPs of `edge_qps`, int32; all
-    contiguous on one CUDA device. Returns new (df_y, df_u, df_v) uint8
-    tiles; the inputs are left as they are. Raises on any other input:
-    the plain version is `mbscan.deblock_frame_plain`."""
-    args = (recon_y, recon_u, recon_v, bs_v, bs_h, qv, qh, qcv, qch)
+def deblock_tiles(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
+                  qp, qpc, avail_top, avail_left, mb_width: int,
+                  mb_height: int):
+    """K2: the whole deblocking of n frames or bands of MB tiles, bS and
+    the edge QPs included, in one launch on the card. Takes what
+    `mbscan.deblock_frame` takes, in the form `mbscan.deblock_tiles_args`
+    packs: recon_y (n, nmb, 16, 16), recon_u and recon_v (n, nmb, 8, 8)
+    uint8; sel (n, nmb), nnz_blk, mv4_y and mv4_x (n, nmb, 4, 4) int32; qp
+    and qpc int32, both per frame (n,) or both per MB (n, nmb); avail_top
+    and avail_left (nmb,) uint8; all contiguous on one CUDA device, the
+    tiles and the blocks' arrays 16-byte aligned. Returns new (df_y, df_u,
+    df_v) uint8 tiles; the inputs are left as they are. Raises on any
+    other input: the plain version is `mbscan.deblock_frame_plain`."""
+    args = (recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x, qp, qpc,
+            avail_top, avail_left)
     dev = recon_y.device
     if dev.type != "cuda" or any(x.device != dev for x in args):
         raise ValueError("deblock_tiles: K2 takes tensors on one CUDA "
                          f"device, not {[str(x.device) for x in args]}")
     n, nmb = recon_y.shape[0], mb_width * mb_height
-    for x, (name, dtype, tail) in zip(args, _K2_ARGS):
+    for x, (name, dtype, shape) in zip(args, _k2_args(n, nmb,
+                                                       qp.ndim == 2)):
         if x.dtype != dtype:
             raise TypeError(f"deblock_tiles: {name} is {x.dtype}, not "
                             f"{dtype}")
-        if tuple(x.shape) != (n, nmb) + tail:
+        if tuple(x.shape) != shape:
             raise ValueError(f"deblock_tiles: {name} of shape "
-                             f"{tuple(x.shape)}, not {(n, nmb) + tail}")
+                             f"{tuple(x.shape)}, not {shape}")
         if not x.is_contiguous():
             raise ValueError(f"deblock_tiles: {name} is not contiguous")
+        if name in _ALIGNED and x.data_ptr() % 16:
+            raise ValueError(f"deblock_tiles: {name} is not 16-byte "
+                             "aligned")
     with torch.cuda.device(dev):
         outs = [torch.empty_like(x) for x in args[:3]]
         if n == 0 or nmb == 0:
             return tuple(outs)
+        # zeroed for the launch: the ticket (16 bytes), then a mailbox
+        # entry of 16 8-byte units per MB of each MB row and plane group
+        # (luma, chroma)
+        sync = torch.zeros(4 + 2 * n * nmb * 32, dtype=torch.int32,
+                           device=dev)
         cuda_build.check(_lib().h264lab_deblock(
             *(x.data_ptr() for x in args[:3]),
             *(o.data_ptr() for o in outs),
-            *(x.data_ptr() for x in args[3:]),
+            *(x.data_ptr() for x in args[3:]), sync.data_ptr(),
             *(t.ctypes.data for t in _HOST_TABLES), n, mb_width, mb_height,
-            torch.cuda.current_stream(dev).cuda_stream), "deblock")
+            int(qp.ndim == 2), torch.cuda.current_stream(dev).cuda_stream),
+            "deblock")
         LAUNCH_COUNTS["deblock"] += 1
     return tuple(outs)

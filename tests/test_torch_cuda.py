@@ -40,8 +40,13 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   on seeded inputs with bS 0 to 4 at the main paths' shapes: 16 frames of
   1080p (16, 8160), one frame with per-MB QPs (1, 8160), an SVC base
   layer (1, 2040), a mesh band whose top row has no upper neighbour (1,
-  4080), and 4 x 3 MBs; one launch per call. It refuses CPU tensors,
-  other dtypes and shapes and non-contiguous inputs.
+  4080), 4 x 3 MBs, one MB high (6 x 1) and one MB wide (1 x 6); with
+  per-MB availability as tensors on the card (`svc.base_mode_deblock`'s
+  and a random one). Each input is launched 20 times, with equal outputs
+  (rows on other SMs must never see stale pixels); one launch per call,
+  and on the card `deblock_frame` calls neither `_frame_bs` nor
+  `edge_qps`. K2 refuses CPU tensors, other dtypes and shapes,
+  non-contiguous and misaligned inputs.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -415,41 +420,88 @@ K2_CASES = [
     (13, 1, 60, 34, 33, False, False),     # SVC base layer
     (14, 1, 120, 34, 33, False, True),     # mesh band, no row above
     (15, 3, 4, 3, 14, True, True),
+    (17, 2, 6, 1, 28, True, False),        # one MB high
+    (18, 2, 1, 6, 33, True, False),        # one MB wide
 ]
+K2_REPEATS = 20
+
+
+def _k2_inputs(card, case):
+    seed, n, mbw, mbh, qp, per_mb, band = case
+    return {k: torch.from_numpy(np.asarray(v)).to(card) for k, v in
+            deblock_inputs(seed, n, mbw, mbh, qp, per_mb_qp=per_mb,
+                           band=band).items()}, mbw, mbh
+
+
+def _k2_repeats_equal_plain(d, mbw, mbh):
+    """K2 through `deblock_frame` K2_REPEATS times: one launch each, every
+    output equal to the plain filter's."""
+    want = mbscan.deblock_frame_plain(**d, mb_width=mbw, mb_height=mbh)
+    for _ in range(K2_REPEATS):
+        before = deblock.LAUNCH_COUNTS["deblock"]
+        got = mbscan.deblock_frame(**d, mb_width=mbw, mb_height=mbh)
+        torch.cuda.synchronize()
+        assert deblock.LAUNCH_COUNTS["deblock"] == before + 1
+        for a, b in zip(got, want):
+            assert a.dtype == torch.uint8 and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", K2_CASES,
-                         ids=lambda c: f"{c[1]}x{c[2] * c[3]}")
+                         ids=lambda c: f"{c[1]}x{c[2]}x{c[3]}")
 def test_k2_matches_plain_deblock(card, case):
-    seed, n, mbw, mbh, qp, per_mb, band = case
-    d = {k: torch.from_numpy(np.asarray(v)).to(card) for k, v in
-         deblock_inputs(seed, n, mbw, mbh, qp, per_mb_qp=per_mb,
-                        band=band).items()}
-    before = deblock.LAUNCH_COUNTS["deblock"]
-    got = mbscan.deblock_frame(**d, mb_width=mbw, mb_height=mbh)
-    torch.cuda.synchronize()
-    assert deblock.LAUNCH_COUNTS["deblock"] == before + 1
+    _k2_repeats_equal_plain(*_k2_inputs(card, case))
+
+
+@pytest.mark.parametrize("avail", ["base_mode", "random"])
+def test_k2_per_mb_availability(card, avail):
+    d, mbw, mbh = _k2_inputs(card, (19, 2, 7, 5, 30, True, False))
+    idx = torch.arange(mbw * mbh, device=card)
+    if avail == "base_mode":         # as svc.base_mode_deblock passes them
+        d["avail_top"], d["avail_left"] = idx >= mbw, idx % mbw > 0
+    else:
+        rng = np.random.default_rng(19)
+        d["avail_top"], d["avail_left"] = (
+            torch.from_numpy(rng.random(mbw * mbh) < 0.6).to(card)
+            for _ in range(2))
+    _k2_repeats_equal_plain(d, mbw, mbh)
+
+
+def test_k2_path_derives_bs_and_qps_in_the_kernel(card, monkeypatch):
+    d, mbw, mbh = _k2_inputs(card, K2_CASES[4])
     want = mbscan.deblock_frame_plain(**d, mb_width=mbw, mb_height=mbh)
-    for a, b in zip(got, want):
-        assert a.dtype == torch.uint8 and torch.equal(a, b)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("called on the card path")
+
+    monkeypatch.setattr(mbscan, "_frame_bs", refused)
+    monkeypatch.setattr(deblock, "edge_qps", refused)
+    for _ in range(3):
+        before = deblock.LAUNCH_COUNTS["deblock"]
+        got = mbscan.deblock_frame(**d, mb_width=mbw, mb_height=mbh)
+        assert deblock.LAUNCH_COUNTS["deblock"] == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def test_k2_rejects_bad_inputs(card):
-    n, mbw, mbh = 1, 4, 3
-    d = {k: torch.from_numpy(np.asarray(v)).to(card) for k, v in
-         deblock_inputs(16, n, mbw, mbh, 30).items()}
-    bs = torch.zeros((n, mbw * mbh, 4, 4), dtype=torch.uint8, device=card)
-    q = deblock.edge_qps(d["qp"], d["qpc"], n, mbw, mbh)
-    args = [d["recon_y"], d["recon_u"], d["recon_v"], bs, bs, *q]
+    d, mbw, mbh = _k2_inputs(card, (16, 1, 4, 3, 30, True, True))
+    args = list(mbscan.deblock_tiles_args(**d, mb_width=mbw,
+                                          mb_height=mbh)[:-2])
     deblock.deblock_tiles(*args, mbw, mbh)
+    shifted = torch.empty(args[4].numel() + 1, dtype=torch.int32,
+                          device=card)[1:].view(args[4].shape)
     for i, bad, err in (
             (0, args[0].cpu(), ValueError),                 # on the CPU
+            (9, args[9].cpu(), ValueError),
             (0, args[0].int(), TypeError),
-            (3, bs.int(), TypeError),
-            (5, q[0].long(), TypeError),
+            (3, args[3].long(), TypeError),
+            (7, args[7].long(), TypeError),
+            (10, args[10].bool(), TypeError),
             (1, args[1][:, :6], ValueError),                # shape
-            (7, q[2][..., :1].contiguous(), ValueError),
-            (0, args[0].transpose(-1, -2), ValueError)):   # not contiguous
+            (8, args[8][:, 0].contiguous(), ValueError),    # qpc per frame
+            (9, args[9][:5], ValueError),
+            (0, args[0].transpose(-1, -2), ValueError),     # not contiguous
+            (4, shifted, ValueError)):                      # misaligned
         with pytest.raises(err):
             deblock.deblock_tiles(*args[:i], bad, *args[i + 1:], mbw, mbh)
     with pytest.raises(ValueError):                         # nmb != 4 x 3

@@ -1,8 +1,8 @@
 """Where a P step of the PyTorch port's GOP-lane path spends its time on
 the CUDA card.
 
-    python tools/torch_trace_step.py [--k1-baseline SRC] [--sequential]
-                                     [--escape]
+    python tools/torch_trace_step.py [--k1-baseline SRC] [--k2-baseline SRC]
+                                     [--sequential] [--escape]
 
 It runs `chip_smoke.py`'s main path (1920x1088 chessboard, IPPP with GOP
 20, QP 33, encode_speed 2, the same frame schedule): each measurement
@@ -14,15 +14,15 @@ first:
    times (each stage between device synchronizations). A stage whose time
    does not grow with the lanes is bound by kernel launches, not by device
    work;
-2. launches: one more 1-lane P step in which every stage (`pre`, `inter`,
-   `select`, `sym`, `deblock`, `pack`, `ref`, `host`) runs under its own
-   `torch.profiler` pass (CUDA activity only), which synchronizes before it
-   closes. Per stage: the device operations launched (kernels, copies,
-   fills), the union of their device intervals (busy ms) and the device
-   ms of the hand kernels it launches (K1 in `pack`, K2 in `deblock`).
-   The busy ms over the untraced stage time of measurement 1 estimates the
-   share of the stage the device works. The passes of the short stages
-   record no operation in some runs: their counts are a lower bound;
+2. launches: one more 1-lane P step under one `torch.profiler` pass (CPU
+   and CUDA activity), with every stage (`pre`, `inter`, `select`, `sym`,
+   `deblock`, `pack`, `ref`, `host`) between device synchronizations. Per
+   stage: the device operations (kernels, copies, fills) that start
+   inside its `stage:<name>` range (the hand kernels K1 in `pack` and K2
+   in `deblock` by their launch counts), their device ms summed (busy ms)
+   and the device ms of the hand kernels. The busy ms over the untraced
+   stage time of measurement 1 estimates the share of the stage the device
+   works;
 3. K1 on the symbol grid of one 16-lane IDR step at the IDR capacity, and
    K2 (the deblocking kernel) on the deblocking inputs of the 16-lane P
    step that follows: each wrapper's time from CUDA events (K1's zero
@@ -32,13 +32,23 @@ first:
    points `h264lab_bitpack_mb_words` and `h264lab_bitpack_stitch`): the
    script times each launch of its wrapper on its own, checks that its
    words equal the current K1's, and times the two wrappers in turns
-   (old, new, new, old).
+   (old, new, new, old). With `--k2-baseline SRC`, SRC is an earlier K2
+   that takes bS and the edge QPs (entry point `h264lab_deblock` with
+   bs_v, bs_h and four edge-QP arrays, one block per frame and plane
+   group): the script builds it, prepares its arguments as its stage did
+   (`mbscan._frame_bs`, `deblock.edge_qps`), checks that its tiles equal
+   the current K2's, and times in turns (old, new, new, old) the two
+   kernels (their wrappers on prepared arguments) and the two `deblock`
+   stages (the preparation and the kernel), on the 16-lane P step's
+   deblocking inputs and on lane 0's frame of them.
 
 With `--sequential` it measures only the sequential encoder
 (`H264Encoder`, `chip_smoke.py`'s 1080p speed-0 setting): after an IDR,
 one P frame with per-stage times between syncs, and the next P frame with
-every stage under its own profiler pass as in measurement 2, per
-wavefront diagonal for `select` (slope 2).
+every stage under its own profiler pass (CUDA activity only; one pass over
+its million launches would not fit), per wavefront diagonal for `select`
+(slope 2). The passes of the short stages record no operation in some
+runs: their counts are a lower bound.
 
 With `--escape` it measures only what NAL escaping costs the GOP steps'
 `host` stage (16 lanes): after the untimed IDR and P steps, four P steps
@@ -109,8 +119,9 @@ def _busy_us(events):
     return busy
 
 
-# the hand kernels' names in a trace
+# the hand kernels' names in a trace, and their launch counts
 KERNELS = {"K1": "pack_kernel", "K2": "deblock_kernel"}
+HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock"}
 
 
 def _kernel_us(ops, kernel):
@@ -149,6 +160,80 @@ def _traced_stages(stages, drive):
     return out
 
 
+def _stage_ops(timer, stages, drive):
+    """Run `drive()` under one `torch.profiler` pass (CPU and CUDA
+    activity) with `timer`'s stage times on. A device operation is charged
+    to the stage whose `stage:<name>` range encloses the CPU event that
+    launched it (the profiler hands each CPU event its device operations).
+    The hand kernels, launched through ctypes, have no such event: each is
+    charged to the stage of `stages` in which its launch count rose. Per
+    stage: device operations, their device ms summed (busy ms: one stream)
+    and hand-kernel ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    stage, launched = stages.stage, {}
+
+    @contextlib.contextmanager
+    def counted(name):
+        before = dict(cuda_build.LAUNCH_COUNTS)
+        with stage(name):
+            yield
+        for k, key in HAND_LAUNCHES.items():
+            if cuda_build.LAUNCH_COUNTS[key] > before[key]:
+                launched[k] = name
+
+    stages.stage = counted
+    timer.stage_times = {}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            drive()
+            torch.cuda.synchronize()
+    finally:
+        timer.stage_times = None
+        del stages.stage
+    events = prof.events()
+
+    def stage_of(e):
+        while e is not None and not e.name.startswith("stage:"):
+            e = e.cpu_parent
+        return e.name[len("stage:"):] if e is not None else "unattributed"
+
+    out = {}
+
+    def charge(name, kernels):
+        r = out.setdefault(name, dict(device_ops=0, busy_ms=0.0,
+                                      kernel_ms={k: 0.0 for k in KERNELS}))
+        for kern_name, us in kernels:
+            r["device_ops"] += 1
+            r["busy_ms"] += us / 1e3
+            for k, kname in KERNELS.items():
+                if kname in kern_name:
+                    r["kernel_ms"][k] += us / 1e3
+
+    placed, attached = 0, set()
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.kernels:
+            charge(stage_of(e), [(k.name, k.duration) for k in e.kernels])
+            placed += len(e.kernels)
+            attached.update(k for k, kname in KERNELS.items()
+                            for kern in e.kernels if kname in kern.name)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("stage:")]
+    for e in device:
+        hand = [k for k, kname in KERNELS.items() if kname in e.name
+                and k not in attached]
+        if hand and hand[0] in launched:
+            charge(launched[hand[0]], [(e.name, e.time_range.end
+                                        - e.time_range.start)])
+            placed += 1
+    if len(device) > placed:
+        out["unattributed"] = dict(device_ops=len(device) - placed,
+                                   busy_ms=0.0, kernel_ms={})
+    return out
+
+
 def _per_diagonal(counts, name, mb_width, mb_height, slope):
     n_diag = wavefront.make_plan(mb_width, mb_height, slope).steps.shape[0]
     counts[name].update(diagonals=n_diag, ops_per_diagonal=counts[name][
@@ -157,7 +242,8 @@ def _per_diagonal(counts, name, mb_width, mb_height, slope):
 
 def launch_counts():
     enc, run, frames = _warm_encoder(1)
-    return _traced_stages(enc.stages, lambda: enc.encode_step(frames, run))
+    return _stage_ops(enc, enc.stages,
+                      lambda: enc.encode_step(frames, run))
 
 
 def sequential_counts():
@@ -257,6 +343,74 @@ def _baseline_k1(src, vals, lens, cap):
     return launches, whole
 
 
+def _baseline_k2(src):
+    """The earlier K2 built from `src`, as three functions: prepare(*args)
+    derives bS and the edge QPs from `deblock_frame`'s arguments as that
+    K2's stage did, kernel(prepared) launches it on them, and stage(*args)
+    does both. Returns (prepare, kernel, stage)."""
+    lib = ctypes.CDLL(str(cuda_build.build(src)[0]))
+    vp = ctypes.c_void_p
+    lib.h264lab_deblock.argtypes = [vp] * 15 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+    lib.h264lab_deblock.restype = ctypes.c_int
+
+    def prepare(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x, qp,
+                qpc, avail_top, avail_left, mb_width, mb_height):
+        n, nmb = sel.shape
+        dev = recon_y.device
+        bs = mbscan._frame_bs(sel, nnz_blk, mv4_y, mv4_x, avail_top,
+                              avail_left, mb_width, mb_height)
+
+        def u8(x, t):
+            return x.reshape(n, nmb, t, t).to(torch.uint8).contiguous()
+
+        qs = deblock.edge_qps(torch.as_tensor(qp, dtype=torch.int32,
+                                              device=dev),
+                              torch.as_tensor(qpc, dtype=torch.int32,
+                                              device=dev), n, mb_width,
+                              mb_height)
+        return ((u8(recon_y, 16), u8(recon_u, 8), u8(recon_v, 8),
+                 u8(bs[0], 4), u8(bs[1], 4),
+                 *(q.contiguous() for q in qs)), n, mb_width, mb_height)
+
+    def kernel(prepared):
+        tensors, n, mbw, mbh = prepared
+        outs = [torch.empty_like(x) for x in tensors[:3]]
+        cuda_build.check(lib.h264lab_deblock(
+            *(x.data_ptr() for x in tensors[:3]),
+            *(o.data_ptr() for o in outs),
+            *(x.data_ptr() for x in tensors[3:]),
+            *(t.ctypes.data for t in deblock._HOST_TABLES), n, mbw, mbh,
+            torch.cuda.current_stream().cuda_stream), "baseline deblock")
+        return tuple(outs)
+
+    return prepare, kernel, lambda *args: kernel(prepare(*args))
+
+
+def k2_turns(src, args, reps):
+    """The earlier K2 (`src`) against the current one on `deblock_frame`'s
+    arguments `args`: equal tiles, then the two kernels and the two stages
+    in turns (old, new, new, old)."""
+    prepare, old_kernel, old_stage = _baseline_k2(src)
+    prepared = prepare(*args)
+    packed = mbscan.deblock_tiles_args(*args)
+    want = mbscan.deblock_frame(*args)
+    equal = all(torch.equal(a, b) for a, b in zip(old_stage(*args), want))
+    out = dict(inputs=list(args[3].shape), baseline_equal=equal)
+    for what, old, new in (
+            ("kernel", lambda: old_kernel(prepared),
+             lambda: deblock.deblock_tiles(*packed)),
+            ("stage", lambda: old_stage(*args),
+             lambda: mbscan.deblock_frame(*args))):
+        turns = [chip_smoke._cuda_ms(fn, reps) for fn in (old, new, new,
+                                                          old)]
+        out[f"{what}_turns_ms"] = dict(old=[turns[0], turns[3]],
+                                       new=[turns[1], turns[2]])
+    out["bound_ms"] = chip_smoke.k2_bytes(packed) / (
+        chip_smoke.HBM_BYTES_PER_S * 1e-3)
+    return out
+
+
 def _kernel_timing(kernel, fn, reps):
     """A wrapper's ms from CUDA events over `reps` calls, and one call's
     device ops, busy ms and kernel ms in a `torch.profiler` trace."""
@@ -273,9 +427,10 @@ def _kernel_timing(kernel, fn, reps):
     return out
 
 
-def kernel_timing(baseline=None, reps=20):
+def kernel_timing(baseline=None, k2_baseline=None, reps=20):
     """Measurement 3: K1 on the 16-lane IDR step's grid (and against an
-    earlier build), K2 on the next P step's deblocking inputs."""
+    earlier build), K2 on the next P step's deblocking inputs (and against
+    an earlier build, there and on lane 0's frame)."""
     cfg, run, frames = chip_smoke.main_path_setup()
     enc = GopBandEncoder(cfg, n_gop=chip_smoke.LANES)
     p = enc.encode_step_async(chip_smoke.lane_frames(frames, 0), run)
@@ -302,6 +457,12 @@ def kernel_timing(baseline=None, reps=20):
     k2_args = mbscan.deblock_tiles_args(*calls[0])
     k2 = dict(inputs=list(k2_args[0].shape[:2]), **_kernel_timing(
         "K2", lambda: deblock.deblock_tiles(*k2_args), reps))
+    if k2_baseline:
+        frame = tuple(x[:1] if isinstance(x, torch.Tensor) and x.ndim > 0
+                      and x.shape[0] == chip_smoke.LANES else x
+                      for x in calls[0])
+        k2["baseline"] = [k2_turns(k2_baseline, a, reps)
+                          for a in (calls[0], frame)]
     return out, k2
 
 
@@ -309,6 +470,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k1-baseline", metavar="SRC",
                     help="an earlier two-pass K1 source to time against")
+    ap.add_argument("--k2-baseline", metavar="SRC",
+                    help="an earlier K2 source (bS and edge QPs as inputs) "
+                         "to time against")
     ap.add_argument("--sequential", action="store_true",
                     help="trace the sequential encoder's 1080p speed-0 P "
                          "frame instead")
@@ -345,7 +509,8 @@ def main() -> int:
         result.update(sequential_stage_ms=stage_ms, sequential=counts)
         print(json.dumps(result))
         return 0
-    k1, k2 = kernel_timing(args.k1_baseline)   # first: a fresh profiler
+    k1, k2 = kernel_timing(args.k1_baseline,   # first: a fresh profiler
+                           args.k2_baseline)
     scaling = lane_scaling()
     for lanes, r in scaling.items():
         print(f"{size} P step x {lanes:2d} lanes [{card}]: step "
@@ -353,7 +518,7 @@ def main() -> int:
                   f"{k} {v:.1f}" for k, v in r["stages_ms"].items()))
     counts = launch_counts()
     for name, r in counts.items():
-        untraced = scaling[1]["stages_ms"][name]
+        untraced = scaling[1]["stages_ms"].get(name, 0.0)
         hand = "".join(f"; {k} {v:.3f} ms" for k, v in r["kernel_ms"].items()
                        if v)
         print(f"{size} P step x 1 lane [{card}]: {name:8s} "
@@ -376,6 +541,13 @@ def main() -> int:
           f"{k2['ms']:.3f} ms (events, output allocation included); trace: "
           f"kernel {k2['trace_kernel_ms']:.3f} ms, {k2['trace_device_ops']} "
           f"device ops busy {k2['trace_busy_ms']:.3f} ms")
+    for b in k2.get("baseline", []):
+        for what in ("kernel", "stage"):
+            t = b[f"{what}_turns_ms"]
+            print(f"  K2 baseline on {b['inputs']}, {what} in turns old, new,"
+                  f" new, old [{card}]: {t['old'][0]:.3f}, {t['new'][0]:.3f}"
+                  f", {t['new'][1]:.3f}, {t['old'][1]:.3f} ms; tiles equal: "
+                  f"{b['baseline_equal']}; bound {b['bound_ms']:.4f} ms")
     result.update(k1=k1, k2=k2)
     print(json.dumps(result))
     return 0
