@@ -5,10 +5,10 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the bit-pack kernel K1 (h264lab_tpu_torch/csrc/bitpack.cu) and
-     the deblocking kernel K2 (csrc/deblock.cu), one nvcc each, started
-     together, and print what ptxas reports (registers, shared memory,
-     spills);
+  2. build the bit-pack kernel K1 (h264lab_tpu_torch/csrc/bitpack.cu),
+     the deblocking kernel K2 (csrc/deblock.cu) and the wavefront kernel
+     K3 (csrc/wavefront.cu), one nvcc each, started together, and print
+     what ptxas reports (registers, shared memory, spills);
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
      encode_speed 2, lane g walking consecutive frames g, g+1, ...:
@@ -19,19 +19,22 @@ Phases (any failure exits non-zero; nothing is caught):
      per-stage times; one more forced KEY step without synchronization
      inside it, timed as t_IDR. From these a GOP-20 frames/s, derived as
      16 * 20 / (t_IDR + 19 * t_P). The RBSPs that the two stage steps
-     escape are kept for phase 6, their deblocking inputs for phase 4; the
-     main path must have launched K1 and K2 on every step;
+     escape are kept for phase 6, their deblocking and wavefront inputs
+     for phase 4; the main path must have launched K1 and K2 on every
+     step and K3 once on each of its three IDR steps;
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
      what the real grids lack (runs of empty MBs, an empty frame, MBs over
      4096 bits, units over 704 bits): the words and bit counts must be
      equal; hold K2 against the plain filter (`deblock_frame_plain`) on
-     the IDR and P steps' (16, 8160) deblocking inputs: equal tiles;
+     the IDR and P steps' (16, 8160) deblocking inputs: equal tiles; hold
+     K3 against the plain wavefront (`_select_wavefront_plain`) on the IDR
+     step's (16, 8160) wavefront inputs: all 13 outputs equal;
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1; then
      decode lane 0's stream of those two steps with the port's decoder
-     (numpy, on the host) in a worker process, beside phases 6 to 16:
+     (numpy, on the host) in a worker process, beside phases 6 to 17:
      both frames must equal the card's reconstruction; before the results
      the script waits for it and prints the decode seconds per 1080p
      frame (a host time, taken while the other phases run);
@@ -44,10 +47,11 @@ Phases (any failure exits non-zero; nothing is caught):
      P through the wavefront with the inter candidate): an IDR (untimed,
      first use), one P frame timed without synchronization inside it
      (seconds per frame, frames/s) and one P frame with per-stage times;
-     the path must have launched K1 and K2 on every frame;
+     the path must have launched K1, K2 and K3 on every frame;
   8. hold K1 against the plain packer on that P frame's (1, 8160, 952)
-     grid, at its capacity and at 1024 words, and K2 against the plain
-     filter on its deblocking inputs;
+     grid, at its capacity and at 1024 words, K2 against the plain
+     filter on its deblocking inputs and K3 against the plain wavefront on
+     its wavefront inputs (with the inter candidate);
   9. card bytes against CPU bytes at 352x288 (CIF): H264Encoder at speed
      0 (IDR, P, P) and at speed 10 (full-pel, deblocking off: IDR, P), and
      a 2-lane GopBandEncoder at speed 1 (IDR, P); each card stream (both
@@ -62,18 +66,22 @@ Phases (any failure exits non-zero; nothing is caught):
      FrameType.KEY frame (the base-mode IDR) with per-stage times of the
      base layer, the enhancement layer and the resampling; K1 and K2 must
      have launched at least once per layer and frame, K2 also for the
-     base-mode frame's own deblocking;
+     base-mode frame's own deblocking, K3 once for each of the two base
+     layer IDRs;
   12. hold K1 against the plain packer on the base-mode frame's (1, 8160,
      952) grid and on the base layer's P grid (1, 2040, 952), each at its
-     capacity and at 1024 words, and K2 against the plain filter on the
-     base-mode frame's and the base P frame's deblocking inputs;
+     capacity and at 1024 words, K2 against the plain filter on the
+     base-mode frame's and the base P frame's deblocking inputs, and K3
+     against the plain wavefront on the base-mode frame's base (1, 2040)
+     wavefront inputs;
   13. card bytes against CPU bytes of SvcEncoder at 352x288 over 176x144:
      inter-layer prediction at speed 0 (IDR, P, P) and none at speed 2
      (IDR, P); each card stream decodes bit-exactly to the card's
      reconstructions: the enhancement layer whole, the base layer with
      NAL types 14, 15 and 20 stripped;
   14. `entry()` (the driver entry point: the 128x96 wavefront intra
-     encode) on the card: every output equals `entry("cpu")`'s;
+     encode) on the card: every output equals `entry("cpu")`'s, and it
+     launched K3 once;
   15. the ("gop", "band") mesh: `dryrun_multichip(8)` and `(3)` (64-wide
      IPPP over (4, 2) and (3, 1) meshes; lane 0 decoded bit-exactly,
      every lane equal); then GopBandEncoder at 1920x1088 with two slice
@@ -88,9 +96,10 @@ Phases (any failure exits non-zero; nothing is caught):
      bytes of every step must equal an unsharded GopBandEncoder on the
      card with the same configuration, whose lane 0 IDR and first P
      must equal a CPU encode; K1 and K2 must have launched for every
-     shard and step; K1 must equal the plain packer on shard (0, 0)'s grid
-     of the last P step, K2 the plain filter on shard (0, 1)'s (1, 4080)
-     deblocking inputs of that step;
+     shard and step, K3 for every shard of the IDR step; K1 must equal the
+     plain packer on shard (0, 0)'s grid of the last P step, K2 the plain
+     filter on shard (0, 1)'s (1, 4080) deblocking inputs of that step, K3
+     the plain wavefront on shard (0, 1)'s (1, 4080) IDR wavefront inputs;
   16. hold K2 against the plain filter on seeded inputs
      (`utils.synthetic.deblock_inputs`: bS 0 to 4, flat areas, per-frame
      and per-MB QPs) at the main paths' shapes: (16, 8160), (1, 8160) with
@@ -101,7 +110,17 @@ Phases (any failure exits non-zero; nothing is caught):
      the plain filter's, and prints K2's wrapper ms (CUDA events over 20
      calls), the `deblock` stage's (the packing and K2), the plain
      filter's (one call) and the byte bound;
-  17. print the kernels line (JSON), then the result line (JSON).
+  17. hold K3 against the plain wavefront on seeded inputs
+     (`utils.synthetic.wavefront_inputs`: flat, gradient, chessboard,
+     stripe and noise MBs) at the main paths' shapes: (16, 8160), (1,
+     8160) with an inter candidate, (1, 2040), a (1, 4080) band with an
+     inter candidate, (3, 12) at 4 x 3 MBs and QP 0, 6 x 1 MBs at QP 51
+     and 1 x 6 MBs at QP 12: all 13 outputs equal. Every K3 check (here
+     and in phases 4, 8, 12 and 15) launches K3 20 times, each output
+     equal to the plain wavefront's, and prints K3's wrapper ms (CUDA
+     events over 20 calls), the packing's and K3's, the plain wavefront's
+     (one call) and the bound (bytes or operations, `k3_bound`);
+  18. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -142,6 +161,25 @@ K2_CASES = (
     ("1 x 6 MBs", 27, 2, 1, 6, QP, True, False),
 )
 K2_REPEATS = 20                  # launches of K2 per check, all equal
+# phase 17: (what, seed, frames, mb_width, mb_height, qp, inter candidate)
+K3_CASES = (
+    ("16 lanes of 1080p", 31, LANES, 120, 68, QP, False),
+    ("1080p with an inter candidate", 32, 1, 120, 68, QP, True),
+    ("the SVC base layer", 33, 1, 60, 34, QP, False),
+    ("a mesh band", 34, 1, 120, 34, QP, True),
+    ("4 x 3 MBs", 35, 3, 4, 3, 0, True),
+    ("6 x 1 MBs", 36, 2, 6, 1, 51, True),
+    ("1 x 6 MBs", 37, 2, 1, 6, 12, False),
+)
+K3_REPEATS = 20                  # launches of K3 per check, all equal
+# K3's integer operations per MB, counted on the plain algorithm: Intra_4x4
+# 16 blocks x (9 predictions and SAD terms of 16 pixels, about 6 operations
+# each; the argmin; the 4x4 transform, quantisation and reconstruction,
+# about 290), Intra_16x16 (3 SADs of 256 pixels, 16 block transforms, the
+# DC Hadamards) and chroma (3 SADs of 128 pixels, 8 block transforms):
+# about 19,000 + 7,200 + 3,500
+K3_OPS_PER_MB = 30_000
+INT32_OPS_PER_S = 67e12          # H100 SXM float32 rate without tensor cores
 
 
 def _require(ok: bool, what: str):
@@ -174,22 +212,23 @@ def reset_launches():
 
 
 @contextlib.contextmanager
-def deblock_calls(calls):
-    """Append the arguments of every `mbscan.deblock_frame` call made
-    inside the block (every encode path deblocks through it) to `calls`."""
+def recorded_calls(name, calls):
+    """Append the arguments of every call of `mbscan.<name>` made inside
+    the block to `calls`. Every encode path deblocks through
+    `deblock_frame` and runs its wavefront through `_select_wavefront`."""
     from h264lab_tpu_torch.models import mbscan
 
-    fn = mbscan.deblock_frame
+    fn = getattr(mbscan, name)
 
     def recorded(*args):
         calls.append(args)
         return fn(*args)
 
-    mbscan.deblock_frame = recorded
+    setattr(mbscan, name, recorded)
     try:
         yield calls
     finally:
-        mbscan.deblock_frame = fn
+        setattr(mbscan, name, fn)
 
 
 def k2_bytes(k2_args):
@@ -245,6 +284,82 @@ def check_k2(args, what, label):
           f"K2 {out['stage_ms']:.3f} ms; plain {out['plain_ms']:.1f} ms; "
           f"bound {out['bound_ms']:.4f} ms for {moved / 1e6:.2f} MB, "
           f"{100 * out['bound_ms'] / out['ms']:.2f}% of it reached)")
+    return out
+
+
+def require_k3(calls, launches, n_frames, what):
+    """A path ran its wavefront `n_frames` times on the card, each a K3
+    launch."""
+    _require(len(calls) == n_frames and launches == n_frames,
+             f"{what}: {len(calls)} wavefront calls and {launches} K3 "
+             f"launches, not {n_frames} of each")
+
+
+def k3_bound(k3_args, outs):
+    """The least time of K3's work on its packed arguments: the larger of
+    the bytes it must move (each input tensor read once, each output
+    written once: about 2.6 KB per MB, 3 KB with an inter candidate) at
+    3.35 TB/s, and its integer operations (K3_OPS_PER_MB) at 67 T/s, the
+    data sheet's float32 rate outside the tensor cores (it lists no int32
+    rate). Returns (bound ms, "bytes" or "operations", bytes)."""
+    import torch
+
+    tensors = [x for x in k3_args if isinstance(x, torch.Tensor)]
+    moved = sum(x.numel() * x.element_size()
+                for x in tensors + list(outs.values()))
+    n_mb = k3_args[0].shape[0] * k3_args[0].shape[1]
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_mb * K3_OPS_PER_MB / INT32_OPS_PER_S * 1e3
+    return ((bytes_ms, "bytes", moved) if bytes_ms >= ops_ms
+            else (ops_ms, "operations", moved))
+
+
+def check_k3(args, what, label):
+    """K3 against the plain wavefront on one call's `_select_wavefront`
+    arguments on their card: `_select_wavefront` (the packing and one K3
+    launch), run K3_REPEATS times, and `_select_wavefront_plain` must give
+    equal outputs every time. Returns K3's numbers: ms (its wrapper
+    `wavefront_tiles`), stage_ms (`_select_wavefront`), both from CUDA
+    events over 20 calls; plain_ms (the checked call); bound_ms and
+    bound_by (`k3_bound`); max_abs_err."""
+    import torch
+    from h264lab_tpu_torch.models import mbscan
+    from h264lab_tpu_torch.ops import wavefront
+
+    with torch.cuda.device(args[0].device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        want = mbscan._select_wavefront_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        err = 0
+        for _ in range(K3_REPEATS):
+            got = mbscan._select_wavefront(*args)
+            _require(set(got) == set(want) and all(
+                got[k].dtype == v.dtype for k, v in want.items()),
+                f"K3's outputs differ in kind from the plain wavefront's on "
+                f"{what}")
+            err = max([err] + [int((got[k].long() - v.long()).abs().max())
+                               for k, v in want.items()])
+            _require(err == 0, f"K3 differs from the plain wavefront on "
+                     f"{what} (largest difference {err})")
+        k3_args = mbscan.select_wavefront_args(*args)
+        out = dict(ms=_cuda_ms(lambda: wavefront.wavefront_tiles(*k3_args),
+                               20),
+                   stage_ms=_cuda_ms(lambda: mbscan._select_wavefront(*args),
+                                     20),
+                   plain_ms=start.elapsed_time(end), max_abs_err=err)
+    n, nmb = args[0].shape[:2]
+    out["bound_ms"], out["bound_by"], moved = k3_bound(k3_args, want)
+    sels = [int((want["sel"] == k).sum()) for k in range(3)]
+    print(f"  K3 == plain on {what} ({n}, {nmb}), {K3_REPEATS} launches "
+          f"{label}: K3 {out['ms']:.3f} ms (the packing and K3 "
+          f"{out['stage_ms']:.3f} ms; plain {out['plain_ms']:.1f} ms; bound "
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']}, "
+          f"{moved / 1e6:.2f} MB, {100 * out['bound_ms'] / out['ms']:.2f}% "
+          f"of it reached); MBs inter, I16, I4: {sels}")
     return out
 
 
@@ -427,12 +542,15 @@ def k1_numbers(vals, lens, cap, nk):
                 n_sym=n_sym)
 
 
-def svc_phases(cfg, run, label, numbers, k2_numbers, cif, cif_frames):
+def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, cif,
+               cif_frames):
     """Phases 11 to 13: SvcEncoder at WIDTH x HEIGHT with inter-layer
-    prediction (stage frames timed), K1 on its base-mode and base P grids
-    and K2 on their deblocking inputs (their numbers go into `numbers` and
-    `k2_numbers`), and SVC card bytes against CPU bytes at CIF. Returns
-    (K1 launches of the SVC frames, K2 launches, largest K1 error)."""
+    prediction (stage frames timed), K1 on its base-mode and base P grids,
+    K2 on their deblocking inputs and K3 on the base-mode frame's base
+    wavefront inputs (their numbers go into `numbers`, `k2_numbers` and
+    `k3_numbers`), and SVC card bytes against CPU bytes at CIF. Returns
+    (K1 launches of the SVC frames, K2 launches, K3 launches, largest K1
+    error)."""
     import torch
     from h264lab_tpu_torch.bitstream.nal import split_annexb
     from h264lab_tpu_torch.config import FrameType
@@ -456,9 +574,12 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, cif, cif_frames):
         grids.append((vals, lens, cap))
         return k1(vals, lens, cap)
 
+    svc_wf = []                 # the SVC frames' wavefront calls
+
     def svc_frame(t, kind, r=run):
         t0 = time.perf_counter()
-        res = svc.encode(*svc_frames[t], r)
+        with recorded_calls("_select_wavefront", svc_wf):
+            res = svc.encode(*svc_frames[t], r)
         s = time.perf_counter() - t0
         _require(res.frame_type == kind and len(res.base_payload) > 0
                  and len(res.enh_payload) > 0,
@@ -485,12 +606,12 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, cif, cif_frames):
     bitpack.pack_frames = recorded
     svc.stage_times = {}
     p_calls, bm_calls = [], []
-    with deblock_calls(p_calls):
+    with recorded_calls("deblock_frame", p_calls):
         res, s = svc_frame(2, "P")
     svc_table("P", s, res)
     svc.stage_times = {}
     before = LAUNCH_COUNTS["deblock"]
-    with deblock_calls(bm_calls):
+    with recorded_calls("deblock_frame", bm_calls):
         res, s = svc_frame(3, "IDR", key)
     bm_launches = LAUNCH_COUNTS["deblock"] - before
     svc_table("IDR (base-mode)", s, res)
@@ -500,9 +621,15 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, cif, cif_frames):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     svc_launches = LAUNCH_COUNTS["bitpack"]
     svc_db_launches = LAUNCH_COUNTS["deblock"]
+    svc_wf_launches = LAUNCH_COUNTS["wavefront"]
     print(f"K1 launches in the SVC path's {SVC_FRAMES} frames: "
           f"{svc_launches}; K2 launches {svc_db_launches}, {bm_launches} "
-          "of them in the base-mode frame")
+          f"of them in the base-mode frame; K3 launches {svc_wf_launches}")
+    require_k3(svc_wf, svc_wf_launches, 2, "the SVC path's two base-layer "
+               "IDRs")
+    _require(tuple(svc_wf[1][0].shape[:2]) == (1, nmb // 4),
+             f"the base-mode frame's wavefront ran on "
+             f"{tuple(svc_wf[1][0].shape[:2])}")
     _require(svc_launches >= 2 * SVC_FRAMES, "the SVC path did not launch "
              "K1 for both layers on every frame")
     _require(svc_db_launches >= 2 * SVC_FRAMES and bm_launches >= 2,
@@ -533,7 +660,9 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, cif, cif_frames):
                                            "frame's deblocking inputs", label)
     k2_numbers["SVC base P"] = check_k2(p_calls[0], "the SVC base P frame's "
                                         "deblocking inputs", label)
-    del svc, vals, lens, p_calls, bm_calls
+    k3_numbers["SVC base-mode"] = check_k3(
+        svc_wf[1], "the SVC base-mode frame's base wavefront inputs", label)
+    del svc, vals, lens, p_calls, bm_calls, svc_wf
     torch.cuda.empty_cache()
 
     # 13. SVC card bytes against CPU bytes at CIF, and both layers decoded
@@ -562,7 +691,7 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, cif, cif_frames):
                      "the base layer without NAL 14, 15, 20")
     print(f"  CIF SVC comparisons and decodes {time.perf_counter() - t0:.1f}"
           " s")
-    return svc_launches, svc_db_launches, max_err
+    return svc_launches, svc_db_launches, svc_wf_launches, max_err
 
 
 def mesh_devices(n):
@@ -576,11 +705,12 @@ def mesh_devices(n):
     return ["cuda:0"] * n, f"a virtual mesh, {n} x cuda:0"
 
 
-def mesh_phases(cfg, run, frames, label, numbers, k2_numbers):
+def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers):
     """Phase 15: the dryruns, then the 1080p mesh run against the unsharded
-    card run (and that against the CPU), K1 on a shard's grid and K2 on a
-    shard's deblocking inputs (their numbers go into `numbers` and
-    `k2_numbers`). Returns (K1 launches of the mesh run, K2 launches,
+    card run (and that against the CPU), K1 on a shard's grid, K2 on a
+    shard's deblocking inputs and K3 on a shard's IDR wavefront inputs
+    (their numbers go into `numbers`, `k2_numbers` and `k3_numbers`).
+    Returns (K1 launches of the mesh run, K2 launches, K3 launches,
     largest K1 error)."""
     from h264lab_tpu_torch.entry import dryrun_multichip
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
@@ -602,14 +732,15 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers):
     print(f"mesh {n_gop}x{n_band} on {what}: {WIDTH}x{HEIGHT}, {n_band} "
           f"slice bands, {n_gop} lanes, QP {QP}, speed {run.encode_speed}")
     reset_launches()
-    mesh_res, db_calls = [], []
+    mesh_res, db_calls, mesh_wf = [], [], []
     for t, kind in enumerate(MESH_STEPS):
         # the last step runs without stage syncs: the mesh's step time
         staged = t < len(MESH_STEPS) - 1
         enc.stage_times = {} if staged else None
         db_calls.clear()
         t0 = time.perf_counter()
-        with deblock_calls(db_calls):
+        with recorded_calls("deblock_frame", db_calls), \
+                recorded_calls("_select_wavefront", mesh_wf):
             pending = enc.encode_step_async(lane_frames(frames, t, n_gop),
                                             run)
             res = enc.finish_step(pending)
@@ -634,8 +765,12 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers):
     enc.stage_times = None
     launches = LAUNCH_COUNTS["bitpack"]
     db_launches = LAUNCH_COUNTS["deblock"]
+    wf_launches = LAUNCH_COUNTS["wavefront"]
     print(f"K1 launches in the mesh run's {len(MESH_STEPS)} steps over "
-          f"{len(enc.shards)} shards: {launches}; K2 launches {db_launches}")
+          f"{len(enc.shards)} shards: {launches}; K2 launches {db_launches}; "
+          f"K3 launches {wf_launches}")
+    require_k3(mesh_wf, wf_launches, len(enc.shards),
+               "the mesh run's IDR step over its shards")
     _require(launches >= len(enc.shards) * len(MESH_STEPS),
              "the mesh run did not launch K1 for every shard and step")
     _require(db_launches >= len(enc.shards) * len(MESH_STEPS),
@@ -674,7 +809,9 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers):
           f"of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
     k2_numbers["mesh"] = check_k2(db_calls[1], "mesh shard 1's band of the "
                                   "last P step", label)
-    return launches, db_launches, err
+    k3_numbers["mesh"] = check_k3(mesh_wf[1], "mesh shard 1's band of the "
+                                  "IDR step", label)
+    return launches, db_launches, wf_launches, err
 
 
 def main() -> int:
@@ -694,8 +831,10 @@ def main() -> int:
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
+    from h264lab_tpu_torch.models.wavefront import make_plan
     from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
-                                                   deblock_inputs)
+                                                   deblock_inputs,
+                                                   wavefront_inputs)
 
     t_start = time.perf_counter()
 
@@ -706,12 +845,13 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # 2. build K1 and K2, one nvcc each, started together
+    # 2. build K1, K2 and K3, one nvcc each, started together
     t0 = time.perf_counter()
     built = cuda_build.build_all([cuda_build.CSRC / "bitpack.cu",
-                                  cuda_build.CSRC / "deblock.cu"])
-    print(f"K1 and K2 built in {time.perf_counter() - t0:.1f} s")
-    for name, (lib_path, log) in zip(("K1", "K2"), built):
+                                  cuda_build.CSRC / "deblock.cu",
+                                  cuda_build.CSRC / "wavefront.cu"])
+    print(f"K1, K2 and K3 built in {time.perf_counter() - t0:.1f} s")
+    for name, (lib_path, log) in zip(("K1", "K2", "K3"), built):
         print(f"  {name}: {os.path.relpath(lib_path, ROOT)}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -723,11 +863,14 @@ def main() -> int:
     print(f"input: {len(frames)} frames {WIDTH}x{HEIGHT} in "
           f"{time.perf_counter() - t0:.1f} s")
     enc = GopBandEncoder(cfg, n_gop=LANES)
+    gop_wf = []                 # the main path's wavefront calls
 
     def step(t, kind, r=run, return_recon=False):
         t0 = time.perf_counter()
-        p = enc.encode_step_async(lane_frames(frames, t), r, return_recon)
-        res = enc.finish_step(p)
+        with recorded_calls("_select_wavefront", gop_wf):
+            p = enc.encode_step_async(lane_frames(frames, t), r,
+                                      return_recon)
+            res = enc.finish_step(p)
         s = time.perf_counter() - t0
         _require(len(res) == LANES and all(len(x.payload) > 0 for x in res),
                  f"step {t} returned empty lanes")
@@ -763,7 +906,7 @@ def main() -> int:
             rbsp)
         enc.stage_times = {}
         try:
-            with deblock_calls(calls):
+            with recorded_calls("deblock_frame", calls):
                 pending, res, s = step(t, kind, r)
         finally:
             nal.escape_rbsp = escape
@@ -780,15 +923,17 @@ def main() -> int:
     t_idr = step(4 + TIMED_STEPS, "IDR", key)[2]
     launches = LAUNCH_COUNTS["bitpack"]
     db_launches = LAUNCH_COUNTS["deblock"]
+    wf_launches = LAUNCH_COUNTS["wavefront"]
     print(f"GOP-{GOP} frames/s {label}, derived as {LANES} * {GOP} / (t_IDR"
           f" + {GOP - 1} * t_P) with t_IDR {t_idr:.3f} s (an IDR step "
           f"without stage syncs) and t_P {t_p:.3f} s: "
           f"{LANES * GOP / (t_idr + (GOP - 1) * t_p):.3f}")
     print(f"K1 launches in the main path's {STEPS} steps: {launches}; K2 "
-          f"launches {db_launches}")
+          f"launches {db_launches}; K3 launches {wf_launches}")
     _require(launches >= STEPS, "the main path did not launch K1 each step")
     _require(db_launches >= STEPS, "the main path did not launch K2 each "
              "step")
+    require_k3(gop_wf, wf_launches, 3, "the main path's 3 IDR steps")
 
     # 4. K1 against the plain packer on the real IDR and P grids and on a
     # synthetic grid past the drop boundaries
@@ -820,6 +965,10 @@ def main() -> int:
         k2_numbers[kind] = check_k2(db_args[kind], f"the {LANES}-lane {kind} "
                                     "step's deblocking inputs", label)
     del db_args
+    # K3 on the IDR stage step's wavefront inputs
+    k3_numbers = {"IDR": check_k3(gop_wf[1], f"the {LANES}-lane IDR step's "
+                                  "wavefront inputs", label)}
+    del gop_wf
     t0 = time.perf_counter()
     s_vals, s_lens = synthetic_grid()
     units = s_lens.reshape(s_lens.shape[:2] + (28, 34)).sum(-1)
@@ -849,7 +998,7 @@ def main() -> int:
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
     # the decode is host work: a worker process runs it beside phases 6 to
-    # 15 (at exit, even a failed one, the pool waits for it and stops it)
+    # 17 (at exit, even a failed one, the pool waits for it and stops it)
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
         "spawn"))
     decoding = pool.submit(decode_lane0, [r[0].payload for r in (first,
@@ -882,15 +1031,19 @@ def main() -> int:
                  f"sequential frame {t} is {res.frame_type}, not {kind}")
         return p, res, s
 
-    _, res, s = seq_frame(0, "IDR")
+    seq_wf = []
+    with recorded_calls("_select_wavefront", seq_wf):
+        _, res, s = seq_frame(0, "IDR")
     print(f"sequential speed {SEQ_SPEED}: IDR (untimed, first use) {s:.2f} s, "
           f"{len(res.payload)} B")
-    _, res, t_seq = seq_frame(1, "P")
+    with recorded_calls("_select_wavefront", seq_wf):
+        _, res, t_seq = seq_frame(1, "P")
     print(f"sequential speed {SEQ_SPEED} P frame {label}: {t_seq:.3f} s per "
           f"frame, {1 / t_seq:.4f} frames/s ({len(res.payload)} B)")
     seq.stage_times = {}
     seq_calls = []
-    with deblock_calls(seq_calls):
+    with recorded_calls("deblock_frame", seq_calls), \
+            recorded_calls("_select_wavefront", seq_wf):
         seq_pending, res, s = seq_frame(2, "P")
     print(f"sequential P stage frame {label}: {s:.3f} s")
     for k, v in seq.stage_times.items():
@@ -901,8 +1054,11 @@ def main() -> int:
     seq.stage_times = None
     seq_launches = LAUNCH_COUNTS["bitpack"]
     seq_db_launches = LAUNCH_COUNTS["deblock"]
+    seq_wf_launches = LAUNCH_COUNTS["wavefront"]
     print(f"K1 launches in the sequential path's 3 frames: {seq_launches}; "
-          f"K2 launches {seq_db_launches}")
+          f"K2 launches {seq_db_launches}; K3 launches {seq_wf_launches}")
+    require_k3(seq_wf, seq_wf_launches, 3, "the sequential path's IDR and "
+               "two speed-0 P frames")
     _require(seq_launches >= 3, "the sequential path did not launch K1 on "
              "every frame")
     _require(seq_db_launches >= 3 and len(seq_calls) == 1, "the sequential "
@@ -921,7 +1077,12 @@ def main() -> int:
           f"of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
     k2_numbers["seq"] = check_k2(seq_calls[0], "the sequential P frame's "
                                  "deblocking inputs", label)
-    del seq, seq_pending, vals, lens, seq_calls
+    _require(seq_wf[2][9] is not None, "the speed-0 P frame's wavefront "
+             "has no inter candidate")
+    k3_numbers["seq"] = check_k3(seq_wf[2], "the sequential speed-0 P "
+                                 "frame's wavefront inputs (with inter)",
+                                 label)
+    del seq, seq_pending, vals, lens, seq_calls, seq_wf
     torch.cuda.empty_cache()
 
     # 9. card bytes against CPU bytes at CIF, and decoded
@@ -979,25 +1140,29 @@ def main() -> int:
           f"decodes to 3 frames of {CIF[0]}x{CIF[1]}")
 
     # 11 to 13. two-layer SVC
-    svc_launches, svc_db_launches, err = svc_phases(
-        cfg, run, label, numbers, k2_numbers, cif, cif_frames)
+    svc_launches, svc_db_launches, svc_wf_launches, err = svc_phases(
+        cfg, run, label, numbers, k2_numbers, k3_numbers, cif, cif_frames)
     max_err = max(max_err, err)
 
     # 14. entry() on the card against the CPU
     fn, args = entry()
+    before = LAUNCH_COUNTS["wavefront"]
     got = fn(*args)
+    entry_wf_launches = LAUNCH_COUNTS["wavefront"] - before
+    _require(entry_wf_launches == 1, f"entry() launched K3 "
+             f"{entry_wf_launches} times, not once")
     cfn, cargs = entry(device="cpu")
     want = cfn(*cargs)
     _require(set(got) == set(want) and all(
         torch.equal(got[k].cpu(), want[k]) for k in want),
         "entry() on the card differs from the CPU")
     print(f"entry() on the card: all {len(want)} outputs equal the CPU's "
-          f"({int(got['total_bits'])} bits)")
+          f"({int(got['total_bits'])} bits; one K3 launch)")
 
     # 15. the mesh
     t0 = time.perf_counter()
-    mesh_launches, mesh_db_launches, err = mesh_phases(
-        cfg, run, frames, label, numbers, k2_numbers)
+    mesh_launches, mesh_db_launches, mesh_wf_launches, err = mesh_phases(
+        cfg, run, frames, label, numbers, k2_numbers, k3_numbers)
     max_err = max(max_err, err)
     print(f"  mesh phase {time.perf_counter() - t0:.1f} s")
 
@@ -1013,6 +1178,23 @@ def main() -> int:
     del args
     print(f"  K2 on seeded inputs {time.perf_counter() - t0:.1f} s")
 
+    # 17. K3 against the plain wavefront on seeded inputs at the main paths'
+    # shapes
+    t0 = time.perf_counter()
+    for what, seed, n, mbw, mbh, qp, inter in K3_CASES:
+        d = wavefront_inputs(seed, n, mbw, mbh, qp, inter=inter)
+        t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+        cand = {k: t[k] for k in ("inter_cost", "recon_y_inter",
+                                  "recon_u_inter", "recon_v_inter")} \
+            if inter else None
+        args = (t["src_y_mb"], t["src_u_mb"], t["src_v_mb"], t["qp"],
+                t["qpc"], make_plan(mbw, mbh, 2).steps, d["avail_top"],
+                d["avail_left"], mbw, cand)
+        k3_numbers[what] = check_k3(args, f"seeded inputs, {what} (seed "
+                                    f"{seed}, QP {qp})", label)
+    del d, t, args, cand
+    print(f"  K3 on seeded inputs {time.perf_counter() - t0:.1f} s")
+
     # phase 5's decode
     t0 = time.perf_counter()
     decode_s = decoding.result()
@@ -1020,11 +1202,12 @@ def main() -> int:
     print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon "
           f"(waited {time.perf_counter() - t0:.1f} s for the worker); decode "
           f"seconds per {WIDTH}x{HEIGHT} frame {label} (the port's numpy "
-          f"decoder, a host time beside phases 6 to 16): IDR "
+          f"decoder, a host time beside phases 6 to 17): IDR "
           f"{decode_s[0]:.2f}, P {decode_s[1]:.2f}")
 
-    # 17. results: K1's and K2's entries hold the GOP path's P step (19 of
-    # 20 frames of a GOP); their launches count every path
+    # 18. results: K1's and K2's entries hold the GOP path's P step (19 of
+    # 20 frames of a GOP), K3's its IDR step; their launches count every
+    # path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
     m = numbers["mesh"]
@@ -1064,6 +1247,25 @@ def main() -> int:
         inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
                         plain_ms=v["plain_ms"], bound_ms=v["bound_ms"])
                 for k, v in k2_numbers.items()}))
+    k3i = k3_numbers["IDR"]
+    kernels.append(dict(
+        name="wavefront", route="cuda",
+        source="h264lab_tpu_torch/csrc/wavefront.cu",
+        replaces="h264lab_tpu/models/mbscan.py:541 with h264lab_tpu/ops/"
+                 "intra4.py:175 (XLA scans, no Pallas kernel)",
+        launches=(wf_launches + seq_wf_launches + svc_wf_launches
+                  + mesh_wf_launches + entry_wf_launches),
+        equal=True,
+        max_abs_err=max(v["max_abs_err"] for v in k3_numbers.values()),
+        ms=k3i["ms"], plain_ms=k3i["plain_ms"], bound_ms=k3i["bound_ms"],
+        bound_by=k3i["bound_by"], library_ms=None, grid="IDR step",
+        gop_launches=wf_launches, seq_launches=seq_wf_launches,
+        svc_launches=svc_wf_launches, mesh_launches=mesh_wf_launches,
+        entry_launches=entry_wf_launches,
+        inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
+                        plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                        bound_by=v["bound_by"])
+                for k, v in k3_numbers.items()}))
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
           "(the build included)")
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,11 @@ or, for per-row fine rate control, (N, mb_height). Within a wavefront
 step all live MBs of all N frames form one flat batch; the parallel
 stages run over all N * nmb MBs at once.
 
+On CUDA tensors the slope-2 wavefront and the deblocking filter are one
+launch each of the hand kernels K3 and K2 (`_select_wavefront`,
+`deblock_frame`); the loops below are their plain versions, which run on
+CPU tensors and which the kernels are held against.
+
 Form differences from the JAX module, none of them in the result:
 - the wavefront `lax.scan` is a Python loop over the diagonals; plan
   entries padded with -1 are dropped on the host, so no index ever
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from h264lab_tpu_torch.ops import cavlc, deblock, intra, intra4, me, qpel, \
-    tables, transform
+    tables, transform, wavefront
 from h264lab_tpu_torch.ops.intra import INVALID_COST
 from h264lab_tpu_torch.ops.me import bitlen32, lambda_me, median3
 from h264lab_tpu_torch.ops.tuning import (I4_PENALTY_BITS, INTER_DEADZONE_Q8,
@@ -300,8 +305,10 @@ def select_stage_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
         out = _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
                                 steps, avail_top, avail_left, mb_width,
                                 inter)
-        if inter is None:
-            inter = _inter_dummies(*src_y_mb.shape[:2], src_y_mb.device)
+        if inter is None:       # every MB intra: zero MVs and inter levels
+            out.update(_inter_dummies(*src_y_mb.shape[:2],
+                                      src_y_mb.device))
+            return out
     else:
         out = _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
                                  avail_top, avail_left, inter, mb_width)
@@ -320,13 +327,18 @@ def select_stage_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
     return out
 
 
+# the stage-1 outputs of an intra frame (no inter candidate)
+_INTRA_ZEROS = dict(mv_y=(), mv_x=(), shape=(), mv4_y=(4, 4), mv4_x=(4, 4),
+                    lev_inter=(4, 4, 4, 4))
+
+
 def _inter_dummies(N: int, nmb: int, dev) -> dict:
-    """Zero stage-1 outputs of intra frames (no inter candidate)."""
-    def z(shape):
-        return torch.zeros((N, nmb) + shape, dtype=I32, device=dev)
-    return dict(mv_y=z(()), mv_x=z(()), mv4_y=z((4, 4)), mv4_x=z((4, 4)),
-                shape=z(()), lev_inter=z((4, 4, 4, 4)),
-                cdc_inter=z((2, 2, 2)), cac_inter=z((2, 2, 2, 4, 4)))
+    """Zero MVs, partition shapes and inter levels of intra frames: views
+    of one zeroed buffer, one fill on the device."""
+    sizes = [N * nmb * int(np.prod(s)) for s in _INTRA_ZEROS.values()]
+    flat = torch.zeros(sum(sizes), dtype=I32, device=dev)
+    return {k: x.view((N, nmb) + shape) for (k, shape), x in zip(
+        _INTRA_ZEROS.items(), flat.split(sizes))}
 
 
 def _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
@@ -423,13 +435,84 @@ def _wave_steps(steps, avail_top, avail_left, mb_width: int, device):
             if b > a]
 
 
+def _packed(x, dtype, shape, dev):
+    """`x` as a contiguous, 16-byte aligned `dtype` tensor of `shape` on
+    `dev`, the form the hand kernels take; no copy when it is one."""
+    x = torch.as_tensor(x, device=dev).reshape(shape).to(dtype).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
                       steps, avail_top, avail_left, mb_width: int,
                       inter=None):
     """The slope-2 wavefront (Intra_16x16, Intra_4x4, chroma) over N
     frames/bands: of I slices, or of P slices with the inter candidate of
     `inter` (its cost and recon; both intra costs then carry
-    INTRA_IN_P_PENALTY_BITS, and inter wins ties)."""
+    INTRA_IN_P_PENALTY_BITS, and inter wins ties).
+
+    The one entry of every encode path. On CUDA tensors: one launch of K3
+    (`wavefront.wavefront_tiles`, `csrc/wavefront.cu`) for the whole
+    batch, which follows the row rule itself and does not read `steps`.
+    On CPU tensors: `_select_wavefront_plain`."""
+    args = (src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps, avail_top,
+            avail_left, mb_width, inter)
+    if src_y_mb.device.type == "cpu":
+        return _select_wavefront_plain(*args)
+    return wavefront.wavefront_tiles(*select_wavefront_args(*args))
+
+
+def select_wavefront_args(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
+                          avail_top, avail_left, mb_width: int, inter=None):
+    """`_select_wavefront`'s arguments in the form K3
+    (`wavefront.wavefront_tiles`) takes them, on the tiles' device: the
+    source tiles (and the inter candidate's recon tiles) as contiguous
+    16-byte aligned uint8; qp and qpc (N,) int32; lam = `lambda_me(qp)`
+    and the intra-in-P penalty (0 without `inter`) as (N,) int32, made
+    here so that `ops/tuning.py`'s overrides reach the kernel; avail_top
+    and avail_left as (nmb,) uint8, copied to the device in one transfer;
+    the inter cost (N, nmb) int32 or four Nones; mb_width,
+    INTRA_DEADZONE_Q8 and I4_PENALTY_BITS. `steps` is not used: K3 orders
+    the MBs itself. Raises ValueError when the first MB row has avail_top
+    or the first column avail_left set: the plain version reads clamped
+    records there, K3 treats them as unavailable."""
+    N, nmb = src_y_mb.shape[:2]
+    dev = src_y_mb.device
+
+    def packed(x, dtype, shape):
+        return _packed(x, dtype, shape, dev)
+
+    qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N).contiguous()
+    qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N).contiguous()
+    lam = lambda_me(qp).to(I32).contiguous()
+    pen = lam * INTRA_IN_P_PENALTY_BITS if inter is not None \
+        else torch.zeros_like(lam)
+    avail = np.stack([np.broadcast_to(np.asarray(a, dtype=bool), (nmb,))
+                      for a in (avail_top, avail_left)])
+    if avail[0, :mb_width].any() or avail[1, ::mb_width].any():
+        raise ValueError("select_wavefront_args: avail_top is set on the "
+                         "first MB row or avail_left on the first column")
+    avail = torch.from_numpy(avail.astype(np.uint8)).to(dev)
+    if inter is None:
+        cand = (None,) * 4
+    else:
+        cand = (packed(inter["inter_cost"], I32, (N, nmb)),
+                packed(inter["recon_y_inter"], torch.uint8, (N, nmb, 16, 16)),
+                packed(inter["recon_u_inter"], torch.uint8, (N, nmb, 8, 8)),
+                packed(inter["recon_v_inter"], torch.uint8, (N, nmb, 8, 8)))
+    return (packed(src_y_mb, torch.uint8, (N, nmb, 16, 16)),
+            packed(src_u_mb, torch.uint8, (N, nmb, 8, 8)),
+            packed(src_v_mb, torch.uint8, (N, nmb, 8, 8)),
+            qp, qpc, lam, pen, avail[0], avail[1], *cand, mb_width,
+            INTRA_DEADZONE_Q8, I4_PENALTY_BITS)
+
+
+def _select_wavefront_plain(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
+                            steps, avail_top, avail_left, mb_width: int,
+                            inter=None):
+    """`_select_wavefront` in plain PyTorch, on any device: the CPU path
+    and the version K3 is held against. A Python loop over the diagonals
+    of the slope-2 plan `steps`; within a step all live MBs of all N
+    frames form one batch."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
     qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
@@ -616,9 +699,7 @@ def deblock_tiles_args(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y,
     dev = recon_y.device
 
     def packed(x, dtype, shape):
-        x = torch.as_tensor(x, device=dev).reshape(shape).to(
-            dtype).contiguous()
-        return x if x.data_ptr() % 16 == 0 else x.clone()
+        return _packed(x, dtype, shape, dev)
 
     if any(isinstance(a, torch.Tensor) for a in (avail_top, avail_left)):
         avail = torch.stack([torch.as_tensor(a, device=dev).to(

@@ -171,3 +171,74 @@ def deblock_inputs(seed: int, n: int, mb_width: int, mb_height: int,
                 qpc=QPC_FROM_QPY[q].astype(np.int32),
                 avail_top=(row > 0) | (not band),
                 avail_left=(col > 0) | (not band))
+
+
+def wavefront_inputs(seed: int, n: int, mb_width: int, mb_height: int,
+                     qp: int, inter: bool = False) -> dict:
+    """Seeded inputs of `models.mbscan._select_wavefront` for n frames or
+    bands of mb_width x mb_height MBs, made so that every candidate wins
+    somewhere and ties are common:
+    - source tiles, a kind per MB: flat (a constant, often 128, so the
+      three Intra_16x16 modes tie), a gradient with low noise, a
+      chessboard of two values in 2- or 4-pixel cells (SAD ties between
+      modes), diagonal stripes (Intra_4x4's directional modes win) and
+      strong noise saturating at 0 and 255; chroma likewise;
+    - QPs: `qp` on the first frame, around it on the others (+-3,
+      clipped to 0..51), the chroma QPs from them (spec Table 8-15);
+    - with `inter`, the inter candidate: per MB a cost that is low (inter
+      wins), mid or past any intra cost, and a reconstruction that is the
+      source with a spread of +-6.
+    Returns numpy arrays keyed by `_select_wavefront`'s argument names:
+    src_y_mb (n, nmb, 16, 16), src_u_mb and src_v_mb (n, nmb, 8, 8) uint8;
+    qp and qpc (n,) int32; avail_top, avail_left (nmb,) bool (the first
+    row and column unavailable); with `inter` also inter_cost (n, nmb)
+    int32, recon_y_inter (n, nmb, 16, 16), recon_u_inter and
+    recon_v_inter (n, nmb, 8, 8) uint8."""
+    from h264lab_tpu_torch.ops.tables import QPC_FROM_QPY
+
+    rng = np.random.default_rng(seed)
+    nmb = mb_width * mb_height
+
+    def tiles(t):
+        kind = rng.integers(0, 5, (n, nmb, 1, 1))
+        yy, xx = np.mgrid[0:t, 0:t]
+        level = np.where(rng.random((n, nmb, 1, 1)) < 0.5, 128,
+                         rng.integers(0, 256, (n, nmb, 1, 1)))
+        grad = (level + rng.integers(-6, 7, (n, nmb, 1, 1)) * (yy - t // 2)
+                + rng.integers(-6, 7, (n, nmb, 1, 1)) * (xx - t // 2)
+                + rng.integers(-2, 3, (n, nmb, t, t)))
+        cell = np.where(rng.random((n, nmb, 1, 1)) < 0.5, 2, 4)
+        lo, hi = (rng.integers(0, 256, (n, nmb, 1, 1)) for _ in range(2))
+        chess = np.where((yy // cell + xx // cell) % 2 == 1, hi, lo)
+        period = rng.integers(3, 9, (n, nmb, 1, 1))
+        slope = np.where(rng.random((n, nmb, 1, 1)) < 0.5, 1, -1)
+        stripes = np.where((xx + slope * yy) % period < period // 2, hi, lo)
+        noise = level + rng.integers(-200, 201, (n, nmb, t, t))
+        px = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                       [np.broadcast_to(level, (n, nmb, t, t)), grad, chess,
+                        stripes], noise)
+        return np.clip(px, 0, 255).astype(np.uint8)
+
+    src_y, src_u, src_v = tiles(16), tiles(8), tiles(8)
+    offsets = rng.integers(-3, 4, n)
+    offsets[0] = 0
+    q = np.clip(qp + offsets, 0, 51).astype(np.int32)
+    row = np.arange(nmb) // mb_width
+    col = np.arange(nmb) % mb_width
+    out = dict(src_y_mb=src_y, src_u_mb=src_u, src_v_mb=src_v, qp=q,
+               qpc=QPC_FROM_QPY[q].astype(np.int32), avail_top=row > 0,
+               avail_left=col > 0)
+    if inter:
+        band = rng.integers(0, 3, (n, nmb))
+        cost = np.select([band == 0, band == 1],
+                         [rng.integers(0, 200, (n, nmb)),
+                          rng.integers(200, 8000, (n, nmb))], 1 << 20)
+
+        def spread(x):
+            return np.clip(x.astype(np.int32)
+                           + rng.integers(-6, 7, x.shape), 0, 255).astype(
+                               np.uint8)
+        out.update(inter_cost=cost.astype(np.int32),
+                   recon_y_inter=spread(src_y), recon_u_inter=spread(src_u),
+                   recon_v_inter=spread(src_v))
+    return out

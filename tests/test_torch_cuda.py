@@ -46,7 +46,18 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   (rows on other SMs must never see stale pixels); one launch per call,
   and on the card `deblock_frame` calls neither `_frame_bs` nor
   `edge_qps`. K2 refuses CPU tensors, other dtypes and shapes,
-  non-contiguous and misaligned inputs.
+  non-contiguous and misaligned inputs;
+- K3 (the CUDA wavefront kernel) equals `_select_wavefront_plain` on the
+  card on seeded inputs (`wavefront_inputs`: flat, chessboard, stripe and
+  noise MBs) at the paths' shapes: 16 frames of 1080p (16, 8160), one
+  frame with an inter candidate (1, 8160), an SVC base layer (1, 2040), a
+  mesh band (1, 4080) with an inter candidate, 4 x 3 MBs at QPs 0 to 51,
+  one MB high (6 x 1) and one MB wide (1 x 6); each input launched 20
+  times, with equal outputs, one launch per call. The encode paths reach
+  it: with `_select_wavefront_plain` refused, a GOP IDR step and a
+  speed-0 P frame encode, launching K3, to the CPU's bytes. K3 refuses
+  CPU tensors, other dtypes and shapes, non-contiguous and misaligned
+  tiles, per-row QPs and half an inter candidate.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -60,11 +71,13 @@ from h264lab_tpu_torch.entry import dryrun_multichip, entry
 from h264lab_tpu_torch.models import mbscan
 from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
-from h264lab_tpu_torch.ops import bitpack, deblock
+from h264lab_tpu_torch.models import wavefront as plan
+from h264lab_tpu_torch.ops import bitpack, deblock, wavefront
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
                                                deblock_inputs,
-                                               noise_pan_sequence)
+                                               noise_pan_sequence,
+                                               wavefront_inputs)
 from tests.torch_grids import EDGE_CASES, edge_grid, random_grid
 
 pytestmark = pytest.mark.cuda
@@ -506,3 +519,99 @@ def test_k2_rejects_bad_inputs(card):
             deblock.deblock_tiles(*args[:i], bad, *args[i + 1:], mbw, mbh)
     with pytest.raises(ValueError):                         # nmb != 4 x 3
         deblock.deblock_tiles(*args, mbw, mbh + 1)
+
+
+# (seed, frames, mb_width, mb_height, qp, inter candidate)
+K3_CASES = [
+    (31, 16, 120, 68, 33, False),          # the GOP lanes' 16-lane IDR step
+    (32, 1, 120, 68, 33, True),            # sequential speed-0 P frame
+    (33, 1, 60, 34, 33, False),            # SVC base layer
+    (34, 1, 120, 34, 30, True),            # mesh band
+    (35, 3, 4, 3, 0, True),
+    (36, 3, 4, 3, 11, False),
+    (37, 3, 4, 3, 12, True),
+    (38, 3, 4, 3, 51, False),
+    (39, 2, 6, 1, 28, True),               # one MB high
+    (40, 2, 1, 6, 33, True),               # one MB wide
+]
+K3_REPEATS = 20
+
+
+def _k3_args(card, case):
+    """`_select_wavefront`'s arguments of a seeded case on the card."""
+    seed, n, mbw, mbh, qp, inter = case
+    d = wavefront_inputs(seed, n, mbw, mbh, qp, inter=inter)
+    t = {k: torch.from_numpy(v).to(card) for k, v in d.items()}
+    cand = {k: t[k] for k in ("inter_cost", "recon_y_inter",
+                              "recon_u_inter", "recon_v_inter")} \
+        if inter else None
+    return (t["src_y_mb"], t["src_u_mb"], t["src_v_mb"], t["qp"], t["qpc"],
+            plan.make_plan(mbw, mbh, 2).steps, d["avail_top"],
+            d["avail_left"], mbw, cand)
+
+
+@pytest.mark.parametrize("case", K3_CASES,
+                         ids=lambda c: f"{c[1]}x{c[2]}x{c[3]}-qp{c[4]}"
+                         + ("-P" if c[5] else "-I"))
+def test_k3_matches_plain_wavefront(card, case):
+    args = _k3_args(card, case)
+    want = mbscan._select_wavefront_plain(*args)
+    for _ in range(K3_REPEATS):
+        before = wavefront.LAUNCH_COUNTS["wavefront"]
+        got = mbscan._select_wavefront(*args)
+        torch.cuda.synchronize()
+        assert wavefront.LAUNCH_COUNTS["wavefront"] == before + 1
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+def test_k3_serves_the_encode_paths(card, monkeypatch):
+    cfg = EncoderConfig(width=64, height=48, gop=3, qp=33)
+    frames = list(chessboard_sequence(64, 48, 3))
+    run2 = RunConfig(qp_min=33, qp_max=33, encode_speed=2)
+    run0 = RunConfig(qp_min=33, qp_max=33)
+    want_gop = GopBandEncoder(cfg, n_gop=2, device="cpu").encode_step(
+        frames[:2], run2)
+    cpu_seq = H264Encoder(cfg, device="cpu")
+    want_seq = [cpu_seq.encode(*f, run0).payload for f in frames[:2]]
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the plain wavefront on the card path")
+
+    monkeypatch.setattr(mbscan, "_select_wavefront_plain", refused)
+    before = wavefront.LAUNCH_COUNTS["wavefront"]
+    got = GopBandEncoder(cfg, n_gop=2).encode_step(frames[:2], run2)
+    assert [a.payload for a in got] == [b.payload for b in want_gop]
+    assert got[0].frame_type == "IDR"
+    seq = H264Encoder(cfg)
+    got_seq = [seq.encode(*f, run0).payload for f in frames[:2]]
+    assert got_seq == want_seq                  # an IDR, then a speed-0 P
+    assert wavefront.LAUNCH_COUNTS["wavefront"] == before + 3
+
+
+def test_k3_rejects_bad_inputs(card):
+    args = list(mbscan.select_wavefront_args(*_k3_args(
+        card, (41, 2, 4, 3, 30, True))))
+    wavefront.wavefront_tiles(*args)
+    shifted = torch.empty(args[0].numel() + 1, dtype=torch.uint8,
+                          device=card)[1:].view(args[0].shape)
+    for i, bad, err in (
+            (0, args[0].cpu(), ValueError),                 # on the CPU
+            (7, args[7].cpu(), ValueError),
+            (0, args[0].int(), TypeError),
+            (3, args[3].long(), TypeError),
+            (5, args[5].float(), TypeError),
+            (7, args[7].bool(), TypeError),
+            (9, args[9].long(), TypeError),
+            (1, args[1][:, :6], ValueError),                # shape
+            (3, args[3][:, None].expand(2, 3).contiguous(),
+             ValueError),                                   # per-row QPs
+            (8, args[8][:5], ValueError),
+            (0, args[0].transpose(-1, -2), ValueError),     # not contiguous
+            (0, shifted, ValueError),                       # misaligned
+            (10, None, ValueError)):                        # half inter
+        with pytest.raises(err):
+            wavefront.wavefront_tiles(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(ValueError):                         # no whole rows
+        wavefront.wavefront_tiles(*args[:13], 5, *args[14:])

@@ -232,7 +232,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     pkg = ROOT / "h264lab_tpu_torch"
     for name in ("cli.py", "utils/yuv.py", "utils/metrics.py",
                  "parallel/sharding.py", "parallel/gop.py",
-                 "ops/denoise.py", "models/stages.py", "models/encoder.py",
+                 "ops/denoise.py", "ops/wavefront.py", "models/stages.py",
+                 "models/encoder.py",
                  "models/svc.py", "ops/resample.py", "entry.py",
                  "bitstream/nal.py", "decoder/__init__.py",
                  "decoder/bitreader.py", "decoder/intra_pred.py",

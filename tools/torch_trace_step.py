@@ -1,4 +1,4 @@
-"""Where a P step of the PyTorch port's GOP-lane path spends its time on
+"""Where a step of the PyTorch port's GOP-lane path spends its time on
 the CUDA card.
 
     python tools/torch_trace_step.py [--k1-baseline SRC] [--k2-baseline SRC]
@@ -6,9 +6,9 @@ the CUDA card.
 
 It runs `chip_smoke.py`'s main path (1920x1088 chessboard, IPPP with GOP
 20, QP 33, encode_speed 2, the same frame schedule): each measurement
-encodes the IDR of step 0 untimed and measures the P step that follows.
-It prints a summary and one JSON line. Three measurements, the third one
-first:
+encodes the IDR of step 0 untimed and measures the P step that follows
+(measurement 4: a forced IDR step). It prints a summary and one JSON
+line. Four measurements, the third one first:
 
 1. lane scaling: the P step at 1 lane and at 16 lanes, with per-stage wall
    times (each stage between device synchronizations). A stage whose time
@@ -18,11 +18,11 @@ first:
    and CUDA activity), with every stage (`pre`, `inter`, `select`, `sym`,
    `deblock`, `pack`, `ref`, `host`) between device synchronizations. Per
    stage: the device operations (kernels, copies, fills) that start
-   inside its `stage:<name>` range (the hand kernels K1 in `pack` and K2
-   in `deblock` by their launch counts), their device ms summed (busy ms)
-   and the device ms of the hand kernels. The busy ms over the untraced
-   stage time of measurement 1 estimates the share of the stage the device
-   works;
+   inside its `stage:<name>` range (the hand kernels K1 in `pack`, K2 in
+   `deblock` and K3 in `select` by their launch counts), their device ms
+   summed (busy ms) and the device ms of the hand kernels. The busy ms
+   over the untraced stage time of measurement 1 estimates the share of
+   the stage the device works;
 3. K1 on the symbol grid of one 16-lane IDR step at the IDR capacity, and
    K2 (the deblocking kernel) on the deblocking inputs of the 16-lane P
    step that follows: each wrapper's time from CUDA events (K1's zero
@@ -40,15 +40,18 @@ first:
    the current K2's, and times in turns (old, new, new, old) the two
    kernels (their wrappers on prepared arguments) and the two `deblock`
    stages (the preparation and the kernel), on the 16-lane P step's
-   deblocking inputs and on lane 0's frame of them.
+   deblocking inputs and on lane 0's frame of them;
+4. the IDR step, at 1 lane and at 16 lanes: after the untimed IDR of
+   step 0, one forced IDR step with per-stage wall times, then the next
+   under one `torch.profiler` pass as in measurement 2. Per stage of the
+   traced step: device operations, busy ms and hand-kernel ms, beside the
+   untraced stage ms (the wavefront `select`: K3 and its packing).
 
 With `--sequential` it measures only the sequential encoder
 (`H264Encoder`, `chip_smoke.py`'s 1080p speed-0 setting): after an IDR,
-one P frame with per-stage times between syncs, and the next P frame with
-every stage under its own profiler pass (CUDA activity only; one pass over
-its million launches would not fit), per wavefront diagonal for `select`
-(slope 2). The passes of the short stages record no operation in some
-runs: their counts are a lower bound.
+one P frame with per-stage times between syncs, and the next P frame
+under one profiler pass as in measurement 2 (its `select`, the wavefront
+with the inter candidate, is one K3 launch and a few operations).
 
 With `--escape` it measures only what NAL escaping costs the GOP steps'
 `host` stage (16 lanes): after the untimed IDR and P steps, four P steps
@@ -76,7 +79,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from h264lab_tpu_torch.models import mbscan, wavefront  # noqa: E402
+from h264lab_tpu_torch.models import mbscan  # noqa: E402
 from h264lab_tpu_torch.models.encoder import H264Encoder  # noqa: E402
 from h264lab_tpu_torch.ops import bitpack, cuda_build, deblock  # noqa: E402
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder  # noqa: E402
@@ -120,44 +123,14 @@ def _busy_us(events):
 
 
 # the hand kernels' names in a trace, and their launch counts
-KERNELS = {"K1": "pack_kernel", "K2": "deblock_kernel"}
-HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock"}
+KERNELS = {"K1": "pack_kernel", "K2": "deblock_kernel",
+           "K3": "wavefront_kernel"}
+HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock", "K3": "wavefront"}
 
 
 def _kernel_us(ops, kernel):
     return sum(e.time_range.end - e.time_range.start for e in ops
                if KERNELS[kernel] in e.name)
-
-
-def _traced_stages(stages, drive):
-    """Run `drive()` with every stage of `stages` (a `FrameStages`) under
-    its own `torch.profiler` pass (CUDA activity only) that synchronizes
-    before it closes. Per stage: device operations and busy ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    stage = stages.stage
-    out = {}
-
-    @contextlib.contextmanager
-    def traced(name):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            with stage(name):
-                yield
-            # the stage's launches are asynchronous: let them finish while
-            # the profiler still records
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        out[name] = dict(device_ops=len(ops), busy_ms=_busy_us(ops) / 1e3,
-                         kernel_ms={k: _kernel_us(ops, k) / 1e3
-                                    for k in KERNELS})
-
-    stages.stage = traced
-    try:
-        drive()
-    finally:
-        del stages.stage
-    return out
 
 
 def _stage_ops(timer, stages, drive):
@@ -234,16 +207,32 @@ def _stage_ops(timer, stages, drive):
     return out
 
 
-def _per_diagonal(counts, name, mb_width, mb_height, slope):
-    n_diag = wavefront.make_plan(mb_width, mb_height, slope).steps.shape[0]
-    counts[name].update(diagonals=n_diag, ops_per_diagonal=counts[name][
-        "device_ops"] / n_diag)
-
-
 def launch_counts():
     enc, run, frames = _warm_encoder(1)
     return _stage_ops(enc, enc.stages,
                       lambda: enc.encode_step(frames, run))
+
+
+def idr_counts(lane_counts=(1, chip_smoke.LANES)):
+    """Measurement 4: per lane count, a forced IDR step's stage ms (between
+    syncs, untraced) and the next one's traced counts."""
+    from h264lab_tpu_torch.config import FrameType
+
+    out = {}
+    for lanes in lane_counts:
+        enc, run, frames = _warm_encoder(lanes)
+        key = dataclasses.replace(run, frame_type=FrameType.KEY)
+        enc.stage_times = {}
+        t0 = time.perf_counter()
+        enc.encode_step(frames, key)
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        stage_ms = {k: 1e3 * v for k, v in enc.stage_times.items()}
+        enc.stage_times = None
+        out[lanes] = dict(step_ms=step_ms, stages_ms=stage_ms,
+                          traced=_stage_ops(enc, enc.stages,
+                                            lambda: enc.encode_step(
+                                                frames, key)))
+    return out
 
 
 def sequential_counts():
@@ -259,9 +248,8 @@ def sequential_counts():
     enc.encode(*frames[1], run)
     stage_ms = {k: 1e3 * v for k, v in enc.stage_times.items()}
     enc.stage_times = None
-    out = _traced_stages(enc.stages, lambda: enc.encode(*frames[2], run))
-    _per_diagonal(out, "select", cfg.mb_width, cfg.mb_height, 2)
-    return stage_ms, out
+    return stage_ms, _stage_ops(enc, enc.stages,
+                                lambda: enc.encode(*frames[2], run))
 
 
 def escape_turns():
@@ -452,7 +440,7 @@ def kernel_timing(baseline=None, k2_baseline=None, reps=20):
                                new=[turns[1], turns[2]])
     enc.finish_step(p)
     calls = []
-    with chip_smoke.deblock_calls(calls):
+    with chip_smoke.recorded_calls("deblock_frame", calls):
         enc.encode_step(chip_smoke.lane_frames(frames, 1), run)
     k2_args = mbscan.deblock_tiles_args(*calls[0])
     k2 = dict(inputs=list(k2_args[0].shape[:2]), **_kernel_timing(
@@ -464,6 +452,12 @@ def kernel_timing(baseline=None, k2_baseline=None, reps=20):
         k2["baseline"] = [k2_turns(k2_baseline, a, reps)
                           for a in (calls[0], frame)]
     return out, k2
+
+
+def _hand(r):
+    """The hand kernels' device ms of one stage's traced counts."""
+    return "".join(f"; {k} {v:.3f} ms" for k, v in r["kernel_ms"].items()
+                   if v)
 
 
 def main() -> int:
@@ -500,12 +494,11 @@ def main() -> int:
     if args.sequential:
         stage_ms, counts = sequential_counts()
         for name, r in counts.items():
-            per_diag = (f", {r['ops_per_diagonal']:.1f} per diagonal of "
-                        f"{r['diagonals']}" if "diagonals" in r else "")
             print(f"{size} sequential speed-{chip_smoke.SEQ_SPEED} P frame "
-                  f"[{card}]: {name:8s} {r['device_ops']:8d} device ops"
-                  f"{per_diag}; busy {r['busy_ms']:.1f} ms of "
-                  f"{stage_ms.get(name, 0.0):.1f} ms untraced")
+                  f"[{card}]: {name:8s} {r['device_ops']:8d} device ops; "
+                  f"busy {r['busy_ms']:.1f} ms of "
+                  f"{stage_ms.get(name, 0.0):.1f} ms untraced"
+                  + _hand(r))
         result.update(sequential_stage_ms=stage_ms, sequential=counts)
         print(json.dumps(result))
         return 0
@@ -519,12 +512,21 @@ def main() -> int:
     counts = launch_counts()
     for name, r in counts.items():
         untraced = scaling[1]["stages_ms"].get(name, 0.0)
-        hand = "".join(f"; {k} {v:.3f} ms" for k, v in r["kernel_ms"].items()
-                       if v)
         print(f"{size} P step x 1 lane [{card}]: {name:8s} "
               f"{r['device_ops']:8d} device ops; busy {r['busy_ms']:.1f} ms "
-              f"of {untraced:.1f} ms untraced{hand}")
-    result.update(lane_scaling=scaling, launches_1_lane=counts)
+              f"of {untraced:.1f} ms untraced" + _hand(r))
+    idr = idr_counts()
+    for lanes, r in idr.items():
+        print(f"{size} IDR step x {lanes:2d} lanes [{card}]: step "
+              f"{r['step_ms']:.1f} ms; " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in r["stages_ms"].items()))
+        for name, t in r["traced"].items():
+            print(f"  traced: {name:8s} {t['device_ops']:8d} device ops; "
+                  f"busy {t['busy_ms']:.1f} ms of "
+                  f"{r['stages_ms'].get(name, 0.0):.1f} ms untraced"
+                  + _hand(t))
+    result.update(lane_scaling=scaling, launches_1_lane=counts,
+                  idr_steps=idr)
     print(f"K1 {k1['grid']} cap {k1['cap_words']} [{card}]: {k1['ms']:.3f} "
           f"ms (events, fills included); trace: kernel "
           f"{k1['trace_kernel_ms']:.3f} ms, {k1['trace_device_ops']} device "
