@@ -118,8 +118,14 @@ Phases (any failure exits non-zero; nothing is caught):
      and 1 x 6 MBs at QP 12: all 13 outputs equal. Every K3 check (here
      and in phases 4, 8, 12 and 15) launches K3 20 times, each output
      equal to the plain wavefront's, and prints K3's wrapper ms (CUDA
-     events over 20 calls), the packing's and K3's, the plain wavefront's
-     (one call) and the bound (bytes or operations, `k3_bound`);
+     events over 20 calls) and its us per MB step (the ms over the chain
+     of mbw + 2 (mbh - 1) MB steps), the packing's and K3's ms, the plain
+     wavefront's (one call) and the bound (bytes or operations,
+     `k3_bound`); the phase prints K3's ptxas registers, shared memory and
+     spills, its resident blocks per SM and resident clusters of 8, 4
+     and 2 MB rows at 1080p's 120 MBs a row (`wavefront.occupancy`), then
+     the ms, us per MB step and rows per cluster
+     (`wavefront.cluster_rows`) of every K3 check;
   18. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
@@ -314,14 +320,32 @@ def k3_bound(k3_args, outs):
             else (ops_ms, "operations", moved))
 
 
+def k3_case_args(seed, n, mbw, mbh, qp, inter):
+    """`_select_wavefront`'s arguments of a seeded K3 case
+    (`utils.synthetic.wavefront_inputs`) on the card."""
+    import torch
+    from h264lab_tpu_torch.models.wavefront import make_plan
+    from h264lab_tpu_torch.utils.synthetic import wavefront_inputs
+
+    d = wavefront_inputs(seed, n, mbw, mbh, qp, inter=inter)
+    t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+    cand = {k: t[k] for k in ("inter_cost", "recon_y_inter",
+                              "recon_u_inter", "recon_v_inter")} \
+        if inter else None
+    return (t["src_y_mb"], t["src_u_mb"], t["src_v_mb"], t["qp"], t["qpc"],
+            make_plan(mbw, mbh, 2).steps, d["avail_top"], d["avail_left"],
+            mbw, cand)
+
+
 def check_k3(args, what, label):
     """K3 against the plain wavefront on one call's `_select_wavefront`
     arguments on their card: `_select_wavefront` (the packing and one K3
     launch), run K3_REPEATS times, and `_select_wavefront_plain` must give
     equal outputs every time. Returns K3's numbers: ms (its wrapper
     `wavefront_tiles`), stage_ms (`_select_wavefront`), both from CUDA
-    events over 20 calls; plain_ms (the checked call); bound_ms and
-    bound_by (`k3_bound`); max_abs_err."""
+    events over 20 calls; us_per_step (ms over the chain of mbw + 2 (mbh -
+    1) MB steps); plain_ms (the checked call); bound_ms and bound_by
+    (`k3_bound`); max_abs_err."""
     import torch
     from h264lab_tpu_torch.models import mbscan
     from h264lab_tpu_torch.ops import wavefront
@@ -352,10 +376,15 @@ def check_k3(args, what, label):
                                      20),
                    plain_ms=start.elapsed_time(end), max_abs_err=err)
     n, nmb = args[0].shape[:2]
+    mbw = args[8]
+    chain = mbw + 2 * (nmb // mbw - 1)
+    out["us_per_step"] = 1e3 * out["ms"] / chain
+    out["cluster"] = wavefront.cluster_rows(n, mbw, nmb // mbw)
     out["bound_ms"], out["bound_by"], moved = k3_bound(k3_args, want)
     sels = [int((want["sel"] == k).sum()) for k in range(3)]
     print(f"  K3 == plain on {what} ({n}, {nmb}), {K3_REPEATS} launches "
-          f"{label}: K3 {out['ms']:.3f} ms (the packing and K3 "
+          f"{label}: K3 {out['ms']:.3f} ms, {out['us_per_step']:.2f} us per "
+          f"MB step of {chain} (the packing and K3 "
           f"{out['stage_ms']:.3f} ms; plain {out['plain_ms']:.1f} ms; bound "
           f"{out['bound_ms']:.4f} ms by {out['bound_by']}, "
           f"{moved / 1e6:.2f} MB, {100 * out['bound_ms'] / out['ms']:.2f}% "
@@ -827,14 +856,12 @@ def main() -> int:
     from h264lab_tpu_torch.decoder.decoder import H264Decoder
     from h264lab_tpu_torch.entry import entry
     from h264lab_tpu_torch.models.encoder import H264Encoder
-    from h264lab_tpu_torch.ops import bitpack, cuda_build
+    from h264lab_tpu_torch.ops import bitpack, cuda_build, wavefront
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
-    from h264lab_tpu_torch.models.wavefront import make_plan
     from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
-                                                   deblock_inputs,
-                                                   wavefront_inputs)
+                                                   deblock_inputs)
 
     t_start = time.perf_counter()
 
@@ -851,11 +878,13 @@ def main() -> int:
                                   cuda_build.CSRC / "deblock.cu",
                                   cuda_build.CSRC / "wavefront.cu"])
     print(f"K1, K2 and K3 built in {time.perf_counter() - t0:.1f} s")
+    ptxas = {}
     for name, (lib_path, log) in zip(("K1", "K2", "K3"), built):
         print(f"  {name}: {os.path.relpath(lib_path, ROOT)}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name} ptxas:", line.strip())
+        ptxas[name] = [line.strip() for line in log.splitlines()
+                       if "registers" in line or "spill" in line]
+        for line in ptxas[name]:
+            print(f"  {name} ptxas:", line)
 
     # 3. the main path: 16 lanes of 1080p IPPP, GOP 20
     t0 = time.perf_counter()
@@ -1179,20 +1208,25 @@ def main() -> int:
     print(f"  K2 on seeded inputs {time.perf_counter() - t0:.1f} s")
 
     # 17. K3 against the plain wavefront on seeded inputs at the main paths'
-    # shapes
+    # shapes, and its time per MB step beside its registers and residency
     t0 = time.perf_counter()
+    k3_clusters = {c: wavefront.occupancy(120, c)[1]
+                   for c in wavefront.CLUSTERS}
+    k3_resident = wavefront.occupancy(120, wavefront.CLUSTERS[0])[0]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"K3 {label}: ptxas {ptxas['K3']}; at 120 MBs a row "
+          f"{k3_resident} resident blocks (MB rows) per SM, "
+          f"{k3_resident * n_sm} on the card; resident clusters by rows "
+          f"per cluster {k3_clusters}")
     for what, seed, n, mbw, mbh, qp, inter in K3_CASES:
-        d = wavefront_inputs(seed, n, mbw, mbh, qp, inter=inter)
-        t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
-        cand = {k: t[k] for k in ("inter_cost", "recon_y_inter",
-                                  "recon_u_inter", "recon_v_inter")} \
-            if inter else None
-        args = (t["src_y_mb"], t["src_u_mb"], t["src_v_mb"], t["qp"],
-                t["qpc"], make_plan(mbw, mbh, 2).steps, d["avail_top"],
-                d["avail_left"], mbw, cand)
+        args = k3_case_args(seed, n, mbw, mbh, qp, inter)
         k3_numbers[what] = check_k3(args, f"seeded inputs, {what} (seed "
                                     f"{seed}, QP {qp})", label)
-    del d, t, args, cand
+    del args
+    for what, v in k3_numbers.items():
+        print(f"  K3 on {what} {label}: {v['ms']:.3f} ms, "
+              f"{v['us_per_step']:.2f} us per MB step, clusters of "
+              f"{v['cluster']} rows")
     print(f"  K3 on seeded inputs {time.perf_counter() - t0:.1f} s")
 
     # phase 5's decode
@@ -1261,10 +1295,13 @@ def main() -> int:
         bound_by=k3i["bound_by"], library_ms=None, grid="IDR step",
         gop_launches=wf_launches, seq_launches=seq_wf_launches,
         svc_launches=svc_wf_launches, mesh_launches=mesh_wf_launches,
-        entry_launches=entry_wf_launches,
-        inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
-                        plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
-                        bound_by=v["bound_by"])
+        entry_launches=entry_wf_launches, ptxas=ptxas["K3"],
+        resident_blocks_per_sm=k3_resident,
+        resident_clusters=k3_clusters,
+        inputs={k: dict(ms=v["ms"], us_per_step=v["us_per_step"],
+                        cluster=v["cluster"],
+                        stage_ms=v["stage_ms"], plain_ms=v["plain_ms"],
+                        bound_ms=v["bound_ms"], bound_by=v["bound_by"])
                 for k, v in k3_numbers.items()}))
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
           "(the build included)")

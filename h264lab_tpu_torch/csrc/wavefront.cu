@@ -17,70 +17,131 @@
 // source per MB (and 388 B of inter candidate on P frames) in; 384 B of
 // reconstruction, 1024 B of `ac_lev`, 512 B of `cac_lev` and 300 B of the
 // rest out: about 2.6 KB per MB, 0.10 ms for 16 frames of 1080p at 3.35
-// TB/s. What sets the time is the serial chain: MB (r, c) needs the
-// reconstruction of its left, top, top-left and top-right neighbours, so
-// row r can take MB c only once row r - 1 has finished MB min(c + 1,
-// mbw - 1), and a frame takes mbw + 2 (mbh - 1) MB steps (254 at 1080p)
-// whatever the number of frames. Inside an MB step the Intra_4x4 chain of
-// 16 dependent blocks (nine predictions, a SAD each, the argmin and a 4x4
-// transform, quantisation and reconstruction per block) is the critical
-// path.
-//
-// Design (simple and right first; not yet tuned):
-//   - one block of three warps per MB row of one frame or band, rows drawn
-//     from a global ticket in launch order (as K1 and K2 draw theirs), not
-//     from blockIdx: ticket t is row t / n of frame t % n, so every frame's
-//     row r starts before any frame's row r + 1, and a row waits only on
-//     ticket t - n (the row above, same frame), which was drawn earlier by
-//     a resident (or finished) block: no launch order can deadlock;
-//   - MB (r, c) waits until the row above has finished MB min(c + 1,
-//     mbw - 1): thread 0 spins on that row's progress count with an
-//     acquire load, the block meets at a barrier, and the three records
-//     above (top-left, top, top-right) are read with L2 loads (ld.cg),
-//     never a stale L1 line. A record is 48 bytes: the bottom lines of the
-//     MB's Y, U and V reconstruction and its bottom Intra_4x4 modes; its
-//     writers fence, the block meets, and thread 0 publishes the count
-//     with a release store. The left neighbour stays in shared memory;
-//   - the three candidates are independent until the selection: warp 0
-//     runs the Intra_4x4 chain, a lane per pixel of the 4x4 block (lanes
-//     16-31 repeat lanes 0-15), the nine predictions and SADs in every
-//     lane, the transforms by shuffles within 4-lane rows and columns;
-//     warp 1 runs Intra_16x16 (three SADs, then a lane per 4x4 block for
-//     the transform, the luma DC Hadamard and its quantisation a lane per
-//     DC coefficient); warp 2 runs chroma (the summed U and V SADs of the
-//     three modes, then a lane per 4x4 block of U and V, the 2x2 DC a
-//     lane per coefficient). Then the block meets, selects over (inter,
-//     I16, I4) - the first minimum wins, so inter wins ties - writes the
-//     outputs and the record, and publishes its progress;
+// TB/s. That bound is far away: what sets the time is latency along a
+// chain. MB (r, c) needs the reconstruction of its left, top, top-left
+// and top-right neighbours, so row r finishes MB c only after row r - 1
+// has finished MB c + 1, and a frame is a chain of mbw + 2 (mbh - 1) MB
+// steps (254 at 1080p) whatever the number of frames. An MB step is a
+// chain too: the 16 Intra_4x4 blocks of an MB depend on each other, and
+// each block is a chain of shared-memory loads, shuffles and integer
+// steps that one warp runs in a few hundred to two thousand cycles. So
+// the design shortens the chains and keeps everything else off them:
+//   - Intra_4x4 in 10 dependency waves: block (bi, bj) needs its left,
+//     top and top-left blocks, and its top-right one outside NO_TOPRIGHT
+//     (raster 5, 7, 11, 13, 15), so it can run at wave 2 bi + bj. One warp
+//     runs the waves, a half-warp per block (a lane per pixel), two blocks
+//     in waves 2-7: 16 dependent block steps become 10. Each half reads
+//     its 13 neighbours from the MB's canvas, which earlier waves wrote,
+//     and the modes of earlier waves; a __syncwarp() ends a wave. A wave
+//     has no branch: every prediction but DC is (U[a] + U[b] + U[c] +
+//     U[d] + 2) >> 2 of four neighbours within three (a tap table per
+//     pixel, built on the host), one byte permute and one 4-byte dot
+//     product; the argmin is a min over (cost << 4 | mode) keys (the first
+//     minimum wins, as in the plain version); the transforms shuffle
+//     within a half's 16 lanes;
+//   - Intra_16x16 and chroma in one warp beside it (together they take
+//     less than the 10 waves): their SADs packed two to a word, then the
+//     16 luma blocks on lanes 0-15 and the 8 chroma blocks on lanes 16-23
+//     through the same transform and quantisation code, then the luma and
+//     chroma DC Hadamards as butterflies across the lanes. So a row is a
+//     block of 64 threads, and eight blocks fit on an SM at up to 128
+//     registers a thread: every row of 16 frames of 1080p that the
+//     wavefront keeps busy is resident. Which warp takes which role
+//     follows its warp slot, so that the Intra_4x4 warps of an SM's blocks
+//     spread over its four schedulers;
+//   - the next MBs' inputs by TMA: after the MB's selection, one thread
+//     issues 1-D bulk copies (cp.async.bulk, completed on an mbarrier) of
+//     MB c + 2's source tiles, and on P frames its inter reconstruction,
+//     into the third of three shared slots; the inter cost and the
+//     availability flags come a step ahead in registers. No load of the
+//     MB's own inputs is left on the chain;
+//   - the row handoff off the chain: an MB's record for the row below (the
+//     bottom lines of its Y, U and V reconstruction and its bottom
+//     Intra_4x4 modes) is 9 units of 8 bytes, 4 bytes and a tag each. They
+//     are written with single-copy atomic 64-bit relaxed stores as soon as
+//     the selection is known, before the MB's outputs, and read with
+//     64-bit relaxed loads (never a stale L1 line), loaded again until the
+//     tag is set: a unit that shows its tag shows its data, with no fence
+//     on the writer's side and no acquire load and second read on the
+//     reader's. The records of the MB above and above left are final once
+//     the row has its MB c - 1 (row r - 1 had to finish MB c to give it
+//     its top right), so they are loaded one MB ahead. Only the top-right
+//     record (row r - 1's MB c + 1) can be late, and only Intra_4x4 block
+//     3, at wave 3, reads it: Intra_16x16, chroma and waves 0-2 run while
+//     it arrives;
+//   - the rows of a thread-block cluster (`cluster` consecutive MB rows of
+//     one frame, a block each) hand their records over in distributed
+//     shared memory: a row keeps its units in its own shared memory, and
+//     the row below, the next block of the cluster, polls them there; a
+//     cluster's first row reads the units of the cluster above from
+//     global memory (a buffer the wrapper zeroes), which only a cluster's
+//     last row writes. The blocks meet at a cluster barrier after they
+//     have zeroed their units and before any exits (a row's units stay
+//     readable until the row below has finished); rows past mbh only
+//     meet there. The wrapper takes clusters of 8 rows where all of the
+//     launch's clusters are resident at once (one frame or band), else of
+//     2, where a finished row holds its place only until the other row of
+//     its cluster is done (16 frames of 1080p);
+//   - one barrier per MB step, a named barrier of the two warps when both
+//     candidates are ready. What a warp reads of the other's after it (the
+//     costs, the Intra_16x16 and chroma reconstruction, the Intra_4x4
+//     right column) sits in one of two slots that alternate by MB, so a
+//     warp can start the next MB while the other still reads; each warp
+//     writes its own outputs and keeps its own copy of the left MB's edge;
 //   - neighbours that are unavailable (outside the frame, or not
 //     available by `avail_top` / `avail_left`) are never read: their
 //     samples are zeros, which feed only modes that are invalid there, as
 //     the clamped records of the plain version do. Row 0 and column 0 are
-//     unavailable whatever the availability flags say.
+//     unavailable whatever the availability flags say;
+//   - clusters are drawn from a global ticket in launch order (as K1 and
+//     K2 draw their blocks' work), not from blockIdx: ticket t is rows
+//     cluster * (t / n) + k of frame t % n, so every frame's row group
+//     starts before any frame's next group, and a cluster waits only on
+//     ticket t - n (the cluster above, same frame), which a resident (or
+//     finished) cluster drew earlier, and on rows of its own, which run
+//     beside it: no launch order can deadlock.
+// What is left on the chain per MB step: the 10 waves, one barrier, the
+// selection and the record stores; per row, what of the top-right
+// record's trip waves 0-2 do not hide: through shared memory inside a
+// cluster, through L2 once per cluster. An Intra_4x4 wave is a
+// latency-bound chain of about 450 instructions on one warp (neighbours,
+// predictions and SADs, the decision, four rounds of shuffles for the
+// transforms), about 1,500 cycles, and an MB step about 7 us on one frame
+// on an NVIDIA H100 80GB HBM3 at 700.00 W; at 16 frames two Intra_4x4
+// warps share each scheduler and a slow row holds up the rows below.
 //
 // Integer semantics of ops/transform.py, ops/intra.py and ops/intra4.py:
 // `>>` of negative ints is arithmetic; `* (1 << s)` where they write
 // `<< s` (a left shift of a negative int is undefined in C++17); the
 // deadzone f = dz << (qbits - 8); level = sign(W) * mag; the exact
 // rounding of the luma DC dequantisation below QP 12. QUANT_MF, DEQUANT_V,
-// POS_CLASS and BLOCK_SCAN_4x4 come from ops/tables.py as a device array.
+// POS_CLASS and BLOCK_SCAN_4x4 of ops/tables.py and the tap tables of
+// ops/wavefront.py `i4_tap_tables` come as one device array.
 //
 // Plain C interface, loaded with ctypes; the entry point launches on the
-// given stream, allocates nothing (the caller zeroes the ticket and the
-// progress counts, 4 bytes per row, and gives a record buffer of 48 bytes
-// per MB) and returns cudaGetLastError().
+// given stream in clusters of `cluster` (1 to 8) blocks, allocates nothing
+// (the caller zeroes the ticket, 4 bytes, and the global record units, 72
+// bytes per MB) and returns the launch's error.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 96;              // warps: I4, I16, chroma
+constexpr int kThreads = 64;              // warps: Intra_4x4; I16 + chroma
+constexpr int kMinBlocks = 8;             // resident rows per SM
 constexpr int kInvalid = 1 << 30;         // ops/intra.py INVALID_COST
-constexpr int kRecBytes = 48;             // the record of an MB
+constexpr int kUnits = 9;                 // record units of an MB
+constexpr unsigned long long kTag = 1ull << 32;   // a record unit written
+constexpr int kSlots = 3;                 // the MB's inputs and the next two
 constexpr int kCanW = 21;                 // Intra_4x4 canvas row: left
                                           // column, 16 pixels, 4 top-right
-constexpr int kTables = 18 + 18 + 16 + 16;
+constexpr int kTapModes = 8;              // Intra_4x4 modes but DC
+constexpr int kTables = 18 + 18 + 16 + 16 + 16 * kTapModes + 16;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const uint8_t* src_y;     // (N, nmb, 16, 16)
@@ -97,7 +158,7 @@ struct Args {
   const uint8_t* rec_u_inter;  // (N, nmb, 8, 8)
   const uint8_t* rec_v_inter;
   const int32_t* tables;    // QUANT_MF (6x3), DEQUANT_V (6x3), POS_CLASS,
-                            // BLOCK_SCAN_4x4
+                            // BLOCK_SCAN_4x4, the Intra_4x4 tap tables
   int32_t* sel;             // (N, nmb)
   int32_t* mode16;
   int32_t* cmode;
@@ -111,60 +172,128 @@ struct Args {
   int32_t* i4modes;         // (N, nmb, 16) raster
   int32_t* i4sym_v;         // (N, nmb, 16) coded order
   int32_t* i4sym_l;
-  uint8_t* records;         // (N, nmb, 48)
-  int* sync;                // [0] the ticket, [1 + t] row t's progress
+  unsigned long long* records;  // (N, nmb, 9) tagged units
+  int* sync;                // [0] the ticket
   int n, mbw, mbh, deadzone, i4_penalty;
 };
 
-struct alignas(16) Smem {
-  int mf[18], dv[18], pos[16], scan[16];
-  // the MB's inputs
-  alignas(16) uint8_t src_y[256];
-  uint8_t src_u[64], src_v[64];
-  alignas(16) uint8_t top[36];  // the record above: Y 16, U 8, V 8,
-                                // 4 modes
-  uint8_t tl, tr[4];            // top-left pixel, top-right 4 pixels
-  uint8_t pad0[3];
-  // the left MB (the row's previous MB), final; then this MB's
-  alignas(16) uint8_t fin_y[256];
-  uint8_t fin_u[64], fin_v[64];
-  int em_r[4];              // the left MB's right-column Intra_4x4 modes
-  // Intra_4x4
-  int can[17 * kCanW];      // row 0 the top edge, column 0 the left edge
-  int nb[13];               // a block's neighbours: l3..l0, tl, t0..t7
-  int lev4[256];
-  int modes[16], symv[16], syml[16];
-  int cost4;
-  // Intra_16x16
-  int ac16[256];
-  int dccoef[16], dclev[16], dcdeq[16];
-  alignas(16) uint8_t rec16[256];
-  int mode16, cost16;
-  // chroma
-  int cac[128];
-  int cdccoef[8], cdclev[8], cdcdeq[8];
-  alignas(16) uint8_t rec_c[128];
-  int cmode;
+// An MB's inputs, filled by bulk copies.
+struct alignas(16) Slot {
+  uint8_t src_y[256], src_u[64], src_v[64];
+  uint8_t inter_y[256], inter_u[64], inter_v[64];
 };
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
+// What one warp hands the other at the MB's barrier (two, by MB parity).
+struct alignas(16) Result {
+  uint8_t rec16[256];       // Intra_16x16 reconstruction
+  uint8_t rec_c[128];       // chroma reconstruction, U then V
+  uint8_t i4col[16];        // Intra_4x4 reconstruction, right column
+  int cost4, cost16;
+};
+
+struct alignas(16) Smem {
+  Slot slot[kSlots];
+  Result res[2];
+  unsigned long long bar[kSlots];   // the slots' mbarriers
+  int icost[kSlots];        // the inter cost of the slot's MB
+  int mf[18], dv[18], pos[16], scan[16];
+  // the Intra_4x4 tap tables (wavefront.i4_tap_tables): per pixel and mode
+  // but DC a byte-permute selector of the 4 taps in an 8-byte window of
+  // the neighbours (U[0..7] or U[5..12]), and per pixel the modes' windows,
+  // a bit each
+  unsigned i4sel[16][kTapModes], i4win[16];
+  // the Intra_4x4 warp. Canvas row 0 the top edge (column 0 the top-left
+  // pixel, 17-20 the top-right 4), column 0 of rows 1-16 the left MB's
+  // right column
+  int can[17 * kCanW];
+  alignas(16) uint8_t nb[2][16];  // each half's block's neighbours U:
+                                  // l3..l0, tl, t0..t7
+  alignas(16) int lev4[256];
+  int modes[16], symv[16], syml[16];
+  int em_r[4];              // the left MB's right-column modes
+  // where the record units of the row above are read and this row's
+  // written (wavefront_row), read from here where they are used
+  const unsigned long long* rec_above;
+  unsigned long long* rec_out;
+  int topm[4];              // the MB above's bottom modes
+  // the Intra_16x16 and chroma warp
+  alignas(16) uint8_t top[32];   // the record above: Y 16, U 8, V 8
+  uint8_t left_y[16], left_u[8], left_v[8];  // the left MB's right columns
+  alignas(16) int acl[24 * 16];  // AC levels: 16 luma blocks, then 8 chroma
+  int dcl[24];              // DC levels: luma, then chroma
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 64-bit strong (relaxed, gpu-scope) load and store at a generic address,
+// in global memory or in the shared memory of a block of the cluster:
+// single-copy atomic, and never served by a stale L1 line.
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p));
   return v;
 }
 
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" :: "l"(p), "r"(v)
-               : "memory");
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
+}
+
+// Named barrier `id` of `n` threads.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// The mbarrier's one arrival, expecting `bytes` of copies.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the mbarrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completed on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A pointer held in shared memory, loaded where it is used: it then takes
+// no registers across the MB loop, where the Intra_4x4 warp has none to
+// spare at 128.
+template <typename T>
+__device__ __forceinline__ T* smem_ptr(T* const& p) {
+  return *const_cast<T* const volatile*>(&p);
 }
 
 __device__ __forceinline__ int clip3(int lo, int hi, int x) {
   return min(max(x, lo), hi);
-}
-
-__device__ __forceinline__ int tap3(int a, int b, int c) {
-  return (a + 2 * b + c + 2) >> 2;
 }
 
 // Output k of the forward 1-D core transform (transform._bf).
@@ -174,6 +303,14 @@ __device__ __forceinline__ int bf(int x0, int x1, int x2, int x3, int k) {
                                                           : t1 - 2 * t3;
 }
 
+// Coefficient j of output k of the forward 1-D core transform: bf(x, k)
+// is the sum over j of fcoef(k, j) x[j].
+__device__ __forceinline__ int fcoef(int k, int j) {
+  return k == 0 ? 1 : k == 2 ? (j == 0 || j == 3 ? 1 : -1)
+         : k == 1 ? (j == 0 ? 2 : j == 1 ? 1 : j == 2 ? -1 : -2)
+                  : (j == 0 ? 1 : j == 1 ? -2 : j == 2 ? 2 : -1);
+}
+
 // Output k of the inverse 1-D core transform (transform._ibf).
 __device__ __forceinline__ int ibf(int d0, int d1, int d2, int d3, int k) {
   const int e0 = d0 + d2, e1 = d0 - d2;
@@ -181,202 +318,172 @@ __device__ __forceinline__ int ibf(int d0, int d1, int d2, int d3, int k) {
   return k == 0 ? e0 + e3 : k == 1 ? e1 + e2 : k == 2 ? e1 - e2 : e0 - e3;
 }
 
-// Forward 4x4 core transform of a block in registers (transform.fdct4x4:
-// columns, then rows).
+// Forward 4x4 core transform of a block in registers, in place
+// (transform.fdct4x4: columns, then rows).
 __device__ __forceinline__ void fdct(int* x) {
-  int t[16];
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int j = 0; j < 4; ++j) {
+    const int a = x[j], b = x[4 + j], c = x[8 + j], d = x[12 + j];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      t[k * 4 + j] = bf(x[j], x[4 + j], x[8 + j], x[12 + j], k);
+    for (int k = 0; k < 4; ++k) x[4 * k + j] = bf(a, b, c, d, k);
+  }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    const int a = x[4 * i], b = x[4 * i + 1], c = x[4 * i + 2],
+              d = x[4 * i + 3];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      x[i * 4 + k] = bf(t[i * 4], t[i * 4 + 1], t[i * 4 + 2], t[i * 4 + 3],
-                        k);
+    for (int k = 0; k < 4; ++k) x[4 * i + k] = bf(a, b, c, d, k);
+  }
 }
 
-// Inverse 4x4 core transform with the final (x + 32) >> 6
+// Inverse 4x4 core transform with the final (x + 32) >> 6, in place
 // (transform.idct4x4: rows, then columns).
 __device__ __forceinline__ void idct(int* x) {
-  int t[16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    const int a = x[4 * i], b = x[4 * i + 1], c = x[4 * i + 2],
+              d = x[4 * i + 3];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      t[i * 4 + k] = ibf(x[i * 4], x[i * 4 + 1], x[i * 4 + 2], x[i * 4 + 3],
-                         k);
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      x[k * 4 + j] = (ibf(t[j], t[4 + j], t[8 + j], t[12 + j], k) + 32) >> 6;
-}
-
-// transform.quant4x4 of one coefficient at position class `cls`.
-__device__ __forceinline__ int quant_ac(const Smem& s, int w, int qp, int cls,
-                                        int dz) {
-  const int qbits = 15 + qp / 6;
-  const int mag = (abs(w) * s.mf[(qp % 6) * 3 + cls] + (dz << (qbits - 8)))
-                  >> qbits;
-  return w > 0 ? mag : w < 0 ? -mag : 0;
-}
-
-// transform.dequant4x4 of one level.
-__device__ __forceinline__ int dequant_ac(const Smem& s, int lev, int qp,
-                                          int cls) {
-  return lev * s.dv[(qp % 6) * 3 + cls] * (1 << (qp / 6));
-}
-
-// Element (i, j) of the 4x4 Hadamard transform (transform.hadamard4x4) of
-// a raster 4x4 grid x: H x H^T with H's rows (1, 1, 1, 1), (1, 1, -1, -1),
-// (1, -1, -1, 1), (1, -1, 1, -1).
-__device__ __forceinline__ int hsign(int i, int k) {
-  const int h = (i == 0) ? 0 : (i == 1) ? (k >> 1) : (i == 2)
-                ? ((k ^ (k >> 1)) & 1) : (k & 1);
-  return h ? -1 : 1;
-}
-
-__device__ __forceinline__ int hadamard4(const int* x, int i, int j) {
-  int f = 0;
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    int row = 0;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) row += hsign(j, n) * x[m * 4 + n];
-    f += hsign(i, m) * row;
+    for (int k = 0; k < 4; ++k) x[4 * i + k] = ibf(a, b, c, d, k);
   }
-  return f;
-}
-
-// Element k ((0, 0), (0, 1), (1, 0), (1, 1)) of the 2x2 Hadamard
-// (transform.hadamard2x2).
-__device__ __forceinline__ int hadamard2(const int* x, int k) {
-  const int a = x[0], b = x[1], c = x[2], d = x[3];
-  return k == 0 ? a + b + c + d : k == 1 ? a - b + c - d
-         : k == 2 ? a + b - c - d : a - b - c + d;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int a = x[j], b = x[4 + j], c = x[8 + j], d = x[12 + j];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[4 * k + j] = (ibf(a, b, c, d, k) + 32) >> 6;
+  }
 }
 
 __device__ __forceinline__ int sgn_mag(int f, int mag) {
   return f > 0 ? mag : f < 0 ? -mag : 0;
 }
 
-__device__ __forceinline__ int warp_sum(int v, int width) {
+// The sum of v over groups of `width` lanes (a power of 2).
+__device__ __forceinline__ unsigned warp_sum(unsigned v, int width) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1)
-    if (o < width) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (o < width) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
+// The low 32 bits of a record unit, once its tag is set; 0 where the lane
+// does not want one. `u` holds the unit as last loaded. Every lane of the
+// warp calls it.
+__device__ __forceinline__ uint32_t await_unit(
+    unsigned long long& u, const unsigned long long* p, bool want) {
+  while (!__all_sync(kFull, !want || u >= kTag))
+    if (want && u < kTag) u = ld_relaxed(p);
+  return want ? (uint32_t)u : 0u;
+}
+
+// prmt.b32: byte k of the result is byte (sel >> 4k) & 7 of (hi:lo) (the
+// selectors K3 passes have bit 3 clear, so __byte_perm's masking is not
+// needed).
+__device__ __forceinline__ unsigned prmt(unsigned lo, unsigned hi,
+                                         unsigned sel) {
+  unsigned v;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(v) : "r"(lo), "r"(hi), "r"(sel));
+  return v;
+}
+
+// Four canvas pixels as the bytes of a word.
+__device__ __forceinline__ uint32_t pack4(const int* v) {
+  return (uint32_t)v[0] | ((uint32_t)v[1] << 8) | ((uint32_t)v[2] << 16)
+         | ((uint32_t)v[3] << 24);
+}
+
 // ---------------------------------------------------------------------------
-// warp 0: Intra_4x4 (intra4.encode_i4x4_mb)
+// the Intra_4x4 warp (intra4.encode_i4x4_mb) in 10 waves
 // ---------------------------------------------------------------------------
 
-__device__ void intra4_warp(Smem& s, int lane, bool a_top, bool a_left,
-                            bool a_tl, bool a_tr, int qp, int lam, int dz,
-                            int i4_penalty) {
-  // canvas row 0: top-left, the top row, the top-right 4; column 0 of
-  // rows 1-16: the left MB's right column
-  for (int k = lane; k < kCanW + 16; k += 32) {
-    if (k == 0) s.can[0] = s.tl;
-    else if (k <= 16) s.can[k] = s.top[k - 1];
-    else if (k < kCanW) s.can[k] = s.tr[k - 17];
-    else s.can[(k - kCanW + 1) * kCanW] = s.fin_y[(k - kCanW) * 16 + 15];
-  }
-  __syncwarp();
-  const int pix = lane & 15, py = pix >> 2, px = pix & 3;
+// The top-right record unit: lane 5 waits for it before wave 3 (where
+// `want`) and writes its 4 pixels into the canvas.
+struct TopRight {
+  unsigned long long* u;
+  const unsigned long long* p;
+  bool want;
+};
+
+__device__ void intra4_warp(Smem& s, Result& res, const Slot& in, int lane,
+                            bool a_top, bool a_left, bool a_tl, bool a_tr,
+                            int qp, int lam, int dz, int i4_penalty,
+                            TopRight tr) {
+  const int h = lane >> 4, pix = lane & 15, py = pix >> 2, px = pix & 3;
   const int cls = s.pos[pix];
+  // this lane's quantiser (transform.quant4x4 and dequant4x4)
+  const int qbits = 15 + qp / 6;
+  const int mf = s.mf[(qp % 6) * 3 + cls], fq = dz << (qbits - 8);
+  const int dq = s.dv[(qp % 6) * 3 + cls] * (1 << (qp / 6));
+  // this lane's rows of the forward transform: its column pass gives row
+  // py, its row pass column px
+  int cy[4], cx[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    cy[j] = fcoef(py, j);
+    cx[j] = fcoef(px, j);
+  }
   int cost = 0;
-  for (int b = 0; b < 16; ++b) {
-    const int bi = b >> 2, bj = b & 3, y0 = 4 * bi, x0 = 4 * bj;
+#pragma unroll 1
+  for (int t = 0; t < 10; ++t) {
+    if (t == 3) {
+      const uint32_t v = await_unit(*tr.u, tr.p, tr.want && lane == 5);
+      if (lane == 5 && tr.want) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s.can[17 + k] = (v >> (8 * k)) & 0xff;
+      }
+      __syncwarp();
+    }
+    // half 1 takes block (t / 2, t % 2), half 0 block (t / 2 - 1,
+    // t % 2 + 2); a half without a block (waves 0, 1, 8, 9) works on a
+    // clamped one and writes nothing
+    const int bi_w = h ? (t >> 1) : (t >> 1) - 1;
+    const bool live = bi_w >= 0 && bi_w <= 3;
+    const int bi = clip3(0, 3, bi_w), bj = h ? (t & 1) : (t & 1) + 2;
+    const int b = bi * 4 + bj, y0 = 4 * bi, x0 = 4 * bj;
     const bool at = bi > 0 || a_top, al = bj > 0 || a_left;
     const bool atl = (bi > 0 && bj > 0) ? true
                      : (bi == 0 && bj == 0) ? a_tl : (bi == 0 ? a_top
                                                                : a_left);
-    // the neighbours U = [l3, l2, l1, l0, tl, t0..t3, t4..t7]; t4..t7
-    // replicate t3 where the top-right is not available (NO_TOPRIGHT)
-    if (lane < 13) {
-      int v;
-      if (lane < 4) {
-        v = s.can[(y0 + 4 - lane) * kCanW + x0];
-      } else if (lane < 9) {
-        v = s.can[y0 * kCanW + x0 + lane - 4];
-      } else {
-        const bool no_tr = b == 5 || b == 7 || b == 11 || b == 13 || b == 15;
-        const bool tr_ok = !no_tr && (bi > 0 || (bj == 3 ? a_tr : a_top));
-        v = s.can[y0 * kCanW + x0 + (tr_ok ? 5 + lane - 9 : 4)];
-      }
-      s.nb[lane] = v;
+    // the neighbours U = [l3, l2, l1, l0, tl, t0..t3, t4..t7] as bytes;
+    // t4..t7 replicate t3 where the top-right is not available
+    // (NO_TOPRIGHT: raster blocks 5, 7, 11, 13, 15)
+    // (lanes 13-15 copy U[12] into bytes no tap reads)
+    {
+      const bool tr_ok = !((0xa8a0 >> b) & 1)
+                         && (bi > 0 || (bj == 3 ? a_tr : a_top));
+      const int n = min(pix, 12);
+      const int off = n < 4 ? (4 - n) * kCanW : n < 9 || tr_ok ? n - 4 : 4;
+      s.nb[h][pix] = (uint8_t)s.can[y0 * kCanW + x0 + off];
     }
     __syncwarp();
-    const int* U = s.nb;
+    const uint4 u = *reinterpret_cast<const uint4*>(s.nb[h]);
+    const unsigned u5 = __byte_perm(u.y, u.z, 0x4321);   // U[5..8]
+    const unsigned u9 = __byte_perm(u.z, u.w, 0x4321);   // U[9..12]
+    // the predictions: DC from the edge sums, the other modes each
+    // (U[a] + U[b] + U[c] + U[d] + 2) >> 2, its 4 taps permuted out of an
+    // 8-byte window of U and summed by one dot product
     int pred[9];
-    pred[0] = U[5 + px];                                  // V
-    pred[1] = U[3 - py];                                  // H
-    {                                                     // DC
-      const int st = U[5] + U[6] + U[7] + U[8];
-      const int sl = U[0] + U[1] + U[2] + U[3];
+    {
+      const int st = __dp4a(u5, 0x01010101u, 0u);
+      const int sl = __dp4a(u.x, 0x01010101u, 0u);
       pred[2] = (at && al) ? (st + sl + 4) >> 3
                 : at ? (st + 2) >> 2 : al ? (sl + 2) >> 2 : 128;
     }
-    if (px == 3 && py == 3) {                             // DDL
-      pred[3] = (U[11] + 3 * U[12] + 2) >> 2;
-    } else {
-      const int id = min(px + py, 6);
-      pred[3] = tap3(U[id + 5], U[min(id + 1, 7) + 5], U[min(id + 2, 7) + 5]);
+    const unsigned win = s.i4win[pix];
+#pragma unroll
+    for (int k = 0; k < kTapModes; ++k) {
+      const bool w = (win & (1u << k)) != 0;
+      const unsigned lo = w ? u5 : u.x, hi = w ? u9 : u.y;
+      pred[k < 2 ? k : k + 1] =
+          (int)(__dp4a(prmt(lo, hi, s.i4sel[pix][k]), 0x01010101u, 2u)
+                >> 2);
     }
-    {                                                     // DDR
-      const int i0 = px - py + 4;
-      pred[4] = tap3(U[i0 - 1], U[i0], U[i0 + 1]);
-    }
-    {                                                     // VR, on v = U
-      const int z = 2 * px - py;
-      if (z >= 0) {
-        const int iv = px - (py >> 1) + 5;
-        const int a = U[clip3(0, 8, iv - 2)], bb = U[clip3(0, 8, iv - 1)],
-                  cc = U[clip3(0, 8, iv)];
-        pred[5] = (z & 1) ? tap3(a, bb, cc) : (bb + cc + 1) >> 1;
-      } else {
-        const int nv = 5 + z;
-        pred[5] = tap3(U[clip3(0, 8, nv - 1)], U[clip3(0, 8, nv)],
-                       U[clip3(0, 8, nv + 1)]);
-      }
-    }
-    {                                                 // HD, w[i] = U[8 - i]
-      const int z = 2 * py - px;
-      if (z >= 0) {
-        const int iw = py - (px >> 1) + 5;
-        const int a = U[8 - clip3(0, 8, iw - 2)],
-                  bb = U[8 - clip3(0, 8, iw - 1)], cc = U[8 - clip3(0, 8, iw)];
-        pred[6] = (z & 1) ? tap3(a, bb, cc) : (bb + cc + 1) >> 1;
-      } else {
-        const int nw = 5 + z;
-        pred[6] = tap3(U[8 - clip3(0, 8, nw - 1)], U[8 - clip3(0, 8, nw)],
-                       U[8 - clip3(0, 8, nw + 1)]);
-      }
-    }
-    {                                                 // VL, p[i] = U[i + 4]
-      const int xv = px + (py >> 1);
-      const int a = U[min(xv, 7) + 5], bb = U[min(xv + 1, 7) + 5],
-                cc = U[min(xv + 2, 7) + 5];
-      pred[7] = (py & 1) ? tap3(a, bb, cc) : (a + bb + 1) >> 1;
-    }
-    {                                                 // HU, l[j] = U[3 - j]
-      const int yu = py + (px >> 1), zhu = px + 2 * py;
-      const int la = U[3 - min(yu, 3)], lb = U[3 - min(yu + 1, 3)],
-                lc = U[3 - min(yu + 2, 3)];
-      pred[8] = zhu > 5 ? U[0]
-                : zhu == 5 ? (U[1] + 3 * U[0] + 2) >> 2
-                : (zhu & 1) ? tap3(la, lb, lc) : (la + lb + 1) >> 1;
-    }
-    const int src = s.src_y[(y0 + py) * 16 + x0 + px];
-    // SADs of the 16 pixels, two modes per word (each at most 4080)
+    const int src = in.src_y[(y0 + py) * 16 + x0 + px];
+    // SADs of the half's 16 pixels, two modes per word (each at most 4080)
     int sad[9];
 #pragma unroll
     for (int m = 0; m < 9; m += 2) {
-      int v = abs(src - pred[m]);
+      unsigned v = abs(src - pred[m]);
       if (m + 1 < 9) v |= abs(src - pred[m + 1]) << 16;
       v = warp_sum(v, 16);
       sad[m] = v & 0xffff;
@@ -384,172 +491,88 @@ __device__ void intra4_warp(Smem& s, int lane, bool a_top, bool a_left,
     }
     // the predicted mode (spec 8.3.1.1)
     const int ma = bj == 0 ? s.em_r[bi] : s.modes[b - 1];
-    const int mb = bi == 0 ? s.top[32 + bj] : s.modes[b - 4];
+    const int mb = bi == 0 ? s.topm[bj] : s.modes[b - 4];
     const int pm = (at && al) ? min(ma, mb) : 2;
     const bool diag = at && al && atl;
     const bool valid[9] = {at, al, true, at, diag, diag, diag, at, al};
-    int m = 0, cmin = kInvalid;
+    // the first minimum of the costs: the least (cost << 4 | mode)
+    int key[9];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const int c = valid[k] ? sad[k] + lam * (k == pm ? 1 : 4) : kInvalid;
-      if (k == 0 || c < cmin) {
-        cmin = c;
-        m = k;
-      }
-    }
-    cost += cmin;
-    int p = pred[0];
-#pragma unroll
-    for (int k = 1; k < 9; ++k)
-      if (m == k) p = pred[k];
+    for (int k = 0; k < 9; ++k)
+      key[k] = valid[k] ? ((sad[k] + lam * (k == pm ? 1 : 4)) << 4) | k
+                        : 0x7fffffff;
+    const int kmin = min(min(min(key[0], key[1]), min(key[2], key[3])),
+                         min(min(key[4], key[5]),
+                             min(min(key[6], key[7]), key[8])));
+    const int m = kmin & 15;
+    if (live) cost += kmin >> 4;
+    const int p01 = (m & 1) ? pred[1] : pred[0];
+    const int p23 = (m & 1) ? pred[3] : pred[2];
+    const int p45 = (m & 1) ? pred[5] : pred[4];
+    const int p67 = (m & 1) ? pred[7] : pred[6];
+    const int p03 = (m & 2) ? p23 : p01, p47 = (m & 2) ? p67 : p45;
+    const int p = (m & 8) ? pred[8] : (m & 4) ? p47 : p03;
     // transform, quantise, reconstruct: a lane per coefficient, rows and
-    // columns gathered by shuffles within the lane's 16
-    const int res = src - p;
-    int t = bf(__shfl_sync(0xffffffffu, res, px, 16),
-               __shfl_sync(0xffffffffu, res, 4 + px, 16),
-               __shfl_sync(0xffffffffu, res, 8 + px, 16),
-               __shfl_sync(0xffffffffu, res, 12 + px, 16), py);
-    const int w = bf(__shfl_sync(0xffffffffu, t, py * 4, 16),
-                     __shfl_sync(0xffffffffu, t, py * 4 + 1, 16),
-                     __shfl_sync(0xffffffffu, t, py * 4 + 2, 16),
-                     __shfl_sync(0xffffffffu, t, py * 4 + 3, 16), px);
-    const int lev = quant_ac(s, w, qp, cls, dz);
-    const int d = dequant_ac(s, lev, qp, cls);
-    t = ibf(__shfl_sync(0xffffffffu, d, py * 4, 16),
-            __shfl_sync(0xffffffffu, d, py * 4 + 1, 16),
-            __shfl_sync(0xffffffffu, d, py * 4 + 2, 16),
-            __shfl_sync(0xffffffffu, d, py * 4 + 3, 16), px);
-    const int r = (ibf(__shfl_sync(0xffffffffu, t, px, 16),
-                       __shfl_sync(0xffffffffu, t, 4 + px, 16),
-                       __shfl_sync(0xffffffffu, t, 8 + px, 16),
-                       __shfl_sync(0xffffffffu, t, 12 + px, 16), py) + 32)
+    // columns gathered by shuffles within the half's 16 lanes
+    const int res0 = src - p;
+    int x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = __shfl_sync(kFull, res0, 4 * j + px, 16);
+    const int tt = (cy[0] * x[0] + cy[1] * x[1])
+                   + (cy[2] * x[2] + cy[3] * x[3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = __shfl_sync(kFull, tt, py * 4 + j, 16);
+    const int w = (cx[0] * x[0] + cx[1] * x[1])
+                  + (cx[2] * x[2] + cx[3] * x[3]);
+    const int mag = (abs(w) * mf + fq) >> qbits;
+    const int lev = w > 0 ? mag : w < 0 ? -mag : 0;
+    const int d = lev * dq;
+    const int ti = ibf(__shfl_sync(kFull, d, py * 4, 16),
+             __shfl_sync(kFull, d, py * 4 + 1, 16),
+             __shfl_sync(kFull, d, py * 4 + 2, 16),
+             __shfl_sync(kFull, d, py * 4 + 3, 16), px);
+    const int r = (ibf(__shfl_sync(kFull, ti, px, 16),
+                       __shfl_sync(kFull, ti, 4 + px, 16),
+                       __shfl_sync(kFull, ti, 8 + px, 16),
+                       __shfl_sync(kFull, ti, 12 + px, 16), py) + 32)
                   >> 6;
-    if (lane < 16) {
-      s.can[(y0 + 1 + py) * kCanW + x0 + 1 + px] = clip3(0, 255, r + p);
+    if (live) {
+      const int rec = clip3(0, 255, r + p);
+      s.can[(y0 + 1 + py) * kCanW + x0 + 1 + px] = rec;
       s.lev4[b * 16 + pix] = lev;
-    }
-    if (lane == 0) {
-      const bool eq = m == pm;
-      s.modes[b] = m;
-      s.symv[b] = eq ? 1 : (m < pm ? m : m - 1);
-      s.syml[b] = eq ? 1 : 4;
+      if (bj == 3 && px == 3) res.i4col[y0 + py] = (uint8_t)rec;
+      if (pix == 0) {
+        const bool eq = m == pm;
+        s.modes[b] = m;
+        s.symv[b] = eq ? 1 : (m < pm ? m : m - 1);
+        s.syml[b] = eq ? 1 : 4;
+      }
     }
     __syncwarp();
   }
-  if (lane == 0) s.cost4 = cost + lam * i4_penalty;
+  cost = __shfl_sync(kFull, cost, 0) + __shfl_sync(kFull, cost, 16);
+  if (lane == 0) res.cost4 = cost + lam * i4_penalty;
 }
 
 // ---------------------------------------------------------------------------
-// warp 1: Intra_16x16 (intra.predict_16x16, intra.select_mode,
-// mbscan._encode_luma_i16)
+// the other warp: Intra_16x16 (intra.predict_16x16, intra.select_mode,
+// mbscan._encode_luma_i16) and chroma (intra.predict_chroma with the
+// per-quadrant DC, the summed SAD argmin, mbscan._encode_chroma)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int pred16(const Smem& s, int mode, int dc, int y,
-                                      int x) {
-  return mode == 0 ? s.top[x] : mode == 1 ? s.fin_y[y * 16 + 15] : dc;
-}
-
-__device__ void intra16_warp(Smem& s, int lane, bool a_top, bool a_left,
-                             int qp, int dz) {
-  int st = 0, sl = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    st += s.top[k];
-    sl += s.fin_y[k * 16 + 15];
-  }
-  const int dc = (a_top && a_left) ? (st + sl + 16) >> 5
-                 : a_top ? (st + 8) >> 4 : a_left ? (sl + 8) >> 4 : 128;
-  // a lane per half row
-  const int y = lane >> 1, xb = (lane & 1) * 8;
-  int sv = 0, sh = 0, sd = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int x = xb + k, v = s.src_y[y * 16 + x];
-    sv += abs(v - s.top[x]);
-    sh += abs(v - s.fin_y[y * 16 + 15]);
-    sd += abs(v - dc);
-  }
-  sv = warp_sum(sv, 32);
-  sh = warp_sum(sh, 32);
-  sd = warp_sum(sd, 32);
-  const int c[3] = {a_top ? sv : kInvalid, a_left ? sh : kInvalid, sd};
-  int mode = 0, cost = c[0];
-  if (c[1] < cost) { mode = 1; cost = c[1]; }
-  if (c[2] < cost) { mode = 2; cost = c[2]; }
-  // a lane per 4x4 block
-  int x[16], lev[16];
-  const int bi = (lane & 15) >> 2, bj = lane & 3;
-  if (lane < 16) {
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int yy = 4 * bi + (k >> 2), xx = 4 * bj + (k & 3);
-      x[k] = s.src_y[yy * 16 + xx] - pred16(s, mode, dc, yy, xx);
-    }
-    fdct(x);
-    s.dccoef[lane] = x[0];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      lev[k] = quant_ac(s, x[k], qp, s.pos[k], dz);
-      x[k] = dequant_ac(s, lev[k], qp, s.pos[k]);
-    }
-  }
-  __syncwarp();
-  // the luma DC: Hadamard, quantise (transform.quant_luma_dc), then
-  // Hadamard and scale (dequant_luma_dc), a lane per coefficient
-  const int q6 = qp % 6, d6 = qp / 6;
-  if (lane < 16) {
-    const int f = hadamard4(s.dccoef, lane >> 2, lane & 3);
-    const int qbits = 17 + d6;
-    s.dclev[lane] = sgn_mag(f, (abs(f) * s.mf[q6 * 3] + (1 << (qbits - 1)))
-                                   >> qbits);
-  }
-  __syncwarp();
-  if (lane < 16) {
-    const int f = hadamard4(s.dclev, lane >> 2, lane & 3) * s.dv[q6 * 3];
-    s.dcdeq[lane] = d6 >= 2 ? f * (1 << (d6 - 2))
-                            : (f + (1 << (1 - d6))) >> (2 - d6);
-  }
-  __syncwarp();
-  if (lane < 16) {
-    x[0] = s.dcdeq[lane];
-    idct(x);
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int yy = 4 * bi + (k >> 2), xx = 4 * bj + (k & 3);
-      s.rec16[yy * 16 + xx] =
-          (uint8_t)clip3(0, 255, x[k] + pred16(s, mode, dc, yy, xx));
-      s.ac16[lane * 16 + k] = k == 0 ? 0 : lev[k];
-    }
-  }
-  if (lane == 0) {
-    s.mode16 = mode;
-    s.cost16 = cost;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// warp 2: chroma (intra.predict_chroma with the per-quadrant DC, the summed
-// SAD argmin, mbscan._encode_chroma)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int predc(const Smem& s, int plane, int mode,
-                                     int dc, int y, int x) {
-  const uint8_t* fin = plane ? s.fin_v : s.fin_u;
-  return mode == 0 ? dc : mode == 1 ? fin[y * 8 + 7]
-                                    : s.top[16 + 8 * plane + x];
-}
 
 // The DC prediction of quadrant q (raster) of a chroma plane: quadrants 0
 // and 3 from the top and left sums, 1 preferring the top, 2 the left.
 __device__ __forceinline__ int chroma_dc(const Smem& s, int plane, int q,
                                          bool a_top, bool a_left) {
-  const uint8_t* fin = plane ? s.fin_v : s.fin_u;
+  const uint8_t* left = plane ? s.left_v : s.left_u;
   const uint8_t* top = s.top + 16 + 8 * plane;
   int st = 0, sl = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     st += top[(q & 1) * 4 + k];
-    sl += fin[((q >> 1) * 4 + k) * 8 + 7];
+    sl += left[(q >> 1) * 4 + k];
   }
   const int both = (st + sl + 4) >> 3, t_only = (st + 2) >> 2,
             l_only = (sl + 2) >> 2;
@@ -559,241 +582,460 @@ __device__ __forceinline__ int chroma_dc(const Smem& s, int plane, int q,
   return a_left ? l_only : a_top ? t_only : 128;
 }
 
-__device__ void chroma_warp(Smem& s, int lane, bool a_top, bool a_left,
-                            int qpc, int dz) {
-  // the three modes' SADs over U and V: a lane per half row of a plane
+__device__ void intra16_chroma_warp(Smem& s, Result& res, const Slot& in,
+                                    int lane, bool a_top, bool a_left,
+                                    int qp, int qpc, int dz, int& mode16,
+                                    int& cmode) {
+  int st = 0, sl = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    st += s.top[k];
+    sl += s.left_y[k];
+  }
+  const int dc16 = (a_top && a_left) ? (st + sl + 16) >> 5
+                   : a_top ? (st + 8) >> 4 : a_left ? (sl + 8) >> 4 : 128;
+  // the SADs: a lane per half row of luma (V, H, DC) and per half row of
+  // a chroma plane (DC, H, V; U and V summed), two per word (at most 65280
+  // each)
   {
-    const int p = lane >> 4, y = (lane & 15) >> 1, xb = (lane & 1) * 4;
-    const uint8_t* src = p ? s.src_v : s.src_u;
-    const int dc = chroma_dc(s, p, (y >> 2) * 2 + (lane & 1), a_top, a_left);
-    int sd = 0, sh = 0, sv = 0;
+    const int y = lane >> 1, xb = (lane & 1) * 8;
+    unsigned sv = 0, sh = 0, sd = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int x = xb + k, v = in.src_y[y * 16 + x];
+      sv += abs(v - s.top[x]);
+      sh += abs(v - s.left_y[y]);
+      sd += abs(v - dc16);
+    }
+    const int p = lane >> 4, cy = (lane & 15) >> 1, cxb = (lane & 1) * 4;
+    const uint8_t* src = p ? in.src_v : in.src_u;
+    const uint8_t* left = p ? s.left_v : s.left_u;
+    const uint8_t* top = s.top + 16 + 8 * p;
+    const int dc = chroma_dc(s, p, (cy >> 2) * 2 + (lane & 1), a_top, a_left);
+    unsigned cd = 0, ch = 0, cv = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int x = xb + k, v = src[y * 8 + x];
-      sd += abs(v - dc);
-      sh += abs(v - predc(s, p, 1, dc, y, x));
-      sv += abs(v - predc(s, p, 2, dc, y, x));
+      const int x = cxb + k, v = src[cy * 8 + x];
+      cd += abs(v - dc);
+      ch += abs(v - left[cy]);
+      cv += abs(v - top[x]);
     }
-    sd = warp_sum(sd, 32);
-    sh = warp_sum(sh, 32);
-    sv = warp_sum(sv, 32);
-    const int c[3] = {sd, a_left ? sh : kInvalid, a_top ? sv : kInvalid};
-    int mode = 0, cost = c[0];
-    if (c[1] < cost) { mode = 1; cost = c[1]; }
-    if (c[2] < cost) mode = 2;
-    if (lane == 0) s.cmode = mode;
+    const unsigned w0 = warp_sum(sv | (sh << 16), 32);
+    const unsigned w1 = warp_sum(sd | (cd << 16), 32);
+    const unsigned w2 = warp_sum(ch | (cv << 16), 32);
+    const int c16[3] = {a_top ? (int)(w0 & 0xffff) : kInvalid,
+                        a_left ? (int)(w0 >> 16) : kInvalid,
+                        (int)(w1 & 0xffff)};
+    mode16 = 0;
+    int cost = c16[0];
+    if (c16[1] < cost) { mode16 = 1; cost = c16[1]; }
+    if (c16[2] < cost) { mode16 = 2; cost = c16[2]; }
+    if (lane == 0) res.cost16 = cost;
+    const int cc[3] = {(int)(w1 >> 16), a_left ? (int)(w2 & 0xffff) : kInvalid,
+                       a_top ? (int)(w2 >> 16) : kInvalid};
+    cmode = 0;
+    int ccost = cc[0];
+    if (cc[1] < ccost) { cmode = 1; ccost = cc[1]; }
+    if (cc[2] < ccost) cmode = 2;
   }
-  __syncwarp();
-  const int mode = s.cmode;
-  // a lane per 4x4 block of U (lanes 0-3) and V (4-7)
-  const int p = (lane >> 2) & 1, blk = lane & 3, bi = blk >> 1, bj = blk & 1;
-  // a 4x4 block lies in one DC quadrant
-  const int dc = chroma_dc(s, p, blk, a_top, a_left);
-  int x[16], lev[16];
-  if (lane < 8) {
-    const uint8_t* src = p ? s.src_v : s.src_u;
+  // a lane per 4x4 block: luma blocks on lanes 0-15, U on 16-19, V on
+  // 20-23 (lanes 24-31 repeat V's last and write nothing)
+  const bool luma = lane < 16, live = lane < 24;
+  const int cb = luma ? 0 : min(lane - 16, 7), p = cb >> 2, blk = cb & 3;
+  const int bi = luma ? lane >> 2 : blk >> 1, bj = luma ? lane & 3 : blk & 1;
+  const int q = luma ? qp : qpc;
+  const int stride = luma ? 16 : 8;
+  const uint8_t* src = (luma ? in.src_y : p ? in.src_v : in.src_u)
+                       + 4 * bi * stride + 4 * bj;
+  // the prediction: kind 0 vertical, 1 horizontal, 2 DC (chroma's modes
+  // are DC, H, V)
+  const int kind = luma ? mode16 : 2 - cmode;
+  const uint8_t* top = luma ? s.top + 4 * bj : s.top + 16 + 8 * p + 4 * bj;
+  const uint8_t* left = (luma ? s.left_y : p ? s.left_v : s.left_u) + 4 * bi;
+  const int dc = luma ? dc16 : chroma_dc(s, p, blk, a_top, a_left);
+  // the block's rows of source, its top row and left column, as words
+  uint32_t srow[4];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int yy = 4 * bi + (k >> 2), xx = 4 * bj + (k & 3);
-      x[k] = src[yy * 8 + xx] - predc(s, p, mode, dc, yy, xx);
+  for (int y = 0; y < 4; ++y)
+    srow[y] = *reinterpret_cast<const uint32_t*>(src + y * stride);
+  const uint32_t tw = *reinterpret_cast<const uint32_t*>(top);
+  const uint32_t lw = *reinterpret_cast<const uint32_t*>(left);
+  auto pred = [&](int k) {
+    return kind == 0 ? (int)((tw >> (8 * (k & 3))) & 0xff)
+           : kind == 1 ? (int)((lw >> (8 * (k >> 2))) & 0xff) : dc;
+  };
+  int x[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    x[k] = (int)((srow[k >> 2] >> (8 * (k & 3))) & 0xff) - pred(k);
+  fdct(x);
+  // this lane's quantiser (transform.quant4x4, dequant4x4)
+  const int q6 = q % 6, d6 = q / 6, qbits = 15 + d6;
+  const int fq = dz << (qbits - 8);
+  const int slot = luma ? lane : 16 + cb;
+  int dcv = x[0];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int i = q6 * 3 + s.pos[k];
+    const int mag = (abs(x[k]) * s.mf[i] + fq) >> qbits;
+    const int lev = x[k] > 0 ? mag : x[k] < 0 ? -mag : 0;
+    if (live) s.acl[slot * 16 + k] = k == 0 ? 0 : lev;
+    x[k] = lev * s.dv[i] * (1 << d6);
+  }
+  // the DC transforms (transform.quant_luma_dc, quant_chroma_dc and their
+  // dequantisation) a lane per coefficient: Walsh-Hadamard butterflies
+  // over the lanes' bits 0-1 (a chroma plane's 4 blocks, or a row of
+  // luma blocks) and, for luma, 2-3 (the rows). They give the natural
+  // (Walsh) order, which is transform.hadamard2x2's; hadamard4x4's row i
+  // ((1, 1, 1, 1), (1, 1, -1, -1), (1, -1, -1, 1), (1, -1, 1, -1)) is the
+  // natural row (0x1320 >> 4 i) & 15.
+  auto wht = [&](int v) {
+#pragma unroll
+    for (int bit = 1; bit < 16; bit <<= 1) {
+      const int o = __shfl_xor_sync(kFull, v, bit);
+      if (luma || bit < 4) v = (lane & bit) ? o - v : v + o;
     }
-    fdct(x);
-    s.cdccoef[lane] = x[0];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      lev[k] = quant_ac(s, x[k], qpc, s.pos[k], dz);
-      x[k] = dequant_ac(s, lev[k], qpc, s.pos[k]);
-    }
+    const int src_lane = ((0x1320 >> (4 * (lane >> 2))) & 15) * 4
+                         + ((0x1320 >> (4 * (lane & 3))) & 15);
+    const int w = __shfl_sync(kFull, v, luma ? src_lane : lane);
+    return luma ? w : v;
+  };
+  {
+    const int f = wht(dcv);
+    const int qb = (luma ? 17 : 16) + d6;
+    dcv = sgn_mag(f, (abs(f) * s.mf[q6 * 3] + (1 << (qb - 1))) >> qb);
+    if (live) s.dcl[slot] = dcv;
   }
-  __syncwarp();
-  // the chroma DC (transform.quant_chroma_dc, dequant_chroma_dc), a lane
-  // per coefficient
-  const int q6 = qpc % 6, d6 = qpc / 6;
-  if (lane < 8) {
-    const int f = hadamard2(s.cdccoef + 4 * p, blk);
-    const int qbits = 16 + d6;
-    s.cdclev[lane] = sgn_mag(f, (abs(f) * s.mf[q6 * 3] + (1 << (qbits - 1)))
-                                    >> qbits);
+  {
+    const int f = wht(dcv) * s.dv[q6 * 3];
+    x[0] = luma ? (d6 >= 2 ? f * (1 << (d6 - 2))      // dequant_luma_dc
+                           : (f + (1 << (1 - d6))) >> (2 - d6))
+                : (f * (1 << d6)) >> 1;                // dequant_chroma_dc
   }
-  __syncwarp();
-  if (lane < 8)
-    s.cdcdeq[lane] = (hadamard2(s.cdclev + 4 * p, blk) * s.dv[q6 * 3]
-                      * (1 << d6)) >> 1;
-  __syncwarp();
-  if (lane < 8) {
-    x[0] = s.cdcdeq[lane];
-    idct(x);
+  idct(x);
+  if (live) {
+    uint8_t* rec = luma ? res.rec16 + 4 * bi * 16 + 4 * bj
+                        : res.rec_c + 64 * p + 4 * bi * 8 + 4 * bj;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int yy = 4 * bi + (k >> 2), xx = 4 * bj + (k & 3);
-      s.rec_c[p * 64 + yy * 8 + xx] =
-          (uint8_t)clip3(0, 255, x[k] + predc(s, p, mode, dc, yy, xx));
-      s.cac[lane * 16 + k] = k == 0 ? 0 : lev[k];
+    for (int y = 0; y < 4; ++y) {
+      uint32_t row = 0;
+#pragma unroll
+      for (int xx = 0; xx < 4; ++xx)
+        row |= (uint32_t)clip3(0, 255, x[4 * y + xx] + pred(4 * y + xx))
+               << (8 * xx);
+      *reinterpret_cast<uint32_t*>(rec + y * stride) = row;
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// MB row r of frame f on the block's two warps (`role` 0 Intra_4x4, 1
+// Intra_16x16 and chroma). The row above's record units come from
+// `s.rec_above` (its MB m's at m * kUnits; unused on row 0), this row's go
+// to `s.rec_out` (null without a row below); either lies in global memory
+// or in the shared memory of a block of the cluster.
+__device__ __forceinline__ void wavefront_row(Smem& s, const Args& a,
+                                              int lane, int role, int r,
+                                              int f) {
+  const int nmb = a.mbw * a.mbh;
+  const int qp = clip3(0, 51, a.qp[f]), qpc = clip3(0, 51, a.qpc[f]);
+  const int lam = a.lam[f], pen = a.pen[f];
+  const bool has_inter = a.inter_cost != nullptr;
+  const long long g0 = (long long)f * nmb + (long long)r * a.mbw;
+  const bool prefetcher = role == 1 && lane == 0;
+  // MB c's inputs into slot c % 3 (by the prefetcher)
+  auto prefetch = [&](int c) {
+    Slot& d = s.slot[c % kSlots];
+    unsigned long long* bar = &s.bar[c % kSlots];
+    const long long g = g0 + c;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_expect(bar, has_inter ? 768 : 384);
+    bulk_copy(d.src_y, a.src_y + g * 256, 256, bar);
+    bulk_copy(d.src_u, a.src_u + g * 64, 64, bar);
+    bulk_copy(d.src_v, a.src_v + g * 64, 64, bar);
+    if (has_inter) {
+      bulk_copy(d.inter_y, a.rec_y_inter + g * 256, 256, bar);
+      bulk_copy(d.inter_u, a.rec_u_inter + g * 64, 64, bar);
+      bulk_copy(d.inter_v, a.rec_v_inter + g * 64, 64, bar);
+    }
+  };
+  int icost_next = kInvalid;       // the prefetcher's: MB c + 1's inter cost
+  if (prefetcher) {
+    prefetch(0);
+    if (a.mbw > 1) prefetch(1);
+    if (has_inter) {
+      s.icost[0] = a.inter_cost[g0];
+      if (a.mbw > 1) icost_next = a.inter_cost[g0 + 1];
+    }
+  }
+  // MB 0 has no left MB: zeros, read by invalid modes only
+  if (role == 0) {
+    if (lane < 16) s.can[(lane + 1) * kCanW] = 0;
+    if (lane < 4) s.em_r[lane] = 2;
+  } else {
+    if (lane < 16) s.left_y[lane] = 0;
+    else if (lane < 24) s.left_u[lane - 16] = 0;
+    else s.left_v[lane - 24] = 0;
+  }
+  // The record unit this lane polls for MB c: the Intra_4x4 warp's lanes
+  // 0-3 the top Y, 4 the top-left's last Y unit, 5 the top-right's first
+  // (at wave 3), 6 the top modes; the other warp's lanes 0-7 the top Y, U
+  // and V. Each is loaded one MB ahead, once MB c - 1's top-right record
+  // (MB c's top) has been seen: after the Intra_4x4 waves, and after the
+  // barrier for the other warp.
+  auto unit_of = [&](int c) -> const unsigned long long* {
+    const long long m = role == 0 && lane == 4 ? c - 1
+                        : role == 0 && lane == 5 ? c + 1 : c;
+    const int k = role == 1 ? lane : lane < 4 ? lane : lane == 4 ? 3
+                  : lane == 5 ? 0 : 8;
+    return smem_ptr(s.rec_above) + m * kUnits + k;
+  };
+  auto wants = [&](int c, bool at, bool al) {
+    return role == 1 ? at && lane < 8
+           : lane < 4 || lane == 6 ? at
+           : lane == 4 ? at && al
+           : lane == 5 && at && c < a.mbw - 1;
+  };
+  const bool is_tr = role == 0 && lane == 5;
+  int i = r * a.mbw;                      // the MB's index in its frame
+  bool a_top = r > 0 && a.avail_top[i], a_left = false;
+  bool want = wants(0, a_top, false);
+  unsigned long long unit = want ? ld_relaxed(unit_of(0)) : 0ull;
+  // MB c + 1's availability as loaded (tested a step later, so that the
+  // loads are not waited for)
+  int nx_top = a.mbw > 1 ? a.avail_top[i + 1] : 0;
+  int nx_left = a.mbw > 1 ? a.avail_left[i + 1] : 0;
+
+  for (int c = 0; c < a.mbw; ++c, ++i) {
+    const long long g = g0 + c;
+    const int sl = c % kSlots;
+    Slot& in = s.slot[sl];
+    Result& res = s.res[c & 1];
+    const bool a_tl = a_top && a_left, a_tr = a_top && c < a.mbw - 1;
+    // the records above but the top-right one
+    const uint32_t v = await_unit(unit, unit_of(c), want && !is_tr);
+    if (role == 0) {
+      if (lane < 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          s.can[1 + 4 * lane + k] = (v >> (8 * k)) & 0xff;
+      } else if (lane == 4) {
+        s.can[0] = v >> 24;                 // pixel 15 of its bottom row
+      } else if (lane == 6) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s.topm[k] = (v >> (8 * k)) & 0xff;
+      }
+    } else if (lane < 8) {
+      reinterpret_cast<uint32_t*>(s.top)[lane] = v;
+    }
+    // MB c + 1's flags; MB c + 2's in flight
+    const bool n_top = r > 0 && c + 1 < a.mbw && nx_top != 0;
+    const bool n_left = c + 1 < a.mbw && nx_left != 0;
+    const bool n_want = c + 1 < a.mbw && wants(c + 1, n_top, n_left);
+    if (c + 2 < a.mbw) {
+      nx_top = a.avail_top[i + 2];
+      nx_left = a.avail_left[i + 2];
+    }
+    // this MB's inputs
+    mbar_wait(&s.bar[sl], (unsigned)(c / kSlots) & 1u);
+    __syncwarp();
+    int mode16 = 0, cmode = 0;
+    if (role == 0) {
+      intra4_warp(s, res, in, lane, a_top, a_left, a_tl, a_tr, qp, lam,
+                  a.deadzone, a.i4_penalty,
+                  TopRight{&unit, unit_of(c), a_tr});
+      if (n_want) unit = ld_relaxed(unit_of(c + 1));
+    } else {
+      intra16_chroma_warp(s, res, in, lane, a_top, a_left, qp, qpc,
+                          a.deadzone, mode16, cmode);
+    }
+    bar_sync(1, kThreads);
+    if (role == 1 && n_want) unit = ld_relaxed(unit_of(c + 1));
+    // the selection over (inter, I16, I4): the first minimum wins
+    const int ci = has_inter ? s.icost[sl] : kInvalid;
+    const int c16 = res.cost16 + pen, c4 = res.cost4 + pen;
+    int sel = 0, best = ci;
+    if (c16 < best) { sel = 1; best = c16; }
+    if (c4 < best) sel = 2;
+    const uint8_t* rec_y = sel == 1 ? res.rec16 : in.inter_y;  // sel < 2
+    if (role == 0) {
+      // first the record for the row below: the bottom lines and the
+      // bottom Intra_4x4 modes
+      unsigned long long* const rec_out = smem_ptr(s.rec_out);
+      if (lane < kUnits && rec_out != nullptr) {
+        uint32_t w;
+        if (lane < 4) {
+          w = sel == 2 ? pack4(s.can + 16 * kCanW + 1 + 4 * lane)
+                       : reinterpret_cast<const uint32_t*>(rec_y)[60 + lane];
+        } else if (lane < 8) {
+          const int p = (lane - 4) >> 1, k = lane & 1;
+          w = reinterpret_cast<const uint32_t*>(
+              sel == 0 ? (p ? in.inter_v : in.inter_u)
+                       : res.rec_c + 64 * p)[14 + k];
+        } else {
+          w = sel == 2 ? pack4(s.modes + 12) : 0x02020202u;
+        }
+        st_relaxed(rec_out + c * kUnits + lane, kTag | w);
+      }
+      // then Intra_4x4's outputs
+      if (lane == 0) a.sel[g] = sel;
+      if (lane < 16) {
+        a.i4modes[g * 16 + lane] = s.modes[lane];
+        a.i4sym_v[g * 16 + lane] = s.symv[s.scan[lane]];
+        a.i4sym_l[g * 16 + lane] = s.syml[s.scan[lane]];
+      }
+      if (sel == 2) {
+        int4* out = reinterpret_cast<int4*>(a.ac_lev + g * 256);
+        out[lane] = reinterpret_cast<const int4*>(s.lev4)[lane];
+        out[lane + 32] = reinterpret_cast<const int4*>(s.lev4)[lane + 32];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int wd = lane + 32 * k;
+          reinterpret_cast<uint32_t*>(a.recon_y + g * 256)[wd] =
+              pack4(s.can + ((wd >> 2) + 1) * kCanW + 1 + (wd & 3) * 4);
+        }
+      }
+      // the next MB's left edge: the right column and modes
+      __syncwarp();
+      if (lane < 16) {
+        s.can[(lane + 1) * kCanW] = sel == 2
+            ? s.can[(lane + 1) * kCanW + 16] : rec_y[lane * 16 + 15];
+      } else if (lane < 20) {
+        s.em_r[lane - 16] = sel == 2 ? s.modes[(lane - 16) * 4 + 3] : 2;
+      }
+      __syncwarp();
+    } else {
+      if (prefetcher) {              // MB c + 2's inputs, MB c + 1's cost
+        if (c + 2 < a.mbw) prefetch(c + 2);
+        if (has_inter && c + 1 < a.mbw) {
+          s.icost[(c + 1) % kSlots] = icost_next;
+          if (c + 2 < a.mbw) icost_next = a.inter_cost[g + 2];
+        }
+      }
+      // Intra_16x16's and chroma's outputs
+      if (lane == 0) {
+        a.mode16[g] = mode16;
+        a.cmode[g] = cmode;
+      }
+      if (lane < 16) a.dc_lev[g * 16 + lane] = s.dcl[lane];
+      else if (lane < 24) a.cdc_lev[g * 8 + lane - 16] = s.dcl[lane];
+      if (sel != 2) {
+        int4* out = reinterpret_cast<int4*>(a.ac_lev + g * 256);
+        out[lane] = reinterpret_cast<const int4*>(s.acl)[lane];
+        out[lane + 32] = reinterpret_cast<const int4*>(s.acl)[lane + 32];
+      }
+      reinterpret_cast<int4*>(a.cac_lev + g * 128)[lane] =
+          reinterpret_cast<const int4*>(s.acl + 256)[lane];
+      if (lane < 16) {
+        if (sel != 2)
+          reinterpret_cast<uint4*>(a.recon_y + g * 256)[lane] =
+              reinterpret_cast<const uint4*>(rec_y)[lane];
+      } else if (lane < 24) {
+        const int p = (lane - 16) >> 2, k = lane & 3;
+        reinterpret_cast<uint4*>((p ? a.recon_v : a.recon_u) + g * 64)[k] =
+            reinterpret_cast<const uint4*>(
+                sel == 0 ? (p ? in.inter_v : in.inter_u)
+                         : res.rec_c + 64 * p)[k];
+      }
+      // the next MB's left edges
+      __syncwarp();
+      if (lane < 16) {
+        s.left_y[lane] = sel == 2 ? res.i4col[lane] : rec_y[lane * 16 + 15];
+      } else if (lane < 24) {
+        const int y = lane - 16;
+        s.left_u[y] = sel == 0 ? in.inter_u[y * 8 + 7] : res.rec_c[y * 8 + 7];
+      } else {
+        const int y = lane - 24;
+        s.left_v[y] = sel == 0 ? in.inter_v[y * 8 + 7]
+                               : res.rec_c[64 + y * 8 + 7];
+      }
+      __syncwarp();
+    }
+    a_top = n_top;
+    a_left = n_left;
+    want = n_want;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 wavefront_kernel(const Args a) {
   __shared__ Smem s;
-  __shared__ int ticket_s;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __shared__ int ticket_s, i4_warp_s;
+  // this row's record units (mbw x kUnits), read by the next block of the
+  // cluster
+  extern __shared__ unsigned long long own_rec[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31;
   for (int k = tid; k < kTables; k += kThreads) {
     const int v = a.tables[k];
     if (k < 18) s.mf[k] = v;
     else if (k < 36) s.dv[k - 18] = v;
     else if (k < 52) s.pos[k - 36] = v;
-    else s.scan[k - 52] = v;
+    else if (k < 68) s.scan[k - 52] = v;
+    else if (k < 68 + 16 * kTapModes) (&s.i4sel[0][0])[k - 68] = v;
+    else s.i4win[k - 68 - 16 * kTapModes] = v;
   }
-  if (tid == 0) ticket_s = atomicAdd(a.sync, 1);
-  __syncthreads();
-  const int ticket = ticket_s;
-  if (ticket >= a.n * a.mbh) return;
-  const int r = ticket / a.n, f = ticket % a.n;
-  const int nmb = a.mbw * a.mbh;
-  const int qp = clip3(0, 51, a.qp[f]), qpc = clip3(0, 51, a.qpc[f]);
-  const int lam = a.lam[f], pen = a.pen[f];
-  int* progress = a.sync + 1 + ticket;
-  const int* above = progress - (r > 0 ? a.n : 0);   // the row above's count
-  const bool has_inter = a.inter_cost != nullptr;
+  for (int k = tid; k < a.mbw * kUnits; k += kThreads) own_rec[k] = 0ull;
+  if (tid == 0) {
+    // warp w of an SM issues on its scheduler w % 4, and a block's two
+    // warps take slots 2k and 2k + 1: Intra_4x4 on warp (k / 2) % 2 puts
+    // the Intra_4x4 warps of consecutive blocks on schedulers 0, 2, 1, 3,
+    // not all on two of them (only the balance depends on this)
+    unsigned slot;
+    asm volatile("mov.u32 %0, %%warpid;" : "=r"(slot));
+    i4_warp_s = (slot >> 2) & 1;
+    if (rank == 0) ticket_s = atomicAdd(a.sync, 1);
+    for (int k = 0; k < kSlots; ++k) mbar_init(&s.bar[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the ticket, the zeroed record units and the mbarriers are visible to
+  // the whole cluster
+  cluster.sync();
+  // the cluster's ticket t takes rows csize * (t / n) + rank of frame t % n
+  const int ticket = *cluster.map_shared_rank(&ticket_s, 0);
+  const int r = ticket / a.n * csize + rank, f = ticket % a.n;
+  if (r < a.mbh) {
+    const long long g0 = ((long long)f * a.mbh + r) * a.mbw;
+    // the row above: the cluster's previous block's shared memory, or
+    // for a cluster's first row the global units of the last row of the
+    // cluster above (ticket t - n); the row below likewise
+    if (tid == 0) {
+      s.rec_above = rank > 0 ? cluster.map_shared_rank(own_rec, rank - 1)
+                             : a.records + (g0 - a.mbw) * kUnits;
+      s.rec_out = r + 1 == a.mbh ? nullptr
+                  : rank + 1 < csize ? own_rec : a.records + g0 * kUnits;
+    }
+    __syncthreads();
+    wavefront_row(s, a, lane, (tid >> 5) ^ i4_warp_s, r, f);
+  }
+  // the next block of the cluster may still read this one's record units
+  cluster.sync();
+}
 
-  for (int c = 0; c < a.mbw; ++c) {
-    const int i = r * a.mbw + c;
-    const long long g = (long long)f * nmb + i;
-    const bool a_top = r > 0 && a.avail_top[i];
-    const bool a_left = c > 0 && a.avail_left[i];
-    const bool a_tl = a_top && a_left, a_tr = a_top && c < a.mbw - 1;
-    // wait for the row above to finish MB min(c + 1, mbw - 1)
-    if (tid == 0 && a_top) {
-      const int need = min(c + 2, a.mbw);
-      while (ld_acquire(above) < need) {
-      }
-    }
-    __syncthreads();
-    // the source tiles: a word per thread
-    {
-      const uint32_t* src = tid < 64
-          ? reinterpret_cast<const uint32_t*>(a.src_y + g * 256) + tid
-          : tid < 80 ? reinterpret_cast<const uint32_t*>(a.src_u + g * 64)
-                           + (tid - 64)
-                     : reinterpret_cast<const uint32_t*>(a.src_v + g * 64)
-                           + (tid - 80);
-      uint32_t* dst = tid < 64 ? reinterpret_cast<uint32_t*>(s.src_y) + tid
-          : tid < 80 ? reinterpret_cast<uint32_t*>(s.src_u) + (tid - 64)
-                     : reinterpret_cast<uint32_t*>(s.src_v) + (tid - 80);
-      *dst = __ldg(src);
-    }
-    // the records above, from L2; zeros where not available
-    if (tid < 9) {
-      const uint32_t v = a_top ? __ldcg(reinterpret_cast<const uint32_t*>(
-                                     a.records + (g - a.mbw) * kRecBytes)
-                                 + tid)
-                               : 0u;
-      reinterpret_cast<uint32_t*>(s.top)[tid] = v;
-    } else if (tid == 9) {
-      const uint32_t v = a_tl ? __ldcg(reinterpret_cast<const uint32_t*>(
-                                    a.records + (g - a.mbw - 1) * kRecBytes)
-                                + 3)
-                              : 0u;
-      s.tl = (uint8_t)(v >> 24);                 // pixel 15 of its bottom row
-    } else if (tid == 10) {
-      const uint32_t v = a_tr ? __ldcg(reinterpret_cast<const uint32_t*>(
-                                    a.records + (g - a.mbw + 1) * kRecBytes))
-                              : 0u;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) s.tr[k] = (uint8_t)(v >> (8 * k));
-    }
-    if (c == 0) {          // no left MB: zeros, read by invalid modes only
-      for (int k = tid; k < 96; k += kThreads) {
-        uint32_t* fin = k < 64 ? reinterpret_cast<uint32_t*>(s.fin_y) + k
-            : k < 80 ? reinterpret_cast<uint32_t*>(s.fin_u) + (k - 64)
-                     : reinterpret_cast<uint32_t*>(s.fin_v) + (k - 80);
-        *fin = 0u;
-      }
-      if (tid < 4) s.em_r[tid] = 2;
-    }
-    __syncthreads();
-    if (warp == 0)
-      intra4_warp(s, lane, a_top, a_left, a_tl, a_tr, qp, lam, a.deadzone,
-                  a.i4_penalty);
-    else if (warp == 1)
-      intra16_warp(s, lane, a_top, a_left, qp, a.deadzone);
-    else
-      chroma_warp(s, lane, a_top, a_left, qpc, a.deadzone);
-    __syncthreads();
-    // the selection over (inter, I16, I4): the first minimum wins
-    const int ci = has_inter ? a.inter_cost[g] : kInvalid;
-    const int c16 = s.cost16 + pen, c4 = s.cost4 + pen;
-    int sel = 0, best = ci;
-    if (c16 < best) { sel = 1; best = c16; }
-    if (c4 < best) sel = 2;
-    // the reconstruction, a word per thread: Y words 0-63, U 64-79, V 80-95
-    {
-      uint32_t v;
-      if (tid < 64) {
-        if (sel == 0) {
-          v = __ldg(reinterpret_cast<const uint32_t*>(a.rec_y_inter + g * 256)
-                    + tid);
-        } else if (sel == 1) {
-          v = reinterpret_cast<const uint32_t*>(s.rec16)[tid];
-        } else {
-          const int* row = s.can + ((tid >> 2) + 1) * kCanW + 1 + (tid & 3) * 4;
-          v = (uint32_t)row[0] | ((uint32_t)row[1] << 8)
-              | ((uint32_t)row[2] << 16) | ((uint32_t)row[3] << 24);
-        }
-        reinterpret_cast<uint32_t*>(a.recon_y + g * 256)[tid] = v;
-        reinterpret_cast<uint32_t*>(s.fin_y)[tid] = v;
-      } else {
-        const int p = tid >= 80, k = tid - 64 - 16 * p;
-        if (sel == 0)
-          v = __ldg(reinterpret_cast<const uint32_t*>(
-                        (p ? a.rec_v_inter : a.rec_u_inter) + g * 64) + k);
-        else
-          v = reinterpret_cast<const uint32_t*>(s.rec_c + 64 * p)[k];
-        reinterpret_cast<uint32_t*>((p ? a.recon_v : a.recon_u) + g * 64)[k] =
-            v;
-        reinterpret_cast<uint32_t*>(p ? s.fin_v : s.fin_u)[k] = v;
-      }
-    }
-    for (int k = tid; k < 256; k += kThreads)
-      a.ac_lev[g * 256 + k] = sel == 2 ? s.lev4[k] : s.ac16[k];
-    for (int k = tid; k < 128; k += kThreads) a.cac_lev[g * 128 + k] = s.cac[k];
-    if (tid < 16) {
-      a.dc_lev[g * 16 + tid] = s.dclev[tid];
-      a.i4modes[g * 16 + tid] = s.modes[tid];
-      a.i4sym_v[g * 16 + tid] = s.symv[s.scan[tid]];
-      a.i4sym_l[g * 16 + tid] = s.syml[s.scan[tid]];
-    } else if (tid < 24) {
-      a.cdc_lev[g * 8 + tid - 16] = s.cdclev[tid - 16];
-    } else if (tid == 24) {
-      a.sel[g] = sel;
-      a.mode16[g] = s.mode16;
-      a.cmode[g] = s.cmode;
-    }
-    __syncthreads();                       // fin_* hold this MB now
-    // the record for the row below: bottom lines and bottom I4 modes; the
-    // right column and modes stay here for the next MB
-    if (tid < 9) {
-      uint32_t v;
-      if (tid < 4) {
-        v = reinterpret_cast<const uint32_t*>(s.fin_y + 240)[tid];
-      } else if (tid < 8) {
-        v = reinterpret_cast<const uint32_t*>(
-            (tid < 6 ? s.fin_u : s.fin_v) + 56)[tid & 1];
-      } else {
-        v = 0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          v |= (uint32_t)(sel == 2 ? s.modes[12 + k] : 2) << (8 * k);
-      }
-      reinterpret_cast<uint32_t*>(a.records + g * kRecBytes)[tid] = v;
-      __threadfence();
-    } else if (tid >= 32 && tid < 36) {
-      s.em_r[tid - 32] = sel == 2 ? s.modes[(tid - 32) * 4 + 3] : 2;
-    }
-    __syncthreads();
-    if (tid == 0) st_release(progress, c + 1);
-  }
+// The launch of `blocks` blocks in clusters of `cluster`, with the shared
+// memory of a row's record units at mbw MBs.
+cudaLaunchConfig_t launch_config(unsigned blocks, int cluster, int mbw,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)mbw * kUnits * sizeof(unsigned long long);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Allow the record units' shared memory at mbw MBs.
+cudaError_t allow_smem(int mbw) {
+  return cudaFuncSetAttribute(wavefront_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              mbw * kUnits * (int)sizeof(unsigned long long));
 }
 
 }  // namespace
@@ -807,9 +1049,11 @@ extern "C" int h264lab_wavefront(
     void* cdc_lev, void* cac_lev, void* recon_y, void* recon_u,
     void* recon_v, void* i4modes, void* i4sym_v, void* i4sym_l,
     void* records, void* sync, long long n, int mbw, int mbh, int deadzone,
-    int i4_penalty, void* stream) {
+    int i4_penalty, int cluster, void* stream) {
   if (n <= 0 || mbw <= 0 || mbh <= 0) return 0;
-  if (n * mbh >= (1ll << 31) || n * mbw * mbh >= (1ll << 40))
+  if (cluster < 1 || cluster > 8) return (int)cudaErrorInvalidValue;
+  const long long groups = (mbh + cluster - 1) / cluster;
+  if (n * groups * cluster >= (1ll << 31) || n * mbw * mbh >= (1ll << 40))
     return (int)cudaErrorInvalidValue;
   const Args a{(const uint8_t*)src_y, (const uint8_t*)src_u,
                (const uint8_t*)src_v, (const int32_t*)qp,
@@ -821,11 +1065,33 @@ extern "C" int h264lab_wavefront(
                (int32_t*)cmode, (int32_t*)dc_lev, (int32_t*)ac_lev,
                (int32_t*)cdc_lev, (int32_t*)cac_lev, (uint8_t*)recon_y,
                (uint8_t*)recon_u, (uint8_t*)recon_v, (int32_t*)i4modes,
-               (int32_t*)i4sym_v, (int32_t*)i4sym_l, (uint8_t*)records,
-               (int*)sync, (int)n, mbw, mbh, deadzone, i4_penalty};
-  // one block per MB row of each frame; each block draws its row from the
-  // ticket
-  wavefront_kernel<<<(unsigned)(n * mbh), kThreads, 0,
-                     (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+               (int32_t*)i4sym_v, (int32_t*)i4sym_l,
+               (unsigned long long*)records, (int*)sync, (int)n, mbw, mbh,
+               deadzone, i4_penalty};
+  cudaError_t e = allow_smem(mbw);
+  if (e != cudaSuccess) return (int)e;
+  // a cluster of `cluster` blocks per `cluster` MB rows of each frame
+  // (rows past mbh idle); each cluster draws its rows from the ticket
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(
+      (unsigned)(n * groups * cluster), cluster, mbw, (cudaStream_t)stream,
+      &attr);
+  e = cudaLaunchKernelEx(&cfg, wavefront_kernel, a);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// K3's resident blocks per SM and clusters on the card at mbw MBs a row
+// (out[0], out[1]).
+extern "C" int h264lab_wavefront_occupancy(int mbw, int cluster, int* out) {
+  cudaError_t e = allow_smem(mbw);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], wavefront_kernel, kThreads,
+        (size_t)mbw * kUnits * sizeof(unsigned long long));
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config((unsigned)cluster, cluster, mbw, nullptr, &attr);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&out[1], wavefront_kernel, &cfg);
+  return (int)e;
 }

@@ -23,7 +23,14 @@ from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 
 _SRC = cuda_build.CSRC / "wavefront.cu"
 _lib_handle = None
-REC_BYTES = 48                  # K3's record of an MB for the row below
+# K3's record of an MB for the row below: 9 units of 8 bytes, each 4
+# bytes of it (Y bottom row 0-3, U 4-5, V 6-7, the bottom Intra_4x4 modes
+# 8) and a tag that shows it written
+REC_UNITS = 9
+# the MB rows of a thread-block cluster that K3 may take, largest first:
+# the rows of a cluster hand their records over in shared memory, a
+# cluster's first row reads the row above from global memory
+CLUSTERS = (8, 4, 2)
 # the outputs, in the plain version's order: name, dtype, trailing shape
 OUTPUTS = (("sel", torch.int32, ()), ("mode16", torch.int32, ()),
            ("cmode", torch.int32, ()), ("dc_lev", torch.int32, (4, 4)),
@@ -39,25 +46,141 @@ TILES = ("src_y", "src_u", "src_v", "recon_y_inter", "recon_u_inter",
          "recon_v_inter")
 
 
+# the Intra_4x4 modes whose prediction is four taps of the neighbours (all
+# but DC), in K3's order
+TAP_MODES = (0, 1, 3, 4, 5, 6, 7, 8)
+
+
+def i4_taps(mode: int, py: int, px: int) -> tuple:
+    """The four taps of Intra_4x4 `mode` (not DC) at pixel (py, px): indices
+    into a block's neighbours U = [l3, l2, l1, l0, tl, t0..t7] (the layout
+    of `intra4.predict4`'s `v` extended by the top-right) such that the
+    prediction is (U[a] + U[b] + U[c] + U[d] + 2) >> 2. A three-tap filter
+    (a + 2 b + c + 2) >> 2 is (a, b, b, c), a two-tap mean (b + c + 1) >> 1
+    is (b, b, c, c), a copy of U[a] is (a, a, a, a)."""
+    def cl(i):
+        return min(max(i, 0), 8)
+
+    def tap3(a, b, c):
+        return (a, b, b, c)
+
+    def avg2(b, c):
+        return (b, b, c, c)
+
+    if mode == 0:                                       # V
+        return (5 + px,) * 4
+    if mode == 1:                                       # H
+        return (3 - py,) * 4
+    if mode == 3:                                       # DDL
+        if px == 3 and py == 3:
+            return (11, 12, 12, 12)
+        i = min(px + py, 6)
+        return tap3(i + 5, min(i + 1, 7) + 5, min(i + 2, 7) + 5)
+    if mode == 4:                                       # DDR
+        i = px - py + 4
+        return tap3(i - 1, i, i + 1)
+    if mode in (5, 6):                      # VR; HD is VR mirrored
+        x, y = (px, py) if mode == 5 else (py, px)
+        z = 2 * x - y
+        if z < 0:
+            t = tap3(cl(4 + z), cl(5 + z), cl(6 + z))
+        else:
+            i = x - (y >> 1) + 5
+            a, b, c = cl(i - 2), cl(i - 1), cl(i)
+            t = tap3(a, b, c) if z & 1 else avg2(b, c)
+        return t if mode == 5 else tuple(8 - i for i in t)
+    if mode == 7:                                       # VL
+        i = px + (py >> 1)
+        a, b, c = (min(i + k, 7) + 5 for k in range(3))
+        return tap3(a, b, c) if py & 1 else avg2(a, b)
+    if mode == 8:                                       # HU
+        i, z = py + (px >> 1), px + 2 * py
+        a, b, c = (3 - min(i + k, 3) for k in range(3))
+        if z > 5:
+            return (0,) * 4
+        if z == 5:
+            return (1, 0, 0, 0)
+        return tap3(a, b, c) if z & 1 else avg2(a, b)
+    raise ValueError(f"i4_taps: mode {mode} has no taps")
+
+
+def i4_tap_tables() -> np.ndarray:
+    """K3's Intra_4x4 tap tables: for each pixel (raster in the 4x4 block)
+    and each of TAP_MODES, a byte-permute selector of its four taps within
+    a window of 8 neighbours, U[0..7] or U[5..12] (taps span at most three
+    neighbours, so one of the two holds them), then per pixel the windows,
+    a bit per mode (set: U[5..12]). (16 x 8 + 16,) uint32 as int32 bits."""
+    sel = np.zeros((16, len(TAP_MODES)), np.uint32)
+    win = np.zeros(16, np.uint32)
+    for pix in range(16):
+        for k, mode in enumerate(TAP_MODES):
+            t = i4_taps(mode, pix >> 2, pix & 3)
+            w = int(max(t) > 7)
+            assert min(t) >= 5 * w and max(t) <= 5 * w + 7, (mode, pix, t)
+            sel[pix, k] = sum((i - 5 * w) << (4 * j) for j, i in enumerate(t))
+            win[pix] |= w << k
+    return np.concatenate([sel.ravel(), win]).view(np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def device_tables(device: torch.device) -> torch.Tensor:
     """QUANT_MF, DEQUANT_V, POS_CLASS and BLOCK_SCAN_4x4 of ops/tables.py
-    as one int32 array on `device`, in the order K3 reads them."""
+    and `i4_tap_tables` as one int32 array on `device`, in the order K3
+    reads them."""
     return torch.as_tensor(np.concatenate([
         tables.QUANT_MF.ravel(), tables.DEQUANT_V.ravel(), tables.POS_CLASS,
-        tables.BLOCK_SCAN_4x4]).astype(np.int32), device=device)
+        tables.BLOCK_SCAN_4x4, i4_tap_tables()]).astype(np.int32),
+        device=device)
+
+
+def load(path) -> ctypes.CDLL:
+    """A built K3 library with its entry point's C signature set."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.h264lab_wavefront.argtypes = [vp] * 29 + [
+        ctypes.c_longlong, ci, ci, ci, ci, ci, vp]
+    lib.h264lab_wavefront.restype = ci
+    lib.h264lab_wavefront_occupancy.argtypes = [ci, ci, vp]
+    lib.h264lab_wavefront_occupancy.restype = ci
+    return lib
 
 
 def _lib():
     global _lib_handle
     if _lib_handle is None:
-        lib = ctypes.CDLL(str(cuda_build.build(_SRC)[0]))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.h264lab_wavefront.argtypes = [vp] * 29 + [
-            ctypes.c_longlong, ci, ci, ci, ci, vp]
-        lib.h264lab_wavefront.restype = ci
-        _lib_handle = lib
+        _lib_handle = load(cuda_build.build(_SRC)[0])
     return _lib_handle
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(device: int, mb_width: int, cluster: int) -> tuple[int, int]:
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        cuda_build.check(_lib().h264lab_wavefront_occupancy(
+            mb_width, cluster, out), "wavefront occupancy")
+    return out[0], out[1]
+
+
+def occupancy(mb_width: int, cluster: int) -> tuple[int, int]:
+    """K3's resident blocks (MB rows) per SM and resident clusters of
+    `cluster` rows on the current card at `mb_width` MBs a row
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` and
+    `cudaOccupancyMaxActiveClusters` at its block size and shared
+    memory)."""
+    return _occupancy(torch.cuda.current_device(), mb_width, cluster)
+
+
+def cluster_rows(n: int, mb_width: int, mb_height: int) -> int:
+    """The MB rows per cluster of K3's launch on n frames of mb_width x
+    mb_height MBs on the current card: the largest of CLUSTERS whose
+    clusters are all resident at once, so that no row waits for a place
+    and the most rows hand their records over in shared memory; else the
+    smallest, so that a finished row holds its place only until the one
+    other row of its cluster has finished."""
+    for c in CLUSTERS:
+        if n * -(-mb_height // c) <= occupancy(mb_width, c)[1]:
+            return c
+    return CLUSTERS[-1]
 
 
 def k3_inputs(n: int, nmb: int, inter: bool):
@@ -133,17 +256,18 @@ def wavefront_tiles(src_y, src_u, src_v, qp, qpc, lam, pen, avail_top,
                for name, dtype, shape in OUTPUTS}
         if n == 0 or nmb == 0:
             return out
-        # zeroed for the launch: the ticket, then a progress count per row
-        sync = torch.zeros(1 + n * mb_height, dtype=torch.int32, device=dev)
-        records = torch.empty(n * nmb * REC_BYTES, dtype=torch.uint8,
-                              device=dev)
+        # zeroed for the launch, in one fill: the ticket (16 bytes), then
+        # the record units
+        sync = torch.zeros(2 + n * nmb * REC_UNITS, dtype=torch.int64,
+                           device=dev)
         ptr = [x.data_ptr() for x in args[:9]] + (
             [x.data_ptr() for x in inter] if has_inter else [None] * 4)
         cuda_build.check(_lib().h264lab_wavefront(
             *ptr, device_tables(dev).data_ptr(),
             *(out[name].data_ptr() for name, _, _ in OUTPUTS),
-            records.data_ptr(), sync.data_ptr(), n, mb_width, mb_height,
+            sync.data_ptr() + 16, sync.data_ptr(), n, mb_width, mb_height,
             deadzone_q8, i4_penalty_bits,
+            cluster_rows(n, mb_width, mb_height),
             torch.cuda.current_stream(dev).cuda_stream), "wavefront")
         LAUNCH_COUNTS["wavefront"] += 1
     return out

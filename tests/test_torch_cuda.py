@@ -52,8 +52,10 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   noise MBs) at the paths' shapes: 16 frames of 1080p (16, 8160), one
   frame with an inter candidate (1, 8160), an SVC base layer (1, 2040), a
   mesh band (1, 4080) with an inter candidate, 4 x 3 MBs at QPs 0 to 51,
-  one MB high (6 x 1) and one MB wide (1 x 6); each input launched 20
-  times, with equal outputs, one launch per call. The encode paths reach
+  one MB high (6 x 1) and one MB wide (1 x 6), and the edges of K3's
+  schedule: 7, 8, 9 and 17 MB rows, 1 and 2 MBs wide over 9 rows, 16
+  frames of 4 x 9 MBs; each input launched 20 times, with equal outputs,
+  one launch per call. The encode paths reach
   it: with `_select_wavefront_plain` refused, a GOP IDR step and a
   speed-0 P frame encode, launching K3, to the CPU's bytes. K3 refuses
   CPU tensors, other dtypes and shapes, non-contiguous and misaligned
@@ -533,6 +535,13 @@ K3_CASES = [
     (38, 3, 4, 3, 51, False),
     (39, 2, 6, 1, 28, True),               # one MB high
     (40, 2, 1, 6, 33, True),               # one MB wide
+    (42, 2, 4, 7, 30, True),               # the schedule's edges: rows,
+    (43, 2, 4, 8, 33, False),              # narrow frames, many frames
+    (44, 2, 5, 9, 20, True),
+    (45, 1, 6, 17, 40, False),
+    (46, 3, 1, 9, 28, True),
+    (47, 3, 2, 9, 12, False),
+    (48, 16, 4, 9, 33, True),
 ]
 K3_REPEATS = 20
 
