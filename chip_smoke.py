@@ -19,9 +19,10 @@ Phases (any failure exits non-zero; nothing is caught):
      per-stage times; one more forced KEY step without synchronization
      inside it, timed as t_IDR. From these a GOP-20 frames/s, derived as
      16 * 20 / (t_IDR + 19 * t_P). The RBSPs that the two stage steps
-     escape are kept for phase 6, their deblocking and wavefront inputs
-     for phase 4; the main path must have launched K1 and K2 on every
-     step and K3 once on each of its three IDR steps;
+     escape and the bit writers they pack are kept for phase 6, their
+     deblocking and wavefront inputs for phase 4; the main path must have
+     launched K1 and K2 on every step and K3 once on each of its three IDR
+     steps;
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
@@ -41,7 +42,12 @@ Phases (any failure exits non-zero; nothing is caught):
   6. NAL escaping on the RBSPs of phase 3's stage steps (16 lanes): the
      per-byte loop the port used until the numpy escape replaced it,
      against `nal.escape_rbsp`, in turns (loop, numpy, numpy, loop): equal
-     bytes, and each one's ms beside the steps' `host` stage ms;
+     bytes, and each one's ms beside the steps' `host` stage ms; then RBSP
+     packing on the bit writers of those steps (each slice's header, K1's
+     words as a word run, the tail and the trailing bits; the IDR's SPS
+     and PPS): the per-bit packer the port used until the word-level one
+     replaced it (`pack_per_bit`) against `BitWriter.to_bytes`, in turns
+     (per-bit, words, words, per-bit): equal bytes, and each one's ms;
   7. the sequential path, the CLI's default: H264Encoder at 1920x1088,
      chessboard, QP 33, GOP 20, encode_speed 0 (partitions, Intra_4x4 in
      P through the wavefront with the inter candidate): an IDR (untimed,
@@ -415,28 +421,66 @@ def escape_loop(rbsp: bytes) -> bytes:
     return bytes(result)
 
 
+def pack_per_bit(bw) -> bytes:
+    """`BitWriter.to_bytes` before the word-level packer: every field as a
+    (value, nbits) symbol, K1's words split into 32-bit symbols, expanded
+    to one byte per bit (`to_bits`) and packed by `np.packbits` (kept to
+    time against it)."""
+    import numpy as np
+
+    return np.packbits(bw.to_bits()).tobytes()
+
+
+def in_turns(fns, items, what):
+    """Two host functions of one result over `items`: their outputs must
+    be equal; then each one's seconds over all items, in turns (a, b, b,
+    a). Returns (the outputs, {name: [s, s]})."""
+    (a, _), (b, _) = fns.items()
+    outs = {k: [f(x) for x in items] for k, f in fns.items()}
+    _require(outs[a] == outs[b], f"{what} differ between {a} and {b}")
+    times = {a: [], b: []}
+    for k in (a, b, b, a):
+        t0 = time.perf_counter()
+        for x in items:
+            fns[k](x)
+        times[k].append(time.perf_counter() - t0)
+    return outs[a], times
+
+
 def escape_turns(rbsps, what, label):
     """Phase 6 on one step's RBSPs: the loop and `nal.escape_rbsp` must
     give equal bytes; each one's seconds over all RBSPs, in turns (loop,
     numpy, numpy, loop). Returns dict(loop=[s, s], numpy=[s, s])."""
     from h264lab_tpu_torch.bitstream import nal
 
-    fns = dict(loop=escape_loop, numpy=nal.escape_rbsp)
-    outs = {k: [f(r) for r in rbsps] for k, f in fns.items()}
-    _require(outs["loop"] == outs["numpy"], f"escaped bytes differ ({what})")
-    times = dict(loop=[], numpy=[])
-    for k in ("loop", "numpy", "numpy", "loop"):
-        t0 = time.perf_counter()
-        for r in rbsps:
-            fns[k](r)
-        times[k].append(time.perf_counter() - t0)
+    escaped, times = in_turns(dict(loop=escape_loop, numpy=nal.escape_rbsp),
+                              rbsps, f"escaped bytes ({what})")
     n_bytes = sum(len(r) for r in rbsps)
-    grown = sum(len(o) for o in outs["numpy"]) - n_bytes
+    grown = sum(len(o) for o in escaped) - n_bytes
     print(f"escape on the {what} step's {len(rbsps)} RBSPs ({n_bytes} B, "
           f"{grown} bytes 0x03 inserted) {label}: loop "
           + ", ".join(f"{1e3 * s:.1f}" for s in times["loop"])
           + " ms; numpy " + ", ".join(f"{1e3 * s:.2f}" for s in times["numpy"])
           + " ms (in turns loop, numpy, numpy, loop)")
+    return times
+
+
+def pack_turns(writers, what, label):
+    """Phase 6 on one step's bit writers (each slice's header, K1's words
+    as a word run, the tail and the trailing bits): the per-bit packer and
+    `BitWriter.to_bytes` must give equal bytes; each one's seconds over all
+    writers, in turns (per-bit, words, words, per-bit)."""
+    from h264lab_tpu_torch.bitstream.bitwriter import BitWriter
+
+    packed, times = in_turns({"per-bit": pack_per_bit,
+                              "words": BitWriter.to_bytes}, writers,
+                             f"packed bytes ({what})")
+    print(f"RBSP packing of the {what} step's {len(writers)} bit writers "
+          f"({sum(len(b) for b in packed)} B) {label}: per-bit "
+          + ", ".join(f"{1e3 * s:.1f}" for s in times["per-bit"])
+          + " ms; word-level " + ", ".join(f"{1e3 * s:.2f}"
+                                           for s in times["words"])
+          + " ms (in turns per-bit, words, words, per-bit)")
     return times
 
 
@@ -852,6 +896,7 @@ def main() -> int:
         return 2
     from h264lab_tpu_torch import cli
     from h264lab_tpu_torch.bitstream import nal
+    from h264lab_tpu_torch.bitstream.bitwriter import BitWriter
     from h264lab_tpu_torch.config import EncoderConfig, FrameType
     from h264lab_tpu_torch.decoder.decoder import H264Decoder
     from h264lab_tpu_torch.entry import entry
@@ -924,21 +969,24 @@ def main() -> int:
     print(f"timed P steps {label}: " + ", ".join(f"{s:.3f} s" for s in step_s)
           + f"; {LANES / t_p:.3f} P frames/s ({LANES} lanes x "
           f"{TIMED_STEPS} steps)")
-    rbsps, host_ms, db_args = {}, {}, {}
+    rbsps, writers, host_ms, db_args = {}, {}, {}, {}
 
     def stage_step(t, kind, r=run):
-        """A step with per-stage times that keeps the RBSPs it escapes and
-        its deblocking inputs."""
-        escape = nal.escape_rbsp
-        rbsps[kind], calls = [], []
+        """A step with per-stage times that keeps the RBSPs it escapes, the
+        bit writers it packs and its deblocking inputs."""
+        escape, to_bytes = nal.escape_rbsp, BitWriter.to_bytes
+        rbsps[kind], writers[kind], calls = [], [], []
         nal.escape_rbsp = lambda rbsp: rbsps[kind].append(rbsp) or escape(
             rbsp)
+        BitWriter.to_bytes = lambda bw: writers[kind].append(bw) or to_bytes(
+            bw)
         enc.stage_times = {}
         try:
             with recorded_calls("deblock_frame", calls):
                 pending, res, s = step(t, kind, r)
         finally:
             nal.escape_rbsp = escape
+            BitWriter.to_bytes = to_bytes
         _require(len(calls) == 1, f"{len(calls)} deblocking calls in a step")
         db_args[kind] = calls[0]
         stage_table(kind, s, res)
@@ -1035,12 +1083,14 @@ def main() -> int:
                            [r[0].recon for r in (first, second)])
     del first, second
 
-    # 6. NAL escaping: the per-byte loop against the numpy escape
+    # 6. NAL escaping: the per-byte loop against the numpy escape; RBSP
+    # packing: the per-bit packer against the word-level one
     for kind in ("P", "IDR"):
         escape_turns(rbsps[kind], f"{LANES}-lane {kind}", label)
+        pack_turns(writers[kind], f"{LANES}-lane {kind}", label)
         print(f"  the {kind} step's host stage {label}: {host_ms[kind]:.1f}"
               " ms")
-    del rbsps
+    del rbsps, writers
 
     # 7. the sequential path: H264Encoder, 1080p, speed 0
     del enc

@@ -26,7 +26,7 @@ from h264lab_tpu_torch.bitstream.nal import annexb_nal
 from h264lab_tpu_torch.config import EncoderConfig, FrameType, RunConfig
 from h264lab_tpu_torch.models import wavefront
 from h264lab_tpu_torch.models.stages import FrameStages, Toolset
-from h264lab_tpu_torch.ops import bitpack, denoise
+from h264lab_tpu_torch.ops import denoise
 from h264lab_tpu_torch.rc.ratecontrol import RateControl, filler_nal
 from h264lab_tpu_torch.utils.device import resolve_device
 
@@ -375,12 +375,12 @@ class H264Encoder:
         cfg = self.config
         run = pending.run
         out = pending.out
-        words = out["words"].cpu().numpy()
+        # only the words that hold bits
+        words = out["words"][:, :(int(out["mb_bits"].max()) + 31) // 32]
+        words = words.cpu().numpy()
         nals = []
         for b, (bw, shp) in enumerate(pending.band_hdrs):
-            mb_bits = int(out["mb_bits"][b])
-            bw.append_bits_bytes(bitpack.words_to_bytes(words[b], mb_bits),
-                                 mb_bits)
+            bw.append_words(words[b], int(out["mb_bits"][b]))
             if out["tail_len"][b]:
                 bw.u(int(out["tail_len"][b]),
                      int(out["tail_val"][b]) & 0xFFFFFFFF)

@@ -381,8 +381,9 @@ class SvcEncoder:
             state = refstate.prepare_reference(*df, cfg.mb_width,
                                                cfg.mb_height)
         with st.stage("host"):
-            enh_out = self._ilp_slice(words[0].cpu().numpy(), total_bits,
-                                      qp, is_idr)
+            enh_out = self._ilp_slice(
+                words[0, :(total_bits + 31) // 32].cpu().numpy(), total_bits,
+                qp, is_idr)
             # the enhancement stream state, as H264Encoder keeps it
             n_lt = cfg.max_long_term_reference_frames
             if is_idr:
@@ -432,8 +433,7 @@ class SvcEncoder:
             svc_ilp=True)
         bw = BitWriter(capacity=1 << 16)
         headers.write_slice_header_rbsp(bw, shp)
-        bw.append_bits_bytes(bitpack.words_to_bytes(words, total_bits),
-                             total_bits)
+        bw.append_words(words, total_bits)
         bw.rbsp_trailing_bits()
         ext = BitWriter()
         _scalable_ext_header(ext, is_idr, True)

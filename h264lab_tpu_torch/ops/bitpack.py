@@ -194,11 +194,10 @@ def pack_frames(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
 
 def words_to_bytes(words: np.ndarray, total_bits: int) -> bytes:
     """Packed words (int32 or uint32 bit patterns) -> MSB-first bytes."""
-    w = np.asarray(words)
+    w = np.asarray(words)[..., :(int(total_bits) + 31) // 32]
     if w.dtype == np.int32:
         w = w.view(np.uint32)
-    nbytes = (int(total_bits) + 7) // 8
-    return w.astype(">u4").tobytes()[:nbytes]
+    return w.astype(">u4").tobytes()[:(int(total_bits) + 7) // 8]
 
 
 def bucket_words(total_bits: int) -> int:

@@ -421,11 +421,14 @@ class GopBandEncoder:
         with self.timer.stage("host"):
             return self._finish_step(p)
 
-    def _host(self, p: _PendingStep, key: str) -> np.ndarray:
+    def _host(self, p: _PendingStep, key: str,
+              n: int | None = None) -> np.ndarray:
         """Every shard's (Gl, Bl, ...) `key` on the host, joined into the
-        (G, B, ...) array of the lanes and bands."""
+        (G, B, ...) array of the lanes and bands; with `n`, only the first
+        n entries of the last axis are copied."""
         n_band = self._mesh_shape[1]
-        parts = [o[key].cpu().numpy() for o in p.outs]
+        parts = [(o[key] if n is None else o[key][..., :n]).cpu().numpy()
+                 for o in p.outs]
         return np.concatenate([np.concatenate(parts[k:k + n_band], axis=1)
                                for k in range(0, len(parts), n_band)])
 
@@ -448,7 +451,8 @@ class GopBandEncoder:
                 o["words"], o["nbits"] = bitpack.pack_frames(
                     o["sym_vals"], o["sym_lens"], self.p_cap_words)
             nbits = self._host(p, "nbits")
-        words = self._host(p, "words")                # (G, B, cap + 256)
+        # only the words that hold bits: (G, B, ceil(max nbits / 32))
+        words = self._host(p, "words", (int(nbits.max(initial=0)) + 31) // 32)
         tails_v = self._host(p, "tail_val")
         tails_l = self._host(p, "tail_len")
         deblock_idc = 2 if B > 1 else 0
@@ -524,7 +528,7 @@ class GopBandEncoder:
             lt_slot_in_use=p.hdr_lt_in_use,
             max_long_term_frames=cfg.max_long_term_reference_frames)
         headers.write_slice_header_rbsp(bw, shp)
-        bw.append_bits_bytes(bitpack.words_to_bytes(words, mb_bits), mb_bits)
+        bw.append_words(words, mb_bits)
         if tail_len:
             bw.u(tail_len, tail_val & 0xFFFFFFFF)
         bw.rbsp_trailing_bits()

@@ -235,7 +235,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ops/denoise.py", "ops/wavefront.py", "models/stages.py",
                  "models/encoder.py",
                  "models/svc.py", "ops/resample.py", "entry.py",
-                 "bitstream/nal.py", "decoder/__init__.py",
+                 "bitstream/nal.py", "bitstream/bitwriter.py",
+                 "ops/bitpack.py", "decoder/__init__.py",
                  "decoder/bitreader.py", "decoder/intra_pred.py",
                  "decoder/interpolate.py", "decoder/cavlc_dec.py",
                  "decoder/deblock_dec.py", "decoder/decoder.py"):

@@ -2,7 +2,7 @@
 the CUDA card.
 
     python tools/torch_trace_step.py [--k1-baseline SRC] [--k2-baseline SRC]
-                                     [--sequential] [--escape]
+                                     [--sequential] [--escape] [--pack]
 
 It runs `chip_smoke.py`'s main path (1920x1088 chessboard, IPPP with GOP
 20, QP 33, encode_speed 2, the same frame schedule): each measurement
@@ -55,9 +55,15 @@ with the inter candidate, is one K3 launch and a few operations).
 
 With `--escape` it measures only what NAL escaping costs the GOP steps'
 `host` stage (16 lanes): after the untimed IDR and P steps, four P steps
-and then four forced IDR steps with per-stage times, escaping with
-`chip_smoke.escape_loop` (the port's earlier per-byte loop) and with
-`nal.escape_rbsp` (numpy) in turns (loop, numpy, numpy, loop).
+and then four forced IDR steps with per-stage times (their `host` stage
+and step ms), escaping with `chip_smoke.escape_loop` (the port's earlier
+per-byte loop) and with `nal.escape_rbsp` (numpy) in turns (loop, numpy,
+numpy, loop). With `--pack` it does the same with the RBSP packer:
+`chip_smoke.pack_per_bit` (the port's earlier per-bit packer) and
+`BitWriter.to_bytes` (word-level) in turns (per-bit, words, words,
+per-bit); then it times the host copy of one more IDR step's K1 words,
+the whole capacity buffer against the used words that `finish_step`
+copies.
 
 Needs a CUDA device; every line names the card and its power limit.
 """
@@ -252,34 +258,78 @@ def sequential_counts():
                                 lambda: enc.encode(*frames[2], run))
 
 
-def escape_turns():
-    """The 16-lane GOP steps' `host` stage ms with each escape, in turns
-    (module docstring): {"P"|"IDR": {"loop": [ms, ms], "numpy": [...]}}."""
-    from h264lab_tpu_torch.bitstream import nal
+def _host_turns(fns, install):
+    """The 16-lane GOP steps with two host variants in turns (a, b, b, a):
+    after the untimed IDR and P steps, four P steps and then four forced
+    IDR steps with per-stage times, `install(fns[name])` before each.
+    Returns ({"P"|"IDR": {name: {"host": [ms, ms], "step": [ms, ms]}}},
+    the encoder, the run of the IDR steps and the frames)."""
     from h264lab_tpu_torch.config import FrameType
 
     cfg, run, frames = chip_smoke.main_path_setup()
     enc = GopBandEncoder(cfg, n_gop=chip_smoke.LANES)
     for t in range(2):
         enc.encode_step(chip_smoke.lane_frames(frames, t), run)
-    fns = dict(loop=chip_smoke.escape_loop, numpy=nal.escape_rbsp)
+    (a, _), (b, _) = fns.items()
     key = dataclasses.replace(run, frame_type=FrameType.KEY)
     out = {}
     try:
         for kind, r in (("P", run), ("IDR", key)):
-            out[kind] = dict(loop=[], numpy=[])
-            for i, name in enumerate(("loop", "numpy", "numpy", "loop")):
-                nal.escape_rbsp = fns[name]
+            out[kind] = {n: dict(host=[], step=[]) for n in fns}
+            for i, name in enumerate((a, b, b, a)):
+                install(fns[name])
                 enc.stage_times = {}
+                t0 = time.perf_counter()
                 res = enc.encode_step(chip_smoke.lane_frames(frames, 2 + i),
                                       r)
+                out[kind][name]["step"].append(
+                    1e3 * (time.perf_counter() - t0))
                 chip_smoke._require(res[0].frame_type == kind,
                                     f"{kind} step is {res[0].frame_type}")
-                out[kind][name].append(1e3 * enc.stage_times["host"])
+                out[kind][name]["host"].append(
+                    1e3 * enc.stage_times["host"])
     finally:
-        nal.escape_rbsp = fns["numpy"]
+        install(fns[b])
         enc.stage_times = None
-    return out
+    return out, enc, key, frames
+
+
+def escape_turns():
+    """The GOP steps' `host` stage with the per-byte loop and the numpy
+    NAL escape in turns (module docstring)."""
+    from h264lab_tpu_torch.bitstream import nal
+
+    def install(fn):
+        nal.escape_rbsp = fn
+
+    return _host_turns(dict(loop=chip_smoke.escape_loop,
+                            numpy=nal.escape_rbsp), install)[0]
+
+
+def pack_turns():
+    """The GOP steps' `host` stage with the per-bit and the word-level RBSP
+    packer in turns, then the host copy of one IDR step's K1 words, the
+    whole capacity buffer against the used words (module docstring)."""
+    from h264lab_tpu_torch.bitstream.bitwriter import BitWriter
+
+    def install(fn):
+        BitWriter.to_bytes = fn
+
+    host, enc, key, frames = _host_turns(
+        {"per-bit": chip_smoke.pack_per_bit, "words": BitWriter.to_bytes},
+        install)
+    p = enc.encode_step_async(chip_smoke.lane_frames(frames, 6), key)
+    words, nbits = p.outs[0]["words"], p.outs[0]["nbits"]
+    n_used = (int(nbits.max()) + 31) // 32
+    copy = {}
+    for name, w in (("whole", words), ("used", words[..., :n_used])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w.cpu()
+        copy[name] = dict(ms=1e3 * (time.perf_counter() - t0),
+                          mib=w.numel() * 4 / 2**20)
+    enc.finish_step(p)
+    return host, copy
 
 
 def _baseline_k1(src, vals, lens, cap):
@@ -473,6 +523,9 @@ def main() -> int:
     ap.add_argument("--escape", action="store_true",
                     help="time the GOP steps' host stage with the per-byte "
                          "and the numpy NAL escape instead")
+    ap.add_argument("--pack", action="store_true",
+                    help="time the GOP steps' host stage with the per-bit "
+                         "and the word-level RBSP packer instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_trace_step: no CUDA device", file=sys.stderr)
@@ -481,14 +534,24 @@ def main() -> int:
     print(card)
     size = f"{chip_smoke.WIDTH}x{chip_smoke.HEIGHT}"
     result = {"card": card, "frame": size}
-    if args.escape:
-        host = escape_turns()
+    if args.escape or args.pack:
+        if args.escape:
+            host = escape_turns()
+        else:
+            host, copy = pack_turns()
+            for name, c in copy.items():
+                print(f"{size} {chip_smoke.LANES}-lane IDR step's K1 words "
+                      f"to the host, {name} ({c['mib']:.1f} MiB) [{card}]: "
+                      f"{c['ms']:.1f} ms")
+            result["words_copy"] = copy
         for kind, r in host.items():
-            print(f"{size} {chip_smoke.LANES}-lane {kind} step host stage "
-                  f"[{card}], in turns loop, numpy, numpy, loop: "
-                  f"{r['loop'][0]:.1f}, {r['numpy'][0]:.1f}, "
-                  f"{r['numpy'][1]:.1f}, {r['loop'][1]:.1f} ms")
-        result["host_stage_ms"] = host
+            (a, ra), (b, rb) = r.items()
+            for what in ("host", "step"):
+                print(f"{size} {chip_smoke.LANES}-lane {kind} step, {what} "
+                      f"ms (stage syncs inside) [{card}], in turns {a}, {b},"
+                      f" {b}, {a}: {ra[what][0]:.1f}, {rb[what][0]:.1f}, "
+                      f"{rb[what][1]:.1f}, {ra[what][1]:.1f}")
+        result["host_turns_ms"] = host
         print(json.dumps(result))
         return 0
     if args.sequential:
