@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
   2. build the bit-pack kernel K1 (h264lab_tpu_torch/csrc/bitpack.cu),
-     the deblocking kernel K2 (csrc/deblock.cu) and the wavefront kernel
-     K3 (csrc/wavefront.cu), one nvcc each, started together, and print
-     what ptxas reports (registers, shared memory, spills);
+     the deblocking kernel K2 (csrc/deblock.cu), the wavefront kernel K3
+     (csrc/wavefront.cu) and the motion search kernels K4 and K5
+     (csrc/me.cu), one nvcc each, started together, and print what ptxas
+     reports (registers, shared memory, spills);
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
      encode_speed 2, lane g walking consecutive frames g, g+1, ...:
@@ -20,9 +21,10 @@ Phases (any failure exits non-zero; nothing is caught):
      inside it, timed as t_IDR. From these a GOP-20 frames/s, derived as
      16 * 20 / (t_IDR + 19 * t_P). The RBSPs that the two stage steps
      escape and the bit writers they pack are kept for phase 6, their
-     deblocking and wavefront inputs for phase 4; the main path must have
-     launched K1 and K2 on every step and K3 once on each of its three IDR
-     steps;
+     deblocking and wavefront inputs for phase 4, its motion search
+     inputs for phase 18; the main path must have launched K1 and K2 on
+     every step, K3 once on each of its three IDR steps and K4 once on
+     each of its five P steps (no K5 at speed 2);
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
@@ -35,7 +37,7 @@ Phases (any failure exits non-zero; nothing is caught):
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1; then
      decode lane 0's stream of those two steps with the port's decoder
-     (numpy, on the host) in a worker process, beside phases 6 to 17:
+     (numpy, on the host) in a worker process, beside phases 6 to 18:
      both frames must equal the card's reconstruction; before the results
      the script waits for it and prints the decode seconds per 1080p
      frame (a host time, taken while the other phases run);
@@ -52,8 +54,10 @@ Phases (any failure exits non-zero; nothing is caught):
      chessboard, QP 33, GOP 20, encode_speed 0 (partitions, Intra_4x4 in
      P through the wavefront with the inter candidate): an IDR (untimed,
      first use), one P frame timed without synchronization inside it
-     (seconds per frame, frames/s) and one P frame with per-stage times;
-     the path must have launched K1, K2 and K3 on every frame;
+     (seconds per frame, frames/s) and one P frame with per-stage times
+     (its motion search and partition search inputs kept for phase 18);
+     the path must have launched K1, K2 and K3 on every frame and K4 and
+     K5 on each P frame;
   8. hold K1 against the plain packer on that P frame's (1, 8160, 952)
      grid, at its capacity and at 1024 words, K2 against the plain
      filter on its deblocking inputs and K3 against the plain wavefront on
@@ -61,7 +65,9 @@ Phases (any failure exits non-zero; nothing is caught):
   9. card bytes against CPU bytes at 352x288 (CIF): H264Encoder at speed
      0 (IDR, P, P) and at speed 10 (full-pel, deblocking off: IDR, P), and
      a 2-lane GopBandEncoder at speed 1 (IDR, P); each card stream (both
-     lanes) decodes bit-exactly to the card's reconstruction;
+     lanes) decodes bit-exactly to the card's reconstruction; the card
+     encoders must have launched K4 on each of their four P frames or
+     steps and K5 on the two at speed 0;
   10. the CLI on the card (`h264lab_tpu_torch.cli.main`, --gen 352x288,
      3 frames, --psnr): it must return 0 and write a stream that starts
      with an SPS and decodes to 3 frames of 352x288;
@@ -73,7 +79,8 @@ Phases (any failure exits non-zero; nothing is caught):
      base layer, the enhancement layer and the resampling; K1 and K2 must
      have launched at least once per layer and frame, K2 also for the
      base-mode frame's own deblocking, K3 once for each of the two base
-     layer IDRs;
+     layer IDRs, K4 once per layer of each P frame (the stage P frame's
+     motion search inputs of both layers kept for phase 18);
   12. hold K1 against the plain packer on the base-mode frame's (1, 8160,
      952) grid and on the base layer's P grid (1, 2040, 952), each at its
      capacity and at 1024 words, K2 against the plain filter on the
@@ -102,10 +109,12 @@ Phases (any failure exits non-zero; nothing is caught):
      bytes of every step must equal an unsharded GopBandEncoder on the
      card with the same configuration, whose lane 0 IDR and first P
      must equal a CPU encode; K1 and K2 must have launched for every
-     shard and step, K3 for every shard of the IDR step; K1 must equal the
-     plain packer on shard (0, 0)'s grid of the last P step, K2 the plain
-     filter on shard (0, 1)'s (1, 4080) deblocking inputs of that step, K3
-     the plain wavefront on shard (0, 1)'s (1, 4080) IDR wavefront inputs;
+     shard and step, K3 for every shard of the IDR step, K4 for every
+     shard of the two P steps (shard (0, 1)'s motion search inputs of the
+     first P step kept for phase 18); K1 must equal the plain packer on
+     shard (0, 0)'s grid of the last P step, K2 the plain filter on shard
+     (0, 1)'s (1, 4080) deblocking inputs of that step, K3 the plain
+     wavefront on shard (0, 1)'s (1, 4080) IDR wavefront inputs;
   16. hold K2 against the plain filter on seeded inputs
      (`utils.synthetic.deblock_inputs`: bS 0 to 4, flat areas, per-frame
      and per-MB QPs) at the main paths' shapes: (16, 8160), (1, 8160) with
@@ -132,7 +141,25 @@ Phases (any failure exits non-zero; nothing is caught):
      and 2 MB rows at 1080p's 120 MBs a row (`wavefront.occupancy`), then
      the ms, us per MB step and rows per cluster
      (`wavefront.cluster_rows`) of every K3 check;
-  18. print the kernels line (JSON), then the result line (JSON).
+  18. hold K4 (the dense 16x16 motion search, `me.motion_search_tiles`)
+     against the plain search (`me.motion_search_plain`) and K5 (the
+     partition search, `me.partition_tiles`) against the plain one
+     (`me.partition_plain`): on the real inputs of the 16-lane P step
+     (16, 8160), the sequential speed-0 P frame (1, 8160, K5 on K4's
+     planes of it), the SVC stage P frame's enhancement (1, 8160) and base
+     (1, 2040) layers and mesh shard (0, 1)'s (1, 4080) band at its row
+     offset; then on seeded inputs (`utils.synthetic.me_inputs`: flat,
+     chessboard, shifted-noise, half-pel and unmatched MBs, previous MVs
+     past the +-52 clip) at (16, 8160) over 16 lanes, (1, 8160) with and
+     without the sub-pel stage, (1, 2040), a (1, 4080) band at a row
+     offset, 4 x 3 MBs at QP 0, 6 x 1 MBs at QP 51 and 1 x 6 MBs
+     without sub-pel (K5 on K4's planes of each sub-pel case). Every check
+     launches the kernel 20 times, each output equal to the plain
+     version's, and prints its wrapper ms (CUDA events over 20 calls), the
+     plain version's ms (one call) and the bound (bytes or operations,
+     `search_bound`); the phase prints K4's and K5's ptxas registers,
+     shared memory and spills;
+  19. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -192,6 +219,31 @@ K3_REPEATS = 20                  # launches of K3 per check, all equal
 # about 19,000 + 7,200 + 3,500
 K3_OPS_PER_MB = 30_000
 INT32_OPS_PER_S = 67e12          # H100 SXM float32 rate without tensor cores
+# phase 18: (what, seed, frames, mb_width, mb_height, qp, lanes, frame
+# rows, sub-pel); K5 runs on K4's planes of the sub-pel cases
+K4_CASES = (
+    ("16 lanes of 1080p", 51, LANES, 120, 68, QP, LANES, 68, True),
+    ("1080p", 52, 1, 120, 68, QP, 1, 68, True),
+    ("1080p full-pel", 53, 1, 120, 68, QP, 1, 68, False),
+    ("the SVC base layer", 54, 1, 60, 34, QP, 1, 34, True),
+    ("a mesh band", 55, 1, 120, 34, QP, 1, 68, True),
+    ("4 x 3 MBs", 56, 3, 4, 3, 0, 2, 5, True),
+    ("6 x 1 MBs", 57, 2, 6, 1, 51, 1, 2, True),
+    ("1 x 6 MBs", 58, 2, 1, 6, 12, 2, 8, False),
+)
+ME_REPEATS = 20                  # launches of K4 and K5 per check, all equal
+# the motion search's integer operations per MB, counted on the plain
+# algorithm (ops/me.py) at 3 per SAD term (difference, absolute value,
+# sum) and 3 per rounded mean, 11 per 6-tap sum: K4 without the sub-pel
+# stage: the downsample (272), 289 coarse positions x 16 terms (13,872),
+# 3 centres and 49 full-pel positions x 256 terms (2,304 + 37,632); with
+# it also the half-pel planes (22 x 27 vertical sums, 3 x 484 outputs:
+# 22,022) and 49 quarter-pel positions x 256 means and terms (75,264). K5:
+# per geometry 25 full-pel positions x 256 terms and 49 quarter-pel
+# positions x 256 means and terms (94,464), three geometries
+K4_OPS_FULLPEL = 54_080
+K4_OPS_SUBPEL = 151_366
+K5_OPS_PER_MB = 283_392
 
 
 def _require(ok: bool, what: str):
@@ -224,23 +276,26 @@ def reset_launches():
 
 
 @contextlib.contextmanager
-def recorded_calls(name, calls):
-    """Append the arguments of every call of `mbscan.<name>` made inside
-    the block to `calls`. Every encode path deblocks through
-    `deblock_frame` and runs its wavefront through `_select_wavefront`."""
-    from h264lab_tpu_torch.models import mbscan
+def recorded_calls(name, calls, module="models.mbscan"):
+    """Append the arguments of every call of `<module>.<name>` (a module of
+    the port) made inside the block to `calls`. Every encode path deblocks
+    through `mbscan.deblock_frame`, runs its wavefront through
+    `mbscan._select_wavefront` and its motion search through
+    `me.motion_search_tiles` and `me.partition_tiles`."""
+    import importlib
 
-    fn = getattr(mbscan, name)
+    mod = importlib.import_module(f"h264lab_tpu_torch.{module}")
+    fn = getattr(mod, name)
 
     def recorded(*args):
         calls.append(args)
         return fn(*args)
 
-    setattr(mbscan, name, recorded)
+    setattr(mod, name, recorded)
     try:
         yield calls
     finally:
-        setattr(mbscan, name, fn)
+        setattr(mod, name, fn)
 
 
 def k2_bytes(k2_args):
@@ -396,6 +451,143 @@ def check_k3(args, what, label):
           f"{moved / 1e6:.2f} MB, {100 * out['bound_ms'] / out['ms']:.2f}% "
           f"of it reached); MBs inter, I16, I4: {sels}")
     return out
+
+
+def to_device(args, device):
+    """Recorded arguments with their tensors moved to `device` (the host
+    keeps a path's inputs until phase 18)."""
+    import torch
+
+    return tuple(x.to(device) if isinstance(x, torch.Tensor) else x
+                 for x in args)
+
+
+def search_bound(tensors, n_ops):
+    """The least time of a search kernel's work: the larger of the bytes it
+    must move (each input and output tensor read or written once) at 3.35
+    TB/s and its integer operations at 67 T/s. Returns (bound ms, "bytes"
+    or "operations", bytes)."""
+    moved = sum(x.numel() * x.element_size() for x in tensors)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    return ((bytes_ms, "bytes", moved) if bytes_ms >= ops_ms
+            else (ops_ms, "operations", moved))
+
+
+def _search_outputs(out):
+    """A search's output tensors by name: K4's tuple (with its aux fields)
+    or K5's dict."""
+    if isinstance(out, dict):
+        return out
+    named = dict(zip(("mv_y", "mv_x", "cost", "pred"), out[:4]))
+    named.update((k, v) for k, v in out[4].items() if v is not None)
+    return named
+
+
+def check_search(kernel, plain, args, n_ops, what, label):
+    """A search kernel's wrapper against its plain version on one recorded
+    call's arguments on their card: `kernel` run ME_REPEATS times must give
+    every output of `plain` (same names, dtypes and values). Returns its
+    numbers: ms (CUDA events over 20 calls), plain_ms (the checked call),
+    bound_ms and bound_by (`search_bound`: the call's tensors, the outputs
+    and n_ops operations), max_abs_err."""
+    import torch
+
+    with torch.cuda.device(args[0].device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        want = _search_outputs(plain(*args))
+        end.record()
+        torch.cuda.synchronize()
+        err = 0
+        for _ in range(ME_REPEATS):
+            got = _search_outputs(kernel(*args))
+            _require(set(got) == set(want) and all(
+                got[k].dtype == v.dtype and got[k].shape == v.shape
+                for k, v in want.items()),
+                f"{kernel.__name__}'s outputs differ in kind from the plain "
+                f"version's on {what}")
+            err = max([err] + [int((got[k].long() - v.long()).abs().max())
+                               for k, v in want.items() if v.numel()])
+            _require(err == 0, f"{kernel.__name__} differs from the plain "
+                     f"version on {what} (largest difference {err})")
+        out = dict(ms=_cuda_ms(lambda: kernel(*args), 20),
+                   plain_ms=start.elapsed_time(end), max_abs_err=err)
+    tensors = [x for x in args if isinstance(x, torch.Tensor)]
+    out["bound_ms"], out["bound_by"], moved = search_bound(
+        tensors + list(got.values()), n_ops)
+    shape = tuple(args[2].shape[:2]) if len(args) > 7 else (
+        args[0].shape[0],)
+    print(f"  {kernel.__name__} == plain on {what} {shape}, {ME_REPEATS} "
+          f"launches {label}: {out['ms']:.3f} ms (plain "
+          f"{out['plain_ms']:.1f} ms; bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']}, {moved / 1e6:.2f} MB, "
+          f"{100 * out['bound_ms'] / out['ms']:.2f}% of it reached)")
+    return out
+
+
+def check_k4(args, what, label):
+    """K4 against `me.motion_search_plain` on the arguments of one call of
+    `me.motion_search_tiles` (`check_search`)."""
+    from h264lab_tpu_torch.ops import me
+
+    n_mb = args[2].shape[0] * args[2].shape[1]
+    ops = K4_OPS_SUBPEL if args[10] else K4_OPS_FULLPEL    # enable_subpel
+    return check_search(me.motion_search_tiles, me.motion_search_plain, args,
+                        n_mb * ops, what, label)
+
+
+def check_k5(args, what, label):
+    """K5 against `me.partition_plain` on the arguments of one call of
+    `me.partition_tiles` (`check_search`)."""
+    from h264lab_tpu_torch.ops import me
+
+    return check_search(me.partition_tiles, me.partition_plain, args,
+                        args[0].shape[0] * K5_OPS_PER_MB, what, label)
+
+
+def k4_case_args(seed, n, mbw, mbh, qp, lanes, rows, subpel):
+    """`me.motion_search_tiles`' arguments of a seeded K4 case
+    (`utils.synthetic.me_inputs`) on the card, the planes with sub-pel."""
+    import torch
+    from h264lab_tpu_torch.utils.synthetic import me_inputs
+
+    d = me_inputs(seed, n, mbw, mbh, qp, lanes=lanes, frame_rows=rows)
+    t = [torch.from_numpy(d[k]).cuda() for k in (
+        "y_pad", "y4_pad", "cur_tiles", "lane", "row_offset", "qp",
+        "prev_my", "prev_mx")]
+    return (*t, mbw, mbh, subpel, subpel)
+
+
+def k5_args(k4_args):
+    """`me.partition_tiles`' arguments on K4's planes of a sub-pel call."""
+    from h264lab_tpu_torch.ops import me
+
+    out = me.motion_search_tiles(*k4_args)
+    n, nmb = k4_args[2].shape[:2]
+    kk = n * nmb
+    return (k4_args[2].reshape(kk, 16, 16), out[4]["wins"], *(
+        out[4][k].reshape(kk) for k in ("full_my", "full_mx", "mvp_y",
+                                        "mvp_x")),
+        me.lambda_me(k4_args[5]).repeat_interleave(nmb))
+
+
+def ptxas_lines(log):
+    """What ptxas reports of each kernel of a build log: registers, shared
+    memory and spills, each line led by its kernel's name."""
+    import re
+
+    lines, kernel = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"([a-z_]+_kernel)", line)
+            kernel = m.group(1) if m else ""
+        elif "registers" in line or "spill" in line:
+            lines.append(f"{kernel}: {line.strip()}" if kernel
+                         else line.strip())
+    return lines
 
 
 def escape_loop(rbsp: bytes) -> bytes:
@@ -615,15 +807,16 @@ def k1_numbers(vals, lens, cap, nk):
                 n_sym=n_sym)
 
 
-def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, cif,
-               cif_frames):
+def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
+               cif, cif_frames):
     """Phases 11 to 13: SvcEncoder at WIDTH x HEIGHT with inter-layer
     prediction (stage frames timed), K1 on its base-mode and base P grids,
     K2 on their deblocking inputs and K3 on the base-mode frame's base
     wavefront inputs (their numbers go into `numbers`, `k2_numbers` and
-    `k3_numbers`), and SVC card bytes against CPU bytes at CIF. Returns
-    (K1 launches of the SVC frames, K2 launches, K3 launches, largest K1
-    error)."""
+    `k3_numbers`; the stage P frame's K4 calls into `me_calls`, on the
+    host), and SVC card bytes against CPU bytes at CIF. Returns (K1
+    launches of the SVC frames, K2 launches, K3 launches, K4 launches,
+    largest K1 error)."""
     import torch
     from h264lab_tpu_torch.bitstream.nal import split_annexb
     from h264lab_tpu_torch.config import FrameType
@@ -678,8 +871,9 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, cif,
           f"enhancement {len(res.enh_payload)}")
     bitpack.pack_frames = recorded
     svc.stage_times = {}
-    p_calls, bm_calls = [], []
-    with recorded_calls("deblock_frame", p_calls):
+    p_calls, bm_calls, svc_me = [], [], []
+    with recorded_calls("deblock_frame", p_calls), \
+            recorded_calls("motion_search_tiles", svc_me, "ops.me"):
         res, s = svc_frame(2, "P")
     svc_table("P", s, res)
     svc.stage_times = {}
@@ -695,9 +889,18 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, cif,
     svc_launches = LAUNCH_COUNTS["bitpack"]
     svc_db_launches = LAUNCH_COUNTS["deblock"]
     svc_wf_launches = LAUNCH_COUNTS["wavefront"]
+    svc_me_launches = LAUNCH_COUNTS["me"]
     print(f"K1 launches in the SVC path's {SVC_FRAMES} frames: "
           f"{svc_launches}; K2 launches {svc_db_launches}, {bm_launches} "
-          f"of them in the base-mode frame; K3 launches {svc_wf_launches}")
+          f"of them in the base-mode frame; K3 launches {svc_wf_launches}; "
+          f"K4 launches {svc_me_launches}")
+    me_shapes = sorted(tuple(c[2].shape[:2]) for c in svc_me)
+    _require(svc_me_launches == 4 and me_shapes == [(1, nmb // 4), (1, nmb)],
+             f"the SVC path launched K4 {svc_me_launches} times in its 2 P "
+             f"frames (the stage P frame's searches: {me_shapes})")
+    for c in svc_me:
+        layer = "base" if c[2].shape[1] == nmb // 4 else "enhancement"
+        me_calls[f"SVC {layer} P frame"] = to_device(c, "cpu")
     require_k3(svc_wf, svc_wf_launches, 2, "the SVC path's two base-layer "
                "IDRs")
     _require(tuple(svc_wf[1][0].shape[:2]) == (1, nmb // 4),
@@ -735,7 +938,7 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, cif,
                                         "deblocking inputs", label)
     k3_numbers["SVC base-mode"] = check_k3(
         svc_wf[1], "the SVC base-mode frame's base wavefront inputs", label)
-    del svc, vals, lens, p_calls, bm_calls, svc_wf
+    del svc, vals, lens, p_calls, bm_calls, svc_wf, svc_me
     torch.cuda.empty_cache()
 
     # 13. SVC card bytes against CPU bytes at CIF, and both layers decoded
@@ -764,7 +967,8 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, cif,
                      "the base layer without NAL 14, 15, 20")
     print(f"  CIF SVC comparisons and decodes {time.perf_counter() - t0:.1f}"
           " s")
-    return svc_launches, svc_db_launches, svc_wf_launches, max_err
+    return svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches, \
+        max_err
 
 
 def mesh_devices(n):
@@ -778,13 +982,15 @@ def mesh_devices(n):
     return ["cuda:0"] * n, f"a virtual mesh, {n} x cuda:0"
 
 
-def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers):
+def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
+                me_calls):
     """Phase 15: the dryruns, then the 1080p mesh run against the unsharded
     card run (and that against the CPU), K1 on a shard's grid, K2 on a
     shard's deblocking inputs and K3 on a shard's IDR wavefront inputs
-    (their numbers go into `numbers`, `k2_numbers` and `k3_numbers`).
-    Returns (K1 launches of the mesh run, K2 launches, K3 launches,
-    largest K1 error)."""
+    (their numbers go into `numbers`, `k2_numbers` and `k3_numbers`; shard
+    (0, 1)'s K4 call of the first P step into `me_calls`, on the host).
+    Returns (K1 launches of the mesh run, K2 launches, K3 launches, K4
+    launches, largest K1 error)."""
     from h264lab_tpu_torch.entry import dryrun_multichip
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
@@ -805,7 +1011,7 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers):
     print(f"mesh {n_gop}x{n_band} on {what}: {WIDTH}x{HEIGHT}, {n_band} "
           f"slice bands, {n_gop} lanes, QP {QP}, speed {run.encode_speed}")
     reset_launches()
-    mesh_res, db_calls, mesh_wf = [], [], []
+    mesh_res, db_calls, mesh_wf, mesh_me = [], [], [], []
     for t, kind in enumerate(MESH_STEPS):
         # the last step runs without stage syncs: the mesh's step time
         staged = t < len(MESH_STEPS) - 1
@@ -813,7 +1019,9 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers):
         db_calls.clear()
         t0 = time.perf_counter()
         with recorded_calls("deblock_frame", db_calls), \
-                recorded_calls("_select_wavefront", mesh_wf):
+                recorded_calls("_select_wavefront", mesh_wf), \
+                recorded_calls("motion_search_tiles",
+                               mesh_me if t == 1 else [], "ops.me"):
             pending = enc.encode_step_async(lane_frames(frames, t, n_gop),
                                             run)
             res = enc.finish_step(pending)
@@ -839,11 +1047,22 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers):
     launches = LAUNCH_COUNTS["bitpack"]
     db_launches = LAUNCH_COUNTS["deblock"]
     wf_launches = LAUNCH_COUNTS["wavefront"]
+    me_launches = LAUNCH_COUNTS["me"]
     print(f"K1 launches in the mesh run's {len(MESH_STEPS)} steps over "
           f"{len(enc.shards)} shards: {launches}; K2 launches {db_launches}; "
-          f"K3 launches {wf_launches}")
+          f"K3 launches {wf_launches}; K4 launches {me_launches}")
     require_k3(mesh_wf, wf_launches, len(enc.shards),
                "the mesh run's IDR step over its shards")
+    n_p = MESH_STEPS.count("P")
+    _require(me_launches == n_p * len(enc.shards)
+             and len(mesh_me) == len(enc.shards),
+             f"the mesh run launched K4 {me_launches} times in {n_p} P steps "
+             f"over {len(enc.shards)} shards")
+    band = mesh_me[1]
+    _require(int(band[4][0]) == HEIGHT // 16 // n_band, "shard (0, 1)'s "
+             f"motion search starts at MB row {int(band[4][0])}")
+    me_calls["mesh shard (0, 1) band"] = to_device(band, "cpu")
+    del mesh_me, band
     _require(launches >= len(enc.shards) * len(MESH_STEPS),
              "the mesh run did not launch K1 for every shard and step")
     _require(db_launches >= len(enc.shards) * len(MESH_STEPS),
@@ -884,7 +1103,7 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers):
                                   "last P step", label)
     k3_numbers["mesh"] = check_k3(mesh_wf[1], "mesh shard 1's band of the "
                                   "IDR step", label)
-    return launches, db_launches, wf_launches, err
+    return launches, db_launches, wf_launches, me_launches, err
 
 
 def main() -> int:
@@ -917,17 +1136,17 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # 2. build K1, K2 and K3, one nvcc each, started together
+    # 2. build K1, K2, K3 and K4 with K5, one nvcc each, started together
     t0 = time.perf_counter()
     built = cuda_build.build_all([cuda_build.CSRC / "bitpack.cu",
                                   cuda_build.CSRC / "deblock.cu",
-                                  cuda_build.CSRC / "wavefront.cu"])
-    print(f"K1, K2 and K3 built in {time.perf_counter() - t0:.1f} s")
+                                  cuda_build.CSRC / "wavefront.cu",
+                                  cuda_build.CSRC / "me.cu"])
+    print(f"K1, K2, K3, K4 and K5 built in {time.perf_counter() - t0:.1f} s")
     ptxas = {}
-    for name, (lib_path, log) in zip(("K1", "K2", "K3"), built):
+    for name, (lib_path, log) in zip(("K1", "K2", "K3", "K4 and K5"), built):
         print(f"  {name}: {os.path.relpath(lib_path, ROOT)}")
-        ptxas[name] = [line.strip() for line in log.splitlines()
-                       if "registers" in line or "spill" in line]
+        ptxas[name] = ptxas_lines(log)
         for line in ptxas[name]:
             print(f"  {name} ptxas:", line)
 
@@ -994,23 +1213,36 @@ def main() -> int:
         enc.stage_times = None
         return pending
 
-    p_pending = stage_step(2 + TIMED_STEPS, "P")
+    me_calls = {}               # the paths' K4 and K5 inputs, for phase 18
+    gop_me = []
+    with recorded_calls("motion_search_tiles", gop_me, "ops.me"):
+        p_pending = stage_step(2 + TIMED_STEPS, "P")
     key = dataclasses.replace(run, frame_type=FrameType.KEY)
     idr_pending = stage_step(3 + TIMED_STEPS, "IDR", key)
     t_idr = step(4 + TIMED_STEPS, "IDR", key)[2]
     launches = LAUNCH_COUNTS["bitpack"]
     db_launches = LAUNCH_COUNTS["deblock"]
     wf_launches = LAUNCH_COUNTS["wavefront"]
+    me_launches = LAUNCH_COUNTS["me"]
+    _require(len(gop_me) == 1 and tuple(gop_me[0][2].shape[:2]) == (
+        LANES, (WIDTH // 16) * (HEIGHT // 16)), "the P stage step did not "
+        "search its 16 lanes in one K4 call")
+    me_calls["16-lane P step"] = to_device(gop_me[0], "cpu")
+    del gop_me
     print(f"GOP-{GOP} frames/s {label}, derived as {LANES} * {GOP} / (t_IDR"
           f" + {GOP - 1} * t_P) with t_IDR {t_idr:.3f} s (an IDR step "
           f"without stage syncs) and t_P {t_p:.3f} s: "
           f"{LANES * GOP / (t_idr + (GOP - 1) * t_p):.3f}")
     print(f"K1 launches in the main path's {STEPS} steps: {launches}; K2 "
-          f"launches {db_launches}; K3 launches {wf_launches}")
+          f"launches {db_launches}; K3 launches {wf_launches}; K4 launches "
+          f"{me_launches}; K5 launches {LAUNCH_COUNTS['partition']}")
     _require(launches >= STEPS, "the main path did not launch K1 each step")
     _require(db_launches >= STEPS, "the main path did not launch K2 each "
              "step")
     require_k3(gop_wf, wf_launches, 3, "the main path's 3 IDR steps")
+    _require(me_launches == STEPS - 3 and LAUNCH_COUNTS["partition"] == 0,
+             f"the main path launched K4 {me_launches} times and K5 "
+             f"{LAUNCH_COUNTS['partition']} times in its {STEPS - 3} P steps")
 
     # 4. K1 against the plain packer on the real IDR and P grids and on a
     # synthetic grid past the drop boundaries
@@ -1075,7 +1307,7 @@ def main() -> int:
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
     # the decode is host work: a worker process runs it beside phases 6 to
-    # 17 (at exit, even a failed one, the pool waits for it and stops it)
+    # 18 (at exit, even a failed one, the pool waits for it and stops it)
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
         "spawn"))
     decoding = pool.submit(decode_lane0, [r[0].payload for r in (first,
@@ -1120,9 +1352,11 @@ def main() -> int:
     print(f"sequential speed {SEQ_SPEED} P frame {label}: {t_seq:.3f} s per "
           f"frame, {1 / t_seq:.4f} frames/s ({len(res.payload)} B)")
     seq.stage_times = {}
-    seq_calls = []
+    seq_calls, seq_me, seq_part = [], [], []
     with recorded_calls("deblock_frame", seq_calls), \
-            recorded_calls("_select_wavefront", seq_wf):
+            recorded_calls("_select_wavefront", seq_wf), \
+            recorded_calls("motion_search_tiles", seq_me, "ops.me"), \
+            recorded_calls("partition_tiles", seq_part, "ops.me"):
         seq_pending, res, s = seq_frame(2, "P")
     print(f"sequential P stage frame {label}: {s:.3f} s")
     for k, v in seq.stage_times.items():
@@ -1134,8 +1368,17 @@ def main() -> int:
     seq_launches = LAUNCH_COUNTS["bitpack"]
     seq_db_launches = LAUNCH_COUNTS["deblock"]
     seq_wf_launches = LAUNCH_COUNTS["wavefront"]
+    seq_me_launches = LAUNCH_COUNTS["me"]
+    seq_part_launches = LAUNCH_COUNTS["partition"]
     print(f"K1 launches in the sequential path's 3 frames: {seq_launches}; "
-          f"K2 launches {seq_db_launches}; K3 launches {seq_wf_launches}")
+          f"K2 launches {seq_db_launches}; K3 launches {seq_wf_launches}; K4 "
+          f"launches {seq_me_launches}; K5 launches {seq_part_launches}")
+    _require(seq_me_launches == 2 and seq_part_launches == 2
+             and len(seq_me) == len(seq_part) == 1, "the sequential path did "
+             "not launch K4 and K5 once on each speed-0 P frame")
+    me_calls["speed-0 P frame"] = to_device(seq_me[0], "cpu")
+    part_calls = {"speed-0 P frame": to_device(seq_part[0], "cpu")}
+    del seq_me, seq_part
     require_k3(seq_wf, seq_wf_launches, 3, "the sequential path's IDR and "
                "two speed-0 P frames")
     _require(seq_launches >= 3, "the sequential path did not launch K1 on "
@@ -1166,6 +1409,7 @@ def main() -> int:
 
     # 9. card bytes against CPU bytes at CIF, and decoded
     t0 = time.perf_counter()
+    reset_launches()
     cif_frames = list(chessboard_sequence(*CIF, 3))
     cif = EncoderConfig(width=CIF[0], height=CIF[1], gop=GOP, qp=QP)
     for speed, n_frames in ((0, 3), (10, 2)):
@@ -1199,6 +1443,11 @@ def main() -> int:
         decode_check(b"".join(st[g].payload for st in card_steps),
                      [st[g].recon for st in card_steps],
                      f"CIF GopBandEncoder speed 1 lane {g}")
+    cif_me = (LAUNCH_COUNTS["me"], LAUNCH_COUNTS["partition"])
+    print(f"K4 and K5 launches of the CIF card encoders (P frames: 2 at "
+          f"speed 0, 1 at speed 10, a 2-lane step at speed 1): {cif_me}")
+    _require(cif_me == (4, 2), "the CIF card encoders did not launch K4 on "
+             "every P frame or step and K5 on every speed-0 P frame")
     print(f"  CIF comparisons and decodes {time.perf_counter() - t0:.1f} s")
 
     # 10. the CLI on the card
@@ -1219,8 +1468,9 @@ def main() -> int:
           f"decodes to 3 frames of {CIF[0]}x{CIF[1]}")
 
     # 11 to 13. two-layer SVC
-    svc_launches, svc_db_launches, svc_wf_launches, err = svc_phases(
-        cfg, run, label, numbers, k2_numbers, k3_numbers, cif, cif_frames)
+    (svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches,
+     err) = svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers,
+                       me_calls, cif, cif_frames)
     max_err = max(max_err, err)
 
     # 14. entry() on the card against the CPU
@@ -1240,8 +1490,9 @@ def main() -> int:
 
     # 15. the mesh
     t0 = time.perf_counter()
-    mesh_launches, mesh_db_launches, mesh_wf_launches, err = mesh_phases(
-        cfg, run, frames, label, numbers, k2_numbers, k3_numbers)
+    (mesh_launches, mesh_db_launches, mesh_wf_launches, mesh_me_launches,
+     err) = mesh_phases(cfg, run, frames, label, numbers, k2_numbers,
+                        k3_numbers, me_calls)
     max_err = max(max_err, err)
     print(f"  mesh phase {time.perf_counter() - t0:.1f} s")
 
@@ -1279,6 +1530,29 @@ def main() -> int:
               f"{v['cluster']} rows")
     print(f"  K3 on seeded inputs {time.perf_counter() - t0:.1f} s")
 
+    # 18. K4 and K5 against the plain searches on the paths' real inputs
+    # and on seeded inputs at the paths' shapes
+    t0 = time.perf_counter()
+    print(f"K4 and K5 {label}: ptxas {ptxas['K4 and K5']}")
+    k4_numbers, k5_numbers = {}, {}
+    for what, args in me_calls.items():
+        k4_numbers[what] = check_k4(to_device(args, "cuda"), f"the {what}'s "
+                                    "motion search inputs", label)
+    for what, args in part_calls.items():
+        k5_numbers[what] = check_k5(to_device(args, "cuda"), f"the {what}'s "
+                                    "partition search inputs", label)
+    del me_calls, part_calls
+    for what, seed, n, mbw, mbh, qp, lanes, rows, subpel in K4_CASES:
+        args = k4_case_args(seed, n, mbw, mbh, qp, lanes, rows, subpel)
+        case = (f"seeded inputs, {what} (seed {seed}, QP {qp}, row offsets "
+                f"{args[4].tolist()[:4]})")
+        k4_numbers[what] = check_k4(args, case, label)
+        if subpel:
+            k5_numbers[what] = check_k5(k5_args(args), case, label)
+    del args
+    torch.cuda.empty_cache()
+    print(f"  K4 and K5 checks {time.perf_counter() - t0:.1f} s")
+
     # phase 5's decode
     t0 = time.perf_counter()
     decode_s = decoding.result()
@@ -1286,12 +1560,12 @@ def main() -> int:
     print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon "
           f"(waited {time.perf_counter() - t0:.1f} s for the worker); decode "
           f"seconds per {WIDTH}x{HEIGHT} frame {label} (the port's numpy "
-          f"decoder, a host time beside phases 6 to 17): IDR "
+          f"decoder, a host time beside phases 6 to 18): IDR "
           f"{decode_s[0]:.2f}, P {decode_s[1]:.2f}")
 
-    # 18. results: K1's and K2's entries hold the GOP path's P step (19 of
-    # 20 frames of a GOP), K3's its IDR step; their launches count every
-    # path
+    # 19. results: K1's, K2's and K4's entries hold the GOP path's P step
+    # (19 of 20 frames of a GOP), K3's its IDR step, K5's the speed-0 P
+    # frame; their launches count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
     m = numbers["mesh"]
@@ -1353,6 +1627,35 @@ def main() -> int:
                         stage_ms=v["stage_ms"], plain_ms=v["plain_ms"],
                         bound_ms=v["bound_ms"], bound_by=v["bound_by"])
                 for k, v in k3_numbers.items()}))
+    k4p = k4_numbers["16-lane P step"]
+    kernels.append(dict(
+        name="me", route="cuda", source="h264lab_tpu_torch/csrc/me.cu",
+        replaces="h264lab_tpu/ops/me.py:385 (XLA fori_loops, no Pallas "
+                 "kernel)",
+        launches=(me_launches + seq_me_launches + svc_me_launches
+                  + mesh_me_launches),
+        equal=True,
+        max_abs_err=max(v["max_abs_err"] for v in k4_numbers.values()),
+        ms=k4p["ms"], plain_ms=k4p["plain_ms"], bound_ms=k4p["bound_ms"],
+        bound_by=k4p["bound_by"], library_ms=None, grid="P step",
+        gop_launches=me_launches, seq_launches=seq_me_launches,
+        svc_launches=svc_me_launches, mesh_launches=mesh_me_launches,
+        cif_launches=cif_me[0], ptxas=ptxas["K4 and K5"],
+        inputs={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                        bound_ms=v["bound_ms"], bound_by=v["bound_by"])
+                for k, v in k4_numbers.items()}))
+    k5s = k5_numbers["speed-0 P frame"]
+    kernels.append(dict(
+        name="partition", route="cuda", source="h264lab_tpu_torch/csrc/me.cu",
+        replaces="h264lab_tpu/ops/me.py:575 (XLA, no Pallas kernel)",
+        launches=seq_part_launches, equal=True,
+        max_abs_err=max(v["max_abs_err"] for v in k5_numbers.values()),
+        ms=k5s["ms"], plain_ms=k5s["plain_ms"], bound_ms=k5s["bound_ms"],
+        bound_by=k5s["bound_by"], library_ms=None, grid="speed-0 P frame",
+        seq_launches=seq_part_launches, cif_launches=cif_me[1],
+        inputs={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                        bound_ms=v["bound_ms"], bound_by=v["bound_by"])
+                for k, v in k5_numbers.items()}))
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
           "(the build included)")
     print(json.dumps({"kernels": kernels}))

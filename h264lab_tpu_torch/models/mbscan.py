@@ -17,8 +17,10 @@ stages run over all N * nmb MBs at once.
 
 On CUDA tensors the slope-2 wavefront and the deblocking filter are one
 launch each of the hand kernels K3 and K2 (`_select_wavefront`,
-`deblock_frame`); the loops below are their plain versions, which run on
-CPU tensors and which the kernels are held against.
+`deblock_frame`), and the motion search of `inter_stage_core` is K4 and,
+at speed 0, K5 (`ops/me.motion_search_tiles`, `partition_tiles`); the
+loops below and in `ops/me.py` are their plain versions, which run on CPU
+tensors and which the kernels are held against.
 
 Form differences from the JAX module, none of them in the result:
 - the wavefront `lax.scan` is a Python loop over the diagonals; plan
@@ -192,7 +194,13 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
     (`refstate.prepare_reference`: y_pad, u_pad, v_pad, y4_pad, leading
     axis L); lane, mb_row_offset (N,): each band's reference lane and
     first MB row in the lane's frame; qp, qpc (N,) or per MB row (N,
-    mb_height); prev_my/prev_mx (N, nmb) full-pel previous MVs or None."""
+    mb_height); prev_my/prev_mx (N, nmb) full-pel previous MVs or None.
+
+    The searches run on the tiles' device: on CUDA tensors K4 and, with
+    partitions, K5 (`me.motion_search_tiles`, `me.partition_tiles`); on
+    CPU tensors their plain versions (`me.motion_search_plain`,
+    `me.partition_plain`), with the same arguments
+    (`motion_search_args`). Both give the same arrays."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
     K = N * nmb
@@ -202,15 +210,12 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
     idx = torch.arange(nmb, dtype=I32, device=dev)
     rr = idx // mb_width
     cc = idx % mb_width
-    base_y = qpel.GUARD + 16 * (rr[None] + row0[:, None])
-    base_x = (qpel.GUARD + 16 * cc).expand(N, nmb)
-    cur_plane = (src_y_mb.reshape(N, mb_height, mb_width, 16, 16)
-                 .permute(0, 1, 3, 2, 4)
-                 .reshape(N, mb_height * 16, mb_width * 16))
-    mv_y, mv_x, cost16, pred16, aux = me.motion_search_dense(
-        cur_plane, src_y_mb, ref["y_pad"], ref["y4_pad"], lane, base_y,
-        base_x, qp, mb_height, mb_width, row0, prev_my, prev_mx,
-        enable_subpel=enable_qpel)
+    partitions = enable_partitions and enable_qpel
+    on_cpu = dev.type == "cpu"
+    search = me.motion_search_plain if on_cpu else me.motion_search_tiles
+    mv_y, mv_x, cost16, pred16, aux = search(
+        *motion_search_args(src_y_mb, ref, lane, row0, qp, prev_my, prev_mx),
+        mb_width, mb_height, enable_qpel, partitions)
     mv4_y = mv_y.reshape(K, 1, 1).expand(K, 4, 4)
     mv4_x = mv_x.reshape(K, 1, 1).expand(K, 4, 4)
     shape = torch.zeros((K,), dtype=I32, device=dev)
@@ -219,13 +224,12 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
     lane_k = _per_item(lane, nmb)
     cb_y = (qpel.GUARD // 2 + 8 * (rr[None] + row0[:, None])).reshape(K)
     cb_x = (qpel.GUARD // 2 + 8 * cc).repeat(N)
-    partitions = enable_partitions and enable_qpel
     if partitions:
         lam_k = _per_item(lambda_me(qp), nmb)
-        ps = me.partition_search(
-            src_y_mb.reshape(K, 16, 16), dict(wins=aux["wins"], **{
-                k: aux[k].reshape(K)
-                for k in ("full_my", "full_mx", "mvp_y", "mvp_x")}), lam_k)
+        ps = (me.partition_plain if on_cpu else me.partition_tiles)(
+            _packed(src_y_mb, torch.uint8, (K, 16, 16), dev), aux["wins"],
+            *(aux[k].reshape(K) for k in ("full_my", "full_mx", "mvp_y",
+                                          "mvp_x")), lam_k.contiguous())
         costs = torch.stack([
             inter_cost,
             ps["cost16x8"] + lam_k * PART_16X8_PENALTY_BITS,
@@ -277,6 +281,21 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
                 recon_v_inter=frames(recon_uv[K:]),
                 cdc_inter=frames(torch.stack([cdc[:K], cdc[K:]], dim=1)),
                 cac_inter=frames(torch.stack([cac[:K], cac[K:]], dim=1)))
+
+
+def motion_search_args(src_y_mb, ref, lane, row0, qp, prev_my, prev_mx):
+    """`inter_stage_core`'s 16x16 search arguments in the form K4
+    (`me.motion_search_tiles`) takes them, on the tiles' device: the
+    lanes' y_pad and y4_pad, the tiles as contiguous 16-byte aligned
+    uint8, lane, row0 and the first-row qp as (N,) int32, and the previous
+    MVs as (N, nmb) int32 (or Nones)."""
+    N, nmb = src_y_mb.shape[:2]
+    dev = src_y_mb.device
+    prev = [None if p is None else _packed(p, I32, (N, nmb), dev)
+            for p in (prev_my, prev_mx)]
+    return (ref["y_pad"].contiguous(), ref["y4_pad"].contiguous(),
+            _packed(src_y_mb, torch.uint8, (N, nmb, 16, 16), dev),
+            *(_packed(x, I32, (N,), dev) for x in (lane, row0, qp)), *prev)
 
 
 # ---------------------------------------------------------------------------

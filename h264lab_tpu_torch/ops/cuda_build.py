@@ -4,8 +4,8 @@ Each kernel is one source `csrc/<name>.cu` with a plain C interface. It is
 compiled with nvcc for sm_90a into `_build/libh264lab_<name>_<digest>.so`
 at first use, once per version of the source, and loaded with ctypes by
 its wrapper (`ops/bitpack.py` for K1, `ops/deblock.py` for K2,
-`ops/wavefront.py` for K3). Nothing is built when a module is imported:
-the CPU paths never need nvcc.
+`ops/wavefront.py` for K3, `ops/me.py` for K4 and K5). Nothing is built
+when a module is imported: the CPU paths never need nvcc.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ BUILD_DIR = PKG / "_build"
 
 # launches of each kernel wrapper; a run sets them to 0 and reads them to
 # show that its main path went through the kernels
-LAUNCH_COUNTS = {"bitpack": 0, "deblock": 0, "wavefront": 0}
+LAUNCH_COUNTS = {"bitpack": 0, "deblock": 0, "wavefront": 0, "me": 0,
+                 "partition": 0}
 
 
 def _target(src: Path) -> Path:

@@ -21,6 +21,13 @@ of every MB from the same half-pel planes: per block a +-2 full-pel sweep
 around the 16x16 winner, then one +-0.75 quarter-pel sweep of every block
 of a geometry at once.
 
+On the card the two searches are the hand kernels of `csrc/me.cu`: K4
+(`motion_search_tiles`, the dense 16x16 search in two launches) and K5
+(`partition_tiles`). They write the plain versions' arrays.
+`motion_search_plain` and `partition_plain` are the plain functions with
+the kernels' arguments: `models/mbscan.inter_stage_core` runs them on CPU
+tensors, and the kernels are held against them.
+
 Where the JAX package avoided TPU gathers (nine strided reshapes for the
 zero-MV windows, shift-select chains for re-centring), the port reads each
 per-MB window with one indexed gather (`qpel.windows`,
@@ -36,12 +43,14 @@ rounding can differ. The tests check the table against the JAX function.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from h264lab_tpu_torch.ops import qpel
+from h264lab_tpu_torch.ops import cuda_build, qpel
+from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 from h264lab_tpu_torch.ops.qpel import GUARD
 from h264lab_tpu_torch.ops.tuning import (SKIP_BIAS_BITS, SKIP_THR_BASE,
                                           SKIP_THR_QP)
@@ -460,4 +469,194 @@ def partition_search(cur_tiles, aux, lam):
         for (oy0, ox0), p in zip(offsets, pr):
             pred[:, oy0:oy0 + bh, ox0:ox0 + bw] = p
         out[f"pred{name}"] = pred
+    return out
+
+
+def motion_search_plain(y_pad, y4_pad, cur_tiles, lane, row_offset, qp,
+                        prev_my, prev_mx, mb_width: int, mb_height: int,
+                        enable_subpel: bool = True, planes: bool = False):
+    """`motion_search_dense` with K4's arguments and outputs
+    (`motion_search_tiles`): the MB origins from the row offsets, and with
+    `planes` the (F, B, H, J) planes as one (N * nmb, 4, 22, 22) uint8
+    tensor in aux["wins"] (else None). The CPU path of
+    `mbscan.inter_stage_core` and the version K4 is held against."""
+    n, nmb = cur_tiles.shape[:2]
+    idx = torch.arange(nmb, dtype=I32, device=cur_tiles.device)
+    base_y = GUARD + 16 * (idx // mb_width + row_offset[:, None])
+    base_x = (GUARD + 16 * (idx % mb_width)).expand(n, nmb)
+    plane = (cur_tiles.reshape(n, mb_height, mb_width, 16, 16)
+             .permute(0, 1, 3, 2, 4).reshape(n, 16 * mb_height, 16 * mb_width))
+    *out, aux = motion_search_dense(
+        plane, cur_tiles, y_pad, y4_pad, lane, base_y, base_x, qp, mb_height,
+        mb_width, row_offset, prev_my, prev_mx, enable_subpel=enable_subpel)
+    aux["wins"] = (torch.stack(aux["wins"], 1).to(torch.uint8) if planes
+                   else None)
+    return (*out, aux)
+
+
+def partition_plain(cur_tiles, planes, full_my, full_mx, mvp_y, mvp_x, lam):
+    """`partition_search` with K5's arguments (`partition_tiles`): the
+    planes as K4's (K, 4, 22, 22) uint8 tensor. The CPU path of
+    `mbscan.inter_stage_core` and the version K5 is held against."""
+    return partition_search(cur_tiles, dict(
+        wins=[planes[:, i].to(I32) for i in range(4)], full_my=full_my,
+        full_mx=full_mx, mvp_y=mvp_y, mvp_x=mvp_x), lam)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: the searches as hand kernels on the card (csrc/me.cu)
+# ---------------------------------------------------------------------------
+
+_SRC = cuda_build.CSRC / "me.cu"
+_lib_handle = None
+# K4's int32 outputs, (N, nmb) each, in the order of its C entry point
+K4_FIELDS = ("cy4", "cx4", "mvp_y", "mvp_x", "full_my", "full_mx", "mv_y",
+             "mv_x", "cost")
+# K5's outputs: name, dtype, trailing shape, in the order of its entry point
+K5_OUTPUTS = (("mv16x8", torch.int32, (2, 2)), ("mv8x16", torch.int32, (2, 2)),
+              ("mv8x8", torch.int32, (4, 2)), ("cost16x8", torch.int64, ()),
+              ("cost8x16", torch.int64, ()), ("cost8x8", torch.int64, ()),
+              ("pred16x8", torch.int32, (16, 16)),
+              ("pred8x16", torch.int32, (16, 16)),
+              ("pred8x8", torch.int32, (16, 16)))
+
+
+def load(path) -> ctypes.CDLL:
+    """A built K4/K5 library with its entry points' C signatures set."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.h264lab_me.argtypes = [vp] * 20 + [ctypes.c_longlong] + [ci] * 10 \
+        + [vp]
+    lib.h264lab_me.restype = ci
+    lib.h264lab_partition.argtypes = [vp] * 16 + [ctypes.c_longlong, vp]
+    lib.h264lab_partition.restype = ci
+    return lib
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        _lib_handle = load(cuda_build.build(_SRC)[0])
+    return _lib_handle
+
+
+def _check(name, x, dtype, shape, dev, aligned=False):
+    """Raise unless `x` is a contiguous `dtype` tensor of `shape` (None:
+    any 3-D shape) on `dev`, 16-byte aligned if asked."""
+    if not isinstance(x, torch.Tensor) or x.device != dev:
+        raise ValueError(f"{name}: the kernels take tensors on one CUDA "
+                         f"device ({dev}), not "
+                         f"{getattr(x, 'device', type(x).__name__)}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} is {x.dtype}, not {dtype}")
+    if (x.ndim != 3) if shape is None else (tuple(x.shape) != shape):
+        raise ValueError(f"{name} of shape {tuple(x.shape)}, not "
+                         f"{shape or '3-D'}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+    if aligned and x.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def motion_search_tiles(y_pad, y4_pad, cur_tiles, lane, row_offset, qp,
+                        prev_my, prev_mx, mb_width: int, mb_height: int,
+                        enable_subpel: bool = True, planes: bool = False):
+    """K4: `motion_search_dense` of N frames or bands on the card, two
+    launches of `csrc/me.cu` (the coarse search, then the rest).
+
+    y_pad (L, H + 2 GUARD, W + 2 GUARD) and y4_pad (L, ., .) uint8: the
+    lanes' guard-padded luma and 4x planes (`refstate.prepare_reference`);
+    cur_tiles (N, nmb, 16, 16) uint8, 16-byte aligned; lane, row_offset,
+    qp (N,) int32: each frame's reference lane, first MB row in the lane's
+    frame and first-row QP; prev_my/prev_mx (N, nmb) int32 full-pel
+    previous MVs or both None; all contiguous on one CUDA device. The MB
+    origins are GUARD + 16 (row + row_offset), GUARD + 16 col, as
+    `inter_stage_core` builds them for the plain version.
+
+    Returns `motion_search_dense`'s (mv_y, mv_x, cost, pred, aux), equal
+    array for array; aux["wins"] is None unless `planes` (with
+    `enable_subpel`): then the (F, B, H, J) planes as one (N * nmb, 4,
+    22, 22) uint8 tensor, which K5 reads. Raises on any other input."""
+    dev = cur_tiles.device
+    if dev.type != "cuda":
+        raise ValueError("motion_search_tiles: K4 takes tensors on one CUDA "
+                         f"device, not {dev}")
+    if planes and not enable_subpel:
+        raise ValueError("motion_search_tiles: the planes need the sub-pel "
+                         "stage")
+    n, nmb = cur_tiles.shape[:2]
+    if mb_width <= 0 or mb_height <= 0 or nmb != mb_width * mb_height:
+        raise ValueError(f"motion_search_tiles: {nmb} MBs are not "
+                         f"{mb_width} x {mb_height}")
+    _check("y_pad", y_pad, torch.uint8, None, dev)
+    _check("y4_pad", y4_pad, torch.uint8, None, dev)
+    if y4_pad.shape[0] != y_pad.shape[0]:
+        raise ValueError("motion_search_tiles: y_pad and y4_pad hold "
+                         f"{y_pad.shape[0]} and {y4_pad.shape[0]} lanes")
+    _check("cur_tiles", cur_tiles, torch.uint8, (n, nmb, 16, 16), dev, True)
+    for name, x in (("lane", lane), ("row_offset", row_offset), ("qp", qp)):
+        _check(name, x, torch.int32, (n,), dev)
+    if (prev_my is None) != (prev_mx is None):
+        raise ValueError("motion_search_tiles: prev_my and prev_mx go "
+                         "together")
+    if prev_my is not None:
+        for name, x in (("prev_my", prev_my), ("prev_mx", prev_mx)):
+            _check(name, x, torch.int32, (n, nmb), dev)
+    with torch.cuda.device(dev):
+        fields = torch.empty((len(K4_FIELDS), n, nmb), dtype=torch.int32,
+                             device=dev)
+        out = dict(zip(K4_FIELDS, fields.unbind(0)))
+        pred = torch.empty((n, nmb, 16, 16), dtype=torch.uint8, device=dev)
+        wins = (torch.empty((n * nmb, 4, SUB, SUB), dtype=torch.uint8,
+                            device=dev) if planes else None)
+        if n and nmb:
+            lam = lambda_me(qp).to(torch.int32).contiguous()
+            cuda_build.check(_lib().h264lab_me(
+                y_pad.data_ptr(), y4_pad.data_ptr(), cur_tiles.data_ptr(),
+                lane.data_ptr(), row_offset.data_ptr(), qp.data_ptr(),
+                lam.data_ptr(),
+                None if prev_my is None else prev_my.data_ptr(),
+                None if prev_mx is None else prev_mx.data_ptr(),
+                *(out[k].data_ptr() for k in K4_FIELDS), pred.data_ptr(),
+                None if wins is None else wins.data_ptr(), n, mb_width,
+                mb_height, *y_pad.shape[1:], *y4_pad.shape[1:],
+                int(enable_subpel), SKIP_THR_BASE, SKIP_THR_QP,
+                SKIP_BIAS_BITS, torch.cuda.current_stream(dev).cuda_stream),
+                "motion search")
+            LAUNCH_COUNTS["me"] += 1
+    aux = {k: out[k] for k in ("cy4", "cx4", "full_my", "full_mx", "mvp_y",
+                               "mvp_x")}
+    aux["wins"] = wins
+    return out["mv_y"], out["mv_x"], out["cost"], pred, aux
+
+
+def partition_tiles(cur_tiles, planes, full_my, full_mx, mvp_y, mvp_x, lam):
+    """K5: `partition_search` of K MBs on the card, one launch of
+    `csrc/me.cu`. cur_tiles (K, 16, 16) uint8, 16-byte aligned; planes:
+    K4's (K, 4, 22, 22) uint8 (F, B, H, J) planes; full_my, full_mx,
+    mvp_y, mvp_x: K4's aux fields flattened to (K,); lam (K,) the ME
+    lambda; int32 and contiguous on one CUDA device. Returns
+    `partition_search`'s dict, equal array for array (the cost sums
+    int64, the predictions int32). Raises on any other input."""
+    dev = cur_tiles.device
+    if dev.type != "cuda":
+        raise ValueError("partition_tiles: K5 takes tensors on one CUDA "
+                         f"device, not {dev}")
+    k = cur_tiles.shape[0]
+    _check("cur_tiles", cur_tiles, torch.uint8, (k, 16, 16), dev, True)
+    _check("planes", planes, torch.uint8, (k, 4, SUB, SUB), dev)
+    args = (full_my, full_mx, mvp_y, mvp_x, lam)
+    for name, x in zip(("full_my", "full_mx", "mvp_y", "mvp_x", "lam"), args):
+        _check(name, x, torch.int32, (k,), dev)
+    with torch.cuda.device(dev):
+        out = {name: torch.empty((k,) + shape, dtype=dtype, device=dev)
+               for name, dtype, shape in K5_OUTPUTS}
+        if k:
+            cuda_build.check(_lib().h264lab_partition(
+                cur_tiles.data_ptr(), planes.data_ptr(),
+                *(x.data_ptr() for x in args),
+                *(out[name].data_ptr() for name, _, _ in K5_OUTPUTS), k,
+                torch.cuda.current_stream(dev).cuda_stream),
+                "partition search")
+            LAUNCH_COUNTS["partition"] += 1
     return out

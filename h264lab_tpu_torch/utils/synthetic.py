@@ -242,3 +242,110 @@ def wavefront_inputs(seed: int, n: int, mb_width: int, mb_height: int,
                    recon_y_inter=spread(src_y), recon_u_inter=spread(src_u),
                    recon_v_inter=spread(src_v))
     return out
+
+
+def me_inputs(seed: int, n: int, mb_width: int, mb_height: int, qp: int,
+              lanes: int = 1, frame_rows: int | None = None,
+              stripes: bool = False) -> dict:
+    """Seeded inputs of the motion search (`ops.me.motion_search_tiles`,
+    the plain `motion_search_dense`) for n frames or bands of mb_width x
+    mb_height MBs that search `lanes` reference pictures of frame_rows MB
+    rows (default mb_height), made so that ties and every candidate occur:
+    - references: a smooth noise texture with MB-sized flat areas (all
+      128) and chessboards of 2- or 4-pixel cells, guard-padded by edge
+      replication (GUARD 64) with their 4x planes (`(sum + 8) >> 4`, guard
+      16), as `refstate.prepare_reference` builds them;
+    - current tiles, a kind per MB: flat 128 (ties everywhere on flat
+      references), a chessboard (ties between periods), the reference
+      texture moved by the frame's motion (none on the first frame, up to
+      +-12 pixels on the others) with noise of +-2 or none, the rounded
+      mean of two horizontally neighbouring such blocks (a half-pel
+      match), and an unmatched patch of uniform noise;
+    - frame k searches lane k % lanes at a band row offset in 0 ..
+      frame_rows - mb_height; QPs: `qp` on the first frame, around it on
+      the others (+-3, clipped to 0..51);
+    - previous full-pel MVs from -70 to 70 (past the +-52 clip), a tenth
+      zero, with +-52 and +-53 on some MBs; the first MB of the first
+      frame is flat with a zero previous MV, the last MB of the last frame
+      has the previous MV (-66, 61);
+    - with `stripes`, every reference is vertical stripes of period 8 (4
+      pixels at 0, 4 at 200), every tile that pattern moved by 4 pixels
+      and every previous MV (0, 4): the candidate centres (0, -4) and (0,
+      4) then tie where the predictor is zero (each band's first MB).
+    Returns numpy arrays: y_pad (lanes, 16 frame_rows + 128, 16 mb_width
+    + 128) and y4_pad (lanes, 4 frame_rows + 32, 4 mb_width + 32) uint8;
+    cur_tiles (n, nmb, 16, 16) uint8; lane, row_offset, qp (n,) int32;
+    prev_my, prev_mx (n, nmb) int32."""
+    rng = np.random.default_rng(seed)
+    frame_rows = mb_height if frame_rows is None else frame_rows
+    nmb = mb_width * mb_height
+    hf, wf = 16 * frame_rows, 16 * mb_width
+    g = 64
+    # the references: a smooth texture with flat and chessboard MBs
+    tex = rng.integers(0, 256, (lanes, hf + 4, wf + 4)).astype(np.float64)
+    tex = sum(tex[:, i:i + hf, j:j + wf] for i in range(5) for j in range(5))
+    ref = np.clip((tex / 25 - 128) * 4 + 128, 0, 255).astype(np.int64)
+    yy, xx = np.mgrid[0:16, 0:16]
+    tiles = ref.reshape(lanes, frame_rows, 16, mb_width, 16).transpose(
+        0, 1, 3, 2, 4)
+    kind = rng.integers(0, 4, (lanes, frame_rows, mb_width))
+    tiles[kind == 0] = 128
+    cell = np.where(rng.random(int((kind == 1).sum())) < 0.5, 2, 4)
+    lo, hi = rng.integers(0, 256, (2, len(cell)))
+    chess = (yy // cell[:, None, None] + xx // cell[:, None, None]) % 2
+    tiles[kind == 1] = np.where(chess == 1, hi[:, None, None],
+                                lo[:, None, None])
+    ref = tiles.transpose(0, 1, 3, 2, 4).reshape(lanes, hf, wf)
+    y_pad = np.pad(ref, ((0, 0), (g, g), (g, g)), mode="edge")
+    y4 = (ref.reshape(lanes, hf // 4, 4, wf // 4, 4).sum((2, 4)) + 8) >> 4
+    y4_pad = np.pad(y4, ((0, 0), (g // 4, g // 4), (g // 4, g // 4)),
+                    mode="edge")
+    # the current tiles
+    lane = np.arange(n) % lanes
+    row_offset = rng.integers(0, frame_rows - mb_height + 1, n)
+    move = rng.integers(-12, 13, (n, 2))
+    move[0] = 0
+    r = np.arange(nmb) // mb_width + row_offset[:, None]
+    c = np.arange(nmb) % mb_width
+    oy = g + 16 * r + move[:, :1]                           # (n, nmb)
+    ox = g + 16 * c[None] + move[:, 1:]
+
+    def block(dx):
+        return y_pad[lane[:, None, None, None],
+                     oy[..., None, None] + yy, ox[..., None, None] + xx + dx]
+
+    moved = block(0)
+    noise = rng.integers(-2, 3, (n, nmb, 16, 16)) * (
+        rng.random((n, nmb, 1, 1)) < 0.5)
+    kind = rng.integers(0, 8, (n, nmb, 1, 1))
+    kind[0, 0] = 0
+    cell = np.where(rng.random((n, nmb, 1, 1)) < 0.5, 2, 4)
+    lo, hi = rng.integers(0, 256, (2, n, nmb, 1, 1))
+    cur = np.select(
+        [kind == 0, kind == 1, kind == 2, kind == 3],
+        [np.full_like(moved, 128),
+         np.where((yy // cell + xx // cell) % 2 == 1, hi, lo),
+         (moved + block(1) + 1) >> 1,
+         rng.integers(0, 256, moved.shape)], moved + noise)
+    prev = rng.integers(-70, 71, (2, n, nmb))
+    prev[:, rng.random((n, nmb)) < 0.1] = 0
+    edge = rng.random((n, nmb)) < 0.1
+    prev[:, edge] = rng.choice(np.array([-53, -52, 52, 53]),
+                               (2, int(edge.sum())))
+    prev[:, 0, 0] = 0
+    prev[:, -1, -1] = (-66, 61)
+    offsets = rng.integers(-3, 4, n)
+    offsets[0] = 0
+    if stripes:
+        y_pad = np.broadcast_to(200 * ((np.arange(wf + 2 * g) // 4) % 2),
+                                y_pad.shape).copy()
+        y4_pad = np.broadcast_to(200 * ((np.arange(wf // 4 + g // 2)) % 2),
+                                 y4_pad.shape).copy()
+        cur = np.broadcast_to(200 * (((xx + 4) // 4) % 2), cur.shape).copy()
+        prev[0], prev[1] = 0, 4
+    i32 = np.int32
+    return dict(y_pad=y_pad.astype(np.uint8), y4_pad=y4_pad.astype(np.uint8),
+                cur_tiles=np.clip(cur, 0, 255).astype(np.uint8),
+                lane=lane.astype(i32), row_offset=row_offset.astype(i32),
+                qp=np.clip(qp + offsets, 0, 51).astype(i32),
+                prev_my=prev[0].astype(i32), prev_mx=prev[1].astype(i32))

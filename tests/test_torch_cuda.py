@@ -59,7 +59,21 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   it: with `_select_wavefront_plain` refused, a GOP IDR step and a
   speed-0 P frame encode, launching K3, to the CPU's bytes. K3 refuses
   CPU tensors, other dtypes and shapes, non-contiguous and misaligned
-  tiles, per-row QPs and half an inter candidate.
+  tiles, per-row QPs and half an inter candidate;
+- K4 (the CUDA motion search, `ops/me.motion_search_tiles`) equals the
+  plain `motion_search_dense` on the card on seeded inputs
+  (`me_inputs`: flat, chessboard, shifted-noise, half-pel and unmatched
+  MBs, previous MVs past the +-52 clip) at 4 x 3, 6 x 1, 1 x 6 and 120 x
+  68 MBs, on 1 and 3 frames, with lanes, bands at a row offset, QPs 0 to
+  51, the sub-pel stage on and off, on planes whose guard is cut so
+  that the window starts clamp and on stripes where two candidate
+  centres tie (the first tried must win); K5 (`partition_tiles`) equals the plain
+  `partition_search` on K4's planes of the same inputs. Each input is
+  launched 20 times with equal outputs, one count per call. The encode
+  paths reach them: with the plain searches refused, GOP P steps at
+  speeds 2 and 0 and sequential P frames at speeds 0 and 10 encode to
+  the CPU's bytes. Both refuse CPU tensors, other dtypes and shapes,
+  non-contiguous and misaligned inputs.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -74,10 +88,11 @@ from h264lab_tpu_torch.models import mbscan
 from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
 from h264lab_tpu_torch.models import wavefront as plan
-from h264lab_tpu_torch.ops import bitpack, deblock, wavefront
+from h264lab_tpu_torch.ops import bitpack, deblock, me, wavefront
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
                                                deblock_inputs,
+                                               me_inputs,
                                                noise_pan_sequence,
                                                wavefront_inputs)
 from tests.torch_grids import EDGE_CASES, edge_grid, random_grid
@@ -624,3 +639,177 @@ def test_k3_rejects_bad_inputs(card):
             wavefront.wavefront_tiles(*args[:i], bad, *args[i + 1:])
     with pytest.raises(ValueError):                         # no whole rows
         wavefront.wavefront_tiles(*args[:13], 5, *args[14:])
+
+
+# (seed, frames, mb_width, mb_height, qp, lanes, frame rows, sub-pel)
+ME_CASES = [
+    (71, 1, 4, 3, 33, 1, 3, True),
+    (72, 3, 4, 3, 12, 2, 5, True),          # bands at a row offset
+    (73, 3, 4, 3, 0, 1, 3, False),
+    (74, 2, 6, 1, 51, 1, 2, True),          # one MB high
+    (75, 2, 1, 6, 20, 2, 8, False),         # one MB wide, banded
+    (76, 1, 120, 68, 33, 1, 68, True),      # a 1080p frame
+    (77, 3, 120, 68, 30, 3, 68, False),
+    (78, 2, 120, 34, 33, 2, 68, True),      # mesh bands
+]
+ME_REPEATS = 20
+
+
+def _me_case(card, case, cut=False, stripes=False):
+    """A seeded K4 case on the card: (tensors, mb_width, mb_height,
+    sub-pel); `cut` trims the planes' guard so that window starts clamp,
+    `stripes` makes candidate centres tie (`me_inputs`)."""
+    seed, n, mbw, mbh, qp, lanes, rows, subpel = case
+    d = me_inputs(seed, n, mbw, mbh, qp, lanes=lanes, frame_rows=rows,
+                  stripes=stripes)
+    if cut:
+        d["y_pad"] = np.ascontiguousarray(d["y_pad"][:, :-40, :-40])
+        d["y4_pad"] = np.ascontiguousarray(d["y4_pad"][:, :-10, :-6])
+        d["prev_my"][:] = 52
+    return {k: torch.from_numpy(v).to(card) for k, v in d.items()}, mbw, \
+        mbh, subpel
+
+
+ME_ARGS = ("y_pad", "y4_pad", "cur_tiles", "lane", "row_offset", "qp",
+           "prev_my", "prev_mx")
+
+
+def _k4(t, mbw, mbh, subpel, search=me.motion_search_tiles):
+    return search(*(t[k] for k in ME_ARGS), mbw, mbh, enable_subpel=subpel,
+                  planes=subpel)
+
+
+def _k4_equals_plain(t, mbw, mbh, subpel):
+    want = _k4(t, mbw, mbh, subpel, me.motion_search_plain)
+    for _ in range(ME_REPEATS):
+        before = me.LAUNCH_COUNTS["me"]
+        got = _k4(t, mbw, mbh, subpel)
+        torch.cuda.synchronize()
+        assert me.LAUNCH_COUNTS["me"] == before + 1
+        for a, b, name in zip(got[:4], want[:4], ("mv_y", "mv_x", "cost",
+                                                  "pred")):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+        for k in ("cy4", "cx4", "full_my", "full_mx", "mvp_y", "mvp_x"):
+            assert torch.equal(got[4][k], want[4][k]), k
+        if subpel:
+            assert torch.equal(got[4]["wins"], want[4]["wins"])
+        else:
+            assert got[4]["wins"] is None
+    return got, want
+
+
+@pytest.mark.parametrize("case", ME_CASES, ids=lambda c: (
+    f"{c[1]}x{c[2]}x{c[3]}-qp{c[4]}" + ("" if c[7] else "-fullpel")))
+def test_k4_matches_plain_search(card, case):
+    _k4_equals_plain(*_me_case(card, case))
+
+
+@pytest.mark.parametrize("subpel", [True, False])
+def test_k4_clamps_windows_as_the_plain_search(card, subpel):
+    _k4_equals_plain(*_me_case(card, (79, 2, 4, 3, 33, 2, 3, subpel),
+                               cut=True))
+
+
+@pytest.mark.parametrize("subpel", [True, False])
+def test_k4_keeps_the_first_of_tied_centres(card, subpel):
+    got, _ = _k4_equals_plain(*_me_case(card, (81, 2, 4, 3, 33, 1, 3,
+                                                subpel), stripes=True))
+    assert (got[4]["full_mx"][:, 0] == -4).all()
+
+
+@pytest.mark.parametrize("case", [c for c in ME_CASES if c[7]], ids=lambda c: (
+    f"{c[1]}x{c[2]}x{c[3]}-qp{c[4]}"))
+def test_k5_matches_plain_partition_search(card, case):
+    t, mbw, mbh, subpel = _me_case(card, case)
+    got4 = _k4(t, mbw, mbh, subpel)
+    kk = t["cur_tiles"].shape[0] * mbw * mbh
+    tiles = t["cur_tiles"].reshape(kk, 16, 16)
+    flat = [got4[4][k].reshape(kk) for k in ("full_my", "full_mx", "mvp_y",
+                                             "mvp_x")]
+    lam = me.lambda_me(t["qp"]).repeat_interleave(mbw * mbh)
+    want = me.partition_plain(tiles, got4[4]["wins"], *flat, lam)
+    for _ in range(ME_REPEATS):
+        before = me.LAUNCH_COUNTS["partition"]
+        got = me.partition_tiles(tiles, got4[4]["wins"], *flat, lam)
+        torch.cuda.synchronize()
+        assert me.LAUNCH_COUNTS["partition"] == before + 1
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+def test_k4_and_k5_serve_the_encode_paths(card, monkeypatch):
+    cfg = EncoderConfig(width=64, height=48, gop=4, qp=33)
+    frames = list(chessboard_sequence(64, 48, 4))
+    runs = {s: RunConfig(qp_min=33, qp_max=33, encode_speed=s)
+            for s in (0, 2, 10)}
+
+    def gop(device, speed):
+        enc = GopBandEncoder(cfg, n_gop=2, device=device)
+        return [a.payload for t in range(2)
+                for a in enc.encode_step(frames[t:t + 2], runs[speed])]
+
+    def seq(device, speed):
+        enc = H264Encoder(cfg, device=device)
+        return [enc.encode(*f, runs[speed]).payload for f in frames[:3]]
+
+    want = {(f, s): f("cpu", s) for f, s in ((gop, 2), (gop, 0), (seq, 0),
+                                             (seq, 10))}
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain search on the card path")
+
+    monkeypatch.setattr(me, "motion_search_dense", refused)
+    monkeypatch.setattr(me, "partition_search", refused)
+    before = dict(me.LAUNCH_COUNTS)
+    for (f, s), payloads in want.items():
+        assert f(card, s) == payloads, (f.__name__, s)
+    # P steps / frames: GOP 1 + 1, sequential 2 + 2; partitions at speed 0
+    assert me.LAUNCH_COUNTS["me"] - before["me"] == 6
+    assert me.LAUNCH_COUNTS["partition"] - before["partition"] == 3
+
+
+def test_k4_and_k5_reject_bad_inputs(card):
+    t, mbw, mbh, subpel = _me_case(card, (80, 2, 4, 3, 30, 2, 4, True))
+    args = [t[k] for k in ME_ARGS]
+    out = me.motion_search_tiles(*args, mbw, mbh, planes=True)
+    shifted = torch.empty(args[2].numel() + 1, dtype=torch.uint8,
+                          device=card)[1:].view(args[2].shape)
+    for i, bad, err in (
+            (0, args[0].cpu(), ValueError),                 # on the CPU
+            (2, args[2].cpu(), ValueError),
+            (5, args[5].cpu(), ValueError),
+            (2, args[2].int(), TypeError),                  # dtype
+            (3, args[3].long(), TypeError),
+            (6, args[6].long(), TypeError),
+            (1, args[1][0], ValueError),                    # shape
+            (1, args[1][:1], ValueError),                   # lanes
+            (5, args[5][:1], ValueError),
+            (6, args[6][:, :5], ValueError),
+            (2, args[2].transpose(-1, -2), ValueError),     # not contiguous
+            (0, args[0].transpose(1, 2), ValueError),
+            (2, shifted, ValueError),                       # misaligned
+            (7, None, ValueError)):                         # half prev
+        with pytest.raises(err):
+            me.motion_search_tiles(*args[:i], bad, *args[i + 1:], mbw, mbh)
+    with pytest.raises(ValueError):                         # nmb != 4 x 3
+        me.motion_search_tiles(*args, mbw, mbh + 1)
+    with pytest.raises(ValueError):                         # planes, no qpel
+        me.motion_search_tiles(*args, mbw, mbh, enable_subpel=False,
+                               planes=True)
+    kk = 2 * mbw * mbh
+    pargs = [t["cur_tiles"].reshape(kk, 16, 16), out[4]["wins"]] + [
+        out[4][k].reshape(kk) for k in ("full_my", "full_mx", "mvp_y",
+                                        "mvp_x")] + [
+        me.lambda_me(t["qp"]).repeat_interleave(mbw * mbh)]
+    me.partition_tiles(*pargs)
+    for i, bad, err in (
+            (0, pargs[0].cpu(), ValueError),
+            (1, pargs[1].int(), TypeError),
+            (6, pargs[6].long(), TypeError),
+            (1, pargs[1][:, :3], ValueError),
+            (2, pargs[2][:5], ValueError),
+            (0, pargs[0].transpose(1, 2), ValueError),
+            (0, shifted.view(kk, 16, 16), ValueError)):
+        with pytest.raises(err):
+            me.partition_tiles(*pargs[:i], bad, *pargs[i + 1:])

@@ -19,8 +19,9 @@ line. Four measurements, the third one first:
    `deblock`, `pack`, `ref`, `host`) between device synchronizations. Per
    stage: the device operations (kernels, copies, fills) that start
    inside its `stage:<name>` range (the hand kernels K1 in `pack`, K2 in
-   `deblock` and K3 in `select` by their launch counts), their device ms
-   summed (busy ms) and the device ms of the hand kernels. The busy ms
+   `deblock`, K3 in `select`, K4 and K5 in `inter` by their launch
+   counts), their device ms summed (busy ms) and the device ms of the
+   hand kernels. The busy ms
    over the untraced stage time of measurement 1 estimates the share of
    the stage the device works;
 3. K1 on the symbol grid of one 16-lane IDR step at the IDR capacity, and
@@ -48,9 +49,10 @@ line. Four measurements, the third one first:
    untraced stage ms (the wavefront `select`: K3 and its packing).
 
 With `--sequential` it measures only the sequential encoder
-(`H264Encoder`, `chip_smoke.py`'s 1080p speed-0 setting): after an IDR,
-one P frame with per-stage times between syncs, and the next P frame
-under one profiler pass as in measurement 2 (its `select`, the wavefront
+(`H264Encoder`, `chip_smoke.py`'s 1080p speed-0 setting): after an IDR
+and a P frame (untimed: the first use of the P path), one P frame with
+per-stage times between syncs, and the next P frame under one profiler
+pass as in measurement 2 (its `select`, the wavefront
 with the inter candidate, is one K3 launch and a few operations).
 
 With `--escape` it measures only what NAL escaping costs the GOP steps'
@@ -129,14 +131,22 @@ def _busy_us(events):
 
 
 # the hand kernels' names in a trace, and their launch counts
-KERNELS = {"K1": "pack_kernel", "K2": "deblock_kernel",
-           "K3": "wavefront_kernel"}
-HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock", "K3": "wavefront"}
+KERNELS = {"K1": ("pack_kernel",), "K2": ("deblock_kernel",),
+           "K3": ("wavefront_kernel",),
+           "K4": ("coarse_kernel", "refine_kernel"),
+           "K5": ("partition_kernel",)}
+HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock", "K3": "wavefront",
+                 "K4": "me", "K5": "partition"}
+
+
+def _is(kernel, name):
+    """Whether a trace event's name is one of hand kernel `kernel`'s."""
+    return any(k in name for k in KERNELS[kernel])
 
 
 def _kernel_us(ops, kernel):
     return sum(e.time_range.end - e.time_range.start for e in ops
-               if KERNELS[kernel] in e.name)
+               if _is(kernel, e.name))
 
 
 def _stage_ops(timer, stages, drive):
@@ -158,9 +168,9 @@ def _stage_ops(timer, stages, drive):
         before = dict(cuda_build.LAUNCH_COUNTS)
         with stage(name):
             yield
-        for k, key in HAND_LAUNCHES.items():
-            if cuda_build.LAUNCH_COUNTS[key] > before[key]:
-                launched[k] = name
+        for k, key in HAND_LAUNCHES.items():     # (an earlier tree has
+            if cuda_build.LAUNCH_COUNTS.get(key, 0) > before.get(key, 0):
+                launched[k] = name                # fewer kernels)
 
     stages.stage = counted
     timer.stage_times = {}
@@ -187,8 +197,8 @@ def _stage_ops(timer, stages, drive):
         for kern_name, us in kernels:
             r["device_ops"] += 1
             r["busy_ms"] += us / 1e3
-            for k, kname in KERNELS.items():
-                if kname in kern_name:
+            for k in KERNELS:
+                if _is(k, kern_name):
                     r["kernel_ms"][k] += us / 1e3
 
     placed, attached = 0, set()
@@ -196,13 +206,12 @@ def _stage_ops(timer, stages, drive):
         if e.device_type == DeviceType.CPU and e.kernels:
             charge(stage_of(e), [(k.name, k.duration) for k in e.kernels])
             placed += len(e.kernels)
-            attached.update(k for k, kname in KERNELS.items()
-                            for kern in e.kernels if kname in kern.name)
+            attached.update(k for k in KERNELS for kern in e.kernels
+                            if _is(k, kern.name))
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and not e.name.startswith("stage:")]
     for e in device:
-        hand = [k for k, kname in KERNELS.items() if kname in e.name
-                and k not in attached]
+        hand = [k for k in KERNELS if _is(k, e.name) and k not in attached]
         if hand and hand[0] in launched:
             charge(launched[hand[0]], [(e.name, e.time_range.end
                                         - e.time_range.start)])
@@ -243,19 +252,21 @@ def idr_counts(lane_counts=(1, chip_smoke.LANES)):
 
 def sequential_counts():
     """H264Encoder at `chip_smoke.py`'s 1080p sequential setting (speed 0):
-    an IDR, one P frame with per-stage times between syncs, then the next P
-    frame with every stage traced. Returns (stage ms, traced counts)."""
+    an IDR and a P frame (untimed: first use), one P frame with per-stage
+    times between syncs, then the next P frame with every stage traced.
+    Returns (stage ms, traced counts)."""
     cfg, run, _ = chip_smoke.main_path_setup()
     run = dataclasses.replace(run, encode_speed=chip_smoke.SEQ_SPEED)
-    frames = list(chessboard_sequence(chip_smoke.WIDTH, chip_smoke.HEIGHT, 3))
+    frames = list(chessboard_sequence(chip_smoke.WIDTH, chip_smoke.HEIGHT, 4))
     enc = H264Encoder(cfg)
-    enc.encode(*frames[0], run)
+    for f in frames[:2]:
+        enc.encode(*f, run)
     enc.stage_times = {}
-    enc.encode(*frames[1], run)
+    enc.encode(*frames[2], run)
     stage_ms = {k: 1e3 * v for k, v in enc.stage_times.items()}
     enc.stage_times = None
     return stage_ms, _stage_ops(enc, enc.stages,
-                                lambda: enc.encode(*frames[2], run))
+                                lambda: enc.encode(*frames[3], run))
 
 
 def _host_turns(fns, install):
