@@ -153,12 +153,16 @@ Phases (any failure exits non-zero; nothing is caught):
      past the +-52 clip) at (16, 8160) over 16 lanes, (1, 8160) with and
      without the sub-pel stage, (1, 2040), a (1, 4080) band at a row
      offset, 4 x 3 MBs at QP 0, 6 x 1 MBs at QP 51 and 1 x 6 MBs
-     without sub-pel (K5 on K4's planes of each sub-pel case). Every check
-     launches the kernel 20 times, each output equal to the plain
-     version's, and prints its wrapper ms (CUDA events over 20 calls), the
-     plain version's ms (one call) and the bound (bytes or operations,
-     `search_bound`); the phase prints K4's and K5's ptxas registers,
-     shared memory and spills;
+     without sub-pel, 11 x 3 MBs (K4's tiles of 2 x 8 MBs cut at the right
+     and bottom edges) and 9 x 5 MB bands deep in their frames (K5 on K4's
+     planes of each sub-pel case). Every check launches the kernel 20
+     times, each output equal to the plain version's, and prints its
+     wrapper ms (CUDA events over 20 calls), the plain version's ms (one
+     call) and the bound (bytes or operations, `search_bound`); the phase
+     prints K4's and K5's ptxas registers, shared memory and spills, K4's
+     threads, dynamic shared memory and resident blocks an SM
+     (`me.occupancy`), and K4's kernel launches in one call on the 16-lane
+     P step's inputs (a `torch.profiler` trace; it must be one);
   19. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
@@ -230,6 +234,10 @@ K4_CASES = (
     ("4 x 3 MBs", 56, 3, 4, 3, 0, 2, 5, True),
     ("6 x 1 MBs", 57, 2, 6, 1, 51, 1, 2, True),
     ("1 x 6 MBs", 58, 2, 1, 6, 12, 2, 8, False),
+    # K4's tiles of 2 x 8 MBs: partial tiles at the right and bottom edges,
+    # and bands deep in their frames (the halo stops at a band's first row)
+    ("11 x 3 MBs", 59, 2, 11, 3, 33, 2, 6, True),
+    ("9 x 5 MB bands", 60, 3, 9, 5, 20, 1, 40, True),
 )
 ME_REPEATS = 20                  # launches of K4 and K5 per check, all equal
 # the motion search's integer operations per MB, counted on the plain
@@ -572,6 +580,25 @@ def k5_args(k4_args):
         out[4][k].reshape(kk) for k in ("full_my", "full_mx", "mvp_y",
                                         "mvp_x")),
         me.lambda_me(k4_args[5]).repeat_interleave(nmb))
+
+
+def kernel_launches(fn):
+    """The device kernels of `csrc/*.cu` (the hand kernels' anonymous
+    namespace) that one call of `fn` launches, from a `torch.profiler`
+    trace of it after a warm-up call: [(name, device us)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name.replace("(anonymous namespace)::", "").split("(")[0],
+             e.time_range.end - e.time_range.start) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "anonymous namespace" in e.name]
 
 
 def ptxas_lines(log):
@@ -1120,7 +1147,7 @@ def main() -> int:
     from h264lab_tpu_torch.decoder.decoder import H264Decoder
     from h264lab_tpu_torch.entry import entry
     from h264lab_tpu_torch.models.encoder import H264Encoder
-    from h264lab_tpu_torch.ops import bitpack, cuda_build, wavefront
+    from h264lab_tpu_torch.ops import bitpack, cuda_build, me, wavefront
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
@@ -1534,7 +1561,20 @@ def main() -> int:
     # and on seeded inputs at the paths' shapes
     t0 = time.perf_counter()
     print(f"K4 and K5 {label}: ptxas {ptxas['K4 and K5']}")
+    k4_occ = me.occupancy()
+    print(f"K4 {label}: {k4_occ['threads']} threads and "
+          f"{k4_occ['smem_bytes']} bytes of shared memory a block (a tile of "
+          f"{k4_occ['tile'][0]} x {k4_occ['tile'][1]} MBs), "
+          f"{k4_occ['blocks_per_sm']} resident blocks an SM")
     k4_numbers, k5_numbers = {}, {}
+    # K4's kernel launches in one call on the 16-lane P step's inputs
+    args = to_device(me_calls["16-lane P step"], "cuda")
+    k4_kernels = kernel_launches(lambda: me.motion_search_tiles(*args))
+    print(f"K4's kernel launches in one call {label}: "
+          + ", ".join(f"{k} {us:.1f} us" for k, us in k4_kernels))
+    _require(len(k4_kernels) == 1, f"K4 launched {len(k4_kernels)} kernels "
+             "in one call, not one")
+    del args
     for what, args in me_calls.items():
         k4_numbers[what] = check_k4(to_device(args, "cuda"), f"the {what}'s "
                                     "motion search inputs", label)
@@ -1641,6 +1681,8 @@ def main() -> int:
         gop_launches=me_launches, seq_launches=seq_me_launches,
         svc_launches=svc_me_launches, mesh_launches=mesh_me_launches,
         cif_launches=cif_me[0], ptxas=ptxas["K4 and K5"],
+        kernel_launches_per_call=len(k4_kernels),
+        device_us=k4_kernels[0][1], occupancy=k4_occ,
         inputs={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
                         bound_ms=v["bound_ms"], bound_by=v["bound_by"])
                 for k, v in k4_numbers.items()}))

@@ -22,8 +22,9 @@ around the 16x16 winner, then one +-0.75 quarter-pel sweep of every block
 of a geometry at once.
 
 On the card the two searches are the hand kernels of `csrc/me.cu`: K4
-(`motion_search_tiles`, the dense 16x16 search in two launches) and K5
-(`partition_tiles`). They write the plain versions' arrays.
+(`motion_search_tiles`, the dense 16x16 search in one launch, a block per
+tile of 2 x 8 MBs with its coarse halo) and K5 (`partition_tiles`). They
+write the plain versions' arrays.
 `motion_search_plain` and `partition_plain` are the plain functions with
 the kernels' arguments: `models/mbscan.inter_stage_core` runs them on CPU
 tensors, and the kernels are held against them.
@@ -530,6 +531,8 @@ def load(path) -> ctypes.CDLL:
     lib.h264lab_me.restype = ci
     lib.h264lab_partition.argtypes = [vp] * 16 + [ctypes.c_longlong, vp]
     lib.h264lab_partition.restype = ci
+    lib.h264lab_me_occupancy.argtypes = [vp]
+    lib.h264lab_me_occupancy.restype = ci
     return lib
 
 
@@ -538,6 +541,23 @@ def _lib():
     if _lib_handle is None:
         _lib_handle = load(cuda_build.build(_SRC)[0])
     return _lib_handle
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(device: int) -> dict:
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        cuda_build.check(_lib().h264lab_me_occupancy(out), "K4 occupancy")
+    return dict(threads=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
+                tile=(out[3], out[4]))
+
+
+def occupancy() -> dict:
+    """K4's launch shape on the current card: threads a block, dynamic
+    shared memory bytes a block, resident blocks an SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and the tile's MB
+    rows and columns (a block's MBs)."""
+    return _occupancy(torch.cuda.current_device())
 
 
 def _check(name, x, dtype, shape, dev, aligned=False):
@@ -561,8 +581,11 @@ def _check(name, x, dtype, shape, dev, aligned=False):
 def motion_search_tiles(y_pad, y4_pad, cur_tiles, lane, row_offset, qp,
                         prev_my, prev_mx, mb_width: int, mb_height: int,
                         enable_subpel: bool = True, planes: bool = False):
-    """K4: `motion_search_dense` of N frames or bands on the card, two
-    launches of `csrc/me.cu` (the coarse search, then the rest).
+    """K4: `motion_search_dense` of N frames or bands on the card, one
+    launch of `csrc/me.cu` (a block per tile of MBs of a frame: the coarse
+    search of its MBs and of the neighbours their predictors read, then
+    the rest from the tile's reference strip in shared memory); the ME
+    lambda comes from the stored table by QP.
 
     y_pad (L, H + 2 GUARD, W + 2 GUARD) and y4_pad (L, ., .) uint8: the
     lanes' guard-padded luma and 4x planes (`refstate.prepare_reference`);
@@ -610,11 +633,10 @@ def motion_search_tiles(y_pad, y4_pad, cur_tiles, lane, row_offset, qp,
         wins = (torch.empty((n * nmb, 4, SUB, SUB), dtype=torch.uint8,
                             device=dev) if planes else None)
         if n and nmb:
-            lam = lambda_me(qp).to(torch.int32).contiguous()
             cuda_build.check(_lib().h264lab_me(
                 y_pad.data_ptr(), y4_pad.data_ptr(), cur_tiles.data_ptr(),
                 lane.data_ptr(), row_offset.data_ptr(), qp.data_ptr(),
-                lam.data_ptr(),
+                _lut(dev).data_ptr(),
                 None if prev_my is None else prev_my.data_ptr(),
                 None if prev_mx is None else prev_mx.data_ptr(),
                 *(out[k].data_ptr() for k in K4_FIELDS), pred.data_ptr(),

@@ -63,10 +63,12 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
 - K4 (the CUDA motion search, `ops/me.motion_search_tiles`) equals the
   plain `motion_search_dense` on the card on seeded inputs
   (`me_inputs`: flat, chessboard, shifted-noise, half-pel and unmatched
-  MBs, previous MVs past the +-52 clip) at 4 x 3, 6 x 1, 1 x 6 and 120 x
-  68 MBs, on 1 and 3 frames, with lanes, bands at a row offset, QPs 0 to
-  51, the sub-pel stage on and off, on planes whose guard is cut so
-  that the window starts clamp and on stripes where two candidate
+  MBs, previous MVs past the +-52 clip) at 4 x 3, 6 x 1, 1 x 6, 11 x 3
+  (K4's 2 x 8 MB tiles cut at both edges) and 120 x 68 MBs, on 1 and 3
+  frames, with lanes, bands at a row offset (9 x 5 MB bands deep in
+  their frames), QPs 0 to 51, the sub-pel stage on and off, on planes
+  whose guard is cut so that the window starts clamp, on planes cut so
+  far that the strip origins clamp, and on stripes where two candidate
   centres tie (the first tried must win); K5 (`partition_tiles`) equals the plain
   `partition_search` on K4's planes of the same inputs. Each input is
   launched 20 times with equal outputs, one count per call. The encode
@@ -651,6 +653,8 @@ ME_CASES = [
     (76, 1, 120, 68, 33, 1, 68, True),      # a 1080p frame
     (77, 3, 120, 68, 30, 3, 68, False),
     (78, 2, 120, 34, 33, 2, 68, True),      # mesh bands
+    (82, 2, 11, 3, 33, 2, 6, True),         # partial tiles at both edges
+    (83, 3, 9, 5, 20, 1, 40, True),         # bands deep in their frames
 ]
 ME_REPEATS = 20
 
@@ -708,6 +712,16 @@ def test_k4_matches_plain_search(card, case):
 def test_k4_clamps_windows_as_the_plain_search(card, subpel):
     _k4_equals_plain(*_me_case(card, (79, 2, 4, 3, 33, 2, 3, subpel),
                                cut=True))
+
+
+@pytest.mark.parametrize("subpel", [True, False])
+def test_k4_clamps_the_strip_origin(card, subpel):
+    """Planes cut to 100 x 100, above and left of the last tiles of bands
+    at row offsets 6 and 3: those tiles' strips start clamped."""
+    t, mbw, mbh, subpel = _me_case(card, (86, 2, 11, 2, 33, 1, 8, subpel))
+    t["row_offset"] = torch.tensor([6, 3], dtype=torch.int32, device=card)
+    t["y_pad"] = t["y_pad"][:, :100, :100].contiguous()
+    _k4_equals_plain(t, mbw, mbh, subpel)
 
 
 @pytest.mark.parametrize("subpel", [True, False])

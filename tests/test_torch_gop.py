@@ -226,8 +226,11 @@ def test_constants_and_configs_carried_across():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "h264lab_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_step.py",
-              ROOT / "tools" / "torch_mesh_cards.py"]
+    files += [ROOT / "chip_smoke.py"]
+    files += sorted((ROOT / "tools").glob("torch_*.py"))
+    for name in ("torch_trace_step.py", "torch_mesh_cards.py",
+                 "torch_k3_bench.py", "torch_k4_bench.py"):
+        assert ROOT / "tools" / name in files, name
     assert len(files) >= 50
     pkg = ROOT / "h264lab_tpu_torch"
     for name in ("cli.py", "utils/yuv.py", "utils/metrics.py",

@@ -2,23 +2,33 @@
 emulated on the CPU.
 
 A CUDA kernel cannot run here, so `emulate_k4` and `emulate_k5` do in
-torch what each kernel does per MB: every candidate position's cost
-computed on its own, the winner taken as the least of signed (cost,
-raster index) keys (`key_min`), windows read at starts clamped into the
-plane as `qpel.windows` clamps them (the coarse band window per dy), the
-half-pel planes from the re-centred window by the kernel's formulas, and
-each quarter-pel sample as the rounded mean of the two plane samples of
-the kernel's phase table (`PHASES`). The emulations are held against the
+torch what each kernel does. K4 (`emulate_k4`): a block per tile of 2 x 8
+MBs; the coarse +-8 search of the tile's MBs and of the halo their
+predictors read (none above a band's first row), through the tile's 4x
+strip, a half warp's lanes taking a column of positions each; the
+reference strip of the tile, its origin clamped as `qpel.windows` clamps
+a window start, every window read through it (a read outside it is 0);
+the full-pel and quarter-pel sweeps row-split over 32 lanes, their
+partial sums packed two to a word and reduced by the kernel's
+reduce-scatter, the winner the least signed (cost, raster index) key; the
+half-pel planes from the re-centred window with the kernel's biased
+vertical sums, and each quarter-pel sample as the rounded mean of the two
+plane samples of the kernel's phase table (`PHASES`). K5 (`emulate_k5`):
+per MB every candidate position's cost on its own and the least key.
+Three faults of the schedule (a halo above the band, an unclamped strip
+origin, keys ordered by lane) each make the emulation fail. The
+emulations are held against the
 port's plain `motion_search_dense` / `partition_search` (through
 `motion_search_plain` / `partition_plain`, which take the kernels'
 arguments) and against JAX's (`h264lab_tpu/ops/me.py`) on
 `utils.synthetic.me_inputs` cases: flat and
 chessboard MBs (ties everywhere), shifted noise, half-pel matches,
 unmatched patches, previous MVs past the +-52 clip, bands at a row
-offset, QPs 0, 12, 33 and 51, the sub-pel stage on and off; one case
-reaches a negative quarter-pel cost (the skip bias), one reads planes
-whose guard is cut so that the window starts are clamped, one ties two
-candidate centres. JAX runs each
+offset, QPs 0, 12, 33 and 51, the sub-pel stage on and off, tiles cut at
+the frame's right and bottom edges; one case reaches a negative
+quarter-pel cost (the skip bias), one reads planes whose guard is cut so
+that the window starts are clamped, one cuts them so far that the strip
+origins clamp, one ties two candidate centres. JAX runs each
 search once per case (one trace per shape). Tolerance: exact equality
 (integer arithmetic).
 """
@@ -41,6 +51,7 @@ from h264lab_tpu_torch.parallel.gop import GopBandEncoder
 from h264lab_tpu_torch.utils.synthetic import chessboard_sequence, me_inputs
 
 G, G4 = 64, 16
+TILE = (2, 8)            # K4's tile: MB rows, MB columns
 TAPS = (1, -5, 20, 20, -5, 1)
 F, B, H, J = range(4)
 # K4's and K5's phase table: (fy, fx) -> the two planes and their (row,
@@ -67,6 +78,7 @@ CASES = [
     (64, 3, 4, 3, 51, 2, 5, True),
     (65, 2, 6, 1, 33, 1, 2, True),          # one MB high
     (66, 2, 1, 6, 20, 2, 8, False),         # one MB wide, banded
+    (84, 2, 11, 3, 33, 2, 6, True),         # K4's tiles cut at both edges
 ]
 JAX_CASES = [c for c in CASES if c[2:4] == (4, 3)]
 ME_ARGS = ("y_pad", "y4_pad", "cur_tiles", "lane", "row_offset", "qp",
@@ -110,27 +122,6 @@ def clamp(v, lo, hi):
     return torch.clamp(v, lo, hi)
 
 
-def predictor(q4, n, mbw, mbh):
-    """The kernel's per-MB predictor from the coarse field q4 (K,)."""
-    q = (16 * q4).reshape(n, mbh, mbw)
-    out = torch.zeros_like(q)
-    for r in range(mbh):
-        for c in range(mbw):
-            left = q[:, r, c - 1] if c > 0 else torch.zeros(n, dtype=q.dtype)
-            if r == 0:
-                out[:, r, c] = left
-                continue
-            top = q[:, r - 1, c]
-            if c == mbw - 1:
-                tr = q[:, r - 1, c - 1] if c > 0 else torch.zeros_like(top)
-            else:
-                tr = q[:, r - 1, c + 1]
-            out[:, r, c] = torch.maximum(
-                torch.minimum(torch.maximum(left, top), tr),
-                torch.minimum(left, top))
-    return out.reshape(-1)
-
-
 def phase_block(planes, dyq, dxq, y, x, h, w):
     """(K, h, w) quarter-pel samples of phase (dyq & 3, dxq & 3) from the
     (K, 4, 22, 22) planes at plane coordinates (y, x) (K,)."""
@@ -140,62 +131,248 @@ def phase_block(planes, dyq, dxq, y, x, h, w):
     return (a + b + 1) >> 1
 
 
-def emulate_k4(d, mbw, mbh, subpel):
-    """K4 per MB, as the kernel computes it. Returns a dict of (K,) fields,
-    pred (K, 16, 16) and planes (K, 4, 22, 22) (None without sub-pel)."""
+def strip_read(img, lane, origin, size, y, x, h, w):
+    """(K, h, w) bytes of each MB's strip of the lanes' planes img (L, H,
+    W): strip k is img[lane[k]] from origin (sy[k], sx[k]) of size (sh[k],
+    sw[k]), read at strip coordinates (y, x) (K,). What lies outside the
+    strip, or outside the plane, reads as 0 (bytes a copy never wrote)."""
+    (sy, sx), (sh, sw) = origin, size
+    yy = y[:, None] + torch.arange(h)
+    xx = x[:, None] + torch.arange(w)
+    gy, gx = sy[:, None] + yy, sx[:, None] + xx
+    iny = (yy >= 0) & (yy < sh[:, None]) & (gy >= 0) & (gy < img.shape[1])
+    inx = (xx >= 0) & (xx < sw[:, None]) & (gx >= 0) & (gx < img.shape[2])
+    v = img[lane[:, None, None], gy.clamp(0, img.shape[1] - 1)[:, :, None],
+            gx.clamp(0, img.shape[2] - 1)[:, None, :]]
+    return torch.where(iny[:, :, None] & inx[:, None, :], v, 0)
+
+
+def reduce_scatter(partial):
+    """K4's reduce-scatter of row-split partial sums (K, 32 lanes, 49
+    positions): two positions packed to a 32-bit word (slot s: positions
+    2 s, 2 s + 1 in the low and high halves), then five rounds in which
+    lanes with bit o keep the upper half of the slots, each adding its
+    partner's (lane ^ o) copy. Returns (K, 32 lanes, 2): lane l's totals
+    of positions 2 l and 2 l + 1 (0 past position 48)."""
+    kk = partial.shape[0]
+    assert int(partial.max()) < 2**11       # 8 pixels of a lane
+    pad = torch.cat([partial, torch.zeros((kk, 32, 15), dtype=torch.long)],
+                    2)
+    v = pad[:, :, 0::2] | pad[:, :, 1::2] << 16         # (K, 32, 32)
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        up = ((lanes & o) != 0)[None, :, None]
+        lo, hi = v[:, :, :o], v[:, :, o:2 * o]
+        send, keep = torch.where(up, lo, hi), torch.where(up, hi, lo)
+        v = (keep + send[:, lanes ^ o]) & 0xFFFFFFFF
+    v = v[:, :, 0]
+    return torch.stack([v & 0xFFFF, v >> 16], 2)
+
+
+def sweep_winner(partial, cost_of, lane_key=False):
+    """The least (cost, raster index) key of a 49-position row-split sweep:
+    the totals from `reduce_scatter`, lane l keys positions 2 l and 2 l +
+    1 by `cost_of(sad (K,), position)` and the least key of the lanes wins.
+    With `lane_key` (a mutation) the key's second part is the lane, not the
+    position. Returns (position, cost), each (K,)."""
+    tot = reduce_scatter(partial)
+    keys = []
+    for lane in range(25):
+        for h in range(2):
+            p = 2 * lane + h
+            if p < 49:
+                keys.append(cost_of(tot[:, lane, h], p) * 2**32
+                            + (lane if lane_key else p))
+    keys = torch.stack(keys, 1)
+    best = keys.argmin(dim=1)                 # the first of the least keys
+    return best, keys.min(dim=1).values // 2**32
+
+
+def lane_partials(cur, blocks):
+    """Row-split partial SADs: cur (K, 16, 16) and blocks (K, P, 16, 16)
+    -> (K, 32, P), lane 2 i + h summing row i's pixels 8 h .. 8 h + 7."""
+    diff = (cur[:, None] - blocks).abs().reshape(cur.shape[0], -1, 32, 8)
+    return diff.sum(-1).permute(0, 2, 1)
+
+
+def coarse_order():
+    """K4's coarse positions p = 17 dy + dx (dy, dx in 0 .. 16) in a half
+    warp's lane order: lane j takes column j (dy 0 .. 16), then position
+    (j, 16), lane 0 also (16, 16). Returns the (289,) rank of each
+    position in lane order."""
+    order = []
+    for j in range(16):
+        order += [(d, j) for d in range(17)]
+        order += [(d, 16) for d in (j, j + 16) if d < 17]
+    rank = torch.empty(289, dtype=torch.long)
+    for i, (d, e) in enumerate(order):
+        rank[17 * d + e] = i
+    return rank
+
+
+def coarse_of(t, slots, mbw, mbh, lane_key):
+    """The coarse-grid MBs' +-8 winners as K4's half warps take them.
+    slots: [(frame, MB row, MB column, 4x strip)] where the 4x strip is the
+    tile's ((row, column) origin, extent); an MB row < 0 reads a 4x4 block
+    outside the band's tiles. Each dy's band window at its clamped row
+    Y(d), read through the strip (a read outside it, or outside the plane,
+    is 0); 32-bit (cost << 9 | raster index) keys, or with `lane_key` (a
+    mutation) keys that order by lane, then by the lane's own order.
+    Returns (dy4, dx4), each (S,)."""
+    nmb = t["cur_tiles"].shape[1]
+    f, r, c = (torch.tensor([x[i] for x in slots]) for i in range(3))
+    oy4, ox4, n4, m4 = (torch.tensor([x[3][i // 2][i % 2] for x in slots])
+                        for i in range(4))
+    tiles = t["cur_tiles"].reshape(-1, 16, 16)
+    idx = f * nmb + r * mbw + c
+    tile = tiles[torch.where(idx < 0, idx + tiles.shape[0], idx)]
+    cur4 = (tile.reshape(-1, 4, 4, 4, 4).sum((2, 4)) + 8) >> 4
+    ref4 = t["y4_pad"][t["lane"][f]]                    # (S, h4p, w4p)
+    h4p, w4p = ref4.shape[1:]
+    p = torch.arange(289)
+    d, e = p // 17, p % 17
+    y0 = G4 + 4 * t["row_offset"][f] - 8
+    x0 = min(max(G4 - 8, 0), w4p - (4 * mbw + 16))
+    yy = (clamp(y0[:, None] + d, 0, h4p - 4 * mbh) + 4 * r[:, None])[
+        ..., None] + torch.arange(4)                     # (S, 289, 4)
+    xx = (x0 + 4 * c[:, None] + e)[..., None] + torch.arange(4)
+    ok = (((yy >= oy4[:, None, None].clamp(min=0))
+           & (yy < (oy4 + n4).clamp(max=h4p)[:, None, None]))[..., None]
+          & ((xx >= ox4[:, None, None])
+             & (xx < (ox4 + m4).clamp(max=w4p)[:, None, None]))[..., None, :])
+    s = torch.arange(len(slots))[:, None, None, None]
+    win = torch.where(ok, ref4[s, yy.clamp(0, h4p - 1)[..., None],
+                               xx.clamp(0, w4p - 1)[..., None, :]], 0)
+    lam = _t(tme.LAMBDA_ME).long()[t["qp"][f]]
+    cost = (16 * (cur4[:, None] - win).abs().sum((2, 3))
+            + lam[:, None] * (bits(16 * (d - 8)) + bits(16 * (e - 8))))
+    assert int(cost.min()) >= 0 and int(cost.max()) < 2**23
+    keys = cost << 9 | (coarse_order() if lane_key else p)
+    best = keys.argmin(dim=1)
+    return best // 17 - 8, best % 17 - 8
+
+
+def emulate_k4(d, mbw, mbh, subpel, mutation=None):
+    """K4 as the kernel schedules it (`csrc/me.cu` `search_kernel`). A
+    block per tile of TILE MBs of a frame or band:
+    - the coarse grid: the tile's MBs and the halo their predictors read
+      (the column to the left, the row above from one column left to one
+      right, the column to the right of the rows but the last), none above
+      the band's first row, each searched by `coarse_of` through the
+      tile's 4x strip; the predictor from the grid;
+    - the reference strip: (16 R + 128) x (16 C + 128) bytes of the lane's
+      plane (the plane where it is smaller) from an origin clamped as
+      `qpel.windows` clamps a window start; every window read through it;
+    - the centres, then the full-pel and quarter-pel sweeps row-split over
+      32 lanes (`lane_partials`), reduced by `reduce_scatter`, the winner
+      the least (cost, raster index) key (`sweep_winner`); the planes from
+      the window re-centred on the full-pel winner, the vertical sums
+      biased by 4096 as the kernel keeps them.
+    `mutation`: "halo_above" (the grid reaches above the band's first
+    row), "unclamped_strip" (the strip's origin unclamped) or "lane_key"
+    (keys ordered by lane). Returns a dict of (K,) fields, pred (K, 16,
+    16) and planes (K, 4, 22, 22) (None without sub-pel)."""
     t = {k: _t(v).long() for k, v in d.items()}
     n, nmb = t["cur_tiles"].shape[:2]
     kk = n * nmb
-    cur = t["cur_tiles"].reshape(kk, 16, 16)
+    hp, wp = t["y_pad"].shape[1:]
+    h4p, w4p = t["y4_pad"].shape[1:]
+    lane_key = mutation == "lane_key"
+    tr, tc = TILE
+    # per MB: its tile's strip and the predictor from its tile's grid
+    sy, sx, sh, sw = (torch.zeros(kk, dtype=torch.long) for _ in range(4))
+    cy4, cx4, pvy, pvx = (torch.zeros(kk, dtype=torch.long)
+                          for _ in range(4))
+    tiles, slots = [], []
+    for f in range(n):
+        ro = int(t["row_offset"][f])
+        x0 = min(max(G4 - 8, 0), w4p - (4 * mbw + 16))
+        ylo = min(max(G4 + 4 * ro - 8, 0), h4p - 4 * mbh)
+        y16 = min(max(G4 + 4 * ro + 8, 0), h4p - 4 * mbh)
+        for r0 in range(0, mbh, tr):
+            for c0 in range(0, mbw, tc):
+                R, C = min(tr, mbh - r0), min(tc, mbw - c0)
+                above = -1 if mutation == "halo_above" else 0
+                rmin, cmin = max(r0 - 1, above), max(c0 - 1, 0)
+                cmax = min(c0 + C, mbw - 1)
+                # the 4x strip: the grid's rows of every band window Y(d),
+                # its columns and the windows' 16 more
+                strip4 = ((ylo + 4 * rmin, x0 + 4 * cmin),
+                          (y16 - ylo + 4 * (r0 + R - rmin),
+                           4 * (cmax - cmin + 1) + 16))
+                assert strip4[1][0] <= 28 and strip4[1][1] <= 56
+                grid = []
+                for gr in range(R + 1):
+                    for gc in range(C + 2):
+                        r, c = r0 - 1 + gr, c0 - 1 + gc
+                        if not (r < above or c < 0 or c >= mbw
+                                or (gr == R and gc == C + 1)):
+                            grid.append((r, c, len(slots)))
+                            slots.append((f, r, c, strip4))
+                ssh, ssw = min(16 * R + 128, hp), min(16 * C + 128, wp)
+                if mutation == "unclamped_strip":
+                    ssy, ssx = 16 * (r0 + ro), 16 * c0
+                else:
+                    ssy = min(max(16 * (r0 + ro), 0), hp - ssh)
+                    ssx = min(max(16 * c0, 0), wp - ssw)
+                tiles.append((f, r0, c0, R, C, grid, (ssy, ssx, ssh, ssw)))
+    dy4, dx4 = coarse_of(t, slots, mbw, mbh, lane_key)
+    for f, r0, c0, R, C, grid, strip_k in tiles:
+        grid = {(r, c): (int(dy4[i]), int(dx4[i])) for r, c, i in grid}
+        for r in range(r0, r0 + R):
+            for c in range(c0, c0 + C):
+                k = f * nmb + r * mbw + c
+                sy[k], sx[k], sh[k], sw[k] = strip_k
+                cy4[k], cx4[k] = grid[r, c]
+                pv = []
+                for q in range(2):
+                    left = 16 * grid[r, c - 1][q] if c > 0 else 0
+                    if r == 0 and mutation != "halo_above":
+                        pv.append(left)
+                        continue
+                    top = 16 * grid[r - 1, c][q]
+                    if c == mbw - 1:
+                        tr_ = 16 * grid[r - 1, c - 1][q] if c else 0
+                    else:
+                        tr_ = 16 * grid[r - 1, c + 1][q]
+                    pv.append(max(min(max(left, top), tr_), min(left, top)))
+                pvy[k], pvx[k] = pv
     f = torch.arange(kk) // nmb
     m = torch.arange(kk) % nmb
     r, c = m // mbw, m % mbw
     lane, row0 = t["lane"][f], t["row_offset"][f]
     lam = _t(tme.LAMBDA_ME).long()[t["qp"][f]]
-    # launch A: the coarse search, each dy's band window start clamped
-    ref4 = t["y4_pad"][lane]
-    h4p, w4p = ref4.shape[1:]
-    cur4 = (cur.reshape(kk, 4, 4, 4, 4).sum((2, 4)) + 8) >> 4
-    x0 = min(max(G4 - 8, 0), w4p - (4 * mbw + 16)) + 4 * c
-    costs = []
-    for p in range(17 * 17):
-        dy, dx = p // 17 - 8, p % 17 - 8
-        y = clamp(G4 + 4 * row0 + dy, 0, h4p - 4 * mbh) + 4 * r
-        sad = (cur4 - at(ref4, y, x0 + dx + 8, 4, 4)).abs().sum((1, 2))
-        costs.append(16 * sad + lam * (bits(torch.tensor(16 * dy))
-                                       + bits(torch.tensor(16 * dx))))
-    p, _ = key_min(torch.stack(costs, 1))
-    cy4, cx4 = p // 17 - 8, p % 17 - 8
-    # launch B
-    pvy, pvx = predictor(cy4, n, mbw, mbh), predictor(cx4, n, mbw, mbh)
-    ref = t["y_pad"][lane]
-    hp, wp = ref.shape[1:]
+    cur = t["cur_tiles"].reshape(kk, 16, 16)
+
+    def strip(y, x, h, w):
+        return strip_read(t["y_pad"], lane, (sy, sx), (sh, sw), y, x, h, w)
+
+    # candidate centres, windows at starts clamped into the plane, read
+    # through the strip
     by, bx = G + 16 * (r + row0), G + 16 * c
     cands = [(torch.zeros(kk, dtype=torch.long),) * 2, (4 * cy4, 4 * cx4),
              (clamp(t["prev_my"].reshape(kk), -52, 52),
               clamp(t["prev_mx"].reshape(kk), -52, 52))]
     best = None
     for cy, cx in cands:
-        oy = clamp(by + cy - 9, 0, hp - 34)
-        ox = clamp(bx + cx - 9, 0, wp - 34)
-        sad = (cur - at(ref, oy + 9, ox + 9, 16, 16)).abs().sum((1, 2))
+        oy = clamp(by + cy - 9, 0, hp - 34) - sy
+        ox = clamp(bx + cx - 9, 0, wp - 34) - sx
+        sad = (cur - strip(oy + 9, ox + 9, 16, 16)).abs().sum((1, 2))
         cost = sad + lam * (bits(cy * 4 - pvy) + bits(cx * 4 - pvx))
         if best is None:
-            best, cm_y, cm_x, oyw, oxw = cost, cy, cx, oy, ox
+            best, cm_y, cm_x, wy, wx = cost, cy, cx, oy, ox
             continue
         upd = cost < best
         best = torch.where(upd, cost, best)
         cm_y, cm_x = torch.where(upd, cy, cm_y), torch.where(upd, cx, cm_x)
-        oyw, oxw = torch.where(upd, oy, oyw), torch.where(upd, ox, oxw)
-    win = at(ref, oyw, oxw, 34, 34)
-    zero = torch.zeros(kk, dtype=torch.long)
-    costs = []
-    for p in range(49):
-        dy, dx = p // 7 - 3, p % 7 - 3
-        sad = (cur - win[:, 9 + dy:25 + dy, 9 + dx:25 + dx]).abs().sum((1, 2))
-        costs.append(sad + lam * (bits((cm_y + dy) * 4 - pvy)
-                                  + bits((cm_x + dx) * 4 - pvx)))
-    p, full_cost = key_min(torch.stack(costs, 1))
+        wy, wx = torch.where(upd, oy, wy), torch.where(upd, ox, wx)
+    win = strip(wy, wx, 34, 34)
+    blocks = torch.stack([win[:, 9 + p // 7 - 3:25 + p // 7 - 3,
+                              9 + p % 7 - 3:25 + p % 7 - 3]
+                          for p in range(49)], 1)
+    p, full_cost = sweep_winner(lane_partials(cur, blocks), lambda sad, p: (
+        sad + lam * (bits((cm_y + p // 7 - 3) * 4 - pvy)
+                     + bits((cm_x + p % 7 - 3) * 4 - pvx))), lane_key)
     bdy, bdx = p // 7 - 3, p % 7 - 3
     out = dict(cy4=cy4, cx4=cx4, mvp_y=pvy, mvp_x=pvx, full_my=cm_y + bdy,
                full_mx=cm_x + bdx, planes=None)
@@ -204,34 +381,33 @@ def emulate_k4(d, mbw, mbh, subpel):
                    cost=full_cost, pred=at(win, 9 + bdy, 9 + bdx, 16, 16))
         return out
     # the planes from the re-centred window A(p, q) = win[4 + bdy + p][4 +
-    # bdx + q], with the vertical sums kept unclamped for J
+    # bdx + q]: the vertical sums biased by 4096 (each 16-bit half of the
+    # kernel's packed pairs stays in [0, 2^16)), H and J taking it off
     a = at(win, 4 + bdy, 4 + bdx, 27, 27)
-    hr = sum(tp * a[:, i:i + 22, :] for i, tp in enumerate(TAPS))
+    hr = sum(tp * a[:, i:i + 22, :] for i, tp in enumerate(TAPS)) + 4096
+    assert int(hr.min()) >= 0 and int(hr.max()) < 2**16
     hb = sum(tp * a[:, 2:24, i:i + 22] for i, tp in enumerate(TAPS))
     hj = sum(tp * hr[:, :, i:i + 22] for i, tp in enumerate(TAPS))
     planes = torch.stack([a[:, 2:24, 2:24], clamp((hb + 16) >> 5, 0, 255),
-                          clamp((hr[:, :, 2:24] + 16) >> 5, 0, 255),
-                          clamp((hj + 512) >> 10, 0, 255)], 1)
+                          clamp((hr[:, :, 2:24] + 16) >> 5, 128, 383) - 128,
+                          clamp(((hj + 512) >> 10) - 128, 0, 255)], 1)
     thr = tme.SKIP_THR_BASE + t["qp"][f] * tme.SKIP_THR_QP
     fmy, fmx = out["full_my"], out["full_mx"]
-    costs = []
-    for p in range(49):
-        dyq, dxq = p // 7 - 3, p % 7 - 3
-        blk = phase_block(planes, dyq, dxq, zero + 3 + (dyq >> 2),
-                          zero + 3 + (dxq >> 2), 16, 16)
-        sad = (cur - blk).abs().sum((1, 2))
-        mvy, mvx = 4 * fmy + dyq, 4 * fmx + dxq
+    zero = torch.zeros(kk, dtype=torch.long)
+    blocks = torch.stack([phase_block(planes, p // 7 - 3, p % 7 - 3,
+                                      zero + 3 + ((p // 7 - 3) >> 2),
+                                      zero + 3 + ((p % 7 - 3) >> 2), 16, 16)
+                          for p in range(49)], 1)
+
+    def qpel_cost(sad, p):
+        mvy, mvx = 4 * fmy + p // 7 - 3, 4 * fmx + p % 7 - 3
         cost = sad + lam * (bits(mvy - pvy) + bits(mvx - pvx))
         skip = (mvy == pvy) & (mvx == pvx) & (sad < thr)
-        costs.append(cost - skip * lam * tme.SKIP_BIAS_BITS)
-    p, cost = key_min(torch.stack(costs, 1))
-    dyq, dxq = p // 7 - 3, p % 7 - 3
-    pred = torch.stack([phase_block(planes[i:i + 1], int(dyq[i]),
-                                    int(dxq[i]), zero[:1] + 3 + (dyq[i] >> 2),
-                                    zero[:1] + 3 + (dxq[i] >> 2), 16, 16)[0]
-                        for i in range(kk)])
-    out.update(mv_y=4 * fmy + dyq, mv_x=4 * fmx + dxq, cost=cost, pred=pred,
-               planes=planes)
+        return cost - skip * lam * tme.SKIP_BIAS_BITS
+
+    p, cost = sweep_winner(lane_partials(cur, blocks), qpel_cost, lane_key)
+    out.update(mv_y=4 * fmy + p // 7 - 3, mv_x=4 * fmx + p % 7 - 3,
+               cost=cost, pred=blocks[torch.arange(kk), p], planes=planes)
     return out
 
 
@@ -456,6 +632,67 @@ def test_k4_schedule_keeps_the_first_of_tied_centres(subpel):
     first = torch.arange(2) * 12
     assert (k4["mvp_x"][first] == 0).all() and (k4["cx4"][first] == -1).all()
     assert (k4["full_mx"][first] == -4).all()
+
+
+def band_case(subpel=True):
+    """Bands of 9 x 5 MBs deep in frames of 12 MB rows (row offsets 3, 1
+    and 7): the grid of a tile on a band's first row must stop there."""
+    d = me_inputs(85, 3, 9, 5, 20, lanes=1, frame_rows=12)
+    d["row_offset"][:] = (3, 1, 7)
+    return d, 9, 5, subpel
+
+
+def deep_cut_case(subpel):
+    """Planes cut to 100 x 100 above and left of the last tiles of bands
+    at row offsets 6 and 3 (11 x 2 MBs, frames of 8 MB rows): the strips
+    of those tiles start clamped, and windows start before where an
+    unclamped strip would."""
+    d = me_inputs(86, 2, 11, 2, 33, lanes=1, frame_rows=8)
+    d["row_offset"][:] = (6, 3)
+    d["y_pad"] = np.ascontiguousarray(d["y_pad"][:, :100, :100])
+    return d, 11, 2, subpel
+
+
+def _differs(k4, plain):
+    return [k for k, v in _plain_fields(plain).items()
+            if not np.array_equal(np.asarray(k4[k]).astype(np.int64).ravel(),
+                                  np.asarray(v).astype(np.int64).ravel())]
+
+
+def test_k4_schedule_stops_the_halo_at_the_band_top():
+    d, mbw, mbh, subpel = band_case()
+    k4 = emulate_k4(d, mbw, mbh, subpel)
+    plain = plain_me(d, mbw, mbh, subpel)
+    assert _differs(k4, plain) == []
+    # each band's first row takes its left neighbour alone, though the
+    # frame has rows above it
+    first = (torch.arange(3)[:, None] * 45 + torch.arange(1, 9)).reshape(-1)
+    assert torch.equal(k4["mvp_x"][first], 16 * k4["cx4"][first - 1])
+    assert (d["row_offset"] > 0).all()
+
+
+@pytest.mark.parametrize("subpel", [True, False])
+def test_k4_schedule_clamps_the_strip_origin(subpel):
+    d, mbw, mbh, subpel = deep_cut_case(subpel)
+    k4 = emulate_k4(d, mbw, mbh, subpel)
+    assert _differs(k4, plain_me(d, mbw, mbh, subpel)) == []
+    # the clamp was reached: a tile's strip origin 16 (r0 + row offset) =
+    # 96 lies below the plane's last window start, 100 - 34
+    assert 16 * (0 + 6) > 100 - 34
+
+
+@pytest.mark.parametrize("mutation", ["halo_above", "unclamped_strip",
+                                      "lane_key"])
+def test_k4_schedule_mutations_fail(mutation):
+    """Each named fault in the schedule makes the emulation differ from
+    the plain search on a case that exercises it: a coarse grid that
+    reaches above the band's first row, a strip origin left unclamped, and
+    keys that order ties by lane instead of raster index."""
+    d, mbw, mbh, subpel = {"halo_above": band_case,
+                           "unclamped_strip": deep_cut_case,
+                           "lane_key": band_case}[mutation](True)
+    k4 = emulate_k4(d, mbw, mbh, subpel, mutation)
+    assert _differs(k4, plain_me(d, mbw, mbh, subpel)) != []
 
 
 def test_me_inputs_cover_the_kinds():

@@ -133,7 +133,7 @@ def _busy_us(events):
 # the hand kernels' names in a trace, and their launch counts
 KERNELS = {"K1": ("pack_kernel",), "K2": ("deblock_kernel",),
            "K3": ("wavefront_kernel",),
-           "K4": ("coarse_kernel", "refine_kernel"),
+           "K4": ("search_kernel",),
            "K5": ("partition_kernel",)}
 HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock", "K3": "wavefront",
                  "K4": "me", "K5": "partition"}
