@@ -55,9 +55,25 @@
 //     (uint8, (n * nmb, 4, 22, 22)).
 //   - 3 blocks an SM (at most 80 registers a thread, 72,840 bytes of
 //     shared memory a block): 24 warps hide the shared loads' latency.
-// K5: a warp per MB; the MB's four planes in shared memory; per block of
-//   the three geometries the 25 positions of the +-2 full-pel sweep on F,
-//   then the 49 of the +-3 quarter-pel sweep around the block's winner.
+// K5 is one launch: a warp per MB, blocks of kWarps5 warps, no dependency
+//   between warps. Lane (i, h) owns row i and half h of the MB, as in K4's
+//   sweeps, with its rows of the planes in registers.
+//   - One full-pel pass for all three geometries: the 25 positions +-2
+//     around the 16x16 winner on F. A block of 16x8 or 8x16 at a full-pel
+//     position is two 8x8 quadrants there, so a segmented reduce-scatter
+//     (3 rounds) gives the quadrants' SADs and one shuffle across h or
+//     across i >> 3 the halves'; 25 x 256 SAD terms an MB where the three
+//     geometries' sweeps took 3 x 25 x 256.
+//   - A quarter-pel pass per geometry, every block at once: each lane
+//     sweeps the 49 positions +-3 around its own block's full-pel winner
+//     (its plane rows aligned once by a funnel shift of the winner's
+//     column, then K4's compile-time phase code), 32 lanes busy; a
+//     segmented reduce-scatter (3 or 4 rounds) and a segmented keyed
+//     minimum over the block's lanes.
+//   - Bound: 244,992 operations an MB, the function's scalar work with one
+//     full-pel pass (chip_smoke.py `K5_OPS_NEEDED_PER_MB`), 0.030 ms a
+//     1080p frame at 67 T/s; VABSDIFF4 does four SAD terms at once, so
+//     the count is a loose bound.
 //
 // Every sweep is a minimum over (cost, raster index) keys, signed 64-bit
 // (the quarter-pel skip bias can make a cost negative), which is the plain
@@ -104,7 +120,12 @@ constexpr int kAln = 27;                 // ALN_S, the planes' window side
 constexpr int kHrStride = 28;            // 16-bit vertical sums a row
 constexpr uint32_t kHrBias = 4096;       // added to each vertical sum
 constexpr int kJBias = kHrBias * 32 / 1024;   // J's share of it: 128
-constexpr int kWarps = 4;                // K5's warps a block
+// K5's warps a block. At its 80 registers (no spills) an SM holds 24 of its
+// warps as 3 blocks of 8 or 6 of 4; in turns on the card blocks of 8 took
+// 0.90x the time of blocks of 4 at 16 frames of 1080p (1, 2 and 4 were
+// alike, and 64 registers with 8 blocks of 4 spilled and gained nothing)
+constexpr int kWarps5 = 8;
+constexpr int kChunks5 = 4 * kPlaneOut / 16;   // an MB's planes: 121 chunks
 // K4's tile, its strip and its coarse grid
 constexpr int kTileR = 2;                // MB rows of a tile
 constexpr int kTileC = 8;                // MB columns of a tile
@@ -199,23 +220,6 @@ __device__ __forceinline__ uint32_t ld4(const uint8_t* row, int x) {
   return __funnelshift_r(w[0], w[1], (x & 3) * 8);
 }
 
-// SAD of a ROWS x 4 WORDS block of a shared plane at (y, x) against the
-// current MB's words (16 pixels, 4 words a row) at (cy, 4 cw)
-template <int ROWS, int WORDS>
-__device__ __forceinline__ int sad_at(const uint8_t* pl, int stride, int y,
-                                      int x, const uint32_t* cur, int cy,
-                                      int cw) {
-  unsigned s = 0;
-#pragma unroll 4
-  for (int i = 0; i < ROWS; ++i) {
-    const uint8_t* row = pl + (y + i) * stride;
-    const uint32_t* c = cur + (cy + i) * 4 + cw;
-#pragma unroll
-    for (int q = 0; q < WORDS; ++q) s = __vsadu4(ld4(row, x + 4 * q), c[q]) + s;
-  }
-  return (int)s;
-}
-
 // four phase samples of a quarter-pel position: the planes (4 x kPlane
 // bytes), the phase, the position's top-left in plane coordinates
 __device__ __forceinline__ uint32_t phase4(const uint8_t* pl, const Phase& p,
@@ -223,28 +227,6 @@ __device__ __forceinline__ uint32_t phase4(const uint8_t* pl, const Phase& p,
   const uint32_t a = ld4(pl + p.pa * kPlane + (y + p.ya) * kPlStride, x + p.xa);
   const uint32_t b = ld4(pl + p.pb * kPlane + (y + p.yb) * kPlStride, x + p.xb);
   return __vavgu4(a, b);
-}
-
-template <int ROWS, int WORDS>
-__device__ __forceinline__ int sad_phase(const uint8_t* pl, const Phase& p,
-                                         int y, int x, const uint32_t* cur,
-                                         int cy, int cw) {
-  unsigned s = 0;
-#pragma unroll 4
-  for (int i = 0; i < ROWS; ++i) {
-    const uint32_t* c = cur + (cy + i) * 4 + cw;
-#pragma unroll
-    for (int q = 0; q < WORDS; ++q)
-      s = __vsadu4(phase4(pl, p, y + i, x + 4 * q), c[q]) + s;
-  }
-  return (int)s;
-}
-
-__device__ __forceinline__ int phase_px(const uint8_t* pl, const Phase& p,
-                                        int y, int x) {
-  const int a = pl[p.pa * kPlane + (y + p.ya) * kPlStride + x + p.xa];
-  const int b = pl[p.pb * kPlane + (y + p.yb) * kPlStride + x + p.xb];
-  return (a + b + 1) >> 1;
 }
 
 __device__ __forceinline__ int tap6(int a, int b, int c, int d, int e, int f) {
@@ -941,7 +923,7 @@ __global__ void __launch_bounds__(kThreads4, 3)
 
 struct PartArgs {
   const uint8_t* cur;        // (k, 16, 16)
-  const uint8_t* planes;     // (k, 4, 22, 22)
+  const uint8_t* planes;     // (k, 4, 22, 22), 16-byte aligned
   const int32_t* full_my;    // (k,) each
   const int32_t* full_mx;
   const int32_t* mvp_y;
@@ -949,103 +931,327 @@ struct PartArgs {
   const int32_t* lam;
   int32_t* mv[3];            // (k, 2, 2), (k, 2, 2), (k, 4, 2)
   long long* cost[3];        // (k,)
-  int32_t* pred[3];          // (k, 16, 16)
+  int32_t* pred[3];          // (k, 16, 16), 16-byte aligned
   long long n_mb;
 };
 
+// a warp's MB: its planes as they lie in memory (a chunk more, zeroed,
+// which the last row's word reads reach), then at kPlStride bytes a row,
+// whose bytes 22 and 23 no SAD or prediction reads
 struct PartSmem {
-  uint32_t cur[64];
+  uint4 raw[kChunks5 + 1];
   uint8_t pl[4 * kPlane];
 };
 
-// one block of a geometry: the +-2 full-pel sweep on F around the 16x16
-// winner (F coordinate 3 + the block's offset), then the +-3 quarter-pel
-// sweep around the block's winner; writes its MV and prediction, returns
-// its cost
-template <int BH, int BW>
-__device__ int part_block(const PartSmem& s, int ln, int oy0, int ox0,
-                          int fmy, int fmx, int mvpy, int mvpx, int lam,
-                          int32_t* mv, int32_t* pred) {
-  long long best = LLONG_MAX;
-  if (ln < 25) {
-    const int dy = ln / 5 - 2, dx = ln % 5 - 2;
-    const int sad = sad_at<BH, BW / 4>(s.pl, kPlStride, 3 + oy0 + dy,
-                                       3 + ox0 + dx, s.cur, oy0, ox0 / 4);
-    const int cost = sad + lam * (mv_bits((fmy + dy) * 4 - mvpy) +
-                                  mv_bits((fmx + dx) * 4 - mvpx));
-    best = key_of(cost, ln);
-  }
-  best = warp_min(best);
-  const int bmy = fmy + key_idx(best) / 5 - 2;
-  const int bmx = fmx + key_idx(best) % 5 - 2;
-  // the block's (BH + 2, BW + 2) sub-planes start at plane coordinate
-  // (2 + oy0 + bdy, 2 + ox0 + bdx); the block's winner sits at 1 there
-  const int y0 = 2 + oy0 + bmy - fmy, x0 = 2 + ox0 + bmx - fmx;
-  best = LLONG_MAX;
-  for (int p = ln; p < 49; p += 32) {
-    const int dyq = p / 7 - 3, dxq = p % 7 - 3;
-    const Phase ph = phase_of(dyq & 3, dxq & 3);
-    const int sad = sad_phase<BH, BW / 4>(s.pl, ph, y0 + 1 + (dyq >> 2),
-                                          x0 + 1 + (dxq >> 2), s.cur, oy0,
-                                          ox0 / 4);
-    const int cost = sad + lam * (mv_bits(bmy * 4 + dyq - mvpy) +
-                                  mv_bits(bmx * 4 + dxq - mvpx));
-    const long long key = key_of(cost, p);
-    best = key < best ? key : best;
-  }
-  best = warp_min(best);
-  const int dyq = key_idx(best) / 7 - 3, dxq = key_idx(best) % 7 - 3;
-  const Phase ph = phase_of(dyq & 3, dxq & 3);
-  const int py = y0 + 1 + (dyq >> 2), px = x0 + 1 + (dxq >> 2);
-  for (int e = ln; e < BH * BW; e += 32) {
-    const int i = e / BW, j = e % BW;
-    pred[(oy0 + i) * 16 + ox0 + j] = phase_px(s.pl, ph, py + i, px + j);
-  }
-  if (ln == 0) {
-    mv[0] = bmy * 4 + dyq;
-    mv[1] = bmx * 4 + dxq;
-  }
-  return key_cost(best);
+// the SAD of a lane's 8 pixels (cur: its two words) at one dx of a +-2
+// full-pel row: u holds the plane row's bytes from the lane's column base
+// 8 h, where its pixel 0 at dx lies at byte O = 3 + dx
+template <int O>
+__device__ __forceinline__ uint32_t sad8_at(const uint32_t (&u)[4],
+                                            uint2 cur) {
+  return sad4(bytes_at<O + 4>(u), cur.y, sad4(bytes_at<O>(u), cur.x, 0u));
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+// The SAD of a lane's 8 pixels at quarter-pel position (DY, DX) of a +-3
+// sweep (dyq = DY - 3, dxq = DX - 3), K4's phase code: P[plane][row][word]
+// holds the lane's rows of F, B (3 rows) and H, J (2 rows) from one row
+// above the winner, each as 3 words from a column base where the lane's
+// pixel 0 at the winner lies at byte C.
+template <int DY, int DX, int C>
+__device__ __forceinline__ uint32_t qpel_sad(const uint32_t (&P)[4][3][3],
+                                             uint2 cur) {
+  constexpr int fy = (DY - 3) & 3, fx = (DX - 3) & 3;
+  constexpr int ry = 1 + ((DY - 3) >> 2), cx = C + ((DX - 3) >> 2);
+  constexpr uint32_t e = phase_byte(4 * fy + fx);
+  constexpr int pa = e & 3, ya = e >> 2 & 1, xa = e >> 3 & 1;
+  constexpr int pb = e >> 4 & 3, yb = e >> 6 & 1, xb = e >> 7 & 1;
+  uint32_t s0, s1;
+  if constexpr (pa == pb && ya == yb && xa == xb) {
+    s0 = bytes_at<cx + xa>(P[pa][ry + ya]);
+    s1 = bytes_at<cx + xa + 4>(P[pa][ry + ya]);
+  } else if constexpr (xa == xb) {
+    // the mean of the aligned words, then the shift
+    const uint32_t m3[3] = {__vavgu4(P[pa][ry + ya][0], P[pb][ry + yb][0]),
+                            __vavgu4(P[pa][ry + ya][1], P[pb][ry + yb][1]),
+                            __vavgu4(P[pa][ry + ya][2], P[pb][ry + yb][2])};
+    s0 = bytes_at<cx + xa>(m3);
+    s1 = bytes_at<cx + xa + 4>(m3);
+  } else {
+    s0 = __vavgu4(bytes_at<cx + xa>(P[pa][ry + ya]),
+                  bytes_at<cx + xb>(P[pb][ry + yb]));
+    s1 = __vavgu4(bytes_at<cx + xa + 4>(P[pa][ry + ya]),
+                  bytes_at<cx + xb + 4>(P[pb][ry + yb]));
+  }
+  return sad4(s1, cur.y, sad4(s0, cur.x, 0u));
+}
+
+template <int C, int Q = 0>
+__device__ __forceinline__ void qpel_sweep(const uint32_t (&P)[4][3][3],
+                                           uint2 cur, uint32_t (&acc)[49]) {
+  acc[Q] = qpel_sad<Q / 7, Q % 7, C>(P, cur);
+  if constexpr (Q + 1 < 49) qpel_sweep<C, Q + 1>(P, cur, acc);
+}
+
+// the least key over the lanes whose bits of mask M differ (a segment)
+template <int M>
+__device__ __forceinline__ long long segment_min(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (M & o) {
+      const long long w = __shfl_xor_sync(0xFFFFFFFFu, v, o);
+      v = w < v ? w : v;
+    }
+  return v;
+}
+
+// the lane's key over the positions it holds after a reduce-scatter:
+// word j of `slots` holds positions P0[j] (low half) and P0[j] + 1 (high)
+template <int N, typename CostOf>
+__device__ __forceinline__ long long lane_min(const uint32_t (&slots)[N],
+                                              const int (&p0)[N], int n_pos,
+                                              CostOf cost_of) {
+  long long best = LLONG_MAX;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0[j] + h;
+      if (p < n_pos) {
+        const int sad = (int)(h ? slots[j] >> 16 : slots[j] & 0xFFFFu);
+        const long long key = key_of(cost_of(sad, p), p);
+        best = key < best ? key : best;
+      }
+    }
+  return best;
+}
+
+// One geometry's quarter-pel pass (G: 0 16x8, 1 8x16, 2 8x8): every lane
+// sweeps its own block's +-3 quarter-pel positions around the block's
+// full-pel winner (raster index w of the +-2 sweep), then the reduce-
+// scatter and the keyed minimum within the block's lanes; the lanes write
+// their prediction samples, a lane per block its MV, lane 0 the sum of the
+// blocks' costs.
+//   16x8: the block of lane (i, h) is i >> 3, its lanes differ in bits 0-3
+//     (h and i & 7); 8x16: h, bits 1-4 (i); 8x8: 2 (i >> 3) + h, bits 1-3.
+// The 25 packed slots of the 49 positions are reduced as one 32-slot set
+// (8x16: four rounds leave lane (i, h) slots 2 i and 2 i + 1) or as two of
+// 16 (slots 0-15 and 16-31; 16x8: four rounds leave slot 2 (i & 7) + h of
+// each; 8x8: three rounds leave slots 2 (i & 7) and 2 (i & 7) + 1 of each).
+template <int G>
+__device__ __forceinline__ void part_qpel(const PartSmem& s,
+                                          const PartArgs& a, long long k,
+                                          int ln, uint2 cur, int w, int fmy,
+                                          int fmx, int mvpy, int mvpx,
+                                          int lam) {
+  const int i = ln >> 1, hh = ln & 1, g = i & 7;
+  const int bdy = w / 5 - 2, bdx = w % 5 - 2;
+  const int bmy = fmy + bdy, bmx = fmx + bdx;
+  // the lane's rows 2 + i + bdy .. of the planes, 3 words each from column
+  // 8 h + bdx + 2 (its pixel 0 at the block's winner lies at byte 1): four
+  // aligned words and a funnel shift by the column's byte in its word
+  const int c0 = 8 * hh + bdx + 2, sh = 8 * (c0 & 3);
+  uint32_t P[4][3][3];
+#pragma unroll
+  for (int pl = 0; pl < 4; ++pl)
+#pragma unroll
+    for (int y = 0; y < 3; ++y) {
+      if (pl >= 2 && y == 2) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) P[pl][y][q] = 0u;
+        continue;
+      }
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(
+          s.pl + pl * kPlane + (2 + i + bdy + y) * kPlStride + (c0 & ~3));
+      uint32_t u[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) u[q] = src[q];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        P[pl][y][q] = __funnelshift_r(u[q], u[q + 1], sh);
+    }
+  uint32_t acc[49];
+  qpel_sweep<1>(P, cur, acc);
+  // the reduce-scatter of the packed partial sums (each at most 2040; a
+  // block's total at most 32,640)
+  uint32_t v[32], vb[32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q)
+    v[q] = q < 24 ? acc[2 * q] | acc[2 * q + 1] << 16
+                  : (q == 24 ? acc[48] : 0u);
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    vb[q] = v[16 + q];
+    vb[16 + q] = 0u;
+  }
+  auto cost_of = [&](int sad, int p) {
+    return sad + lam * (mv_bits(4 * bmy + p / 7 - 3 - mvpy) +
+                        mv_bits(4 * bmx + p % 7 - 3 - mvpx));
+  };
+  long long best;
+  int b, nb;
+  if constexpr (G == 0) {
+    scatter_round<8>(v, ln); scatter_round<8>(vb, ln);
+    scatter_round<4>(v, ln); scatter_round<4>(vb, ln);
+    scatter_round<2>(v, ln); scatter_round<2>(vb, ln);
+    scatter_round<1>(v, ln); scatter_round<1>(vb, ln);
+    const uint32_t slots[2] = {v[0], vb[0]};
+    const int p0[2] = {4 * g + 2 * hh, 32 + 4 * g + 2 * hh};
+    best = segment_min<0xF>(lane_min(slots, p0, 49, cost_of));
+    b = i >> 3;
+    nb = 2;
+  } else if constexpr (G == 1) {
+    scatter_round<16>(v, ln);
+    scatter_round<8>(v, ln);
+    scatter_round<4>(v, ln);
+    scatter_round<2>(v, ln);
+    const uint32_t slots[2] = {v[0], v[1]};
+    const int p0[2] = {4 * i, 4 * i + 2};
+    best = segment_min<0x1E>(lane_min(slots, p0, 49, cost_of));
+    b = hh;
+    nb = 2;
+  } else {
+    scatter_round<8>(v, ln); scatter_round<8>(vb, ln);
+    scatter_round<4>(v, ln); scatter_round<4>(vb, ln);
+    scatter_round<2>(v, ln); scatter_round<2>(vb, ln);
+    const uint32_t slots[4] = {v[0], v[1], vb[0], vb[1]};
+    const int p0[4] = {4 * g, 4 * g + 2, 32 + 4 * g, 34 + 4 * g};
+    best = segment_min<0xE>(lane_min(slots, p0, 49, cost_of));
+    b = 2 * (i >> 3) + hh;
+    nb = 4;
+  }
+  const int p = key_idx(best), dyq = p / 7 - 3, dxq = p % 7 - 3;
+  // the lane's 8 samples of the winning phase, two 16-byte stores
+  const Phase ph = phase_of(dyq & 3, dxq & 3);
+  const int y = 3 + i + bdy + (dyq >> 2), x = 3 + 8 * hh + bdx + (dxq >> 2);
+  const uint32_t w0 = phase4(s.pl, ph, y, x), w1 = phase4(s.pl, ph, y, x + 4);
+  int4* pred = reinterpret_cast<int4*>(a.pred[G] + k * 256 + 16 * i + 8 * hh);
+  pred[0] = make_int4(w0 & 0xFF, w0 >> 8 & 0xFF, w0 >> 16 & 0xFF, w0 >> 24);
+  pred[1] = make_int4(w1 & 0xFF, w1 >> 8 & 0xFF, w1 >> 16 & 0xFF, w1 >> 24);
+  // a block's first lane (g = 0, and h = 0 or i = 0 where the block spans
+  // both) writes its MV
+  const bool first = G == 0 ? (g == 0 && hh == 0)
+                            : (G == 1 ? i == 0 : g == 0);
+  if (first) {
+    a.mv[G][(k * nb + b) * 2] = 4 * bmy + dyq;
+    a.mv[G][(k * nb + b) * 2 + 1] = 4 * bmx + dxq;
+  }
+  // the sum of the blocks' costs (the partners across the other block
+  // bits: 16 for 16x8, 1 for 8x16, both for 8x8)
+  int sum = key_cost(best);
+  if constexpr (G != 0) sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 1);
+  if constexpr (G != 1) sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 16);
+  if (ln == 0) a.cost[G][k] = sum;
+}
+
+// K5: a warp per MB, lane (i, h) owns row i and half h (pixels 8 h ..
+// 8 h + 7) of it, as in K4's sweeps.
+// 1. The MB's planes (1,936 contiguous bytes, 16-byte aligned) staged by
+//    16-byte loads, then re-laid to kPlStride bytes a row (a row a lane).
+// 2. One full-pel pass for the three geometries: each lane's SADs at the
+//    25 positions +-2 around the 16x16 winner on F (the lane's plane rows
+//    as aligned words, the 5 dx by funnel shifts), packed two to a word; a
+//    reduce-scatter over the lane bits of i & 7 (3 rounds) leaves lane (i,
+//    h) the 8x8 SADs of quadrant (i >> 3, h) at positions 4 (i & 7) .. +3;
+//    the partner across h (lane bit 0) adds the quadrant beside it (the
+//    16x8 half), the partner across i >> 3 (bit 4) the one below or above
+//    (the 8x16 half). Each geometry's block winner is the least key of the
+//    lane's 8 lanes.
+// 3. A quarter-pel pass per geometry, all blocks at once (`part_qpel`).
+// Every block's cost at every position equals the plain sweep's, and
+// every minimum is over signed (cost, raster index) keys of the block's
+// own positions, so the plain loops' first-of-the-least wins.
+__global__ void __launch_bounds__(32 * kWarps5)
     partition_kernel(const PartArgs a) {
-  __shared__ PartSmem smem[kWarps];
+  __shared__ PartSmem smem[kWarps5];
   const int w = threadIdx.x >> 5, ln = threadIdx.x & 31;
-  const long long k = (long long)blockIdx.x * kWarps + w;
+  const long long k = (long long)blockIdx.x * kWarps5 + w;
   if (k >= a.n_mb) return;
   PartSmem& s = smem[w];
-  const uint32_t* tile = reinterpret_cast<const uint32_t*>(a.cur + k * 256);
-  s.cur[ln] = tile[ln];
-  s.cur[ln + 32] = tile[ln + 32];
-  const uint8_t* src = a.planes + k * 4 * kPlaneOut;
-  for (int e = ln; e < 4 * kPlaneOut; e += 32) {
-    const int pl = e / kPlaneOut, i = e / kSub % kSub, j = e % kSub;
-    s.pl[pl * kPlane + i * kPlStride + j] = src[e];
+  const int i = ln >> 1, hh = ln & 1;
+  // 1. the planes, then the rows r = ln, ln + 32, ln + 64 of the 88
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(a.planes +
+                                                      k * 4 * kPlaneOut);
+    constexpr int kLoads = (kChunks5 + 31) / 32;
+    uint4 ch[kLoads];
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q)
+      if (ln + 32 * q < kChunks5) ch[q] = __ldg(src + ln + 32 * q);
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q)
+      if (ln + 32 * q < kChunks5) s.raw[ln + 32 * q] = ch[q];
+    if (ln == 0) s.raw[kChunks5] = make_uint4(0, 0, 0, 0);
+  }
+  const uint2 cur = __ldg(reinterpret_cast<const uint2*>(a.cur + k * 256) +
+                          ln);
+  const int fmy = __ldg(a.full_my + k), fmx = __ldg(a.full_mx + k);
+  const int mvpy = __ldg(a.mvp_y + k), mvpx = __ldg(a.mvp_x + k);
+  const int lam = __ldg(a.lam + k);
+  __syncwarp();
+  {
+    const uint32_t* raw = reinterpret_cast<const uint32_t*>(s.raw);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int r = ln + 32 * q, at = kSub * r;
+      if (r < 4 * kSub) {
+        uint32_t u[7];
+#pragma unroll
+        for (int j = 0; j < 7; ++j) u[j] = raw[(at >> 2) + j];
+        uint2* dst = reinterpret_cast<uint2*>(s.pl + kPlStride * r);
+        const int sh = 8 * (at & 3);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          dst[j] = make_uint2(__funnelshift_r(u[2 * j], u[2 * j + 1], sh),
+                              __funnelshift_r(u[2 * j + 1], u[2 * j + 2], sh));
+      }
+    }
   }
   __syncwarp();
-  const int fmy = a.full_my[k], fmx = a.full_mx[k];
-  const int mvpy = a.mvp_y[k], mvpx = a.mvp_x[k], lam = a.lam[k];
-  long long sum;
-  // 16x8: top, bottom
-  sum = 0;
-  for (int b = 0; b < 2; ++b)
-    sum += part_block<8, 16>(s, ln, 8 * b, 0, fmy, fmx, mvpy, mvpx, lam,
-                             a.mv[0] + k * 4 + 2 * b, a.pred[0] + k * 256);
-  if (ln == 0) a.cost[0][k] = sum;
-  // 8x16: left, right
-  sum = 0;
-  for (int b = 0; b < 2; ++b)
-    sum += part_block<16, 8>(s, ln, 0, 8 * b, fmy, fmx, mvpy, mvpx, lam,
-                             a.mv[1] + k * 4 + 2 * b, a.pred[1] + k * 256);
-  if (ln == 0) a.cost[1][k] = sum;
-  // 8x8: the raster quadrants
-  sum = 0;
-  for (int b = 0; b < 4; ++b)
-    sum += part_block<8, 8>(s, ln, 8 * (b >> 1), 8 * (b & 1), fmy, fmx, mvpy,
-                            mvpx, lam, a.mv[2] + k * 8 + 2 * b,
-                            a.pred[2] + k * 256);
-  if (ln == 0) a.cost[2][k] = sum;
+
+  // 2. the full-pel pass: row 1 + i + dy of F (dy = 0 .. 4 for -2 .. 2),
+  // 16 bytes from column 8 h
+  uint32_t acc[25];
+#pragma unroll
+  for (int dy = 0; dy < 5; ++dy) {
+    const uint2* row = reinterpret_cast<const uint2*>(
+        s.pl + (1 + i + dy) * kPlStride + 8 * hh);
+    const uint2 lo = row[0], hi = row[1];
+    const uint32_t u[4] = {lo.x, lo.y, hi.x, hi.y};
+    acc[5 * dy] = sad8_at<1>(u, cur);
+    acc[5 * dy + 1] = sad8_at<2>(u, cur);
+    acc[5 * dy + 2] = sad8_at<3>(u, cur);
+    acc[5 * dy + 3] = sad8_at<4>(u, cur);
+    acc[5 * dy + 4] = sad8_at<5>(u, cur);
+  }
+  uint32_t v[32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q)
+    v[q] = q < 12 ? acc[2 * q] | acc[2 * q + 1] << 16
+                  : (q == 12 ? acc[24] : 0u);
+  scatter_round<8>(v, ln);
+  scatter_round<4>(v, ln);
+  scatter_round<2>(v, ln);
+  // quadrant (i >> 3, h) at positions 4 g .. 4 g + 3; the 16x8 half with
+  // the quadrant across h, the 8x16 half with the one across i >> 3
+  const int g = i & 7;
+  const uint32_t q8[2] = {v[0], v[1]};
+  const uint32_t q16x8[2] = {q8[0] + __shfl_xor_sync(0xFFFFFFFFu, q8[0], 1),
+                             q8[1] + __shfl_xor_sync(0xFFFFFFFFu, q8[1], 1)};
+  const uint32_t q8x16[2] = {q8[0] + __shfl_xor_sync(0xFFFFFFFFu, q8[0], 16),
+                             q8[1] + __shfl_xor_sync(0xFFFFFFFFu, q8[1], 16)};
+  const int p0[2] = {4 * g, 4 * g + 2};
+  auto cost_of = [&](int sad, int p) {
+    return sad + lam * (mv_bits(4 * (fmy + p / 5 - 2) - mvpy) +
+                        mv_bits(4 * (fmx + p % 5 - 2) - mvpx));
+  };
+  const int w16x8 = key_idx(segment_min<0xE>(lane_min(q16x8, p0, 25, cost_of)));
+  const int w8x16 = key_idx(segment_min<0xE>(lane_min(q8x16, p0, 25, cost_of)));
+  const int w8x8 = key_idx(segment_min<0xE>(lane_min(q8, p0, 25, cost_of)));
+
+  // 3. the quarter-pel passes
+  part_qpel<0>(s, a, k, ln, cur, w16x8, fmy, fmx, mvpy, mvpx, lam);
+  part_qpel<1>(s, a, k, ln, cur, w8x16, fmy, fmx, mvpy, mvpx, lam);
+  part_qpel<2>(s, a, k, ln, cur, w8x8, fmy, fmx, mvpy, mvpx, lam);
 }
 
 // K4's shared memory limit (above 48 KB), set once on each device
@@ -1138,7 +1344,19 @@ extern "C" int h264lab_partition(
                     (long long*)cost8x8},
                    {(int32_t*)pred16x8, (int32_t*)pred8x16, (int32_t*)pred8x8},
                    n_mb};
-  partition_kernel<<<blocks_of(n_mb, kWarps), 32 * kWarps, 0,
+  partition_kernel<<<blocks_of(n_mb, kWarps5), 32 * kWarps5, 0,
                      (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// K5's launch shape on the current device: out[0] its threads a block,
+// out[1] its (static) shared memory bytes a block, out[2] its resident
+// blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[3] its
+// warps a block (an MB each)
+extern "C" int h264lab_partition_occupancy(int* out) {
+  out[0] = 32 * kWarps5;
+  out[1] = (int)(kWarps5 * sizeof(PartSmem));
+  out[3] = kWarps5;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], partition_kernel, 32 * kWarps5, 0);
 }

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -520,6 +521,13 @@ K5_OUTPUTS = (("mv16x8", torch.int32, (2, 2)), ("mv8x16", torch.int32, (2, 2)),
               ("pred16x8", torch.int32, (16, 16)),
               ("pred8x16", torch.int32, (16, 16)),
               ("pred8x8", torch.int32, (16, 16)))
+# K5's int32 outputs with the strides of a contiguous (K,) + shape view
+# (the first: its elements per MB), and its int64 outputs
+_K5_I32 = tuple((name, shape, tuple(math.prod(shape[j:])
+                                    for j in range(len(shape) + 1)))
+                for name, dtype, shape in K5_OUTPUTS if dtype == torch.int32)
+_K5_I32_PER_MB = sum(strides[0] for _, _, strides in _K5_I32)
+_K5_I64 = tuple(name for name, dtype, _ in K5_OUTPUTS if dtype == torch.int64)
 
 
 def load(path) -> ctypes.CDLL:
@@ -533,6 +541,8 @@ def load(path) -> ctypes.CDLL:
     lib.h264lab_partition.restype = ci
     lib.h264lab_me_occupancy.argtypes = [vp]
     lib.h264lab_me_occupancy.restype = ci
+    lib.h264lab_partition_occupancy.argtypes = [vp]
+    lib.h264lab_partition_occupancy.restype = ci
     return lib
 
 
@@ -544,12 +554,13 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(device: int) -> dict:
-    out = (ctypes.c_int * 5)()
+def _launch_shape(device: int, entry: str, n: int) -> tuple:
+    """The n ints that a kernel's launch-shape entry point of the library
+    reports on `device`."""
+    out = (ctypes.c_int * n)()
     with torch.cuda.device(device):
-        cuda_build.check(_lib().h264lab_me_occupancy(out), "K4 occupancy")
-    return dict(threads=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
-                tile=(out[3], out[4]))
+        cuda_build.check(getattr(_lib(), entry)(out), entry)
+    return tuple(out)
 
 
 def occupancy() -> dict:
@@ -557,7 +568,21 @@ def occupancy() -> dict:
     shared memory bytes a block, resident blocks an SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and the tile's MB
     rows and columns (a block's MBs)."""
-    return _occupancy(torch.cuda.current_device())
+    threads, smem, blocks, rows, cols = _launch_shape(
+        torch.cuda.current_device(), "h264lab_me_occupancy", 5)
+    return dict(threads=threads, smem_bytes=smem, blocks_per_sm=blocks,
+                tile=(rows, cols))
+
+
+def partition_occupancy() -> dict:
+    """K5's launch shape on the current card: threads a block, static
+    shared memory bytes a block, resident blocks an SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and warps a block
+    (an MB each)."""
+    threads, smem, blocks, warps = _launch_shape(
+        torch.cuda.current_device(), "h264lab_partition_occupancy", 4)
+    return dict(threads=threads, smem_bytes=smem, blocks_per_sm=blocks,
+                warps=warps)
 
 
 def _check(name, x, dtype, shape, dev, aligned=False):
@@ -654,25 +679,26 @@ def motion_search_tiles(y_pad, y4_pad, cur_tiles, lane, row_offset, qp,
 
 def partition_tiles(cur_tiles, planes, full_my, full_mx, mvp_y, mvp_x, lam):
     """K5: `partition_search` of K MBs on the card, one launch of
-    `csrc/me.cu`. cur_tiles (K, 16, 16) uint8, 16-byte aligned; planes:
-    K4's (K, 4, 22, 22) uint8 (F, B, H, J) planes; full_my, full_mx,
-    mvp_y, mvp_x: K4's aux fields flattened to (K,); lam (K,) the ME
-    lambda; int32 and contiguous on one CUDA device. Returns
-    `partition_search`'s dict, equal array for array (the cost sums
-    int64, the predictions int32). Raises on any other input."""
+    `csrc/me.cu` (a warp per MB: one full-pel pass shared by the three
+    geometries, then a quarter-pel pass per geometry over all its blocks).
+    cur_tiles (K, 16, 16) uint8 and planes, K4's (K, 4, 22, 22) uint8 (F,
+    B, H, J) planes, each 16-byte aligned; full_my, full_mx, mvp_y, mvp_x:
+    K4's aux fields flattened to (K,); lam (K,) the ME lambda; int32 and
+    contiguous on one CUDA device. Returns `partition_search`'s dict, equal
+    array for array (the cost sums int64, the predictions int32), as views
+    of one int32 and one int64 buffer. Raises on any other input."""
     dev = cur_tiles.device
     if dev.type != "cuda":
         raise ValueError("partition_tiles: K5 takes tensors on one CUDA "
                          f"device, not {dev}")
     k = cur_tiles.shape[0]
     _check("cur_tiles", cur_tiles, torch.uint8, (k, 16, 16), dev, True)
-    _check("planes", planes, torch.uint8, (k, 4, SUB, SUB), dev)
+    _check("planes", planes, torch.uint8, (k, 4, SUB, SUB), dev, True)
     args = (full_my, full_mx, mvp_y, mvp_x, lam)
     for name, x in zip(("full_my", "full_mx", "mvp_y", "mvp_x", "lam"), args):
         _check(name, x, torch.int32, (k,), dev)
     with torch.cuda.device(dev):
-        out = {name: torch.empty((k,) + shape, dtype=dtype, device=dev)
-               for name, dtype, shape in K5_OUTPUTS}
+        out = _k5_buffers(k, dev)
         if k:
             cuda_build.check(_lib().h264lab_partition(
                 cur_tiles.data_ptr(), planes.data_ptr(),
@@ -682,3 +708,19 @@ def partition_tiles(cur_tiles, planes, full_my, full_mx, mvp_y, mvp_x, lam):
                 "partition search")
             LAUNCH_COUNTS["partition"] += 1
     return out
+
+
+def _k5_buffers(k: int, dev) -> dict:
+    """K5's outputs for K MBs (`K5_OUTPUTS`) as contiguous views of one
+    int32 buffer (the MVs, then the predictions, which start 16-byte
+    aligned) and one int64 buffer (the cost sums)."""
+    i32 = torch.empty(k * _K5_I32_PER_MB, dtype=torch.int32, device=dev)
+    i64 = torch.empty((len(_K5_I64), k), dtype=torch.int64, device=dev)
+    # one `as_strided` a view: on the card a slice and a view each cost
+    # more host time than an allocation of its own
+    views, at = {}, 0
+    for name, shape, strides in _K5_I32:
+        views[name] = i32.as_strided((k,) + shape, strides, at)
+        at += k * strides[0]
+    views.update(zip(_K5_I64, i64))
+    return {name: views[name] for name, _, _ in K5_OUTPUTS}

@@ -69,8 +69,10 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   their frames), QPs 0 to 51, the sub-pel stage on and off, on planes
   whose guard is cut so that the window starts clamp, on planes cut so
   far that the strip origins clamp, and on stripes where two candidate
-  centres tie (the first tried must win); K5 (`partition_tiles`) equals the plain
-  `partition_search` on K4's planes of the same inputs. Each input is
+  centres tie (the first tried must win); K5 (`partition_tiles`, a warp
+  per MB, one full-pel pass shared by the three geometries and a
+  quarter-pel pass per geometry) equals the plain `partition_search` on
+  K4's planes of the same inputs, with one launch a call. Each input is
   launched 20 times with equal outputs, one count per call. The encode
   paths reach them: with the plain searches refused, GOP P steps at
   speeds 2 and 0 and sequential P frames at speeds 0 and 10 encode to
@@ -824,6 +826,9 @@ def test_k4_and_k5_reject_bad_inputs(card):
             (1, pargs[1][:, :3], ValueError),
             (2, pargs[2][:5], ValueError),
             (0, pargs[0].transpose(1, 2), ValueError),
-            (0, shifted.view(kk, 16, 16), ValueError)):
+            (0, shifted.view(kk, 16, 16), ValueError),
+            (1, torch.empty(pargs[1].numel() + 1, dtype=torch.uint8,
+                            device=card)[1:].view(pargs[1].shape),
+             ValueError)):                                   # misaligned
         with pytest.raises(err):
             me.partition_tiles(*pargs[:i], bad, *pargs[i + 1:])

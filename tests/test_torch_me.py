@@ -14,9 +14,16 @@ reduce-scatter, the winner the least signed (cost, raster index) key; the
 half-pel planes from the re-centred window with the kernel's biased
 vertical sums, and each quarter-pel sample as the rounded mean of the two
 plane samples of the kernel's phase table (`PHASES`). K5 (`emulate_k5`):
-per MB every candidate position's cost on its own and the least key.
-Three faults of the schedule (a halo above the band, an unclamped strip
-origin, keys ordered by lane) each make the emulation fail. The
+a warp per MB with the same lanes (i, h); one full-pel pass whose packed
+sums a segmented reduce-scatter turns into the 8x8 quadrants' SADs, the
+16x8 and 8x16 halves a quadrant plus its partner across h or across i >>
+3; a quarter-pel pass per geometry in which every lane sweeps around its
+own block's winner, the segmented reduce-scatter's rounds and the keyed
+minimum over the block's lanes. Three faults of K4's schedule (a halo
+above the band, an unclamped strip origin, keys ordered by lane) and
+three of K5's (the 16x8 halves paired across the wrong lane bit, the
+quarter-pel passes centred on the 16x16 winner, keys ordered by lane)
+each make the emulation fail. The
 emulations are held against the
 port's plain `motion_search_dense` / `partition_search` (through
 `motion_search_plain` / `partition_plain`, which take the kernels'
@@ -102,15 +109,6 @@ def bits(v):
     return 2 * torch.frexp(code.double()).exponent.long() - 1
 
 
-def key_min(costs):
-    """The least of signed (cost, raster index) keys over positions:
-    costs (K, P) -> (index, cost), each (K,)."""
-    keys = costs.long() * 2**32 + torch.arange(costs.shape[1])
-    best = keys.min(dim=1).values
-    idx = best & 0xFFFFFFFF
-    return idx, (best - idx) // 2**32
-
-
 def at(img, y, x, h, w):
     """(K, h, w) blocks of per-MB images img (K, H, W) at (y, x) (K,)."""
     k = torch.arange(img.shape[0])[:, None, None]
@@ -147,26 +145,69 @@ def strip_read(img, lane, origin, size, y, x, h, w):
     return torch.where(iny[:, :, None] & inx[:, None, :], v, 0)
 
 
+LANES = torch.arange(32)
+LANE_I, LANE_H = LANES >> 1, LANES & 1        # lane (i, h): row i, half h
+PHASE_TAB = torch.tensor([PHASES[(fy, fx)] for fy in range(4)
+                          for fx in range(4)])
+# K5's blocks: per geometry the block of each lane, the lane bits that
+# differ within a block (the segment) and the reduce-scatter rounds (each
+# the lane bit of the partner and the slots kept) of each slot set
+K5_BLOCK = {"16x8": LANE_I >> 3, "8x16": LANE_H,
+            "8x8": 2 * (LANE_I >> 3) + LANE_H}
+K5_SEGMENT = {"16x8": 0xF, "8x16": 0x1E, "8x8": 0xE}
+K5_ROUNDS = {"16x8": (8, 4, 2, 1), "8x16": (16, 8, 4, 2), "8x8": (8, 4, 2)}
+# the full-pel pass's rounds (the quadrants) and the partner lane bit that
+# adds a quadrant's neighbour for the 16x8 and 8x16 halves
+K5_FULL_ROUNDS = (8, 4, 2)
+K5_PARTNER = {"16x8": 1, "8x16": 16}
+
+
+def scatter_rounds(words, labels, rounds):
+    """The kernels' (segmented) reduce-scatter of packed words (K, 32
+    lanes, S slots): in the round of lane bit o the slots 0 .. 2 o are
+    halved,
+    lanes with bit o keeping the upper half and adding the partner's (lane
+    ^ o) copy of it (the kernel's `scatter_round<o>`). `labels` (S,) is
+    each slot's first position; returns the kept words (K, 32, S') and the
+    labels of each lane's slots (32, S')."""
+    lab = labels.expand(32, -1)
+    for o in rounds:
+        assert words.shape[2] == 2 * o, (words.shape, o)
+        up = ((LANES & o) != 0)[None, :, None]
+        lo, hi = words[:, :, :o], words[:, :, o:]
+        send, keep = torch.where(up, lo, hi), torch.where(up, hi, lo)
+        words = (keep + send[:, LANES ^ o]) & 0xFFFFFFFF
+        lab = torch.where(up[0], lab[:, o:], lab[:, :o])
+    return words, lab
+
+
+def pack(partial, n_slots):
+    """Partial sums (K, 32, P) packed two positions to a word (slot s:
+    positions 2 s and 2 s + 1, low and high halves), 0 past P; with each
+    slot's first position."""
+    assert int(partial.max()) < 2**11            # 8 pixels of a lane
+    pad = torch.zeros(partial.shape[:2] + (2 * n_slots - partial.shape[2],),
+                      dtype=torch.long)
+    v = torch.cat([partial, pad], 2)
+    return v[:, :, 0::2] | v[:, :, 1::2] << 16, 2 * torch.arange(n_slots)
+
+
+def unpack(words, labels):
+    """Each lane's (position, SAD) pairs of its packed words: positions
+    (32, 2 S'), SADs (K, 32, 2 S')."""
+    sads = torch.stack([words & 0xFFFF, words >> 16], 3).flatten(2)
+    return torch.stack([labels, labels + 1], 2).flatten(1), sads
+
+
 def reduce_scatter(partial):
     """K4's reduce-scatter of row-split partial sums (K, 32 lanes, 49
-    positions): two positions packed to a 32-bit word (slot s: positions
-    2 s, 2 s + 1 in the low and high halves), then five rounds in which
-    lanes with bit o keep the upper half of the slots, each adding its
-    partner's (lane ^ o) copy. Returns (K, 32 lanes, 2): lane l's totals
-    of positions 2 l and 2 l + 1 (0 past position 48)."""
-    kk = partial.shape[0]
-    assert int(partial.max()) < 2**11       # 8 pixels of a lane
-    pad = torch.cat([partial, torch.zeros((kk, 32, 15), dtype=torch.long)],
-                    2)
-    v = pad[:, :, 0::2] | pad[:, :, 1::2] << 16         # (K, 32, 32)
-    lanes = torch.arange(32)
-    for o in (16, 8, 4, 2, 1):
-        up = ((lanes & o) != 0)[None, :, None]
-        lo, hi = v[:, :, :o], v[:, :, o:2 * o]
-        send, keep = torch.where(up, lo, hi), torch.where(up, hi, lo)
-        v = (keep + send[:, lanes ^ o]) & 0xFFFFFFFF
-    v = v[:, :, 0]
-    return torch.stack([v & 0xFFFF, v >> 16], 2)
+    positions): two positions packed to a 32-bit word (`pack`), then five
+    rounds over lane bits 16 .. 1 (`scatter_rounds`). Returns (K, 32
+    lanes, 2): lane l's totals of positions 2 l and 2 l + 1 (0 past
+    position 48)."""
+    words, lab = scatter_rounds(*pack(partial, 32), (16, 8, 4, 2, 1))
+    assert torch.equal(lab[:, 0], 2 * LANES)
+    return torch.stack([words[:, :, 0] & 0xFFFF, words[:, :, 0] >> 16], 2)
 
 
 def sweep_winner(partial, cost_of, lane_key=False):
@@ -411,53 +452,142 @@ def emulate_k4(d, mbw, mbh, subpel, mutation=None):
     return out
 
 
-def emulate_k5(cur, k4, lam):
-    """K5 per MB from K4's planes and fields, as the kernel computes it:
-    cur (K, 16, 16), lam (K,). Returns `partition_search`'s dict."""
-    cur, planes = cur.long(), k4["planes"]
+def segment_min(cost, pos, n_pos, segment, lane_key=False):
+    """The keyed minimum of K5: each lane the least signed (cost, position)
+    key of its positions below n_pos, then the least over the lanes that
+    differ in the bits of `segment` (xor shuffles). With `lane_key` (a
+    mutation) the lanes' keys order by lane, not by position. Returns the
+    winner's (position, cost) per lane, each (K, 32)."""
+    keys = torch.where(pos < n_pos, cost * 2**32 + pos, 2**62)
+    best = keys.min(2).values
+    p, c = best & 0xFFFFFFFF, best >> 32
+    keys = c * 2**32 + (LANES * 64 + p if lane_key else p)
+    for o in (16, 8, 4, 2, 1):
+        if segment & o:
+            keys = torch.minimum(keys, keys[:, LANES ^ o])
+    return keys & (63 if lane_key else 0xFFFFFFFF), keys >> 32
+
+
+def lane_samples(planes, fy, fx, y, x):
+    """The 8 quarter-pel samples of phase (fy, fx) (K, 32) of each lane
+    from the (K, 4, 22, 22) planes, pixel 0 at plane coordinates (y, x)
+    (K, 32): the rounded mean of the two plane samples of `PHASES`."""
+    e = PHASE_TAB[4 * fy + fx]                               # (K, 32, 6)
+    kk = torch.arange(planes.shape[0])[:, None, None]
+    cols = x[..., None] + torch.arange(8)
+
+    def read(pl, ey, ex):
+        yy, xx = (y + ey)[..., None], cols + ex[..., None]
+        assert int(yy.min()) >= 0 and int(yy.max()) < 22
+        assert int(xx.min()) >= 0 and int(xx.max()) < 22
+        return planes[kk, pl[..., None], yy, xx]
+
+    a = read(e[..., 0], e[..., 1], e[..., 2])
+    b = read(e[..., 3], e[..., 4], e[..., 5])
+    return (a + b + 1) >> 1
+
+
+def emulate_k5(cur, k4, lam, mutation=None):
+    """K5 as the kernel schedules it (`csrc/me.cu` `partition_kernel`): a
+    warp per MB, lane (i, h) owning row i and pixels 8 h .. 8 h + 7.
+    - One full-pel pass: each lane's SADs on F at the 25 positions +-2
+      around the 16x16 winner, packed two to a word, reduced over the
+      lane bits of i & 7 (`K5_FULL_ROUNDS`) into the 8x8 quadrants' SADs;
+      the partner across h adds the 16x8 half, the partner across i >> 3
+      the 8x16 half (`K5_PARTNER`); each block's winner the least key of
+      its lanes (`segment_min` over lane bits 1-3).
+    - Per geometry one quarter-pel pass: every lane sweeps the 49
+      positions +-3 around its own block's full-pel winner; the packed
+      sums reduced by the geometry's rounds (`K5_ROUNDS`; 8x16 one 32-slot
+      set, 16x8 and 8x8 two 16-slot sets), each lane's positions those the
+      rounds leave it (held against the kernel's formulas); the keyed
+      minimum over the block's lanes (`K5_SEGMENT`); each lane's 8
+      prediction samples of the winning phase; a block's MV from its first
+      lane, the cost sum from lane 0's partners.
+    cur (K, 16, 16), lam (K,). `mutation`: "wrong_pair" (the 16x8 halves
+    paired across lane bit 1, i & 1, instead of h), "shared_centre" (every
+    quarter-pel pass centred on the 16x16 winner) or "lane_key" (keys
+    ordered by lane). Returns (`partition_search`'s dict, each geometry's
+    full-pel winners (K, blocks) as raster indices of the +-2 sweep)."""
+    cur, planes = cur.long(), k4["planes"].long()
     kk = cur.shape[0]
-    fmy, fmx, pvy, pvx = (k4[k] for k in ("full_my", "full_mx", "mvp_y",
-                                          "mvp_x"))
-    zero = torch.zeros(kk, dtype=torch.long)
-    out = {}
+    fmy, fmx, pvy, pvx = (k4[k][:, None] for k in ("full_my", "full_mx",
+                                                   "mvp_y", "mvp_x"))
+    lam = lam[:, None, None]
+    lane_key = mutation == "lane_key"
+    lane_cur = cur.reshape(kk, 32, 8)
+    i, h, g = LANE_I, LANE_H, LANE_I & 7
+    kidx = torch.arange(kk)[:, None, None]
+    # the full-pel pass: F rows 1 + i + dy, columns 8 h + 1 + dx ..
+    cols = 8 * h[:, None] + torch.arange(8)
+    part = torch.stack([
+        (lane_cur - planes[kidx, 0, (1 + i + p // 5)[:, None],
+                           cols + 1 + p % 5]).abs().sum(2)
+        for p in range(25)], 2)
+    words, lab = pack(part, 16)
+    words, lab = scatter_rounds(words, lab, K5_FULL_ROUNDS)
+    assert torch.equal(lab, torch.stack([4 * g, 4 * g + 2], 1))
+    pairs = dict(K5_PARTNER)
+    if mutation == "wrong_pair":
+        pairs["16x8"] = 2
+    sums = {"8x8": words}
+    for name, o in pairs.items():
+        sums[name] = (words + words[:, LANES ^ o]) & 0xFFFFFFFF
+    out, full = {}, {}
     for name, offsets, bh, bw in GEOMETRIES:
-        mvs, total = [], 0
-        pred = torch.zeros((kk, 16, 16), dtype=torch.long)
-        for oy0, ox0 in offsets:
-            blk_cur = cur[:, oy0:oy0 + bh, ox0:ox0 + bw]
-            costs = []
-            for p in range(25):
-                dy, dx = p // 5 - 2, p % 5 - 2
-                ref = at(planes[:, F], zero + 3 + oy0 + dy, zero + 3 + ox0 + dx,
-                         bh, bw)
-                costs.append((blk_cur - ref).abs().sum((1, 2))
-                             + lam * (bits((fmy + dy) * 4 - pvy)
-                                      + bits((fmx + dx) * 4 - pvx)))
-            p, _ = key_min(torch.stack(costs, 1))
-            bmy, bmx = fmy + p // 5 - 2, fmx + p % 5 - 2
-            y0, x0 = 2 + oy0 + bmy - fmy, 2 + ox0 + bmx - fmx
-            costs = []
-            for p in range(49):
-                dyq, dxq = p // 7 - 3, p % 7 - 3
-                blk = phase_block(planes, dyq, dxq, y0 + 1 + (dyq >> 2),
-                                  x0 + 1 + (dxq >> 2), bh, bw)
-                costs.append((blk_cur - blk).abs().sum((1, 2))
-                             + lam * (bits(bmy * 4 + dyq - pvy)
-                                      + bits(bmx * 4 + dxq - pvx)))
-            p, cost = key_min(torch.stack(costs, 1))
-            dyq, dxq = p // 7 - 3, p % 7 - 3
-            for i in range(kk):
-                q = slice(i, i + 1)
-                pred[i, oy0:oy0 + bh, ox0:ox0 + bw] = phase_block(
-                    planes[q], int(dyq[i]), int(dxq[i]),
-                    y0[q] + 1 + (dyq[i] >> 2), x0[q] + 1 + (dxq[i] >> 2), bh,
-                    bw)[0]
-            mvs.append(torch.stack([bmy * 4 + dyq, bmx * 4 + dxq], -1))
-            total = total + cost
-        out[f"mv{name}"] = torch.stack(mvs, 1)
-        out[f"cost{name}"] = total
-        out[f"pred{name}"] = pred
-    return out
+        pos, sad = unpack(sums[name], lab)
+        cost = sad + lam * (bits(4 * (fmy[..., None] + pos // 5 - 2)
+                                 - pvy[..., None])
+                            + bits(4 * (fmx[..., None] + pos % 5 - 2)
+                                   - pvx[..., None]))
+        w, _ = segment_min(cost, pos, 25, 0xE, lane_key)   # (K, 32)
+        blk = K5_BLOCK[name]
+        first = [int((blk == b).nonzero()[0]) for b in range(len(offsets))]
+        full[name] = w[:, first]
+        if mutation == "shared_centre":
+            w = torch.full_like(w, 12)
+        bdy, bdx = w // 5 - 2, w % 5 - 2
+        bmy, bmx = fmy + bdy, fmx + bdx
+        # the quarter-pel pass around each lane's block winner
+        part = torch.stack([
+            (lane_cur - lane_samples(
+                planes, torch.full_like(w, (p // 7 - 3) & 3),
+                torch.full_like(w, (p % 7 - 3) & 3),
+                3 + i + bdy + ((p // 7 - 3) >> 2),
+                3 + 8 * h + bdx + ((p % 7 - 3) >> 2))).abs().sum(2)
+            for p in range(49)], 2)
+        words_q, lab_q = pack(part, 32)
+        rounds = K5_ROUNDS[name]
+        if name == "8x16":
+            words_q, lab_q = scatter_rounds(words_q, lab_q, rounds)
+            formula = [4 * i, 4 * i + 2]
+        else:
+            halves = [scatter_rounds(words_q[:, :, 16 * j:16 * j + 16],
+                                     lab_q[16 * j:16 * j + 16], rounds)
+                      for j in range(2)]
+            words_q = torch.cat([x for x, _ in halves], 2)
+            lab_q = torch.cat([x for _, x in halves], 1)
+            formula = ([4 * g + 2 * h, 32 + 4 * g + 2 * h] if name == "16x8"
+                       else [4 * g, 4 * g + 2, 32 + 4 * g, 34 + 4 * g])
+        assert torch.equal(lab_q, torch.stack(formula, 1)), name
+        pos, sad = unpack(words_q, lab_q)
+        cost = sad + lam * (bits(4 * bmy[..., None] + pos // 7 - 3
+                                 - pvy[..., None])
+                            + bits(4 * bmx[..., None] + pos % 7 - 3
+                                   - pvx[..., None]))
+        p, c = segment_min(cost, pos, 49, K5_SEGMENT[name], lane_key)
+        dyq, dxq = p // 7 - 3, p % 7 - 3
+        out[f"pred{name}"] = lane_samples(
+            planes, dyq & 3, dxq & 3, 3 + i + bdy + (dyq >> 2),
+            3 + 8 * h + bdx + (dxq >> 2)).reshape(kk, 16, 16)
+        out[f"mv{name}"] = torch.stack([4 * bmy + dyq, 4 * bmx + dxq],
+                                       2)[:, first]
+        # lane 0's sum: its block's cost and its partners' across the
+        # lane bits that tell the blocks apart
+        for o in {"16x8": (16,), "8x16": (1,), "8x8": (1, 16)}[name]:
+            c = c + c[:, LANES ^ o]
+        out[f"cost{name}"] = c[:, 0]
+    return out, full
 
 
 def plain_me(d, mbw, mbh, subpel):
@@ -490,6 +620,12 @@ def _jax_me(plane, tiles, ref_pad, ref4_pad, base_y, base_x, qp, row_offset,
 _jax_partitions = jax.jit(jme.partition_search)
 
 
+def k5_lam(d, nmb):
+    """The ME lambda of each MB of a case's inputs, (K,)."""
+    return _t(tme.LAMBDA_ME).long()[_t(d["qp"]).long()].repeat_interleave(
+        nmb)
+
+
 @functools.lru_cache(maxsize=None)
 def case(c):
     """A case's inputs, its emulations and the port's plain outputs."""
@@ -499,11 +635,8 @@ def case(c):
     plain = plain_me(d, mbw, mbh, subpel)
     out = dict(d=d, k4=k4, plain=plain)
     if subpel:
-        nmb = mbw * mbh
-        lam = _t(tme.LAMBDA_ME).long()[_t(d["qp"]).long()].repeat_interleave(
-            nmb)
-        out["k5"] = emulate_k5(_t(d["cur_tiles"]).reshape(-1, 16, 16), k4,
-                               lam)
+        out["k5"], out["k5_full"] = emulate_k5(
+            _t(d["cur_tiles"]).reshape(-1, 16, 16), k4, k5_lam(d, mbw * mbh))
         out["plain_part"] = plain_partitions(d, plain)
     return out
 
@@ -568,6 +701,30 @@ def test_k5_schedule_equals_plain_partition_search(c):
     assert set(got["k5"]) == set(got["plain_part"])
     for k, v in got["plain_part"].items():
         _eq(got["k5"][k], v, k)
+    # the inputs hold what the cases are for: in every geometry some MBs
+    # have blocks whose full-pel winners differ from one another and from
+    # the 16x16 winner (raster index 12 of the +-2 sweep), which the
+    # quadrant pairing and the blocks' own centres serve
+    for name, w in got["k5_full"].items():
+        assert ((w != w[:, :1]).any(1) & (w != 12).any(1)).any(), name
+
+
+@pytest.mark.parametrize("mutation", ["wrong_pair", "shared_centre",
+                                      "lane_key"])
+def test_k5_schedule_mutations_fail(mutation):
+    """Each named fault in K5's schedule makes the emulation differ from
+    the plain partition search on every sub-pel case: the 16x8 halves
+    paired across the wrong lane bit (i & 1 instead of h), every quarter-
+    pel pass centred on the 16x16 winner instead of its block's own, and
+    keys that order ties by lane instead of position."""
+    for c in [c for c in CASES if c[7]]:
+        got = case(c)
+        k5, _ = emulate_k5(_t(got["d"]["cur_tiles"]).reshape(-1, 16, 16),
+                           got["k4"], k5_lam(got["d"], c[2] * c[3]),
+                           mutation)
+        assert any(not np.array_equal(k5[k].numpy().astype(np.int64),
+                                      v.numpy().astype(np.int64))
+                   for k, v in got["plain_part"].items()), _ids(c)
 
 
 @pytest.mark.parametrize("c", JAX_CASES, ids=_ids)

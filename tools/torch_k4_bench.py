@@ -1,6 +1,7 @@
-"""K4, the dense 16x16 motion search (`h264lab_tpu_torch/csrc/me.cu`), on
-the CUDA card: its wrapper's time at the shapes the encode paths give it,
-in turns against an earlier build, and what its build holds.
+"""K4, the dense 16x16 motion search, and K5, the partition search
+(`h264lab_tpu_torch/csrc/me.cu`), on the CUDA card: their wrappers' time
+at the shapes the encode paths give them, in turns against an earlier
+build, and what the build holds.
 
     python tools/torch_k4_bench.py [--baseline DIR] [--sass DIR]
                                    [--phases SRC] [--reps N]
@@ -10,24 +11,30 @@ The inputs are `chip_smoke.py`'s seeded K4 inputs (`K4_CASES`,
 lanes' P step), one 1080p frame with and without the sub-pel stage (the
 sequential speed-0 P frame; speeds 9 and 10), the SVC base layer (1, 60 x
 34 MBs), a mesh band at a row offset (1, 120 x 34 MBs) and the small and
-tile-edge cases. For each it prints K4's wrapper ms (`me.motion_search_tiles`,
-CUDA events over `--reps` calls after a warm-up, as `chip_smoke.py`'s
-phase 18 takes it), its bound (`chip_smoke.search_bound`) and the share
-of it reached, and from a `torch.profiler` trace of one call the
+tile-edge cases. For each it prints K4's wrapper ms
+(`me.motion_search_tiles`, CUDA events over `--reps` calls after a
+warm-up, as `chip_smoke.py`'s phase 18 takes it), the wrapper's host us
+a call (the host clock over `--reps` calls issued back to back, before
+the synchronization), its bound (`chip_smoke.search_bound`) and the
+share of it reached, and from a `torch.profiler` trace of one call the
 launches of K4's kernels and their device us, beside the build's ptxas
-registers, shared memory and spills.
+registers, shared memory and spills. K5 is measured the same way on K4's
+planes of each sub-pel input (`chip_smoke.k5_args`: one K4 call), its
+bound from the operations the function needs
+(`chip_smoke.K5_OPS_NEEDED_PER_MB`), and beside it the share of the
+bound on the older count (`chip_smoke.K5_OPS_PER_MB`).
 
 `--baseline DIR` names an earlier tree of the repository (for example
 the parent commit, unpacked into a gitignored directory with `git
-archive`). The script loads its K4 wrapper (`DIR/h264lab_tpu_torch/ops/
-me.py`, beside the current one) with its kernel (`DIR/h264lab_tpu_torch/
-csrc/me.cu`, built too), checks on every input that its outputs equal
-the current K4's, and times the two wrappers in turns (old, new, new,
-old).
+archive`). The script loads its K4 and K5 wrappers (`DIR/h264lab_tpu_torch/
+ops/me.py`, beside the current one) with their kernels (`DIR/
+h264lab_tpu_torch/csrc/me.cu`, built too), checks on every input that
+their outputs equal the current K4's and K5's, and times each pair of
+wrappers in turns (old, new, new, old).
 
 `--sass DIR` disassembles each build (`cuobjdump -sass`) into DIR and
-prints, per kernel of K4, its SASS instruction count and the counts of
-the opcodes the sweeps use (the packed byte SAD and average, funnel
+prints, per kernel of K4 and K5, its SASS instruction count and the
+counts of the opcodes the sweeps use (the packed byte SAD and average, funnel
 shifts, byte permutes, shuffles, shared loads).
 
 `--phases SRC` names a copy of `csrc/me.cu` with clock64() stamps (not
@@ -58,6 +65,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -87,8 +95,8 @@ def ptxas(log):
 
 
 def sass_counts(lib_path, out_dir, tag):
-    """Disassemble a build into `out_dir`/`tag`.sass; per K4 kernel (not
-    K5's `partition_kernel`) its instruction count and opcode counts."""
+    """Disassemble a build into `out_dir`/`tag`.sass; per kernel its
+    instruction count and opcode counts."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
@@ -108,12 +116,12 @@ def sass_counts(lib_path, out_dir, tag):
             counts[name]["all"] += 1
             counts[name][m.group(1)] += 1
     return {k: {op: v[op] for op in ("all",) + OPCODES if v[op]}
-            for k, v in counts.items() if "partition" not in k}
+            for k, v in counts.items()}
 
 
 def baseline_module(tree):
-    """An earlier tree's K4 wrapper module, loaded beside `me`, with that
-    tree's kernel built and loaded under it. Returns (module, library
+    """An earlier tree's K4 and K5 wrapper module, loaded beside `me`,
+    with that tree's kernels built and loaded under it. Returns (module, library
     path, build log)."""
     spec = importlib.util.spec_from_file_location(
         "baseline_me", os.path.join(tree, "h264lab_tpu_torch", "ops", "me.py"))
@@ -125,17 +133,30 @@ def baseline_module(tree):
     return mod, path, log
 
 
-def wrapper_ms(mod, args, reps):
-    """Mean ms of `mod.motion_search_tiles(*args)` over `reps` calls after
-    a warm-up call (CUDA events)."""
-    return chip_smoke._cuda_ms(lambda: mod.motion_search_tiles(*args), reps)
+def wrapper_ms(fn, args, reps):
+    """Mean ms of `fn(*args)` over `reps` calls after a warm-up call (CUDA
+    events)."""
+    return chip_smoke._cuda_ms(lambda: fn(*args), reps)
 
 
-def device_us(mod, args):
-    """K4's kernel launches in one wrapper call and their device us
-    (`chip_smoke.kernel_launches`)."""
-    kernels = chip_smoke.kernel_launches(
-        lambda: mod.motion_search_tiles(*args))
+def host_us(fn, args, reps):
+    """Mean host us of one call of `fn(*args)` over `reps` calls issued
+    back to back after a warm-up call (the device works behind them; the
+    clock stops before the synchronization)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
+def device_us(fn, args):
+    """The hand kernels' launches in one call of `fn(*args)` and their
+    device us (`chip_smoke.kernel_launches`)."""
+    kernels, _ = chip_smoke.kernel_launches(lambda: fn(*args))
     return len(kernels), sum(us for _, us in kernels)
 
 
@@ -171,11 +192,64 @@ def phases(src, cases):
     return out
 
 
-def outputs(mod, args):
-    out = mod.motion_search_tiles(*args)
-    named = dict(zip(("mv_y", "mv_x", "cost", "pred"), out[:4]))
-    named.update((k, v) for k, v in out[4].items() if v is not None)
-    return named
+def measure(name, mods, args, n_ops, reps):
+    """One wrapper (`name` of ops/me.py: `motion_search_tiles` or
+    `partition_tiles`) on one input: its outputs, bound, ms, kernel
+    launches and device us; with an "old" module, the old wrapper's
+    outputs against the new ones and the two timed in turns (old, new,
+    new, old)."""
+    fns = {tag: getattr(mod, name) for tag, mod in mods.items()}
+    got = chip_smoke._search_outputs(fns["new"](*args))
+    row = {}
+    row["bound_ms"], row["bound_by"], _ = chip_smoke.search_bound(
+        [x for x in args if isinstance(x, torch.Tensor)]
+        + list(got.values()), n_ops)
+    if "old" in fns:
+        old = chip_smoke._search_outputs(fns["old"](*args))
+        row["baseline_equal"] = set(old) == set(got) and all(
+            torch.equal(old[k], v) for k, v in got.items())
+        turns, hosts, dev = [], [], {}
+        for tag in ("old", "new", "new", "old"):
+            turns.append((tag, wrapper_ms(fns[tag], args, reps)))
+            hosts.append((tag, host_us(fns[tag], args, reps)))
+            if tag not in dev:
+                dev[tag] = device_us(fns[tag], args)
+        row["launches"], row["device_us"] = dev["new"]
+        row["old_launches"], row["old_device_us"] = dev["old"]
+        row["turns"], row["host_turns"] = turns, hosts
+        row["ms"] = (turns[1][1] + turns[2][1]) / 2
+        row["old_ms"] = (turns[0][1] + turns[3][1]) / 2
+        row["host_us"] = (hosts[1][1] + hosts[2][1]) / 2
+        row["old_host_us"] = (hosts[0][1] + hosts[3][1]) / 2
+    else:
+        row["ms"] = wrapper_ms(fns["new"], args, reps)
+        row["host_us"] = host_us(fns["new"], args, reps)
+        row["launches"], row["device_us"] = device_us(fns["new"], args)
+    return row
+
+
+def report(kernel, what, row, label):
+    line = (f"  {kernel} on {what} {tuple(row['shape'])} {label}: "
+            f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} ({100 * row['bound_ms'] / row['ms']:.1f}%); "
+            f"{row['launches']} kernel launch(es) a call, "
+            f"{row['device_us']:.1f} us on the device, "
+            f"{row['host_us']:.1f} us of host time a call")
+    if "bound_ms_old_count" in row:
+        line += (f"; on the older count: bound "
+                 f"{row['bound_ms_old_count']:.4f} ms "
+                 f"({100 * row['bound_ms_old_count'] / row['ms']:.1f}%)")
+    if "turns" in row:
+        line += (f"; in turns old, new, new, old: " + ", ".join(
+            f"{ms:.4f}" for _, ms in row["turns"])
+            + f" ms; old {row['old_ms']:.4f} ms "
+            f"({100 * row['bound_ms'] / row['old_ms']:.1f}%), "
+            f"new / old {row['ms'] / row['old_ms']:.3f}; old "
+            f"{row['old_launches']} launch(es), {row['old_device_us']:.1f} "
+            f"us on the device; host us a call in turns: " + ", ".join(
+                f"{us:.1f}" for _, us in row["host_turns"])
+            + f"; outputs equal: {row['baseline_equal']}")
+    print(line)
 
 
 def main() -> int:
@@ -192,7 +266,7 @@ def main() -> int:
     print(label)
     path, log = cuda_build.build(me._SRC)
     mods, paths = {"new": me}, {"new": path}
-    result = dict(card=label, ptxas={"new": ptxas(log)}, k4={})
+    result = dict(card=label, ptxas={"new": ptxas(log)}, k4={}, k5={})
     if opts.baseline:
         mods["old"], paths["old"], log = baseline_module(opts.baseline)
         result["ptxas"]["old"] = ptxas(log)
@@ -213,45 +287,24 @@ def main() -> int:
         if opts.phases:
             cases.append((what, args))
         ops = chip_smoke.K4_OPS_SUBPEL if subpel else chip_smoke.K4_OPS_FULLPEL
-        got = outputs(me, args)
-        row = dict(shape=[n, mbw * mbh])
-        row["bound_ms"], row["bound_by"], _ = chip_smoke.search_bound(
-            [x for x in args if isinstance(x, torch.Tensor)]
-            + list(got.values()), n * mbw * mbh * ops)
-        if opts.baseline:
-            old = outputs(mods["old"], args)
-            row["baseline_equal"] = set(old) == set(got) and all(
-                torch.equal(old[k], v) for k, v in got.items())
-            turns, dev = [], {}
-            for tag in ("old", "new", "new", "old"):
-                turns.append((tag, wrapper_ms(mods[tag], args, opts.reps)))
-                if tag not in dev:
-                    dev[tag] = device_us(mods[tag], args)
-            row["launches"], row["device_us"] = dev["new"]
-            row["old_launches"], row["old_device_us"] = dev["old"]
-            row["turns"] = turns
-            row["ms"] = (turns[1][1] + turns[2][1]) / 2
-            row["old_ms"] = (turns[0][1] + turns[3][1]) / 2
-        else:
-            row["ms"] = wrapper_ms(me, args, opts.reps)
-            row["launches"], row["device_us"] = device_us(me, args)
+        row = measure("motion_search_tiles", mods, args, n * mbw * mbh * ops,
+                      opts.reps)
+        row["shape"] = [n, mbw * mbh]
         result["k4"][what] = row
-        line = (f"  K4 on {what} {tuple(row['shape'])} {label}: "
-                f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
-                f"{row['bound_by']} ({100 * row['bound_ms'] / row['ms']:.1f}%); "
-                f"{row['launches']} kernel launch(es) a call, "
-                f"{row['device_us']:.1f} us on the device")
-        if opts.baseline:
-            line += (f"; in turns old, new, new, old: " + ", ".join(
-                f"{ms:.4f}" for _, ms in row["turns"])
-                + f" ms; old {row['old_ms']:.4f} ms "
-                f"({100 * row['bound_ms'] / row['old_ms']:.1f}%), "
-                f"new / old {row['ms'] / row['old_ms']:.3f}; old "
-                f"{row['old_launches']} launch(es), {row['old_device_us']:.1f} "
-                f"us on the device; outputs equal: "
-                f"{row['baseline_equal']}")
-        print(line)
-        del args, got
+        report("K4", what, row, label)
+        if subpel:
+            k5 = chip_smoke.k5_args(args)
+            row = measure("partition_tiles", mods, k5,
+                          n * mbw * mbh * chip_smoke.K5_OPS_NEEDED_PER_MB,
+                          opts.reps)
+            row["shape"] = [n * mbw * mbh]
+            row["bound_ms_old_count"] = max(
+                row["bound_ms"], n * mbw * mbh * chip_smoke.K5_OPS_PER_MB
+                / chip_smoke.INT32_OPS_PER_S * 1e3)
+            result["k5"][what] = row
+            report("K5", what, row, label)
+            del k5
+        del args
     if opts.phases:
         result["phases"] = phases(opts.phases, cases)
     del cases
