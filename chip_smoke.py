@@ -99,22 +99,29 @@ Phases (any failure exits non-zero; nothing is caught):
      IPPP over (4, 2) and (3, 1) meshes; lane 0 decoded bit-exactly,
      every lane equal); then GopBandEncoder at 1920x1088 with two slice
      bands over a (2, 2) mesh, two lanes (one per gop row) walking frames
-     as the main path's, QP 33, speed 2: an IDR and a P step with the
-     per-shard stage table, the exchange ms and the step s (stage syncs
-     inside), then a P step timed without stage syncs (it reads a
-     reference that the exchange built from a P step, and its time
-     compares with the unsharded run's). The meshes use distinct cards
-     when there are
-     enough, else entries that all name cuda:0 (printed). Every lane's
-     bytes of every step must equal an unsharded GopBandEncoder on the
-     card with the same configuration, whose lane 0 IDR and first P
-     must equal a CPU encode; K1 and K2 must have launched for every
-     shard and step, K3 for every shard of the IDR step, K4 for every
-     shard of the two P steps (shard (0, 1)'s motion search inputs of the
-     first P step kept for phase 18); K1 must equal the plain packer on
-     shard (0, 0)'s grid of the last P step, K2 the plain filter on shard
-     (0, 1)'s (1, 4080) deblocking inputs of that step, K3 the plain
-     wavefront on shard (0, 1)'s (1, 4080) IDR wavefront inputs;
+     as the main path's, QP 33, speed 2, every shard issued from its own
+     worker thread on its own CUDA stream, one stage of one shard at a
+     time (the workers' issue lock): an IDR and a P step with the
+     per-shard stage table (each shard's stream synchronized alone), the
+     exchange ms and the step s (stage syncs inside), then a P step timed
+     without stage syncs (it reads a reference that the exchange built
+     from a P step, and its time compares with the unsharded run's); for
+     each step, every shard's host interval of issue, which must overlap.
+     The meshes use distinct cards when there are enough, else entries
+     that all name cuda:0 (printed). Every lane's bytes of every step must
+     equal an unsharded GopBandEncoder on the card with the same
+     configuration, whose lane 0 IDR and first P must equal a CPU encode;
+     K1 and K2 must have launched exactly once for every shard and step,
+     K3 for every shard of the IDR step, K4 for every shard of the two P
+     steps (a band-1 shard's motion search inputs of the first P step
+     kept for phase 18). Then a forced IDR step and a P step without
+     stage syncs, the mesh's and the unsharded encoder's in turns, and
+     the pipelined loop (`encode_step_async` of step t + 1 before
+     `finish_step(t)`, MESH_PIPELINED P steps) on each: the bytes equal,
+     the seconds a step printed side by side. K1 must equal the plain
+     packer on shard (0, 0)'s grid of the last counted P step, K2 the
+     plain filter on a shard's (1, 4080) deblocking inputs of that step,
+     K3 the plain wavefront on a shard's (1, 4080) IDR wavefront inputs;
   16. hold K2 against the plain filter on seeded inputs
      (`utils.synthetic.deblock_inputs`: bS 0 to 4, flat areas, per-frame
      and per-MB QPs) at the main paths' shapes: (16, 8160), (1, 8160) with
@@ -147,7 +154,7 @@ Phases (any failure exits non-zero; nothing is caught):
      (`me.partition_plain`): on the real inputs of the 16-lane P step
      (16, 8160), the sequential speed-0 P frame (1, 8160, K5 on K4's
      planes of it), the SVC stage P frame's enhancement (1, 8160) and base
-     (1, 2040) layers and mesh shard (0, 1)'s (1, 4080) band at its row
+     (1, 2040) layers and a band-1 mesh shard's (1, 4080) band at its row
      offset; then on seeded inputs (`utils.synthetic.me_inputs`: flat,
      chessboard, shifted-noise, half-pel and unmatched MBs, previous MVs
      past the +-52 clip) at (16, 8160) over 16 lanes, (1, 8160) with and
@@ -194,7 +201,8 @@ SEQ_SPEED = 0                    # the CLI's default encode speed
 CIF = (352, 288)
 SVC_FRAMES = 4                   # IDR, timed P, P and IDR with stage times
 MESH = (2, 2)                    # phase 15's (gop, band) mesh
-MESH_STEPS = ("IDR", "P", "P")
+MESH_STEPS = ("IDR", "P", "P")    # its launches are counted
+MESH_PIPELINED = 3               # P steps of phase 15's pipelined loop
 # phase 16: (what, seed, frames, mb_width, mb_height, qp, per-MB QPs, band)
 K2_CASES = (
     ("16 lanes of 1080p", 21, LANES, 120, 68, QP, False, False),
@@ -455,7 +463,8 @@ def check_k3(args, what, label):
     mbw = args[8]
     chain = mbw + 2 * (nmb // mbw - 1)
     out["us_per_step"] = 1e3 * out["ms"] / chain
-    out["cluster"] = wavefront.cluster_rows(n, mbw, nmb // mbw)
+    out["cluster"] = wavefront.cluster_rows(n, mbw, nmb // mbw,
+                                              args[0].device)
     out["bound_ms"], out["bound_by"], moved = k3_bound(k3_args, want)
     sels = [int((want["sel"] == k).sum()) for k in range(3)]
     print(f"  K3 == plain on {what} ({n}, {nmb}), {K3_REPEATS} launches "
@@ -1033,15 +1042,32 @@ def mesh_devices(n):
     return ["cuda:0"] * n, f"a virtual mesh, {n} x cuda:0"
 
 
+def issue_intervals(enc, label):
+    """Print each shard's host interval of issue in the encoder's last mesh
+    step (ms from the step's start) and require that they overlap: every
+    shard started before any shard ended."""
+    iv = enc.workers.intervals
+    _require(len(iv) == len(enc.shards) and
+             max(a for a, _ in iv) < min(b for _, b in iv),
+             f"the mesh shards' issue intervals do not overlap: {iv}")
+    print("  shards' issue intervals, ms from the step's start " + label
+          + ": " + ", ".join(f"{sh.name} {1e3 * a:.1f}-{1e3 * b:.1f}"
+                             for sh, (a, b) in zip(enc.shards, iv))
+          + "; all in flight together")
+
+
 def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
                 me_calls):
     """Phase 15: the dryruns, then the 1080p mesh run against the unsharded
-    card run (and that against the CPU), K1 on a shard's grid, K2 on a
-    shard's deblocking inputs and K3 on a shard's IDR wavefront inputs
-    (their numbers go into `numbers`, `k2_numbers` and `k3_numbers`; shard
-    (0, 1)'s K4 call of the first P step into `me_calls`, on the host).
+    card run (and that against the CPU), each step's shard issue
+    intervals, a forced IDR and a P step and the pipelined loop in turns
+    with the unsharded encoder, K1 on a shard's grid, K2 on a shard's
+    deblocking inputs and K3 on a shard's IDR wavefront inputs (their
+    numbers go into `numbers`, `k2_numbers` and `k3_numbers`; a band-1
+    shard's K4 call of the first P step into `me_calls`, on the host).
     Returns (K1 launches of the mesh run, K2 launches, K3 launches, K4
     launches, largest K1 error)."""
+    from h264lab_tpu_torch.config import FrameType
     from h264lab_tpu_torch.entry import dryrun_multichip
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
@@ -1060,7 +1086,9 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
     enc = GopBandEncoder(mcfg, n_gop=n_gop,
                          mesh=make_mesh(n_gop, n_band, devices))
     print(f"mesh {n_gop}x{n_band} on {what}: {WIDTH}x{HEIGHT}, {n_band} "
-          f"slice bands, {n_gop} lanes, QP {QP}, speed {run.encode_speed}")
+          f"slice bands, {n_gop} lanes, QP {QP}, speed {run.encode_speed}; "
+          "one worker thread and one CUDA stream per shard, one stage "
+          "issued at a time")
     reset_launches()
     mesh_res, db_calls, mesh_wf, mesh_me = [], [], [], []
     for t, kind in enumerate(MESH_STEPS):
@@ -1084,17 +1112,22 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
         if not staged:
             print(f"mesh step {t} ({kind}) without stage syncs {label}: "
                   f"{s:.3f} s; bytes {sizes}")
+            issue_intervals(enc, label)
             continue
         times = enc.stage_times
         print(f"mesh step {t} ({kind}) with stage syncs {label}: {s:.3f} s; "
               f"exchange {1e3 * times['exchange']:.1f} ms, host "
               f"{1e3 * times['host']:.1f} ms; bytes {sizes}")
+        issue_intervals(enc, label)
         for name, st in times.items():
             if isinstance(st, dict):
-                print(f"  {name}: " + ", ".join(
+                print(f"  {name} (its own stream): " + ", ".join(
                     f"{k} {1e3 * v:.1f}" for k, v in st.items())
                     + f" ms {label}")
     enc.stage_times = None
+    # shard 0,0's symbol grid of the last P step, for K1's check below
+    vals, lens = pending.outs[0]["sym_vals"], pending.outs[0]["sym_lens"]
+    cap = enc.p_cap_words
     launches = LAUNCH_COUNTS["bitpack"]
     db_launches = LAUNCH_COUNTS["deblock"]
     wf_launches = LAUNCH_COUNTS["wavefront"]
@@ -1109,15 +1142,18 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
              and len(mesh_me) == len(enc.shards),
              f"the mesh run launched K4 {me_launches} times in {n_p} P steps "
              f"over {len(enc.shards)} shards")
-    band = mesh_me[1]
-    _require(int(band[4][0]) == HEIGHT // 16 // n_band, "shard (0, 1)'s "
-             f"motion search starts at MB row {int(band[4][0])}")
-    me_calls["mesh shard (0, 1) band"] = to_device(band, "cpu")
-    del mesh_me, band
-    _require(launches >= len(enc.shards) * len(MESH_STEPS),
-             "the mesh run did not launch K1 for every shard and step")
-    _require(db_launches >= len(enc.shards) * len(MESH_STEPS),
-             "the mesh run did not launch K2 for every shard and step")
+    # the shards run at once, so their calls come in any order
+    bands = [c for c in mesh_me if int(c[4][0]) > 0]
+    _require(len(bands) == n_gop and all(
+        int(c[4][0]) == HEIGHT // 16 // n_band for c in bands),
+        "the band-1 shards' motion searches start at MB rows "
+        f"{[int(c[4][0]) for c in mesh_me]}")
+    me_calls["mesh band-1 shard"] = to_device(bands[0], "cpu")
+    del mesh_me, bands
+    n_k12 = len(enc.shards) * len(MESH_STEPS)
+    _require(launches == n_k12 and db_launches == n_k12,
+             f"the mesh run launched K1 {launches} and K2 {db_launches} "
+             f"times, not once for every shard and step ({n_k12})")
     _require(len(db_calls) == len(enc.shards), f"{len(db_calls)} deblocking"
              f" calls in a mesh step over {len(enc.shards)} shards")
 
@@ -1141,8 +1177,50 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
     print(f"unsharded {n_band}-band lane 0 steps 0 and 1: card bytes == CPU "
           f"bytes ({time.perf_counter() - t0:.1f} s on the CPU)")
 
-    vals, lens = pending.outs[0]["sym_vals"], pending.outs[0]["sym_lens"]
-    cap = enc.p_cap_words
+    # a forced IDR and a P step without stage syncs, the mesh's and the
+    # unsharded encoder's in turns, then the pipelined loop
+    # (`encode_step_async` of step t + 1 before `finish_step(t)`) on each
+    key = dataclasses.replace(run, frame_type=FrameType.KEY)
+    t = len(MESH_STEPS)
+    for kind, r in (("IDR", key), ("P", run)):
+        lanes = lane_frames(frames, t, n_gop)
+        secs = []
+        for e in (enc, flat):
+            t0 = time.perf_counter()
+            res = e.finish_step(e.encode_step_async(lanes, r))
+            secs.append(time.perf_counter() - t0)
+            _require([x.frame_type for x in res] == [kind] * n_gop,
+                     f"step {t} is {res[0].frame_type}, not {kind}")
+            if e is enc:
+                want = [x.payload for x in res]
+        _require([x.payload for x in res] == want, f"mesh step {t} ({kind}):"
+                 " lane bytes differ from the unsharded step")
+        print(f"mesh step {t} ({kind}{', forced' if kind == 'IDR' else ''}) "
+              f"without stage syncs {label}: {secs[0]:.3f} s, the unsharded "
+              f"step {secs[1]:.3f} s; bytes equal")
+        issue_intervals(enc, label)
+        t += 1
+    pipe = {}
+    for name, e in (("mesh", enc), ("unsharded", flat)):
+        steps = range(t, t + MESH_PIPELINED)
+        res = []
+        t0 = time.perf_counter()
+        pending = e.encode_step_async(lane_frames(frames, steps[0], n_gop),
+                                      run)
+        for u in steps[1:]:
+            nxt = e.encode_step_async(lane_frames(frames, u, n_gop), run)
+            res.append(e.finish_step(pending))
+            pending = nxt
+        res.append(e.finish_step(pending))
+        pipe[name] = ((time.perf_counter() - t0) / MESH_PIPELINED,
+                      [[x.payload for x in r] for r in res])
+    _require(pipe["mesh"][1] == pipe["unsharded"][1], "the mesh's pipelined "
+             "loop: lane bytes differ from the unsharded pipelined loop")
+    print(f"pipelined loop of {MESH_PIPELINED} P steps (steps {t} to "
+          f"{t + MESH_PIPELINED - 1}) {label}: mesh {pipe['mesh'][0]:.3f} s a "
+          f"step, unsharded {pipe['unsharded'][0]:.3f} s a step; every lane's "
+          "bytes equal")
+
     print(f"mesh shard 0,0 P symbol grid {tuple(vals.shape)}, cap_words {cap}")
     err, nk = check_k1(vals, lens, (cap, 1024), "mesh shard 0,0 P grid")
     numbers["mesh"] = n = k1_numbers(vals, lens, cap, nk)
@@ -1150,9 +1228,9 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
           f"{n['plain_ms']:.3f} ms, bound {n['bound_ms']:.4f} ms for "
           f"{n['moved'] / 1e9:.3f} GB, {100 * n['bound_ms'] / n['ms']:.0f}% "
           f"of it reached; {n['n_sym']} symbols, {int(nk.max())} bits)")
-    k2_numbers["mesh"] = check_k2(db_calls[1], "mesh shard 1's band of the "
+    k2_numbers["mesh"] = check_k2(db_calls[0], "a mesh shard's band of the "
                                   "last P step", label)
-    k3_numbers["mesh"] = check_k3(mesh_wf[1], "mesh shard 1's band of the "
+    k3_numbers["mesh"] = check_k3(mesh_wf[0], "a mesh shard's band of the "
                                   "IDR step", label)
     return launches, db_launches, wf_launches, me_launches, err
 
@@ -1562,9 +1640,10 @@ def main() -> int:
     # 17. K3 against the plain wavefront on seeded inputs at the main paths'
     # shapes, and its time per MB step beside its registers and residency
     t0 = time.perf_counter()
-    k3_clusters = {c: wavefront.occupancy(120, c)[1]
+    card = torch.device("cuda", 0)
+    k3_clusters = {c: wavefront.occupancy(120, c, card)[1]
                    for c in wavefront.CLUSTERS}
-    k3_resident = wavefront.occupancy(120, wavefront.CLUSTERS[0])[0]
+    k3_resident = wavefront.occupancy(120, wavefront.CLUSTERS[0], card)[0]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"K3 {label}: ptxas {ptxas['K3']}; at 120 MBs a row "
           f"{k3_resident} resident blocks (MB rows) per SM, "
@@ -1585,7 +1664,7 @@ def main() -> int:
     # and on seeded inputs at the paths' shapes
     t0 = time.perf_counter()
     print(f"K4 and K5 {label}: ptxas {ptxas['K4 and K5']}")
-    k4_occ = me.occupancy()
+    k4_occ = me.occupancy(card)
     print(f"K4 {label}: {k4_occ['threads']} threads and "
           f"{k4_occ['smem_bytes']} bytes of shared memory a block (a tile of "
           f"{k4_occ['tile'][0]} x {k4_occ['tile'][1]} MBs), "
@@ -1604,7 +1683,7 @@ def main() -> int:
     # speed-0 P frame's inputs
     k5_ptxas = [x for x in ptxas["K4 and K5"]
                 if x.startswith("partition_kernel")]
-    k5_occ = me.partition_occupancy()
+    k5_occ = me.partition_occupancy(card)
     print(f"K5 {label}: ptxas {k5_ptxas}; {k5_occ['warps']} warps (an MB "
           f"each), {k5_occ['threads']} threads and {k5_occ['smem_bytes']} "
           f"bytes of shared memory a block, {k5_occ['blocks_per_sm']} "

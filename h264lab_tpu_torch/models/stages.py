@@ -15,8 +15,8 @@ stages over a leading axis of N = G * B bands:
 
 In the JAX package these are `mbscan.encode_frame_banded_staged` and
 `parallel/gop.py` `_gop_banded_staged`. `stage_times`, when set to a dict,
-makes each stage synchronize the device and add its wall seconds under
-its name.
+makes each stage synchronize the device (a mesh shard: its own stream)
+and add its wall seconds under its name.
 """
 
 from __future__ import annotations
@@ -60,19 +60,28 @@ def pad_to(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 class StageTimer:
     """Named stages on `device` (and on the `more` devices a stage also
-    uses): `stage(name)` brackets one (module docstring)."""
+    uses): `stage(name)` brackets one (module docstring).
+
+    A mesh shard's stages (`parallel/gop.ShardWorkers`) set two more:
+    `stream`, the one CUDA stream they are issued on, which the timer then
+    synchronizes alone, so that the other shards on the card do not
+    count; and `issue_lock`, which each stage holds while it is issued
+    and timed, so that one shard issues at a time (`ShardWorkers`)."""
 
     def __init__(self, device: torch.device, *more: torch.device):
         self.device = device
         self._sync_devices = list(dict.fromkeys(
             d for d in (device,) + more if d.type == "cuda"))
         self.stage_times = None
+        self.stream = None
+        self.issue_lock = None
 
     @contextlib.contextmanager
     def stage(self, name: str):
         """Bracket a stage for `torch.profiler` and, with `stage_times`
         set, time it between device synchronizations."""
-        with torch.profiler.record_function(f"stage:{name}"):
+        with self.issue_lock or contextlib.nullcontext(), \
+                torch.profiler.record_function(f"stage:{name}"):
             if self.stage_times is None:
                 yield
                 return
@@ -84,6 +93,9 @@ class StageTimer:
                                       + time.perf_counter() - t0)
 
     def _sync(self):
+        if self.stream is not None:
+            self.stream.synchronize()
+            return
         for d in self._sync_devices:
             torch.cuda.synchronize(d)
 

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from h264lab_tpu_torch.ops import cuda_build
-from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS  # noqa: F401
 
 UNIT_SLOTS = 34     # symbol slots per unit (cavlc.N_SLOTS; header padded)
 UNIT_WORDS = 22     # words kept of a unit (630-bit worst-case block + spill)
@@ -50,7 +50,10 @@ SLACK_WORDS = 256   # tail slack of every packed frame (pack_frame_fast)
 K1_SLOTS = 28 * UNIT_SLOTS  # slots per MB that K1 takes (mbscan.symbolize)
 
 _SRC = cuda_build.CSRC / "bitpack.cu"
-_lib_handle = None
+_VP, _LL, _CI = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_lib = cuda_build.Library(_SRC, {
+    "h264lab_bitpack_tiles": ([_LL, _CI], _LL),
+    "h264lab_bitpack": ([_VP, _VP, _LL, _CI, _LL, _VP, _VP, _VP, _VP], _CI)})
 
 U32 = 0xFFFFFFFF
 
@@ -125,20 +128,6 @@ def build(src_path: Path = _SRC) -> tuple[Path, str]:
     return cuda_build.build(src_path)
 
 
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.h264lab_bitpack_tiles.argtypes = [ll, ci]
-        lib.h264lab_bitpack_tiles.restype = ll
-        lib.h264lab_bitpack.argtypes = [vp, vp, ll, ci, ll, vp, vp, vp, vp]
-        lib.h264lab_bitpack.restype = ci
-        _lib_handle = lib
-    return _lib_handle
-
-
 def pack_frames(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
                 cap_words: int):
     """Pack (..., nmb, S) int32 symbol grids (values as uint32 bit
@@ -184,7 +173,7 @@ def pack_frames(sym_vals: torch.Tensor, sym_lens: torch.Tensor,
             sym_vals.data_ptr(), sym_lens.data_ptr(), n_frames, nmb, n_out,
             words.data_ptr(), nbits.data_ptr(), status.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream), "bitpack")
-        LAUNCH_COUNTS["bitpack"] += 1
+        cuda_build.count_launch("bitpack")
     return words.reshape(lead + (n_out,)), nbits.reshape(lead)
 
 

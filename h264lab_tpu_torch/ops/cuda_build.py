@@ -3,17 +3,24 @@
 Each kernel is one source `csrc/<name>.cu` with a plain C interface. It is
 compiled with nvcc for sm_90a into `_build/libh264lab_<name>_<digest>.so`
 at first use, once per version of the source, and loaded with ctypes by
-its wrapper (`ops/bitpack.py` for K1, `ops/deblock.py` for K2,
-`ops/wavefront.py` for K3, `ops/me.py` for K4 and K5). Nothing is built
-when a module is imported: the CPU paths never need nvcc.
+its wrapper's `Library` (`ops/bitpack.py` for K1, `ops/deblock.py` for
+K2, `ops/wavefront.py` for K3, `ops/me.py` for K4 and K5). Nothing is
+built when a module is imported: the CPU paths never need nvcc.
+
+The mesh's shards launch the kernels from one worker thread each
+(`parallel/gop.py`), so the first use may come from several threads at
+once: `Library` builds and loads under a lock, and `count_launch` counts
+under one.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -24,6 +31,7 @@ BUILD_DIR = PKG / "_build"
 # show that its main path went through the kernels
 LAUNCH_COUNTS = {"bitpack": 0, "deblock": 0, "wavefront": 0, "me": 0,
                  "partition": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 def _target(src: Path) -> Path:
@@ -72,3 +80,45 @@ def check(rc: int, what: str):
     """Raise if a kernel's C entry point returned a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def count_launch(name: str):
+    """Add one to `LAUNCH_COUNTS[name]`; exact under concurrent launches."""
+    with _COUNT_LOCK:
+        LAUNCH_COUNTS[name] += 1
+
+
+class Library:
+    """The library of one kernel source: built (`build`) and loaded with
+    its entry points' ctypes signatures, {name: (argtypes, restype)}, at
+    the first call, once per process however many threads call at once.
+    Calling it returns the loaded `ctypes.CDLL`."""
+
+    def __init__(self, src, signatures: dict):
+        self.src = Path(src)
+        self.signatures = signatures
+        self._handle = None
+        self._lock = threading.Lock()
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._handle is None:
+            with self._lock:
+                if self._handle is None:
+                    self._handle = self.load(build(self.src)[0])
+        return self._handle
+
+    def load(self, path) -> ctypes.CDLL:
+        """The library built at `path` with the entry points' signatures
+        set."""
+        lib = ctypes.CDLL(str(path))
+        for name, (argtypes, restype) in self.signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        return lib
+
+    def use(self, path) -> ctypes.CDLL:
+        """Launch the library built at `path` (a copy of the source, such
+        as an earlier tree's or one with clock stamps) from now on."""
+        with self._lock:
+            self._handle = self.load(path)
+        return self._handle

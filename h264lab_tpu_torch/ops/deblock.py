@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from h264lab_tpu_torch.ops import cuda_build, tables
-from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,24 +195,14 @@ def edge_qps(qp: torch.Tensor, qpc: torch.Tensor, n: int, mb_width: int,
 # ---------------------------------------------------------------------------
 
 _SRC = cuda_build.CSRC / "deblock.cu"
-_lib_handle = None
+_lib = cuda_build.Library(_SRC, {"h264lab_deblock": (
+    [ctypes.c_void_p] * 18 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p], ctypes.c_int)})
 # the tables K2 takes by value, host copies that live as long as the module
 _HOST_TABLES = tuple(np.ascontiguousarray(t, dtype=np.uint8) for t in (
     tables.ALPHA_TABLE, tables.BETA_TABLE, tables.TC0_TABLE))
 # K2 loads these in 16-byte chunks
 _ALIGNED = ("recon_y", "recon_u", "recon_v", "nnz_blk", "mv4_y", "mv4_x")
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(str(cuda_build.build(_SRC)[0]))
-        vp = ctypes.c_void_p
-        lib.h264lab_deblock.argtypes = [vp] * 18 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
-        lib.h264lab_deblock.restype = ctypes.c_int
-        _lib_handle = lib
-    return _lib_handle
 
 
 def _k2_args(n: int, nmb: int, per_mb_qp: bool):
@@ -279,5 +269,5 @@ def deblock_tiles(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y, mv4_x,
             *(t.ctypes.data for t in _HOST_TABLES), n, mb_width, mb_height,
             int(qp.ndim == 2), torch.cuda.current_stream(dev).cuda_stream),
             "deblock")
-        LAUNCH_COUNTS["deblock"] += 1
+        cuda_build.count_launch("deblock")
     return tuple(outs)

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from h264lab_tpu_torch.ops import cuda_build, qpel
-from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS  # noqa: F401
 from h264lab_tpu_torch.ops.qpel import GUARD
 from h264lab_tpu_torch.ops.tuning import (SKIP_BIAS_BITS, SKIP_THR_BASE,
                                           SKIP_THR_QP)
@@ -510,7 +510,13 @@ def partition_plain(cur_tiles, planes, full_my, full_mx, mvp_y, mvp_x, lam):
 # ---------------------------------------------------------------------------
 
 _SRC = cuda_build.CSRC / "me.cu"
-_lib_handle = None
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_lib = cuda_build.Library(_SRC, {
+    "h264lab_me": ([_VP] * 20 + [ctypes.c_longlong] + [_CI] * 10 + [_VP],
+                   _CI),
+    "h264lab_partition": ([_VP] * 16 + [ctypes.c_longlong, _VP], _CI),
+    "h264lab_me_occupancy": ([_VP], _CI),
+    "h264lab_partition_occupancy": ([_VP], _CI)})
 # K4's int32 outputs, (N, nmb) each, in the order of its C entry point
 K4_FIELDS = ("cy4", "cx4", "mvp_y", "mvp_x", "full_my", "full_mx", "mv_y",
              "mv_x", "cost")
@@ -530,57 +536,34 @@ _K5_I32_PER_MB = sum(strides[0] for _, _, strides in _K5_I32)
 _K5_I64 = tuple(name for name, dtype, _ in K5_OUTPUTS if dtype == torch.int64)
 
 
-def load(path) -> ctypes.CDLL:
-    """A built K4/K5 library with its entry points' C signatures set."""
-    lib = ctypes.CDLL(str(path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.h264lab_me.argtypes = [vp] * 20 + [ctypes.c_longlong] + [ci] * 10 \
-        + [vp]
-    lib.h264lab_me.restype = ci
-    lib.h264lab_partition.argtypes = [vp] * 16 + [ctypes.c_longlong, vp]
-    lib.h264lab_partition.restype = ci
-    lib.h264lab_me_occupancy.argtypes = [vp]
-    lib.h264lab_me_occupancy.restype = ci
-    lib.h264lab_partition_occupancy.argtypes = [vp]
-    lib.h264lab_partition_occupancy.restype = ci
-    return lib
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        _lib_handle = load(cuda_build.build(_SRC)[0])
-    return _lib_handle
-
-
 @functools.lru_cache(maxsize=None)
-def _launch_shape(device: int, entry: str, n: int) -> tuple:
+def _launch_shape(device: torch.device, entry: str, n: int) -> tuple:
     """The n ints that a kernel's launch-shape entry point of the library
-    reports on `device`."""
+    reports on the CUDA `device`."""
     out = (ctypes.c_int * n)()
     with torch.cuda.device(device):
         cuda_build.check(getattr(_lib(), entry)(out), entry)
     return tuple(out)
 
 
-def occupancy() -> dict:
-    """K4's launch shape on the current card: threads a block, dynamic
+def occupancy(device: torch.device) -> dict:
+    """K4's launch shape on the CUDA `device`: threads a block, dynamic
     shared memory bytes a block, resident blocks an SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and the tile's MB
     rows and columns (a block's MBs)."""
     threads, smem, blocks, rows, cols = _launch_shape(
-        torch.cuda.current_device(), "h264lab_me_occupancy", 5)
+        device, "h264lab_me_occupancy", 5)
     return dict(threads=threads, smem_bytes=smem, blocks_per_sm=blocks,
                 tile=(rows, cols))
 
 
-def partition_occupancy() -> dict:
-    """K5's launch shape on the current card: threads a block, static
+def partition_occupancy(device: torch.device) -> dict:
+    """K5's launch shape on the CUDA `device`: threads a block, static
     shared memory bytes a block, resident blocks an SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and warps a block
     (an MB each)."""
     threads, smem, blocks, warps = _launch_shape(
-        torch.cuda.current_device(), "h264lab_partition_occupancy", 4)
+        device, "h264lab_partition_occupancy", 4)
     return dict(threads=threads, smem_bytes=smem, blocks_per_sm=blocks,
                 warps=warps)
 
@@ -670,7 +653,7 @@ def motion_search_tiles(y_pad, y4_pad, cur_tiles, lane, row_offset, qp,
                 int(enable_subpel), SKIP_THR_BASE, SKIP_THR_QP,
                 SKIP_BIAS_BITS, torch.cuda.current_stream(dev).cuda_stream),
                 "motion search")
-            LAUNCH_COUNTS["me"] += 1
+            cuda_build.count_launch("me")
     aux = {k: out[k] for k in ("cy4", "cx4", "full_my", "full_mx", "mvp_y",
                                "mvp_x")}
     aux["wins"] = wins
@@ -706,7 +689,7 @@ def partition_tiles(cur_tiles, planes, full_my, full_mx, mvp_y, mvp_x, lam):
                 *(out[name].data_ptr() for name, _, _ in K5_OUTPUTS), k,
                 torch.cuda.current_stream(dev).cuda_stream),
                 "partition search")
-            LAUNCH_COUNTS["partition"] += 1
+            cuda_build.count_launch("partition")
     return out
 
 

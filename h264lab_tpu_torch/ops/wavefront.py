@@ -19,10 +19,14 @@ import numpy as np
 import torch
 
 from h264lab_tpu_torch.ops import cuda_build, tables
-from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS  # noqa: F401
 
 _SRC = cuda_build.CSRC / "wavefront.cu"
-_lib_handle = None
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_lib = cuda_build.Library(_SRC, {
+    "h264lab_wavefront": ([_VP] * 29 + [ctypes.c_longlong, _CI, _CI, _CI, _CI,
+                                        _CI, _VP], _CI),
+    "h264lab_wavefront_occupancy": ([_CI, _CI, _VP], _CI)})
 # K3's record of an MB for the row below: 9 units of 8 bytes, each 4
 # bytes of it (Y bottom row 0-3, U 4-5, V 6-7, the bottom Intra_4x4 modes
 # 8) and a tag that shows it written
@@ -133,27 +137,14 @@ def device_tables(device: torch.device) -> torch.Tensor:
         device=device)
 
 
-def load(path) -> ctypes.CDLL:
-    """A built K3 library with its entry point's C signature set."""
-    lib = ctypes.CDLL(str(path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.h264lab_wavefront.argtypes = [vp] * 29 + [
-        ctypes.c_longlong, ci, ci, ci, ci, ci, vp]
-    lib.h264lab_wavefront.restype = ci
-    lib.h264lab_wavefront_occupancy.argtypes = [ci, ci, vp]
-    lib.h264lab_wavefront_occupancy.restype = ci
-    return lib
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        _lib_handle = load(cuda_build.build(_SRC)[0])
-    return _lib_handle
-
-
 @functools.lru_cache(maxsize=None)
-def _occupancy(device: int, mb_width: int, cluster: int) -> tuple[int, int]:
+def occupancy(mb_width: int, cluster: int,
+              device: torch.device) -> tuple[int, int]:
+    """K3's resident blocks (MB rows) per SM and resident clusters of
+    `cluster` rows on the CUDA `device` at `mb_width` MBs a row
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` and
+    `cudaOccupancyMaxActiveClusters` at its block size and shared
+    memory)."""
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device):
         cuda_build.check(_lib().h264lab_wavefront_occupancy(
@@ -161,24 +152,16 @@ def _occupancy(device: int, mb_width: int, cluster: int) -> tuple[int, int]:
     return out[0], out[1]
 
 
-def occupancy(mb_width: int, cluster: int) -> tuple[int, int]:
-    """K3's resident blocks (MB rows) per SM and resident clusters of
-    `cluster` rows on the current card at `mb_width` MBs a row
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` and
-    `cudaOccupancyMaxActiveClusters` at its block size and shared
-    memory)."""
-    return _occupancy(torch.cuda.current_device(), mb_width, cluster)
-
-
-def cluster_rows(n: int, mb_width: int, mb_height: int) -> int:
+def cluster_rows(n: int, mb_width: int, mb_height: int,
+                 device: torch.device) -> int:
     """The MB rows per cluster of K3's launch on n frames of mb_width x
-    mb_height MBs on the current card: the largest of CLUSTERS whose
+    mb_height MBs on the CUDA `device`: the largest of CLUSTERS whose
     clusters are all resident at once, so that no row waits for a place
     and the most rows hand their records over in shared memory; else the
     smallest, so that a finished row holds its place only until the one
     other row of its cluster has finished."""
     for c in CLUSTERS:
-        if n * -(-mb_height // c) <= occupancy(mb_width, c)[1]:
+        if n * -(-mb_height // c) <= occupancy(mb_width, c, device)[1]:
             return c
     return CLUSTERS[-1]
 
@@ -267,7 +250,7 @@ def wavefront_tiles(src_y, src_u, src_v, qp, qpc, lam, pen, avail_top,
             *(out[name].data_ptr() for name, _, _ in OUTPUTS),
             sync.data_ptr() + 16, sync.data_ptr(), n, mb_width, mb_height,
             deadzone_q8, i4_penalty_bits,
-            cluster_rows(n, mb_width, mb_height),
+            cluster_rows(n, mb_width, mb_height, dev),
             torch.cuda.current_stream(dev).cuda_stream), "wavefront")
-        LAUNCH_COUNTS["wavefront"] += 1
+        cuda_build.count_launch("wavefront")
     return out

@@ -18,17 +18,23 @@ headers, NAL escaping, rate control, transparent frames).
 The device stages are `models/stages.py`'s, which `H264Encoder` runs too.
 
 The mesh (`make_mesh`). JAX runs one SPMD program and lets XLA partition
-it; the port keeps one controller and gives each mesh entry (i, j) its
-own block of the batch: lanes i*G/n_gop .. (i+1)*G/n_gop - 1 and bands
-j*B/n_band .. (j+1)*B/n_band - 1, run by its own `FrameStages` on
-`mesh.devices[i, j]` (the shard's planes, QPs, reference slots and MV
-candidates stay there). The one collective is JAX's too: after a step
-each gop row gathers its bands into every device of the row
+it; the port gives each mesh entry (i, j) its own block of the batch:
+lanes i*G/n_gop .. (i+1)*G/n_gop - 1 and bands j*B/n_band ..
+(j+1)*B/n_band - 1, run by its own `FrameStages` on `mesh.devices[i, j]`
+(the shard's planes, QPs, reference slots and MV candidates stay there).
+The shards run at once, as JAX's do: each mesh entry has one worker
+thread and, on a card, one CUDA stream for the encoder's lifetime
+(`ShardWorkers`); the entries issue one stage at a time (the interpreter
+lock allows no more, `ShardWorkers`), while the other entries' device
+work runs on their streams. The one collective is JAX's too: after a
+step each gop row gathers its bands into every device of the row
 (`refstate.exchange`), because motion vectors read the whole reference
-picture. K1 packs each shard's grid on its device, and `finish_step`
-writes the slices in (lane, band) order. Without a mesh the encoder is
-the 1 x 1 case on one device. A mesh entry may repeat a device (JAX's
-`--xla_force_host_platform_device_count`): then the shards share it.
+picture; it runs in the calling thread, ordered after the shards'
+streams. K1 packs each shard's grid on its device, and `finish_step`
+writes the slices in (lane, band) order. Without a mesh the encoder is the 1 x 1 case on one device, run
+in the caller's thread on its current stream. A mesh entry may repeat a
+device (JAX's `--xla_force_host_platform_device_count`): then the shards
+share it, each on its own stream.
 
 Frame types: IDR, I, P, GOLDEN, RECOVERY, DROPPABLE and CUSTOM, with
 lane-batched reference slots (0 = short-term, 1..N = long-term). P frames
@@ -48,7 +54,11 @@ or without a mesh.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import functools
+import threading
+import time
 from typing import ClassVar
 
 import numpy as np
@@ -106,6 +116,88 @@ def make_mesh(n_gop: int, n_band: int, devices=None) -> Mesh:
     return Mesh(grid)
 
 
+class ShardWorkers:
+    """One worker thread and, on a card, one CUDA stream per mesh entry,
+    for the owner's lifetime: the shards of a mesh step run at once, as
+    the shards of the JAX mesh's one SPMD program do.
+
+    `run(fns)` calls fns[k] on entry k's worker with the entry's device
+    and stream current, so that every operation and kernel it issues goes
+    there, and returns the results in order once every entry has
+    finished. An exception of any entry is raised from `run` after all
+    have finished (the others' as notes on it).
+
+    Host issue. Entries that issue PyTorch operations at the same time
+    hand CPython's interpreter lock over at every operation (PyTorch
+    drops it for each one's dispatch and launch), and every handover is a
+    thread wake-up: four free-running entries of a 1080p mesh step on an
+    H100 took about 4x the time of the same shards issued in turns from
+    one thread (`PERF.md` §6). So the work functions hold `issue_lock`
+    while they issue a stage (`StageTimer.stage` takes it, and
+    `ShardedIntraEncoder` around its encode): one entry issues at a time,
+    stage by stage, while the device work of the others runs on their
+    streams.
+
+    Order between streams. Before the entries start, each entry's stream
+    waits for its device's current stream in the calling thread (the
+    inputs that thread made: references, MV fields); after they finish,
+    that current stream waits for each entry's stream, so that whatever
+    the calling thread issues next (the exchange, reads to the host, state
+    updates, frees) follows the entries' work. This also keeps the caching
+    allocator safe without `record_stream`: an entry's stream allocates
+    only inside `run`, after its wait, and its blocks that another stream
+    reads (the outputs) are freed by the calling thread outside `run`, so
+    their reuse on the entry's stream follows every use issued on the
+    current streams before it; a block of the current stream that an
+    entry read is freed only after the current stream has waited for
+    that entry.
+
+    `intervals`: per entry, the host start and end of its last call, in
+    seconds from the start of `run`."""
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in self.devices]
+        self._pools = [concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix=f"mesh-entry-{k}")
+            for k in range(len(self.devices))]
+        self.issue_lock = threading.Lock()
+        self.intervals = []
+
+    def run(self, fns) -> list:
+        """fns[k]() on entry k's worker, all at once; their results."""
+        t0 = time.perf_counter()
+        for d, s in zip(self.devices, self.streams):
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(d))
+        futures = [pool.submit(self._call, k, fn, t0)
+                   for k, (pool, fn) in enumerate(zip(self._pools, fns))]
+        concurrent.futures.wait(futures)
+        for d, s in zip(self.devices, self.streams):
+            if s is not None:
+                torch.cuda.current_stream(d).wait_stream(s)
+        errors = [e for e in (f.exception() for f in futures)
+                  if e is not None]
+        if errors:
+            for e in errors[1:]:
+                errors[0].add_note(f"another mesh entry failed: {e!r}")
+            raise errors[0]
+        results = [f.result() for f in futures]
+        self.intervals = [iv for _, iv in results]
+        return [r for r, _ in results]
+
+    def _call(self, k: int, fn, t0: float):
+        start = time.perf_counter() - t0
+        if self.streams[k] is None:
+            r = fn()
+        else:
+            with torch.cuda.device(self.devices[k]), \
+                    torch.cuda.stream(self.streams[k]):
+                r = fn()
+        return r, (start, time.perf_counter() - t0)
+
+
 @dataclasses.dataclass
 class _Shard:
     """Mesh entry (i, j): the lanes from g0 and the bands from b0 (the
@@ -151,8 +243,10 @@ class GopBandEncoder:
     to have each stage synchronize the device and add its wall seconds
     under its name (pre, inter, select, sym, deblock, pack, ref, host);
     with a mesh the dict holds one such dict per shard ("shard i,j":
-    pre .. pack) beside "exchange" (the all-gather and the reference
-    planes) and "host".
+    pre .. pack, timed on the shard's own stream while the other shards
+    run) beside "exchange" (the all-gather and the reference planes) and
+    "host". With a mesh, `workers` (`ShardWorkers`) runs the shards and
+    keeps their host intervals of the last step.
     """
 
     @property
@@ -208,6 +302,13 @@ class GopBandEncoder:
                    FrameStages(grid[i, j], cfg.mb_width, bl * self.band_rows))
             for i in range(grid.shape[0]) for j in range(grid.shape[1])]
         self.stages = self.shards[0].stages
+        # without a mesh the one shard runs in the caller's thread
+        self.workers = None if mesh is None else ShardWorkers(
+            grid.reshape(-1))
+        if self.workers is not None:
+            for sh, stream in zip(self.shards, self.workers.streams):
+                sh.stages.stream = stream
+                sh.stages.issue_lock = self.workers.issue_lock
         # without a mesh the one shard's timer also times `ref` and `host`
         self.timer = (self.stages if mesh is None
                       else StageTimer(*grid.reshape(-1)))
@@ -345,8 +446,8 @@ class GopBandEncoder:
         ref_used = self._refs.get(max(lt_use, 0)) if has_inter else None
         cap = self.idr_cap_words if is_intra else self.p_cap_words
         tools = Toolset.for_speed(run.encode_speed, is_intra)
-        outs = []
-        for k, sh in enumerate(self.shards):
+
+        def run_shard(k: int, sh: _Shard) -> dict:
             out = sh.stages.run(
                 self._shard_frames(frames, sh), bl,
                 qp_grid[sh.g0:sh.g0 + gl, sh.b0:sh.b0 + bl].reshape(-1),
@@ -356,7 +457,13 @@ class GopBandEncoder:
             for key in ("words", "nbits", "tail_val", "tail_len",
                         "sym_vals", "sym_lens"):
                 out[key] = out[key].reshape((gl, bl) + out[key].shape[1:])
-            outs.append(out)
+            return out
+
+        if self.workers is None:
+            outs = [run_shard(0, self.shards[0])]
+        else:
+            outs = self.workers.run([functools.partial(run_shard, k, sh)
+                                     for k, sh in enumerate(self.shards)])
         new_refs, df = self._exchange(outs)
 
         # pre-marking DPB flags go into the slice headers (finish_step)

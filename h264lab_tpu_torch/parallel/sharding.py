@@ -4,7 +4,8 @@ device mesh.
 PyTorch counterpart of `h264lab_tpu/parallel/sharding.py`. Bands and
 frames are independent slices, so the (n_gop, n_band, ...) batch splits
 over the mesh with no exchange at all: mesh entry (i, j) encodes its
-block of frames and bands on its own device, and the blocks are joined
+block of frames and bands on its own device, all entries at once on
+their workers (`parallel.gop.ShardWorkers`), and the blocks are joined
 in order afterwards (the reference's ordered concat of slice-thread
 outputs, `src/h264-lab.h:6563-6567`). Each band is encoded as its own
 slice: its top MB row sees no neighbour above.
@@ -12,11 +13,13 @@ slice: its top MB row sees no neighbour above.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from h264lab_tpu_torch.models import mbscan, wavefront
-from h264lab_tpu_torch.parallel.gop import Mesh, make_mesh
+from h264lab_tpu_torch.parallel.gop import Mesh, ShardWorkers, make_mesh
 
 __all__ = ["ShardedIntraEncoder", "make_mesh"]
 
@@ -40,6 +43,7 @@ class ShardedIntraEncoder:
         # top rows of a band have no intra neighbours (slice boundary)
         self._avail_top = np.arange(nmb) // mb_width > 0
         self._avail_left = np.arange(nmb) % mb_width > 0
+        self.workers = ShardWorkers(mesh.devices.reshape(-1))
 
     def encode_batch(self, tiles_y, tiles_u, tiles_v, qp: int, qpc: int):
         """tiles_*: (n_gop, n_band, nmb_band, 16, 16)/(.., 8, 8) uint8,
@@ -55,23 +59,26 @@ class ShardedIntraEncoder:
                 f"a ({n_gop}, {n_band}) batch does not split over a "
                 f"{grid.shape[0]}x{grid.shape[1]} mesh")
         gl, bl = n_gop // grid.shape[0], n_band // grid.shape[1]
-        rows = []
-        for i in range(grid.shape[0]):
-            row = []
-            for j in range(grid.shape[1]):
-                dev = grid[i, j]
-                block = [t[i * gl:(i + 1) * gl, j * bl:(j + 1) * bl]
-                         .reshape((gl * bl,) + t.shape[2:]).to(dev)
-                         for t in tiles]
-                q = torch.full((gl * bl,), qp, dtype=torch.int32, device=dev)
-                qc = torch.full((gl * bl,), qpc, dtype=torch.int32,
-                                device=dev)
+
+        def run_entry(i: int, j: int) -> dict:
+            dev = grid[i, j]
+            block = [t[i * gl:(i + 1) * gl, j * bl:(j + 1) * bl]
+                     .reshape((gl * bl,) + t.shape[2:]).to(dev)
+                     for t in tiles]
+            q = torch.full((gl * bl,), qp, dtype=torch.int32, device=dev)
+            qc = torch.full((gl * bl,), qpc, dtype=torch.int32, device=dev)
+            with self.workers.issue_lock:
                 out = mbscan.encode_intra_frames(
                     *block, q, qc, self._steps, self._avail_top,
                     self._avail_left, self.mb_width, self.band_mb_rows)
-                row.append({k: v.reshape((gl, bl) + v.shape[1:])
-                            for k, v in out.items()})
-            rows.append(row)
+            return {k: v.reshape((gl, bl) + v.shape[1:])
+                    for k, v in out.items()}
+
+        outs = self.workers.run([functools.partial(run_entry, i, j)
+                                 for i in range(grid.shape[0])
+                                 for j in range(grid.shape[1])])
+        rows = [outs[k:k + grid.shape[1]]
+                for k in range(0, len(outs), grid.shape[1])]
         home = grid[0, 0]
         return {k: torch.cat([torch.cat([o[k].to(home) for o in row], dim=1)
                               for row in rows]) for k in rows[0][0]}

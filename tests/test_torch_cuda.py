@@ -35,7 +35,12 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   cuda:0: `dryrun_multichip(8)` gives the CPU mesh's streams, and a
   (2, 2) mesh at 128x96 with two bands (IDR, P, P at speeds 2 and 0)
   gives the unsharded card run's bytes and reconstructions, launching K1
-  once per shard and step;
+  once per shard and step; the pipelined loop (`encode_step_async` of
+  step t + 1 before `finish_step(t)`) on that mesh gives the unsharded
+  run's bytes; each shard issues on its own stream; the launch counts of
+  a mesh step are exact with four shards launching at once; with two
+  cards, a (2, 1) mesh over cuda:0 and cuda:1 gives the unsharded run's
+  bytes, and the kernels' launch shapes are read from the card named;
 - K2 (the CUDA deblocking kernel) equals `deblock_frame_plain` on the card
   on seeded inputs with bS 0 to 4 at the main paths' shapes: 16 frames of
   1080p (16, 8160), one frame with per-MB QPs (1, 8160), an SVC base
@@ -80,6 +85,8 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   non-contiguous and misaligned inputs.
 Tolerance: exact equality (integer arithmetic).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -445,6 +452,110 @@ def test_card_mesh_equals_unsharded_card_run(card, speed):
             assert a.payload == b.payload
             for pa, pb in zip(a.recon, b.recon):
                 np.testing.assert_array_equal(pa, pb)
+
+
+def _mesh_case(speed=2):
+    w, h = 128, 96
+    cfg = EncoderConfig(width=w, height=h, gop=3, qp=30, slice_bands=2)
+    run = RunConfig(qp_min=30, qp_max=30, encode_speed=speed)
+    frames = list(chessboard_sequence(w, h, 8))
+    return cfg, run, [frames[t:t + 2] for t in range(7)]
+
+
+def test_card_mesh_pipelined_loop_equals_unsharded_run(card):
+    """`encode_step_async` of step t + 1 before `finish_step(t)`, as the
+    benchmark's loop runs, on a (2, 2) mesh of cuda:0: the bytes and recon
+    of the unsharded encoder's steps run one by one."""
+    cfg, run, steps = _mesh_case()
+    mesh = GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(2, 2, ["cuda:0"] * 4))
+    got = []
+    pending = mesh.encode_step_async(steps[0], run, return_recon=True)
+    for lanes in steps[1:]:
+        nxt = mesh.encode_step_async(lanes, run, return_recon=True)
+        got.append(mesh.finish_step(pending))
+        pending = nxt
+    got.append(mesh.finish_step(pending))
+    flat = GopBandEncoder(cfg, n_gop=2)
+    for t, lanes in enumerate(steps):
+        want = flat.encode_step(lanes, run, return_recon=True)
+        assert [r.frame_type for r in got[t]] == [r.frame_type for r in want]
+        for a, b in zip(got[t], want):
+            assert a.payload == b.payload, t
+            for pa, pb in zip(a.recon, b.recon):
+                np.testing.assert_array_equal(pa, pb)
+
+
+def test_card_mesh_shards_issue_on_their_own_streams(card, monkeypatch):
+    cfg, run, steps = _mesh_case()
+    mesh = GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(2, 2, ["cuda:0"] * 4))
+    streams = mesh.workers.streams
+    default = torch.cuda.default_stream(0)
+    assert len({s.cuda_stream for s in streams} | {default.cuda_stream}) == 5
+    seen = {}
+    stages_run = type(mesh.stages).run
+
+    def recording(self, *args, **kwargs):
+        seen[id(self)] = (torch.cuda.current_stream().cuda_stream,
+                          torch.cuda.current_device())
+        return stages_run(self, *args, **kwargs)
+
+    monkeypatch.setattr(type(mesh.stages), "run", recording)
+    mesh.encode_step(steps[0], run)
+    for sh, s in zip(mesh.shards, streams):
+        assert sh.stages.stream is s
+        assert seen[id(sh.stages)] == (s.cuda_stream, 0)
+    # the stage table of a shard synchronizes only its own stream
+    mesh.stage_times = {}
+    mesh.encode_step(steps[1], run)
+    assert set(mesh.stage_times) == {"shard 0,0", "shard 0,1", "shard 1,0",
+                                     "shard 1,1", "exchange", "host"}
+    assert all(v["sym"] > 0 for k, v in mesh.stage_times.items()
+               if k.startswith("shard"))
+
+
+@pytest.mark.parametrize("speed", [2, 0])
+def test_card_mesh_launch_counts_are_exact(card, speed):
+    """Four shards launching at once: K1 and K2 once per shard and step, K3
+    once per shard on the IDR step (and at speed 0 on P steps), K4 once per
+    shard on P steps and, at speed 0, K5."""
+    cfg, run, steps = _mesh_case(speed)
+    mesh = GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(2, 2, ["cuda:0"] * 4))
+    for t, lanes in enumerate(steps[:3]):
+        before = dict(me.LAUNCH_COUNTS)
+        mesh.encode_step(lanes, run)
+        done = {k: me.LAUNCH_COUNTS[k] - before[k] for k in before}
+        p = t > 0
+        assert done == dict(bitpack=4, deblock=4,
+                            wavefront=4 if not p or speed == 0 else 0,
+                            me=4 if p else 0,
+                            partition=4 if p and speed == 0 else 0), (t, done)
+
+
+def test_card_mesh_over_distinct_cards(card):
+    """A (2, 1) mesh over cuda:0 and cuda:1 (the second shard's kernels on
+    a card that is not the current one of the calling thread): the
+    unsharded run's bytes; the launch shapes on cuda:1 read from cuda:1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cfg, run, steps = _mesh_case(0)
+    cfg = dataclasses.replace(cfg, slice_bands=1)
+    mesh = GopBandEncoder(cfg, n_gop=2,
+                          mesh=make_mesh(2, 1, ["cuda:0", "cuda:1"]))
+    flat = GopBandEncoder(cfg, n_gop=2)
+    for lanes in steps[:3]:
+        got = mesh.encode_step(lanes, run, return_recon=True)
+        want = flat.encode_step(lanes, run, return_recon=True)
+        for a, b in zip(got, want):
+            assert a.payload == b.payload
+            for pa, pb in zip(a.recon, b.recon):
+                np.testing.assert_array_equal(pa, pb)
+    one = torch.device("cuda", 1)
+    with torch.cuda.device(1):
+        here = (wavefront.occupancy(120, 8, one), me.occupancy(one),
+                me.partition_occupancy(one))
+    assert torch.cuda.current_device() == 0
+    assert (wavefront.occupancy(120, 8, one), me.occupancy(one),
+            me.partition_occupancy(one)) == here
 
 
 # (seed, frames, mb_width, mb_height, qp, per-MB QPs, band edges)

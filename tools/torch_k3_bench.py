@@ -91,10 +91,9 @@ def phases(src, inputs):
     """Mean cycles per MB step of each phase of the stamped copy `src` on
     each input. From here on the wrapper launches that copy."""
     path, log = cuda_build.build(src)
-    lib = wavefront.load(path)
+    lib = wavefront._lib.use(path)
     lib.h264lab_wavefront_phases.argtypes = [ctypes.c_void_p]
     lib.h264lab_wavefront_phases.restype = ctypes.c_int
-    wavefront._lib_handle = lib
     buf = (ctypes.c_ulonglong * (len(PHASES) + 1))()
     print(f"phases of {src}: {ptxas(log)}")
     out = {}
@@ -130,8 +129,9 @@ def main() -> int:
     for what, k3_args, chain in inputs:
         n, nmb = k3_args[0].shape[:2]
         mbw = k3_args[13]
-        rows = wavefront.cluster_rows(n, mbw, nmb // mbw)
-        blocks, clusters = wavefront.occupancy(mbw, rows)
+        dev = k3_args[0].device
+        rows = wavefront.cluster_rows(n, mbw, nmb // mbw, dev)
+        blocks, clusters = wavefront.occupancy(mbw, rows, dev)
         ms = wrapper_ms(k3_args, opts.reps)
         result["k3"][what] = dict(ms=ms, us_per_step=1e3 * ms / chain,
                                   chain=chain, cluster=rows,

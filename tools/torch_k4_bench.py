@@ -129,7 +129,10 @@ def baseline_module(tree):
     spec.loader.exec_module(mod)
     path, log = cuda_build.build(os.path.join(tree, "h264lab_tpu_torch",
                                               "csrc", "me.cu"))
-    mod._lib_handle = mod.load(path)
+    if hasattr(mod, "_lib_handle"):       # a tree before `cuda_build.Library`
+        mod._lib_handle = mod.load(path)
+    else:
+        mod._lib.use(path)
     return mod, path, log
 
 
@@ -166,10 +169,9 @@ def phases(src, cases):
     import ctypes
 
     path, log = cuda_build.build(src)
-    lib = me.load(path)
+    lib = me._lib.use(path)
     lib.h264lab_me_phases.argtypes = [ctypes.c_void_p]
     lib.h264lab_me_phases.restype = ctypes.c_int
-    me._lib_handle = lib
     buf = (ctypes.c_ulonglong * 16)()
     print(f"phases of {src}: {ptxas(log)}")
     out = {}
