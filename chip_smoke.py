@@ -7,8 +7,10 @@ Phases (any failure exits non-zero; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
   2. build the bit-pack kernel K1 (h264lab_tpu_torch/csrc/bitpack.cu),
      the deblocking kernel K2 (csrc/deblock.cu), the wavefront kernel K3
-     (csrc/wavefront.cu) and the motion search kernels K4 and K5
-     (csrc/me.cu), one nvcc each, started together, and print what ptxas
+     (csrc/wavefront.cu), the motion search kernels K4 and K5
+     (csrc/me.cu) and the CAVLC symbolization kernel K6
+     (csrc/symbolize.cu, with its tables in csrc/symbolize_tables.h),
+     one nvcc each, started together, and print what ptxas
      reports (registers, shared memory, spills);
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
@@ -22,9 +24,10 @@ Phases (any failure exits non-zero; nothing is caught):
      16 * 20 / (t_IDR + 19 * t_P). The RBSPs that the two stage steps
      escape and the bit writers they pack are kept for phase 6, their
      deblocking and wavefront inputs for phase 4, its motion search
-     inputs for phase 18; the main path must have launched K1 and K2 on
-     every step, K3 once on each of its three IDR steps and K4 once on
-     each of its five P steps (no K5 at speed 2);
+     inputs for phase 18, the two stage steps' symbolize inputs for phase
+     19; the main path must have launched K1 and K2 on every step, K3 once
+     on each of its three IDR steps, K4 once on each of its five P steps
+     (no K5 at speed 2) and K6 once on every step;
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
@@ -37,7 +40,7 @@ Phases (any failure exits non-zero; nothing is caught):
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1; then
      decode lane 0's stream of those two steps with the port's decoder
-     (numpy, on the host) in a worker process, beside phases 6 to 18:
+     (numpy, on the host) in a worker process, beside phases 6 to 19:
      both frames must equal the card's reconstruction; before the results
      the script waits for it and prints the decode seconds per 1080p
      frame (a host time, taken while the other phases run);
@@ -55,9 +58,9 @@ Phases (any failure exits non-zero; nothing is caught):
      P through the wavefront with the inter candidate): an IDR (untimed,
      first use), one P frame timed without synchronization inside it
      (seconds per frame, frames/s) and one P frame with per-stage times
-     (its motion search and partition search inputs kept for phase 18);
-     the path must have launched K1, K2 and K3 on every frame and K4 and
-     K5 on each P frame;
+     (its motion search and partition search inputs kept for phase 18,
+     its symbolize inputs for phase 19); the path must have launched K1,
+     K2, K3 and K6 on every frame and K4 and K5 on each P frame;
   8. hold K1 against the plain packer on that P frame's (1, 8160, 952)
      grid, at its capacity and at 1024 words, K2 against the plain
      filter on its deblocking inputs and K3 against the plain wavefront on
@@ -67,10 +70,12 @@ Phases (any failure exits non-zero; nothing is caught):
      a 2-lane GopBandEncoder at speed 1 (IDR, P); each card stream (both
      lanes) decodes bit-exactly to the card's reconstruction; the card
      encoders must have launched K4 on each of their four P frames or
-     steps and K5 on the two at speed 0;
+     steps, K5 on the two at speed 0 and K6 once for each of their
+     symbolize calls;
   10. the CLI on the card (`h264lab_tpu_torch.cli.main`, --gen 352x288,
-     3 frames, --psnr): it must return 0 and write a stream that starts
-     with an SPS and decodes to 3 frames of 352x288;
+     3 frames, --psnr): it must return 0, write a stream that starts with
+     an SPS and decodes to 3 frames of 352x288, and launch K6 once for
+     each symbolize call;
   11. two-layer SVC: SvcEncoder at 1920x1088 over 960x544 with
      inter-layer prediction, chessboard, QP 33, GOP 20, encode_speed 2:
      an IDR (untimed, first use), a P frame timed without synchronization
@@ -80,7 +85,11 @@ Phases (any failure exits non-zero; nothing is caught):
      have launched at least once per layer and frame, K2 also for the
      base-mode frame's own deblocking, K3 once for each of the two base
      layer IDRs, K4 once per layer of each P frame (the stage P frame's
-     motion search inputs of both layers kept for phase 18);
+     motion search inputs of both layers kept for phase 18), K6 once per
+     layer of each P frame and once for each IDR's base layer (an IDR's
+     enhancement layer is base-mode, coded by `svc.base_mode_symbols`;
+     the stage P frame's symbolize inputs of both layers, the
+     enhancement's with the base_mode_flag bit, kept for phase 19);
   12. hold K1 against the plain packer on the base-mode frame's (1, 8160,
      952) grid and on the base layer's P grid (1, 2040, 952), each at its
      capacity and at 1024 words, K2 against the plain filter on the
@@ -91,10 +100,12 @@ Phases (any failure exits non-zero; nothing is caught):
      inter-layer prediction at speed 0 (IDR, P, P) and none at speed 2
      (IDR, P); each card stream decodes bit-exactly to the card's
      reconstructions: the enhancement layer whole, the base layer with
-     NAL types 14, 15 and 20 stripped;
+     NAL types 14, 15 and 20 stripped; the card encoders launch K6 once
+     for each of their symbolize calls;
   14. `entry()` (the driver entry point: the 128x96 wavefront intra
      encode) on the card: every output equals `entry("cpu")`'s, and it
-     launched K3 once;
+     launched K3 once and K6 once (its symbolize inputs kept for phase
+     19);
   15. the ("gop", "band") mesh: `dryrun_multichip(8)` and `(3)` (64-wide
      IPPP over (4, 2) and (3, 1) meshes; lane 0 decoded bit-exactly,
      every lane equal); then GopBandEncoder at 1920x1088 with two slice
@@ -111,10 +122,11 @@ Phases (any failure exits non-zero; nothing is caught):
      that all name cuda:0 (printed). Every lane's bytes of every step must
      equal an unsharded GopBandEncoder on the card with the same
      configuration, whose lane 0 IDR and first P must equal a CPU encode;
-     K1 and K2 must have launched exactly once for every shard and step,
-     K3 for every shard of the IDR step, K4 for every shard of the two P
-     steps (a band-1 shard's motion search inputs of the first P step
-     kept for phase 18). Then a forced IDR step and a P step without
+     K1, K2 and K6 must have launched exactly once for every shard and
+     step, K3 for every shard of the IDR step, K4 for every shard of the
+     two P steps (a band-1 shard's motion search inputs of the first P
+     step kept for phase 18, a shard's symbolize inputs of that step for
+     phase 19). Then a forced IDR step and a P step without
      stage syncs, the mesh's and the unsharded encoder's in turns, and
      the pipelined loop (`encode_step_async` of step t + 1 before
      `finish_step(t)`, MESH_PIPELINED P steps) on each: the bytes equal,
@@ -172,7 +184,26 @@ Phases (any failure exits non-zero; nothing is caught):
      blocks an SM (`me.partition_occupancy`), and the kernel launches in
      one call of K4 on the 16-lane P step's inputs and of K5 on the speed-0
      P frame's (a `torch.profiler` trace; each must be one);
-  19. print the kernels line (JSON), then the result line (JSON).
+  19. hold K6 (CAVLC symbolization, `symbolize.symbolize_tiles` through
+     `mbscan.symbolize`) against `mbscan.symbolize_plain`, every output
+     key (names, dtypes, shapes, values): on the real inputs of the
+     16-lane IDR and P steps, the speed-0 P frame, both SVC layers' P
+     frame (the enhancement with the base_mode_flag bit), a mesh shard's
+     band and `entry()`'s intra frame; then on seeded inputs
+     (`utils.synthetic.sym_inputs`) at (16, 8160) in P and I slices, (1,
+     8160) with a row QP plan, (1, 2040), (1, 8160) with the
+     base_mode_flag bit, a (1, 4080) band, 4 x 3, 6 x 1, 1 x 6 and 11 x 3
+     MBs in I and P slices. Every check launches K6 20 times, one count a
+     call, each output equal, and prints K6's wrapper ms (CUDA events over
+     20 calls), the `sym` stage's (`symbolize`: the packing and K6), the
+     plain version's (one call), the byte bound and its share, the ptxas
+     line and the kernels one call launches (the fullest of up to six
+     `torch.profiler` traces, each of a second call inside the trace:
+     once the encoder has run, the profiler drops the first hand-kernel
+     record of most traces; K6's kernels and no other, all three in the
+     16-lane P step's, whose device time goes into the kernels line; a
+     check's device time only from a trace that holds all three);
+  20. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -267,6 +298,24 @@ K4_OPS_FULLPEL = 54_080
 K4_OPS_SUBPEL = 151_366
 K5_OPS_NEEDED_PER_MB = 244_992
 K5_OPS_PER_MB = 283_392
+# phase 19: (what, seed, slices, mb_width, mb_height, P slices, row QP
+# plan, base_mode bit)
+K6_CASES = (
+    ("16 lanes of 1080p, P", 61, LANES, 120, 68, True, False, False),
+    ("16 lanes of 1080p, I", 62, LANES, 120, 68, False, False, False),
+    ("1080p P, a row QP plan", 63, 1, 120, 68, True, True, False),
+    ("the SVC base layer", 64, 1, 60, 34, True, False, False),
+    ("1080p P with base_mode_flag", 65, 1, 120, 68, True, False, True),
+    ("a mesh band", 66, 1, 120, 34, True, False, False),
+    ("4 x 3 MBs", 67, 3, 4, 3, True, True, False),
+    ("6 x 1 MBs", 68, 2, 6, 1, False, True, False),
+    ("1 x 6 MBs", 69, 2, 1, 6, True, False, True),
+    ("11 x 3 MBs, P", 70, 2, 11, 3, True, True, False),
+    ("11 x 3 MBs, I", 71, 2, 11, 3, False, False, True),
+)
+K6_REPEATS = 20                  # launches of K6 per check, all equal
+TRACE_MARGIN_S = 0.02            # host time in a trace before and after a
+                                 # traced call (`trace_kernels`)
 
 
 def _require(ok: bool, what: str):
@@ -301,18 +350,25 @@ def reset_launches():
 @contextlib.contextmanager
 def recorded_calls(name, calls, module="models.mbscan"):
     """Append the arguments of every call of `<module>.<name>` (a module of
-    the port) made inside the block to `calls`. Every encode path deblocks
-    through `mbscan.deblock_frame`, runs its wavefront through
-    `mbscan._select_wavefront` and its motion search through
-    `me.motion_search_tiles` and `me.partition_tiles`."""
+    the port) made inside the block to `calls`, each as the tuple of all
+    its parameters in order, those passed by keyword and those left at
+    their defaults included. Every encode path deblocks through
+    `mbscan.deblock_frame`, runs its wavefront through
+    `mbscan._select_wavefront`, its motion search through
+    `me.motion_search_tiles` and `me.partition_tiles` and its CAVLC
+    symbolization through `mbscan.symbolize`."""
     import importlib
+    import inspect
 
     mod = importlib.import_module(f"h264lab_tpu_torch.{module}")
     fn = getattr(mod, name)
+    sig = inspect.signature(fn)
 
-    def recorded(*args):
-        calls.append(args)
-        return fn(*args)
+    def recorded(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        calls.append(bound.args)
+        return fn(*args, **kwargs)
 
     setattr(mod, name, recorded)
     try:
@@ -607,31 +663,198 @@ def k5_args(k4_args):
         me.lambda_me(k4_args[5]).repeat_interleave(nmb))
 
 
-def kernel_launches(fn, traces=3):
-    """The device kernels of `csrc/*.cu` (the hand kernels' anonymous
-    namespace) that one call of `fn` launches, from a `torch.profiler`
-    trace of it after a warm-up call: ([(name, device us)], the traces
-    taken). A trace that holds none of them is taken again, at most
-    `traces` times in all: the profiler now and then drops a kernel's
-    record (once in about 60 traces of K4 and K5 on the card)."""
+def cuda_calls(calls):
+    """How many of the recorded calls (`recorded_calls`) took their first
+    tensor on the card."""
+    return sum(args[0].is_cuda for args in calls)
+
+
+def require_k6(on_card, launches, what):
+    """A path called `mbscan.symbolize` on the card at least once, and
+    every such call launched K6 once: `on_card` its calls on the card
+    (`cuda_calls`), `launches` K6's count over the same calls."""
+    _require(on_card > 0 and launches == on_card,
+             f"{what}: {on_card} symbolize calls on the card and {launches} "
+             "K6 launches")
+    return launches
+
+
+def k6_bytes(k6_args, outs):
+    """The bytes K6 must move on its packed arguments, from what this
+    data needs: each output written once (the 952-slot grid, 7,616 B per
+    MB, and about 41 B of the others) and each input that an output
+    depends on read once. Of every MB: sel, cmode, the Intra 4x4 symbol
+    values, the luma DC and chroma levels (the plain version keeps their
+    codes in slots of length 0 too) and its luma levels, lev_inter's if
+    it is inter, else ac_lev's; on P slices its MVs and shape (an intra
+    MB's MV differences are outputs too); mode16 of an I16 MB, the Intra
+    4x4 lengths of an I4 MB; and the row plan. About 9.5 KB per MB of a
+    P slice."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from h264lab_tpu_torch.models import mbscan
+    from h264lab_tpu_torch.ops.symbolize import INPUTS
+
+    x = dict(zip((name for name, _ in INPUTS), k6_args))
+    qp_rows, has_inter = k6_args[13], k6_args[16]
+    sel = x["sel"]
+    n_mb = sel.numel()
+    n_of = {v: int((sel == v).sum()) for v in (
+        mbscan.SEL_INTER, mbscan.SEL_I16, mbscan.SEL_I4)}
+
+    def per_mb(name):
+        return x[name].numel() // max(n_mb, 1) * x[name].element_size()
+
+    reads = n_mb * sum(per_mb(k) for k in (
+        "sel", "cmode", "i4sym_v", "dc_lev", "cdc_lev", "cac_lev"))
+    reads += (n_of[mbscan.SEL_INTER] * per_mb("lev_inter")
+              + (n_mb - n_of[mbscan.SEL_INTER]) * per_mb("ac_lev")
+              + n_of[mbscan.SEL_I16] * per_mb("mode16")
+              + n_of[mbscan.SEL_I4] * per_mb("i4sym_l"))
+    if has_inter:
+        reads += n_mb * sum(per_mb(k) for k in ("mv4_y", "mv4_x", "shape"))
+    if qp_rows is not None:
+        reads += qp_rows.numel() * qp_rows.element_size()
+    return reads + sum(t.numel() * t.element_size() for t in outs.values())
+
+
+def check_k6(call, what, label, ptxas):
+    """K6 against `symbolize_plain` on one call's `symbolize` arguments
+    (all of them in order, as `recorded_calls` keeps them), moved to the
+    card: `symbolize` (the packing and K6's
+    three launches), run K6_REPEATS times, must give every output of
+    `symbolize_plain` (names, dtypes, shapes, values), one count a call.
+    Returns K6's numbers: ms (its wrapper `symbolize_tiles`), stage_ms
+    (`symbolize`), both from CUDA events over 20 calls; plain_ms (the
+    checked call); bound_ms (the bytes K6 must move at 3.35 TB/s,
+    `k6_bytes`); the kernels one call launches (`kernel_launches`) and,
+    when that trace holds all three, device_us, their device time, else
+    None; max_abs_err."""
+    import torch
+    from h264lab_tpu_torch.models import mbscan
+    from h264lab_tpu_torch.ops import symbolize as k6
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    args = to_device(call, "cuda")
+    with torch.cuda.device(args[0].device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        want = mbscan.symbolize_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        err = 0
+        for _ in range(K6_REPEATS):
+            before = LAUNCH_COUNTS["symbolize"]
+            got = mbscan.symbolize(*args)
+            _require(LAUNCH_COUNTS["symbolize"] == before + 1,
+                     f"symbolize did not launch K6 once on {what}")
+            _require(set(got) == set(want) and all(
+                got[k].dtype == v.dtype and got[k].shape == v.shape
+                for k, v in want.items()),
+                f"K6's outputs differ in kind from the plain version's on "
+                f"{what}")
+            err = max([err] + [int((got[k].long() - v.long()).abs().max())
+                               for k, v in want.items() if v.numel()])
+            _require(err == 0, f"K6 differs from the plain version on {what}"
+                     f" (largest difference {err})")
+        k6_args = mbscan.symbolize_args(*args)
+        out = dict(ms=_cuda_ms(lambda: k6.symbolize_tiles(*k6_args), 20),
+                   stage_ms=_cuda_ms(lambda: mbscan.symbolize(*args), 20),
+                   plain_ms=start.elapsed_time(end), max_abs_err=err)
+        kernels, taken = kernel_launches(
+            lambda: k6.symbolize_tiles(*k6_args), traces=6, want=3)
+    moved = k6_bytes(k6_args, want)
+    out["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+    out["kernels"] = kernels
+    out["traces"] = taken
+    out["device_us"] = (sum(us for _, us in kernels) if len(kernels) == 3
+                        else None)
+    n, nmb = args[0].shape
+    skips = int(want["skip"].sum())
+    print(f"  K6 == plain on {what} ({n}, {nmb}), {K6_REPEATS} launches "
+          f"{label}: K6 {out['ms']:.3f} ms (the packing and K6 "
+          f"{out['stage_ms']:.3f} ms; plain {out['plain_ms']:.1f} ms; bound "
+          f"{out['bound_ms']:.4f} ms for {moved / 1e6:.2f} MB, "
+          f"{100 * out['bound_ms'] / out['ms']:.2f}% of it reached); "
+          f"skipped MBs {skips}, bits {int(want['total_bits'].sum())}")
+    print(f"    its kernel launches in one call: " + ", ".join(
+        f"{k} {us:.1f} us" for k, us in kernels)
+        + f" ({taken} profiler trace(s) taken); ptxas "
+        + "; ".join(x.split("ptxas info    : ")[-1] if "Used" in x else x
+                    for x in ptxas))
+    return out
+
+
+def k6_case_call(seed, n, mbw, mbh, has_inter, plan, flag):
+    """`symbolize`'s arguments, all in order, of a seeded K6 case
+    (`utils.synthetic.sym_inputs`) on the host."""
+    import torch
+    from h264lab_tpu_torch.ops.symbolize import INPUTS
+    from h264lab_tpu_torch.utils.synthetic import sym_inputs
+
+    d = sym_inputs(seed, n, mbw, mbh, has_inter, plan=plan)
+    qp = d["qp_rows"]
+    return (*(torch.from_numpy(d[k]) for k, _ in INPUTS), mbw, mbh,
+            has_inter, None if qp is None else torch.from_numpy(qp), flag)
+
+
+def trace_kernels(fn, margin=TRACE_MARGIN_S, warm=True):
+    """The device kernels of `csrc/*.cu` (the hand kernels' anonymous
+    namespace) that one call of `fn` launches, from one `torch.profiler`
+    trace: ([(name, device us)], lead us). The call runs `margin` seconds
+    after the trace starts and ends that long before it stops; with
+    `warm`, a first call of `fn` runs inside the trace before it, and
+    only the kernels that start after the traced call's host start are
+    kept: once the encoder has run in a process, the profiler drops the
+    first hand-kernel record of most traces (`tools/torch_profiler_drops
+    .py`, PERF.md §6). Lead: the device start of the first kernel kept
+    less the host start of the traced call, None without a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+        with record_function("traced call"):
+            fn()
+            torch.cuda.synchronize()
+        time.sleep(margin)
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == "traced call")
+    kept = sorted((e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "anonymous namespace" in e.name
+                   and e.time_range.start >= start),
+                  key=lambda e: e.time_range.start)
+    lead = kept[0].time_range.start - start if kept else None
+    return [(e.name.replace("(anonymous namespace)::", "").split("(")[0],
+             e.time_range.end - e.time_range.start) for e in kept], lead
+
+
+def kernel_launches(fn, traces=3, want=1):
+    """The device kernels of `csrc/*.cu` that one call of `fn` launches,
+    from a trace of it after a warm-up call (`trace_kernels`): ([(name,
+    device us)], the traces taken). A trace that holds fewer than `want`
+    of them is taken again, at most `traces` times in all, and the fullest
+    is returned."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
+    best = []
     for taken in range(1, traces + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [(e.name.replace("(anonymous namespace)::", "").split(
-            "(")[0], e.time_range.end - e.time_range.start)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "anonymous namespace" in e.name]
-        if kernels:
+        kernels, _ = trace_kernels(fn)
+        if len(kernels) > len(best):
+            best = kernels
+        if len(best) >= want:
             break
-    return kernels, taken
+    return best, taken
 
 
 def ptxas_lines(log):
@@ -868,15 +1091,15 @@ def k1_numbers(vals, lens, cap, nk):
 
 
 def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
-               cif, cif_frames):
+               sym_calls, cif, cif_frames):
     """Phases 11 to 13: SvcEncoder at WIDTH x HEIGHT with inter-layer
     prediction (stage frames timed), K1 on its base-mode and base P grids,
     K2 on their deblocking inputs and K3 on the base-mode frame's base
     wavefront inputs (their numbers go into `numbers`, `k2_numbers` and
-    `k3_numbers`; the stage P frame's K4 calls into `me_calls`, on the
-    host), and SVC card bytes against CPU bytes at CIF. Returns (K1
-    launches of the SVC frames, K2 launches, K3 launches, K4 launches,
-    largest K1 error)."""
+    `k3_numbers`; the stage P frame's K4 calls into `me_calls` and its two
+    symbolize calls into `sym_calls`, on the host), and SVC card bytes
+    against CPU bytes at CIF. Returns (K1 launches of the SVC frames, K2
+    launches, K3 launches, K4 launches, K6 launches, largest K1 error)."""
     import torch
     from h264lab_tpu_torch.bitstream.nal import split_annexb
     from h264lab_tpu_torch.config import FrameType
@@ -901,10 +1124,12 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
         return k1(vals, lens, cap)
 
     svc_wf = []                 # the SVC frames' wavefront calls
+    svc_sym = []                # their symbolize calls
 
     def svc_frame(t, kind, r=run):
         t0 = time.perf_counter()
-        with recorded_calls("_select_wavefront", svc_wf):
+        with recorded_calls("_select_wavefront", svc_wf), \
+                recorded_calls("symbolize", svc_sym):
             res = svc.encode(*svc_frames[t], r)
         s = time.perf_counter() - t0
         _require(res.frame_type == kind and len(res.base_payload) > 0
@@ -932,10 +1157,20 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     bitpack.pack_frames = recorded
     svc.stage_times = {}
     p_calls, bm_calls, svc_me = [], [], []
+    n_sym = len(svc_sym)
     with recorded_calls("deblock_frame", p_calls), \
             recorded_calls("motion_search_tiles", svc_me, "ops.me"):
         res, s = svc_frame(2, "P")
     svc_table("P", s, res)
+    # symbolize's parameters: the 13 tensors, mb_width, mb_height,
+    # has_inter, qp_rows, svc_base_mode_bit
+    sym_shapes = sorted((tuple(a[0].shape), a[17]) for a in svc_sym[n_sym:])
+    _require(sym_shapes == [((1, nmb // 4), False), ((1, nmb), True)],
+             f"the SVC P frame's symbolize calls (shape, base_mode_flag "
+             f"bit): {sym_shapes}")
+    for a in svc_sym[n_sym:]:
+        layer = "base" if a[0].shape[1] == nmb // 4 else "enhancement"
+        sym_calls[f"SVC {layer} P frame"] = to_device(a, "cpu")
     svc.stage_times = {}
     before = LAUNCH_COUNTS["deblock"]
     with recorded_calls("deblock_frame", bm_calls):
@@ -950,10 +1185,18 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     svc_db_launches = LAUNCH_COUNTS["deblock"]
     svc_wf_launches = LAUNCH_COUNTS["wavefront"]
     svc_me_launches = LAUNCH_COUNTS["me"]
+    # an IDR's enhancement layer (base-mode with inter-layer prediction)
+    # makes no symbolize call: `svc.base_mode_symbols` codes it. So two
+    # calls for each of the 2 P frames, one for each of the 2 IDRs
+    svc_sym_launches = require_k6(cuda_calls(svc_sym),
+                                  LAUNCH_COUNTS["symbolize"],
+                                  f"the SVC path's {SVC_FRAMES} frames")
+    _require(svc_sym_launches == 6, f"the SVC path launched K6 "
+             f"{svc_sym_launches} times in {SVC_FRAMES} frames, not 6")
     print(f"K1 launches in the SVC path's {SVC_FRAMES} frames: "
           f"{svc_launches}; K2 launches {svc_db_launches}, {bm_launches} "
           f"of them in the base-mode frame; K3 launches {svc_wf_launches}; "
-          f"K4 launches {svc_me_launches}")
+          f"K4 launches {svc_me_launches}; K6 launches {svc_sym_launches}")
     me_shapes = sorted(tuple(c[2].shape[:2]) for c in svc_me)
     _require(svc_me_launches == 4 and me_shapes == [(1, nmb // 4), (1, nmb)],
              f"the SVC path launched K4 {svc_me_launches} times in its 2 P "
@@ -1003,13 +1246,16 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
 
     # 13. SVC card bytes against CPU bytes at CIF, and both layers decoded
     t0 = time.perf_counter()
+    cif_sym = []
+    before = LAUNCH_COUNTS["symbolize"]
     for ilp, speed, n_frames in ((True, 0, 3), (False, 2, 2)):
         c = dataclasses.replace(cif, num_layers=2, inter_layer_pred_flag=ilp)
         r = dataclasses.replace(run, encode_speed=speed)
         on_card, on_cpu = SvcEncoder(c), SvcEncoder(c, device="cpu")
         card_res = []
         for t in range(n_frames):
-            a = on_card.encode(*cif_frames[t], r, return_recon=True)
+            with recorded_calls("symbolize", cif_sym):
+                a = on_card.encode(*cif_frames[t], r, return_recon=True)
             b = on_cpu.encode(*cif_frames[t], r)
             _require(a.payload == b.payload, f"CIF SVC ilp={ilp} speed "
                      f"{speed} frame {t}: card bytes differ from CPU bytes")
@@ -1025,10 +1271,14 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
                         if m[0] & 0x1F not in (14, 15, 20))
         decode_check(base, base_recons, f"CIF SVC ilp={ilp} speed {speed}, "
                      "the base layer without NAL 14, 15, 20")
+    n = require_k6(cuda_calls(cif_sym), LAUNCH_COUNTS["symbolize"] - before,
+                   "the CIF SVC card encoders")
+    print(f"  K6 launches of the CIF SVC card encoders: {n}, one for each "
+          "of their symbolize calls")
     print(f"  CIF SVC comparisons and decodes {time.perf_counter() - t0:.1f}"
           " s")
-    return svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches, \
-        max_err
+    return (svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches,
+            svc_sym_launches, max_err)
 
 
 def mesh_devices(n):
@@ -1057,16 +1307,17 @@ def issue_intervals(enc, label):
 
 
 def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
-                me_calls):
+                me_calls, sym_calls):
     """Phase 15: the dryruns, then the 1080p mesh run against the unsharded
     card run (and that against the CPU), each step's shard issue
     intervals, a forced IDR and a P step and the pipelined loop in turns
     with the unsharded encoder, K1 on a shard's grid, K2 on a shard's
     deblocking inputs and K3 on a shard's IDR wavefront inputs (their
     numbers go into `numbers`, `k2_numbers` and `k3_numbers`; a band-1
-    shard's K4 call of the first P step into `me_calls`, on the host).
-    Returns (K1 launches of the mesh run, K2 launches, K3 launches, K4
-    launches, largest K1 error)."""
+    shard's K4 call and its symbolize call of the first P step into
+    `me_calls` and `sym_calls`, on the host). Returns (K1 launches of the
+    mesh run, K2 launches, K3 launches, K4 launches, K6 launches, largest
+    K1 error)."""
     from h264lab_tpu_torch.config import FrameType
     from h264lab_tpu_torch.entry import dryrun_multichip
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
@@ -1091,6 +1342,7 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
           "issued at a time")
     reset_launches()
     mesh_res, db_calls, mesh_wf, mesh_me = [], [], [], []
+    mesh_sym = []
     for t, kind in enumerate(MESH_STEPS):
         # the last step runs without stage syncs: the mesh's step time
         staged = t < len(MESH_STEPS) - 1
@@ -1100,7 +1352,10 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
         with recorded_calls("deblock_frame", db_calls), \
                 recorded_calls("_select_wavefront", mesh_wf), \
                 recorded_calls("motion_search_tiles",
-                               mesh_me if t == 1 else [], "ops.me"):
+                               mesh_me if t == 1 else [], "ops.me"), \
+                recorded_calls("symbolize", mesh_sym):
+            if t == 1:
+                n_sym = len(mesh_sym)
             pending = enc.encode_step_async(lane_frames(frames, t, n_gop),
                                             run)
             res = enc.finish_step(pending)
@@ -1132,9 +1387,12 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
     db_launches = LAUNCH_COUNTS["deblock"]
     wf_launches = LAUNCH_COUNTS["wavefront"]
     me_launches = LAUNCH_COUNTS["me"]
+    sym_launches = require_k6(cuda_calls(mesh_sym),
+                              LAUNCH_COUNTS["symbolize"], "the mesh run")
     print(f"K1 launches in the mesh run's {len(MESH_STEPS)} steps over "
           f"{len(enc.shards)} shards: {launches}; K2 launches {db_launches}; "
-          f"K3 launches {wf_launches}; K4 launches {me_launches}")
+          f"K3 launches {wf_launches}; K4 launches {me_launches}; K6 "
+          f"launches {sym_launches}")
     require_k3(mesh_wf, wf_launches, len(enc.shards),
                "the mesh run's IDR step over its shards")
     n_p = MESH_STEPS.count("P")
@@ -1151,9 +1409,17 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
     me_calls["mesh band-1 shard"] = to_device(bands[0], "cpu")
     del mesh_me, bands
     n_k12 = len(enc.shards) * len(MESH_STEPS)
-    _require(launches == n_k12 and db_launches == n_k12,
-             f"the mesh run launched K1 {launches} and K2 {db_launches} "
-             f"times, not once for every shard and step ({n_k12})")
+    _require(launches == n_k12 and db_launches == n_k12
+             and sym_launches == n_k12,
+             f"the mesh run launched K1 {launches}, K2 {db_launches} and K6 "
+             f"{sym_launches} times, not once for every shard and step "
+             f"({n_k12})")
+    mesh_sym_p = mesh_sym[n_sym:n_sym + len(enc.shards)]
+    _require(len(mesh_sym_p) == len(enc.shards) and all(
+        tuple(a[0].shape) == (1, (HEIGHT // 16 // n_band) * (WIDTH // 16))
+        for a in mesh_sym_p), "the mesh P step's symbolize calls")
+    sym_calls["mesh shard band"] = to_device(mesh_sym_p[0], "cpu")
+    del mesh_sym, mesh_sym_p
     _require(len(db_calls) == len(enc.shards), f"{len(db_calls)} deblocking"
              f" calls in a mesh step over {len(enc.shards)} shards")
 
@@ -1232,7 +1498,7 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
                                   "last P step", label)
     k3_numbers["mesh"] = check_k3(mesh_wf[0], "a mesh shard's band of the "
                                   "IDR step", label)
-    return launches, db_launches, wf_launches, me_launches, err
+    return launches, db_launches, wf_launches, me_launches, sym_launches, err
 
 
 def main() -> int:
@@ -1250,6 +1516,7 @@ def main() -> int:
     from h264lab_tpu_torch.entry import entry
     from h264lab_tpu_torch.models.encoder import H264Encoder
     from h264lab_tpu_torch.ops import bitpack, cuda_build, me, wavefront
+    from h264lab_tpu_torch.ops import symbolize as k6
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
@@ -1265,15 +1532,19 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # 2. build K1, K2, K3 and K4 with K5, one nvcc each, started together
+    # 2. build K1, K2, K3, K4 with K5 and K6, one nvcc each, started
+    # together
     t0 = time.perf_counter()
     built = cuda_build.build_all([cuda_build.CSRC / "bitpack.cu",
                                   cuda_build.CSRC / "deblock.cu",
                                   cuda_build.CSRC / "wavefront.cu",
-                                  cuda_build.CSRC / "me.cu"])
-    print(f"K1, K2, K3, K4 and K5 built in {time.perf_counter() - t0:.1f} s")
+                                  cuda_build.CSRC / "me.cu",
+                                  cuda_build.CSRC / "symbolize.cu"])
+    print(f"K1, K2, K3, K4, K5 and K6 built in {time.perf_counter() - t0:.1f}"
+          " s")
     ptxas = {}
-    for name, (lib_path, log) in zip(("K1", "K2", "K3", "K4 and K5"), built):
+    for name, (lib_path, log) in zip(("K1", "K2", "K3", "K4 and K5", "K6"),
+                                     built):
         print(f"  {name}: {os.path.relpath(lib_path, ROOT)}")
         ptxas[name] = ptxas_lines(log)
         for line in ptxas[name]:
@@ -1286,10 +1557,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     enc = GopBandEncoder(cfg, n_gop=LANES)
     gop_wf = []                 # the main path's wavefront calls
+    gop_sym = [0]               # its symbolize calls on the card
+    sym_calls = {}              # the paths' K6 inputs, for phase 19
 
     def step(t, kind, r=run, return_recon=False):
+        """Step t; returns (its pending step, results, seconds, its
+        symbolize calls)."""
+        sym = []
         t0 = time.perf_counter()
-        with recorded_calls("_select_wavefront", gop_wf):
+        with recorded_calls("_select_wavefront", gop_wf), \
+                recorded_calls("symbolize", sym):
             p = enc.encode_step_async(lane_frames(frames, t), r,
                                       return_recon)
             res = enc.finish_step(p)
@@ -1298,7 +1575,8 @@ def main() -> int:
                  f"step {t} returned empty lanes")
         _require(all(x.frame_type == kind for x in res),
                  f"step {t} is {res[0].frame_type}, not {kind}")
-        return p, res, s
+        gop_sym[0] += cuda_calls(sym)
+        return p, res, s, sym
 
     def stage_table(name, s, res):
         print(f"{name} stage step {label}: {s:.3f} s")
@@ -1308,9 +1586,9 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     reset_launches()
-    _, first, s0 = step(0, "IDR", return_recon=True)
+    _, first, s0, _ = step(0, "IDR", return_recon=True)
     print(f"step 0 (IDR, untimed, first use): {s0:.2f} s")
-    _, second, s1 = step(1, "P", return_recon=True)
+    _, second, s1, _ = step(1, "P", return_recon=True)
     print(f"step 1 (P, untimed, first use): {s1:.2f} s")
     step_s = [step(t, "P")[2] for t in range(2, 2 + TIMED_STEPS)]
     t_p = sum(step_s) / TIMED_STEPS
@@ -1331,12 +1609,14 @@ def main() -> int:
         enc.stage_times = {}
         try:
             with recorded_calls("deblock_frame", calls):
-                pending, res, s = step(t, kind, r)
+                pending, res, s, sym = step(t, kind, r)
         finally:
             nal.escape_rbsp = escape
             BitWriter.to_bytes = to_bytes
         _require(len(calls) == 1, f"{len(calls)} deblocking calls in a step")
+        _require(len(sym) == 1, f"{len(sym)} symbolize calls in a step")
         db_args[kind] = calls[0]
+        sym_calls[f"{LANES}-lane {kind} step"] = to_device(sym[0], "cpu")
         stage_table(kind, s, res)
         host_ms[kind] = 1e3 * enc.stage_times["host"]
         enc.stage_times = None
@@ -1353,6 +1633,10 @@ def main() -> int:
     db_launches = LAUNCH_COUNTS["deblock"]
     wf_launches = LAUNCH_COUNTS["wavefront"]
     me_launches = LAUNCH_COUNTS["me"]
+    sym_launches = require_k6(gop_sym[0], LAUNCH_COUNTS["symbolize"],
+                              f"the main path's {STEPS} steps")
+    _require(sym_launches == STEPS, f"the main path launched K6 "
+             f"{sym_launches} times in its {STEPS} steps")
     _require(len(gop_me) == 1 and tuple(gop_me[0][2].shape[:2]) == (
         LANES, (WIDTH // 16) * (HEIGHT // 16)), "the P stage step did not "
         "search its 16 lanes in one K4 call")
@@ -1364,7 +1648,8 @@ def main() -> int:
           f"{LANES * GOP / (t_idr + (GOP - 1) * t_p):.3f}")
     print(f"K1 launches in the main path's {STEPS} steps: {launches}; K2 "
           f"launches {db_launches}; K3 launches {wf_launches}; K4 launches "
-          f"{me_launches}; K5 launches {LAUNCH_COUNTS['partition']}")
+          f"{me_launches}; K5 launches {LAUNCH_COUNTS['partition']}; K6 "
+          f"launches {sym_launches}")
     _require(launches >= STEPS, "the main path did not launch K1 each step")
     _require(db_launches >= STEPS, "the main path did not launch K2 each "
              "step")
@@ -1436,7 +1721,7 @@ def main() -> int:
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
     # the decode is host work: a worker process runs it beside phases 6 to
-    # 18 (at exit, even a failed one, the pool waits for it and stops it)
+    # 19 (at exit, even a failed one, the pool waits for it and stops it)
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
         "spawn"))
     decoding = pool.submit(decode_lane0, [r[0].payload for r in (first,
@@ -1462,10 +1747,13 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
 
+    seq_sym = []
+
     def seq_frame(t, kind):
         t0 = time.perf_counter()
-        p = seq.encode_async(*seq_frames[t], seq_run)
-        res = seq.finish(p)
+        with recorded_calls("symbolize", seq_sym):
+            p = seq.encode_async(*seq_frames[t], seq_run)
+            res = seq.finish(p)
         s = time.perf_counter() - t0
         _require(res.frame_type == kind and len(res.payload) > 0,
                  f"sequential frame {t} is {res.frame_type}, not {kind}")
@@ -1482,11 +1770,16 @@ def main() -> int:
           f"frame, {1 / t_seq:.4f} frames/s ({len(res.payload)} B)")
     seq.stage_times = {}
     seq_calls, seq_me, seq_part = [], [], []
+    n_sym = len(seq_sym)
     with recorded_calls("deblock_frame", seq_calls), \
             recorded_calls("_select_wavefront", seq_wf), \
             recorded_calls("motion_search_tiles", seq_me, "ops.me"), \
             recorded_calls("partition_tiles", seq_part, "ops.me"):
         seq_pending, res, s = seq_frame(2, "P")
+    sym = seq_sym[n_sym:]
+    _require(len(sym) == 1, f"{len(sym)} symbolize calls in a frame")
+    sym_calls["speed-0 P frame"] = to_device(sym[0], "cpu")
+    del sym
     print(f"sequential P stage frame {label}: {s:.3f} s")
     for k, v in seq.stage_times.items():
         print(f"  stage {k:8s} {1e3 * v:10.1f} ms {label}")
@@ -1499,9 +1792,13 @@ def main() -> int:
     seq_wf_launches = LAUNCH_COUNTS["wavefront"]
     seq_me_launches = LAUNCH_COUNTS["me"]
     seq_part_launches = LAUNCH_COUNTS["partition"]
+    seq_sym_launches = require_k6(cuda_calls(seq_sym),
+                                  LAUNCH_COUNTS["symbolize"],
+                                  "the sequential path's 3 frames")
     print(f"K1 launches in the sequential path's 3 frames: {seq_launches}; "
           f"K2 launches {seq_db_launches}; K3 launches {seq_wf_launches}; K4 "
-          f"launches {seq_me_launches}; K5 launches {seq_part_launches}")
+          f"launches {seq_me_launches}; K5 launches {seq_part_launches}; K6 "
+          f"launches {seq_sym_launches}")
     _require(seq_me_launches == 2 and seq_part_launches == 2
              and len(seq_me) == len(seq_part) == 1, "the sequential path did "
              "not launch K4 and K5 once on each speed-0 P frame")
@@ -1539,6 +1836,7 @@ def main() -> int:
     # 9. card bytes against CPU bytes at CIF, and decoded
     t0 = time.perf_counter()
     reset_launches()
+    cif_sym = []                # the CIF encoders' symbolize calls
     cif_frames = list(chessboard_sequence(*CIF, 3))
     cif = EncoderConfig(width=CIF[0], height=CIF[1], gop=GOP, qp=QP)
     for speed, n_frames in ((0, 3), (10, 2)):
@@ -1546,7 +1844,8 @@ def main() -> int:
         on_card, on_cpu = H264Encoder(cif), H264Encoder(cif, device="cpu")
         card_res = []
         for t in range(n_frames):
-            a = on_card.encode(*cif_frames[t], r, return_recon=True)
+            with recorded_calls("symbolize", cif_sym):
+                a = on_card.encode(*cif_frames[t], r, return_recon=True)
             b = on_cpu.encode(*cif_frames[t], r)
             _require(a.payload == b.payload, f"CIF speed {speed} frame {t}: "
                      "card bytes differ from CPU bytes")
@@ -1562,7 +1861,9 @@ def main() -> int:
     card_steps = []
     for t in range(2):
         lanes = [cif_frames[t], cif_frames[t + 1]]
-        card_steps.append(on_card.encode_step(lanes, r, return_recon=True))
+        with recorded_calls("symbolize", cif_sym):
+            card_steps.append(on_card.encode_step(lanes, r,
+                                                  return_recon=True))
         for a, b in zip(card_steps[-1], on_cpu.encode_step(lanes, r)):
             _require(a.payload == b.payload, f"CIF GOP lanes step {t}: card "
                      "bytes differ from CPU bytes")
@@ -1572,6 +1873,11 @@ def main() -> int:
         decode_check(b"".join(st[g].payload for st in card_steps),
                      [st[g].recon for st in card_steps],
                      f"CIF GopBandEncoder speed 1 lane {g}")
+    cif_sym_launches = require_k6(cuda_calls(cif_sym),
+                                  LAUNCH_COUNTS["symbolize"],
+                                  "the CIF card encoders")
+    print(f"K6 launches of the CIF card encoders: {cif_sym_launches}, one "
+          "for each of their symbolize calls on the card")
     cif_me = (LAUNCH_COUNTS["me"], LAUNCH_COUNTS["partition"])
     print(f"K4 and K5 launches of the CIF card encoders (P frames: 2 at "
           f"speed 0, 1 at speed 10, a 2-lane step at speed 1): {cif_me}")
@@ -1580,12 +1886,18 @@ def main() -> int:
     print(f"  CIF comparisons and decodes {time.perf_counter() - t0:.1f} s")
 
     # 10. the CLI on the card
+    cli_sym = []
+    before = LAUNCH_COUNTS["symbolize"]
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cli.264")
-        rc = cli.main(["--gen", "--size", f"{CIF[0]}x{CIF[1]}", "--maxframes",
-                       "3", "--psnr", "--output", out])
+        with recorded_calls("symbolize", cli_sym):
+            rc = cli.main(["--gen", "--size", f"{CIF[0]}x{CIF[1]}",
+                           "--maxframes", "3", "--psnr", "--output", out])
         with open(out, "rb") as f:
             stream = f.read()
+    cli_sym_launches = require_k6(cuda_calls(cli_sym),
+                                  LAUNCH_COUNTS["symbolize"] - before,
+                                  "the CLI on the card")
     _require(rc == 0 and stream[:4] == b"\x00\x00\x00\x01"
              and stream[4] & 0x1F == 7, "the CLI did not write an SPS first")
     dec = H264Decoder()
@@ -1594,34 +1906,45 @@ def main() -> int:
              f"the CLI's stream decodes to {n_dec} frames of "
              f"{dec.sps.width}x{dec.sps.height}, not 3 of {CIF}")
     print("CLI on the card: exit 0, the stream starts with an SPS and "
-          f"decodes to 3 frames of {CIF[0]}x{CIF[1]}")
+          f"decodes to 3 frames of {CIF[0]}x{CIF[1]}; K6 launches "
+          f"{cli_sym_launches}")
 
     # 11 to 13. two-layer SVC
     (svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches,
-     err) = svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers,
-                       me_calls, cif, cif_frames)
+     svc_sym_launches, err) = svc_phases(cfg, run, label, numbers,
+                                         k2_numbers, k3_numbers, me_calls,
+                                         sym_calls, cif, cif_frames)
     max_err = max(max_err, err)
 
     # 14. entry() on the card against the CPU
     fn, args = entry()
-    before = LAUNCH_COUNTS["wavefront"]
-    got = fn(*args)
-    entry_wf_launches = LAUNCH_COUNTS["wavefront"] - before
+    before = dict(LAUNCH_COUNTS)
+    sym = []
+    with recorded_calls("symbolize", sym):
+        got = fn(*args)
+    entry_wf_launches = LAUNCH_COUNTS["wavefront"] - before["wavefront"]
+    entry_sym_launches = LAUNCH_COUNTS["symbolize"] - before["symbolize"]
     _require(entry_wf_launches == 1, f"entry() launched K3 "
              f"{entry_wf_launches} times, not once")
+    _require(len(sym) == 1 and entry_sym_launches == 1, f"entry() made "
+             f"{len(sym)} symbolize calls and {entry_sym_launches} K6 "
+             "launches, not one")
+    sym_calls["entry() intra frame"] = to_device(sym[0], "cpu")
+    del sym
     cfn, cargs = entry(device="cpu")
     want = cfn(*cargs)
     _require(set(got) == set(want) and all(
         torch.equal(got[k].cpu(), want[k]) for k in want),
         "entry() on the card differs from the CPU")
     print(f"entry() on the card: all {len(want)} outputs equal the CPU's "
-          f"({int(got['total_bits'])} bits; one K3 launch)")
+          f"({int(got['total_bits'])} bits; one K3 launch, one K6 launch)")
 
     # 15. the mesh
     t0 = time.perf_counter()
     (mesh_launches, mesh_db_launches, mesh_wf_launches, mesh_me_launches,
-     err) = mesh_phases(cfg, run, frames, label, numbers, k2_numbers,
-                        k3_numbers, me_calls)
+     mesh_sym_launches, err) = mesh_phases(cfg, run, frames, label, numbers,
+                                           k2_numbers, k3_numbers, me_calls,
+                                           sym_calls)
     max_err = max(max_err, err)
     print(f"  mesh phase {time.perf_counter() - t0:.1f} s")
 
@@ -1714,6 +2037,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  K4 and K5 checks {time.perf_counter() - t0:.1f} s")
 
+    # 19. K6 against the plain symbolizer on the paths' real inputs and on
+    # seeded inputs at the paths' shapes
+    t0 = time.perf_counter()
+    k6_ptxas = ptxas["K6"]
+    print(f"K6 {label}: ptxas {k6_ptxas}")
+    k6_numbers = {}
+    for what, call in sym_calls.items():
+        k6_numbers[what] = check_k6(call, f"the {what}'s symbolize inputs",
+                                    label, k6_ptxas)
+    del sym_calls
+    for what, seed, n, mbw, mbh, has_inter, plan, flag in K6_CASES:
+        call = k6_case_call(seed, n, mbw, mbh, has_inter, plan, flag)
+        k6_numbers[what] = check_k6(call, f"seeded inputs, {what} (seed "
+                                    f"{seed})", label, k6_ptxas)
+    del call
+    torch.cuda.empty_cache()
+    # the traces hold K6's kernels and no other, each at most once; the P
+    # step's, whose device time goes into the kernels line, all three (a
+    # check whose fullest trace of six lacks one gives no device time)
+    k6_names = {"sym_records_kernel", "sym_scan_kernel", "sym_codes_kernel"}
+    seen = {k: [name for name, _ in v["kernels"]]
+            for k, v in k6_numbers.items()}
+    _require(all(set(v) <= k6_names and len(v) == len(set(v))
+                 for v in seen.values())
+             and set(seen[f"{LANES}-lane P step"]) == k6_names,
+             f"K6's traced kernel launches: {seen}")
+    incomplete = [k for k, v in seen.items() if len(v) < 3]
+    print(f"  K6 checks whose fullest trace lacks a kernel (no device "
+          f"time): {incomplete}")
+    print(f"  K6 checks {time.perf_counter() - t0:.1f} s")
+
     # phase 5's decode
     t0 = time.perf_counter()
     decode_s = decoding.result()
@@ -1721,12 +2075,12 @@ def main() -> int:
     print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon "
           f"(waited {time.perf_counter() - t0:.1f} s for the worker); decode "
           f"seconds per {WIDTH}x{HEIGHT} frame {label} (the port's numpy "
-          f"decoder, a host time beside phases 6 to 18): IDR "
+          f"decoder, a host time beside phases 6 to 19): IDR "
           f"{decode_s[0]:.2f}, P {decode_s[1]:.2f}")
 
-    # 19. results: K1's, K2's and K4's entries hold the GOP path's P step
-    # (19 of 20 frames of a GOP), K3's its IDR step, K5's the speed-0 P
-    # frame; their launches count every path
+    # 20. results: K1's, K2's, K4's and K6's entries hold the GOP path's P
+    # step (19 of 20 frames of a GOP), K3's its IDR step, K5's the speed-0
+    # P frame; their launches count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
     m = numbers["mesh"]
@@ -1823,6 +2177,30 @@ def main() -> int:
                         bound_ms=v["bound_ms"], bound_by=v["bound_by"],
                         bound_ms_old_count=v["bound_ms_old_count"])
                 for k, v in k5_numbers.items()}))
+    k6p = k6_numbers[f"{LANES}-lane P step"]
+    kernels.append(dict(
+        name="symbolize", route="cuda",
+        source="h264lab_tpu_torch/csrc/symbolize.cu",
+        replaces="h264lab_tpu/models/mbscan.py:1046 with h264lab_tpu/ops/"
+                 "cavlc.py:107 (XLA lax.scan, no Pallas kernel)",
+        launches=(sym_launches + seq_sym_launches + svc_sym_launches
+                  + mesh_sym_launches + entry_sym_launches),
+        equal=True,
+        max_abs_err=max(v["max_abs_err"] for v in k6_numbers.values()),
+        ms=k6p["ms"], plain_ms=k6p["plain_ms"], bound_ms=k6p["bound_ms"],
+        bound_by="bytes", library_ms=None, grid="P step",
+        gop_launches=sym_launches, seq_launches=seq_sym_launches,
+        svc_launches=svc_sym_launches, mesh_launches=mesh_sym_launches,
+        entry_launches=entry_sym_launches, cif_launches=cif_sym_launches,
+        cli_launches=cli_sym_launches, ptxas=k6_ptxas,
+        kernel_launches_per_call=len(k6p["kernels"]),
+        traced_kernels=[k for k, _ in k6p["kernels"]],
+        traces_taken=k6p["traces"],
+        device_us=k6p["device_us"],
+        inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
+                        plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                        device_us=v["device_us"])
+                for k, v in k6_numbers.items()}))
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
           "(the build included)")
     print(json.dumps({"kernels": kernels}))

@@ -17,10 +17,11 @@ stages run over all N * nmb MBs at once.
 
 On CUDA tensors the slope-2 wavefront and the deblocking filter are one
 launch each of the hand kernels K3 and K2 (`_select_wavefront`,
-`deblock_frame`), and the motion search of `inter_stage_core` is K4 and,
-at speed 0, K5 (`ops/me.motion_search_tiles`, `partition_tiles`); the
-loops below and in `ops/me.py` are their plain versions, which run on CPU
-tensors and which the kernels are held against.
+`deblock_frame`), the motion search of `inter_stage_core` is K4 and, at
+speed 0, K5 (`ops/me.motion_search_tiles`, `partition_tiles`), and
+`symbolize` is K6 (`ops/symbolize.symbolize_tiles`); the loops below and
+in `ops/me.py` are their plain versions, which run on CPU tensors and
+which the kernels are held against.
 
 Form differences from the JAX module, none of them in the result:
 - the wavefront `lax.scan` is a Python loop over the diagonals; plan
@@ -44,6 +45,7 @@ import torch
 
 from h264lab_tpu_torch.ops import cavlc, deblock, intra, intra4, me, qpel, \
     tables, transform, wavefront
+from h264lab_tpu_torch.ops import symbolize as symbolize_k6
 from h264lab_tpu_torch.ops.intra import INVALID_COST
 from h264lab_tpu_torch.ops.me import bitlen32, lambda_me, median3
 from h264lab_tpu_torch.ops.tuning import (I4_PENALTY_BITS, INTER_DEADZONE_Q8,
@@ -971,7 +973,53 @@ def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
               dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev, mb_width: int,
               mb_height: int, has_inter: bool, qp_rows=None,
               svc_base_mode_bit: bool = False):
-    """CAVLC + syntax symbol assembly of N I or P slices.
+    """CAVLC + syntax symbol assembly of N I or P slices: the outputs of
+    `symbolize_plain`, which says what they are.
+
+    The one entry of every encode path. On CUDA tensors: K6
+    (`ops/symbolize.symbolize_tiles`, `csrc/symbolize.cu`, three launches
+    for the whole batch) on the arguments `symbolize_args` packs. On CPU
+    tensors: `symbolize_plain`."""
+    args = (sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
+            dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev, mb_width,
+            mb_height, has_inter)
+    if sel.device.type == "cpu":
+        return symbolize_plain(*args, qp_rows=qp_rows,
+                               svc_base_mode_bit=svc_base_mode_bit)
+    return symbolize_k6.symbolize_tiles(*symbolize_args(
+        *args, qp_rows=qp_rows, svc_base_mode_bit=svc_base_mode_bit))
+
+
+def symbolize_args(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
+                   dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev,
+                   mb_width: int, mb_height: int, has_inter: bool,
+                   qp_rows=None, svc_base_mode_bit: bool = False):
+    """`symbolize`'s arguments in the form K6
+    (`symbolize_k6.symbolize_tiles`) takes them, on `sel`'s device: the 13
+    tensors as contiguous 16-byte aligned int32 of shape (N, nmb) + their
+    trailing shapes; qp_rows as (N, mb_height) int32, or None; mb_width
+    and mb_height; has_inter and svc_base_mode_bit as bools. On the
+    encode paths every tensor is in that form already, so nothing is
+    copied."""
+    N, nmb = sel.shape
+    dev = sel.device
+    tensors = (sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
+               dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev)
+    packed = tuple(_packed(x, I32, (N, nmb) + trail, dev)
+                   for x, (_, trail) in zip(tensors, symbolize_k6.INPUTS))
+    if qp_rows is not None:
+        qp_rows = _packed(qp_rows, I32, (N, mb_height), dev)
+    return (*packed, qp_rows, mb_width, mb_height, bool(has_inter),
+            bool(svc_base_mode_bit))
+
+
+def symbolize_plain(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
+                    shape, dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev,
+                    mb_width: int, mb_height: int, has_inter: bool,
+                    qp_rows=None, svc_base_mode_bit: bool = False):
+    """CAVLC + syntax symbol assembly of N I or P slices in plain PyTorch,
+    on any device: the CPU path of `symbolize` and the version K6 is held
+    against.
 
     `svc_base_mode_bit`: the slices are scalable-extension slices with
     `adaptive_base_mode_flag=1`, so every coded macroblock_layer leads

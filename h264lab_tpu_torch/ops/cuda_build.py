@@ -4,8 +4,10 @@ Each kernel is one source `csrc/<name>.cu` with a plain C interface. It is
 compiled with nvcc for sm_90a into `_build/libh264lab_<name>_<digest>.so`
 at first use, once per version of the source, and loaded with ctypes by
 its wrapper's `Library` (`ops/bitpack.py` for K1, `ops/deblock.py` for
-K2, `ops/wavefront.py` for K3, `ops/me.py` for K4 and K5). Nothing is
-built when a module is imported: the CPU paths never need nvcc.
+K2, `ops/wavefront.py` for K3, `ops/me.py` for K4 and K5,
+`ops/symbolize.py` for K6). A source may include the headers beside it
+(`csrc/*.h`); the digest covers them. Nothing is built when a module is
+imported: the CPU paths never need nvcc.
 
 The mesh's shards launch the kernels from one worker thread each
 (`parallel/gop.py`), so the first use may come from several threads at
@@ -30,12 +32,15 @@ BUILD_DIR = PKG / "_build"
 # launches of each kernel wrapper; a run sets them to 0 and reads them to
 # show that its main path went through the kernels
 LAUNCH_COUNTS = {"bitpack": 0, "deblock": 0, "wavefront": 0, "me": 0,
-                 "partition": 0}
+                 "partition": 0, "symbolize": 0}
 _COUNT_LOCK = threading.Lock()
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.h")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"libh264lab_{src.stem}_{digest}.so"
 
 

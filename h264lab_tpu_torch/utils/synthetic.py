@@ -349,3 +349,146 @@ def me_inputs(seed: int, n: int, mb_width: int, mb_height: int, qp: int,
                 lane=lane.astype(i32), row_offset=row_offset.astype(i32),
                 qp=np.clip(qp + offsets, 0, 51).astype(i32),
                 prev_my=prev[0].astype(i32), prev_mx=prev[1].astype(i32))
+
+
+def sym_inputs(seed: int, n: int, mb_width: int, mb_height: int,
+               has_inter: bool, plan: bool = False) -> dict:
+    """Seeded inputs of `models.mbscan.symbolize` for n I or P slices of
+    mb_width x mb_height MBs, made so that every branch of the symbolizer
+    is taken:
+    - MB kinds: P slices inter (partition shapes 0-3, each partition with
+      its own MV, small or up to +-40 quarter-pel), Intra_16x16 and
+      Intra_4x4 MBs; I slices Intra_16x16 and Intra_4x4; Intra_16x16 MBs
+      with and without AC levels (their DC position 0, as the select stage
+      leaves it);
+    - residual blocks empty, sparse (levels +-1 to +-3, trailing ones) or
+      dense (all 16 positions, or the 15 AC ones, nonzero, with levels up
+      to +-3000 that take both escapes of the level code); dense blocks
+      side by side give nC >= 8; 8x8 quarters without levels vary the cbp;
+      chroma none (cbpc 0), DC only (1) or with AC (2);
+    - P_Skip: inter MBs without residual and a zero MV, in runs across a
+      row end and at each slice's end, and on an independent set of MBs
+      (odd rows, every third column: no two of them neighbours) the
+      P_Skip predictor's MV, often nonzero (`mbscan._mv_predictors` on
+      the MBs around them);
+    - Intra_4x4 symbols of 1 (the predicted mode) or 4 bits, Intra_16x16
+      and chroma modes 0-3;
+    - with `plan`, a row QP plan (n, mb_height) of QPs 0-51 that changes
+      on most rows; MBs without mb_qp_delta (skipped, inter without
+      residual) keep the running QP.
+    Returns numpy int32 arrays keyed by `symbolize`'s argument names: sel,
+    mode16, cmode, shape (n, nmb); i4sym_v, i4sym_l (n, nmb, 16); mv4_y,
+    mv4_x (n, nmb, 4, 4); dc_lev (n, nmb, 4, 4); ac_lev, lev_inter (n, nmb,
+    4, 4, 4, 4); cdc_lev (n, nmb, 2, 2, 2); cac_lev (n, nmb, 2, 2, 2, 4, 4);
+    and qp_rows (n, mb_height) or None."""
+    import torch
+
+    from h264lab_tpu_torch.models import mbscan
+
+    rng = np.random.default_rng(seed)
+    nmb = mb_width * mb_height
+    i32 = np.int32
+    idx = np.arange(nmb)
+    if has_inter:
+        sel = rng.choice([mbscan.SEL_INTER] * 3 + [mbscan.SEL_I16,
+                                                   mbscan.SEL_I4], (n, nmb))
+    else:
+        sel = rng.choice([mbscan.SEL_I16, mbscan.SEL_I4], (n, nmb))
+    inter = sel == mbscan.SEL_INTER
+    # quiet inter MBs (no residual, zero MV): scattered, a run across the
+    # first row end and the last one and a half rows of each slice
+    quiet = inter & (rng.random((n, nmb)) < 0.25)
+    # the MBs that get the P_Skip predictor's MV: an independent set (odd
+    # rows, every third column), which the MVs they get leave as it is
+    r, c = idx // mb_width, idx % mb_width
+    pick = np.zeros((n, nmb), bool)
+    if has_inter:
+        run = (idx >= mb_width - 1) & (idx < mb_width + 1)
+        tail = idx >= nmb - max(mb_width // 2 + 1, 2)
+        pick = ((r % 2 == 1) & (c % 3 == 1) & ~tail) & (
+            rng.random((n, nmb)) < 0.6)
+        quiet[:, (run | tail) & (idx > 0)] = True
+        quiet[:, 0] = False
+        # their left and upper neighbours are coded inter MBs, so that the
+        # predictor is seldom forced to zero
+        near = np.zeros_like(pick)
+        near[:, :-1] |= pick[:, 1:]
+        near[:, :-mb_width] |= pick[:, mb_width:]
+        quiet = (quiet & ~near) | pick
+        sel[quiet | near] = mbscan.SEL_INTER
+        inter = sel == mbscan.SEL_INTER
+
+    def levels(shape, density):
+        """Sparse small levels, or (on a few blocks) dense large ones."""
+        small = rng.choice([-3, -2, -1, -1, 1, 1, 2, 3], shape)
+        sparse = small * (rng.random(shape) < density)
+        big = rng.choice([-1, 1], shape) * np.select(
+            [rng.random(shape) < p for p in (0.3, 0.5, 0.7)],
+            [rng.integers(1, 21, shape), rng.integers(100, 601, shape),
+             rng.integers(2100, 3001, shape)], rng.integers(1, 4, shape))
+        dense = rng.random(shape[:-2] + (1, 1)) < 0.08
+        return np.where(dense, big, sparse)
+
+    blk = (n, nmb, 4, 4, 4, 4)
+    lev = levels(blk, 0.25)
+    # 8x8 quarters without levels
+    quarter = rng.random((n, nmb, 2, 1, 2, 1, 1, 1)) < 0.3
+    lev = np.where(np.broadcast_to(quarter, (n, nmb, 2, 2, 2, 2, 1, 1))
+                   .reshape(n, nmb, 4, 4, 1, 1), 0, lev)
+    i16 = sel == mbscan.SEL_I16
+    i4 = sel == mbscan.SEL_I4
+    no_ac = i16 & (rng.random((n, nmb)) < 0.4)
+    ac_lev = np.where((i4 | (i16 & ~no_ac))[..., None, None, None, None],
+                      lev, 0)
+    ac_lev[..., 0, 0] = np.where(i16[..., None, None], 0,
+                                 ac_lev[..., 0, 0])      # I16: DC apart
+    lev_inter = np.where((inter & ~quiet)[..., None, None, None, None],
+                         levels(blk, 0.25), 0)
+    dc_lev = np.where(i16[..., None, None], levels((n, nmb, 4, 4), 0.4), 0)
+    chroma = rng.integers(0, 3, (n, nmb))
+    chroma[quiet] = 0
+    cdc_lev = np.where((chroma >= 1)[..., None, None, None],
+                       levels((n, nmb, 2, 2, 2), 0.6), 0)
+    cdc_lev[chroma == 1, 0, 0, 0] = 1             # cbpc 1 is really 1
+    cac_lev = np.where((chroma == 2)[..., None, None, None, None, None],
+                       levels((n, nmb, 2, 2, 2, 4, 4), 0.15), 0)
+    cac_lev[..., 0, 0] = 0                         # chroma AC: DC apart
+    cac_lev[chroma == 2, 0, 0, 0, 0, 1] = -1       # cbpc 2 is really 2
+
+    # partition-constant MVs: shape 0 (16x16), 1 (16x8), 2 (8x16), 3 (8x8)
+    shape = np.where(inter & ~quiet, rng.integers(0, 4, (n, nmb)), 0)
+    mv = np.where(rng.random((2, n, nmb, 2, 2)) < 0.5,
+                  rng.integers(-3, 4, (2, n, nmb, 2, 2)),
+                  rng.integers(-40, 41, (2, n, nmb, 2, 2)))
+    part = np.select([shape == 0, shape == 1, shape == 2],
+                     [np.zeros((n, nmb), int), np.ones((n, nmb), int),
+                      np.full((n, nmb), 2)], 3)[None, ..., None, None]
+    q = np.where(part == 0, mv[..., :1, :1],
+                 np.where(part == 1, mv[..., :, :1],
+                          np.where(part == 2, mv[..., :1, :], mv)))
+    q = np.broadcast_to(q, (2, n, nmb, 2, 2))
+    mv4 = q.repeat(2, -2).repeat(2, -1)
+    mv4 = np.where((inter & ~quiet)[None, ..., None, None], mv4, 0)
+    if has_inter:
+        t = torch.from_numpy
+        _, sy, sx = mbscan._mv_predictors(
+            t(mv4[0].astype(i32)), t(mv4[1].astype(i32)), t(~inter),
+            mb_width, mb_height)
+        for k, s in enumerate((sy, sx)):
+            mv4[k] = np.where(pick[..., None, None], s.numpy()[..., None,
+                                                                None], mv4[k])
+    i4l = rng.choice([1, 4], (n, nmb, 16))
+    out = dict(
+        sel=sel, mode16=rng.integers(0, 4, (n, nmb)),
+        cmode=rng.integers(0, 4, (n, nmb)),
+        i4sym_v=np.where(i4l == 1, 1, rng.integers(0, 8, (n, nmb, 16))),
+        i4sym_l=i4l, mv4_y=mv4[0], mv4_x=mv4[1], shape=shape,
+        dc_lev=dc_lev, ac_lev=ac_lev, lev_inter=lev_inter, cdc_lev=cdc_lev,
+        cac_lev=cac_lev)
+    out = {k: np.ascontiguousarray(v, dtype=i32) for k, v in out.items()}
+    out["qp_rows"] = None
+    if plan:
+        steps = rng.integers(-4, 5, (n, mb_height))
+        steps[:, 0] = rng.integers(0, 52, n)
+        out["qp_rows"] = np.clip(np.cumsum(steps, 1), 0, 51).astype(i32)
+    return out

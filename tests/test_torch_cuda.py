@@ -82,6 +82,17 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   paths reach them: with the plain searches refused, GOP P steps at
   speeds 2 and 0 and sequential P frames at speeds 0 and 10 encode to
   the CPU's bytes. Both refuse CPU tensors, other dtypes and shapes,
+  non-contiguous and misaligned inputs;
+- K6 (CAVLC symbolization, `ops/symbolize.symbolize_tiles`, three
+  launches a call) equals `symbolize_plain` on the card, every output
+  and every slot, on seeded `sym_inputs`: I and P slices at 16 x 1080p
+  (16, 8160), one frame with a row QP plan (1, 8160), the SVC base layer
+  (1, 2040), a mesh band (1, 4080), 4 x 3, 6 x 1, 1 x 6 and 11 x 3 MBs,
+  with the base_mode_flag bit; each input launched 20 times, one count a
+  call. K1's words from K6's grid equal its words from the plain grid.
+  The encode paths reach it: with `symbolize_plain` refused, GOP steps
+  (IDR, P) and sequential frames encode to the CPU's bytes, one count per
+  `symbolize` call. K6 refuses CPU tensors, other dtypes and shapes,
   non-contiguous and misaligned inputs.
 Tolerance: exact equality (integer arithmetic).
 """
@@ -100,11 +111,13 @@ from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
 from h264lab_tpu_torch.models import wavefront as plan
 from h264lab_tpu_torch.ops import bitpack, deblock, me, wavefront
+from h264lab_tpu_torch.ops import symbolize as k6
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
                                                deblock_inputs,
                                                me_inputs,
                                                noise_pan_sequence,
+                                               sym_inputs,
                                                wavefront_inputs)
 from tests.torch_grids import EDGE_CASES, edge_grid, random_grid
 
@@ -515,9 +528,9 @@ def test_card_mesh_shards_issue_on_their_own_streams(card, monkeypatch):
 
 @pytest.mark.parametrize("speed", [2, 0])
 def test_card_mesh_launch_counts_are_exact(card, speed):
-    """Four shards launching at once: K1 and K2 once per shard and step, K3
-    once per shard on the IDR step (and at speed 0 on P steps), K4 once per
-    shard on P steps and, at speed 0, K5."""
+    """Four shards launching at once: K1, K2 and K6 once per shard and
+    step, K3 once per shard on the IDR step (and at speed 0 on P steps), K4
+    once per shard on P steps and, at speed 0, K5."""
     cfg, run, steps = _mesh_case(speed)
     mesh = GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(2, 2, ["cuda:0"] * 4))
     for t, lanes in enumerate(steps[:3]):
@@ -528,7 +541,8 @@ def test_card_mesh_launch_counts_are_exact(card, speed):
         assert done == dict(bitpack=4, deblock=4,
                             wavefront=4 if not p or speed == 0 else 0,
                             me=4 if p else 0,
-                            partition=4 if p and speed == 0 else 0), (t, done)
+                            partition=4 if p and speed == 0 else 0,
+                            symbolize=4), (t, done)
 
 
 def test_card_mesh_over_distinct_cards(card):
@@ -943,3 +957,123 @@ def test_k4_and_k5_reject_bad_inputs(card):
              ValueError)):                                   # misaligned
         with pytest.raises(err):
             me.partition_tiles(*pargs[:i], bad, *pargs[i + 1:])
+
+
+# (seed, slices, mb_width, mb_height, P slices, row QP plan, base_mode bit)
+K6_CASES = [
+    (91, 16, 120, 68, True, False, False),   # the GOP lanes' P step
+    (92, 16, 120, 68, False, False, False),  # their IDR step
+    (93, 1, 120, 68, True, True, False),     # sequential, a row QP plan
+    (94, 1, 60, 34, True, False, False),     # SVC base layer
+    (95, 1, 120, 68, True, False, True),     # SVC enhancement, base_mode
+    (96, 1, 120, 34, True, False, False),    # a mesh band
+    (97, 3, 4, 3, True, True, False),
+    (98, 2, 6, 1, False, True, False),       # one MB high
+    (99, 2, 1, 6, True, False, True),        # one MB wide
+    (100, 2, 11, 3, True, True, False),
+    (101, 2, 11, 3, False, False, True),
+]
+K6_KEYS = ("sel", "mode16", "cmode", "i4sym_v", "i4sym_l", "mv4_y", "mv4_x",
+           "shape", "dc_lev", "ac_lev", "lev_inter", "cdc_lev", "cac_lev")
+K6_REPEATS = 20
+
+
+def _k6_inputs(card, case):
+    seed, n, mbw, mbh, has_inter, plan, flag = case
+    d = sym_inputs(seed, n, mbw, mbh, has_inter, plan=plan)
+    t = [torch.from_numpy(d[k]).to(card) for k in K6_KEYS]
+    qp = None if d["qp_rows"] is None else torch.from_numpy(
+        d["qp_rows"]).to(card)
+    return t, dict(mb_width=mbw, mb_height=mbh, has_inter=has_inter,
+                   qp_rows=qp, svc_base_mode_bit=flag)
+
+
+def _k6_ids(c):
+    return (f"{c[1]}x{c[2]}x{c[3]}-{'P' if c[4] else 'I'}"
+            + ("-plan" if c[5] else "") + ("-bm" if c[6] else ""))
+
+
+@pytest.mark.parametrize("case", K6_CASES, ids=_k6_ids)
+def test_k6_matches_plain_symbolize(card, case):
+    t, kw = _k6_inputs(card, case)
+    want = mbscan.symbolize_plain(*t, **kw)
+    for _ in range(K6_REPEATS):
+        before = k6.LAUNCH_COUNTS["symbolize"]
+        got = mbscan.symbolize(*t, **kw)
+        torch.cuda.synchronize()
+        assert k6.LAUNCH_COUNTS["symbolize"] == before + 1
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            assert torch.equal(got[k], v), k
+
+
+def test_k6_grid_packs_as_the_plain_grid(card):
+    """K1's words and bit counts from K6's grid equal those from the plain
+    grid, and the counts equal `total_bits` less the tail."""
+    t, kw = _k6_inputs(card, K6_CASES[0])
+    want = mbscan.symbolize_plain(*t, **kw)
+    got = mbscan.symbolize(*t, **kw)
+    cap = bitpack.bucket_words(int(want["total_bits"].max()))
+    words = [bitpack.pack_frames(o["sym_vals"], o["sym_lens"], cap)
+             for o in (want, got)]
+    assert torch.equal(words[0][0], words[1][0])
+    assert torch.equal(words[0][1], words[1][1])
+    assert torch.equal(words[1][1], got["total_bits"] - got["tail_len"])
+
+
+def test_k6_serves_the_encode_paths(card, monkeypatch):
+    cfg = EncoderConfig(width=64, height=48, gop=3, qp=33)
+    frames = list(chessboard_sequence(64, 48, 3))
+    run2 = RunConfig(qp_min=33, qp_max=33, encode_speed=2)
+    run0 = RunConfig(qp_min=33, qp_max=33)
+    cpu = GopBandEncoder(cfg, n_gop=2, device="cpu")
+    want_gop = [cpu.encode_step(frames[t:t + 2], run2) for t in range(2)]
+    cpu_seq = H264Encoder(cfg, device="cpu")
+    want_seq = [cpu_seq.encode(*f, run0).payload for f in frames[:2]]
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the plain symbolizer on the card path")
+
+    calls = []
+    symbolize = mbscan.symbolize
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return symbolize(*args, **kwargs)
+
+    monkeypatch.setattr(mbscan, "symbolize_plain", refused)
+    monkeypatch.setattr(mbscan, "symbolize", counted)
+    before = k6.LAUNCH_COUNTS["symbolize"]
+    gop = GopBandEncoder(cfg, n_gop=2)
+    for t in range(2):                          # IDR, then P
+        got = gop.encode_step(frames[t:t + 2], run2)
+        assert [a.payload for a in got] == [b.payload for b in want_gop[t]]
+    seq = H264Encoder(cfg)
+    assert [seq.encode(*f, run0).payload for f in frames[:2]] == want_seq
+    assert len(calls) >= 4
+    assert k6.LAUNCH_COUNTS["symbolize"] == before + len(calls)
+
+
+def test_k6_rejects_bad_inputs(card):
+    t, kw = _k6_inputs(card, K6_CASES[6])
+    args = list(mbscan.symbolize_args(*t, **kw))
+    k6.symbolize_tiles(*args)
+    shifted = torch.empty(args[9].numel() + 1, dtype=torch.int32,
+                          device=card)[1:].view(args[9].shape)
+    for i, bad, err in (
+            (0, args[0].cpu(), ValueError),                 # on the CPU
+            (9, args[9].cpu(), ValueError),
+            (13, args[13].cpu(), ValueError),
+            (0, args[0].long(), TypeError),                 # dtype
+            (10, args[10].to(torch.int16), TypeError),
+            (13, args[13].long(), TypeError),
+            (5, args[5][:, :, 0], ValueError),              # shape
+            (13, args[13][:, :1], ValueError),
+            (12, args[12][:1], ValueError),
+            (9, args[9].transpose(-1, -2), ValueError),     # not contiguous
+            (9, shifted, ValueError)):                      # misaligned
+        with pytest.raises(err):
+            k6.symbolize_tiles(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(ValueError):                         # nmb != 4 x 3
+        k6.symbolize_tiles(*args[:14], 4, 4, *args[16:])

@@ -15,7 +15,8 @@
 - `cuda_build.Library` builds and loads once when eight threads call it at
   once (`cuda_build.build` replaced by a counting stub that returns the C
   library, so no nvcc is needed), and `cuda_build.count_launch` loses no
-  count under sixteen threads with a short switch interval.
+  count of K1's or K6's counter under thirty-two threads with a short
+  switch interval.
 """
 
 import ctypes
@@ -181,12 +182,15 @@ def test_the_loader_builds_once_under_concurrent_first_use(monkeypatch):
 
 def test_launch_counts_are_exact_under_threads(monkeypatch):
     monkeypatch.setitem(cuda_build.LAUNCH_COUNTS, "bitpack", 0)
+    monkeypatch.setitem(cuda_build.LAUNCH_COUNTS, "symbolize", 0)
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=lambda: [
-            cuda_build.count_launch("bitpack") for _ in range(2000)])
-            for _ in range(16)]
+        # K1's counter and K6's, which the shards' sym and pack stages
+        # bump from their threads
+        threads = [threading.Thread(target=lambda k=k: [
+            cuda_build.count_launch(("bitpack", "symbolize")[k % 2])
+            for _ in range(2000)]) for k in range(32)]
         for t in threads:
             t.start()
         for t in threads:
@@ -195,3 +199,4 @@ def test_launch_counts_are_exact_under_threads(monkeypatch):
     finally:
         sys.setswitchinterval(interval)
     assert cuda_build.LAUNCH_COUNTS["bitpack"] == 16 * 2000
+    assert cuda_build.LAUNCH_COUNTS["symbolize"] == 16 * 2000

@@ -12,7 +12,8 @@ syncs, each step's shard issue intervals; then a forced IDR, a P step and
 the pipelined loop in turns with the unsharded encoder), held to the
 unsharded run on the first card and that to the CPU, K1 against the plain
 packer on a shard's grid, K2 against the plain filter and K3 against the
-plain wavefront on a shard's inputs. A mesh whose entries fit on the
+plain wavefront on a shard's inputs, K6 launched once for every shard and
+step. A mesh whose entries fit on the
 visible cards takes distinct cards (with four cards: the (2, 2) mesh and
 the 3-entry dryrun); a larger one repeats cuda:0. Every card's name and
 power limit is printed, then one JSON line. Any failed check exits
@@ -50,13 +51,14 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build_all(sorted(cuda_build.CSRC.glob("*.cu")))
     cfg, run, frames = chip_smoke.main_path_setup()
-    numbers, k2_numbers, k3_numbers, me_calls = {}, {}, {}, {}
-    k1, k2, k3, k4, err = chip_smoke.mesh_phases(
-        cfg, run, frames, label, numbers, k2_numbers, k3_numbers, me_calls)
+    numbers, k2_numbers, k3_numbers, me_calls, sym_calls = {}, {}, {}, {}, {}
+    k1, k2, k3, k4, k6, err = chip_smoke.mesh_phases(
+        cfg, run, frames, label, numbers, k2_numbers, k3_numbers, me_calls,
+        sym_calls)
     print(f"mesh phase and set-up in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(dict(cards=cards, count=torch.cuda.device_count(),
                           k1_launches=k1, k2_launches=k2, k3_launches=k3,
-                          k4_launches=k4, max_abs_err=err,
+                          k4_launches=k4, k6_launches=k6, max_abs_err=err,
                           k1=numbers["mesh"], k2=k2_numbers["mesh"],
                           k3=k3_numbers["mesh"])))
     return 0

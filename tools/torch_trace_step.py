@@ -19,9 +19,9 @@ line. Four measurements, the third one first:
    `deblock`, `pack`, `ref`, `host`) between device synchronizations. Per
    stage: the device operations (kernels, copies, fills) that start
    inside its `stage:<name>` range (the hand kernels K1 in `pack`, K2 in
-   `deblock`, K3 in `select`, K4 and K5 in `inter` by their launch
-   counts), their device ms summed (busy ms) and the device ms of the
-   hand kernels. The busy ms
+   `deblock`, K3 in `select`, K4 and K5 in `inter`, K6's three kernels in
+   `sym`, by their launch counts), their device ms summed (busy ms) and
+   the device ms of the hand kernels. The busy ms
    over the untraced stage time of measurement 1 estimates the share of
    the stage the device works;
 3. K1 on the symbol grid of one 16-lane IDR step at the IDR capacity, and
@@ -134,9 +134,11 @@ def _busy_us(events):
 KERNELS = {"K1": ("pack_kernel",), "K2": ("deblock_kernel",),
            "K3": ("wavefront_kernel",),
            "K4": ("search_kernel",),
-           "K5": ("partition_kernel",)}
+           "K5": ("partition_kernel",),
+           "K6": ("sym_records_kernel", "sym_scan_kernel",
+                  "sym_codes_kernel")}
 HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock", "K3": "wavefront",
-                 "K4": "me", "K5": "partition"}
+                 "K4": "me", "K5": "partition", "K6": "symbolize"}
 
 
 def _is(kernel, name):
