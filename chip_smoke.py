@@ -193,11 +193,14 @@ Phases (any failure exits non-zero; nothing is caught):
      (`utils.synthetic.sym_inputs`) at (16, 8160) in P and I slices, (1,
      8160) with a row QP plan, (1, 2040), (1, 8160) with the
      base_mode_flag bit, a (1, 4080) band, 4 x 3, 6 x 1, 1 x 6 and 11 x 3
-     MBs in I and P slices. Every check launches K6 20 times, one count a
+     MBs in I and P slices, and 16 P slices of 1080p in which every
+     block codes all its positions (levels in both escapes, suffixLength
+     up to 6). Every check launches K6 20 times, one count a
      call, each output equal, and prints K6's wrapper ms (CUDA events over
      20 calls), the `sym` stage's (`symbolize`: the packing and K6), the
-     plain version's (one call), the byte bound and its share, the ptxas
-     line and the kernels one call launches (the fullest of up to six
+     plain version's (one call), the byte bound and its share, each of
+     K6's kernels' ptxas registers, shared memory, stack and spills, and
+     the kernels one call launches (the fullest of up to six
      `torch.profiler` traces, each of a second call inside the trace:
      once the encoder has run, the profiler drops the first hand-kernel
      record of most traces; K6's kernels and no other, all three in the
@@ -313,6 +316,10 @@ K6_CASES = (
     ("11 x 3 MBs, P", 70, 2, 11, 3, True, True, False),
     ("11 x 3 MBs, I", 71, 2, 11, 3, False, False, True),
 )
+# every block codes all its positions, levels in both escapes, suffixLength
+# up to 6 (`sym_inputs(dense=True)`)
+K6_DENSE_CASE = ("16 lanes of 1080p, P, dense", 72, LANES, 120, 68, True,
+                 False, False)
 K6_REPEATS = 20                  # launches of K6 per check, all equal
 TRACE_MARGIN_S = 0.02            # host time in a trace before and after a
                                  # traced call (`trace_kernels`)
@@ -786,14 +793,14 @@ def check_k6(call, what, label, ptxas):
     return out
 
 
-def k6_case_call(seed, n, mbw, mbh, has_inter, plan, flag):
+def k6_case_call(seed, n, mbw, mbh, has_inter, plan, flag, dense=False):
     """`symbolize`'s arguments, all in order, of a seeded K6 case
     (`utils.synthetic.sym_inputs`) on the host."""
     import torch
     from h264lab_tpu_torch.ops.symbolize import INPUTS
     from h264lab_tpu_torch.utils.synthetic import sym_inputs
 
-    d = sym_inputs(seed, n, mbw, mbh, has_inter, plan=plan)
+    d = sym_inputs(seed, n, mbw, mbh, has_inter, plan=plan, dense=dense)
     qp = d["qp_rows"]
     return (*(torch.from_numpy(d[k]) for k, _ in INPUTS), mbw, mbh,
             has_inter, None if qp is None else torch.from_numpy(qp), flag)
@@ -871,6 +878,27 @@ def ptxas_lines(log):
             lines.append(f"{kernel}: {line.strip()}" if kernel
                          else line.strip())
     return lines
+
+
+def ptxas_numbers(lines):
+    """Per kernel of `ptxas_lines`' lines: registers, shared memory bytes,
+    stack frame bytes and spill stores and loads (0 where not reported)."""
+    import re
+
+    out = {}
+    for line in lines:
+        kernel, _, text = line.partition(": ")
+        v = out.setdefault(kernel, dict(registers=0, smem=0, stack=0,
+                                        spill_stores=0, spill_loads=0))
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem"),
+                         ("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, text)
+            if m:
+                v[key] = int(m.group(1))
+    return out
 
 
 def escape_loop(rbsp: bytes) -> bytes:
@@ -2041,14 +2069,23 @@ def main() -> int:
     # seeded inputs at the paths' shapes
     t0 = time.perf_counter()
     k6_ptxas = ptxas["K6"]
-    print(f"K6 {label}: ptxas {k6_ptxas}")
+    k6_build = ptxas_numbers(k6_ptxas)
+    for kernel, v in k6_build.items():
+        print(f"K6 {kernel} {label}: {v['registers']} registers, "
+              f"{v['smem']} bytes of shared memory, {v['stack']} bytes of "
+              f"stack, spills {v['spill_stores']} B stored and "
+              f"{v['spill_loads']} B loaded")
+    if not k6_build:
+        print(f"K6 {label}: a cached build, no ptxas report")
     k6_numbers = {}
     for what, call in sym_calls.items():
         k6_numbers[what] = check_k6(call, f"the {what}'s symbolize inputs",
                                     label, k6_ptxas)
     del sym_calls
-    for what, seed, n, mbw, mbh, has_inter, plan, flag in K6_CASES:
-        call = k6_case_call(seed, n, mbw, mbh, has_inter, plan, flag)
+    for case in [c + (False,) for c in K6_CASES] + [K6_DENSE_CASE + (True,)]:
+        what, seed, n, mbw, mbh, has_inter, plan, flag, dense = case
+        call = k6_case_call(seed, n, mbw, mbh, has_inter, plan, flag,
+                            dense=dense)
         k6_numbers[what] = check_k6(call, f"seeded inputs, {what} (seed "
                                     f"{seed})", label, k6_ptxas)
     del call
@@ -2192,7 +2229,7 @@ def main() -> int:
         gop_launches=sym_launches, seq_launches=seq_sym_launches,
         svc_launches=svc_sym_launches, mesh_launches=mesh_sym_launches,
         entry_launches=entry_sym_launches, cif_launches=cif_sym_launches,
-        cli_launches=cli_sym_launches, ptxas=k6_ptxas,
+        cli_launches=cli_sym_launches, ptxas=k6_ptxas, build=k6_build,
         kernel_launches_per_call=len(k6p["kernels"]),
         traced_kernels=[k for k, _ in k6p["kernels"]],
         traces_taken=k6p["traces"],

@@ -25,7 +25,12 @@
 // MB's MV differences are outputs); mode16 of an I16 MB, the Intra 4x4
 // lengths of an I4 MB. About 9.5 KB per MB of a P slice, 0.37 ms for 16
 // frames of 1080p at 3.35 TB/s. The arithmetic is small (a few hundred
-// integer operations per block), so the bytes bound it.
+// integer operations per block), so the bytes bound it. Measured, pass C
+// is held by instruction issue instead (PERF.md; its SASS has about 270
+// instructions on the path of a step of two blocks with the suffixLength
+// scan, 205 without it, 70 when both blocks are empty, and about 460 for
+// an MB's loads, descriptors and header), so its design spends none on
+// divergence, a stack or a zero pass.
 //
 // Design: three launches, in stream order.
 //   A. records (`sym_records_kernel`): a warp per MB. The lanes load the MB's
@@ -35,29 +40,43 @@
 //      nC reads (luma of inter, Intra_4x4 and coded Intra_16x16 MBs,
 //      chroma AC where cbpc is 2; a skipped MB has cbp 0, so skipping
 //      changes no count). Lanes 0-3 derive the MV predictor of each
-//      partition of the MB's shape and lane 4 the 16x16 one and P_Skip's
-//      (spec 8.4.1.1 and 8.4.1.3, as `_mv_predictors` lists them), from
-//      the neighbours' MVs and intra flags, which are inputs. It writes
-//      skip, cbp, cbpc, the MV differences and a 32-byte record per MB:
-//      the 16 luma and 8 chroma AC coded counts.
-//   B. slice scans (`sym_scan_kernel`): a block of 1024 threads per slice
-//      walks its MBs in chunks of 1024 with a carry: a max-scan of the
-//      coded MBs' indices gives each coded MB its mb_skip_run and the
-//      slice its trailing run (the tail); a max-scan of the MBs that carry
-//      mb_qp_delta gives, under a row plan, each MB's dQP and decoded QP.
-//      It sets total_bits to the tail's length and row_bits to 0.
-//   C. codes (`sym_codes_kernel`): a warp per MB, 4 warps a block. The MB's
-//      own record and its left and upper neighbours' (within the slice:
-//      a band's first row has no upper neighbour) go to shared memory.
-//      Lane u codes unit u of the MB for u = 1..27 (the luma DC, the 16
-//      luma blocks in BLOCK_SCAN_4x4 order, chroma DC, chroma AC) with
-//      `encode_blocks`' sequence, walking the block's positions in
-//      reverse scan once for TrailingOnes and once for the levels (with
-//      the suffixLength recurrence) and the runs; lanes 0 and 28-31 build
-//      the 34 header slots. The units are staged in shared memory (7.6
-//      KB a warp) and written out with 16-byte stores; lane 0 adds the
-//      MB's bits to its row's and its slice's counts (integer atomics:
-//      the sums are exact in any order).
+//      partition of the MB's shape and, at the same time, lane 4 the
+//      16x16 one and P_Skip's (spec 8.4.1.1 and 8.4.1.3, as
+//      `_mv_predictors` lists them), from the neighbours' MVs and intra
+//      flags, which are inputs. It writes skip, cbp, cbpc, the MV
+//      differences and a 32-byte record per MB: the 16 luma and 8 chroma
+//      AC coded counts.
+//   B. slice scans (`sym_scan_kernel`): a block of 1024 threads per slice,
+//      each thread a run of consecutive MBs: one max-scan over the threads
+//      of the last coded MB and the last MB that carries mb_qp_delta in
+//      each run gives each coded MB its mb_skip_run and the slice its
+//      trailing run (the tail), and, under a row plan, each MB its dQP and
+//      decoded QP. It sets total_bits to the tail's length and row_bits to
+//      0.
+//   C. codes (`sym_codes_kernel`): a warp per MB, 4 warps a block, 12
+//      blocks an SM. The MB's levels (its luma, lev_inter's or ac_lev's,
+//      chroma AC, luma DC, chroma DC: 1,632 B) arrive in shared memory in
+//      16-byte pieces, with its own record and its left and upper
+//      neighbours' (within the slice: a band's first row has no upper
+//      neighbour). Lane u derives unit u's descriptor (where its levels
+//      lie, its view of them, nC, max_coeff, whether its lengths stand);
+//      the whole warp builds the 34 header slots, a slot a lane. Then a
+//      half-warp codes a 4x4 block, one lane per scan position, two units
+//      a step, 14 steps: ballots of the nonzero and the |level| > 1
+//      levels give TotalCoeff, each coefficient's rank in reverse scan
+//      order and TrailingOnes, whose signs an OR over the warp gathers;
+//      the next nonzero below gives run_before; the suffixLength
+//      recurrence of `encode_blocks` is an exclusive scan of the levels'
+//      transfer maps (8 nibbles, composed with byte permutes) over the
+//      half-warp in 4 shuffle steps, skipped when no half has two levels
+//      past its trailing ones; a step whose two blocks are both empty
+//      takes a short path. Every slot is written once into a pair buffer
+//      in shared memory (each lane one level slot and one run_before
+//      slot, lanes 0-2 the other three), values and lengths apart, and
+//      each pair of units (272 B of values and of lengths, 16-byte
+//      aligned) goes out after its step in 16-byte stores; lane 0 adds
+//      the MB's bits to its row's and its slice's counts (integer
+//      atomics: the sums are exact in any order).
 // No launch reads a ticket or a look-back buffer, so the wrapper zeroes
 // nothing; the records and the scans' results go to one scratch tensor.
 //
@@ -77,15 +96,31 @@ constexpr int kSlots = 34;                  // slots per unit
 constexpr int kUnits = 28;                  // units per MB
 constexpr int kMbSlots = kSlots * kUnits;   // 952
 constexpr int kRecBytes = 32;               // bytes of an MB's record
+constexpr int kLumaCounts = 16;             // its chroma AC counts' offset
 constexpr int kWarpsA = 8;                  // warps (MBs) per block, pass A
 constexpr int kWarpsC = 4;                  // pass C
 constexpr int kScanThreads = 1024;          // pass B
 
-// VLC tables, each entry value | length << 16
-__device__ const uint32_t kCoeffToken[] = K6_COEFF_TOKEN;    // [5][17][4]
-__device__ const uint32_t kTotalZeros[] = K6_TOTAL_ZEROS;    // [16][16]
-__device__ const uint32_t kTotalZerosCdc[] = K6_TOTAL_ZEROS_CDC;  // [4][4]
-__device__ const uint32_t kRunBefore[] = K6_RUN_BEFORE;      // [8][15]
+// The VLC tables in one array (a lane takes what it needs with one
+// load), each entry value | length << 16
+struct VlcTables {
+  uint32_t coeff_token[5 * 17 * 4];
+  uint32_t total_zeros[16 * 16];
+  uint32_t total_zeros_cdc[4 * 4];
+  uint32_t run_before[8 * 15];
+};
+constexpr int kTzAt = 5 * 17 * 4, kCdcTzAt = kTzAt + 16 * 16;
+constexpr int kRbAt = kCdcTzAt + 4 * 4;
+__device__ const VlcTables kVlc = {K6_COEFF_TOKEN, K6_TOTAL_ZEROS,
+                                   K6_TOTAL_ZEROS_CDC, K6_RUN_BEFORE};
+constexpr uint32_t kCheckCt[] = K6_COEFF_TOKEN, kCheckTz[] = K6_TOTAL_ZEROS;
+constexpr uint32_t kCheckCdc[] = K6_TOTAL_ZEROS_CDC;
+constexpr uint32_t kCheckRb[] = K6_RUN_BEFORE;
+static_assert(sizeof(kCheckCt) == sizeof(VlcTables::coeff_token)
+              && sizeof(kCheckTz) == sizeof(VlcTables::total_zeros)
+              && sizeof(kCheckCdc) == sizeof(VlcTables::total_zeros_cdc)
+              && sizeof(kCheckRb) == sizeof(VlcTables::run_before),
+              "the VLC tables' sizes");
 __device__ const int32_t kCbpCode[] = K6_CBP_TO_CODENUM;     // [48][2]
 
 struct Args {
@@ -172,11 +207,14 @@ __device__ __forceinline__ PartSpec part_spec(int s, int p) {
   }
 }
 
-// The MV predictor of one partition (spec 8.4.1.3, `derive`).
+// The MV predictor of one partition (spec 8.4.1.3, `derive`); na and nb
+// its neighbours A and B as found
 __device__ void predict(const Args& a, long long slice, int r, int c,
-                        const PartSpec& sp, int& py, int& px) {
-  const Nb na = nb_block(a, slice, r, c, sp.v[0][0], sp.v[0][1], sp.v[0][2]);
+                        const PartSpec& sp, int& py, int& px, Nb& na,
+                        Nb& nb_found) {
+  na = nb_block(a, slice, r, c, sp.v[0][0], sp.v[0][1], sp.v[0][2]);
   Nb nb = nb_block(a, slice, r, c, sp.v[1][0], sp.v[1][1], sp.v[1][2]);
+  nb_found = nb;
   Nb nc = nb_block(a, slice, r, c, sp.v[2][0], sp.v[2][1], sp.v[2][2]);
   const Nb nd = nb_block(a, slice, r, c, sp.v[3][0], sp.v[3][1], sp.v[3][2]);
   const bool cav2 = nc.avail || nd.avail;
@@ -258,20 +296,21 @@ sym_records_kernel(const Args a) {
   const int cbp = cbp_luma + (cbpc << 4);
   const int shape = a.has_inter ? a.shape[g] : 0;
 
-  // MV predictors: lanes 0-3 the partitions of the MB's shape, lane 4 the
-  // 16x16 one and P_Skip's
+  // MV predictors, side by side: lanes 0-3 the partitions of the MB's
+  // shape, lane 4 the 16x16 one and P_Skip's (whose neighbours A and B
+  // are the 16x16 predictor's)
   int py = 0, px = 0, mvd_y = 0, mvd_x = 0, skip = 0;
-  if (a.has_inter) {
-    if (lane < 4 && shape >= 0 && shape <= 3 && lane < K6_N_PARTS(shape)) {
-      predict(a, slice, r, c, part_spec(shape, lane), py, px);
+  const bool part = lane < 4 && shape >= 0 && shape <= 3
+                    && lane < K6_N_PARTS(shape);
+  if (a.has_inter && (part || lane == 4)) {
+    Nb na, nb;
+    predict(a, slice, r, c, part ? part_spec(shape, lane) : part_spec(0, 0),
+            py, px, na, nb);
+    if (part) {
       const int by = K6_PART_BY(shape, lane), bx = K6_PART_BX(shape, lane);
       mvd_y = a.mvy[g * 16 + by * 4 + bx] - py;
       mvd_x = a.mvx[g * 16 + by * 4 + bx] - px;
-    }
-    if (lane == 4) {
-      predict(a, slice, r, c, part_spec(0, 0), py, px);
-      const Nb na = nb_block(a, slice, r, c, 0, -1, true);
-      const Nb nb = nb_block(a, slice, r, c, -1, 0, true);
+    } else {
       const bool force0 = !na.avail || !nb.avail
                           || (na.ref && na.y == 0 && na.x == 0)
                           || (nb.ref && nb.y == 0 && nb.x == 0);
@@ -307,74 +346,105 @@ sym_records_kernel(const Args a) {
 // pass B: the slice scans
 // ---------------------------------------------------------------------------
 
-// inclusive max-scan over the block's threads in thread order; `carry`
-// (the chunk before) and `total` (the block's maximum) are read by all
-__device__ __forceinline__ void block_max_scan(int v, int* totals, int& incl,
-                                               int& excl, int& total) {
+// exclusive max-scans of two values over the block's threads in thread
+// order (-1 before the first thread), and their maxima over the block
+__device__ __forceinline__ void block_max_scan2(int c, int d, int* totals,
+                                                int& exc_c, int& exc_d,
+                                                int& tot_c, int& tot_d) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int w = v;
+  int wc = c, wd = d;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int up = __shfl_up_sync(0xffffffffu, w, off);
-    if (lane >= off) w = max(w, up);
+    const int up_c = __shfl_up_sync(0xffffffffu, wc, off);
+    const int up_d = __shfl_up_sync(0xffffffffu, wd, off);
+    if (lane >= off) {
+      wc = max(wc, up_c);
+      wd = max(wd, up_d);
+    }
   }
-  int wex = __shfl_up_sync(0xffffffffu, w, 1);
-  if (lane == 0) wex = -1;
-  if (lane == 31) totals[warp] = w;
+  int ec = __shfl_up_sync(0xffffffffu, wc, 1);
+  int ed = __shfl_up_sync(0xffffffffu, wd, 1);
+  if (lane == 0) ec = ed = -1;
+  if (lane == 31) {
+    totals[warp] = wc;
+    totals[kScanThreads / 32 + warp] = wd;
+  }
   __syncthreads();
-  int before = -1;
-  total = -1;
+  int bc = -1, bd = -1;
+  tot_c = tot_d = -1;
   for (int k = 0; k < kScanThreads / 32; ++k) {
-    if (k < warp) before = max(before, totals[k]);
-    total = max(total, totals[k]);
+    const int tc = totals[k], td = totals[kScanThreads / 32 + k];
+    if (k < warp) {
+      bc = max(bc, tc);
+      bd = max(bd, td);
+    }
+    tot_c = max(tot_c, tc);
+    tot_d = max(tot_d, td);
   }
-  incl = max(before, w);
-  excl = max(before, wex);
-  __syncthreads();                      // `totals` is reused
+  exc_c = max(bc, ec);
+  exc_d = max(bd, ed);
 }
 
 __global__ void __launch_bounds__(kScanThreads)
 sym_scan_kernel(const Args a) {
-  __shared__ int totals[2][kScanThreads / 32];
+  __shared__ int totals[2 * kScanThreads / 32];
   const int nmb = a.mbw * a.mbh;
   const long long slice = (long long)blockIdx.x * nmb;
   const int32_t* qrow = a.qp_rows + (a.has_plan ? blockIdx.x * a.mbh : 0);
-  int carry_c = -1, carry_d = -1;        // last coded / dQP MB so far
-  for (int s = 0; s < nmb; s += kScanThreads) {
-    const int i = s + threadIdx.x;
-    bool coded = false, dqp = false;
-    if (i < nmb) {
-      const long long g = slice + i;
-      coded = !a.skip[g];
-      dqp = coded && (a.sel[g] == K6_SEL_I16 || a.cbp[g] != 0);
+  // thread k takes the MBs [lo, hi) of the slice in order: the last coded
+  // MB and the last that carries mb_qp_delta among them, scanned over the
+  // threads, start its second walk, which reads the flags of its first 32
+  // MBs from registers
+  const int per = (nmb + kScanThreads - 1) / kScanThreads;
+  const int lo = min((int)threadIdx.x * per, nmb), hi = min(lo + per, nmb);
+  auto flags = [&](int i, bool& coded, bool& dqp) {
+    const long long g = slice + i;
+    coded = !a.skip[g];
+    dqp = coded && (a.sel[g] == K6_SEL_I16 || a.cbp[g] != 0);
+  };
+  int last_c = -1, last_d = -1;
+  uint32_t coded_bits = 0, dqp_bits = 0;
+#pragma unroll 8
+  for (int i = lo; i < hi; ++i) {
+    bool coded, dqp;
+    flags(i, coded, dqp);
+    last_c = coded ? i : last_c;
+    last_d = dqp ? i : last_d;
+    if (i - lo < 32) {
+      coded_bits |= (uint32_t)coded << (i - lo);
+      dqp_bits |= (uint32_t)dqp << (i - lo);
     }
-    int inc_c, exc_c, tot_c, inc_d, exc_d, tot_d;
-    block_max_scan(coded ? i : -1, totals[0], inc_c, exc_c, tot_c);
-    block_max_scan(dqp ? i : -1, totals[1], inc_d, exc_d, tot_d);
-    exc_c = max(exc_c, carry_c);
-    exc_d = max(exc_d, carry_d);
-    inc_d = max(inc_d, carry_d);
-    if (i < nmb) {
-      const long long g = slice + i;
-      int dqp_delta = 0;
-      if (a.has_plan) {
-        // the running QP: the QP of the last MB with mb_qp_delta, or the
-        // plan's first row before any
-        const int q = qrow[i / a.mbw];
-        const int prev = exc_d >= 0 ? qrow[exc_d / a.mbw] : qrow[0];
-        dqp_delta = q - prev;
-        a.qp_dec[g] = inc_d >= 0 ? qrow[inc_d / a.mbw] : qrow[0];
-      }
-      a.scan[2 * g] = coded ? i - 1 - exc_c : 0;
-      a.scan[2 * g + 1] = dqp_delta;
+  }
+  int run_c, run_d, tot_c, tot_d;
+  block_max_scan2(last_c, last_d, totals, run_c, run_d, tot_c, tot_d);
+#pragma unroll 8
+  for (int i = lo; i < hi; ++i) {
+    const long long g = slice + i;
+    bool coded, dqp;
+    if (i - lo < 32) {
+      coded = (coded_bits >> (i - lo)) & 1;
+      dqp = (dqp_bits >> (i - lo)) & 1;
+    } else {
+      flags(i, coded, dqp);
     }
-    carry_c = max(carry_c, tot_c);
-    carry_d = max(carry_d, tot_d);
+    int dqp_delta = 0;
+    if (a.has_plan) {
+      // the running QP: the QP of the last MB with mb_qp_delta, or the
+      // plan's first row before any
+      const int q = qrow[i / a.mbw];
+      const int prev = run_d >= 0 ? qrow[run_d / a.mbw] : qrow[0];
+      dqp_delta = q - prev;
+      a.qp_dec[g] = dqp ? q : prev;
+    }
+    a.scan[2 * g] = coded ? i - 1 - run_c : 0;
+    a.scan[2 * g + 1] = dqp_delta;
+    run_c = coded ? i : run_c;
+    run_d = dqp ? i : run_d;
   }
   for (int k = threadIdx.x; k < a.mbh; k += kScanThreads)
     a.row_bits[(long long)blockIdx.x * a.mbh + k] = 0;
   if (threadIdx.x == 0) {
-    const int trailing = nmb - 1 - carry_c;
+    const int trailing = nmb - 1 - tot_c;   // after the last coded MB
     const int tl = a.has_inter && trailing > 0 ? ue_len(trailing) : 0;
     a.tail_val[blockIdx.x] = a.has_inter ? ue_val(trailing) : 0;
     a.tail_len[blockIdx.x] = tl;
@@ -386,156 +456,157 @@ sym_scan_kernel(const Args a) {
 // pass C: the codes
 // ---------------------------------------------------------------------------
 
-// VLC of levelCode `lc` at suffixLength `sl` (`cavlc._level_code_bits`)
+constexpr unsigned kFull = 0xffffffffu;
+// an MB's levels in shared memory (ints): luma (16 raster blocks of 16),
+// chroma AC (8 blocks of 16), luma DC (16), chroma DC (2 x 4)
+constexpr int kCacAt = 256, kDcAt = 384, kCdcAt = 400, kLevInts = 408;
+constexpr int kPairSlots = 2 * kSlots;   // units 2t, 2t + 1: 272 B, aligned
+constexpr int kSteps = kUnits / 2;       // a step codes a pair of units
+
+// 16 values below 16 as the nibbles of a word, the first lowest
+constexpr uint64_t nibbles(const int (&t)[16]) {
+  uint64_t w = 0;
+  for (int i = 0; i < 16; ++i) w |= (uint64_t)(t[i] & 15) << (4 * i);
+  return w;
+}
+constexpr int kZigzagTab[16] = K6_ZIGZAG;
+constexpr int kBlockScanTab[16] = K6_BLOCK_SCAN;
+constexpr uint64_t kZigzag = nibbles(kZigzagTab);
+
+__device__ __forceinline__ int nib(uint64_t w, int i) {
+  return (int)((w >> (4 * i)) & 15);
+}
+
+// What lane u's unit u is, whatever the MB: where its levels start in the
+// MB's shared levels (9 bits), its block (by, bx) in its grid (2 + 2),
+// the offset of its grid's counts in a record (5), its 8x8 group of the
+// coded_block_pattern (2) and its kind (0 the luma DC, 1 luma in
+// BLOCK_SCAN_4x4 order, 2 chroma DC, 3 chroma AC)
+struct UnitTable {
+  uint32_t w[32];
+};
+constexpr UnitTable unit_table() {
+  UnitTable t{};
+  for (int u = 0; u < 32; ++u) {
+    int at = kDcAt, by = 0, bx = 0, o = 0, grp = 0, kind = 0;
+    if (u >= 20 && u < kUnits) {
+      const int k = u - 20;
+      at = kCacAt + 16 * k;
+      by = (k >> 1) & 1;
+      bx = k & 1;
+      o = kLumaCounts + (k & 4);
+      kind = 3;
+    } else if (u == 18 || u == 19) {
+      at = kCdcAt + 4 * (u - 18);
+      kind = 2;
+    } else if (u >= 2 && u < 18) {
+      const int b = kBlockScanTab[u - 2];
+      at = 16 * b;
+      by = b >> 2;
+      bx = b & 3;
+      grp = (b >> 3) * 2 + ((b & 3) >> 1);
+      kind = 1;
+    }
+    t.w[u] = (uint32_t)(at | by << 9 | bx << 11 | o << 13 | grp << 18
+                        | kind << 20);
+  }
+  return t;
+}
+__device__ const UnitTable kUnitTable = unit_table();
+
+// suffixLength's transfer maps: nibble s of a map holds the state that
+// follows state s (states 0-6; nibble 7 is never read). A level of
+// magnitude al takes s to min(6, max(s, 1) + (al > 3 << (max(s, 1) - 1))):
+// max(s, 1), plus one at the states 0..k whose threshold al passes
+// (states 0 and 1 share the first, 3), which never reaches past 6.
+constexpr uint32_t kMapIdentity = 0x76543210u;
+constexpr uint32_t kMapFloor = 0x76543211u;    // s -> max(s, 1)
+
+__device__ __forceinline__ uint32_t level_map(int al) {
+  // the thresholds 3 << (m - 1) that al passes, m = 1..5: al - 1 >= 3 <<
+  // (m - 1), the bit length of (al - 1) / 3
+  const int k = min(32 - __clz(__umulhi((unsigned)(al - 1), 0x55555556u)),
+                    5);
+  return kMapFloor + (k ? 0x111111u >> (4 * (5 - k)) : 0u);
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// A map spread to bytes: byte s of (lo, hi) holds nibble s
+__device__ __forceinline__ void map_bytes(uint32_t w, uint32_t& lo,
+                                          uint32_t& hi) {
+  const uint32_t even = w & 0x0f0f0f0fu, odd = (w >> 4) & 0x0f0f0f0fu;
+  lo = prmt(even, odd, 0x5140);
+  hi = prmt(even, odd, 0x7362);
+}
+
+// g after f, with g spread to bytes (lo, hi) and f as nibbles: f's
+// nibbles select g's bytes; the result comes back in both forms
+__device__ __forceinline__ uint32_t compose(uint32_t& lo, uint32_t& hi,
+                                           uint32_t f) {
+  const uint32_t r0 = prmt(lo, hi, f), r1 = prmt(lo, hi, f >> 16);
+  lo = r0;
+  hi = r1;
+  return prmt(r0, r1, 0x6420) + (prmt(r0, r1, 0x7531) << 4);
+}
+
+// VLC of levelCode `lc` at suffixLength `sl` (`cavlc._level_code_bits`),
+// without branches: level_prefix lc >> sl and sl suffix bits, but at
+// suffixLength 0 level_prefix 14 with a 4-bit suffix from levelCode 14,
+// and from the escape's start level_prefix 15 (12-bit suffix) or 16
+// (13-bit)
 __device__ __forceinline__ void level_code(int lc, int sl, int& v, int& n) {
-  const int prefix = lc >> sl;
-  if (sl == 0 && lc < 14) {
-    v = 1;
-    n = lc + 1;
-  } else if (sl == 0 && lc < 30) {
-    v = (1 << 4) | (lc - 14);
-    n = 19;
-  } else if (sl > 0 && prefix < 15) {
-    v = (1 << sl) | (lc & ((1 << sl) - 1));
-    n = prefix + 1 + sl;
-  } else {
-    const int rem = lc - ((15 << sl) + (sl == 0 ? 15 : 0));
-    if (rem < 4096) {
-      v = (1 << 12) | rem;
-      n = 28;
-    } else {
-      v = (1 << 13) | (rem - 4096);
-      n = 30;
-    }
-  }
+  const int start = (15 << sl) + (sl == 0 ? 15 : 0);
+  const int rem = lc - start;
+  const bool esc = rem >= 0, esc13 = rem >= 4096;
+  const bool p14 = sl == 0 && lc >= 14;
+  v = esc ? (esc13 ? (1 << 13) | (rem - 4096) : (1 << 12) | rem)
+          : p14 ? (1 << 4) | (lc - 14) : (1 << sl) | (lc & ((1 << sl) - 1));
+  n = esc ? (esc13 ? 30 : 28) : p14 ? 19 : (lc >> sl) + 1 + sl;
 }
 
-// One block's 34 slots (`cavlc.encode_blocks`): lv the levels in scan
-// order (positions at and past max_coeff are 0), nc its nC (-1 for chroma
-// DC, which also takes the chroma DC total_zeros table), `keep` whether
-// its lengths stand. sv and sl are the unit's slots in shared memory, all
-// 0. Returns the bits kept.
-__device__ __forceinline__ int code_block(const int (&lv)[16], int nc,
-                                          int max_coeff, bool keep, int* sv,
-                                          int* sl) {
-  uint32_t nz = 0;
-#pragma unroll
-  for (int p = 0; p < 16; ++p) nz |= (uint32_t)(lv[p] != 0) << p;
-  const int total = __popc(nz);
-  // TrailingOnes: the leading run of +-1 in reverse scan order, at most 3
-  int t1 = 0, signs = 0, k = 0;
-  bool ones = true;
-#pragma unroll
-  for (int p = 15; p >= 0; --p) {
-    if (lv[p] != 0) {
-      if (k < 3 && ones && (lv[p] == 1 || lv[p] == -1)) {
-        ++t1;
-        signs = (signs << 1) | (lv[p] < 0);
-      } else {
-        ones = false;
-      }
-      ++k;
-    }
-  }
-  int bits = 0;
-  auto put = [&](int slot, int v, int n) {
-    sv[slot] = v;
-    if (keep) {
-      sl[slot] = n;
-      bits += n;
-    }
-  };
-  const int ctx = nc < 0 ? 4 : nc < 2 ? 0 : nc < 4 ? 1 : nc < 8 ? 2 : 3;
-  const uint32_t ct = kCoeffToken[(ctx * 17 + total) * 4 + t1];
-  put(0, (int)(ct & 0xffffu), (int)(ct >> 16));
-  put(1, signs, t1);
-  // the levels past the trailing ones, with the adaptive suffixLength, and
-  // run_before of every coefficient but the last
-  int suffix = total > 10 && t1 < 3 ? 1 : 0;
-  int prev = 0, first = 0;
-  k = 0;
-#pragma unroll
-  for (int p = 15; p >= 0; --p) {
-    const int l = lv[p];
-    if (l != 0) {
-      if (k == 0) {
-        first = p;
-      } else {
-        const int zeros_left = prev - (total - k);
-        if (zeros_left > 0) {
-          const uint32_t rb = kRunBefore[min(zeros_left, 7) * 15
-                                         + min(prev - p - 1, 14)];
-          put(19 + k - 1, (int)(rb & 0xffffu), (int)(rb >> 16));
-        }
-      }
-      if (k >= t1) {
-        const int al = abs(l);
-        int lc = 2 * (al - 1) + (l < 0);
-        if (k == t1 && t1 < 3) lc -= 2;
-        int v, n;
-        level_code(max(lc, 0), suffix, v, n);
-        put(2 + k, v, n);
-        int next = suffix == 0 ? 1 : suffix;
-        if (al > (3 << (next - 1))) ++next;
-        suffix = min(next, 6);
-      }
-      prev = p;
-      ++k;
-    }
-  }
-  if (total > 0 && total < max_coeff) {
-    const int tz = first + 1 - total;
-    const uint32_t t = nc < 0
-        ? kTotalZerosCdc[min(total, 3) * 4 + min(tz, 3)]
-        : kTotalZeros[min(total, 15) * 16 + tz];
-    put(18, (int)(t & 0xffffu), (int)(t >> 16));
-  }
-  return bits;
+// coeff_token's table of nC (`cavlc.nc_context`; 4: chroma DC, nC -1)
+__device__ __forceinline__ int nc_ctx(int nc) {
+  return nc < 0 ? 4 : nc < 2 ? 0 : nc < 4 ? 1 : nc < 8 ? 2 : 3;
 }
 
-// nC of block (by, bx) of an n x n grid (`_block_nc`): counts at own[],
-// left[] and top[] (the neighbour MBs' records, when they exist)
-__device__ __forceinline__ int block_nc(const uint8_t* own,
-                                        const uint8_t* left,
-                                        const uint8_t* top, int n, int by,
-                                        int bx, bool has_left, bool has_top) {
-  const bool la = bx > 0 || has_left, ta = by > 0 || has_top;
-  const int na = bx > 0 ? own[by * n + bx - 1] : la ? left[by * n + n - 1] : 0;
-  const int nb = by > 0 ? own[(by - 1) * n + bx] : ta ? top[(n - 1) * n + bx]
-                                                       : 0;
-  return la && ta ? (na + nb + 1) >> 1 : la ? na : ta ? nb : 0;
-}
-
-__device__ __forceinline__ void load16(const int32_t* src, int (&raw)[16]) {
-  const int4* q = reinterpret_cast<const int4*>(src);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int4 v = q[j];
-    raw[4 * j] = v.x;
-    raw[4 * j + 1] = v.y;
-    raw[4 * j + 2] = v.z;
-    raw[4 * j + 3] = v.w;
-  }
-}
-
-__global__ void __launch_bounds__(kWarpsC * 32)
+__global__ void __launch_bounds__(kWarpsC * 32, 12)
 sym_codes_kernel(const Args a) {
-  __shared__ int4 stage_v[kWarpsC][kMbSlots / 4];
-  __shared__ int4 stage_l[kWarpsC][kMbSlots / 4];
+  __shared__ int4 lev4[kWarpsC][kLevInts / 4 + 1];     // and a zero word
+  __shared__ int4 stage4[kWarpsC][2][2][kPairSlots / 4];  // values, lengths
   __shared__ uint32_t recs[kWarpsC][3 * kRecBytes / 4];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long nmb = (long long)a.mbw * a.mbh;
-  const long long g = (long long)blockIdx.x * kWarpsC + warp;
-  if (g >= a.n * nmb) return;
-  const int m = (int)(g % nmb), r = m / a.mbw, c = m % a.mbw;
+  const int nmb = a.mbw * a.mbh;
+  const int m = blockIdx.y * kWarpsC + warp;   // MB m of slice blockIdx.x
+  if (m >= nmb) return;
+  const long long n_i = blockIdx.x, g = n_i * nmb + m;
+  const int r = m / a.mbw, c = m - r * a.mbw;
   const bool has_left = c > 0, has_top = r > 0;
-  const long long n_i = g / nmb;
 
-  int* sv = reinterpret_cast<int*>(stage_v[warp]);
-  int* sl = reinterpret_cast<int*>(stage_l[warp]);
-  for (int k = lane; k < kMbSlots / 4; k += 32) {
-    stage_v[warp][k] = make_int4(0, 0, 0, 0);
-    stage_l[warp][k] = make_int4(0, 0, 0, 0);
+  const int sel = a.sel[g];
+  const bool is_inter = sel == K6_SEL_INTER, is_i16 = sel == K6_SEL_I16;
+  const bool is_i4 = sel == K6_SEL_I4;
+  // the MB's levels to shared memory in 16-byte pieces: its luma
+  // (lev_inter's if it is inter, else ac_lev's), chroma AC, luma DC and
+  // chroma DC, then a zero word
+  {
+    const int4* luma = reinterpret_cast<const int4*>(
+        (is_inter ? a.inter : a.ac) + g * 256);
+    const int4* cac = reinterpret_cast<const int4*>(a.cac + g * 128);
+    const int4 q0 = luma[lane], q1 = luma[lane + 32], q2 = cac[lane];
+    int4 q3 = make_int4(0, 0, 0, 0);
+    if (lane < 4)
+      q3 = reinterpret_cast<const int4*>(a.dc + g * 16)[lane];
+    else if (lane < 6)
+      q3 = reinterpret_cast<const int4*>(a.cdc + g * 8)[lane - 4];
+    lev4[warp][lane] = q0;
+    lev4[warp][lane + 32] = q1;
+    lev4[warp][kCacAt / 4 + lane] = q2;
+    if (lane < 7) lev4[warp][kDcAt / 4 + lane] = q3;
   }
   // the records of the MB, its left and its upper neighbour
   if (lane < 24) {
@@ -545,132 +616,237 @@ sym_codes_kernel(const Args a) {
     recs[warp][lane] = there ? reinterpret_cast<const uint32_t*>(
         a.rec + src * kRecBytes)[w] : 0u;
   }
-  __syncwarp();
-  const uint8_t* own = reinterpret_cast<const uint8_t*>(recs[warp]);
-  const uint8_t* left = own + kRecBytes;
-  const uint8_t* top = own + 2 * kRecBytes;
-
-  const int sel = a.sel[g];
-  const bool is_inter = sel == K6_SEL_INTER, is_i16 = sel == K6_SEL_I16;
-  const bool is_i4 = sel == K6_SEL_I4;
   const int cbp = a.cbp[g], cbpc = a.cbpc[g];
   const bool coded = !a.skip[g];
   const bool cbpl_i16 = (cbp & 15) != 0;   // of MBs neither inter nor I4
-  int bits = 0;
-  int* uv = sv + lane * kSlots;
-  int* ul = sl + lane * kSlots;
-  auto put = [&](int slot, int v, int n, bool keep) {
-    uv[slot] = v;
-    if (keep) {
-      ul[slot] = n;
-      bits += n;
-    }
-  };
+  __syncwarp();
+  const uint8_t* own = reinterpret_cast<const uint8_t*>(recs[warp]);
+  const int* levs = reinterpret_cast<const int*>(lev4[warp]);
+  // the pair buffers: buffer b's values at stage + 2 b kPairSlots, its
+  // lengths kPairSlots after them
+  int* const stage = reinterpret_cast<int*>(stage4[warp]);
+  const uint32_t* vlc = reinterpret_cast<const uint32_t*>(&kVlc);
 
-  if (lane >= 1 && lane < kUnits) {
-    // a residual block: its levels in scan order, its nC and its mask
-    constexpr int zz[16] = K6_ZIGZAG;
-    constexpr int scan[16] = K6_BLOCK_SCAN;
-    int raw[16];
-    int view;                            // 0 zig-zag, 1 AC (zig-zag 1..15)
-    int nc = -1, max_coeff = 16;
-    bool keep;
-    if (lane == 1) {                     // luma DC (Intra_16x16)
-      load16(a.dc + g * 16, raw);
-      view = 0;
-      nc = block_nc(own, left, top, 4, 0, 0, has_left, has_top);
-      keep = is_i16;
-    } else if (lane < 18) {              // luma, BLOCK_SCAN_4x4 order
-      int b = 0;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) b = lane - 2 == j ? scan[j] : b;
-      load16((is_inter ? a.inter : a.ac) + (g * 16 + b) * 16, raw);
-      view = is_i16 ? 1 : 0;
-      max_coeff = is_i16 ? 15 : 16;
-      nc = block_nc(own, left, top, 4, b >> 2, b & 3, has_left, has_top);
-      const int grp = (b >> 3) * 2 + ((b & 3) >> 1);
-      keep = is_i16 ? cbpl_i16
-                    : coded && (is_inter || is_i4) && ((cbp >> grp) & 1);
-    } else if (lane < 20) {              // chroma DC, raster 2x2
-      const int4 q = reinterpret_cast<const int4*>(a.cdc + g * 8)[lane - 18];
-#pragma unroll
-      for (int j = 4; j < 16; ++j) raw[j] = 0;
-      raw[0] = q.x;
-      raw[1] = q.y;
-      raw[2] = q.z;
-      raw[3] = q.w;
-      view = 2;
-      max_coeff = 4;
-      keep = cbpc >= 1 && coded;
-    } else {                             // chroma AC
-      const int k = lane - 20;
-      load16(a.cac + (g * 8 + k) * 16, raw);
-      view = 1;
-      max_coeff = 15;
-      nc = block_nc(own + 16 + (k & 4), left + 16 + (k & 4),
-                    top + 16 + (k & 4), 2, (k >> 1) & 1, k & 1, has_left,
-                    has_top);
-      keep = cbpc == 2 && coded;
-    }
-    int lv[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      lv[i] = view == 0 ? raw[zz[i]]
-              : view == 1 ? (i < 15 ? raw[zz[i + 1]] : 0) : raw[i];
-    bits = code_block(lv, nc, max_coeff, keep, uv, ul);
-  } else if (lane == 0) {
-    // header: mb_skip_run, base_mode_flag, mb_type, sub_mb_type, chroma
-    // mode, coded_block_pattern, mb_qp_delta
-    const int shape = a.shape[g];
-    const bool is_intra = !is_inter;
+  // lane u's descriptor of unit u: the luma DC (1), the 16 luma blocks in
+  // BLOCK_SCAN_4x4 order (2-17), chroma DC (18-19), chroma AC (20-27);
+  // lane 0's is not read. Where its levels start in the MB's shared
+  // levels (9 bits), its view of them (2: 0 zig-zag, 1 AC, zig-zag
+  // 1..15, 2 chroma DC raster), its coeff_token table (3), whether its
+  // lengths stand (1) and max_coeff (5). nC (`_block_nc`) from the
+  // counts of the MB's record and its neighbours' (n x n blocks at o).
+  uint32_t desc;
+  {
+    const uint32_t ut = kUnitTable.w[lane];
+    const int kind = ut >> 20;
+    const bool u_cdc = kind == 2, u_cac = kind == 3;
+    const int at = ut & 511, by = (ut >> 9) & 3, bx = (ut >> 11) & 3;
+    const int o = (ut >> 13) & 31, grp = (ut >> 18) & 3, n = u_cac ? 2 : 4;
+    const bool la = bx > 0 || has_left, ta = by > 0 || has_top;
+    const int na = own[o + (bx > 0 ? by * n + bx - 1 : kRecBytes + by * n
+                                                        + n - 1)];
+    const int nb = own[o + (by > 0 ? (by - 1) * n + bx
+                                   : 2 * kRecBytes + (n - 1) * n + bx)];
+    const int nc = la && ta ? (na + nb + 1) >> 1 : la ? na : ta ? nb : 0;
+    // by kind: whether the lengths stand, the view, max_coeff
+    const bool keep_luma = is_i16 ? cbpl_i16
+        : coded && (is_inter || is_i4) && ((cbp >> grp) & 1);
+    const uint32_t keeps = (uint32_t)is_i16 | (uint32_t)keep_luma << 1
+                           | (uint32_t)(cbpc >= 1 && coded) << 2
+                           | (uint32_t)(cbpc == 2 && coded) << 3;
+    const uint32_t views = (uint32_t)is_i16 << 2 | 2u << 4 | 1u << 6;
+    const uint32_t max_coeffs = 16u | (is_i16 ? 15u : 16u) << 5 | 4u << 10
+                                | 15u << 15;
+    desc = (uint32_t)at | ((views >> 2 * kind) & 3) << 9
+           | (uint32_t)(u_cdc ? 4 : nc_ctx(nc)) << 11
+           | ((keeps >> kind) & 1) << 14
+           | ((max_coeffs >> 5 * kind) & 31) << 15;
+  }
+
+  // the header (unit 0) with the whole warp, a slot a lane, and slots 32
+  // and 33 on lanes 0 and 1: mb_skip_run, base_mode_flag, mb_type,
+  // sub_mb_type, the partitions' MV differences (x, y), the Intra 4x4
+  // symbols, chroma mode, coded_block_pattern, mb_qp_delta
+  int bits = 0;
+  {
+    const int s = lane, shape = a.shape[g];
     const int run = a.scan[2 * g], dqp_delta = a.scan[2 * g + 1];
-    if (a.has_inter) put(0, ue_val(run), ue_len(run), coded);
-    put(1, 0, 1, a.base_mode_bit && coded);
     const int i16code = 1 + a.mode16[g] + 4 * cbpc + 12 * cbpl_i16;
     const int mb_type = a.has_inter
         ? (is_inter ? shape : is_i4 ? 5 : 5 + i16code)
         : (is_i4 ? 0 : i16code);
-    put(2, ue_val(mb_type), ue_len(mb_type), coded);
-    for (int j = 0; j < 4; ++j)
-      put(3 + j, 1, 1, coded && is_inter && shape == 3);
     const int cmode = a.cmode[g];
-    put(31, ue_val(cmode), ue_len(cmode), coded && is_intra);
     const int code = kCbpCode[min(max(cbp, 0), 47) * 2 + (is_i4 ? 0 : 1)];
-    put(32, ue_val(code), ue_len(code), coded && (is_inter || is_i4));
     const bool dqp = coded && (is_i16 || cbp != 0);
-    if (a.has_plan)
-      put(33, ue_val(se_map(dqp_delta)), ue_len(se_map(dqp_delta)), dqp);
-    else
-      put(33, 1, 1, dqp);
-  } else {
-    // header: partition p's MV differences (x, y) and Intra 4x4 symbols
-    // 4p..4p+3
-    const int p = lane - kUnits;
-    const int shape = a.shape[g];
     const int n_parts = K6_N_PARTS(min(max(shape, 0), 3));
-    const bool active = p < n_parts && coded && is_inter;
-    const int dx = se_map(a.mvd_px[g * 4 + p]);
-    const int dy = se_map(a.mvd_py[g * 4 + p]);
-    // these slots lie in unit 0, written through the header's pointers
-    uv = sv;
-    ul = sl;
-    put(7 + 2 * p, ue_val(dx), ue_len(dx), active);
-    put(8 + 2 * p, ue_val(dy), ue_len(dy), active);
-    for (int j = 0; j < 4; ++j) {
-      const int i = 4 * p + j;
-      put(15 + i, a.i4v[g * 16 + i], a.i4l[g * 16 + i], is_i4);
+    const bool s_i4 = s >= 15 && s < 31;
+    // every lane loads (the other lanes' indices stay in the MB's rows)
+    const int p = min(max((s - 7) >> 1, 0), 3), k4 = min(max(s - 15, 0), 15);
+    const int mvd = (s & 1) ? a.mvd_px[g * 4 + p] : a.mvd_py[g * 4 + p];
+    const int i4v = a.i4v[g * 16 + k4], i4l = a.i4l[g * 16 + k4];
+    // which slots are ue(v) codes, and which lengths stand, a bit a slot
+    const uint32_t ues = (uint32_t)a.has_inter | 1u << 2 | 0xffu << 7
+                         | 1u << 31;
+    const uint32_t keeps =
+        (coded ? (uint32_t)a.has_inter | (uint32_t)a.base_mode_bit << 1
+                     | 1u << 2 | (is_inter && shape == 3 ? 0xfu << 3 : 0u)
+                     | (is_inter ? ((1u << 2 * n_parts) - 1) << 7 : 0u)
+                     | (is_inter ? 0u : 1u << 31)
+               : 0u)
+        | (is_i4 ? 0xffffu << 15 : 0u);
+    const bool ue = (ues >> s) & 1, keep = (keeps >> s) & 1;
+    // the ue(v) argument, where the slot is one
+    const int x = s == 0 ? run : s == 2 ? mb_type : s == 31 ? cmode
+                : se_map(mvd);
+    const int v = ue ? ue_val(x) : s_i4 ? i4v : s >= 3 ? 1 : 0;
+    const int n = ue ? ue_len(x) : s_i4 ? i4l : s >= 1 ? 1 : 0;
+    stage[s] = v;
+    stage[kPairSlots + s] = keep ? n : 0;
+    bits += keep ? n : 0;
+    // coded_block_pattern (lane 0) and mb_qp_delta (lane 1)
+    const int dq = se_map(dqp_delta);
+    const int v2 = s == 0 ? ue_val(code) : a.has_plan ? ue_val(dq) : 1;
+    const int n2 = s == 0 ? ue_len(code) : a.has_plan ? ue_len(dq) : 1;
+    const bool keep2 = s == 0 ? coded && (is_inter || is_i4) : dqp;
+    if (s < 2) {
+      stage[32 + s] = v2;
+      stage[kPairSlots + 32 + s] = keep2 ? n2 : 0;
+      bits += keep2 ? n2 : 0;
     }
+  }
+
+  // the residual units, two a step: half-warp h codes unit 2t + h (unit 0,
+  // the header, is done), lane i at scan position i of the unit's view
+  const int h = lane >> 4, i = lane & 15, sh = 16 * h;
+  // where lane i's level lies in each view (zig-zag, AC, chroma DC
+  // raster), and in which views it has one
+  const int offs = nib(kZigzag, i) | nib(kZigzag, min(i + 1, 15)) << 8
+                   | i << 16;
+  const int views = 1 | (i < 15) << 1 | (i < 4) << 2;
+  const uint32_t below = (1u << i) - 1;
+  int* const uv0 = stage + h * kSlots;
+  int4* ov = reinterpret_cast<int4*>(a.vals) + g * (kMbSlots / 4) + lane;
+  int4* ol = reinterpret_cast<int4*>(a.lens) + g * (kMbSlots / 4) + lane;
+#pragma unroll 1
+  for (int t = 0; t < kSteps; ++t) {
+    const int u = 2 * t + h;
+    const uint32_t d = __shfl_sync(kFull, desc, u);
+    const int at = d & 511, view = (d >> 9) & 3, ctx = (d >> 11) & 7;
+    const int keep_mask = (d >> 14) & 1 ? -1 : 0;
+    const int max_coeff = (int)(d >> 15);
+    const int l = levs[(views >> view) & 1 ? at + ((offs >> 8 * view) & 255)
+                                           : kLevInts];
+    const uint32_t b_nz = __ballot_sync(kFull, l != 0);
+    int* const uv = uv0 + (t & 1) * 2 * kPairSlots;   // the unit's values
+    int* const ul = uv + kPairSlots;                    // and lengths
+    if (b_nz == 0) {
+      // both blocks empty: coeff_token of TotalCoeff 0, every other slot 0
+      const uint32_t ct = vlc[ctx * 17 * 4];
+      const int n = i == 0 ? (int)(ct >> 16) & keep_mask : 0;
+      if (u > 0) {
+        uv[i] = i == 0 ? (int)(ct & 0xffffu) : 0;
+        ul[i] = n;
+        uv[16 + i] = ul[16 + i] = 0;
+        if (i < 2) uv[32 + i] = ul[32 + i] = 0;
+        bits += n;
+      }
+    } else {
+      const uint32_t nz = (b_nz >> sh) & 0xffffu;
+      const uint32_t big = (__ballot_sync(kFull, l > 1 || l < -1) >> sh)
+                           & 0xffffu;
+      // TotalCoeff, this coefficient's rank in reverse scan order, and
+      // TrailingOnes: the +-1 above the highest other nonzero, at most 3;
+      // their signs, the first highest, gathered from their lanes
+      const int total = __popc(nz);
+      const int rank = __popc(nz >> (i + 1));
+      const int t1 = min(__popc(nz >> (32 - __clz(big))), 3);
+      const bool coef = l != 0, lvl = coef && rank >= t1;
+      const int sign_bit = coef && rank < t1 ? (l < 0) << (t1 - 1 - rank)
+                                             : 0;
+      const int signs = (int)(__reduce_or_sync(kFull, sign_bit << (4 * h))
+                              >> (4 * h)) & 7;
+      // the level, past the trailing ones, at the suffixLength that the
+      // levels before it (above it in scan order) leave: the exclusive
+      // scan of their transfer maps over the half-warp from position 15
+      // down, when a half has two levels
+      const int al = abs(l);
+      const int lc = max(2 * (al - 1) + (l < 0)
+                         - (rank == t1 && t1 < 3 ? 2 : 0), 0);
+      const int s0 = total > 10 && t1 < 3;
+      int sl = s0;
+      if (__any_sync(kFull, total - t1 > 1)) {
+        const uint32_t own_map = level_map(al);
+        uint32_t x = lvl ? own_map : kMapIdentity, lo, hi;
+        map_bytes(x, lo, hi);
+#pragma unroll
+        for (int dd = 1; dd < 16; dd <<= 1) {
+          const uint32_t y = __shfl_down_sync(kFull, x, dd, 16);
+          x = compose(lo, hi, i + dd < 16 ? y : kMapIdentity);
+        }
+        const uint32_t e = __shfl_down_sync(kFull, x, 1, 16);
+        sl = (int)(((i < 15 ? e : kMapIdentity) >> (4 * s0)) & 15);
+      }
+      int lv_v, lv_n;
+      level_code(lc, sl, lv_v, lv_n);
+      // run_before of every coefficient but the last: the zeros down to
+      // the next nonzero, where zerosLeft is not 0
+      const int zl = i - (total - 1 - rank);
+      const int next = 31 - __clz(nz & below);
+      const bool has_run = coef && rank < total - 1;
+      const uint32_t rb_e = vlc[kRbAt + min(max(zl, 0), 7) * 15
+                                + min(max(i - next - 1, 0), 14)];
+      const uint32_t rb = has_run && zl > 0 ? rb_e : 0u;
+      // coeff_token on lane 0, total_zeros on lane 2 (where 0 < TotalCoeff
+      // < max_coeff; the other lanes' index stays inside the tables)
+      const bool cdc = ctx == 4;
+      const int tz = 32 - __clz(nz) - total;
+      const int ct_at = (ctx * 17 + total) * 4 + t1;
+      const int tz_at = (cdc ? kCdcTzAt : kTzAt) + total * (cdc ? 4 : 16)
+                        + tz;
+      const uint32_t tab_e = vlc[i == 0 ? ct_at : tz_at];
+      const uint32_t tab = i == 0 || (i == 2 && total > 0
+                                      && total < max_coeff) ? tab_e : 0u;
+      if (u > 0) {
+        // every slot of the unit once: each lane one of the 16 level slots
+        // (a coefficient its rank's, the zero lanes the slots past
+        // TotalCoeff in turn) and one of the 15 run_before slots (the
+        // coefficients but the last their rank's, the other lanes the
+        // rest in turn, the last of them none); lanes 0-2 coeff_token,
+        // the trailing ones' signs and total_zeros
+        const int ln = lvl ? lv_n & keep_mask : 0;
+        const int rn = (int)(rb >> 16) & keep_mask;
+        const int tn = (i == 1 ? t1 : (int)(tab >> 16)) & keep_mask;
+        const int lslot = 2 + (coef ? rank : total + 15 - i - rank);
+        const int rslot = has_run ? 19 + rank
+                        : 19 + max(total - 1, 0) + 15 - i
+                          - min(rank, max(total - 1, 0));
+        uv[lslot] = lvl ? lv_v : 0;
+        ul[lslot] = ln;
+        if (rslot < 19 + 15) {
+          uv[rslot] = (int)(rb & 0xffffu);
+          ul[rslot] = rn;
+        }
+        if (i < 3) {
+          const int mslot = i == 2 ? 18 : i;
+          uv[mslot] = i == 1 ? signs : (int)(tab & 0xffffu);
+          ul[mslot] = tn;
+        }
+        bits += ln + rn + tn;
+      }
+    }
+    // the pair's 68 slots out, values and lengths, in 16-byte pieces
+    __syncwarp();
+    if (lane < kPairSlots / 4) {
+      const int4* sp =
+          reinterpret_cast<const int4*>(stage + (t & 1) * 2 * kPairSlots);
+      *ov = sp[lane];
+      *ol = sp[kPairSlots / 4 + lane];
+    }
+    ov += kPairSlots / 4;
+    ol += kPairSlots / 4;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    bits += __shfl_xor_sync(0xffffffffu, bits, off);
-  __syncwarp();
-  int4* ov = reinterpret_cast<int4*>(a.vals + g * kMbSlots);
-  int4* ol = reinterpret_cast<int4*>(a.lens + g * kMbSlots);
-  for (int k = lane; k < kMbSlots / 4; k += 32) {
-    ov[k] = stage_v[warp][k];
-    ol[k] = stage_l[warp][k];
-  }
+    bits += __shfl_xor_sync(kFull, bits, off);
   if (lane == 0) {
     atomicAdd(a.row_bits + n_i * a.mbh + r, bits);
     atomicAdd(a.total_bits + n_i, bits);
@@ -690,7 +866,8 @@ extern "C" int h264lab_symbolize(
     int base_mode_bit, void* stream) {
   if (n <= 0 || mbw <= 0 || mbh <= 0) return 0;
   const long long mbs = n * mbw * mbh;
-  if (mbs * kMbSlots >= (1ll << 40) || n >= (1ll << 31))
+  if (mbs * kMbSlots >= (1ll << 40) || n >= (1ll << 31)
+      || (long long)mbw * mbh > 65535ll * kWarpsC)
     return (int)cudaErrorInvalidValue;
   Args a{(const int32_t*)sel, (const int32_t*)mode16, (const int32_t*)cmode,
          (const int32_t*)shape, (const int32_t*)i4v, (const int32_t*)i4l,
@@ -707,7 +884,8 @@ extern "C" int h264lab_symbolize(
   sym_records_kernel<<<(unsigned)((mbs + kWarpsA - 1) / kWarpsA),
                        kWarpsA * 32, 0, s>>>(a);
   sym_scan_kernel<<<(unsigned)n, kScanThreads, 0, s>>>(a);
-  sym_codes_kernel<<<(unsigned)((mbs + kWarpsC - 1) / kWarpsC),
+  sym_codes_kernel<<<dim3((unsigned)n, (unsigned)((mbw * mbh + kWarpsC - 1)
+                                                 / kWarpsC)),
                      kWarpsC * 32, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -44,10 +44,15 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"libh264lab_{src.stem}_{digest}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".log")
+
+
 def build_all(srcs) -> list[tuple[Path, str]]:
     """Compile each source not yet built, one nvcc process per source, all
-    started together. Returns [(library path, compiler log; empty if the
-    library was cached)] in the order of `srcs`."""
+    started together. Returns [(library path, compiler log)] in the order
+    of `srcs`; a cached library's log is the one kept beside it when it
+    was built."""
     srcs = [Path(s) for s in srcs]
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     jobs = []
@@ -70,10 +75,19 @@ def build_all(srcs) -> list[tuple[Path, str]]:
         if proc is not None and proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name} "
                                f"({proc.returncode}):\n{log}")
-    for out, tmp, proc in jobs:
+    for (out, tmp, proc), log in zip(jobs, logs):
         if proc is not None:
+            _log_path(out).write_text(log)
             os.replace(tmp, out)
-    return [(out, log) for (out, _, _), log in zip(jobs, logs)]
+    return [(out, log if proc is not None else _read_log(out))
+            for (out, _, proc), log in zip(jobs, logs)]
+
+
+def _read_log(lib: Path) -> str:
+    try:
+        return _log_path(lib).read_text()
+    except OSError:
+        return ""
 
 
 def build(src) -> tuple[Path, str]:

@@ -20,6 +20,8 @@ a test holds the committed file equal to `tables_header()`.
 from __future__ import annotations
 
 import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -113,19 +115,104 @@ INPUTS = (("sel", ()), ("mode16", ()), ("cmode", ()), ("i4sym_v", (16,)),
           ("lev_inter", (4, 4, 4, 4)), ("cdc_lev", (2, 2, 2)),
           ("cac_lev", (2, 2, 2, 4, 4)))
 _ALIGNED = ("dc_lev", "ac_lev", "lev_inter", "cdc_lev", "cac_lev")
+# the entry point's output pointers in order, after the inputs and qp_rows
+_OUTPUT_ARGS = ("sym_vals", "sym_lens", "tail_val", "tail_len", "total_bits",
+                "row_bits", "skip", "cbp", "cbpc", "mvd_py", "mvd_px",
+                "qp_dec", "scratch")
 
 
 def _layout(n: int, nmb: int, mbh: int, plan: bool):
-    """K6's int32 outputs and its scratch as (name, shape) in the order of
+    """K6's outputs and its scratch as (name, dtype, shape) in the order of
     one buffer, each starting on a 16-byte boundary."""
-    out = [("sym_vals", (n, nmb, MB_SLOTS)), ("sym_lens", (n, nmb, MB_SLOTS)),
-           ("scratch", (n * nmb * (REC_BYTES // 4 + SCAN_WORDS),)),
-           ("cbp", (n, nmb)), ("cbpc", (n, nmb)), ("mvd_py", (n, nmb, 4)),
-           ("mvd_px", (n, nmb, 4)), ("tail_val", (n,)), ("tail_len", (n,)),
-           ("total_bits", (n,)), ("row_bits", (n, mbh))]
+    i32 = torch.int32
+    out = [("sym_vals", i32, (n, nmb, MB_SLOTS)),
+           ("sym_lens", i32, (n, nmb, MB_SLOTS)),
+           ("scratch", i32, (n * nmb * (REC_BYTES // 4 + SCAN_WORDS),)),
+           ("cbp", i32, (n, nmb)), ("cbpc", i32, (n, nmb)),
+           ("mvd_py", i32, (n, nmb, 4)), ("mvd_px", i32, (n, nmb, 4)),
+           ("tail_val", i32, (n,)), ("tail_len", i32, (n,)),
+           ("total_bits", i32, (n,)), ("row_bits", i32, (n, mbh))]
     if plan:
-        out.append(("qp_dec", (n, nmb)))
+        out.append(("qp_dec", i32, (n, nmb)))
+    out.append(("skip", torch.bool, (n, nmb)))
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(n: int, nmb: int, mbh: int, plan: bool):
+    """What a call of these sizes needs, worked out once: the inputs'
+    shapes in order (qp_rows last with a plan), the buffer's bytes, each
+    output's (name, dtype, shape, strides, offset in elements of its
+    dtype), and the byte offsets of the entry point's output pointers
+    (`_OUTPUT_ARGS`; None for an output this call does not have)."""
+    shapes = tuple(torch.Size((n, nmb) + trail) for _, trail in INPUTS)
+    if plan:
+        shapes += (torch.Size((n, mbh)),)
+    views, at, offsets = [], 0, {}
+    for name, dtype, shape in _layout(n, nmb, mbh, plan):
+        size = torch.empty((), dtype=dtype).element_size()
+        strides = tuple(int(np.prod(shape[k + 1:])) for k in range(len(shape)))
+        views.append((name, dtype, shape, strides, at // size))
+        offsets[name] = at
+        at += -(-int(np.prod(shape)) * size // 16) * 16
+    return (shapes, at, tuple(views),
+            tuple(offsets.get(k) for k in _OUTPUT_ARGS))
+
+
+def _views(buf, views) -> dict:
+    """The outputs as views of the one uint8 buffer (`_plan`'s views)."""
+    by_dtype = {torch.uint8: buf}
+    out = {}
+    for name, dtype, shape, strides, off in views:
+        b = by_dtype.get(dtype)
+        if b is None:
+            b = by_dtype[dtype] = buf.view(dtype)
+        out[name] = b.as_strided(shape, strides, off)
+    return out
+
+
+def _refuse(tensors, names, shapes, dev):
+    """Raise for the first input K6 does not take: one on another device
+    or not a tensor, of another dtype or shape, not contiguous, or a level
+    array off a 16-byte boundary."""
+    if dev.type != "cuda" or any(not isinstance(x, torch.Tensor)
+                                 or x.device != dev for x in tensors):
+        where = [getattr(x, "device", type(x)) for x in tensors]
+        raise ValueError("symbolize_tiles: K6 takes tensors on one CUDA "
+                         f"device, not {where}")
+    for name, x, want in zip(names, tensors, shapes):
+        if x.dtype != torch.int32:
+            raise TypeError(f"symbolize_tiles: {name} is {x.dtype}, not "
+                            "torch.int32")
+        if x.shape != want:
+            raise ValueError(f"symbolize_tiles: {name} of shape "
+                             f"{tuple(x.shape)}, not {tuple(want)}")
+        if not x.is_contiguous():
+            raise ValueError(f"symbolize_tiles: {name} is not contiguous")
+        if name in _ALIGNED and x.data_ptr() % 16:
+            raise ValueError(f"symbolize_tiles: {name} is not 16-byte "
+                             "aligned")
+    raise AssertionError("symbolize_tiles: an input was refused, then taken")
+
+
+_NAMES = tuple(name for name, _ in INPUTS) + ("qp_rows",)
+_ALIGN_MASK = tuple(15 if name in _ALIGNED else 0 for name in _NAMES)
+
+
+def _pointers(tensors, shapes, index):
+    """The inputs' addresses when K6 takes every one of them (int32,
+    contiguous, of its shape, on card `index`, the levels 16-byte
+    aligned), in one pass; else None."""
+    ptrs = []
+    for x, want, mask in zip(tensors, shapes, _ALIGN_MASK):
+        if not isinstance(x, torch.Tensor) or x.dtype is not torch.int32 \
+                or x.shape != want or not x.is_contiguous() \
+                or x.get_device() != index:
+            return None
+        ptrs.append(x.data_ptr())
+        if ptrs[-1] & mask:
+            return None
+    return ptrs
 
 
 def symbolize_tiles(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
@@ -139,63 +226,45 @@ def symbolize_tiles(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
     shape (n, nmb) + its trailing shape (`INPUTS`), on one CUDA device,
     the levels 16-byte aligned; qp_rows an (n, mb_height) int32 row plan
     or None. Returns the plain version's dict (`symbolize_plain`), every
-    key with its dtype and shape; the int32 outputs are views of one
-    buffer. Raises on any other input: the plain version is
-    `mbscan.symbolize_plain`."""
-    args = (sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
-            dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev)
-    dev = sel.device
-    tensors = args + (() if qp_rows is None else (qp_rows,))
-    if dev.type != "cuda" or any(not isinstance(x, torch.Tensor)
-                                 or x.device != dev for x in tensors):
-        where = [getattr(x, "device", type(x)) for x in tensors]
-        raise ValueError("symbolize_tiles: K6 takes tensors on one CUDA "
-                         f"device, not {where}")
-    if sel.ndim != 2:
-        raise ValueError(f"symbolize_tiles: sel of shape {tuple(sel.shape)}")
-    n, nmb = sel.shape
+    key with its dtype and shape, all of them views of one buffer. Raises
+    on any other input: the plain version is `mbscan.symbolize_plain`.
+
+    Its host time is kept short: the inputs are checked in one pass
+    (`_pointers`; `_refuse` says what is wrong), the buffer's layout is
+    worked out once per size (`_plan`), and one allocation holds every
+    output."""
+    tensors = (sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
+               dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev)
+    if qp_rows is not None:
+        tensors += (qp_rows,)
+    try:
+        n, nmb = sel.shape
+        dev = sel.device
+        index = sel.get_device()
+    except (AttributeError, ValueError):
+        raise ValueError(f"symbolize_tiles: sel of shape "
+                         f"{tuple(getattr(sel, 'shape', ()))}") from None
     if nmb != mb_width * mb_height:
         raise ValueError(f"symbolize_tiles: {nmb} MBs are not {mb_width} x "
                          f"{mb_height}")
-    named = list(zip(INPUTS, args))
-    if qp_rows is not None:
-        named.append((("qp_rows", None), qp_rows))
-    for (name, trail), x in named:
-        want = (n, mb_height) if trail is None else (n, nmb) + trail
-        if x.dtype != torch.int32:
-            raise TypeError(f"symbolize_tiles: {name} is {x.dtype}, not "
-                            "torch.int32")
-        if tuple(x.shape) != want:
-            raise ValueError(f"symbolize_tiles: {name} of shape "
-                             f"{tuple(x.shape)}, not {want}")
-        if not x.is_contiguous():
-            raise ValueError(f"symbolize_tiles: {name} is not contiguous")
-        if name in _ALIGNED and x.data_ptr() % 16:
-            raise ValueError(f"symbolize_tiles: {name} is not 16-byte "
-                             "aligned")
-    layout = _layout(n, nmb, mb_height, qp_rows is not None)
-    sizes = [int(np.prod(s)) for _, s in layout]
-    starts = np.concatenate([[0], np.cumsum([-(-k // 4) * 4 for k in sizes])])
-    with torch.cuda.device(dev):
-        buf = torch.empty(int(starts[-1]), dtype=torch.int32, device=dev)
-        out = {name: buf[a:a + k].view(s) for (name, s), a, k in zip(
-            layout, starts.tolist(), sizes)}
-        out["skip"] = torch.empty((n, nmb), dtype=torch.bool, device=dev)
+    shapes, nbytes, views, offsets = _plan(n, nmb, mb_height,
+                                           qp_rows is not None)
+    ptrs = _pointers(tensors, shapes, index) if dev.type == "cuda" else None
+    if ptrs is None:
+        _refuse(tensors, _NAMES, shapes, dev)
+    with torch.cuda.device(index):
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        out = _views(buf, views)
         if n * nmb == 0:
             buf.zero_()
-            out["skip"].zero_()
         else:
+            base = buf.data_ptr()
             cuda_build.check(_lib().h264lab_symbolize(
-                *(x.data_ptr() for x in args),
-                None if qp_rows is None else qp_rows.data_ptr(),
-                *(out[k].data_ptr() for k in (
-                    "sym_vals", "sym_lens", "tail_val", "tail_len",
-                    "total_bits", "row_bits", "skip", "cbp", "cbpc",
-                    "mvd_py", "mvd_px")),
-                out["qp_dec"].data_ptr() if "qp_dec" in out else None,
-                out["scratch"].data_ptr(), n, mb_width, mb_height,
-                int(bool(has_inter)), int(bool(svc_base_mode_bit)),
-                torch.cuda.current_stream(dev).cuda_stream), "symbolize")
+                *ptrs[:13], ptrs[13] if qp_rows is not None else None,
+                *(None if o is None else base + o for o in offsets), n,
+                mb_width, mb_height, int(bool(has_inter)),
+                int(bool(svc_base_mode_bit)),
+                torch.cuda.current_stream(index).cuda_stream), "symbolize")
             cuda_build.count_launch("symbolize")
     del out["scratch"]
     return out

@@ -352,7 +352,8 @@ def me_inputs(seed: int, n: int, mb_width: int, mb_height: int, qp: int,
 
 
 def sym_inputs(seed: int, n: int, mb_width: int, mb_height: int,
-               has_inter: bool, plan: bool = False) -> dict:
+               has_inter: bool, plan: bool = False,
+               dense: bool = False) -> dict:
     """Seeded inputs of `models.mbscan.symbolize` for n I or P slices of
     mb_width x mb_height MBs, made so that every branch of the symbolizer
     is taken:
@@ -375,7 +376,13 @@ def sym_inputs(seed: int, n: int, mb_width: int, mb_height: int,
       and chroma modes 0-3;
     - with `plan`, a row QP plan (n, mb_height) of QPs 0-51 that changes
       on most rows; MBs without mb_qp_delta (skipped, inter without
-      residual) keep the running QP.
+      residual) keep the running QP;
+    - with `dense`, every position a block codes is nonzero instead (16
+      of a luma or Intra_16x16 DC block, 15 of an AC block, 4 of a chroma
+      DC block; no MB is quiet, so none is skipped), with levels of +-1,
+      +-2 to 20, +-100 to 600 and +-2100 to 3000, so that blocks take both
+      escapes and suffixLength climbs to 6: the content on which coding a
+      block position by position costs the most.
     Returns numpy int32 arrays keyed by `symbolize`'s argument names: sel,
     mode16, cmode, shape (n, nmb); i4sym_v, i4sym_l (n, nmb, 16); mv4_y,
     mv4_x (n, nmb, 4, 4); dc_lev (n, nmb, 4, 4); ac_lev, lev_inter (n, nmb,
@@ -477,6 +484,21 @@ def sym_inputs(seed: int, n: int, mb_width: int, mb_height: int,
         for k, s in enumerate((sy, sx)):
             mv4[k] = np.where(pick[..., None, None], s.numpy()[..., None,
                                                                 None], mv4[k])
+    if dense:
+        def full(shape):
+            mag = np.select([rng.random(shape) < p for p in (0.1, 0.4, 0.7)],
+                            [np.ones(shape, int), rng.integers(2, 21, shape),
+                             rng.integers(100, 601, shape)],
+                            rng.integers(2100, 3001, shape))
+            return rng.choice([-1, 1], shape) * mag
+        lev_inter = np.where(inter[..., None, None, None, None], full(blk), 0)
+        ac_lev = np.where(inter[..., None, None, None, None], 0, full(blk))
+        ac_lev[..., 0, 0] = np.where(i16[..., None, None], 0,
+                                     ac_lev[..., 0, 0])
+        dc_lev = np.where(i16[..., None, None], full((n, nmb, 4, 4)), 0)
+        cdc_lev = full((n, nmb, 2, 2, 2))
+        cac_lev = full((n, nmb, 2, 2, 2, 4, 4))
+        cac_lev[..., 0, 0] = 0
     i4l = rng.choice([1, 4], (n, nmb, 16))
     out = dict(
         sel=sel, mode16=rng.integers(0, 4, (n, nmb)),

@@ -88,8 +88,9 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   and every slot, on seeded `sym_inputs`: I and P slices at 16 x 1080p
   (16, 8160), one frame with a row QP plan (1, 8160), the SVC base layer
   (1, 2040), a mesh band (1, 4080), 4 x 3, 6 x 1, 1 x 6 and 11 x 3 MBs,
-  with the base_mode_flag bit; each input launched 20 times, one count a
-  call. K1's words from K6's grid equal its words from the plain grid.
+  with the base_mode_flag bit, and 16 P slices of 1080p in which every
+  block codes all its positions (both level escapes, suffixLength up to
+  6); each input launched 20 times, one count a call. K1's words from K6's grid equal its words from the plain grid.
   The encode paths reach it: with `symbolize_plain` refused, GOP steps
   (IDR, P) and sequential frames encode to the CPU's bytes, one count per
   `symbolize` call. K6 refuses CPU tensors, other dtypes and shapes,
@@ -972,6 +973,7 @@ K6_CASES = [
     (99, 2, 1, 6, True, False, True),        # one MB wide
     (100, 2, 11, 3, True, True, False),
     (101, 2, 11, 3, False, False, True),
+    (102, 16, 120, 68, True, False, False, True),   # every position coded
 ]
 K6_KEYS = ("sel", "mode16", "cmode", "i4sym_v", "i4sym_l", "mv4_y", "mv4_x",
            "shape", "dc_lev", "ac_lev", "lev_inter", "cdc_lev", "cac_lev")
@@ -979,8 +981,9 @@ K6_REPEATS = 20
 
 
 def _k6_inputs(card, case):
-    seed, n, mbw, mbh, has_inter, plan, flag = case
-    d = sym_inputs(seed, n, mbw, mbh, has_inter, plan=plan)
+    seed, n, mbw, mbh, has_inter, plan, flag = case[:7]
+    d = sym_inputs(seed, n, mbw, mbh, has_inter, plan=plan,
+                   dense=case[7:] == (True,))
     t = [torch.from_numpy(d[k]).to(card) for k in K6_KEYS]
     qp = None if d["qp_rows"] is None else torch.from_numpy(
         d["qp_rows"]).to(card)
@@ -990,7 +993,8 @@ def _k6_inputs(card, case):
 
 def _k6_ids(c):
     return (f"{c[1]}x{c[2]}x{c[3]}-{'P' if c[4] else 'I'}"
-            + ("-plan" if c[5] else "") + ("-bm" if c[6] else ""))
+            + ("-plan" if c[5] else "") + ("-bm" if c[6] else "")
+            + ("-dense" if c[7:] == (True,) else ""))
 
 
 @pytest.mark.parametrize("case", K6_CASES, ids=_k6_ids)

@@ -18,18 +18,30 @@ A CUDA kernel cannot run here, so `emulate_k6` does in Python what K6
 does: pass A, a warp per MB, counts each block's nonzeros, derives cbp,
 cbpc, the coded counts that nC reads (a 32-byte record per MB), the MV
 predictors of the MB's partitions (lanes 0-3) and P_Skip's (lane 4);
-pass B scans each slice's MBs in chunks with a carry (here chunks of 5,
-so that the carry is used; the kernel's chunks are 1024) for the skip
-runs, the tail and the running QP; pass C, a warp per MB, codes unit u
-on lane u (the luma DC, the 16 luma blocks in BLOCK_SCAN_4x4 order, the
-chroma DC and AC) from the MB's and its left and upper neighbours'
-records, walking each block's positions in reverse scan as the kernel
-does, and builds the header on lanes 0 and 28-31, with the tables the
-kernel includes (`csrc/symbolize_tables.h`). It equals the
-plain version on every case. Three faults of the schedule each make it
-fail: nC read across a band's top (from the slice before), the slice
-scans' carry kept across a slice boundary, and the luma units in raster
-order. Tolerance: exact equality (integer arithmetic).
+pass B, a block per slice, gives each thread a run of consecutive MBs
+and scans the runs' last coded and last dQP MBs over the threads (here 4
+threads, so that runs hold several MBs and the scan carries across
+them; the kernel's block has 1024) for the skip runs, the tail and the
+running QP; pass C, a warp per MB, stages the
+MB's levels as the kernel lays them out in shared memory, derives unit
+u's descriptor on lane u (where its levels lie, its view of them, nC,
+max_coeff, whether its lengths stand) from the MB's and its left and
+upper neighbours' records, builds the header a slot a lane, and codes
+the residual units two a step, a half-warp a unit and a lane a scan
+position (`code_unit`): the ballot masks of the nonzero, +-1 and negative
+levels, each coefficient's rank in reverse scan order, TrailingOnes and
+their signs from the masks, run_before from the next nonzero below, and
+suffixLength from an exclusive scan of the levels' transfer maps (8
+nibbles, composed with the kernel's byte permutes) over the half-warp in
+4 shuffle steps; every slot of the grid must be written exactly once.
+The tables are the ones the kernel includes (`csrc/symbolize_tables.h`).
+It equals the plain version on every case, and `code_unit` equals the
+port's `cavlc.encode_blocks` on random blocks (hypothesis). Six faults of
+the schedule each make it fail: nC read across a band's top (from the
+slice before), the slice scans' carry kept across a slice boundary, the
+luma units in raster order, the suffixLength scan taken inclusive,
+TrailingOnes not capped at 3, and a run_before written for the last
+coefficient. Tolerance: exact equality (integer arithmetic).
 """
 
 import re
@@ -37,12 +49,14 @@ import re
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from h264lab_tpu.models import mbscan as jmb
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig
 from h264lab_tpu_torch.models import mbscan as tmb
 from h264lab_tpu_torch.models.encoder import H264Encoder
-from h264lab_tpu_torch.ops import cuda_build, tables, tables_cavlc
+from h264lab_tpu_torch.ops import cavlc, cuda_build, tables, tables_cavlc
 from h264lab_tpu_torch.ops import symbolize as k6
 from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder
@@ -61,21 +75,26 @@ CASES = [
     (107, 2, 1, 6, True, False, False),
     (108, 2, 1, 6, False, True, False),
 ]
-SCAN_CHUNK = 5                  # pass B's chunk in the emulation
+# and every block coding all its positions (`sym_inputs(dense=True)`)
+DENSE_CASES = [(109, 2, 11, 3, True, True, False, True),
+               (110, 2, 4, 3, False, False, True, True)]
+SCAN_THREADS = 4                # pass B's threads in the emulation
 
 
 def _ids(c):
     return (f"{c[1]}x{c[2]}x{c[3]}-{'P' if c[4] else 'I'}"
-            + ("-plan" if c[5] else "") + ("-bm" if c[6] else ""))
+            + ("-plan" if c[5] else "") + ("-bm" if c[6] else "")
+            + ("-dense" if c[7:] and c[7] else ""))
 
 
 def case(c):
-    seed, n, mbw, mbh, has_inter, plan, flag = c
-    return sym_inputs(seed, n, mbw, mbh, has_inter, plan=plan)
+    seed, n, mbw, mbh, has_inter, plan, flag = c[:7]
+    return sym_inputs(seed, n, mbw, mbh, has_inter, plan=plan,
+                      dense=bool(c[7:] and c[7]))
 
 
 def plain(d, c):
-    _, _, mbw, mbh, has_inter, _, flag = c
+    _, _, mbw, mbh, has_inter, _, flag = c[:7]
     qp = d["qp_rows"]
     return tmb.symbolize_plain(
         *(torch.from_numpy(d[k]) for k in KEYS), mbw, mbh, has_inter,
@@ -101,11 +120,11 @@ def _same(want: dict, got: dict, what: str):
         _eq(want[k].numpy(), got[k].numpy(), f"{what}: {k}")
 
 
-@pytest.mark.parametrize("c", CASES, ids=_ids)
+@pytest.mark.parametrize("c", CASES + DENSE_CASES, ids=_ids)
 def test_symbolize_plain_equals_jax(c):
     d = case(c)
     got = plain(d, c)
-    _, n, mbw, mbh, has_inter, plan, flag = c
+    _, n, mbw, mbh, has_inter, plan, flag = c[:7]
     for i in range(n):
         jax_in = [d[k][i] for k in KEYS]
         want = jmb.symbolize_stage(
@@ -175,6 +194,29 @@ def test_sym_inputs_cover_the_branches():
     assert all(seen.values()), [k for k, v in seen.items() if not v]
 
 
+def test_dense_sym_inputs_code_every_position():
+    """The dense cases: every block codes all its positions, no MB is
+    skipped, levels take both escapes, and suffixLength reaches 6."""
+    for c in DENSE_CASES:
+        d, out = case(c), plain(case(c), c)
+        _, n, mbw, mbh, has_inter, _, _ = c[:7]
+        sel = d["sel"]
+        inter, i16 = sel == tmb.SEL_INTER, sel == tmb.SEL_I16
+        luma = np.where(inter[..., None, None, None, None], d["lev_inter"],
+                        d["ac_lev"]).reshape(n, -1, 16, 16)
+        nz = (luma != 0).sum(-1)
+        assert (nz[i16] == 15).all() and (nz[~i16] == 16).all()
+        assert (d["dc_lev"][i16] != 0).all() and (d["cdc_lev"] != 0).all()
+        assert ((d["cac_lev"] != 0).sum((-2, -1)) == 15).all()
+        assert not out["skip"].any()
+        lens = out["sym_lens"].numpy().reshape(n, -1, 28, 34)
+        vals = out["sym_vals"].numpy().reshape(n, -1, 28, 34)
+        assert (lens == 28).any() and (lens == 30).any()
+        # a level coded at suffixLength 6: 1 << 6 | suffix, 7 to 21 bits
+        lv, vv = lens[..., 2:18], vals[..., 2:18]
+        assert ((lv >= 7) & (lv <= 21) & (vv >> 6 == 1)).any()
+
+
 # ---------------------------------------------------------------------------
 # K6's schedule, emulated
 # ---------------------------------------------------------------------------
@@ -223,77 +265,162 @@ def se(v):
 
 
 def level_code(lc, sl):
-    prefix = lc >> sl
-    if sl == 0 and lc < 14:
-        return 1, lc + 1
-    if sl == 0 and lc < 30:
-        return 16 | (lc - 14), 19
-    if sl > 0 and prefix < 15:
-        return (1 << sl) | (lc & ((1 << sl) - 1)), prefix + 1 + sl
+    """The kernel's `level_code`: level_prefix lc >> sl and sl suffix
+    bits, but at suffixLength 0 level_prefix 14 from levelCode 14, and the
+    two escapes from the escape's start."""
     rem = lc - ((15 << sl) + (15 if sl == 0 else 0))
-    if rem < 4096:
+    if rem >= 4096:
+        return (1 << 13) | (rem - 4096), 30
+    if rem >= 0:
         return (1 << 12) | rem, 28
-    return (1 << 13) | (rem - 4096), 30
+    if sl == 0 and lc >= 14:
+        return 16 | (lc - 14), 19
+    return (1 << sl) | (lc & ((1 << sl) - 1)), (lc >> sl) + 1 + sl
 
 
-def code_block(lv, nc, max_coeff, keep, sv, sl):
-    """The kernel's `code_block`: lv 16 levels in scan order; writes the
-    unit's 34 slots; returns the bits kept."""
-    total = sum(1 for v in lv if v)
-    t1 = signs = k = 0
-    ones = True
-    for p in range(15, -1, -1):
-        if lv[p]:
-            if k < 3 and ones and abs(lv[p]) == 1:
-                t1 += 1
-                signs = (signs << 1) | (lv[p] < 0)
-            else:
-                ones = False
-            k += 1
-    bits = [0]
+MAP_IDENTITY = 0x76543210       # suffixLength's transfer maps, 8 nibbles
+MAP_FLOOR = 0x76543211          # s -> max(s, 1)
+FULL16 = 0xFFFF
+
+
+def popc(x):
+    return bin(x).count("1")
+
+
+def clz(x):
+    return 32 - x.bit_length()
+
+
+def ctx_of(nc):
+    """coeff_token's table of nC (4: chroma DC, nC -1)."""
+    return 4 if nc < 0 else 0 if nc < 2 else 1 if nc < 4 else 2 if nc < 8 \
+        else 3
+
+
+def level_map(al):
+    """The kernel's `level_map`: the transfer map of a level of magnitude
+    al, nibble s the suffixLength after it at suffixLength s; k, the
+    thresholds al passes, is the bit length of (al - 1) / 3, the quotient
+    taken as the kernel's high half of (al - 1) * 0x55555556."""
+    k = min((((al - 1) * 0x55555556) >> 32).bit_length(), 5)
+    return MAP_FLOOR + ((0x111111 >> (4 * (5 - k))) if k else 0)
+
+
+def byte_perm(x, y, sel):
+    """`__byte_perm` (PRMT): byte n of the result is byte (sel's nibble n)
+    of the 8 bytes of y:x; the selectors used never set a nibble's top
+    bit."""
+    pool = x | y << 32
+    out = 0
+    for n in range(4):
+        k = (sel >> (4 * n)) & 15
+        assert k < 8, hex(sel)
+        out |= ((pool >> (8 * k)) & 0xFF) << (8 * n)
+    return out
+
+
+def map_bytes(w):
+    """The kernel's `map_bytes`: a map's nibbles spread to 8 bytes."""
+    even, odd = w & 0x0F0F0F0F, (w >> 4) & 0x0F0F0F0F
+    return byte_perm(even, odd, 0x5140), byte_perm(even, odd, 0x7362)
+
+
+def compose(lo, hi, f):
+    """The kernel's `compose`: g after f, g as the bytes (lo, hi), f as
+    nibbles; returns the result as nibbles and as bytes."""
+    r0, r1 = byte_perm(lo, hi, f & 0xFFFF), byte_perm(lo, hi, f >> 16)
+    return byte_perm(r0, r1, 0x6420) | (byte_perm(r0, r1, 0x7531) << 4), \
+        r0, r1
+
+
+def code_unit(lv, nc, max_coeff, keep, mutation=None):
+    """One half-warp of pass C coding one 4x4 block as the kernel does:
+    lv the 16 lanes' levels, lane i at scan position i (0 past
+    max_coeff), nc its nC (-1 for chroma DC, which also takes the chroma
+    DC total_zeros table). Returns [(slot, value, length)], the writes of
+    the 16 lanes in lane order, lengths 0 unless `keep`. `mutation`:
+    "inclusive_suffix" (each level's suffixLength from the scan including
+    its own map), "t1_uncapped" (TrailingOnes not capped at 3) or
+    "run_for_last" (a run_before for the last coefficient too)."""
+    nz = sum(1 << i for i in range(16) if lv[i])
+    big = sum(1 << i for i in range(16) if abs(lv[i]) > 1)
+    total = popc(nz)
+    rank = [popc(nz >> (i + 1)) for i in range(16)]
+    t1 = popc(nz >> (32 - clz(big)))
+    if mutation != "t1_uncapped":
+        t1 = min(t1, 3)
+    # the trailing ones' signs, the first highest: an OR over the lanes
+    signs = 0
+    for i in range(16):
+        if lv[i] and rank[i] < t1:
+            signs |= (lv[i] < 0) << (t1 - 1 - rank[i])
+    lvl = [bool(lv[i]) and rank[i] >= t1 for i in range(16)]
+    # suffixLength: the exclusive scan of the transfer maps from lane 15
+    # down, in 4 steps of __shfl_down_sync(.., d, 16); the kernel skips it
+    # when no half-warp has two levels past its trailing ones, where it
+    # leaves every level at s0, as the scan does
+    s0 = int(total > 10 and t1 < 3)
+    x = [level_map(abs(lv[i])) if lvl[i] else MAP_IDENTITY
+         for i in range(16)]
+    b = [map_bytes(w) for w in x]
+    for d in (1, 2, 4, 8):
+        step = [compose(*b[i], x[i + d] if i + d < 16 else MAP_IDENTITY)
+                for i in range(16)]
+        x, b = [c[0] for c in step], [c[1:] for c in step]
+    e = (x if mutation == "inclusive_suffix"
+         else x[1:] + [MAP_IDENTITY])
+    ctx = ctx_of(nc)
+    tz = 32 - clz(nz) - total
+    writes = []
 
     def put(slot, v, n):
-        sv[slot] = v
-        if keep:
-            sl[slot] = n
-            bits[0] += n
+        writes.append((slot, v, n if keep else 0))
 
-    ctx = 4 if nc < 0 else 0 if nc < 2 else 1 if nc < 4 else 2 if nc < 8 \
-        else 3
-    ct = TAB["COEFF_TOKEN"][(ctx * 17 + total) * 4 + t1]
-    put(0, ct & 0xFFFF, ct >> 16)
-    put(1, signs, t1)
-    suffix = 1 if total > 10 and t1 < 3 else 0
-    prev = first = k = 0
-    for p in range(15, -1, -1):
-        lev = lv[p]
-        if not lev:
-            continue
-        if k == 0:
-            first = p
-        else:
-            zeros_left = prev - (total - k)
-            if zeros_left > 0:
-                rb = TAB["RUN_BEFORE"][min(zeros_left, 7) * 15
-                                       + min(prev - p - 1, 14)]
-                put(19 + k - 1, rb & 0xFFFF, rb >> 16)
-        if k >= t1:
-            lc = 2 * (abs(lev) - 1) + (lev < 0)
-            if k == t1 and t1 < 3:
-                lc -= 2
-            put(2 + k, *level_code(max(lc, 0), suffix))
-            nxt = 1 if suffix == 0 else suffix
-            if abs(lev) > 3 << (nxt - 1):
-                nxt += 1
-            suffix = min(nxt, 6)
-        prev = p
-        k += 1
-    if 0 < total < max_coeff:
-        tz = first + 1 - total
-        t = (TAB["TOTAL_ZEROS_CDC"][min(total, 3) * 4 + min(tz, 3)] if nc < 0
-             else TAB["TOTAL_ZEROS"][min(total, 15) * 16 + tz])
-        put(18, t & 0xFFFF, t >> 16)
-    return bits[0]
+    for i in range(16):
+        l, r = lv[i], rank[i]
+        lc = max(2 * (abs(l) - 1) + (l < 0) - (2 if r == t1 and t1 < 3
+                                                 else 0), 0)
+        sl = (e[i] >> (4 * s0)) & 15
+        v, n = level_code(lc, sl)
+        zl = i - (total - 1 - r)
+        nxt = 31 - clz(nz & ((1 << i) - 1))
+        has_run = bool(l) and (r < total if mutation == "run_for_last"
+                               else r < total - 1)
+        rb = 0
+        if has_run and zl > 0:
+            rb = TAB["RUN_BEFORE"][min(zl, 7) * 15 + min(i - nxt - 1, 14)]
+        tab = 0
+        if i == 0:
+            tab = TAB["COEFF_TOKEN"][(ctx * 17 + total) * 4 + t1]
+        elif i == 2 and 0 < total < max_coeff:
+            tab = (TAB["TOTAL_ZEROS_CDC"][total * 4 + tz] if nc < 0
+                   else TAB["TOTAL_ZEROS"][total * 16 + tz])
+        # one level slot and one run_before slot a lane: a coefficient
+        # its rank's, the zero lanes the level slots past TotalCoeff and
+        # the lanes without a run the run_before slots past the runs, in
+        # turn from position 15 down (the last of them none)
+        t0 = max(total - 1, 0)
+        lslot = 2 + (r if l else total + 15 - i - r)
+        rslot = 19 + r if has_run else 19 + t0 + 15 - i - min(r, t0)
+        put(lslot, v if lvl[i] else 0, n if lvl[i] else 0)
+        if rslot < 34:
+            put(rslot, rb & 0xFFFF, rb >> 16)
+        if i == 1:
+            put(1, signs, t1)
+        elif i < 3:
+            put(0 if i == 0 else 18, tab & 0xFFFF, tab >> 16)
+    return writes
+
+
+def code_block_once(lv, nc, max_coeff, mutation=None):
+    """`code_unit`'s 34 slots of one block, lengths kept, and whether each
+    was written exactly once."""
+    vals, lens, count = [0] * 34, [0] * 34, [0] * 35
+    for slot, v, n in code_unit(lv, nc, max_coeff, True, mutation):
+        count[min(slot, 34)] += 1
+        if slot < 34:
+            vals[slot], lens[slot] = v, n
+    return vals, lens, count[:34] == [1] * 34 and count[34] == 0
 
 
 def median3(a, b, c):
@@ -304,8 +431,10 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
     """K6's three passes in Python on `sym_inputs` arrays. `mutation`:
     "nc_across_band_top" (pass C reads the upper records of a band's first
     row from the slice before it), "carry_across_slices" (pass B carries
-    its scans from one slice into the next) or "raster_luma" (luma units in
-    raster order). Returns the plain version's dict as torch tensors."""
+    its scans from one slice into the next), "raster_luma" (luma units in
+    raster order), or one of `code_unit`'s. Returns the plain version's
+    dict as torch tensors, and whether pass C wrote every slot of the grid
+    exactly once."""
     sel, shape = d["sel"], d["shape"]
     n, nmb = sel.shape
     zz, scan = TAB["ZIGZAG"], TAB["BLOCK_SCAN"]
@@ -389,7 +518,9 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
             rec[i, m, :16] = 0 if sk else luma
             rec[i, m, 16:] = n_ca if cbpc == 2 and not sk else 0
 
-    # pass B: the slice scans, chunk by chunk with a carry
+    # pass B: the slice scans, a block per slice, each thread a run of
+    # consecutive MBs; one exclusive max-scan over the threads of each
+    # run's last coded and last dQP MB starts each run's walk
     scan_out = np.zeros((n, nmb, 2), np.int64)
     qp_dec = np.zeros((n, nmb), I32)
     tail_val, tail_len, total = (np.zeros(n, I32) for _ in range(3))
@@ -397,33 +528,39 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
             if mutation == "carry_across_slices"
             else [[(i, m) for m in range(nmb)] for i in range(n)])
     for seq in seqs:
-        carry_c = carry_d = -1
-        for s0 in range(0, len(seq), SCAN_CHUNK):
-            chunk = seq[s0:s0 + SCAN_CHUNK]
-            run_c, run_d = carry_c, carry_d
-            for j, (i, m) in enumerate(chunk):
-                at = s0 + j                       # the index in the scan
-                coded = not skip[i, m]
-                dqp = coded and (sel[i, m] == tmb.SEL_I16 or cbp_o[i, m])
-                exc_c, exc_d = run_c, run_d
-                if coded:
-                    run_c = at
-                if dqp:
-                    run_d = at
+        per = -(-len(seq) // SCAN_THREADS)
+        runs = [range(min(k * per, len(seq)), min(k * per + per, len(seq)))
+                for k in range(SCAN_THREADS)]
+
+        def coded_dqp(at):
+            i, m = seq[at]
+            coded = not skip[i, m]
+            return coded, coded and bool(sel[i, m] == tmb.SEL_I16
+                                         or cbp_o[i, m])
+        last = [(max([at for at in run if coded_dqp(at)[0]], default=-1),
+                 max([at for at in run if coded_dqp(at)[1]], default=-1))
+                for run in runs]
+        for k, run in enumerate(runs):
+            run_c = max([c for c, _ in last[:k]], default=-1)
+            run_d = max([d for _, d in last[:k]], default=-1)
+            for at in run:
+                i, m = seq[at]
+                coded, dqp = coded_dqp(at)
                 delta = 0
                 if qp_rows is not None:
                     def qp_at(k):
                         ii, mm = seq[k]
                         return int(qp_rows[ii, mm // mbw])
                     first = int(qp_rows[i, 0])
-                    delta = qp_at(at) - (qp_at(exc_d) if exc_d >= 0
-                                         else first)
-                    qp_dec[i, m] = qp_at(run_d) if run_d >= 0 else first
-                scan_out[i, m] = (at - 1 - exc_c if coded else 0, delta)
-            carry_c, carry_d = run_c, run_d
+                    prev = qp_at(run_d) if run_d >= 0 else first
+                    delta = qp_at(at) - prev
+                    qp_dec[i, m] = qp_at(at) if dqp else prev
+                scan_out[i, m] = (at - 1 - run_c if coded else 0, delta)
+                run_c = at if coded else run_c
+                run_d = at if dqp else run_d
         if mutation != "carry_across_slices":
             i = seq[0][0]
-            trailing = nmb - 1 - carry_c
+            trailing = nmb - 1 - max(c for c, _ in last)
             if has_inter:
                 tail_val[i] = ue(trailing)[0]
                 tail_len[i] = ue(trailing)[1] if trailing > 0 else 0
@@ -436,10 +573,12 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
                 tail_len[i] = ue(int(trailing))[1] if trailing > 0 else 0
     total[:] = tail_len
 
-    # pass C: a warp per MB, lane u codes unit u, lanes 0 and 28-31 the
-    # header
+    # pass C: a warp per MB; the levels as the kernel lays them out in
+    # shared memory, the units' descriptors, the header a slot a lane, then
+    # the residual units two a step, a half-warp a unit
     vals = np.zeros((n, nmb, 28, 34), np.int64)
     lens = np.zeros((n, nmb, 28, 34), np.int64)
+    count = np.zeros((n, nmb, 28, 34), np.int64)
     row_bits = np.zeros((n, mbh), I32)
     flat_rec = rec.reshape(n * nmb, 24)
     for i in range(n):
@@ -467,88 +606,103 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
             cbp, cbpc = int(cbp_o[i, m]), int(cbpc_o[i, m])
             coded = not skip[i, m]
             cbpl_i16 = (cbp & 15) != 0
+            levs = np.concatenate([
+                d["lev_inter" if is_inter else "ac_lev"][i, m].reshape(256),
+                d["cac_lev"][i, m].reshape(128), d["dc_lev"][i, m].reshape(16),
+                d["cdc_lev"][i, m].reshape(8)]).astype(np.int64)
+            # lane u's descriptor of unit u: (levels at, view, nC, keep,
+            # max_coeff)
+            desc = [None]
+            desc.append((384, 0, block_nc(own, left, top, 4, 0, 0), is_i16,
+                         16))
+            for j in range(16):
+                b = j if mutation == "raster_luma" else scan[j]
+                grp = (b >> 3) * 2 + ((b & 3) >> 1)
+                keep = (cbpl_i16 if is_i16 else coded and (
+                    is_inter or is_i4) and bool((cbp >> grp) & 1))
+                desc.append((16 * b, int(is_i16), block_nc(
+                    own, left, top, 4, b >> 2, b & 3), keep,
+                    15 if is_i16 else 16))
+            for k in range(2):
+                desc.append((400 + 4 * k, 2, -1, cbpc >= 1 and coded, 4))
+            for k in range(8):
+                off = 16 + (k & 4)
+                desc.append((256 + 16 * k, 1, block_nc(
+                    own[off:], left[off:], top[off:], 2, (k >> 1) & 1, k & 1),
+                    cbpc == 2 and coded, 15))
             bits = 0
-            for lane in range(32):
-                if 1 <= lane < 28:
-                    sv, sl = vals[i, m, lane], lens[i, m, lane]
-                    max_coeff, nc = 16, -1
-                    if lane == 1:
-                        raw = d["dc_lev"][i, m].reshape(16)
-                        lv = [int(raw[zz[j]]) for j in range(16)]
-                        nc = block_nc(own, left, top, 4, 0, 0)
-                        keep = is_i16
-                    elif lane < 18:
-                        b = (lane - 2 if mutation == "raster_luma"
-                             else scan[lane - 2])
-                        src = d["lev_inter"] if is_inter else d["ac_lev"]
-                        raw = src[i, m].reshape(16, 16)[b]
-                        if is_i16:
-                            lv = [int(raw[zz[j + 1]]) for j in range(15)] + [0]
-                            max_coeff = 15
-                        else:
-                            lv = [int(raw[zz[j]]) for j in range(16)]
-                        nc = block_nc(own, left, top, 4, b >> 2, b & 3)
-                        grp = (b >> 3) * 2 + ((b & 3) >> 1)
-                        keep = (cbpl_i16 if is_i16 else coded and (
-                            is_inter or is_i4) and (cbp >> grp) & 1)
-                    elif lane < 20:
-                        lv = [int(v) for v in d["cdc_lev"][i, m].reshape(
-                            2, 4)[lane - 18]] + [0] * 12
-                        max_coeff = 4
-                        keep = cbpc >= 1 and coded
-                    else:
-                        k = lane - 20
-                        raw = d["cac_lev"][i, m].reshape(8, 16)[k]
-                        lv = [int(raw[zz[j + 1]]) for j in range(15)] + [0]
-                        max_coeff = 15
-                        off = 16 + (k & 4)
-                        nc = block_nc(own[off:], left[off:], top[off:], 2,
-                                      (k >> 1) & 1, k & 1)
-                        keep = cbpc == 2 and coded
-                    bits += code_block(lv, nc, max_coeff, bool(keep), sv, sl)
-                    continue
-                sv, sl = vals[i, m, 0], lens[i, m, 0]
-
-                def put(slot, v, nb, keep):
-                    sv[slot] = v
-                    if keep:
-                        sl[slot] = nb
-                    return nb if keep else 0
-                s = int(shape[i, m])
-                if lane == 0:
-                    run, delta = (int(x) for x in scan_out[i, m])
-                    if has_inter:
-                        bits += put(0, *ue(run), coded)
-                    bits += put(1, 0, 1, flag and coded)
-                    i16code = (1 + int(d["mode16"][i, m]) + 4 * cbpc
-                               + 12 * cbpl_i16)
-                    mb_type = ((s if is_inter else 5 if is_i4
-                                else 5 + i16code) if has_inter
-                               else 0 if is_i4 else i16code)
-                    bits += put(2, *ue(mb_type), coded)
-                    for j in range(4):
-                        bits += put(3 + j, 1, 1,
-                                    coded and is_inter and s == 3)
-                    bits += put(31, *ue(int(d["cmode"][i, m])),
-                                coded and not is_inter)
-                    code = TAB["CBP_TO_CODENUM"][min(max(cbp, 0), 47) * 2
-                                                 + (0 if is_i4 else 1)]
-                    bits += put(32, *ue(code), coded and (is_inter or is_i4))
-                    dqp = coded and (is_i16 or cbp != 0)
-                    if qp_rows is not None:
-                        bits += put(33, *se(delta), dqp)
-                    else:
-                        bits += put(33, 1, 1, dqp)
+            # the header, a slot a lane
+            sh = int(shape[i, m])
+            run, delta = (int(x) for x in scan_out[i, m])
+            i16code = 1 + int(d["mode16"][i, m]) + 4 * cbpc + 12 * cbpl_i16
+            mb_type = ((sh if is_inter else 5 if is_i4 else 5 + i16code)
+                       if has_inter else 0 if is_i4 else i16code)
+            n_parts = len(PARTS[min(max(sh, 0), 3)])
+            code = TAB["CBP_TO_CODENUM"][min(max(cbp, 0), 47) * 2
+                                         + (0 if is_i4 else 1)]
+            dqp = coded and (is_i16 or cbp != 0)
+            for slot in range(34):
+                p = (slot - 7) >> 1
+                if slot == 0:
+                    v, nb = ue(run) if has_inter else (0, 0)
+                    keep = has_inter and coded
+                elif slot == 1:
+                    v, nb, keep = 0, 1, flag and coded
+                elif slot == 2:
+                    (v, nb), keep = ue(mb_type), coded
+                elif slot < 7:
+                    v, nb, keep = 1, 1, coded and is_inter and sh == 3
+                elif slot < 15:
+                    mv = (mvd_x if slot & 1 else mvd_y)[i, m, p]
+                    (v, nb), keep = se(int(mv)), (p < n_parts and coded
+                                                  and is_inter)
+                elif slot < 31:
+                    v = int(d["i4sym_v"][i, m, slot - 15])
+                    nb = int(d["i4sym_l"][i, m, slot - 15])
+                    keep = is_i4
+                elif slot == 31:
+                    (v, nb) = ue(int(d["cmode"][i, m]))
+                    keep = coded and not is_inter
+                elif slot == 32:
+                    (v, nb), keep = ue(code), coded and (is_inter or is_i4)
                 else:
-                    p = lane - 28
-                    n_parts = len(PARTS[min(max(s, 0), 3)])
-                    active = p < n_parts and coded and is_inter
-                    bits += put(7 + 2 * p, *se(int(mvd_x[i, m, p])), active)
-                    bits += put(8 + 2 * p, *se(int(mvd_y[i, m, p])), active)
-                    for j in range(4):
-                        q = 4 * p + j
-                        bits += put(15 + q, int(d["i4sym_v"][i, m, q]),
-                                    int(d["i4sym_l"][i, m, q]), is_i4)
+                    v, nb = se(delta) if qp_rows is not None else (1, 1)
+                    keep = dqp
+                vals[i, m, 0, slot], lens[i, m, 0, slot] = v, nb if keep else 0
+                count[i, m, 0, slot] += 1
+                bits += nb if keep else 0
+            # the residual units: half-warp h codes unit 2t + h
+            zz1 = [zz[min(j + 1, 15)] for j in range(16)]
+            for t in range(14):
+                lanes = []
+                for h in range(2):        # each half's levels by its view
+                    at, view = desc[max(2 * t + h, 1)][:2]
+                    lanes.append([int(levs[at + (
+                        zz[j] if view == 0 else zz1[j] if view == 1 else j)])
+                        if view == 0 or (j < 15 if view == 1 else j < 4)
+                        else 0 for j in range(16)])
+                for h in range(2):
+                    u = 2 * t + h
+                    if u == 0:
+                        continue
+                    at, view, nc, keep, max_coeff = desc[u]
+                    lv = lanes[h]
+                    if not any(lanes[0] + lanes[1]):
+                        # both blocks empty: the coeff_token of
+                        # TotalCoeff 0 on lane 0, every other slot 0
+                        ct = TAB["COEFF_TOKEN"][ctx_of(nc) * 68]
+                        writes = [(0, ct & 0xFFFF, ct >> 16 if keep else 0)]
+                        writes += [(j, 0, 0) for j in range(1, 34)]
+                    else:
+                        writes = code_unit(lv, nc, max_coeff, bool(keep),
+                                           mutation)
+                    for slot, v, nb in writes:
+                        if slot < 34:
+                            vals[i, m, u, slot], lens[i, m, u, slot] = v, nb
+                            count[i, m, u, slot] += 1
+                        else:                 # past the unit
+                            count[i, m, u, 33] += 1
+                        bits += nb
             row_bits[i, r] += bits
             total[i] += bits
     t = torch.from_numpy
@@ -559,26 +713,79 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
                cbp=t(cbp_o), cbpc=t(cbpc_o), mvd_py=t(mvd_y), mvd_px=t(mvd_x))
     if qp_rows is not None:
         out["qp_dec"] = t(qp_dec)
-    return out
+    return out, bool((count == 1).all())
 
 
-@pytest.mark.parametrize("c", CASES, ids=_ids)
+@pytest.mark.parametrize("c", CASES + DENSE_CASES, ids=_ids)
 def test_k6_schedule_equals_plain(c):
     d = case(c)
-    _, _, mbw, mbh, has_inter, _, flag = c
-    _same(plain(d, c), emulate_k6(d, mbw, mbh, has_inter, flag), _ids(c))
+    _, _, mbw, mbh, has_inter, _, flag = c[:7]
+    got, once = emulate_k6(d, mbw, mbh, has_inter, flag)
+    assert once, "a slot of the grid not written exactly once"
+    _same(plain(d, c), got, _ids(c))
 
 
 @pytest.mark.parametrize("mutation,c", [
     ("nc_across_band_top", CASES[3]),
     ("carry_across_slices", CASES[0]),
-    ("raster_luma", CASES[2])])
+    ("raster_luma", CASES[2]),
+    ("inclusive_suffix", CASES[0]),
+    ("t1_uncapped", CASES[1]),
+    ("run_for_last", CASES[4])])
 def test_k6_schedule_mutations_fail(mutation, c):
     d = case(c)
     _, _, mbw, mbh, has_inter, _, flag = c
     want = plain(d, c)
-    got = emulate_k6(d, mbw, mbh, has_inter, flag, mutation)
-    assert any(not torch.equal(want[k], got[k]) for k in want), mutation
+    got, once = emulate_k6(d, mbw, mbh, has_inter, flag, mutation)
+    assert not once or any(not torch.equal(want[k], got[k])
+                           for k in want), mutation
+
+
+def test_k6_suffix_maps_follow_the_recurrence():
+    """`level_map` is `encode_blocks`' suffixLength step at every state
+    and magnitude, and `compose` with its byte permutes is the composition
+    of maps on random maps of states 0-7."""
+    for al in list(range(1, 200)) + [383, 384, 385, 767, 768, 769, 3000,
+                                     2 ** 20, 2 ** 31 - 1]:
+        w = level_map(al)
+        for s in range(7):
+            nxt = 1 if s == 0 else s
+            want = min(nxt + (al > 3 << (nxt - 1)), 6)
+            assert (w >> 4 * s) & 15 == want, (al, s)
+    rng = np.random.default_rng(19)
+    for _ in range(500):
+        f, g = (rng.integers(0, 8, 8) for _ in range(2))
+        word = [sum(int(x[s]) << 4 * s for s in range(8)) for x in (f, g)]
+        got = compose(*map_bytes(word[1]), word[0])[0]
+        assert [(got >> 4 * s) & 15 for s in range(8)] == [
+            int(g[f[s]]) for s in range(8)]
+    assert compose(*map_bytes(MAP_IDENTITY), 0x12345670)[0] == 0x12345670
+    assert compose(*map_bytes(0x12345670), MAP_IDENTITY)[0] == 0x12345670
+
+
+LEVELS = st.one_of(st.sampled_from([-1, 1]), st.integers(-3, 3),
+                   st.integers(-60, 60), st.integers(-3000, 3000),
+                   st.sampled_from([-3000, -2063, -2048, 2047, 2064, 3000]))
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(st.data())
+def test_k6_block_coder_equals_encode_blocks(data):
+    """The kernel's half-warp block coder (`code_unit`) against the port's
+    `cavlc.encode_blocks` on random blocks: nC -1 (chroma DC, max_coeff
+    4) or 0 to 16 with max_coeff 15 or 16, any number of nonzeros, levels
+    into both escapes of the level code; every slot written once."""
+    max_coeff = data.draw(st.sampled_from([4, 15, 16]))
+    nc = -1 if max_coeff == 4 else data.draw(st.integers(0, 16))
+    on = data.draw(st.lists(st.booleans(), min_size=max_coeff,
+                            max_size=max_coeff))
+    lv = [data.draw(LEVELS) if x else 0 for x in on] + [0] * (16 - max_coeff)
+    vals, lens, once = code_block_once(lv, nc, max_coeff)
+    want_v, want_l, _ = cavlc.encode_blocks(
+        torch.tensor([lv]), torch.tensor([nc]), max_coeff)
+    assert once
+    assert vals == (want_v[0].long() & 0xFFFFFFFF).tolist()
+    assert lens == want_l[0].tolist()
 
 
 def test_k6_tables_come_from_the_port():
@@ -623,6 +830,23 @@ def test_a_header_beside_a_source_is_in_its_digest(tmp_path):
     assert first.parent == cuda_build.BUILD_DIR
 
 
+def test_a_cached_build_keeps_its_compiler_log(tmp_path, monkeypatch):
+    """`cuda_build.build_all` keeps each build's compiler log (ptxas's
+    registers, shared memory and stack) beside its library and returns it
+    again when the library is cached."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\necho "ptxas info    : Used 40 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: str(nvcc))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "k.cu"
+    src.write_text("// a kernel\n")
+    (path, log), = cuda_build.build_all([src])
+    assert path.exists() and "Used 40 registers" in log
+    assert cuda_build.build_all([src]) == [(path, log)]
+
+
 def test_symbolize_args_pack_the_plain_arguments():
     c = CASES[0]
     d = case(c)
@@ -652,6 +876,44 @@ def test_symbolize_args_pack_the_plain_arguments():
     assert args[14:] == (mbw, mbh, True, False)
     assert tmb.symbolize_args(*(t[k] for k in KEYS), mbw, mbh, False)[13] \
         is None
+
+
+@pytest.mark.parametrize("plan", [False, True])
+def test_k6_buffer_holds_the_plain_outputs(plan):
+    """The wrapper's one buffer (`symbolize._plan`, `_views`): every output
+    of the plain version with its dtype and shape, and the scratch, each
+    on a 16-byte boundary, none overlapping, the entry point's pointers at
+    their offsets; worked out once per size."""
+    c = CASES[0] if plan else CASES[1]
+    want = plain(case(c), c)
+    n, nmb, mbh = c[1], c[2] * c[3], c[3]
+    shapes, nbytes, views, offsets = k6._plan(n, nmb, mbh, plan)
+    assert k6._plan(n, nmb, mbh, plan)[2] is views
+    assert [tuple(x) for x in shapes] == [(n, nmb) + t for _, t in k6.INPUTS] \
+        + ([(n, mbh)] if plan else [])
+    buf = torch.zeros(nbytes, dtype=torch.uint8)
+    out = k6._views(buf, views)
+    assert set(out) == set(want) | {"scratch"}
+    spans = []
+    for name, x in out.items():
+        if name != "scratch":
+            assert x.dtype == want[name].dtype and x.shape == want[name].shape
+        assert x.is_contiguous()
+        start = x.data_ptr() - buf.data_ptr()
+        assert start % 16 == 0, name
+        spans.append((start, start + x.numel() * x.element_size()))
+        if name in k6._OUTPUT_ARGS:
+            assert offsets[k6._OUTPUT_ARGS.index(name)] == start, name
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= nbytes
+    assert (offsets[k6._OUTPUT_ARGS.index("qp_dec")] is None) == (not plan)
+    # every output is written through its view
+    for x in out.values():
+        x.fill_(1)
+    assert int(buf.sum()) == sum(x.numel() * x.element_size()
+                                 for x in out.values()) - 3 * sum(
+        x.numel() for x in out.values() if x.dtype == torch.int32)
 
 
 def test_cpu_tensors_never_reach_k6():
