@@ -8,10 +8,12 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the bit-pack kernel K1 (h264lab_tpu_torch/csrc/bitpack.cu),
      the deblocking kernel K2 (csrc/deblock.cu), the wavefront kernel K3
      (csrc/wavefront.cu), the motion search kernels K4 and K5
-     (csrc/me.cu) and the CAVLC symbolization kernel K6
-     (csrc/symbolize.cu, with its tables in csrc/symbolize_tables.h),
-     one nvcc each, started together, and print what ptxas
-     reports (registers, shared memory, spills);
+     (csrc/me.cu), the CAVLC symbolization kernel K6
+     (csrc/symbolize.cu, with its tables in csrc/symbolize_tables.h), the
+     inter residual kernel K7 (csrc/inter.cu) and the parallel P select
+     kernel K8 (csrc/select.cu; both with csrc/tq.h and its tables in
+     csrc/tq_tables.h), one nvcc each, started together, and print what
+     ptxas reports (registers, shared memory, spills);
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
      encode_speed 2, lane g walking consecutive frames g, g+1, ...:
@@ -25,9 +27,10 @@ Phases (any failure exits non-zero; nothing is caught):
      escape and the bit writers they pack are kept for phase 6, their
      deblocking and wavefront inputs for phase 4, its motion search
      inputs for phase 18, the two stage steps' symbolize inputs for phase
-     19; the main path must have launched K1 and K2 on every step, K3 once
-     on each of its three IDR steps, K4 once on each of its five P steps
-     (no K5 at speed 2) and K6 once on every step;
+     19, its K7 and K8 inputs for phase 20; the main path must have
+     launched K1 and K2 on every step, K3 once on each of its three IDR
+     steps, K4, K7 and K8 once on each of its five P steps (no K5 at speed
+     2) and K6 once on every step;
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
@@ -40,7 +43,7 @@ Phases (any failure exits non-zero; nothing is caught):
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1; then
      decode lane 0's stream of those two steps with the port's decoder
-     (numpy, on the host) in a worker process, beside phases 6 to 19:
+     (numpy, on the host) in a worker process, beside phases 6 to 20:
      both frames must equal the card's reconstruction; before the results
      the script waits for it and prints the decode seconds per 1080p
      frame (a host time, taken while the other phases run);
@@ -59,8 +62,9 @@ Phases (any failure exits non-zero; nothing is caught):
      first use), one P frame timed without synchronization inside it
      (seconds per frame, frames/s) and one P frame with per-stage times
      (its motion search and partition search inputs kept for phase 18,
-     its symbolize inputs for phase 19); the path must have launched K1,
-     K2, K3 and K6 on every frame and K4 and K5 on each P frame;
+     its symbolize inputs for phase 19, its K7 inputs with K5's
+     partitions for phase 20); the path must have launched K1, K2, K3 and
+     K6 on every frame, K4, K5 and K7 on each P frame and K8 on none;
   8. hold K1 against the plain packer on that P frame's (1, 8160, 952)
      grid, at its capacity and at 1024 words, K2 against the plain
      filter on its deblocking inputs and K3 against the plain wavefront on
@@ -69,13 +73,14 @@ Phases (any failure exits non-zero; nothing is caught):
      0 (IDR, P, P) and at speed 10 (full-pel, deblocking off: IDR, P), and
      a 2-lane GopBandEncoder at speed 1 (IDR, P); each card stream (both
      lanes) decodes bit-exactly to the card's reconstruction; the card
-     encoders must have launched K4 on each of their four P frames or
-     steps, K5 on the two at speed 0 and K6 once for each of their
-     symbolize calls;
+     encoders must have launched K4 and K7 on each of their four P frames
+     or steps, K5 on the two at speed 0, K8 on the one at speed 10 and K6
+     once for each of their symbolize calls;
   10. the CLI on the card (`h264lab_tpu_torch.cli.main`, --gen 352x288,
      3 frames, --psnr): it must return 0, write a stream that starts with
      an SPS and decodes to 3 frames of 352x288, and launch K6 once for
-     each symbolize call;
+     each symbolize call and K7 on each of its 2 P frames (K8 on none: the
+     CLI's speed is 0);
   11. two-layer SVC: SvcEncoder at 1920x1088 over 960x544 with
      inter-layer prediction, chessboard, QP 33, GOP 20, encode_speed 2:
      an IDR (untimed, first use), a P frame timed without synchronization
@@ -84,8 +89,9 @@ Phases (any failure exits non-zero; nothing is caught):
      base layer, the enhancement layer and the resampling; K1 and K2 must
      have launched at least once per layer and frame, K2 also for the
      base-mode frame's own deblocking, K3 once for each of the two base
-     layer IDRs, K4 once per layer of each P frame (the stage P frame's
-     motion search inputs of both layers kept for phase 18), K6 once per
+     layer IDRs, K4, K7 and K8 once per layer of each P frame (the stage P
+     frame's motion search inputs of both layers kept for phase 18, its K7
+     and K8 inputs of both layers for phase 20), K6 once per
      layer of each P frame and once for each IDR's base layer (an IDR's
      enhancement layer is base-mode, coded by `svc.base_mode_symbols`;
      the stage P frame's symbolize inputs of both layers, the
@@ -101,7 +107,8 @@ Phases (any failure exits non-zero; nothing is caught):
      (IDR, P); each card stream decodes bit-exactly to the card's
      reconstructions: the enhancement layer whole, the base layer with
      NAL types 14, 15 and 20 stripped; the card encoders launch K6 once
-     for each of their symbolize calls;
+     for each of their symbolize calls, K7 once per layer of each P frame
+     and K8 once per layer of the speed-2 P frame;
   14. `entry()` (the driver entry point: the 128x96 wavefront intra
      encode) on the card: every output equals `entry("cpu")`'s, and it
      launched K3 once and K6 once (its symbolize inputs kept for phase
@@ -123,10 +130,11 @@ Phases (any failure exits non-zero; nothing is caught):
      equal an unsharded GopBandEncoder on the card with the same
      configuration, whose lane 0 IDR and first P must equal a CPU encode;
      K1, K2 and K6 must have launched exactly once for every shard and
-     step, K3 for every shard of the IDR step, K4 for every shard of the
-     two P steps (a band-1 shard's motion search inputs of the first P
-     step kept for phase 18, a shard's symbolize inputs of that step for
-     phase 19). Then a forced IDR step and a P step without
+     step, K3 for every shard of the IDR step, K4, K7 and K8 for every
+     shard of the two P steps (a band-1 shard's motion search and K7
+     inputs of the first P step kept for phases 18 and 20, a shard's
+     symbolize and K8 inputs of that step for phases 19 and 20). Then a
+     forced IDR step and a P step without
      stage syncs, the mesh's and the unsharded encoder's in turns, and
      the pipelined loop (`encode_step_async` of step t + 1 before
      `finish_step(t)`, MESH_PIPELINED P steps) on each: the bytes equal,
@@ -206,7 +214,27 @@ Phases (any failure exits non-zero; nothing is caught):
      record of most traces; K6's kernels and no other, all three in the
      16-lane P step's, whose device time goes into the kernels line; a
      check's device time only from a trace that holds all three);
-  20. print the kernels line (JSON), then the result line (JSON).
+  20. hold K7 (the inter residual, `residual.inter_tiles` through
+     `mbscan.inter_residual`) against `mbscan.inter_residual_plain` and
+     K8 (the parallel P select, `residual.select_tiles` through
+     `mbscan.select_parallel`) against `mbscan.select_parallel_plain`,
+     every output (names in order, dtypes, shapes, values): on the real
+     inputs of the 16-lane P step, the speed-0 P frame (K7, with K5's
+     partitions), both SVC layers' P frame and a mesh shard's band; then
+     on seeded inputs (`utils.synthetic.inter_residual_inputs`,
+     `select_parallel_inputs`) at (16, 8160), (1, 8160) with a row QP
+     plan (K7 at speed 0), (1, 2040), a (1, 4080) band, 4 x 3, 6 x 1, 1 x
+     6 and 11 x 3 MBs, and for K7 MVs past the search's reach on planes
+     with a noise guard. Every check launches the kernel 20 times, one
+     count a call, each output equal, and prints its wrapper ms (CUDA
+     events over 20 calls), its host us a call, the entry's ms (the
+     packing and the kernel), the plain version's ms (one call), the byte
+     bound and its share (`k7_bytes`, `k8_bytes`), and on the real inputs
+     the device us of its kernels (the fullest of up to six
+     `torch.profiler` traces; none where all six lost a record); the
+     phase prints each kernel's registers, shared memory, stack and
+     spills;
+  21. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -323,6 +351,40 @@ K6_DENSE_CASE = ("16 lanes of 1080p, P, dense", 72, LANES, 120, 68, True,
 K6_REPEATS = 20                  # launches of K6 per check, all equal
 TRACE_MARGIN_S = 0.02            # host time in a trace before and after a
                                  # traced call (`trace_kernels`)
+# phase 20: K7 (what, seed, frames, mb_width, mb_height, qp, lanes, lane
+# frame rows, row QP plan, partitions, quarter-pel, full-pel reach, noise
+# guard) and K8 (what, seed, frames, mb_width, mb_height, qp, row QP plan,
+# band)
+K7_CASES = (
+    ("16 lanes of 1080p", 81, LANES, 120, 68, QP, LANES, None, False, False,
+     True, 55, False),
+    ("1080p speed 0, a row QP plan", 82, 1, 120, 68, QP, 1, None, True,
+     True, True, 55, False),
+    ("the SVC base layer", 83, 1, 60, 34, QP, 1, None, False, False, True,
+     55, False),
+    ("a mesh band, full-pel", 84, 2, 120, 34, QP, 1, 68, False, False, False,
+     55, False),
+    ("4 x 3 MBs, speed 0", 85, 3, 4, 3, 0, 2, 6, False, True, True, 55,
+     False),
+    ("6 x 1 MBs", 86, 2, 6, 1, 51, 1, 4, True, False, True, 55, False),
+    ("1 x 6 MBs, speed 0", 87, 2, 1, 6, 12, 1, None, False, True, True, 55,
+     False),
+    ("11 x 3 MBs, a row QP plan", 88, 2, 11, 3, 40, 2, 9, True, False, True,
+     55, False),
+    ("4 x 3 MBs past the reach", 89, 2, 4, 3, 28, 1, 6, False, False, True,
+     63, True),
+)
+K8_CASES = (
+    ("16 lanes of 1080p", 91, LANES, 120, 68, QP, False, True),
+    ("1080p, a row QP plan", 92, 1, 120, 68, QP, True, False),
+    ("the SVC base layer", 93, 1, 60, 34, QP, False, True),
+    ("a mesh band", 94, 2, 120, 34, QP, False, True),
+    ("4 x 3 MBs", 95, 3, 4, 3, 0, True, False),
+    ("6 x 1 MBs", 96, 2, 6, 1, 51, False, False),
+    ("1 x 6 MBs", 97, 2, 1, 6, 12, True, True),
+    ("11 x 3 MBs", 98, 2, 11, 3, 40, False, False),
+)
+RESIDUAL_REPEATS = 20            # launches of K7 and K8 per check, all equal
 
 
 def _require(ok: bool, what: str):
@@ -541,12 +603,18 @@ def check_k3(args, what, label):
 
 
 def to_device(args, device):
-    """Recorded arguments with their tensors moved to `device` (the host
-    keeps a path's inputs until phase 18)."""
+    """Recorded arguments with their tensors, and those of a dict among
+    them, moved to `device` (the host keeps a path's inputs until phase
+    18)."""
     import torch
 
-    return tuple(x.to(device) if isinstance(x, torch.Tensor) else x
-                 for x in args)
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        return x
+    return tuple(move(x) for x in args)
 
 
 def search_bound(tensors, n_ops):
@@ -813,10 +881,13 @@ def trace_kernels(fn, margin=TRACE_MARGIN_S, warm=True):
     after the trace starts and ends that long before it stops; with
     `warm`, a first call of `fn` runs inside the trace before it, and
     only the kernels that start after the traced call's host start are
-    kept: once the encoder has run in a process, the profiler drops the
-    first hand-kernel record of most traces (`tools/torch_profiler_drops
-    .py`, PERF.md §6). Lead: the device start of the first kernel kept
-    less the host start of the traced call, None without a kernel."""
+    kept (`margin` seconds after the warm call's end, so that a device
+    clock a little ahead of the host's in the trace cannot move the warm
+    call's kernels past that start): once the encoder has run in a
+    process, the profiler drops the first hand-kernel record of most
+    traces (`tools/torch_profiler_drops.py`, PERF.md §6). Lead: the device
+    start of the first kernel kept less the host start of the traced
+    call, None without a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -827,6 +898,7 @@ def trace_kernels(fn, margin=TRACE_MARGIN_S, warm=True):
         if warm:
             fn()
             torch.cuda.synchronize()
+            time.sleep(margin)
         with record_function("traced call"):
             fn()
             torch.cuda.synchronize()
@@ -898,6 +970,200 @@ def ptxas_numbers(lines):
             m = re.search(pat, text)
             if m:
                 v[key] = int(m.group(1))
+    return out
+
+
+def residual_record():
+    """What the paths keep of K7 and K8 for phase 20 and the kernels line:
+    "calls", each kernel's real inputs by path (`inter_residual` and
+    `select_parallel` arguments, on the host), and "launches", (K7, K8)
+    launches by path."""
+    return {"calls": {"inter_residual": {}, "select_parallel": {}},
+            "launches": {}}
+
+
+def require_k7_k8(what, k4, k7, k8, k8_calls):
+    """A path's residual kernels: K7 once wherever K4 searched (one
+    `inter_stage_core` call each), and K8 once for each `select_parallel`
+    call on the card (`k8_calls`, the P frames at speed 2 and up)."""
+    _require(k7 == k4 and k8 == k8_calls,
+             f"{what}: K4 launched {k4} times, K7 {k7}; {k8_calls} parallel "
+             f"selects on the card, K8 launched {k8} times")
+    print(f"  K7 launches of {what}: {k7} (one where K4 searched); K8 "
+          f"launches {k8} (one for each parallel P select)")
+
+
+def k7_bytes(args, outs):
+    """The bytes K7 must move on `inter_residual`'s arguments, from what
+    this data needs: each output written once (2,088 B per MB), and of
+    each MB its source (384 B), its 16x16 search's MVs, winner and cost,
+    the luma prediction of its chosen shape (256 B of K4's, or 1,024 B of
+    K5's int32 one), with partitions its costs and the chosen shape's MVs,
+    and the chroma reference pixels its prediction reads (9 x 9 a plane
+    for one MV, a partition's 9 x 5 or 5 x 9, a quadrant's 5 x 5); the
+    QPs, lanes and row offsets."""
+    import torch
+
+    (sy, su, sv, u_pad, v_pad, lane, row0, qp, qpc, mvy, mvx, fmy, fmx,
+     cost16, pred16, parts) = args[:16]
+    shape = outs["shape"].reshape(-1)
+    k = shape.numel()
+    per_shape = torch.bincount(shape.long(), minlength=4).tolist()
+    moved = sum(t.numel() * t.element_size() for t in outs.values())
+    moved += sum(x.numel() * x.element_size() for x in (
+        sy, su, sv, mvy, mvx, fmy, fmx, cost16, lane, row0, qp, qpc))
+    moved += per_shape[0] * 256 + (k - per_shape[0]) * 1024
+    window = (81, 90, 90, 100)
+    moved += 2 * sum(n * w for n, w in zip(per_shape, window))
+    if parts is not None:
+        moved += k * 3 * 8 + per_shape[1] * 16 + per_shape[2] * 16 \
+            + per_shape[3] * 32
+    return moved
+
+
+def k8_bytes(args, outs):
+    """The bytes K8 must move on `select_parallel`'s arguments, from what
+    this data needs: each output written once (about 2.4 KB per MB; not
+    its byte-per-MB scratch) and each input read once: of every MB its
+    source (384 B), inter cost and inter reconstruction (384 B, copied or
+    a neighbour's edge), of an inter MB also its chroma levels, MVs and
+    shape (684 B); the availability and the QPs."""
+    import torch
+    from h264lab_tpu_torch.models import mbscan
+
+    sy, su, sv, qp, qpc, _, _, inter = args[:8]
+    k = sy.shape[0] * sy.shape[1]
+    n_inter = int((outs["sel"] == mbscan.SEL_INTER).sum())
+    moved = sum(t.numel() * t.element_size() for name, t in outs.items()
+                if name != "lev_inter")
+    moved += sum(x.numel() * x.element_size() for x in (sy, su, sv, qp, qpc))
+    moved += 2 * sy.shape[1]
+    moved += sum(inter[n].numel() * inter[n].element_size() for n in (
+        "inter_cost", "recon_y_inter", "recon_u_inter", "recon_v_inter"))
+    moved += n_inter * sum(
+        inter[n].numel() * inter[n].element_size() // k for n in (
+            "cdc_inter", "cac_inter", "mv_y", "mv_x", "mv4_y", "mv4_x",
+            "shape"))
+    return moved
+
+
+def k7_case_args(seed, n, mbw, mbh, qp, lanes, rows, plan, parts, qpel,
+                 reach, noisy):
+    """`inter_residual`'s arguments of a seeded K7 case
+    (`utils.synthetic.inter_residual_inputs`) on the card."""
+    import torch
+    from h264lab_tpu_torch.utils.synthetic import inter_residual_inputs
+
+    d = inter_residual_inputs(seed, n, mbw, mbh, qp, lanes=lanes,
+                              frame_rows=rows, plan=plan, parts=parts,
+                              qpel=qpel, reach=reach, noisy_guard=noisy)
+    p = d.pop("parts")
+    t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+    return (t["src_y_mb"], t["src_u_mb"], t["src_v_mb"], t["u_pad"],
+            t["v_pad"], t["lane"], t["row0"], t["qp"], t["qpc"], t["mv_y"],
+            t["mv_x"], t["full_my"], t["full_mx"], t["cost16"], t["pred16"],
+            None if p is None else {k: torch.from_numpy(v).cuda()
+                                    for k, v in p.items()}, mbw, mbh, True)
+
+
+def k8_case_args(seed, n, mbw, mbh, qp, plan, band):
+    """`select_parallel`'s arguments of a seeded K8 case
+    (`utils.synthetic.select_parallel_inputs`) on the card."""
+    import torch
+    from h264lab_tpu_torch.utils.synthetic import select_parallel_inputs
+
+    d = select_parallel_inputs(seed, n, mbw, mbh, qp, plan=plan, band=band)
+    return (*(torch.from_numpy(d[k]).cuda() for k in (
+        "src_y_mb", "src_u_mb", "src_v_mb", "qp", "qpc")),
+        d["avail_top"], d["avail_left"],
+        {k: torch.from_numpy(v).cuda() for k, v in d["inter"].items()}, mbw)
+
+
+def check_residual(kernel, args, what, label, trace=False):
+    """K7 (`kernel` "K7") or K8 ("K8") against its plain version on one
+    call's `inter_residual` or `select_parallel` arguments on the card:
+    the entry (the packing and K7's one launch or K8's two), run
+    RESIDUAL_REPEATS times, must give every output of the plain version
+    (names in order, dtypes, shapes, values), one count a call. Returns
+    its numbers: ms (its wrapper, `residual.inter_tiles` or
+    `select_tiles`), stage_ms (the entry), both from CUDA events over 20
+    calls; host_us (the wrapper's host time a call, 20 calls issued
+    without a sync); plain_ms (the checked call); bound_ms (the bytes it
+    must move at 3.35 TB/s, `k7_bytes` / `k8_bytes`); with `trace`, the
+    kernels one call launches and their device us (`kernel_launches`);
+    max_abs_err."""
+    import torch
+    from h264lab_tpu_torch.models import mbscan
+    from h264lab_tpu_torch.ops import residual
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    k7 = kernel == "K7"
+    entry, plain, pack, wrapper, count, n_kernels = (
+        (mbscan.inter_residual, mbscan.inter_residual_plain,
+         mbscan.inter_residual_args, residual.inter_tiles, "inter_residual",
+         1) if k7 else
+        (mbscan.select_parallel, mbscan.select_parallel_plain,
+         mbscan.select_parallel_args, residual.select_tiles,
+         "select_parallel", 2))
+    with torch.cuda.device(args[0].device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        want = plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        err = 0
+        for _ in range(RESIDUAL_REPEATS):
+            before = LAUNCH_COUNTS[count]
+            got = entry(*args)
+            _require(LAUNCH_COUNTS[count] == before + 1,
+                     f"the entry did not launch {kernel} once on {what}")
+            _require(list(got) == list(want) and all(
+                got[k].dtype == v.dtype and got[k].shape == v.shape
+                for k, v in want.items()),
+                f"{kernel}'s outputs differ in kind from the plain "
+                f"version's on {what}")
+            err = max([err] + [int((got[k].long() - v.long()).abs().max())
+                               for k, v in want.items() if v.numel()])
+            _require(err == 0, f"{kernel} differs from the plain version on "
+                     f"{what} (largest difference {err})")
+        packed = pack(*args)
+        out = dict(ms=_cuda_ms(lambda: wrapper(*packed), 20),
+                   stage_ms=_cuda_ms(lambda: entry(*args), 20),
+                   plain_ms=start.elapsed_time(end), max_abs_err=err)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            wrapper(*packed)
+        out["host_us"] = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        out["kernels"], out["device_us"] = [], None
+        if trace:
+            kernels, _ = kernel_launches(lambda: wrapper(*packed), traces=6,
+                                         want=n_kernels)
+            out["kernels"] = kernels
+            if len(kernels) == n_kernels:
+                out["device_us"] = sum(us for _, us in kernels)
+    moved = (k7_bytes if k7 else k8_bytes)(args, want)
+    out["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+    n, nmb = args[0].shape[:2]
+    if k7:
+        shapes = torch.bincount(want["shape"].reshape(-1).long(),
+                                minlength=4)
+        detail = f"MBs of shapes 0-3 {shapes.tolist()}"
+    else:
+        detail = f"I16 MBs {int((want['sel'] == mbscan.SEL_I16).sum())}"
+    dev = ("" if out["device_us"] is None else
+           f"; device {out['device_us']:.1f} us: " + ", ".join(
+               f"{k} {us:.1f}" for k, us in out["kernels"]))
+    print(f"  {kernel} == plain on {what} ({n}, {nmb}), {RESIDUAL_REPEATS} "
+          f"launches {label}: {kernel} {out['ms']:.3f} ms, host "
+          f"{out['host_us']:.0f} us a call (the entry with its packing "
+          f"{out['stage_ms']:.3f} ms; plain {out['plain_ms']:.1f} ms; bound "
+          f"{out['bound_ms']:.4f} ms for {moved / 1e6:.2f} MB, "
+          f"{100 * out['bound_ms'] / out['ms']:.2f}% of it reached{dev}); "
+          f"{detail}")
     return out
 
 
@@ -1119,13 +1385,15 @@ def k1_numbers(vals, lens, cap, nk):
 
 
 def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
-               sym_calls, cif, cif_frames):
+               sym_calls, residual, cif, cif_frames):
     """Phases 11 to 13: SvcEncoder at WIDTH x HEIGHT with inter-layer
     prediction (stage frames timed), K1 on its base-mode and base P grids,
     K2 on their deblocking inputs and K3 on the base-mode frame's base
     wavefront inputs (their numbers go into `numbers`, `k2_numbers` and
-    `k3_numbers`; the stage P frame's K4 calls into `me_calls` and its two
-    symbolize calls into `sym_calls`, on the host), and SVC card bytes
+    `k3_numbers`; the stage P frame's K4 calls into `me_calls`, its two
+    symbolize calls into `sym_calls` and its K7 and K8 calls and the
+    path's launches into `residual` (`residual_record`), on the host), and
+    SVC card bytes
     against CPU bytes at CIF. Returns (K1 launches of the SVC frames, K2
     launches, K3 launches, K4 launches, K6 launches, largest K1 error)."""
     import torch
@@ -1153,11 +1421,14 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
 
     svc_wf = []                 # the SVC frames' wavefront calls
     svc_sym = []                # their symbolize calls
+    svc_k7, svc_k8 = [], []     # their inter residuals, parallel selects
 
     def svc_frame(t, kind, r=run):
         t0 = time.perf_counter()
         with recorded_calls("_select_wavefront", svc_wf), \
-                recorded_calls("symbolize", svc_sym):
+                recorded_calls("symbolize", svc_sym), \
+                recorded_calls("inter_residual", svc_k7), \
+                recorded_calls("select_parallel", svc_k8):
             res = svc.encode(*svc_frames[t], r)
         s = time.perf_counter() - t0
         _require(res.frame_type == kind and len(res.base_payload) > 0
@@ -1178,6 +1449,9 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     print(f"SVC IDR (untimed, first use): {s:.2f} s; bytes base "
           f"{len(res.base_payload)}, enhancement {len(res.enh_payload)}")
     res, t_svc = svc_frame(1, "P")
+    n_k8 = cuda_calls(svc_k8)
+    svc_k7.clear()
+    svc_k8.clear()
     print(f"SVC P frame {label}: {t_svc:.3f} s per two-layer frame "
           f"({WIDTH}x{HEIGHT} over {WIDTH // 2}x{HEIGHT // 2}), "
           f"{1 / t_svc:.4f} frames/s; bytes base {len(res.base_payload)}, "
@@ -1190,6 +1464,17 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
             recorded_calls("motion_search_tiles", svc_me, "ops.me"):
         res, s = svc_frame(2, "P")
     svc_table("P", s, res)
+    _require(len(svc_k7) == len(svc_k8) == 2, f"the SVC P frame's "
+             f"{len(svc_k7)} inter residuals, {len(svc_k8)} parallel selects")
+    for name, calls in (("inter_residual", svc_k7),
+                        ("select_parallel", svc_k8)):
+        for a in calls:
+            layer = "base" if a[0].shape[1] == nmb // 4 else "enhancement"
+            residual["calls"][name][f"SVC {layer} P frame"] = to_device(
+                a, "cpu")
+    n_k8 += cuda_calls(svc_k8)
+    svc_k7.clear()
+    svc_k8.clear()
     # symbolize's parameters: the 13 tensors, mb_width, mb_height,
     # has_inter, qp_rows, svc_base_mode_bit
     sym_shapes = sorted((tuple(a[0].shape), a[17]) for a in svc_sym[n_sym:])
@@ -1229,6 +1514,15 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     _require(svc_me_launches == 4 and me_shapes == [(1, nmb // 4), (1, nmb)],
              f"the SVC path launched K4 {svc_me_launches} times in its 2 P "
              f"frames (the stage P frame's searches: {me_shapes})")
+    n_k8 += cuda_calls(svc_k8)
+    _require(n_k8 == 4, f"the SVC path's 2 P frames made {n_k8} parallel "
+             "selects on the card, not one per layer and frame")
+    require_k7_k8(f"the SVC path's {SVC_FRAMES} frames", svc_me_launches,
+                  LAUNCH_COUNTS["inter_residual"],
+                  LAUNCH_COUNTS["select_parallel"], n_k8)
+    residual["launches"]["svc"] = (LAUNCH_COUNTS["inter_residual"],
+                                LAUNCH_COUNTS["select_parallel"])
+    del svc_k7, svc_k8
     for c in svc_me:
         layer = "base" if c[2].shape[1] == nmb // 4 else "enhancement"
         me_calls[f"SVC {layer} P frame"] = to_device(c, "cpu")
@@ -1274,15 +1568,17 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
 
     # 13. SVC card bytes against CPU bytes at CIF, and both layers decoded
     t0 = time.perf_counter()
-    cif_sym = []
+    cif_sym, cif_k8 = [], []
     before = LAUNCH_COUNTS["symbolize"]
+    res_before = dict(LAUNCH_COUNTS)
     for ilp, speed, n_frames in ((True, 0, 3), (False, 2, 2)):
         c = dataclasses.replace(cif, num_layers=2, inter_layer_pred_flag=ilp)
         r = dataclasses.replace(run, encode_speed=speed)
         on_card, on_cpu = SvcEncoder(c), SvcEncoder(c, device="cpu")
         card_res = []
         for t in range(n_frames):
-            with recorded_calls("symbolize", cif_sym):
+            with recorded_calls("symbolize", cif_sym), \
+                    recorded_calls("select_parallel", cif_k8):
                 a = on_card.encode(*cif_frames[t], r, return_recon=True)
             b = on_cpu.encode(*cif_frames[t], r)
             _require(a.payload == b.payload, f"CIF SVC ilp={ilp} speed "
@@ -1303,6 +1599,16 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
                    "the CIF SVC card encoders")
     print(f"  K6 launches of the CIF SVC card encoders: {n}, one for each "
           "of their symbolize calls")
+    k7, k8 = (LAUNCH_COUNTS[k] - res_before[k]
+              for k in ("inter_residual", "select_parallel"))
+    # P frames of two layers: 2 at speed 0, 1 at speed 2 (parallel select)
+    _require(k7 == 6 and cuda_calls(cif_k8) == 2, f"the CIF SVC card "
+             f"encoders launched K7 {k7} times in 3 two-layer P frames and "
+             f"made {cuda_calls(cif_k8)} parallel selects")
+    require_k7_k8("the CIF SVC card encoders",
+                  LAUNCH_COUNTS["me"] - res_before["me"], k7, k8,
+                  cuda_calls(cif_k8))
+    residual["launches"]["svc cif"] = (k7, k8)
     print(f"  CIF SVC comparisons and decodes {time.perf_counter() - t0:.1f}"
           " s")
     return (svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches,
@@ -1335,15 +1641,17 @@ def issue_intervals(enc, label):
 
 
 def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
-                me_calls, sym_calls):
+                me_calls, sym_calls, residual):
     """Phase 15: the dryruns, then the 1080p mesh run against the unsharded
     card run (and that against the CPU), each step's shard issue
     intervals, a forced IDR and a P step and the pipelined loop in turns
     with the unsharded encoder, K1 on a shard's grid, K2 on a shard's
     deblocking inputs and K3 on a shard's IDR wavefront inputs (their
     numbers go into `numbers`, `k2_numbers` and `k3_numbers`; a band-1
-    shard's K4 call and its symbolize call of the first P step into
-    `me_calls` and `sym_calls`, on the host). Returns (K1 launches of the
+    shard's K4 and K7 calls and a shard's symbolize and K8 calls of the
+    first P step into `me_calls`, `sym_calls` and `residual`, on the host,
+    and the run's K7 and K8 launches into `residual`). Returns (K1 launches
+    of the
     mesh run, K2 launches, K3 launches, K4 launches, K6 launches, largest
     K1 error)."""
     from h264lab_tpu_torch.config import FrameType
@@ -1370,7 +1678,7 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
           "issued at a time")
     reset_launches()
     mesh_res, db_calls, mesh_wf, mesh_me = [], [], [], []
-    mesh_sym = []
+    mesh_sym, mesh_k7, mesh_k8 = [], [], []
     for t, kind in enumerate(MESH_STEPS):
         # the last step runs without stage syncs: the mesh's step time
         staged = t < len(MESH_STEPS) - 1
@@ -1381,9 +1689,13 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
                 recorded_calls("_select_wavefront", mesh_wf), \
                 recorded_calls("motion_search_tiles",
                                mesh_me if t == 1 else [], "ops.me"), \
-                recorded_calls("symbolize", mesh_sym):
+                recorded_calls("symbolize", mesh_sym), \
+                recorded_calls("inter_residual",
+                               mesh_k7 if t == 1 else []), \
+                recorded_calls("select_parallel", mesh_k8):
             if t == 1:
                 n_sym = len(mesh_sym)
+                n_k8 = len(mesh_k8)
             pending = enc.encode_step_async(lane_frames(frames, t, n_gop),
                                             run)
             res = enc.finish_step(pending)
@@ -1436,6 +1748,23 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
         f"{[int(c[4][0]) for c in mesh_me]}")
     me_calls["mesh band-1 shard"] = to_device(bands[0], "cpu")
     del mesh_me, bands
+    _require(cuda_calls(mesh_k8) == n_p * len(enc.shards)
+             and len(mesh_k7) == len(enc.shards),
+             f"the mesh run made {cuda_calls(mesh_k8)} parallel selects in "
+             f"{n_p} P steps over {len(enc.shards)} shards")
+    require_k7_k8("the mesh run", me_launches,
+                  LAUNCH_COUNTS["inter_residual"],
+                  LAUNCH_COUNTS["select_parallel"], cuda_calls(mesh_k8))
+    residual["launches"]["mesh"] = (LAUNCH_COUNTS["inter_residual"],
+                                 LAUNCH_COUNTS["select_parallel"])
+    k7_band = [a for a in mesh_k7 if int(a[6][0]) > 0][0]
+    k8_band = mesh_k8[n_k8:n_k8 + len(enc.shards)]
+    _require(len(k8_band) == len(enc.shards), "the mesh P step's selects")
+    residual["calls"]["inter_residual"]["mesh band-1 shard"] = to_device(
+        k7_band, "cpu")
+    residual["calls"]["select_parallel"]["mesh shard band"] = to_device(
+        k8_band[0], "cpu")
+    del mesh_k7, mesh_k8, k7_band, k8_band
     n_k12 = len(enc.shards) * len(MESH_STEPS)
     _require(launches == n_k12 and db_launches == n_k12
              and sym_launches == n_k12,
@@ -1567,12 +1896,13 @@ def main() -> int:
                                   cuda_build.CSRC / "deblock.cu",
                                   cuda_build.CSRC / "wavefront.cu",
                                   cuda_build.CSRC / "me.cu",
-                                  cuda_build.CSRC / "symbolize.cu"])
-    print(f"K1, K2, K3, K4, K5 and K6 built in {time.perf_counter() - t0:.1f}"
-          " s")
+                                  cuda_build.CSRC / "symbolize.cu",
+                                  cuda_build.CSRC / "inter.cu",
+                                  cuda_build.CSRC / "select.cu"])
+    print(f"K1 to K8 built in {time.perf_counter() - t0:.1f} s")
     ptxas = {}
-    for name, (lib_path, log) in zip(("K1", "K2", "K3", "K4 and K5", "K6"),
-                                     built):
+    for name, (lib_path, log) in zip(("K1", "K2", "K3", "K4 and K5", "K6",
+                                      "K7", "K8"), built):
         print(f"  {name}: {os.path.relpath(lib_path, ROOT)}")
         ptxas[name] = ptxas_lines(log)
         for line in ptxas[name]:
@@ -1586,15 +1916,23 @@ def main() -> int:
     enc = GopBandEncoder(cfg, n_gop=LANES)
     gop_wf = []                 # the main path's wavefront calls
     gop_sym = [0]               # its symbolize calls on the card
+    gop_k8 = [0]                # its parallel selects on the card
     sym_calls = {}              # the paths' K6 inputs, for phase 19
+    residual = residual_record()  # the paths' K7 and K8, for phase 20
+    res_calls = {}              # the last step's K7 and K8 inputs
 
     def step(t, kind, r=run, return_recon=False):
         """Step t; returns (its pending step, results, seconds, its
         symbolize calls)."""
         sym = []
+        res_calls.clear()
         t0 = time.perf_counter()
         with recorded_calls("_select_wavefront", gop_wf), \
-                recorded_calls("symbolize", sym):
+                recorded_calls("symbolize", sym), \
+                recorded_calls("inter_residual",
+                               res_calls.setdefault("inter_residual", [])), \
+                recorded_calls("select_parallel",
+                               res_calls.setdefault("select_parallel", [])):
             p = enc.encode_step_async(lane_frames(frames, t), r,
                                       return_recon)
             res = enc.finish_step(p)
@@ -1604,6 +1942,7 @@ def main() -> int:
         _require(all(x.frame_type == kind for x in res),
                  f"step {t} is {res[0].frame_type}, not {kind}")
         gop_sym[0] += cuda_calls(sym)
+        gop_k8[0] += cuda_calls(res_calls["select_parallel"])
         return p, res, s, sym
 
     def stage_table(name, s, res):
@@ -1645,6 +1984,12 @@ def main() -> int:
         _require(len(sym) == 1, f"{len(sym)} symbolize calls in a step")
         db_args[kind] = calls[0]
         sym_calls[f"{LANES}-lane {kind} step"] = to_device(sym[0], "cpu")
+        if kind == "P":
+            for name, c in res_calls.items():
+                _require(len(c) == 1, f"{len(c)} {name} calls in a P step")
+                residual["calls"][name][f"{LANES}-lane P step"] = to_device(
+                    c[0], "cpu")
+        res_calls.clear()
         stage_table(kind, s, res)
         host_ms[kind] = 1e3 * enc.stage_times["host"]
         enc.stage_times = None
@@ -1685,6 +2030,13 @@ def main() -> int:
     _require(me_launches == STEPS - 3 and LAUNCH_COUNTS["partition"] == 0,
              f"the main path launched K4 {me_launches} times and K5 "
              f"{LAUNCH_COUNTS['partition']} times in its {STEPS - 3} P steps")
+    _require(gop_k8[0] == STEPS - 3, f"the main path made {gop_k8[0]} "
+             f"parallel selects on the card in its {STEPS - 3} P steps")
+    require_k7_k8(f"the main path's {STEPS} steps", me_launches,
+                  LAUNCH_COUNTS["inter_residual"],
+                  LAUNCH_COUNTS["select_parallel"], gop_k8[0])
+    residual["launches"]["gop"] = (LAUNCH_COUNTS["inter_residual"],
+                                LAUNCH_COUNTS["select_parallel"])
 
     # 4. K1 against the plain packer on the real IDR and P grids and on a
     # synthetic grid past the drop boundaries
@@ -1749,7 +2101,7 @@ def main() -> int:
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
     # the decode is host work: a worker process runs it beside phases 6 to
-    # 19 (at exit, even a failed one, the pool waits for it and stops it)
+    # 20 (at exit, even a failed one, the pool waits for it and stops it)
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
         "spawn"))
     decoding = pool.submit(decode_lane0, [r[0].payload for r in (first,
@@ -1775,11 +2127,12 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
 
-    seq_sym = []
+    seq_sym, seq_k8 = [], []
 
     def seq_frame(t, kind):
         t0 = time.perf_counter()
-        with recorded_calls("symbolize", seq_sym):
+        with recorded_calls("symbolize", seq_sym), \
+                recorded_calls("select_parallel", seq_k8):
             p = seq.encode_async(*seq_frames[t], seq_run)
             res = seq.finish(p)
         s = time.perf_counter() - t0
@@ -1797,13 +2150,19 @@ def main() -> int:
     print(f"sequential speed {SEQ_SPEED} P frame {label}: {t_seq:.3f} s per "
           f"frame, {1 / t_seq:.4f} frames/s ({len(res.payload)} B)")
     seq.stage_times = {}
-    seq_calls, seq_me, seq_part = [], [], []
+    seq_calls, seq_me, seq_part, seq_k7 = [], [], [], []
     n_sym = len(seq_sym)
     with recorded_calls("deblock_frame", seq_calls), \
             recorded_calls("_select_wavefront", seq_wf), \
             recorded_calls("motion_search_tiles", seq_me, "ops.me"), \
-            recorded_calls("partition_tiles", seq_part, "ops.me"):
+            recorded_calls("partition_tiles", seq_part, "ops.me"), \
+            recorded_calls("inter_residual", seq_k7):
         seq_pending, res, s = seq_frame(2, "P")
+    _require(len(seq_k7) == 1 and seq_k7[0][15] is not None, "the speed-0 "
+             "P frame's inter residual did not take K5's partitions")
+    residual["calls"]["inter_residual"]["speed-0 P frame"] = to_device(
+        seq_k7[0], "cpu")
+    del seq_k7
     sym = seq_sym[n_sym:]
     _require(len(sym) == 1, f"{len(sym)} symbolize calls in a frame")
     sym_calls["speed-0 P frame"] = to_device(sym[0], "cpu")
@@ -1830,6 +2189,11 @@ def main() -> int:
     _require(seq_me_launches == 2 and seq_part_launches == 2
              and len(seq_me) == len(seq_part) == 1, "the sequential path did "
              "not launch K4 and K5 once on each speed-0 P frame")
+    require_k7_k8("the sequential path's 3 frames", seq_me_launches,
+                  LAUNCH_COUNTS["inter_residual"],
+                  LAUNCH_COUNTS["select_parallel"], cuda_calls(seq_k8))
+    residual["launches"]["seq"] = (LAUNCH_COUNTS["inter_residual"],
+                                LAUNCH_COUNTS["select_parallel"])
     me_calls["speed-0 P frame"] = to_device(seq_me[0], "cpu")
     part_calls = {"speed-0 P frame": to_device(seq_part[0], "cpu")}
     del seq_me, seq_part
@@ -1865,6 +2229,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reset_launches()
     cif_sym = []                # the CIF encoders' symbolize calls
+    cif_k8 = []                 # and parallel selects
     cif_frames = list(chessboard_sequence(*CIF, 3))
     cif = EncoderConfig(width=CIF[0], height=CIF[1], gop=GOP, qp=QP)
     for speed, n_frames in ((0, 3), (10, 2)):
@@ -1872,7 +2237,8 @@ def main() -> int:
         on_card, on_cpu = H264Encoder(cif), H264Encoder(cif, device="cpu")
         card_res = []
         for t in range(n_frames):
-            with recorded_calls("symbolize", cif_sym):
+            with recorded_calls("symbolize", cif_sym), \
+                    recorded_calls("select_parallel", cif_k8):
                 a = on_card.encode(*cif_frames[t], r, return_recon=True)
             b = on_cpu.encode(*cif_frames[t], r)
             _require(a.payload == b.payload, f"CIF speed {speed} frame {t}: "
@@ -1889,7 +2255,8 @@ def main() -> int:
     card_steps = []
     for t in range(2):
         lanes = [cif_frames[t], cif_frames[t + 1]]
-        with recorded_calls("symbolize", cif_sym):
+        with recorded_calls("symbolize", cif_sym), \
+                recorded_calls("select_parallel", cif_k8):
             card_steps.append(on_card.encode_step(lanes, r,
                                                   return_recon=True))
         for a, b in zip(card_steps[-1], on_cpu.encode_step(lanes, r)):
@@ -1911,11 +2278,20 @@ def main() -> int:
           f"speed 0, 1 at speed 10, a 2-lane step at speed 1): {cif_me}")
     _require(cif_me == (4, 2), "the CIF card encoders did not launch K4 on "
              "every P frame or step and K5 on every speed-0 P frame")
+    _require(cuda_calls(cif_k8) == 1, f"the CIF card encoders made "
+             f"{cuda_calls(cif_k8)} parallel selects, not 1 (speed 10's P)")
+    require_k7_k8("the CIF card encoders", cif_me[0],
+                  LAUNCH_COUNTS["inter_residual"],
+                  LAUNCH_COUNTS["select_parallel"], cuda_calls(cif_k8))
+    residual["launches"]["cif"] = (LAUNCH_COUNTS["inter_residual"],
+                                LAUNCH_COUNTS["select_parallel"])
+    del cif_k8
     print(f"  CIF comparisons and decodes {time.perf_counter() - t0:.1f} s")
 
     # 10. the CLI on the card
     cli_sym = []
     before = LAUNCH_COUNTS["symbolize"]
+    cli_before = dict(LAUNCH_COUNTS)
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cli.264")
         with recorded_calls("symbolize", cli_sym):
@@ -1926,6 +2302,12 @@ def main() -> int:
     cli_sym_launches = require_k6(cuda_calls(cli_sym),
                                   LAUNCH_COUNTS["symbolize"] - before,
                                   "the CLI on the card")
+    cli_k7, cli_k8 = (LAUNCH_COUNTS[k] - cli_before[k]
+                      for k in ("inter_residual", "select_parallel"))
+    require_k7_k8("the CLI on the card (speed 0)",
+                  LAUNCH_COUNTS["me"] - cli_before["me"], cli_k7, cli_k8, 0)
+    _require(cli_k7 == 2, f"the CLI's 2 P frames launched K7 {cli_k7} times")
+    residual["launches"]["cli"] = (cli_k7, cli_k8)
     _require(rc == 0 and stream[:4] == b"\x00\x00\x00\x01"
              and stream[4] & 0x1F == 7, "the CLI did not write an SPS first")
     dec = H264Decoder()
@@ -1941,7 +2323,8 @@ def main() -> int:
     (svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches,
      svc_sym_launches, err) = svc_phases(cfg, run, label, numbers,
                                          k2_numbers, k3_numbers, me_calls,
-                                         sym_calls, cif, cif_frames)
+                                         sym_calls, residual, cif,
+                                         cif_frames)
     max_err = max(max_err, err)
 
     # 14. entry() on the card against the CPU
@@ -1972,7 +2355,7 @@ def main() -> int:
     (mesh_launches, mesh_db_launches, mesh_wf_launches, mesh_me_launches,
      mesh_sym_launches, err) = mesh_phases(cfg, run, frames, label, numbers,
                                            k2_numbers, k3_numbers, me_calls,
-                                           sym_calls)
+                                           sym_calls, residual)
     max_err = max(max_err, err)
     print(f"  mesh phase {time.perf_counter() - t0:.1f} s")
 
@@ -2105,6 +2488,46 @@ def main() -> int:
           f"time): {incomplete}")
     print(f"  K6 checks {time.perf_counter() - t0:.1f} s")
 
+    # 20. K7 and K8 against their plain versions on the paths' real inputs
+    # and on seeded inputs at the paths' shapes
+    t0 = time.perf_counter()
+    res_build = {}
+    for kernel in ("K7", "K8"):
+        res_build[kernel] = ptxas_numbers(ptxas[kernel])
+        for name, v in res_build[kernel].items():
+            print(f"{kernel} {name} {label}: {v['registers']} registers, "
+                  f"{v['smem']} bytes of shared memory, {v['stack']} bytes "
+                  f"of stack, spills {v['spill_stores']} B stored and "
+                  f"{v['spill_loads']} B loaded")
+    k7_numbers, k8_numbers = {}, {}
+    for kernel, name, numbers_of in (("K7", "inter_residual", k7_numbers),
+                                     ("K8", "select_parallel", k8_numbers)):
+        for what, call in residual["calls"][name].items():
+            numbers_of[what] = check_residual(
+                kernel, to_device(call, "cuda"), f"the {what}'s inputs",
+                label, trace=True)
+    residual["calls"].clear()
+    for what, *case in K7_CASES:
+        k7_numbers[what] = check_residual(
+            "K7", k7_case_args(*case), f"seeded inputs, {what} (seed "
+            f"{case[0]})", label)
+    for what, *case in K8_CASES:
+        k8_numbers[what] = check_residual(
+            "K8", k8_case_args(*case), f"seeded inputs, {what} (seed "
+            f"{case[0]})", label)
+    torch.cuda.empty_cache()
+    # the traces hold K7's kernel, K8's two in launch order, and no other
+    # (the profiler may drop a record: a trace that lacks one gives no
+    # device time)
+    for kernel, numbers_of, names in (
+            ("K7", k7_numbers, ["inter_residual_kernel"]),
+            ("K8", k8_numbers, ["select_want_kernel", "select_code_kernel"])):
+        for what, v in numbers_of.items():
+            seen = [k for k, _ in v["kernels"]]
+            _require(seen == [k for k in names if k in seen],
+                     f"{kernel}'s traced kernels on {what}: {seen}")
+    print(f"  K7 and K8 checks {time.perf_counter() - t0:.1f} s")
+
     # phase 5's decode
     t0 = time.perf_counter()
     decode_s = decoding.result()
@@ -2112,12 +2535,12 @@ def main() -> int:
     print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon "
           f"(waited {time.perf_counter() - t0:.1f} s for the worker); decode "
           f"seconds per {WIDTH}x{HEIGHT} frame {label} (the port's numpy "
-          f"decoder, a host time beside phases 6 to 19): IDR "
+          f"decoder, a host time beside phases 6 to 20): IDR "
           f"{decode_s[0]:.2f}, P {decode_s[1]:.2f}")
 
-    # 20. results: K1's, K2's, K4's and K6's entries hold the GOP path's P
-    # step (19 of 20 frames of a GOP), K3's its IDR step, K5's the speed-0
-    # P frame; their launches count every path
+    # 21. results: K1's, K2's, K4's, K6's, K7's and K8's entries hold the
+    # GOP path's P step (19 of 20 frames of a GOP), K3's its IDR step, K5's
+    # the speed-0 P frame; their launches count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
     m = numbers["mesh"]
@@ -2238,6 +2661,32 @@ def main() -> int:
                         plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                         device_us=v["device_us"])
                 for k, v in k6_numbers.items()}))
+    for kernel, name, numbers_of, replaces, source in (
+            ("K7", "inter_residual", k7_numbers,
+             "h264lab_tpu/models/mbscan.py:221-293 (XLA, no Pallas kernel)",
+             "h264lab_tpu_torch/csrc/inter.cu"),
+            ("K8", "select_parallel", k8_numbers,
+             "h264lab_tpu/models/mbscan.py:338-405 and :415-428 (XLA, no "
+             "Pallas kernel)", "h264lab_tpu_torch/csrc/select.cu")):
+        main = numbers_of[f"{LANES}-lane P step"]
+        launches = {path: v[0 if kernel == "K7" else 1]
+                    for path, v in residual["launches"].items()}
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(launches[k] for k in ("gop", "seq", "svc",
+                                               "mesh")),
+            equal=True,
+            max_abs_err=max(v["max_abs_err"] for v in numbers_of.values()),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
+            grid="P step", host_us=main["host_us"],
+            device_us=main["device_us"], path_launches=launches,
+            ptxas=ptxas[kernel], build=res_build[kernel],
+            traced_kernels=[k for k, _ in main["kernels"]],
+            inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
+                            plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                            host_us=v["host_us"], device_us=v["device_us"])
+                    for k, v in numbers_of.items()}))
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
           "(the build included)")
     print(json.dumps({"kernels": kernels}))

@@ -18,10 +18,12 @@ stages run over all N * nmb MBs at once.
 On CUDA tensors the slope-2 wavefront and the deblocking filter are one
 launch each of the hand kernels K3 and K2 (`_select_wavefront`,
 `deblock_frame`), the motion search of `inter_stage_core` is K4 and, at
-speed 0, K5 (`ops/me.motion_search_tiles`, `partition_tiles`), and
-`symbolize` is K6 (`ops/symbolize.symbolize_tiles`); the loops below and
-in `ops/me.py` are their plain versions, which run on CPU tensors and
-which the kernels are held against.
+speed 0, K5 (`ops/me.motion_search_tiles`, `partition_tiles`), the rest
+of that stage K7 (`inter_residual`, `ops/residual.inter_tiles`), the
+parallel P select K8 (`select_parallel`, `ops/residual.select_tiles`),
+and `symbolize` is K6 (`ops/symbolize.symbolize_tiles`); the loops and
+batches below and in `ops/me.py` are their plain versions, which run on
+CPU tensors and which the kernels are held against.
 
 Form differences from the JAX module, none of them in the result:
 - the wavefront `lax.scan` is a Python loop over the diagonals; plan
@@ -40,11 +42,13 @@ Form differences from the JAX module, none of them in the result:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from h264lab_tpu_torch.ops import cavlc, deblock, intra, intra4, me, qpel, \
-    tables, transform, wavefront
+    residual, tables, transform, wavefront
 from h264lab_tpu_torch.ops import symbolize as symbolize_k6
 from h264lab_tpu_torch.ops.intra import INVALID_COST
 from h264lab_tpu_torch.ops.me import bitlen32, lambda_me, median3
@@ -198,26 +202,109 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
     first MB row in the lane's frame; qp, qpc (N,) or per MB row (N,
     mb_height); prev_my/prev_mx (N, nmb) full-pel previous MVs or None.
 
-    The searches run on the tiles' device: on CUDA tensors K4 and, with
-    partitions, K5 (`me.motion_search_tiles`, `me.partition_tiles`); on
-    CPU tensors their plain versions (`me.motion_search_plain`,
-    `me.partition_plain`), with the same arguments
-    (`motion_search_args`). Both give the same arrays."""
+    Everything runs on the tiles' device: on CUDA tensors K4 and, with
+    partitions, K5 (`me.motion_search_tiles`, `me.partition_tiles`), then
+    K7 (`inter_residual`: the shape, chroma MC, TQ and recon); on CPU
+    tensors their plain versions (`me.motion_search_plain`,
+    `me.partition_plain`, `inter_residual_plain`), with the same arguments
+    (`motion_search_args`, `inter_residual_args`). Both give the same
+    arrays."""
+    N, nmb = src_y_mb.shape[:2]
+    dev = src_y_mb.device
+    K = N * nmb
+    qp = torch.as_tensor(qp, dtype=I32, device=dev)
+    qp0 = qp[:, 0] if qp.ndim == 2 else qp.reshape(N)
+    lane = torch.as_tensor(lane, device=dev).reshape(N)
+    row0 = torch.as_tensor(mb_row_offset, dtype=I32, device=dev).reshape(N)
+    partitions = enable_partitions and enable_qpel
+    on_cpu = dev.type == "cpu"
+    search = me.motion_search_plain if on_cpu else me.motion_search_tiles
+    margs = motion_search_args(src_y_mb, ref, lane, row0, qp0, prev_my,
+                               prev_mx)
+    mv_y, mv_x, cost16, pred16, aux = search(
+        *margs, mb_width, mb_height, enable_qpel, partitions)
+    parts = None
+    if partitions:
+        lam_k = _per_item(lambda_me(qp0), nmb)
+        parts = (me.partition_plain if on_cpu else me.partition_tiles)(
+            _packed(src_y_mb, torch.uint8, (K, 16, 16), dev), aux["wins"],
+            *(aux[k].reshape(K) for k in ("full_my", "full_mx", "mvp_y",
+                                          "mvp_x")), lam_k.contiguous())
+    return dict(mv_y=mv_y, mv_x=mv_x, **inter_residual(
+        src_y_mb, src_u_mb, src_v_mb, ref["u_pad"], ref["v_pad"], margs[3],
+        margs[4], qp, qpc, mv_y, mv_x, aux["full_my"], aux["full_mx"],
+        cost16, pred16, parts, mb_width, mb_height))
+
+
+def inter_residual(src_y_mb, src_u_mb, src_v_mb, u_pad, v_pad, lane, row0,
+                   qp, qpc, mv_y, mv_x, full_my, full_mx, cost16, pred16,
+                   parts, mb_width: int, mb_height: int,
+                   zero_thr: bool = True) -> dict:
+    """Everything of the inter stage after the searches, on the tiles'
+    device: the partition shape (with `parts`, K5's dict), the MV grid,
+    chroma MC, the inter luma TQ (with the zero-block kills unless
+    `zero_thr` is off), the chroma TQ and the reconstruction. The one entry
+    of every encode path. On CUDA tensors one launch of K7
+    (`residual.inter_tiles`, `csrc/inter.cu`) on `inter_residual_args`'
+    packing; on CPU tensors `inter_residual_plain`."""
+    args = (src_y_mb, src_u_mb, src_v_mb, u_pad, v_pad, lane, row0, qp, qpc,
+            mv_y, mv_x, full_my, full_mx, cost16, pred16, parts, mb_width,
+            mb_height, zero_thr)
+    if src_y_mb.device.type == "cpu":
+        return inter_residual_plain(*args)
+    return residual.inter_tiles(*inter_residual_args(*args))
+
+
+def inter_residual_args(src_y_mb, src_u_mb, src_v_mb, u_pad, v_pad, lane,
+                        row0, qp, qpc, mv_y, mv_x, full_my, full_mx, cost16,
+                        pred16, parts, mb_width: int, mb_height: int,
+                        zero_thr: bool = True):
+    """`inter_residual`'s arguments in the form K7 (`residual.inter_tiles`)
+    takes them, on the tiles' device: the tiles and pred16 as contiguous
+    16-byte aligned uint8, the chroma planes contiguous, lane and row0 (N,)
+    int32, qp and qpc (N,) or (N, mb_height) int32, the search's MVs and
+    cost (N, nmb) int32, and K5's outputs (`residual.K7_PARTS`, over N *
+    nmb MBs, the int32 ones 16-byte aligned) as a tuple, or None."""
+    N, nmb = src_y_mb.shape[:2]
+    dev = src_y_mb.device
+
+    def packed(x, dtype, trail=()):
+        return _packed(x, dtype, (N, nmb) + trail, dev)
+
+    q = torch.as_tensor(qp)
+    qshape = (N, mb_height) if q.ndim == 2 else (N,)
+    if parts is not None:
+        parts = tuple(_packed(parts[name], dtype, (N * nmb,) + trail, dev)
+                      for name, dtype, trail in residual.K7_PARTS)
+    return (packed(src_y_mb, torch.uint8, (16, 16)),
+            packed(src_u_mb, torch.uint8, (8, 8)),
+            packed(src_v_mb, torch.uint8, (8, 8)), u_pad.contiguous(),
+            v_pad.contiguous(), _packed(lane, I32, (N,), dev),
+            _packed(row0, I32, (N,), dev), _packed(qp, I32, qshape, dev),
+            _packed(qpc, I32, qshape, dev),
+            *(packed(x, I32) for x in (mv_y, mv_x, full_my, full_mx,
+                                       cost16)),
+            packed(pred16, torch.uint8, (16, 16)), parts, mb_width,
+            mb_height, zero_thr)
+
+
+def inter_residual_plain(src_y_mb, src_u_mb, src_v_mb, u_pad, v_pad, lane,
+                         row0, qp, qpc, mv_y, mv_x, full_my, full_mx, cost16,
+                         pred16, parts, mb_width: int, mb_height: int,
+                         zero_thr: bool = True) -> dict:
+    """`inter_residual` in plain PyTorch, on any device: the CPU path and
+    the version K7 is held against. Returns mv4_y, mv4_x, shape,
+    inter_cost (int32), lev_inter, recon_*_inter, cdc_inter and cac_inter,
+    each with the leading (N, nmb)."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
     K = N * nmb
     qp, qp_k, qpc_k = _qp_views(qp, qpc, N, nmb, mb_width, dev)
     lane = torch.as_tensor(lane, device=dev).reshape(N)
-    row0 = torch.as_tensor(mb_row_offset, dtype=I32, device=dev).reshape(N)
+    row0 = torch.as_tensor(row0, dtype=I32, device=dev).reshape(N)
     idx = torch.arange(nmb, dtype=I32, device=dev)
     rr = idx // mb_width
     cc = idx % mb_width
-    partitions = enable_partitions and enable_qpel
-    on_cpu = dev.type == "cpu"
-    search = me.motion_search_plain if on_cpu else me.motion_search_tiles
-    mv_y, mv_x, cost16, pred16, aux = search(
-        *motion_search_args(src_y_mb, ref, lane, row0, qp, prev_my, prev_mx),
-        mb_width, mb_height, enable_qpel, partitions)
     mv4_y = mv_y.reshape(K, 1, 1).expand(K, 4, 4)
     mv4_x = mv_x.reshape(K, 1, 1).expand(K, 4, 4)
     shape = torch.zeros((K,), dtype=I32, device=dev)
@@ -226,19 +313,15 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
     lane_k = _per_item(lane, nmb)
     cb_y = (qpel.GUARD // 2 + 8 * (rr[None] + row0[:, None])).reshape(K)
     cb_x = (qpel.GUARD // 2 + 8 * cc).repeat(N)
-    if partitions:
+    if parts is not None:
         lam_k = _per_item(lambda_me(qp), nmb)
-        ps = (me.partition_plain if on_cpu else me.partition_tiles)(
-            _packed(src_y_mb, torch.uint8, (K, 16, 16), dev), aux["wins"],
-            *(aux[k].reshape(K) for k in ("full_my", "full_mx", "mvp_y",
-                                          "mvp_x")), lam_k.contiguous())
         costs = torch.stack([
             inter_cost,
-            ps["cost16x8"] + lam_k * PART_16X8_PENALTY_BITS,
-            ps["cost8x16"] + lam_k * PART_16X8_PENALTY_BITS,
-            ps["cost8x8"] + lam_k * PART_8X8_PENALTY_BITS], dim=1)
+            parts["cost16x8"] + lam_k * PART_16X8_PENALTY_BITS,
+            parts["cost8x16"] + lam_k * PART_16X8_PENALTY_BITS,
+            parts["cost8x8"] + lam_k * PART_8X8_PENALTY_BITS], dim=1)
         inter_cost, shape = costs.min(dim=1)
-        shape = shape.to(I32)
+        inter_cost, shape = inter_cost.to(I32), shape.to(I32)
         # per-4x4-block MV grids of each shape: block row / column halves
         # and the raster 8x8 quadrants
         half = torch.tensor([0, 0, 1, 1], device=dev)
@@ -247,26 +330,24 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
         sh = shape[:, None, None]
 
         def grid(c, m4):
-            m168 = ps["mv16x8"][:, half, c][:, :, None].expand(K, 4, 4)
-            m816 = ps["mv8x16"][:, half, c][:, None, :].expand(K, 4, 4)
-            m88 = ps["mv8x8"][:, quad, c]
+            m168 = parts["mv16x8"][:, half, c][:, :, None].expand(K, 4, 4)
+            m816 = parts["mv8x16"][:, half, c][:, None, :].expand(K, 4, 4)
+            m88 = parts["mv8x8"][:, quad, c]
             return torch.where(sh == 1, m168, torch.where(
                 sh == 2, m816, torch.where(sh == 3, m88, m4)))
         mv4_y, mv4_x = grid(0, mv4_y), grid(1, mv4_x)
-        pred_y = torch.where(sh == 1, ps["pred16x8"], torch.where(
-            sh == 2, ps["pred8x16"], torch.where(
-                sh == 3, ps["pred8x8"], pred_y.to(I32)))).to(torch.uint8)
+        pred_y = torch.where(sh == 1, parts["pred16x8"], torch.where(
+            sh == 2, parts["pred8x16"], torch.where(
+                sh == 3, parts["pred8x8"], pred_y.to(I32)))).to(torch.uint8)
         # one MV per 4x4 block: the general chroma MC
-        pred_u, pred_v = (qpel.mc_chroma_grid(ref[p], lane_k, mv4_y, mv4_x,
-                                              cb_y, cb_x)
-                          for p in ("u_pad", "v_pad"))
+        pred_u, pred_v = (qpel.mc_chroma_grid(p, lane_k, mv4_y, mv4_x, cb_y,
+                                              cb_x) for p in (u_pad, v_pad))
     else:
         pred_u, pred_v = qpel.mc_chroma_uniform(
-            ref["u_pad"], ref["v_pad"], lane_k, cb_y, cb_x,
-            aux["full_my"].reshape(K), aux["full_mx"].reshape(K),
-            mv_y.reshape(K), mv_x.reshape(K))
+            u_pad, v_pad, lane_k, cb_y, cb_x, full_my.reshape(K),
+            full_mx.reshape(K), mv_y.reshape(K), mv_x.reshape(K))
     lev_inter, recon_y = _encode_inter_luma(
-        src_y_mb.reshape(K, 16, 16), pred_y, qp_k)
+        src_y_mb.reshape(K, 16, 16), pred_y, qp_k, zero_thr)
     # u and v batched through one chroma TQ
     cdc, cac, recon_uv = _encode_chroma(
         torch.cat([src_u_mb.reshape(K, 8, 8), src_v_mb.reshape(K, 8, 8)]),
@@ -275,10 +356,9 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb, ref, lane, qp, qpc,
 
     def frames(x):
         return _frames(x, N, nmb)
-    return dict(mv_y=mv_y, mv_x=mv_x, mv4_y=frames(mv4_y),
-                mv4_x=frames(mv4_x), shape=frames(shape),
-                inter_cost=frames(inter_cost), lev_inter=frames(lev_inter),
-                recon_y_inter=frames(recon_y),
+    return dict(mv4_y=frames(mv4_y), mv4_x=frames(mv4_x),
+                shape=frames(shape), inter_cost=frames(inter_cost),
+                lev_inter=frames(lev_inter), recon_y_inter=frames(recon_y),
                 recon_u_inter=frames(recon_uv[:K]),
                 recon_v_inter=frames(recon_uv[K:]),
                 cdc_inter=frames(torch.stack([cdc[:K], cdc[K:]], dim=1)),
@@ -322,17 +402,21 @@ def select_stage_core(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
         raise NotImplementedError(
             "per-row QP requires the fully-parallel P path "
             "(encode_speed >= 2)")
-    if inter is None or enable_i4x4:
-        out = _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
-                                steps, avail_top, avail_left, mb_width,
-                                inter)
-        if inter is None:       # every MB intra: zero MVs and inter levels
-            out.update(_inter_dummies(*src_y_mb.shape[:2],
-                                      src_y_mb.device))
-            return out
-    else:
-        out = _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
-                                 avail_top, avail_left, inter, mb_width)
+    if inter is not None and not enable_i4x4:
+        return select_parallel(src_y_mb, src_u_mb, src_v_mb, qp, qpc,
+                               avail_top, avail_left, inter, mb_width)
+    out = _select_wavefront(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
+                            avail_top, avail_left, mb_width, inter)
+    if inter is None:           # every MB intra: zero MVs and inter levels
+        out.update(_inter_dummies(*src_y_mb.shape[:2], src_y_mb.device))
+        return out
+    return _merge_inter(out, inter)
+
+
+def _merge_inter(out: dict, inter: dict) -> dict:
+    """The selection's fields merged with the inter stage's: chroma levels
+    of inter MBs from `inter`, MVs and shapes of intra MBs zeroed, and
+    lev_inter passed through."""
     is_intra = out["sel"] != SEL_INTER
     m4 = is_intra[..., None, None]
     m6 = m4[..., None, None]
@@ -362,12 +446,80 @@ def _inter_dummies(N: int, nmb: int, dev) -> dict:
         _INTRA_ZEROS.items(), flat.split(sizes))}
 
 
-def _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
-                       avail_left, inter, mb_width: int):
-    """The fully parallel P path: an MB may be Intra_16x16 only if its
-    in-slice left and top neighbours are inter (decided on the pre-
-    selection "wants intra" mask), so every intra prediction reads inter
-    recon from stage 1 and all MBs encode in one batch."""
+def select_parallel(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
+                    avail_left, inter, mb_width: int) -> dict:
+    """The fully parallel P path (speeds 2 and up): an MB may be
+    Intra_16x16 only if its in-slice left and top neighbours are inter
+    (decided on the pre-selection "wants intra" mask), so every intra
+    prediction reads inter recon from stage 1 and all MBs encode in one
+    batch; then the merge with the inter fields (`_merge_inter`). The one
+    entry of every encode path. On CUDA tensors K8
+    (`residual.select_tiles`, `csrc/select.cu`, two launches) on
+    `select_parallel_args`' packing; on CPU tensors
+    `select_parallel_plain`."""
+    args = (src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top, avail_left,
+            inter, mb_width)
+    if src_y_mb.device.type == "cpu":
+        return select_parallel_plain(*args)
+    out = residual.select_tiles(*select_parallel_args(*args))
+    out["lev_inter"] = inter["lev_inter"]
+    return out
+
+
+def select_parallel_args(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
+                         avail_left, inter, mb_width: int):
+    """`select_parallel`'s arguments in the form K8
+    (`residual.select_tiles`) takes them, on the tiles' device: the tiles
+    (and the inter recon tiles) as contiguous 16-byte aligned uint8; qp and
+    qpc (N,) or (N, mb_height) int32; avail_top and avail_left as one (2,
+    nmb) uint8 tensor (`_device_avail`); the inter stage's cost, chroma
+    levels, MVs and shape as contiguous int32 (cac_inter 16-byte
+    aligned); mb_width."""
+    N, nmb = src_y_mb.shape[:2]
+    dev = src_y_mb.device
+
+    def packed(x, dtype, trail=()):
+        return _packed(x, dtype, (N, nmb) + trail, dev)
+
+    q = torch.as_tensor(qp)
+    qshape = (N, nmb // mb_width) if q.ndim == 2 else (N,)
+    return (packed(src_y_mb, torch.uint8, (16, 16)),
+            packed(src_u_mb, torch.uint8, (8, 8)),
+            packed(src_v_mb, torch.uint8, (8, 8)),
+            _packed(qp, I32, qshape, dev), _packed(qpc, I32, qshape, dev),
+            _device_avail(avail_top, avail_left, nmb, dev),
+            packed(inter["inter_cost"], I32),
+            packed(inter["recon_y_inter"], torch.uint8, (16, 16)),
+            packed(inter["recon_u_inter"], torch.uint8, (8, 8)),
+            packed(inter["recon_v_inter"], torch.uint8, (8, 8)),
+            packed(inter["cdc_inter"], I32, (2, 2, 2)),
+            packed(inter["cac_inter"], I32, (2, 2, 2, 4, 4)),
+            packed(inter["mv_y"], I32), packed(inter["mv_x"], I32),
+            packed(inter["mv4_y"], I32, (4, 4)),
+            packed(inter["mv4_x"], I32, (4, 4)), packed(inter["shape"], I32),
+            mb_width)
+
+
+def _device_avail(avail_top, avail_left, nmb: int, dev) -> torch.Tensor:
+    """avail_top and avail_left (host masks, as the encoders' plans hold
+    them) as one (2, nmb) uint8 tensor on `dev`, copied once per distinct
+    pair of masks and device (`_avail_on`): a copy from host memory would
+    wait for the device at every call."""
+    masks = np.stack([np.broadcast_to(np.asarray(a, dtype=bool), (nmb,))
+                      for a in (avail_top, avail_left)])
+    return _avail_on(np.packbits(masks).tobytes(), nmb, str(dev))
+
+
+@functools.lru_cache(maxsize=16)
+def _avail_on(bits: bytes, nmb: int, dev: str) -> torch.Tensor:
+    masks = np.unpackbits(np.frombuffer(bits, np.uint8))[:2 * nmb]
+    return torch.from_numpy(masks.reshape(2, nmb).copy()).to(dev)
+
+
+def select_parallel_plain(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
+                          avail_left, inter, mb_width: int) -> dict:
+    """`select_parallel` in plain PyTorch, on any device: the CPU path and
+    the version K8 is held against."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
     K = N * nmb
@@ -419,7 +571,7 @@ def _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
     def frames(x):
         return _frames(x, N, nmb)
     m = is_i16[..., None, None]
-    return dict(
+    out = dict(
         sel=sel, mode16=frames(mode16), cmode=frames(cmode),
         dc_lev=frames(dc_lev), ac_lev=frames(ac_lev),
         cdc_lev=frames(torch.stack([cdc_c[:K], cdc_c[K:]], dim=1)),
@@ -430,6 +582,8 @@ def _select_parallel_p(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
         i4modes=torch.full((N, nmb, 16), 2, dtype=I32, device=dev),
         i4sym_v=torch.zeros((N, nmb, 16), dtype=I32, device=dev),
         i4sym_l=torch.zeros((N, nmb, 16), dtype=I32, device=dev))
+    return _merge_inter(out, inter)
+
 
 def _wave_steps(steps, avail_top, avail_left, mb_width: int, device):
     """Per-step index and availability tensors for the live MBs of each

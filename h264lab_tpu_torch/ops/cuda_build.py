@@ -5,9 +5,9 @@ compiled with nvcc for sm_90a into `_build/libh264lab_<name>_<digest>.so`
 at first use, once per version of the source, and loaded with ctypes by
 its wrapper's `Library` (`ops/bitpack.py` for K1, `ops/deblock.py` for
 K2, `ops/wavefront.py` for K3, `ops/me.py` for K4 and K5,
-`ops/symbolize.py` for K6). A source may include the headers beside it
-(`csrc/*.h`); the digest covers them. Nothing is built when a module is
-imported: the CPU paths never need nvcc.
+`ops/symbolize.py` for K6, `ops/residual.py` for K7 and K8). A source
+may include the headers beside it (`csrc/*.h`); the digest covers them.
+Nothing is built when a module is imported: the CPU paths never need nvcc.
 
 The mesh's shards launch the kernels from one worker thread each
 (`parallel/gop.py`), so the first use may come from several threads at
@@ -32,7 +32,8 @@ BUILD_DIR = PKG / "_build"
 # launches of each kernel wrapper; a run sets them to 0 and reads them to
 # show that its main path went through the kernels
 LAUNCH_COUNTS = {"bitpack": 0, "deblock": 0, "wavefront": 0, "me": 0,
-                 "partition": 0, "symbolize": 0}
+                 "partition": 0, "symbolize": 0, "inter_residual": 0,
+                 "select_parallel": 0}
 _COUNT_LOCK = threading.Lock()
 
 

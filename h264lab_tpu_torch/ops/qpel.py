@@ -8,9 +8,11 @@ frame-level half-pel planes exist.
 
 `windows` is the one per-MB window read of the port: where the JAX package
 used `lax.dynamic_slice` per MB (and, for the zero-MV windows, strided
-reshapes to spare the TPU a gather), the port does one indexed gather. Its
-starts are clamped into the plane exactly as `lax.dynamic_slice` clamps
-them, so an out-of-range start reads the same pixels on both sides.
+reshapes to spare the TPU a gather), the port does one indexed gather. A
+start past the end is clamped into the plane as `lax.dynamic_slice`
+clamps it, so it reads the same pixels on both sides; a negative start,
+which `lax.dynamic_slice` counts from the end, is clamped to 0. No start
+of the P path is negative (`mc_chroma`).
 Reference planes are lane-batched, (L, H, W), and window k reads the plane
 of its lane `lane[k]`.
 """
@@ -39,7 +41,8 @@ def windows(planes: torch.Tensor, lane: torch.Tensor, oy: torch.Tensor,
             ox: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
     """(K, sh, sw) windows of (L, H, W) planes: window k is
     planes[lane[k], oy[k]:oy[k]+sh, ox[k]:ox[k]+sw], its start clamped into
-    the plane as `lax.dynamic_slice` clamps it. Keeps the planes' dtype."""
+    the plane (as `lax.dynamic_slice` clamps a start past the end). Keeps
+    the planes' dtype."""
     _, h, w = planes.shape
     dev = planes.device
     oy = oy.long().clamp(0, h - sh)

@@ -514,3 +514,242 @@ def sym_inputs(seed: int, n: int, mb_width: int, mb_height: int,
         steps[:, 0] = rng.integers(0, 52, n)
         out["qp_rows"] = np.clip(np.cumsum(steps, 1), 0, 51).astype(i32)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _exact_kill_blocks(qp: int, thr_q8: int) -> np.ndarray:
+    """Luma residual blocks (m, 4, 4) of small values whose largest
+    transform coefficient, measured in `transform.zero_thr4x4(qp, thr_q8)`
+    of its position class, sits exactly at the threshold: the zero-block
+    kill's `<=` decides them. Found by a seeded search; none (m = 0) where
+    the QP has none within reach."""
+    from h264lab_tpu_torch.ops import tables
+
+    mf = tables.QUANT_MF[qp % 6][tables.POS_CLASS].reshape(4, 4)
+    thr = (thr_q8 << (7 + qp // 6)) // mf
+    amp = max(4, int(thr.min()) // 6)         # residuals that reach it
+    rng = np.random.default_rng(1000 * qp + thr_q8)
+    res = rng.integers(-amp, amp + 1, (20000, 4, 4)).astype(np.int64)
+    res[:10000] *= rng.random((10000, 4, 4)) < 0.3          # sparser ones
+    cf = np.array([[1, 1, 1, 1], [2, 1, -1, -2], [1, -1, -1, 1],
+                   [1, -2, 2, -1]], np.int64)
+    coef = np.einsum("ij,kjl,ml->kim", cf, res, cf)
+    over = (np.abs(coef) - thr).reshape(-1, 16).max(axis=1)
+    return res[over == 0][:64].astype(np.int32)
+
+
+def inter_residual_inputs(seed: int, n: int, mb_width: int, mb_height: int,
+                          qp: int, lanes: int = 1,
+                          frame_rows: int | None = None, plan: bool = False,
+                          parts: bool = False, qpel: bool = True,
+                          reach: int = 55, noisy_guard: bool = False) -> dict:
+    """Seeded inputs of `models.mbscan.inter_residual` (K7) for n P frames
+    or bands of mb_width x mb_height MBs over `lanes` reference pictures of
+    frame_rows MB rows (default mb_height), made so that every branch is
+    taken:
+    - reference chroma planes: noise with flat and chessboard areas,
+      guard-padded by edge replication (qpel.GUARD // 2) as
+      `refstate.prepare_reference` builds them; band k of a lane starts at
+      MB row k * mb_height (`row0`), frames walk the lanes in turn;
+    - MVs: the full-pel winner up to +-`reach` (the candidate clip 52 plus
+      the +-3 refine: 55; past it, where the uniform window clamps into the
+      plane), every MB of the frame's edges at the limit towards its edge,
+      the final MV within +-3 quarter-pel of it (none without `qpel`); with
+      `noisy_guard` the planes are noise, guard ring included, so that a
+      window clamped into the plane reads other pixels than one left
+      where it was;
+    - with `parts`, K5's outputs (speed 0): partition MVs within +-2
+      full-pel and +-3 quarter-pel of the winner, cost sums (int64) that
+      make each of the four shapes win, some tied with a cheaper shape
+      before them (the first wins), and int32 predictions;
+    - luma: the search's prediction and a source of small to large
+      residuals, with 4x4 blocks whose largest coefficient sits exactly at
+      the first or the second kill threshold of the MB's QP; chroma
+      sources of any value;
+    - QPs: `qp` on the first frame, then spread over 0-51; with `plan`
+      a per-row plan (n, mb_height) that takes each of QPs 0-51 once
+      before any twice.
+    Returns numpy arrays (and `parts`, a dict of them, or None) keyed by
+    `inter_residual`'s argument names."""
+    from h264lab_tpu_torch.ops import tables
+    from h264lab_tpu_torch.ops.me import LAMBDA_ME
+    from h264lab_tpu_torch.ops.tuning import (INTER_ZERO_THR2_Q8,
+                                              INTER_ZERO_THR_Q8,
+                                              PART_16X8_PENALTY_BITS,
+                                              PART_8X8_PENALTY_BITS)
+
+    rng = np.random.default_rng(seed)
+    nmb = mb_width * mb_height
+    k = n * nmb
+    frame_rows = frame_rows or mb_height
+    gc = 32                                      # qpel.GUARD // 2
+    hc, wc = 8 * frame_rows, 8 * mb_width
+
+    def plane():
+        p = rng.integers(0, 256, (hc, wc))
+        yy, xx = np.mgrid[0:hc, 0:wc]
+        p = np.where(((yy // 8) + (xx // 8)) % 5 == 0, 128, p)
+        p = np.where(((yy // 8) + (xx // 8)) % 5 == 1,
+                     np.where((yy // 2 + xx // 2) % 2 == 0, 30, 220), p)
+        if noisy_guard:
+            return rng.integers(0, 256, (hc + 2 * gc, wc + 2 * gc)).astype(
+                np.uint8)
+        return np.pad(p, gc, mode="edge").astype(np.uint8)
+
+    u_pad = np.stack([plane() for _ in range(lanes)])
+    v_pad = np.stack([plane() for _ in range(lanes)])
+    bands = max(frame_rows // mb_height, 1)
+    lane = (np.arange(n) % lanes).astype(np.int32)
+    row0 = ((np.arange(n) // lanes) % bands * mb_height).astype(np.int32)
+    # full-pel winners, at the limit on the frame's edge MBs
+    idx = np.arange(nmb)
+    r, c = idx // mb_width, idx % mb_width
+    full = rng.integers(-reach, reach + 1, (2, n, nmb))
+    top = (r[None] + row0[:, None]) == 0
+    bottom = (r[None] + row0[:, None]) == frame_rows - 1
+    full[0] = np.where(top, -reach, np.where(bottom, reach, full[0]))
+    full[1] = np.where(c == 0, -reach, np.where(c == mb_width - 1, reach,
+                                                full[1]))
+    step = rng.integers(-3, 4, (2, n, nmb)) if qpel else 0
+    mv = full * 4 + step
+    # QPs
+    q = np.empty(n, np.int64)
+    q[0] = qp
+    q[1:] = rng.integers(0, 52, n - 1)
+    q_mb = np.repeat(q, nmb).reshape(n, nmb)
+    if plan:
+        q = np.resize(rng.permutation(52), n * mb_height).reshape(
+            n, mb_height)
+        q[0, 0] = qp
+        q_mb = np.repeat(q, mb_width, axis=1)
+    # luma: prediction and residual
+    pred16 = rng.integers(0, 256, (n, nmb, 16, 16))
+    res = np.select(
+        [rng.random((n, nmb, 1, 1)) < p for p in (0.3, 0.6, 0.8)],
+        [rng.integers(-3, 4, (n, nmb, 16, 16)),
+         rng.integers(-12, 13, (n, nmb, 16, 16)),
+         rng.integers(-60, 61, (n, nmb, 16, 16))],
+        rng.integers(-255, 256, (n, nmb, 16, 16)))
+    src_y = np.clip(pred16 + res, 0, 255)
+    # an eighth of the blocks exactly at a kill threshold of their MB's
+    # QP: the prediction in range and the source the prediction plus the
+    # residual
+    blocks = src_y.reshape(n, nmb, 4, 4, 4, 4).transpose(0, 1, 2, 4, 3, 5)
+    pblocks = pred16.reshape(n, nmb, 4, 4, 4, 4).transpose(0, 1, 2, 4, 3, 5)
+    hit = rng.random((n, nmb, 4, 4)) < 0.125
+    which = rng.integers(0, 2, (n, nmb, 4, 4))
+    for qv in np.unique(q_mb):
+        for t, thr in enumerate((INTER_ZERO_THR_Q8, INTER_ZERO_THR2_Q8)):
+            bank = _exact_kill_blocks(int(qv), thr)
+            at = hit & (q_mb == qv)[..., None, None] & (which == t)
+            if not len(bank) or not at.any():
+                continue
+            res = bank[rng.integers(0, len(bank), int(at.sum()))]
+            m = np.abs(res).max(axis=(1, 2), keepdims=True)
+            p = m + (rng.random(m.shape) * (256 - 2 * m)).astype(np.int64)
+            pblocks[at] = p
+            blocks[at] = p + res
+    pred16 = pblocks.transpose(0, 1, 2, 4, 3, 5).reshape(n, nmb, 16, 16)
+    src_y = blocks.transpose(0, 1, 2, 4, 3, 5).reshape(n, nmb, 16, 16)
+    out = dict(src_y_mb=src_y.astype(np.uint8),
+               src_u_mb=rng.integers(0, 256, (n, nmb, 8, 8)).astype(np.uint8),
+               src_v_mb=rng.integers(0, 256, (n, nmb, 8, 8)).astype(np.uint8),
+               u_pad=u_pad, v_pad=v_pad, lane=lane, row0=row0,
+               qp=q.astype(np.int32),
+               qpc=tables.QPC_FROM_QPY[q].astype(np.int32),
+               mv_y=mv[0].astype(np.int32), mv_x=mv[1].astype(np.int32),
+               full_my=full[0].astype(np.int32),
+               full_mx=full[1].astype(np.int32),
+               cost16=rng.integers(-200, 20000, (n, nmb)).astype(np.int32),
+               pred16=pred16.astype(np.uint8), parts=None)
+    if parts:
+        fk = full.reshape(2, k)
+
+        def part_mvs(count):
+            """(k, count, 2) MVs near the winner, inside the guard."""
+            d = rng.integers(-2, 3, (k, count, 2)) * 4 + rng.integers(
+                -3, 4, (k, count, 2))
+            return (fk.T[:, None, :] * 4 + d).astype(np.int32)
+
+        c16 = out["cost16"].reshape(k).astype(np.int64)
+        win = rng.integers(0, 4, k)
+        tie = rng.random(k) < 0.3
+        # the lambda of each frame's first-row QP, as the shape choice
+        lam = np.repeat(LAMBDA_ME[q[:, 0] if plan else q], nmb)
+        costs = {}
+        for s, (name, pen) in enumerate((
+                ("cost16x8", PART_16X8_PENALTY_BITS),
+                ("cost8x16", PART_16X8_PENALTY_BITS),
+                ("cost8x8", PART_8X8_PENALTY_BITS))):
+            base = np.where(win == s + 1, c16 - rng.integers(1, 500, k),
+                            c16 + rng.integers(1, 500, k))
+            # a tie with the cost before it: the earlier shape wins
+            base = np.where(tie & (win == s + 1), c16, base)
+            costs[name] = (base - lam * pen).astype(np.int64)
+        out["parts"] = dict(
+            mv16x8=part_mvs(2), mv8x16=part_mvs(2), mv8x8=part_mvs(4),
+            **costs,
+            **{name: rng.integers(0, 256, (k, 16, 16)).astype(np.int32)
+               for name in ("pred16x8", "pred8x16", "pred8x8")})
+    return out
+
+
+def select_parallel_inputs(seed: int, n: int, mb_width: int, mb_height: int,
+                           qp: int, plan: bool = False,
+                           band: bool = False) -> dict:
+    """Seeded inputs of `models.mbscan.select_parallel` (K8) for n P frames
+    or bands: `wavefront_inputs`' source tiles (flat, gradient, chessboard,
+    stripes, noise: the intra modes tie often) and its inter candidate,
+    whose cost makes MBs want intra in clusters (runs across a row end,
+    whole rows and columns, the first row and column) and alone; the inter
+    stage's other fields (chroma levels, MVs of shapes 0-3, lev_inter)
+    seeded; QPs spread over 0-51, with `plan` a per-row plan (n,
+    mb_height) that takes each of QPs 0-51 once before any twice; with
+    `band` the first row and column unavailable, as the encoders' frames
+    and bands have them, else every MB's availability seeded, the first
+    row's and column's too (the parallel path takes any). Returns numpy
+    arrays keyed by `select_parallel`'s argument names, the inter stage's
+    fields as a dict under `inter`."""
+    from h264lab_tpu_torch.ops import tables
+
+    d = wavefront_inputs(seed, n, mb_width, mb_height, qp, inter=True)
+    rng = np.random.default_rng(seed + 1)
+    nmb = mb_width * mb_height
+    idx = np.arange(nmb)
+    r, c = idx // mb_width, idx % mb_width
+    cost = d["inter_cost"]
+    # clusters of MBs that want intra: across a row end, a row, a column
+    cluster = ((idx >= mb_width - 2) & (idx <= mb_width + 1)) | (r == 0) \
+        | (c == mb_width - 1)
+    pick = rng.random((n, 1)) < 0.7
+    cost = np.where(cluster[None] & pick, 1 << 20, cost)
+    q = np.empty(n, np.int64)
+    q[0] = qp
+    q[1:] = rng.integers(0, 52, n - 1)
+    if plan:
+        q = np.resize(rng.permutation(52), n * mb_height).reshape(
+            n, mb_height)
+        q[0, 0] = qp
+    if band:
+        avail_top, avail_left = r > 0, c > 0
+    else:
+        avail_top, avail_left = (rng.random(nmb) < 0.85 for _ in range(2))
+    i32 = np.int32
+    shape = rng.integers(0, 4, (n, nmb)).astype(i32)
+    inter = dict(
+        inter_cost=cost.astype(i32),
+        recon_y_inter=d["recon_y_inter"], recon_u_inter=d["recon_u_inter"],
+        recon_v_inter=d["recon_v_inter"],
+        cdc_inter=rng.integers(-40, 41, (n, nmb, 2, 2, 2)).astype(i32),
+        cac_inter=(rng.integers(-9, 10, (n, nmb, 2, 2, 2, 4, 4))
+                   * (rng.random((n, nmb, 2, 2, 2, 4, 4)) < 0.3)).astype(i32),
+        mv_y=rng.integers(-220, 221, (n, nmb)).astype(i32),
+        mv_x=rng.integers(-220, 221, (n, nmb)).astype(i32),
+        mv4_y=rng.integers(-220, 221, (n, nmb, 4, 4)).astype(i32),
+        mv4_x=rng.integers(-220, 221, (n, nmb, 4, 4)).astype(i32),
+        shape=shape,
+        lev_inter=rng.integers(-5, 6, (n, nmb, 4, 4, 4, 4)).astype(i32))
+    return dict(src_y_mb=d["src_y_mb"], src_u_mb=d["src_u_mb"],
+                src_v_mb=d["src_v_mb"], qp=q.astype(i32),
+                qpc=tables.QPC_FROM_QPY[q].astype(i32), avail_top=avail_top,
+                avail_left=avail_left, inter=inter)

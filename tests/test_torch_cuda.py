@@ -94,7 +94,25 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   The encode paths reach it: with `symbolize_plain` refused, GOP steps
   (IDR, P) and sequential frames encode to the CPU's bytes, one count per
   `symbolize` call. K6 refuses CPU tensors, other dtypes and shapes,
-  non-contiguous and misaligned inputs.
+  non-contiguous and misaligned inputs;
+- K7 (the inter residual, `ops/residual.inter_tiles`, one launch a call)
+  equals `inter_residual_plain` on the card, every output, on seeded
+  `inter_residual_inputs`: 16 frames of 1080p over 16 lanes (16, 8160),
+  one frame at speed 0 with K5's partitions and a row QP plan (1, 8160),
+  an SVC base layer (1, 2040), a mesh band at a row offset (1, 4080)
+  without quarter-pel, 4 x 3, 6 x 1, 1 x 6 and 11 x 3 MBs, every QP, MVs
+  at the reach on the frames' edges and past it on planes with a noise
+  guard (the uniform window clamps), and with the zero-block kills off;
+  K8 (the parallel P select, `ops/residual.select_tiles`, two launches a
+  call) equals `select_parallel_plain` on seeded
+  `select_parallel_inputs` at the same shapes, with row QP plans, bands
+  and seeded availability; each input launched 20 times, one count a
+  call. Both equal their plain versions on a real P step's inputs, and
+  the encode paths reach them: with the plain versions refused, GOP P
+  steps at speeds 2 and 0 and sequential P frames at speeds 0 and 10
+  encode to the CPU's bytes, one count per call. Both refuse CPU
+  tensors, other dtypes and shapes, non-contiguous and misaligned
+  inputs.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -111,13 +129,15 @@ from h264lab_tpu_torch.models import mbscan
 from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
 from h264lab_tpu_torch.models import wavefront as plan
-from h264lab_tpu_torch.ops import bitpack, deblock, me, wavefront
+from h264lab_tpu_torch.ops import bitpack, deblock, me, residual, wavefront
 from h264lab_tpu_torch.ops import symbolize as k6
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
                                                deblock_inputs,
+                                               inter_residual_inputs,
                                                me_inputs,
                                                noise_pan_sequence,
+                                               select_parallel_inputs,
                                                sym_inputs,
                                                wavefront_inputs)
 from tests.torch_grids import EDGE_CASES, edge_grid, random_grid
@@ -531,7 +551,8 @@ def test_card_mesh_shards_issue_on_their_own_streams(card, monkeypatch):
 def test_card_mesh_launch_counts_are_exact(card, speed):
     """Four shards launching at once: K1, K2 and K6 once per shard and
     step, K3 once per shard on the IDR step (and at speed 0 on P steps), K4
-    once per shard on P steps and, at speed 0, K5."""
+    and K7 once per shard on P steps and, at speed 0, K5, at speed 2
+    K8."""
     cfg, run, steps = _mesh_case(speed)
     mesh = GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(2, 2, ["cuda:0"] * 4))
     for t, lanes in enumerate(steps[:3]):
@@ -543,7 +564,9 @@ def test_card_mesh_launch_counts_are_exact(card, speed):
                             wavefront=4 if not p or speed == 0 else 0,
                             me=4 if p else 0,
                             partition=4 if p and speed == 0 else 0,
-                            symbolize=4), (t, done)
+                            symbolize=4, inter_residual=4 if p else 0,
+                            select_parallel=4 if p and speed == 2 else 0), (
+                                t, done)
 
 
 def test_card_mesh_over_distinct_cards(card):
@@ -1081,3 +1104,201 @@ def test_k6_rejects_bad_inputs(card):
             k6.symbolize_tiles(*args[:i], bad, *args[i + 1:])
     with pytest.raises(ValueError):                         # nmb != 4 x 3
         k6.symbolize_tiles(*args[:14], 4, 4, *args[16:])
+
+
+# K7: (seed, frames, mb_width, mb_height, qp, lanes, lane frame rows, row
+# plan, partitions, quarter-pel, reach, noisy guard)
+K7_CASES = [
+    (111, 16, 120, 68, 33, 16, None, False, False, True, 55, False),
+    (112, 1, 120, 68, 30, 1, None, True, True, True, 55, False),
+    (113, 1, 60, 34, 33, 1, None, False, False, True, 55, False),
+    (114, 2, 120, 34, 20, 1, 68, False, False, False, 55, False),
+    (115, 3, 4, 3, 0, 2, 6, False, True, True, 55, False),
+    (116, 2, 6, 1, 51, 1, 4, True, False, True, 55, False),
+    (117, 2, 1, 6, 12, 1, None, False, True, True, 55, False),
+    (118, 2, 11, 3, 40, 2, 9, True, False, True, 55, False),
+    (119, 9, 1, 6, 26, 1, None, True, False, True, 55, False),
+    (120, 2, 4, 3, 28, 1, 6, False, False, True, 63, True),
+]
+# K8: (seed, frames, mb_width, mb_height, qp, row plan, band)
+K8_CASES = [
+    (121, 16, 120, 68, 33, False, True),
+    (122, 1, 120, 68, 30, True, False),
+    (123, 1, 60, 34, 33, False, True),
+    (124, 2, 120, 34, 20, False, True),
+    (125, 3, 4, 3, 0, True, False),
+    (126, 2, 6, 1, 51, False, False),
+    (127, 2, 1, 6, 12, True, True),
+    (128, 2, 11, 3, 40, False, False),
+    (129, 9, 1, 6, 26, True, False),
+]
+RESIDUAL_REPEATS = 20
+
+
+def _to(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return x
+
+
+def _k7_args(card, case, zero_thr=True):
+    (seed, n, mbw, mbh, qp, lanes, rows, plan, parts, qpel, reach,
+     noisy) = case
+    d = inter_residual_inputs(seed, n, mbw, mbh, qp, lanes=lanes,
+                              frame_rows=rows, plan=plan, parts=parts,
+                              qpel=qpel, reach=reach, noisy_guard=noisy)
+    p = d.pop("parts")
+    t = {k: torch.from_numpy(v).to(card) for k, v in d.items()}
+    return (t["src_y_mb"], t["src_u_mb"], t["src_v_mb"], t["u_pad"],
+            t["v_pad"], t["lane"], t["row0"], t["qp"], t["qpc"], t["mv_y"],
+            t["mv_x"], t["full_my"], t["full_mx"], t["cost16"], t["pred16"],
+            None if p is None else {k: torch.from_numpy(v).to(card)
+                                    for k, v in p.items()}, mbw, mbh,
+            zero_thr)
+
+
+def _k8_args(card, case):
+    seed, n, mbw, mbh, qp, plan, band = case
+    d = select_parallel_inputs(seed, n, mbw, mbh, qp, plan=plan, band=band)
+    return (*(torch.from_numpy(d[k]).to(card) for k in (
+        "src_y_mb", "src_u_mb", "src_v_mb", "qp", "qpc")),
+        d["avail_top"], d["avail_left"],
+        {k: torch.from_numpy(v).to(card) for k, v in d["inter"].items()},
+        mbw)
+
+
+def _repeats_equal_plain(entry, plain, args, count):
+    want = plain(*args)
+    for _ in range(RESIDUAL_REPEATS):
+        before = residual.LAUNCH_COUNTS[count]
+        got = entry(*args)
+        torch.cuda.synchronize()
+        assert residual.LAUNCH_COUNTS[count] == before + 1
+        assert list(got) == list(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            assert torch.equal(got[k], v), k
+
+
+def _case_id(c):
+    return "x".join(str(v) for v in c[1:4]) + f"-seed{c[0]}"
+
+
+@pytest.mark.parametrize("case", K7_CASES, ids=_case_id)
+def test_k7_matches_plain_inter_residual(card, case):
+    _repeats_equal_plain(mbscan.inter_residual, mbscan.inter_residual_plain,
+                         _k7_args(card, case), "inter_residual")
+
+
+def test_k7_without_the_zero_block_kills(card):
+    _repeats_equal_plain(mbscan.inter_residual, mbscan.inter_residual_plain,
+                         _k7_args(card, K7_CASES[4], zero_thr=False),
+                         "inter_residual")
+
+
+@pytest.mark.parametrize("case", K8_CASES, ids=_case_id)
+def test_k8_matches_plain_select(card, case):
+    _repeats_equal_plain(mbscan.select_parallel, mbscan.select_parallel_plain,
+                         _k8_args(card, case), "select_parallel")
+
+
+def _recorded(monkeypatch, name, calls):
+    fn = getattr(mbscan, name)
+
+    def rec(*args):
+        calls.append(args)
+        return fn(*args)
+    monkeypatch.setattr(mbscan, name, rec)
+
+
+def test_k7_k8_match_plain_on_a_real_p_step(card, monkeypatch):
+    cfg = EncoderConfig(width=352, height=288, gop=20, qp=33)
+    frames = list(noise_pan_sequence(352, 288, 4))
+    inter, select = [], []
+    _recorded(monkeypatch, "inter_residual", inter)
+    _recorded(monkeypatch, "select_parallel", select)
+    gop = GopBandEncoder(cfg, n_gop=2)
+    for t in range(2):
+        gop.encode_step(frames[t:t + 2], RunConfig(qp_min=33, qp_max=33,
+                                                   encode_speed=2))
+    assert len(inter) == len(select) == 1
+    monkeypatch.undo()
+    _repeats_equal_plain(mbscan.inter_residual, mbscan.inter_residual_plain,
+                         inter[0], "inter_residual")
+    _repeats_equal_plain(mbscan.select_parallel, mbscan.select_parallel_plain,
+                         select[0], "select_parallel")
+
+
+def test_k7_k8_serve_the_encode_paths(card, monkeypatch):
+    cfg = EncoderConfig(width=64, height=48, gop=3, qp=33)
+    frames = list(chessboard_sequence(64, 48, 3))
+    runs = {s: RunConfig(qp_min=33, qp_max=33, encode_speed=s)
+            for s in (0, 2, 10)}
+    want = {}
+    for s in (2, 0):
+        cpu = GopBandEncoder(cfg, n_gop=2, device="cpu")
+        want["gop", s] = [[a.payload for a in cpu.encode_step(
+            frames[t:t + 2], runs[s])] for t in range(2)]
+    for s in (0, 10):
+        cpu = H264Encoder(cfg, device="cpu")
+        want["seq", s] = [cpu.encode(*f, runs[s]).payload
+                          for f in frames[:2]]
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version on the card path")
+    monkeypatch.setattr(mbscan, "inter_residual_plain", refused)
+    monkeypatch.setattr(mbscan, "select_parallel_plain", refused)
+    before = dict(residual.LAUNCH_COUNTS)
+    for s in (2, 0):
+        gop = GopBandEncoder(cfg, n_gop=2)
+        assert [[a.payload for a in gop.encode_step(frames[t:t + 2],
+                                                    runs[s])]
+                for t in range(2)] == want["gop", s]
+    for s in (0, 10):
+        seq = H264Encoder(cfg)
+        assert [seq.encode(*f, runs[s]).payload
+                for f in frames[:2]] == want["seq", s]
+    # P steps or frames: GOP speed 2 and 0, sequential 0 and 10
+    assert residual.LAUNCH_COUNTS["inter_residual"] == before[
+        "inter_residual"] + 4
+    # the parallel select: GOP speed 2, sequential speed 10
+    assert residual.LAUNCH_COUNTS["select_parallel"] == before[
+        "select_parallel"] + 2
+
+
+def test_k7_k8_reject_bad_inputs(card):
+    args = list(mbscan.inter_residual_args(*_k7_args(card, K7_CASES[4])))
+    residual.inter_tiles(*args)
+    shifted = torch.empty(args[0].numel() + 1, dtype=torch.uint8,
+                          device=card)[1:].view(args[0].shape)
+    for i, bad, err in (
+            (0, args[0].cpu(), ValueError),                 # on the CPU
+            (3, args[3].cpu(), ValueError),
+            (9, args[9].long(), TypeError),                 # dtype
+            (14, args[14].int(), TypeError),
+            (7, args[7][:1], ValueError),                   # shape
+            (4, args[4][:, 1:], ValueError),
+            (14, args[14].transpose(-1, -2), ValueError),   # not contiguous
+            (0, shifted, ValueError)):                      # misaligned
+        with pytest.raises(err):
+            residual.inter_tiles(*args[:i], bad, *args[i + 1:])
+    parts = list(args[15])
+    for j, bad in ((3, parts[3].int()), (6, parts[6][1:])):
+        with pytest.raises((TypeError, ValueError)):
+            residual.inter_tiles(*args[:15], tuple(
+                parts[:j] + [bad] + parts[j + 1:]), *args[16:])
+    with pytest.raises(ValueError):                         # nmb != 4 x 4
+        residual.inter_tiles(*args[:16], 4, 4)
+    sargs = list(mbscan.select_parallel_args(*_k8_args(card, K8_CASES[4])))
+    residual.select_tiles(*sargs)
+    for i, bad, err in (
+            (0, sargs[0].cpu(), ValueError),
+            (5, sargs[5].bool(), TypeError),
+            (6, sargs[6][:, :-1], ValueError),
+            (11, sargs[11].transpose(-1, -2), ValueError)):
+        with pytest.raises(err):
+            residual.select_tiles(*sargs[:i], bad, *sargs[i + 1:])
+    with pytest.raises(ValueError):                         # rows of 5 MBs
+        residual.select_tiles(*sargs[:17], 5)

@@ -19,11 +19,11 @@ line. Four measurements, the third one first:
    `deblock`, `pack`, `ref`, `host`) between device synchronizations. Per
    stage: the device operations (kernels, copies, fills) that start
    inside its `stage:<name>` range (the hand kernels K1 in `pack`, K2 in
-   `deblock`, K3 in `select`, K4 and K5 in `inter`, K6's three kernels in
-   `sym`, by their launch counts), their device ms summed (busy ms) and
-   the device ms of the hand kernels. The busy ms
-   over the untraced stage time of measurement 1 estimates the share of
-   the stage the device works;
+   `deblock`, K3 and K8's two kernels in `select`, K4, K5 and K7 in
+   `inter`, K6's three kernels in `sym`, by their launch counts), their
+   device ms summed (busy ms) and the device ms of the hand kernels. The
+   busy ms over the untraced stage time of measurement 1 estimates the
+   share of the stage the device works;
 3. K1 on the symbol grid of one 16-lane IDR step at the IDR capacity, and
    K2 (the deblocking kernel) on the deblocking inputs of the 16-lane P
    step that follows: each wrapper's time from CUDA events (K1's zero
@@ -136,9 +136,12 @@ KERNELS = {"K1": ("pack_kernel",), "K2": ("deblock_kernel",),
            "K4": ("search_kernel",),
            "K5": ("partition_kernel",),
            "K6": ("sym_records_kernel", "sym_scan_kernel",
-                  "sym_codes_kernel")}
+                  "sym_codes_kernel"),
+           "K7": ("inter_residual_kernel",),
+           "K8": ("select_want_kernel", "select_code_kernel")}
 HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock", "K3": "wavefront",
-                 "K4": "me", "K5": "partition", "K6": "symbolize"}
+                 "K4": "me", "K5": "partition", "K6": "symbolize",
+                 "K7": "inter_residual", "K8": "select_parallel"}
 
 
 def _is(kernel, name):
