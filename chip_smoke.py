@@ -224,8 +224,10 @@ Phases (any failure exits non-zero; nothing is caught):
      on seeded inputs (`utils.synthetic.inter_residual_inputs`,
      `select_parallel_inputs`) at (16, 8160), (1, 8160) with a row QP
      plan (K7 at speed 0), (1, 2040), a (1, 4080) band, 4 x 3, 6 x 1, 1 x
-     6 and 11 x 3 MBs, and for K7 MVs past the search's reach on planes
-     with a noise guard. Every check launches the kernel 20 times, one
+     6, 11 x 3 and 9 x 5 MBs, 16 frames of 119 x 68 MBs (the kernels'
+     tiles of 16 MBs end short and cross frames), and for K7 MVs past the
+     search's reach on planes with a noise guard. Every check launches the
+     kernel 20 times, one
      count a call, each output equal, and prints its wrapper ms (CUDA
      events over 20 calls), its host us a call, the entry's ms (the
      packing and the kernel), the plain version's ms (one call), the byte
@@ -233,7 +235,11 @@ Phases (any failure exits non-zero; nothing is caught):
      the device us of its kernels (the fullest of up to six
      `torch.profiler` traces; none where all six lost a record); the
      phase prints each kernel's registers, shared memory, stack and
-     spills;
+     spills; then a stream with non-flat chroma
+     (`utils.synthetic.color_chroma_sequence`, 176x144, 3 slice bands,
+     speed 2, an IDR and two P frames) encoded on the card and on the CPU,
+     equal bytes, decoded by the port's decoder to the card's
+     reconstruction (`color_chroma_check`);
   21. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
@@ -373,6 +379,9 @@ K7_CASES = (
      55, False),
     ("4 x 3 MBs past the reach", 89, 2, 4, 3, 28, 1, 6, False, False, True,
      63, True),
+    ("9 x 5 MBs", 80, 3, 9, 5, 24, 3, None, False, False, True, 55, False),
+    ("16 frames of 119 x 68 MBs", 79, LANES, 119, 68, QP, LANES, None, False,
+     False, True, 55, False),
 )
 K8_CASES = (
     ("16 lanes of 1080p", 91, LANES, 120, 68, QP, False, True),
@@ -383,6 +392,8 @@ K8_CASES = (
     ("6 x 1 MBs", 96, 2, 6, 1, 51, False, False),
     ("1 x 6 MBs", 97, 2, 1, 6, 12, True, True),
     ("11 x 3 MBs", 98, 2, 11, 3, 40, False, False),
+    ("9 x 5 MBs", 90, 3, 9, 5, 24, False, False),
+    ("16 frames of 119 x 68 MBs", 99, LANES, 119, 68, QP, False, True),
 )
 RESIDUAL_REPEATS = 20            # launches of K7 and K8 per check, all equal
 
@@ -1023,8 +1034,8 @@ def k7_bytes(args, outs):
 
 def k8_bytes(args, outs):
     """The bytes K8 must move on `select_parallel`'s arguments, from what
-    this data needs: each output written once (about 2.4 KB per MB; not
-    its byte-per-MB scratch) and each input read once: of every MB its
+    this data needs: each output written once (about 2.4 KB per MB) and
+    each input read once: of every MB its
     source (384 B), inter cost and inter reconstruction (384 B, copied or
     a neighbour's edge), of an inter MB also its chroma levels, MVs and
     shape (684 B); the availability and the QPs."""
@@ -1082,7 +1093,7 @@ def k8_case_args(seed, n, mbw, mbh, qp, plan, band):
 def check_residual(kernel, args, what, label, trace=False):
     """K7 (`kernel` "K7") or K8 ("K8") against its plain version on one
     call's `inter_residual` or `select_parallel` arguments on the card:
-    the entry (the packing and K7's one launch or K8's two), run
+    the entry (the packing and K7's or K8's one launch), run
     RESIDUAL_REPEATS times, must give every output of the plain version
     (names in order, dtypes, shapes, values), one count a call. Returns
     its numbers: ms (its wrapper, `residual.inter_tiles` or
@@ -1104,7 +1115,7 @@ def check_residual(kernel, args, what, label, trace=False):
          1) if k7 else
         (mbscan.select_parallel, mbscan.select_parallel_plain,
          mbscan.select_parallel_args, residual.select_tiles,
-         "select_parallel", 2))
+         "select_parallel", 1))
     with torch.cuda.device(args[0].device):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1165,6 +1176,44 @@ def check_residual(kernel, args, what, label, trace=False):
           f"{100 * out['bound_ms'] / out['ms']:.2f}% of it reached{dev}); "
           f"{detail}")
     return out
+
+
+def color_chroma_check(label):
+    """A stream with non-flat chroma and slices beside and below each
+    other: `utils.synthetic.color_chroma_sequence` at 176x144, 3 slice
+    bands, QP 28, speed 2, an IDR and two P frames on one GOP lane, on the
+    card and on the CPU. The card's bytes must equal the CPU's, the card
+    must launch K7 and K8 once on each P frame (its bands in one batch),
+    and the port's decoder must
+    give exactly the card's reconstruction in every plane."""
+    from h264lab_tpu_torch.config import EncoderConfig, RunConfig
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from h264lab_tpu_torch.parallel.gop import GopBandEncoder
+    from h264lab_tpu_torch.utils.synthetic import color_chroma_sequence
+
+    w, h, qp = 176, 144, 28
+    cfg = EncoderConfig(width=w, height=h, gop=GOP, qp=qp, slice_bands=3)
+    run = RunConfig(qp_min=qp, qp_max=qp, encode_speed=2)
+    card = GopBandEncoder(cfg, n_gop=1)
+    cpu = GopBandEncoder(cfg, n_gop=1, device="cpu")
+    before = (LAUNCH_COUNTS["inter_residual"],
+              LAUNCH_COUNTS["select_parallel"])
+    res = []
+    for t, f in enumerate(color_chroma_sequence(w, h, 3)):
+        a = card.encode_step([f], run, return_recon=True)[0]
+        b = cpu.encode_step([f], run)[0]
+        _require(a.payload == b.payload, f"colour-chroma 3-band stream frame "
+                 f"{t}: card bytes differ from CPU bytes")
+        res.append(a)
+    k7 = LAUNCH_COUNTS["inter_residual"] - before[0]
+    k8 = LAUNCH_COUNTS["select_parallel"] - before[1]
+    _require(k7 == 2 and k8 == 2, f"the colour-chroma stream launched K7 "
+             f"{k7} and K8 {k8} times on its two P frames, not once each")
+    print(f"colour-chroma {w}x{h} stream, 3 slice bands, speed 2 {label}: "
+          f"card bytes == CPU bytes ({[len(a.payload) for a in res]} B); "
+          f"K7 launches {k7}, K8 {k8}")
+    decode_check(b"".join(a.payload for a in res), [a.recon for a in res],
+                 "the colour-chroma 3-band stream")
 
 
 def escape_loop(rbsp: bytes) -> bytes:
@@ -2516,12 +2565,13 @@ def main() -> int:
             "K8", k8_case_args(*case), f"seeded inputs, {what} (seed "
             f"{case[0]})", label)
     torch.cuda.empty_cache()
-    # the traces hold K7's kernel, K8's two in launch order, and no other
+    color_chroma_check(label)
+    # the traces hold K7's kernel, K8's, and no other
     # (the profiler may drop a record: a trace that lacks one gives no
     # device time)
     for kernel, numbers_of, names in (
             ("K7", k7_numbers, ["inter_residual_kernel"]),
-            ("K8", k8_numbers, ["select_want_kernel", "select_code_kernel"])):
+            ("K8", k8_numbers, ["select_parallel_kernel"])):
         for what, v in numbers_of.items():
             seen = [k for k, _ in v["kernels"]]
             _require(seen == [k for k in names if k in seen],

@@ -104,20 +104,33 @@ __device__ __forceinline__ TqQuant tq_quant(int qp) {
   return q;
 }
 
-// transform.quant4x4 and dequant4x4 of a block's 16 coefficients at
-// deadzone `dz` (Q8).
-__device__ __forceinline__ void tq_quant_block(const int* w, int* lev,
-                                               int* deq, const TqQuant& q,
-                                               int dz) {
+// transform.quant4x4's levels of a block's 16 coefficients at deadzone
+// `dz` (Q8).
+__device__ __forceinline__ void tq_quant_levels(const int* w, int* lev,
+                                                const TqQuant& q, int dz) {
   const int qbits = 15 + q.div6;
   const int f = dz << (qbits - 8);
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int c = TQ_POS_CLASS(i);
-    const int mag = (abs(w[i]) * q.mf[c] + f) >> qbits;
+    const int mag = (abs(w[i]) * q.mf[TQ_POS_CLASS(i)] + f) >> qbits;
     lev[i] = tq_sgn_mag(w[i], mag);
-    deq[i] = lev[i] * q.v[c] * (1 << q.div6);
   }
+}
+
+// transform.dequant4x4 of a block's 16 levels (`deq` may be `lev`).
+__device__ __forceinline__ void tq_dequant(const int* lev, int* deq,
+                                           const TqQuant& q) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    deq[i] = lev[i] * q.v[TQ_POS_CLASS(i)] * (1 << q.div6);
+}
+
+// transform.quant4x4 and dequant4x4 of a block's 16 coefficients.
+__device__ __forceinline__ void tq_quant_block(const int* w, int* lev,
+                                               int* deq, const TqQuant& q,
+                                               int dz) {
+  tq_quant_levels(w, lev, q, dz);
+  tq_dequant(lev, deq, q);
 }
 
 // Whether every coefficient of the block sits at or under
@@ -187,6 +200,122 @@ __device__ __forceinline__ void tq_store16(int32_t* dst, const int* v) {
   for (int i = 0; i < 4; ++i)
     reinterpret_cast<int4*>(dst)[i] =
         make_int4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+
+// c plus the SAD of the 4 bytes of a and b (one VABSDIFF4 with its
+// accumulator); tq_sad4(a, 0, c) adds the bytes of a.
+__device__ __forceinline__ uint32_t tq_sad4(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// A value's byte in all four bytes of a word.
+__device__ __forceinline__ uint32_t tq_splat(int v) {
+  return (uint32_t)v * 0x01010101u;
+}
+
+// The sum over a lane's group of 8 (lanes 8 g .. 8 g + 7). Every lane.
+__device__ __forceinline__ int tq_sum8(int v) {
+  v += __shfl_xor_sync(kTqFull, v, 1);
+  v += __shfl_xor_sync(kTqFull, v, 2);
+  return v + __shfl_xor_sync(kTqFull, v, 4);
+}
+
+// The 4x4 Hadamard of transform.hadamard4x4 (rows (1 1 1 1) (1 1 -1 -1)
+// (1 -1 -1 1) (1 -1 1 -1), output (i, j) = sum over (p, q) of H[i][p]
+// H[j][q] x[p][q]) of an MB's 16 block values held two a lane by a group
+// of 8 lanes: lane g (g = lane & 7) holds (bi, bj) = (g >> 2, g & 3) in
+// `lo` and (g >> 2 + 2, g & 3) in `hi`, and gets the outputs at the same
+// places. The column pass pairs lanes g and g ^ 4 (rows 0, 2 and 1, 3);
+// the row pass is a butterfly over lane ^ 2 and ^ 1, after which lane q
+// holds output (0, 3, 1, 2)[q], and one shuffle puts each output on its
+// own lane. Every lane.
+__device__ __forceinline__ void tq_hadamard4(int& lo, int& hi, int lane) {
+  const int g = lane & 7, bj = g & 3;
+  {
+    const int s = lo + hi, t = lo - hi;
+    const int ps = __shfl_xor_sync(kTqFull, s, 4);
+    const int pt = __shfl_xor_sync(kTqFull, t, 4);
+    lo = g < 4 ? s + ps : pt + t;         // rows 0 | 1
+    hi = g < 4 ? t - pt : ps - s;         // rows 2 | 3
+  }
+  const int src = (lane & ~3) | ((0x1320 >> (4 * bj)) & 3);
+  auto row = [&](int x) {
+    int o = __shfl_xor_sync(kTqFull, x, 2);
+    x = bj < 2 ? x + o : o - x;
+    o = __shfl_xor_sync(kTqFull, x, 1);
+    x = (bj & 1) == 0 ? x + o : o - x;
+    return __shfl_sync(kTqFull, x, src);
+  };
+  lo = row(lo);
+  hi = row(hi);
+}
+
+// --- bulk copies (TMA without a tensor map) and their mbarrier --------
+
+__device__ __forceinline__ unsigned tq_smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void tq_mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(tq_smem(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The one arrival on the mbarrier, expecting `bytes` of copies.
+__device__ __forceinline__ void tq_mbar_expect(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(tq_smem(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the mbarrier's first phase has completed.
+__device__ __forceinline__ void tq_mbar_wait(unsigned long long* bar) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(tq_smem(bar)) : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory, completed on `bar`.
+__device__ __forceinline__ void tq_load(void* dst, const void* src,
+                                        unsigned bytes,
+                                        unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(tq_smem(dst)), "l"(src), "r"(bytes), "r"(tq_smem(bar))
+      : "memory");
+}
+
+// `bytes` (as for tq_load) from shared to global memory in the issuing
+// thread's bulk group.
+__device__ __forceinline__ void tq_store(void* dst, const void* src,
+                                         unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(tq_smem(src)), "r"(bytes) : "memory");
+}
+
+// The issuing thread's bulk stores committed, and waited for until their
+// shared memory has been read (it may then be released).
+__device__ __forceinline__ void tq_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Shared memory written by threads, made visible to the bulk copies that
+// read it (each writer, before the block's barrier).
+__device__ __forceinline__ void tq_fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 }  // namespace

@@ -761,8 +761,8 @@ class H264Decoder:
             y[by:by + 4, bx:bx + 4] = clip255(res + pred).astype(np.uint8)
 
         # 3. chroma, same structure as Intra_16x16 path
-        avail_top = r > 0
-        avail_left = c > 0
+        avail_top = self._avail_mb(r - 1, c)
+        avail_left = self._avail_mb(r, c - 1)
         for plane_idx, plane in enumerate((self._cur.u, self._cur.v)):
             ctop = (plane[8 * r - 1, 8 * c:8 * c + 8].astype(np.int32)
                     if avail_top else None)

@@ -454,7 +454,7 @@ def select_parallel(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
     prediction reads inter recon from stage 1 and all MBs encode in one
     batch; then the merge with the inter fields (`_merge_inter`). The one
     entry of every encode path. On CUDA tensors K8
-    (`residual.select_tiles`, `csrc/select.cu`, two launches) on
+    (`residual.select_tiles`, `csrc/select.cu`, one launch) on
     `select_parallel_args`' packing; on CPU tensors
     `select_parallel_plain`."""
     args = (src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top, avail_left,

@@ -13,17 +13,28 @@ The mesh's shards launch the kernels from one worker thread each
 (`parallel/gop.py`), so the first use may come from several threads at
 once: `Library` builds and loads under a lock, and `count_launch` counts
 under one.
+
+The wrappers of K6, K7 and K8 share their host-side code here, which sets
+their host time a call on one frame: `pointers` checks the inputs in one
+pass against specs worked out once per size (and `refuse` says what is
+wrong), `buffer_plan` lays the outputs out in one buffer once per size,
+`buffer_views` cuts it, and `call` hands a kernel its arguments as one
+array of 64-bit words and checks its return code.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -142,3 +153,117 @@ class Library:
         with self._lock:
             self._handle = self.load(path)
         return self._handle
+
+
+# --- the wrappers' host side ------------------------------------------------
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(index: int) -> int:
+    """The address of card `index`'s current CUDA stream."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def card_of(what: str, x) -> int:
+    """The index of the CUDA device of `x`; raises for anything else."""
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise ValueError(f"{what} takes tensors on one CUDA device, not "
+                         f"{getattr(x, 'device', type(x).__name__)}")
+    return x.get_device()
+
+
+def pointers(what: str, tensors, specs, index: int) -> list:
+    """The inputs' addresses when the kernel takes every one of them:
+    `specs` gives each one's (name, dtype, shape, alignment mask), worked
+    out once per size by the caller; a tensor of that dtype and shape,
+    contiguous, on card `index`, its address clear of the mask. One pass;
+    `refuse` raises for the first input it does not take."""
+    ptrs = []
+    if len(tensors) == len(specs):
+        try:
+            for x, (_, dtype, shape, mask) in zip(tensors, specs):
+                if x.dtype is not dtype or x.shape != shape \
+                        or x.get_device() != index or not x.is_contiguous():
+                    break
+                p = x.data_ptr()
+                if p & mask:
+                    break
+                ptrs.append(p)
+            else:
+                return ptrs
+        except AttributeError:
+            pass
+    refuse(what, tensors, specs, index)
+
+
+def refuse(what: str, tensors, specs, index: int):
+    """Raise for the first input `pointers` does not take: ValueError for
+    a count, device, shape, layout or alignment, TypeError for a dtype."""
+    if len(tensors) != len(specs):
+        raise ValueError(f"{what}: {len(tensors)} tensors, not {len(specs)}")
+    for x, (name, dtype, shape, mask) in zip(tensors, specs):
+        if not isinstance(x, torch.Tensor) or x.get_device() != index:
+            raise ValueError(f"{what}: {name} is not a tensor on "
+                             f"cuda:{index} ({getattr(x, 'device', x)!r})")
+        if x.dtype is not dtype:
+            raise TypeError(f"{what}: {name} is {x.dtype}, not {dtype}")
+        if x.shape != shape:
+            raise ValueError(f"{what}: {name} of shape {tuple(x.shape)}, "
+                             f"not {tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+        if x.data_ptr() & mask:
+            raise ValueError(f"{what}: {name} is not {mask + 1}-byte "
+                             "aligned")
+    raise AssertionError(f"{what}: an input was refused, then taken")
+
+
+@functools.lru_cache(maxsize=128)
+def buffer_plan(layout: tuple):
+    """One buffer for outputs laid out as `layout`, ((name, dtype,
+    shape), ...) in order: its bytes, each output's (name, dtype, shape,
+    strides, offset in elements of its dtype) and {name: byte offset},
+    each output starting on a 16-byte boundary. Worked out once per
+    layout."""
+    views, offsets, at = [], {}, 0
+    for name, dtype, shape in layout:
+        shape = tuple(int(v) for v in shape)
+        size = torch.empty((), dtype=dtype).element_size()
+        strides, step = [], 1
+        for v in reversed(shape):
+            strides.append(step)
+            step *= v
+        views.append((name, dtype, shape, tuple(reversed(strides)),
+                      at // size))
+        offsets[name] = at
+        at += -(-step * size // 16) * 16
+    return at, tuple(views), offsets
+
+
+def buffer_views(buf, views) -> dict:
+    """The outputs as views of the one uint8 buffer (`buffer_plan`'s
+    views, or some of them)."""
+    by_dtype = {torch.uint8: buf}
+    out = {}
+    for name, dtype, shape, strides, off in views:
+        b = by_dtype.get(dtype)
+        if b is None:
+            b = by_dtype[dtype] = buf.view(dtype)
+        out[name] = b.as_strided(shape, strides, off)
+    return out
+
+
+def call(fn, words, what: str, index: int):
+    """Call a kernel's entry point on card `index` with its arguments as
+    one array of 64-bit words (addresses, sizes, flags, the stream); raise
+    if it returned a CUDA error."""
+    w = array.array("q", words)
+    if torch.cuda.current_device() == index:
+        rc = fn(w.buffer_info()[0])
+    else:
+        with torch.cuda.device(index):
+            rc = fn(w.buffer_info()[0])
+    check(rc, what)

@@ -148,71 +148,22 @@ def _plan(n: int, nmb: int, mbh: int, plan: bool):
     shapes = tuple(torch.Size((n, nmb) + trail) for _, trail in INPUTS)
     if plan:
         shapes += (torch.Size((n, mbh)),)
-    views, at, offsets = [], 0, {}
-    for name, dtype, shape in _layout(n, nmb, mbh, plan):
-        size = torch.empty((), dtype=dtype).element_size()
-        strides = tuple(int(np.prod(shape[k + 1:])) for k in range(len(shape)))
-        views.append((name, dtype, shape, strides, at // size))
-        offsets[name] = at
-        at += -(-int(np.prod(shape)) * size // 16) * 16
-    return (shapes, at, tuple(views),
-            tuple(offsets.get(k) for k in _OUTPUT_ARGS))
+    nbytes, views, offsets = cuda_build.buffer_plan(tuple(
+        _layout(n, nmb, mbh, plan)))
+    return shapes, nbytes, views, tuple(offsets.get(k) for k in
+                                        _OUTPUT_ARGS)
 
 
-def _views(buf, views) -> dict:
-    """The outputs as views of the one uint8 buffer (`_plan`'s views)."""
-    by_dtype = {torch.uint8: buf}
-    out = {}
-    for name, dtype, shape, strides, off in views:
-        b = by_dtype.get(dtype)
-        if b is None:
-            b = by_dtype[dtype] = buf.view(dtype)
-        out[name] = b.as_strided(shape, strides, off)
-    return out
-
-
-def _refuse(tensors, names, shapes, dev):
-    """Raise for the first input K6 does not take: one on another device
-    or not a tensor, of another dtype or shape, not contiguous, or a level
-    array off a 16-byte boundary."""
-    if dev.type != "cuda" or any(not isinstance(x, torch.Tensor)
-                                 or x.device != dev for x in tensors):
-        where = [getattr(x, "device", type(x)) for x in tensors]
-        raise ValueError("symbolize_tiles: K6 takes tensors on one CUDA "
-                         f"device, not {where}")
-    for name, x, want in zip(names, tensors, shapes):
-        if x.dtype != torch.int32:
-            raise TypeError(f"symbolize_tiles: {name} is {x.dtype}, not "
-                            "torch.int32")
-        if x.shape != want:
-            raise ValueError(f"symbolize_tiles: {name} of shape "
-                             f"{tuple(x.shape)}, not {tuple(want)}")
-        if not x.is_contiguous():
-            raise ValueError(f"symbolize_tiles: {name} is not contiguous")
-        if name in _ALIGNED and x.data_ptr() % 16:
-            raise ValueError(f"symbolize_tiles: {name} is not 16-byte "
-                             "aligned")
-    raise AssertionError("symbolize_tiles: an input was refused, then taken")
+@functools.lru_cache(maxsize=64)
+def _checks(n: int, nmb: int, mbh: int, plan: bool):
+    """The inputs' checks for `cuda_build.pointers`: int32 of their shapes,
+    the levels 16-byte aligned."""
+    return tuple((name, torch.int32, shape, mask) for name, shape, mask
+                 in zip(_NAMES, _plan(n, nmb, mbh, plan)[0], _ALIGN_MASK))
 
 
 _NAMES = tuple(name for name, _ in INPUTS) + ("qp_rows",)
 _ALIGN_MASK = tuple(15 if name in _ALIGNED else 0 for name in _NAMES)
-
-
-def _pointers(tensors, shapes, index):
-    """The inputs' addresses when K6 takes every one of them (int32,
-    contiguous, of its shape, on card `index`, the levels 16-byte
-    aligned), in one pass; else None."""
-    ptrs = []
-    for x, want, mask in zip(tensors, shapes, _ALIGN_MASK):
-        if not isinstance(x, torch.Tensor) or x.dtype is not torch.int32 \
-                or x.shape != want or not x.is_contiguous() \
-                or x.get_device() != index:
-            return None
-        ptrs.append(x.data_ptr())
-        if ptrs[-1] & mask:
-            return None
-    return ptrs
 
 
 def symbolize_tiles(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
@@ -230,42 +181,44 @@ def symbolize_tiles(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
     on any other input: the plain version is `mbscan.symbolize_plain`.
 
     Its host time is kept short: the inputs are checked in one pass
-    (`_pointers`; `_refuse` says what is wrong), the buffer's layout is
-    worked out once per size (`_plan`), and one allocation holds every
-    output."""
+    (`cuda_build.pointers`; `cuda_build.refuse` says what is wrong), the
+    buffer's layout and the checks are worked out once per size
+    (`_plan`), and one allocation holds every output."""
     tensors = (sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
                dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev)
     if qp_rows is not None:
         tensors += (qp_rows,)
+    what = "symbolize_tiles (K6)"
+    index = cuda_build.card_of(what, sel)
     try:
         n, nmb = sel.shape
-        dev = sel.device
-        index = sel.get_device()
-    except (AttributeError, ValueError):
-        raise ValueError(f"symbolize_tiles: sel of shape "
-                         f"{tuple(getattr(sel, 'shape', ()))}") from None
+    except ValueError:
+        raise ValueError(f"{what}: sel of shape {tuple(sel.shape)}") \
+            from None
     if nmb != mb_width * mb_height:
-        raise ValueError(f"symbolize_tiles: {nmb} MBs are not {mb_width} x "
+        raise ValueError(f"{what}: {nmb} MBs are not {mb_width} x "
                          f"{mb_height}")
-    shapes, nbytes, views, offsets = _plan(n, nmb, mb_height,
-                                           qp_rows is not None)
-    ptrs = _pointers(tensors, shapes, index) if dev.type == "cuda" else None
-    if ptrs is None:
-        _refuse(tensors, _NAMES, shapes, dev)
-    with torch.cuda.device(index):
-        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-        out = _views(buf, views)
-        if n * nmb == 0:
-            buf.zero_()
-        else:
-            base = buf.data_ptr()
-            cuda_build.check(_lib().h264lab_symbolize(
-                *ptrs[:13], ptrs[13] if qp_rows is not None else None,
+    plan = qp_rows is not None
+    _, nbytes, views, offsets = _plan(n, nmb, mb_height, plan)
+    ptrs = cuda_build.pointers(what, tensors,
+                               _checks(n, nmb, mb_height, plan), index)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=sel.device)
+    out = cuda_build.buffer_views(buf, views)
+    if n * nmb == 0:
+        buf.zero_()
+    else:
+        base = buf.data_ptr()
+        args = (*ptrs[:13], ptrs[13] if qp_rows is not None else None,
                 *(None if o is None else base + o for o in offsets), n,
                 mb_width, mb_height, int(bool(has_inter)),
-                int(bool(svc_base_mode_bit)),
-                torch.cuda.current_stream(index).cuda_stream), "symbolize")
-            cuda_build.count_launch("symbolize")
+                int(bool(svc_base_mode_bit)), cuda_build.stream_of(index))
+        if torch.cuda.current_device() == index:
+            rc = _lib().h264lab_symbolize(*args)
+        else:
+            with torch.cuda.device(index):
+                rc = _lib().h264lab_symbolize(*args)
+        cuda_build.check(rc, "symbolize")
+        cuda_build.count_launch("symbolize")
     del out["scratch"]
     return out
 

@@ -108,6 +108,22 @@ def noise_pan_sequence(width: int, height: int, n_frames: int,
         yield noise_pan_frame(width, height, t), u, v
 
 
+def color_chroma_sequence(width: int, height: int, n_frames: int,
+                          seed: int = 11, start: int = 0):
+    """Yield (y, u, v): the rotating chessboard's luma with non-flat
+    chroma, each plane its own seeded noise field (`noise_pan_frame` of
+    the chroma size, seeds `seed` and `seed + 1`) panning as the luma
+    rotates. Chroma edges then differ across MB and slice boundaries, so
+    a decoder that predicts chroma across a slice edge shows it, where
+    the flat chroma of `chessboard_sequence` and `noise_pan_sequence`
+    hides it. The other sequences' output is unchanged."""
+    wc, hc = width // 2, height // 2
+    for t in range(start, start + n_frames):
+        yield (chessboard_frame(width, height, t),
+               noise_pan_frame(wc, hc, t, seed=seed),
+               noise_pan_frame(wc, hc, t, seed=seed + 1, vx=-0.75, vy=1.25))
+
+
 def deblock_inputs(seed: int, n: int, mb_width: int, mb_height: int,
                    qp: int, per_mb_qp: bool = False,
                    band: bool = False) -> dict:

@@ -100,10 +100,12 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   `inter_residual_inputs`: 16 frames of 1080p over 16 lanes (16, 8160),
   one frame at speed 0 with K5's partitions and a row QP plan (1, 8160),
   an SVC base layer (1, 2040), a mesh band at a row offset (1, 4080)
-  without quarter-pel, 4 x 3, 6 x 1, 1 x 6 and 11 x 3 MBs, every QP, MVs
+  without quarter-pel, 4 x 3, 6 x 1, 1 x 6, 11 x 3 and 9 x 5 MBs, and 16
+  frames of 119 x 68 MBs (tiles of 16 MBs that end short and cross
+  frames; at 120 x 68 they divide the frame), every QP, MVs
   at the reach on the frames' edges and past it on planes with a noise
   guard (the uniform window clamps), and with the zero-block kills off;
-  K8 (the parallel P select, `ops/residual.select_tiles`, two launches a
+  K8 (the parallel P select, `ops/residual.select_tiles`, one launch a
   call) equals `select_parallel_plain` on seeded
   `select_parallel_inputs` at the same shapes, with row QP plans, bands
   and seeded availability; each input launched 20 times, one count a
@@ -1119,6 +1121,9 @@ K7_CASES = [
     (118, 2, 11, 3, 40, 2, 9, True, False, True, 55, False),
     (119, 9, 1, 6, 26, 1, None, True, False, True, 55, False),
     (120, 2, 4, 3, 28, 1, 6, False, False, True, 63, True),
+    # 135 and 129,472 MBs: tiles of 16 MBs end short and cross frames
+    (130, 3, 9, 5, 24, 3, None, False, False, True, 55, False),
+    (131, 16, 119, 68, 33, 16, None, False, False, True, 55, False),
 ]
 # K8: (seed, frames, mb_width, mb_height, qp, row plan, band)
 K8_CASES = [
@@ -1131,6 +1136,8 @@ K8_CASES = [
     (127, 2, 1, 6, 12, True, True),
     (128, 2, 11, 3, 40, False, False),
     (129, 9, 1, 6, 26, True, False),
+    (132, 3, 9, 5, 24, False, False),
+    (133, 16, 119, 68, 33, False, True),
 ]
 RESIDUAL_REPEATS = 20
 

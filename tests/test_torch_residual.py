@@ -24,21 +24,33 @@ frame at a time, one trace per case shape. `inter_stage_core` itself
 equals JAX's at speeds 2, 0 and 9 with a per-row QP plan.
 
 A CUDA kernel cannot run here, so `emulate_k7` and `emulate_k8` do in
-numpy what the kernels do, lane by lane (every lane a column of a (MBs,
-32) array): K7's per-lane chroma MC into the warp's shared buffer, the
-luma blocks on lanes 0-15 and the chroma blocks on lanes 16-23, the
-quarter kill as shuffles across lane ^ 1 and lane ^ 4, the chroma DC
-Hadamard across lane ^ 1 and lane ^ 2; K8's two launches (the "wants
-intra" byte of every MB, then the decision from it and the neighbours'
-bytes), its luma DC Hadamard through the warp's shared memory, its
-chroma quadrant DCs. The helpers are transcribed from `csrc/tq.h`, the
-tables from `csrc/tq_tables.h`. Each equals its plain version on every
-case, and faults of the schedules each make it fail: a quarter paired
-across lane ^ 2, the kill compared with `<`, the uniform window left
-unclamped, the chroma blocks' lanes transposed (K7); the neighbours'
-bytes read across a frame's start, read without their availability, the
-top-right chroma quadrant preferring the left edge, the luma DC outputs
-transposed (K8). Tolerance: exact equality (integer arithmetic).
+numpy what the kernels do, lane by lane in their layout (`_warps`: a
+block of 4 warps a tile of 16 consecutive MBs, a group of 8 lanes an MB,
+lanes the columns of (warps, 32) arrays; the lanes past the batch's end
+compute and write nothing): K7's group loading each MB's two chroma
+windows as 9 rows of three aligned words and each lane predicting its
+4x4 block from them at the window's byte shift (the per-pixel path for
+K5's partitions and for windows past the plane's edge), two luma blocks
+a lane with the quarter kill as shuffles across lane ^ 1 and lane ^ 4,
+one chroma block a lane with the DC Hadamard across lane ^ 1 and lane ^
+2; K8's one launch ("wants intra" of each MB from a lane's two rows of
+SADs summed over the group, for the tile's MBs and its halo, the MBs
+above them and the MB before the tile; the decision from them), the
+luma edges from those loads and the chroma edges as the lanes gather
+them, the chroma
+SADs a lane two rows of a plane, the luma DCs as residual sums through
+the group's Hadamard (`tq_hadamard4`: a column pass across lane ^ 4, a
+butterfly across lane ^ 2 and ^ 1, one shuffle to each output's lane;
+checked against `transform.hadamard4x4` alone), its chroma quadrant DCs.
+The helpers are transcribed from `csrc/tq.h`, the tables from
+`csrc/tq_tables.h`. Each equals its plain version on every case, and
+faults of the schedules each make it fail: a quarter paired across lane
+^ 2, the kill compared with `<`, the uniform window left unclamped, the
+window read without its byte shift, the chroma blocks' lanes transposed
+(K7); the neighbours' bytes read across a frame's start, read without
+their availability, the top-right chroma quadrant preferring the left
+edge, the Hadamard's outputs left on the butterfly's lanes (K8).
+Tolerance: exact equality (integer arithmetic).
 """
 
 import functools
@@ -485,12 +497,64 @@ def _np(x):
     return None if x is None else x.numpy().astype(np.int64)
 
 
+# ---------------------------------------------------------------------------
+# the lanes of K7 and K8: a block of 4 warps takes a tile of 16 consecutive
+# MBs, a warp 4 of them, a group of 8 lanes (g = lane & 7) one MB; lanes
+# are the columns of (warps, 32) arrays, tq.h's group helpers shuffles
+# across them
+# ---------------------------------------------------------------------------
+
+def _warps(kk):
+    """Each lane's MB, (warps, 32), the batch's last for the lanes past
+    its end, and whether it is in the batch."""
+    w = -(-kk // 4)
+    k = 4 * np.arange(w)[:, None] + (LANE[None] >> 3)
+    return np.minimum(k, kk - 1), k < kk
+
+
+def _shfl(v, src):                            # __shfl_sync
+    return np.take_along_axis(v, np.broadcast_to(src, v.shape), 1)
+
+
+def _sum8(v):                                 # tq.h tq_sum8
+    v = v + _shfl_xor(v, 1)
+    v = v + _shfl_xor(v, 2)
+    return v + _shfl_xor(v, 4)
+
+
+def _hadamard4_lanes(lo, hi, mutation=None):  # tq.h tq_hadamard4
+    g = LANE & 7
+    bj = g & 3
+    s, t = lo + hi, lo - hi
+    ps, pt = _shfl_xor(s, 4), _shfl_xor(t, 4)
+    lo = np.where(g < 4, s + ps, pt + t)
+    hi = np.where(g < 4, t - pt, ps - s)
+    src = LANE if mutation == "hadamard_no_fixup" else \
+        (LANE & ~3) | ((0x1320 >> (4 * bj)) & 3)
+
+    def row(x):
+        o = _shfl_xor(x, 2)
+        x = np.where(bj < 2, x + o, o - x)
+        o = _shfl_xor(x, 1)
+        x = np.where((bj & 1) == 0, x + o, o - x)
+        return _shfl(x, src[None])
+    return row(lo), row(hi)
+
+
+def _frames(n, nmb):
+    def frames(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x).reshape(
+            (n, nmb) + x.shape[1:]).astype(dtype))
+    return frames
+
+
 def emulate_k7(args, mutation=None):
-    """K7 on `inter_residual_args`' packing, a warp per MB, lanes as
-    columns. `mutation`: "quarter_lane2" (an 8x8 quarter's blocks paired
-    across lane ^ 2), "kill_strict" (the thresholds compared with `<`),
-    "no_clamp" (the uniform window left unclamped), "chroma_transposed"
-    (a chroma lane's block at (bj, bi))."""
+    """K7 on `inter_residual_args`' packing, lanes as columns (`_warps`).
+    `mutation`: "quarter_lane2" (an 8x8 quarter's blocks paired across
+    lane ^ 2), "kill_strict" (the thresholds compared with `<`),
+    "no_clamp" (the uniform window left unclamped), "window_shift" (the
+    window's bytes read from its aligned word, without the shift),
+    "chroma_transposed" (a chroma lane's block at (bj, bi))."""
     (sy, su, sv, u_pad, v_pad, lane, row0, qp, qpc, mvy, mvx, fmy, fmx,
      cost16, pred16, parts, mbw, mbh, zero_thr) = args
     sy, su, sv, u_pad, v_pad, lane, row0, qp, qpc, mvy, mvx, fmy, fmx, \
@@ -500,8 +564,11 @@ def emulate_k7(args, mutation=None):
     hc, wc = u_pad.shape[1:]
     plan = qp.ndim == 2
     qpf, qpcf = qp.reshape(-1), qpc.reshape(-1)
-    k = np.arange(kk)[:, None]                 # (K, 1): the warp's MB
-    l = LANE[None]                             # (1, 32): the lane
+    k, valid = _warps(kk)
+    nw = k.shape[0]
+    g = np.broadcast_to(LANE[None] & 7, k.shape)
+    t = np.broadcast_to(LANE[None] >> 3, k.shape)    # the MB in the warp
+    wi = np.broadcast_to(np.arange(nw)[:, None], k.shape)
     nn = k // nmb
     m = k - nn * nmb
     r = m // mbw
@@ -536,12 +603,10 @@ def emulate_k7(args, mutation=None):
                  pt["mv8x8"][k, 2 * (bi >> 1) + (bj >> 1), cmp]], m16))
         return out
 
-    # chroma MC into the warp's buffer (K, plane, 64)
-    pred_c = np.zeros((kk, 2, 64), np.int64)
-    p, y, x0 = l >> 4, (l & 15) >> 1, (l & 1) * 4
+    # the chroma windows: the group's lanes load 18 rows of three words
     ln = lane[nn]
-    cb_y = 32 + 8 * (r + row0[nn])
-    cb_x = 32 + 8 * c
+    guard = residual.GUARD // 2
+    cb_y, cb_x = guard + 8 * (r + row0[nn]), guard + 8 * c
     wy = (fmy.reshape(-1)[k] >> 1) - 1
     wx = (fmx.reshape(-1)[k] >> 1) - 1
     if mutation == "no_clamp":
@@ -549,99 +614,129 @@ def emulate_k7(args, mutation=None):
     else:
         oy = np.clip(cb_y + wy, 0, hc - 10) - wy
         ox = np.clip(cb_x + wx, 0, wc - 10) - wx
-    for j in range(4):
-        x = x0 + j
-        my, mx = block_mv(y >> 1, x >> 1)
-        iy = (cb_y if parts is not None else oy) + (my >> 3) + y
-        ix = (cb_x if parts is not None else ox) + (mx >> 3) + x
-        iy, ix = np.clip(iy, 0, hc - 2), np.clip(ix, 0, wc - 2)
-
-        def at(dy, dx):
-            return np.where(p == 1, v_pad[ln, iy + dy, ix + dx],
-                            u_pad[ln, iy + dy, ix + dx])
-        fy, fx = my & 7, mx & 7
-        v = ((8 - fx) * (8 - fy) * at(0, 0) + fx * (8 - fy) * at(0, 1)
-             + (8 - fx) * fy * at(1, 0) + fx * fy * at(1, 1) + 32) >> 6
-        pred_c[k, p, 8 * y + x] = v
-    # the TQ: luma block l on lanes 0-15, chroma block l - 16 on 16-23
-    luma = l < 16
-    cb = (l - 16) & 7
-    cp = cb >> 2
-    lbi, lbj = (l & 15) >> 2, l & 3              # luma lanes' block
-    cbi, cbj = (cb >> 1) & 1, cb & 1             # chroma lanes' block
-    if mutation == "chroma_transposed":
-        cbi, cbj = cbj, cbi
-    bi, bj = np.where(luma, lbi, cbi), np.where(luma, lbj, cbj)
-    sy_f, p16 = sy.reshape(kk, 256), pred16.reshape(kk, 256)
-    x, prow = [None] * 16, [None] * 16
-    for yy in range(4):
-        for j in range(4):
-            at_y = 64 * lbi + 16 * yy + 4 * lbj + j
-            py = p16[k, at_y]
-            if parts is not None:
-                py = np.select([shape == 1, shape == 2, shape == 3],
-                               [pt[f"pred{g}"][k, 4 * lbi + yy, 4 * lbj + j]
-                                for g in ("16x8", "8x16", "8x8")], py) & 0xff
-            at_c = 32 * cbi + 8 * yy + 4 * cbj + j
-            sc = np.where(cp == 1, sv.reshape(kk, 64)[k, at_c],
-                          su.reshape(kk, 64)[k, at_c])
-            pc = pred_c[k, cp, 8 * (4 * cbi + yy) + 4 * cbj + j]
-            s = np.where(luma, sy_f[k, at_y], sc)
-            pv = np.where(luma, py, pc)
-            x[4 * yy + j] = s - pv
-            prow[4 * yy + j] = pv
-    q = _Quant(np.where(luma, qpv, qpcv))
-    _fdct(x)
-    dc_lev, dc_deq = _chroma_dc(x[0], q, bi, bj)
-    lev, rec = _quant_block(x, q, INTER_DEADZONE_Q8)
+    y0, x0 = oy + (mvy16 >> 3), ox + (mvx16 >> 3)
+    windowed = (parts is None) & (y0 >= 0) & (y0 + 8 <= hc - 1) \
+        & (x0 >= 0) & (x0 + 8 <= wc - 1)
+    xa = x0 & ~3
+    planes = np.stack([u_pad, v_pad])               # (2, L, hc, wc)
+    win = np.zeros((nw, 4, 2, 9, 12), np.int64)
+    for step in (0, 8, 16):
+        i = g + step
+        p = (i >= 9).astype(np.int64)
+        row = i - 9 * p
+        ok = windowed & (i < 18)
+        yy = np.clip(y0 + row, 0, hc - 1)[..., None]
+        cols = np.clip(xa[..., None] + np.arange(12), 0, wc - 1)
+        vals = planes[p[..., None], ln[..., None], yy, cols]
+        win[wi[ok], t[ok], p[ok], row[ok]] = vals[ok]
+    kv = k[valid]
+    # luma: lane g blocks (g >> 2, g & 3) and the one two rows below
     kill = bool(zero_thr) and INTER_ZERO_THR_Q8 > 0
     strict = mutation == "kill_strict"
-    z2 = kill & _under(x, q, INTER_ZERO_THR2_Q8, strict)
-    z2 = _shfl_xor(z2, 1) & z2
-    z2 = _shfl_xor(z2, 2 if mutation == "quarter_lane2" else 4) & z2
-    dead = luma & kill & (z2 | _under(x, q, INTER_ZERO_THR_Q8, strict))
-    lev = [np.where(dead, 0, v) for v in lev]
-    rec = [np.where(dead, 0, v) for v in rec]
-    lev[0] = np.where(luma, lev[0], 0)
-    rec[0] = np.where(luma, rec[0], dc_deq)
+    q = _Quant(qpv)
+    sy_f, p16 = sy.reshape(kk, 16, 16), pred16.reshape(kk, 16, 16)
+    lev_y = np.zeros((kk, 16, 16), np.int64)
+    rec_y = np.zeros((kk, 16, 16), np.int64)
+    mv4 = np.zeros((2, kk, 16), np.int64)
+    bj = g & 3
+    for h in range(2):
+        bi = (g >> 2) + 2 * h
+        x, prow = [], []
+        for y in range(4):
+            for j in range(4):
+                yy, xx = 4 * bi + y, 4 * bj + j
+                pv = p16[k, yy, xx]
+                if parts is not None:
+                    pv = np.select([shape == 1, shape == 2, shape == 3],
+                                   [pt[f"pred{s}"][k, yy, xx]
+                                    for s in ("16x8", "8x16", "8x8")],
+                                   pv) & 0xff
+                x.append(sy_f[k, yy, xx] - pv)
+                prow.append(pv)
+        _fdct(x)
+        z2 = kill & _under(x, q, INTER_ZERO_THR2_Q8, strict)
+        z2 = _shfl_xor(z2, 1) & z2
+        z2 = _shfl_xor(z2, 2 if mutation == "quarter_lane2" else 4) & z2
+        dead = kill & (z2 | _under(x, q, INTER_ZERO_THR_Q8, strict))
+        lev, rec = _quant_block(x, q, INTER_DEADZONE_Q8)
+        lev = [np.where(dead, 0, v) for v in lev]
+        rec = [np.where(dead, 0, v) for v in rec]
+        _idct(rec)
+        rec = _recon(rec, prow)
+        blk = (4 * bi + bj)[valid]
+        lev_y[kv, blk] = np.stack(lev, -1)[valid]
+        for y in range(4):
+            for j in range(4):
+                rec_y[kv, (4 * bi + y)[valid], (4 * bj + j)[valid]] = \
+                    rec[4 * y + j][valid]
+        for cmp, v in enumerate(block_mv(bi, bj)):
+            mv4[cmp, kv, blk] = v[valid]
+    # chroma: lane g block (bi, bj) of plane p, g = 4 p + 2 bi + bj
+    p = g >> 2
+    cbi, cbj = (g >> 1) & 1, g & 1
+    if mutation == "chroma_transposed":
+        cbi, cbj = cbj, cbi
+    fy, fx = mvy16 & 7, mvx16 & 7
+    o = 4 * cbj + (0 if mutation == "window_shift" else x0 & 3)
+    src_c = np.stack([su.reshape(kk, 8, 8), sv.reshape(kk, 8, 8)])
+    x, prow = [], []
+    for y in range(4):
+        for j in range(4):
+            cy, cx = 4 * cbi + y, 4 * cbj + j
+
+            def w(dy, dx):
+                return win[wi, t, p, cy + dy, o + j + dx]
+            vw = ((8 - fx) * (8 - fy) * w(0, 0) + fx * (8 - fy) * w(0, 1)
+                  + (8 - fx) * fy * w(1, 0) + fx * fy * w(1, 1) + 32) >> 6
+            my, mx = block_mv(cy >> 1, cx >> 1)
+            iy = (cb_y if parts is not None else oy) + (my >> 3) + cy
+            ix = (cb_x if parts is not None else ox) + (mx >> 3) + cx
+            iy, ix = np.clip(iy, 0, hc - 2), np.clip(ix, 0, wc - 2)
+
+            def at(dy, dx):
+                return planes[p, ln, iy + dy, ix + dx]
+            fyp, fxp = my & 7, mx & 7
+            vd = ((8 - fxp) * (8 - fyp) * at(0, 0) + fxp * (8 - fyp)
+                  * at(0, 1) + (8 - fxp) * fyp * at(1, 0) + fxp * fyp
+                  * at(1, 1) + 32) >> 6
+            pv = np.where(windowed, vw, vd)
+            x.append(src_c[p, k, cy, cx] - pv)
+            prow.append(pv)
+    q = _Quant(qpcv)
+    _fdct(x)
+    dc_lev, dc_deq = _chroma_dc(x[0], q, cbi, cbj)
+    lev, rec = _quant_block(x, q, INTER_DEADZONE_Q8)
+    lev[0] = np.zeros_like(lev[0])
+    rec[0] = dc_deq
     _idct(rec)
     rec = _recon(rec, prow)
-    # the outputs
-    lev_a = np.stack(lev, -1)                      # (K, 32, 16)
-    rec_a = np.stack(rec, -1)
-    lanes16 = slice(0, 16)
-    mv4 = block_mv(bi[:, lanes16], bj[:, lanes16])
-    rec_y = np.zeros((kk, 4, 4, 4, 4), np.int64)
-    rec_y[:] = rec_a[:, :16].reshape(kk, 4, 4, 4, 4)
-    rec_c = rec_a[:, 16:24].reshape(kk, 2, 2, 2, 4, 4)
-    if mutation == "chroma_transposed":
-        rec_c = rec_c.transpose(0, 1, 3, 2, 4, 5)
-        lev_c = lev_a[:, 16:24].reshape(kk, 2, 2, 2, 16).transpose(
-            0, 1, 3, 2, 4)
-        dcl = dc_lev[:, 16:24].reshape(kk, 2, 2, 2).transpose(0, 1, 3, 2)
-    else:
-        lev_c = lev_a[:, 16:24].reshape(kk, 2, 2, 2, 16)
-        dcl = dc_lev[:, 16:24].reshape(kk, 2, 2, 2)
-
-    def tiles(t, s):
-        return t.transpose(0, 1, 3, 2, 4).reshape(kk, s, s)
-
-    def frames(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x).reshape(
-            (n, nmb) + x.shape[1:]).astype(dtype))
+    cb = (4 * p + 2 * cbi + cbj)[valid]
+    cdc = np.zeros((kk, 8), np.int64)
+    cac = np.zeros((kk, 8, 16), np.int64)
+    rec_c = np.zeros((kk, 2, 8, 8), np.int64)
+    cdc[kv, cb] = dc_lev[valid]
+    cac[kv, cb] = np.stack(lev, -1)[valid]
+    for y in range(4):
+        for j in range(4):
+            rec_c[kv, p[valid], (4 * cbi + y)[valid],
+                  (4 * cbj + j)[valid]] = rec[4 * y + j][valid]
+    first = valid & (g == 0)
+    shape_o = np.zeros(kk, np.int64)
+    cost_o = np.zeros(kk, np.int64)
+    shape_o[k[first]] = shape[first]
+    cost_o[k[first]] = cost[first]
+    frames = _frames(n, nmb)
     i32, u8 = np.int32, np.uint8
     return dict(
-        mv4_y=frames(np.broadcast_to(mv4[0], (kk, 16)).reshape(kk, 4, 4),
-                     i32),
-        mv4_x=frames(np.broadcast_to(mv4[1], (kk, 16)).reshape(kk, 4, 4),
-                     i32),
-        shape=frames(shape[:, 0], i32), inter_cost=frames(cost[:, 0], i32),
-        lev_inter=frames(lev_a[:, :16].reshape(kk, 4, 4, 4, 4), i32),
-        recon_y_inter=frames(tiles(rec_y, 16), u8),
-        recon_u_inter=frames(tiles(rec_c[:, 0], 8), u8),
-        recon_v_inter=frames(tiles(rec_c[:, 1], 8), u8),
-        cdc_inter=frames(dcl, i32),
-        cac_inter=frames(lev_c.reshape(kk, 2, 2, 2, 4, 4), i32))
+        mv4_y=frames(mv4[0].reshape(kk, 4, 4), i32),
+        mv4_x=frames(mv4[1].reshape(kk, 4, 4), i32),
+        shape=frames(shape_o, i32), inter_cost=frames(cost_o, i32),
+        lev_inter=frames(lev_y.reshape(kk, 4, 4, 4, 4), i32),
+        recon_y_inter=frames(rec_y, u8),
+        recon_u_inter=frames(rec_c[:, 0], u8),
+        recon_v_inter=frames(rec_c[:, 1], u8),
+        cdc_inter=frames(cdc.reshape(kk, 2, 2, 2), i32),
+        cac_inter=frames(cac.reshape(kk, 2, 2, 2, 4, 4), i32))
 
 
 @pytest.mark.parametrize("c", K7_CASES + [K7_CLAMP], ids=_ids)
@@ -651,7 +746,8 @@ def test_k7_schedule_equals_plain(c):
 
 
 @pytest.mark.parametrize("mutation", ["quarter_lane2", "kill_strict",
-                                      "no_clamp", "chroma_transposed"])
+                                      "no_clamp", "window_shift",
+                                      "chroma_transposed"])
 def test_k7_schedule_mutations_fail(mutation):
     differs = []
     for c in K7_CASES + [K7_CLAMP]:
@@ -662,8 +758,22 @@ def test_k7_schedule_mutations_fail(mutation):
     assert any(differs), mutation
 
 
+def test_k7_windows_serve_the_uniform_mbs():
+    """One MV an MB (speeds 1 and up): the chroma comes through the
+    group's window, so reading it without its byte shift changes the
+    chroma; with K5's partitions every MB reads the plane per pixel, and
+    the same fault changes nothing."""
+    for c, windowed in ((K7_CASES[0], True), (K7_CASES[1], False)):
+        a = tmb.inter_residual_args(*k7_case(c))
+        got = emulate_k7(a, "window_shift")
+        want = k7_plain(c)
+        assert torch.equal(got["recon_y_inter"], want["recon_y_inter"])
+        assert torch.equal(got["recon_u_inter"],
+                           want["recon_u_inter"]) != windowed, c[0]
+
+
 # ---------------------------------------------------------------------------
-# K8's two launches
+# K8's one launch
 # ---------------------------------------------------------------------------
 
 INVALID = 1 << 30
@@ -675,55 +785,46 @@ def _k8_np(args):
     return [_np(x) for x in args[:17]] + [mbw]
 
 
-def _luma_edges(ry, k, m, mbw):
-    """Each lane's edge sample (`luma_edge`): top on 0-15, left on 16-31."""
-    l = LANE[None]
-    top = np.where(m >= mbw, ry.reshape(-1, 256)[np.maximum(k - mbw, 0),
-                                                  240 + (l & 15)], 0)
-    left = np.where(m >= 1, ry.reshape(-1, 256)[np.maximum(k - 1, 0),
-                                                16 * (l & 15) + 15], 0)
-    return np.where(l < 16, top, left)
+def _k8_where(args):
+    """Each lane's MB (`_warps`) and its place: frame, index, row, the
+    availability."""
+    sy, avail, mbw = _np(args[0]), _np(args[5]), args[-1]
+    n, nmb = sy.shape[:2]
+    k, valid = _warps(n * nmb)
+    nn = k // nmb
+    m = k - nn * nmb
+    return n, nmb, k, valid, nn, m, m // mbw, avail[0][m] != 0, \
+        avail[1][m] != 0
 
 
-def _luma_dc(e, top, left):
-    l = LANE[None]
-    st = np.where(l < 16, e, 0).sum(1, keepdims=True)
-    sl = np.where(l < 16, 0, e).sum(1, keepdims=True)
+def _luma_dc(st, sl, top, left):              # select.cu luma_dc
     return np.where(top & left, (st + sl + 16) >> 5, np.where(
         top, (st + 8) >> 4, np.where(left, (sl + 8) >> 4, 128)))
 
 
-def _k8_where(args):
-    sy, su, sv, qp, qpc, avail, icost = _k8_np(args)[:7]
-    mbw = args[-1]
-    n, nmb = sy.shape[:2]
-    k = np.arange(n * nmb)[:, None]
-    nn = k // nmb
-    m = k - nn * nmb
-    top = avail[0][m] != 0
-    left = avail[1][m] != 0
-    return n, nmb, k, nn, m, m // mbw, top, left
-
-
-def emulate_k8_a(args, mutation=None):
-    """K8's first launch: mode16 and the "wants intra" byte of every MB."""
+def k8_wants(args):
+    """K8's `wants_intra` of every MB: mode16 and whether it wants intra,
+    (K,) each, as a group computes them, a lane rows 2 g and 2 g + 1 of
+    the MB. The kernel computes them for a tile's MBs and again for its
+    halo, from the same inputs, so one array serves both."""
     a = _k8_np(args)
     sy, qp, icost, ry, mbw = a[0], a[3], a[6], a[7], a[17]
-    n, nmb, k, nn, m, r, top, left = _k8_where(args)
-    mbh = nmb // mbw
-    l = LANE[None]
-    e = _luma_edges(ry, k, m, mbw)
-    dc = _luma_dc(e, top, left)
-    y, x0 = l >> 1, (l & 1) * 8
-    sad_v = sad_h = sad_dc = 0
-    edge = e
-    for j in range(8):
-        v = sy.reshape(-1, 256)[k, 16 * y + x0 + j]
-        sad_v = sad_v + np.abs(v - edge[k, x0 + j])
-        sad_h = sad_h + np.abs(v - edge[k, 16 + y])
-        sad_dc = sad_dc + np.abs(v - dc)
-    sad_v, sad_h, sad_dc = (s.sum(1) for s in (sad_v, sad_h, sad_dc))
-    top, left = top[:, 0], left[:, 0]
+    n, nmb, k, valid, nn, m, r, top, left = _k8_where(args)
+    kk, mbh = n * nmb, nmb // mbw
+    g = LANE[None] & 7
+    ry, sy = ry.reshape(-1, 16, 16), sy.reshape(-1, 16, 16)
+    above = np.where((m >= mbw)[..., None],
+                     ry[np.maximum(k - mbw, 0), 15], 0)     # (W, 32, 16)
+    kl = np.maximum(k - 1, 0)
+    l0 = np.where(m >= 1, ry[kl, 2 * g, 15], 0)
+    l1 = np.where(m >= 1, ry[kl, 2 * g + 1, 15], 0)
+    dc = _luma_dc(above.sum(-1), _sum8(l0 + l1), top, left)
+    s0, s1 = sy[k, 2 * g], sy[k, 2 * g + 1]
+    sad_v = _sum8((np.abs(s0 - above) + np.abs(s1 - above)).sum(-1))
+    sad_h = _sum8((np.abs(s0 - l0[..., None])
+                   + np.abs(s1 - l1[..., None])).sum(-1))
+    sad_dc = _sum8((np.abs(s0 - dc[..., None])
+                    + np.abs(s1 - dc[..., None])).sum(-1))
     cost = np.where(top, sad_v, INVALID)
     mode = np.zeros_like(cost)
     hc = np.where(left, sad_h, INVALID)
@@ -731,181 +832,206 @@ def emulate_k8_a(args, mutation=None):
     cost = np.where(hc < cost, sad_h, cost)
     mode = np.where(sad_dc < cost, 2, mode)
     cost = np.where(sad_dc < cost, sad_dc, cost)
-    qp0 = qp.reshape(-1)[(nn * mbh if qp.ndim == 2 else nn)[:, 0]]
+    qp0 = qp.reshape(-1)[nn * mbh if qp.ndim == 2 else nn]
     want = cost + np.array(TAB["LAMBDA_ME"])[qp0] * INTRA_IN_P_PENALTY_BITS \
-        < icost.reshape(-1)
-    return mode, want
+        < icost.reshape(-1)[k]
+    first = valid & (g == 0)
+    mode16 = np.zeros(kk, np.int64)
+    wants = np.zeros(kk, bool)
+    mode16[k[first]] = mode[first]
+    wants[k[first]] = want[first]
+    return mode16, wants
 
 
 def emulate_k8_want(c):
-    return emulate_k8_a(tmb.select_parallel_args(*k8_case(c)))[1].reshape(
+    return k8_wants(tmb.select_parallel_args(*k8_case(c)))[1].reshape(
         k8_case(c)[0].shape[:2])
 
 
-def _hadamard4(x, i, j, transposed=False):   # select.cu hadamard4
-    if transposed:
-        i, j = j, i
-    out = 0
-    for p in range(4):
-        row = 0
-        for q in range(4):
-            row = row + np.where((0xA6C0 >> (4 * j + q)) & 1, -x[4 * p + q],
-                                 x[4 * p + q])
-        out = out + np.where((0xA6C0 >> (4 * i + p)) & 1, -row, row)
-    return out
-
-
-def _chroma_dc_pred(e, top, left, qy, qx, swap=False):   # chroma_dc
-    """`e` (K, 32, 16): each lane's plane's edges, top 8 then left 8."""
-    def at(i):
-        i = np.broadcast_to(i, e.shape[:2])[..., None]
-        return np.take_along_axis(e, i, 2)[..., 0]
-    st = sum(at(4 * qx + i) for i in range(4))
-    sl = sum(at(8 + 4 * qy + i) for i in range(4))
-    t, lf = (st + 2) >> 2, (sl + 2) >> 2
-    both = np.where(top & left, (st + sl + 4) >> 3,
-                    np.where(top, t, np.where(left, lf, 128)))
-    top_first = np.where(top, t, np.where(left, lf, 128))
-    left_first = np.where(left, lf, np.where(top, t, 128))
-    if swap:
-        top_first, left_first = left_first, top_first
-    return np.where(qy == qx, both, np.where(qy == 0, top_first, left_first))
-
-
 def emulate_k8(args, mutation=None):
-    """K8's two launches on `select_parallel_args`' packing, a warp per MB,
-    lanes as columns. `mutation`: "want_across_frames" (the neighbours'
+    """K8's launch on `select_parallel_args`' packing, lanes as columns
+    (`_warps`). `mutation`: "want_across_frames" (the neighbours'
     bytes read without the frame's first MB and row guards),
     "ignore_avail" (read without their availability), "quadrant_swap"
     (the top-right chroma quadrant prefers the left edge),
-    "luma_dc_transposed" (the luma DC Hadamard's outputs at (j, i))."""
+    "hadamard_no_fixup" (the luma DC Hadamard's outputs left on the
+    butterfly's lanes)."""
     (sy, su, sv, qp, qpc, avail, icost, ry, ru, rv, cdc_i, cac_i, mvy, mvx,
      mv4y, mv4x, shape_i, mbw) = _k8_np(args)
-    n, nmb, k, nn, m, r, top, left = _k8_where(args)
+    n, nmb, k, valid, nn, m, r, top, left = _k8_where(args)
     kk, mbh = n * nmb, nmb // mbw
-    l = LANE[None]
-    mode, want = emulate_k8_a(args)
-    # B: the decision
+    nw = k.shape[0]
+    g = np.broadcast_to(LANE[None] & 7, k.shape)
+    t = np.broadcast_to(LANE[None] >> 3, k.shape)
+    wi = np.broadcast_to(np.arange(nw)[:, None], k.shape)
+    mode16, want = k8_wants(args)
+    # the decision, from the tile's wants and its halo's: the MB before
+    # (the tile's previous one, or the MB before the tile) and the MB above,
+    # their indices clamped at 0 as the kernel clamps them
     guard = mutation != "want_across_frames"
     use_avail = mutation != "ignore_avail"
-    wl = want[k - 1] & ((m >= 1) | (not guard)) & (left | (not use_avail))
-    wt = want[k - mbw] & ((m >= mbw) | (not guard)) & (top | (not use_avail))
-    i16 = want[k] & ~wl & ~wt                            # (K, 1)
+    wl = want[np.maximum(k - 1, 0)] & ((m >= 1) | (not guard)) \
+        & (left | (not use_avail))
+    wt = want[np.maximum(k - mbw, 0)] & ((m >= mbw) | (not guard)) \
+        & (top | (not use_avail))
+    i16 = want[k] & ~wl & ~wt
+    mode = mode16[k]
     qrow = nn * mbh + r if qp.ndim == 2 else nn
     qpv, qpcv = qp.reshape(-1)[qrow], qpc.reshape(-1)[qrow]
-    e = _luma_edges(ry, k, m, mbw)
-    dc = _luma_dc(e, top, left)
-    # chroma edges: lane l, plane l >> 4, top (j < 8) or left j - 8
-    ce = np.zeros((kk, 2, 16), np.int64)
-    for p, rc in ((0, ru), (1, rv)):
-        rcf = rc.reshape(-1, 64)
-        for j in range(16):
-            ce[:, p, j] = (np.where(m >= mbw, rcf[np.maximum(k - mbw, 0),
-                                                  56 + j], 0) if j < 8 else
-                           np.where(m >= 1, rcf[np.maximum(k - 1, 0),
-                                                8 * (j - 8) + 7], 0))[:, 0]
-    swap = mutation == "quadrant_swap"
-    p, y, x0 = l >> 4, (l & 15) >> 1, (l & 1) * 4
-    cedge = ce[k, p]                                    # (K, 32, 16)
-    sads = [0, 0, 0]
+    # the edges as the lanes gather them into shared memory
+    ry, sy = ry.reshape(-1, 16, 16), sy.reshape(-1, 16, 16)
+    rc = np.stack([ru.reshape(-1, 8, 8), rv.reshape(-1, 8, 8)])
+    sc = np.stack([su.reshape(-1, 8, 8), sv.reshape(-1, 8, 8)])
+    up, before = m >= mbw, m >= 1
+    ku, kl = np.maximum(k - mbw, 0), np.maximum(k - 1, 0)
+    edge = np.zeros((nw, 4, 32), np.int64)
+    cedge = np.zeros((nw, 4, 2, 16), np.int64)
+    four = g < 4
     for j in range(4):
-        v = np.where(p == 1, sv.reshape(kk, 64)[k, 8 * y + x0 + j],
-                     su.reshape(kk, 64)[k, 8 * y + x0 + j])
-        dcv = _chroma_dc_pred(cedge, top, left, y >> 2, x0 >> 2, swap)
-        sads[0] = sads[0] + np.abs(v - dcv)
-        sads[1] = sads[1] + np.abs(v - ce[k, p, 8 + y])
-        sads[2] = sads[2] + np.abs(v - ce[k, p, x0 + j])
-    sads = [s.sum(1, keepdims=True) for s in sads]
-    cmode = np.zeros_like(sads[0])
-    best = sads[0]
-    h = np.where(left, sads[1], INVALID)
-    cmode = np.where(h < best, 1, cmode)
-    best = np.where(h < best, sads[1], best)
-    vv = np.where(top, sads[2], INVALID)
-    cmode = np.where(vv < best, 2, cmode)
-    # the TQ
-    luma = l < 16
-    cb = (l - 16) & 7
-    cp = cb >> 2
-    lbi, lbj = (l & 15) >> 2, l & 3              # luma lanes' block
-    cbi, cbj = (cb >> 1) & 1, cb & 1             # chroma lanes' block
-    bi, bj = np.where(luma, lbi, cbi), np.where(luma, lbj, cbj)
-    x, prow = [None] * 16, [None] * 16
-    mode_k = mode[k]
-    cedge_p = ce[k, cp]
-    for yy in range(4):
-        for j in range(4):
-            at_c = 32 * cbi + 8 * yy + 4 * cbj + j
-            s = np.where(luma, sy.reshape(kk, 256)[k, 64 * lbi + 16 * yy
-                                                   + 4 * lbj + j],
-                         np.where(cp == 1, sv.reshape(kk, 64)[k, at_c],
-                                  su.reshape(kk, 64)[k, at_c]))
-            pl = np.select([mode_k == 0, mode_k == 1],
-                           [e[k, 4 * lbj + j], e[k, 16 + 4 * lbi + yy]], dc)
-            pc = np.select([cmode == 0, cmode == 1],
-                           [_chroma_dc_pred(cedge_p, top, left, cbi, cbj,
-                                            swap),
-                            ce[k, cp, 8 + 4 * cbi + yy]],
-                           ce[k, cp, 4 * cbj + j])
-            pv = np.where(luma, pl, pc)
-            x[4 * yy + j] = s - pv
-            prow[4 * yy + j] = pv
-    q = _Quant(np.where(luma, qpv, qpcv))
-    _fdct(x)
-    cdc_lev, dc_deq = _chroma_dc(x[0], q, bi, bj)
-    dcs = x[0][:, :16]
-    tr = mutation == "luma_dc_transposed"
-    f = _hadamard4([dcs[:, i:i + 1] for i in range(16)], lbi, lbj, tr)
+        edge[wi[four], t[four], (4 * g + j)[four]] = np.where(
+            up, ry[ku, 15, np.minimum(4 * g + j, 15)], 0)[four]
+    edge[wi, t, 16 + 2 * g] = np.where(before, ry[kl, 2 * g, 15], 0)
+    edge[wi, t, 17 + 2 * g] = np.where(before, ry[kl, 2 * g + 1, 15], 0)
+    p, i = g >> 2, g & 3
+    cedge[wi, t, p, 2 * i] = np.where(up, rc[p, ku, 7, 2 * i], 0)
+    cedge[wi, t, p, 2 * i + 1] = np.where(up, rc[p, ku, 7, 2 * i + 1], 0)
+    cedge[wi, t, p, 8 + 2 * i] = np.where(before, rc[p, kl, 2 * i, 7], 0)
+    cedge[wi, t, p, 9 + 2 * i] = np.where(before, rc[p, kl, 2 * i + 1, 7], 0)
+    e = edge[wi, t]                                   # (W, 32, 32)
+    dc = _luma_dc(e[..., :16].sum(-1), e[..., 16:].sum(-1), top, left)
+
+    def chroma_dc(ce, qy, qx):                    # select.cu chroma_dc
+        def at(base):
+            return sum(np.take_along_axis(
+                ce, np.broadcast_to(base + d, ce.shape[:2])[..., None],
+                2)[..., 0] for d in range(4))
+        st, sl = at(4 * qx), at(8 + 4 * qy)
+        tt, lf = (st + 2) >> 2, (sl + 2) >> 2
+        both = np.where(top & left, (st + sl + 4) >> 3,
+                        np.where(top, tt, np.where(left, lf, 128)))
+        top_first = np.where(top, tt, np.where(left, lf, 128))
+        left_first = np.where(left, lf, np.where(top, tt, 128))
+        if mutation == "quadrant_swap":
+            top_first, left_first = left_first, top_first
+        return np.where(qy == qx, both,
+                        np.where(qy == 0, top_first, left_first))
+
+    # chroma prediction: lane g plane p, rows 2 i and 2 i + 1
+    ce = cedge[wi, t, p]                              # (W, 32, 16)
+    rows = [sc[p, k, 2 * i + d] for d in range(2)]    # (W, 32, 8) each
+    d0, d1 = chroma_dc(ce, i >> 1, 0), chroma_dc(ce, i >> 1, 1)
+    sad_dc = sad_h = sad_v = 0
+    for d in range(2):
+        sad_dc = sad_dc + np.abs(rows[d][..., :4] - d0[..., None]).sum(-1) \
+            + np.abs(rows[d][..., 4:] - d1[..., None]).sum(-1)
+        left_d = np.take_along_axis(ce, (8 + 2 * i + d)[..., None], 2)
+        sad_h = sad_h + np.abs(rows[d] - left_d).sum(-1)
+        sad_v = sad_v + np.abs(rows[d] - ce[..., :8]).sum(-1)
+    sad_dc, sad_h, sad_v = _sum8(sad_dc), _sum8(sad_h), _sum8(sad_v)
+    cmode = np.zeros_like(sad_dc)
+    best = sad_dc
+    hh = np.where(left, sad_h, INVALID)
+    cmode = np.where(hh < best, 1, cmode)
+    best = np.where(hh < best, sad_h, best)
+    cmode = np.where(np.where(top, sad_v, INVALID) < best, 2, cmode)
+    # the Intra_16x16 TQ: lane g blocks (bi, bj) and (bi + 2, bj); their
+    # DCs first, through the group's Hadamard
+    bi0, bj = g >> 2, g & 3
+    q = _Quant(qpv)
+    src, pred, dcs = [], [], []
+    for h in range(2):
+        s_h, p_h = [], []
+        for y in range(4):
+            yy = 4 * (bi0 + 2 * h) + y
+            for j in range(4):
+                s_h.append(sy[k, yy, 4 * bj + j])
+                p_h.append(np.select([mode == 0, mode == 1], [
+                    np.take_along_axis(e, (4 * bj + j)[..., None], 2)[..., 0],
+                    np.take_along_axis(e, (16 + yy)[..., None], 2)[..., 0]],
+                    dc))
+        src.append(s_h)
+        pred.append(p_h)
+        dcs.append(sum(s_h) - sum(p_h))
+    lo, hi = _hadamard4_lanes(dcs[0], dcs[1], mutation)
     qbits = 17 + q.div6
-    ldc = _sgn_mag(f, (np.abs(f) * q.mf[0] + (1 << (qbits - 1))) >> qbits)
-    ldc = np.where(luma, ldc, 0)
-    g = _hadamard4([ldc[:, i:i + 1] for i in range(16)], lbi, lbj, tr) \
-        * q.v[0]
-    lo_shift = np.maximum(1 - q.div6, 0)
-    ldeq = np.where(q.div6 >= 2, g * (1 << np.maximum(q.div6 - 2, 0)),
-                    (g + (1 << lo_shift)) >> (2 - np.minimum(q.div6, 2)))
-    dc_deq = np.where(luma, ldeq, dc_deq)
-    lev, rec = _quant_block(x, q, INTRA_DEADZONE_Q8)
+    ldc = [_sgn_mag(v, (np.abs(v) * q.mf[0] + (1 << (qbits - 1))) >> qbits)
+           for v in (lo, hi)]
+    gl, gh = _hadamard4_lanes(ldc[0], ldc[1], mutation)
+    deq = []
+    for v in (gl, gh):
+        v = v * q.v[0]
+        deq.append(np.where(q.div6 >= 2,
+                            v * (1 << np.maximum(q.div6 - 2, 0)),
+                            (v + (1 << np.maximum(1 - q.div6, 0)))
+                            >> (2 - np.minimum(q.div6, 2))))
+    kv = k[valid]
+    dc_lev = np.zeros((kk, 16), np.int64)
+    ac_lev = np.zeros((kk, 16, 16), np.int64)
+    rec_y = ry.reshape(kk, 16, 16).copy()
+    i16v = i16 & valid
+    for h in range(2):
+        bi = bi0 + 2 * h
+        blk = 4 * bi + bj
+        dc_lev[kv, blk[valid]] = ldc[h][valid]
+        x = [a - b for a, b in zip(src[h], pred[h])]
+        _fdct(x)
+        lev, rec = _quant_block(x, q, INTRA_DEADZONE_Q8)
+        lev[0] = np.zeros_like(lev[0])
+        ac_lev[kv, blk[valid]] = np.stack(lev, -1)[valid]
+        rec[0] = deq[h]
+        _idct(rec)
+        rec = _recon(rec, pred[h])
+        for y in range(4):
+            for j in range(4):
+                rec_y[k[i16v], (4 * bi + y)[i16v], (4 * bj + j)[i16v]] = \
+                    rec[4 * y + j][i16v]
+    # the chroma TQ of the Intra_16x16 MBs: lane g = 4 p + 2 bi + bj
+    cbi, cbj = (g >> 1) & 1, g & 1
+    cdc_q = chroma_dc(ce, cbi, cbj)
+    x, prow = [], []
+    for y in range(4):
+        for j in range(4):
+            pv = np.select([cmode == 0, cmode == 1], [
+                cdc_q, np.take_along_axis(ce, (8 + 4 * cbi + y)[..., None],
+                                          2)[..., 0]],
+                np.take_along_axis(ce, (4 * cbj + j)[..., None], 2)[..., 0])
+            x.append(sc[p, k, 4 * cbi + y, 4 * cbj + j] - pv)
+            prow.append(pv)
+    qc = _Quant(qpcv)
+    _fdct(x)
+    cdc_lev, dc_deq = _chroma_dc(x[0], qc, cbi, cbj)
+    lev, rec = _quant_block(x, qc, INTRA_DEADZONE_Q8)
     lev[0] = np.zeros_like(lev[0])
     rec[0] = dc_deq
     _idct(rec)
     rec = _recon(rec, prow)
-    lev_a, rec_a = np.stack(lev, -1), np.stack(rec, -1)
-    i16b = i16[:, :, None]
-    rec_y = np.where(i16b[:, :, :, None, None],
-                     rec_a[:, :16].reshape(kk, 16, 4, 4)[:, None],
-                     ry.reshape(kk, 4, 4, 4, 4).transpose(0, 1, 3, 2, 4)
-                     .reshape(kk, 1, 16, 4, 4))[:, 0]
-    rec_c = rec_a[:, 16:24].reshape(kk, 2, 4, 4, 4)
-    inter_c = np.stack([x_.reshape(kk, 2, 4, 2, 4).transpose(0, 1, 3, 2, 4)
-                        .reshape(kk, 4, 4, 4) for x_ in (ru, rv)], 1)
-    rec_c = np.where(i16[:, :, None, None, None], rec_c, inter_c)
-
-    def tiles(t, s):
-        b = s // 4
-        return t.reshape(kk, b, b, 4, 4).transpose(0, 1, 3, 2, 4).reshape(
-            kk, s, s)
-
-    def frames(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x).reshape(
-            (n, nmb) + x.shape[1:]).astype(dtype))
+    cdc = cdc_i.reshape(kk, 8).copy()
+    cac = cac_i.reshape(kk, 8, 16).copy()
+    rec_c = rc.reshape(2, kk, 8, 8).transpose(1, 0, 2, 3).copy()
+    ki = k[i16v]
+    cdc[ki, g[i16v]] = cdc_lev[i16v]
+    cac[ki, g[i16v]] = np.stack(lev, -1)[i16v]
+    for y in range(4):
+        for j in range(4):
+            rec_c[ki, p[i16v], (4 * cbi + y)[i16v], (4 * cbj + j)[i16v]] = \
+                rec[4 * y + j][i16v]
+    # the fields
+    first = valid & (g == 0)
+    zero = np.zeros(kk, bool)
+    zero[k[first]] = i16[first]
+    cm = np.zeros(kk, np.int64)
+    cm[k[first]] = cmode[first]
+    frames = _frames(n, nmb)
     i32, u8 = np.int32, np.uint8
-    zero = i16[:, 0]
-    lev_c = lev_a[:, 16:24].reshape(kk, 2, 2, 2, 16)
     return dict(
         sel=frames(np.where(zero, tmb.SEL_I16, tmb.SEL_INTER), i32),
-        mode16=frames(mode, i32), cmode=frames(cmode[:, 0], i32),
-        dc_lev=frames(ldc[:, :16].reshape(kk, 4, 4), i32),
-        ac_lev=frames(lev_a[:, :16].reshape(kk, 4, 4, 4, 4), i32),
-        cdc_lev=frames(np.where(zero[:, None, None, None],
-                                cdc_lev[:, 16:24].reshape(kk, 2, 2, 2),
-                                cdc_i.reshape(kk, 2, 2, 2)), i32),
-        cac_lev=frames(np.where(zero[:, None, None, None, None, None],
-                                lev_c.reshape(kk, 2, 2, 2, 4, 4),
-                                cac_i.reshape(kk, 2, 2, 2, 4, 4)), i32),
-        recon_y=frames(tiles(rec_y, 16), u8),
-        recon_u=frames(tiles(rec_c[:, 0], 8), u8),
-        recon_v=frames(tiles(rec_c[:, 1], 8), u8),
+        mode16=frames(mode16, i32), cmode=frames(cm, i32),
+        dc_lev=frames(dc_lev.reshape(kk, 4, 4), i32),
+        ac_lev=frames(ac_lev.reshape(kk, 4, 4, 4, 4), i32),
+        cdc_lev=frames(cdc.reshape(kk, 2, 2, 2), i32),
+        cac_lev=frames(cac.reshape(kk, 2, 2, 2, 4, 4), i32),
+        recon_y=frames(rec_y, u8),
+        recon_u=frames(rec_c[:, 0], u8), recon_v=frames(rec_c[:, 1], u8),
         i4modes=frames(np.full((kk, 16), 2), i32),
         i4sym_v=frames(np.zeros((kk, 16)), i32),
         i4sym_l=frames(np.zeros((kk, 16)), i32),
@@ -918,6 +1044,24 @@ def emulate_k8(args, mutation=None):
                      i32))
 
 
+def test_the_group_hadamard_is_the_transforms():
+    """tq_hadamard4's shuffles over a group of 8 lanes give
+    transform.hadamard4x4 of each MB's 16 values, each output on the lane
+    of its block; without the last shuffle they do not."""
+    rng = np.random.default_rng(5)
+    x = rng.integers(-4000, 4000, (3, 4, 4, 4))      # (warps, MBs, 4, 4)
+    g = LANE & 7
+    lo = x[:, LANE >> 3, g >> 2, g & 3]
+    hi = x[:, LANE >> 3, (g >> 2) + 2, g & 3]
+    want = np.stack([ttr.hadamard4x4(torch.from_numpy(b)).numpy()
+                     for b in x.reshape(-1, 4, 4)]).reshape(x.shape)
+    got = _hadamard4_lanes(lo, hi)
+    _eq(want[:, LANE >> 3, g >> 2, g & 3], got[0], "rows 0-1")
+    _eq(want[:, LANE >> 3, (g >> 2) + 2, g & 3], got[1], "rows 2-3")
+    bad = _hadamard4_lanes(lo, hi, "hadamard_no_fixup")
+    assert not np.array_equal(bad[0], got[0])
+
+
 @pytest.mark.parametrize("c", K8_CASES, ids=_ids)
 def test_k8_schedule_equals_plain(c):
     got = emulate_k8(tmb.select_parallel_args(*k8_case(c)))
@@ -926,7 +1070,7 @@ def test_k8_schedule_equals_plain(c):
 
 
 @pytest.mark.parametrize("mutation", ["want_across_frames", "ignore_avail",
-                                      "quadrant_swap", "luma_dc_transposed"])
+                                      "quadrant_swap", "hadamard_no_fixup"])
 def test_k8_schedule_mutations_fail(mutation):
     differs = []
     for c in K8_CASES:
@@ -965,9 +1109,9 @@ def test_inter_residual_args_pack_the_plain_arguments(c):
                                a[15] is not None, tuple(a[3].shape))
     tensors = list(packed[:15]) + list(packed[15] or ())
     assert len(tensors) == len(specs)
-    for x, (name, dtype, shape, aligned) in zip(tensors, specs):
+    for x, (name, dtype, shape, mask) in zip(tensors, specs):
         assert x.dtype == dtype and x.shape == shape, name
-        assert x.is_contiguous() and (not aligned or x.data_ptr() % 16 == 0)
+        assert x.is_contiguous() and x.data_ptr() & mask == 0, name
     assert packed[16:] == (a[16], a[17], True)
     # the parts in K7's order, equal to the plain dict's
     if a[15] is not None:
@@ -986,9 +1130,9 @@ def test_select_parallel_args_pack_the_plain_arguments():
     packed = tmb.select_parallel_args(*a)
     n, nmb = a[0].shape[:2]
     specs = residual.k8_inputs(n, nmb, nmb // a[-1], True)
-    for x, (name, dtype, shape, aligned) in zip(packed[:17], specs):
+    for x, (name, dtype, shape, mask) in zip(packed[:17], specs):
         assert x.dtype == dtype and x.shape == shape, name
-        assert x.is_contiguous() and (not aligned or x.data_ptr() % 16 == 0)
+        assert x.is_contiguous() and x.data_ptr() & mask == 0, name
     assert packed[17] == a[-1]
     assert torch.equal(packed[5], torch.from_numpy(np.stack(
         [a[5], a[6]]).astype(np.uint8)))
@@ -999,8 +1143,8 @@ def test_select_parallel_args_pack_the_plain_arguments():
 @pytest.mark.parametrize("which", ["k7", "k8"])
 def test_k7_k8_buffers_hold_the_plain_outputs(which):
     """The wrappers' one buffer: every output of the plain version with
-    its dtype and shape (K8: and the scratch), each on a 16-byte
-    boundary, none overlapping; worked out once per size."""
+    its dtype and shape, each on a 16-byte boundary, none overlapping;
+    worked out once per size."""
     if which == "k7":
         c = K7_CASES[0]
         want, outs = k7_plain(c), residual.K7_OUTPUTS
@@ -1009,10 +1153,11 @@ def test_k7_k8_buffers_hold_the_plain_outputs(which):
         c = K8_CASES[0]
         want, outs = k8_plain(c), residual.K8_OUTPUTS
         n, nmb = k8_case(c)[0].shape[:2]
-    nbytes, views = residual._plan(outs, n, nmb)
-    assert residual._plan(outs, n, nmb)[1] is views
+    layout = residual._layout(outs, n, nmb)
+    nbytes, views, _ = residual.cuda_build.buffer_plan(layout)
+    assert residual.cuda_build.buffer_plan(layout)[1] is views
     buf = torch.zeros(nbytes, dtype=torch.uint8)
-    out = residual._views(buf, views)
+    out = residual.cuda_build.buffer_views(buf, views)
     assert list(out) == [name for name, _, _ in outs]
     spans = []
     for name, x in out.items():

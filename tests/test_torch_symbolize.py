@@ -880,7 +880,8 @@ def test_symbolize_args_pack_the_plain_arguments():
 
 @pytest.mark.parametrize("plan", [False, True])
 def test_k6_buffer_holds_the_plain_outputs(plan):
-    """The wrapper's one buffer (`symbolize._plan`, `_views`): every output
+    """The wrapper's one buffer (`symbolize._plan`,
+    `cuda_build.buffer_views`): every output
     of the plain version with its dtype and shape, and the scratch, each
     on a 16-byte boundary, none overlapping, the entry point's pointers at
     their offsets; worked out once per size."""
@@ -892,7 +893,7 @@ def test_k6_buffer_holds_the_plain_outputs(plan):
     assert [tuple(x) for x in shapes] == [(n, nmb) + t for _, t in k6.INPUTS] \
         + ([(n, mbh)] if plan else [])
     buf = torch.zeros(nbytes, dtype=torch.uint8)
-    out = k6._views(buf, views)
+    out = k6.cuda_build.buffer_views(buf, views)
     assert set(out) == set(want) | {"scratch"}
     spans = []
     for name, x in out.items():

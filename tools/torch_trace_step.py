@@ -138,7 +138,7 @@ KERNELS = {"K1": ("pack_kernel",), "K2": ("deblock_kernel",),
            "K6": ("sym_records_kernel", "sym_scan_kernel",
                   "sym_codes_kernel"),
            "K7": ("inter_residual_kernel",),
-           "K8": ("select_want_kernel", "select_code_kernel")}
+           "K8": ("select_parallel_kernel",)}
 HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock", "K3": "wavefront",
                  "K4": "me", "K5": "partition", "K6": "symbolize",
                  "K7": "inter_residual", "K8": "select_parallel"}
