@@ -86,29 +86,38 @@ Phases (any failure exits non-zero; nothing is caught):
      an IDR (untimed, first use), a P frame timed without synchronization
      inside it (seconds per two-layer frame), a P frame and a forced
      FrameType.KEY frame (the base-mode IDR) with per-stage times of the
-     base layer, the enhancement layer and the resampling; K1 and K2 must
-     have launched at least once per layer and frame, K2 also for the
-     base-mode frame's own deblocking, K3 once for each of the two base
-     layer IDRs, K4, K7 and K8 once per layer of each P frame (the stage P
-     frame's motion search inputs of both layers kept for phase 18, its K7
-     and K8 inputs of both layers for phase 20), K6 once per
-     layer of each P frame and once for each IDR's base layer (an IDR's
-     enhancement layer is base-mode, coded by `svc.base_mode_symbols`;
-     the stage P frame's symbolize inputs of both layers, the
-     enhancement's with the base_mode_flag bit, kept for phase 19);
+     base layer, the enhancement layer and the resampling (its seconds
+     and its `base_mode`, `up` and `down` ms printed on a line of their
+     own); K1 and K2 must have launched at least once per layer and
+     frame, K2 also for the base-mode frame's own deblocking, K3 once for
+     each of the two base layer IDRs, K4, K7 and K8 once per layer of
+     each P frame (the stage P frame's motion search inputs of both
+     layers kept for phase 18, its K7 and K8 inputs of both layers for
+     phase 20), K6 once per layer of every frame. Each IDR's enhancement
+     layer is a base-mode frame (`svc.base_mode_symbols`): exactly one K7
+     launch (its TQ, zero MVs, the kills off) and K6 twice (the base
+     layer's I slice and the enhancement's base-mode slice, one call in
+     K6's base-mode kind), counted by `cuda_build.count_launch`, and no
+     `cavlc.encode_blocks` call (the stage P frame's symbolize inputs of
+     both layers, the enhancement's with the base_mode_flag bit, kept for
+     phase 19);
   12. hold K1 against the plain packer on the base-mode frame's (1, 8160,
      952) grid and on the base layer's P grid (1, 2040, 952), each at its
      capacity and at 1024 words, K2 against the plain filter on the
-     base-mode frame's and the base P frame's deblocking inputs, and K3
+     base-mode frame's and the base P frame's deblocking inputs, K3
      against the plain wavefront on the base-mode frame's base (1, 2040)
-     wavefront inputs;
+     wavefront inputs, and on the base-mode frame's real enhancement
+     inputs K6 in its base-mode kind against `symbolize_plain` and its
+     `inter_residual` call (K7) against `inter_residual_plain`, 20
+     launches each, every output equal (as phases 19 and 20 check them);
   13. card bytes against CPU bytes of SvcEncoder at 352x288 over 176x144:
      inter-layer prediction at speed 0 (IDR, P, P) and none at speed 2
      (IDR, P); each card stream decodes bit-exactly to the card's
      reconstructions: the enhancement layer whole, the base layer with
      NAL types 14, 15 and 20 stripped; the card encoders launch K6 once
      for each of their symbolize calls, K7 once per layer of each P frame
-     and K8 once per layer of the speed-2 P frame;
+     and once for the base-mode IDR, and K8 once per layer of the speed-2
+     P frame;
   14. `entry()` (the driver entry point: the 128x96 wavefront intra
      encode) on the card: every output equals `entry("cpu")`'s, and it
      launched K3 once and K6 once (its symbolize inputs kept for phase
@@ -191,7 +200,8 @@ Phases (any failure exits non-zero; nothing is caught):
      (`me.occupancy`), K5's warps, threads, shared memory and resident
      blocks an SM (`me.partition_occupancy`), and the kernel launches in
      one call of K4 on the 16-lane P step's inputs and of K5 on the speed-0
-     P frame's (a `torch.profiler` trace; each must be one);
+     P frame's (the fullest of up to ten `torch.profiler` traces, as the
+     profiler drops records; each must be one);
   19. hold K6 (CAVLC symbolization, `symbolize.symbolize_tiles` through
      `mbscan.symbolize`) against `mbscan.symbolize_plain`, every output
      key (names, dtypes, shapes, values): on the real inputs of the
@@ -208,7 +218,7 @@ Phases (any failure exits non-zero; nothing is caught):
      20 calls), the `sym` stage's (`symbolize`: the packing and K6), the
      plain version's (one call), the byte bound and its share, each of
      K6's kernels' ptxas registers, shared memory, stack and spills, and
-     the kernels one call launches (the fullest of up to six
+     the kernels one call launches (the fullest of up to ten
      `torch.profiler` traces, each of a second call inside the trace:
      once the encoder has run, the profiler drops the first hand-kernel
      record of most traces; K6's kernels and no other, all three in the
@@ -232,8 +242,8 @@ Phases (any failure exits non-zero; nothing is caught):
      events over 20 calls), its host us a call, the entry's ms (the
      packing and the kernel), the plain version's ms (one call), the byte
      bound and its share (`k7_bytes`, `k8_bytes`), and on the real inputs
-     the device us of its kernels (the fullest of up to six
-     `torch.profiler` traces; none where all six lost a record); the
+     the device us of its kernels (the fullest of up to ten
+     `torch.profiler` traces; none where all ten lost a record); the
      phase prints each kernel's registers, shared memory, stack and
      spills; then a stream with non-flat chroma
      (`utils.synthetic.color_chroma_sequence`, 176x144, 3 slice bands,
@@ -357,6 +367,8 @@ K6_DENSE_CASE = ("16 lanes of 1080p, P, dense", 72, LANES, 120, 68, True,
 K6_REPEATS = 20                  # launches of K6 per check, all equal
 TRACE_MARGIN_S = 0.02            # host time in a trace before and after a
                                  # traced call (`trace_kernels`)
+TRACE_TRIES = 10                 # traces of a check until one holds all of
+                                 # its kernels (the profiler drops records)
 # phase 20: K7 (what, seed, frames, mb_width, mb_height, qp, lanes, lane
 # frame rows, row QP plan, partitions, quarter-pel, full-pel reach, noise
 # guard) and K8 (what, seed, frames, mb_width, mb_height, qp, row QP plan,
@@ -751,8 +763,12 @@ def k5_args(k4_args):
 
 def cuda_calls(calls):
     """How many of the recorded calls (`recorded_calls`) took their first
-    tensor on the card."""
-    return sum(args[0].is_cuda for args in calls)
+    tensor on the card (a base-mode `symbolize` call passes None for its
+    first ten)."""
+    import torch
+
+    return sum(next(a for a in args if isinstance(a, torch.Tensor)).is_cuda
+               for args in calls)
 
 
 def require_k6(on_card, launches, what):
@@ -775,13 +791,19 @@ def k6_bytes(k6_args, outs):
     it is inter, else ac_lev's; on P slices its MVs and shape (an intra
     MB's MV differences are outputs too); mode16 of an I16 MB, the Intra
     4x4 lengths of an I4 MB; and the row plan. About 9.5 KB per MB of a
-    P slice."""
+    P slice. A base-mode slice reads only its MBs' luma and chroma levels
+    (1.6 KB per MB)."""
     import torch
     from h264lab_tpu_torch.models import mbscan
     from h264lab_tpu_torch.ops.symbolize import INPUTS
 
     x = dict(zip((name for name, _ in INPUTS), k6_args))
     qp_rows, has_inter = k6_args[13], k6_args[16]
+    outputs = sum(t.numel() * t.element_size() for t in outs.values())
+    if k6_args[18]:
+        # a base-mode slice reads its luma and chroma levels only
+        return outputs + sum(x[k].numel() * x[k].element_size()
+                             for k in ("lev_inter", "cdc_lev", "cac_lev"))
     sel = x["sel"]
     n_mb = sel.numel()
     n_of = {v: int((sel == v).sum()) for v in (
@@ -800,7 +822,7 @@ def k6_bytes(k6_args, outs):
         reads += n_mb * sum(per_mb(k) for k in ("mv4_y", "mv4_x", "shape"))
     if qp_rows is not None:
         reads += qp_rows.numel() * qp_rows.element_size()
-    return reads + sum(t.numel() * t.element_size() for t in outs.values())
+    return reads + outputs
 
 
 def check_k6(call, what, label, ptxas):
@@ -813,15 +835,15 @@ def check_k6(call, what, label, ptxas):
     (`symbolize`), both from CUDA events over 20 calls; plain_ms (the
     checked call); bound_ms (the bytes K6 must move at 3.35 TB/s,
     `k6_bytes`); the kernels one call launches (`kernel_launches`) and,
-    when that trace holds all three, device_us, their device time, else
-    None; max_abs_err."""
+    when that trace holds all of them (three, two in a base-mode slice),
+    device_us, their device time, else None; max_abs_err."""
     import torch
     from h264lab_tpu_torch.models import mbscan
     from h264lab_tpu_torch.ops import symbolize as k6
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 
     args = to_device(call, "cuda")
-    with torch.cuda.device(args[0].device):
+    with torch.cuda.device(args[10].device):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -848,15 +870,19 @@ def check_k6(call, what, label, ptxas):
         out = dict(ms=_cuda_ms(lambda: k6.symbolize_tiles(*k6_args), 20),
                    stage_ms=_cuda_ms(lambda: mbscan.symbolize(*args), 20),
                    plain_ms=start.elapsed_time(end), max_abs_err=err)
+        # a base-mode slice has no slice scans
+        n_kernels = 2 if k6_args[18] else 3
         kernels, taken = kernel_launches(
-            lambda: k6.symbolize_tiles(*k6_args), traces=6, want=3)
+            lambda: k6.symbolize_tiles(*k6_args), traces=TRACE_TRIES,
+            want=n_kernels)
     moved = k6_bytes(k6_args, want)
     out["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
     out["kernels"] = kernels
     out["traces"] = taken
-    out["device_us"] = (sum(us for _, us in kernels) if len(kernels) == 3
-                        else None)
-    n, nmb = args[0].shape
+    out["n_kernels"] = n_kernels
+    out["device_us"] = (sum(us for _, us in kernels)
+                        if len(kernels) == n_kernels else None)
+    n, nmb = want["cbp"].shape
     skips = int(want["skip"].sum())
     print(f"  K6 == plain on {what} ({n}, {nmb}), {K6_REPEATS} launches "
           f"{label}: K6 {out['ms']:.3f} ms (the packing and K6 "
@@ -923,8 +949,16 @@ def trace_kernels(fn, margin=TRACE_MARGIN_S, warm=True):
                    and e.time_range.start >= start),
                   key=lambda e: e.time_range.start)
     lead = kept[0].time_range.start - start if kept else None
-    return [(e.name.replace("(anonymous namespace)::", "").split("(")[0],
-             e.time_range.end - e.time_range.start) for e in kept], lead
+    return [(kernel_name(e.name), e.time_range.end - e.time_range.start)
+            for e in kept], lead
+
+
+def kernel_name(name):
+    """A traced kernel's name without its namespace, parameters and return
+    type; of K6's passes A and C (templates on the base-mode kind) the
+    base-mode instantiations keep their `<true>`."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").replace("<false>", "")
 
 
 def kernel_launches(fn, traces=3, want=1):
@@ -993,15 +1027,18 @@ def residual_record():
             "launches": {}}
 
 
-def require_k7_k8(what, k4, k7, k8, k8_calls):
+def require_k7_k8(what, k4, k7, k8, k8_calls, base_mode_frames=0):
     """A path's residual kernels: K7 once wherever K4 searched (one
-    `inter_stage_core` call each), and K8 once for each `select_parallel`
+    `inter_stage_core` call each) and once for each SVC base-mode frame
+    (`base_mode_frames`: its TQ), and K8 once for each `select_parallel`
     call on the card (`k8_calls`, the P frames at speed 2 and up)."""
-    _require(k7 == k4 and k8 == k8_calls,
-             f"{what}: K4 launched {k4} times, K7 {k7}; {k8_calls} parallel "
-             f"selects on the card, K8 launched {k8} times")
-    print(f"  K7 launches of {what}: {k7} (one where K4 searched); K8 "
-          f"launches {k8} (one for each parallel P select)")
+    _require(k7 == k4 + base_mode_frames and k8 == k8_calls,
+             f"{what}: K4 launched {k4} times, K7 {k7} ({base_mode_frames} "
+             f"base-mode frames); {k8_calls} parallel selects on the card, "
+             f"K8 launched {k8} times")
+    print(f"  K7 launches of {what}: {k7} (one where K4 searched, one for "
+          f"each of {base_mode_frames} base-mode frames); K8 launches {k8} "
+          "(one for each parallel P select)")
 
 
 def k7_bytes(args, outs):
@@ -1151,7 +1188,8 @@ def check_residual(kernel, args, what, label, trace=False):
         torch.cuda.synchronize()
         out["kernels"], out["device_us"] = [], None
         if trace:
-            kernels, _ = kernel_launches(lambda: wrapper(*packed), traces=6,
+            kernels, _ = kernel_launches(lambda: wrapper(*packed),
+                                         traces=TRACE_TRIES,
                                          want=n_kernels)
             out["kernels"] = kernels
             if len(kernels) == n_kernels:
@@ -1434,17 +1472,19 @@ def k1_numbers(vals, lens, cap, nk):
 
 
 def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
-               sym_calls, residual, cif, cif_frames):
+               sym_calls, residual, cif, cif_frames, ptxas, bm_numbers):
     """Phases 11 to 13: SvcEncoder at WIDTH x HEIGHT with inter-layer
     prediction (stage frames timed), K1 on its base-mode and base P grids,
-    K2 on their deblocking inputs and K3 on the base-mode frame's base
-    wavefront inputs (their numbers go into `numbers`, `k2_numbers` and
-    `k3_numbers`; the stage P frame's K4 calls into `me_calls`, its two
-    symbolize calls into `sym_calls` and its K7 and K8 calls and the
-    path's launches into `residual` (`residual_record`), on the host), and
-    SVC card bytes
+    K2 on their deblocking inputs, K3 on the base-mode frame's base
+    wavefront inputs, K6 in its base-mode kind and K7 on the base-mode
+    frame's enhancement (their numbers go into `numbers`, `k2_numbers`,
+    `k3_numbers` and `bm_numbers`, {"K6": ..., "K7": ...}; the stage P
+    frame's K4 calls into `me_calls`, its two symbolize calls into
+    `sym_calls` and its K7 and K8 calls and the path's launches into
+    `residual` (`residual_record`), on the host), and SVC card bytes
     against CPU bytes at CIF. Returns (K1 launches of the SVC frames, K2
-    launches, K3 launches, K4 launches, K6 launches, largest K1 error)."""
+    launches, K3 launches, K4 launches, K6 launches, K6 launches in the
+    base-mode kind, largest K1 error)."""
     import torch
     from h264lab_tpu_torch.bitstream.nal import split_annexb
     from h264lab_tpu_torch.config import FrameType
@@ -1471,13 +1511,15 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     svc_wf = []                 # the SVC frames' wavefront calls
     svc_sym = []                # their symbolize calls
     svc_k7, svc_k8 = [], []     # their inter residuals, parallel selects
+    svc_blocks = []             # their `cavlc.encode_blocks` calls
 
     def svc_frame(t, kind, r=run):
         t0 = time.perf_counter()
         with recorded_calls("_select_wavefront", svc_wf), \
                 recorded_calls("symbolize", svc_sym), \
                 recorded_calls("inter_residual", svc_k7), \
-                recorded_calls("select_parallel", svc_k8):
+                recorded_calls("select_parallel", svc_k8), \
+                recorded_calls("encode_blocks", svc_blocks, "ops.cavlc"):
             res = svc.encode(*svc_frames[t], r)
         s = time.perf_counter() - t0
         _require(res.frame_type == kind and len(res.base_payload) > 0
@@ -1493,10 +1535,33 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
                 print(f"  {layer:4s} stage {k:9s} {1e3 * v:10.1f} ms "
                       f"{label}")
 
+    def base_mode_launches(before, what):
+        """A base-mode IDR's kernels: K7 once (the enhancement's TQ), K6
+        twice (the base layer's I slice and the enhancement's base-mode
+        slice, of which one call in the base-mode kind), no K4 or K8, and
+        no `encode_blocks` call."""
+        got = {k: LAUNCH_COUNTS[k] - before[k] for k in LAUNCH_COUNTS}
+        bm_sym = [a for a in svc_sym[-2:] if a[18]]
+        _require(got["inter_residual"] == 1 and got["symbolize"] == 2
+                 and got["me"] == got["select_parallel"] == 0
+                 and len(bm_sym) == 1 and bm_sym[0][10].is_cuda
+                 and len(svc_k7) == 1 and not svc_k7[0][-1]
+                 and not svc_blocks,
+                 f"{what}: launches {got}, {len(bm_sym)} base-mode "
+                 f"symbolize calls, {len(svc_k7)} inter residuals, "
+                 f"{len(svc_blocks)} encode_blocks calls")
+        print(f"  {what}: one K7 launch (zero MVs, no kills) and K6 "
+              "launches 2 (the base layer's, the base-mode slice's); no "
+              "encode_blocks call")
+        return bm_sym[0]
+
     reset_launches()
+    before = dict(LAUNCH_COUNTS)
     res, s = svc_frame(0, "IDR")
     print(f"SVC IDR (untimed, first use): {s:.2f} s; bytes base "
           f"{len(res.base_payload)}, enhancement {len(res.enh_payload)}")
+    base_mode_launches(before, "the first SVC IDR (base-mode)")
+    svc_k7.clear()
     res, t_svc = svc_frame(1, "P")
     n_k8 = cuda_calls(svc_k8)
     svc_k7.clear()
@@ -1525,7 +1590,7 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     svc_k7.clear()
     svc_k8.clear()
     # symbolize's parameters: the 13 tensors, mb_width, mb_height,
-    # has_inter, qp_rows, svc_base_mode_bit
+    # has_inter, qp_rows, svc_base_mode_bit, base_mode
     sym_shapes = sorted((tuple(a[0].shape), a[17]) for a in svc_sym[n_sym:])
     _require(sym_shapes == [((1, nmb // 4), False), ((1, nmb), True)],
              f"the SVC P frame's symbolize calls (shape, base_mode_flag "
@@ -1534,11 +1599,18 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
         layer = "base" if a[0].shape[1] == nmb // 4 else "enhancement"
         sym_calls[f"SVC {layer} P frame"] = to_device(a, "cpu")
     svc.stage_times = {}
-    before = LAUNCH_COUNTS["deblock"]
+    before = dict(LAUNCH_COUNTS)
     with recorded_calls("deblock_frame", bm_calls):
         res, s = svc_frame(3, "IDR", key)
-    bm_launches = LAUNCH_COUNTS["deblock"] - before
+    bm_launches = LAUNCH_COUNTS["deblock"] - before["deblock"]
     svc_table("IDR (base-mode)", s, res)
+    bm_sym = base_mode_launches(before, "the forced SVC IDR (base-mode)")
+    bm_k7 = svc_k7[0]
+    times = svc.stage_times
+    print(f"SVC base-mode IDR {label}: {s:.3f} s (stage syncs inside); "
+          f"base_mode {1e3 * times['enh']['base_mode']:.2f} ms, up "
+          f"{1e3 * times['svc']['up']:.2f} ms, down "
+          f"{1e3 * times['svc']['down']:.2f} ms")
     svc.stage_times = None
     bitpack.pack_frames = k1
     print(f"  peak device memory of the SVC path "
@@ -1547,18 +1619,21 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     svc_db_launches = LAUNCH_COUNTS["deblock"]
     svc_wf_launches = LAUNCH_COUNTS["wavefront"]
     svc_me_launches = LAUNCH_COUNTS["me"]
-    # an IDR's enhancement layer (base-mode with inter-layer prediction)
-    # makes no symbolize call: `svc.base_mode_symbols` codes it. So two
-    # calls for each of the 2 P frames, one for each of the 2 IDRs
+    # two symbolize calls in every frame: each layer's; an IDR's
+    # enhancement layer is a base-mode slice (`svc.base_mode_symbols`)
     svc_sym_launches = require_k6(cuda_calls(svc_sym),
                                   LAUNCH_COUNTS["symbolize"],
                                   f"the SVC path's {SVC_FRAMES} frames")
-    _require(svc_sym_launches == 6, f"the SVC path launched K6 "
-             f"{svc_sym_launches} times in {SVC_FRAMES} frames, not 6")
+    svc_bm_launches = sum(bool(a[18]) for a in svc_sym)
+    _require(svc_sym_launches == 8 and svc_bm_launches == 2,
+             f"the SVC path launched K6 {svc_sym_launches} times in "
+             f"{SVC_FRAMES} frames, {svc_bm_launches} in the base-mode "
+             "kind, not 8 and 2")
     print(f"K1 launches in the SVC path's {SVC_FRAMES} frames: "
           f"{svc_launches}; K2 launches {svc_db_launches}, {bm_launches} "
           f"of them in the base-mode frame; K3 launches {svc_wf_launches}; "
-          f"K4 launches {svc_me_launches}; K6 launches {svc_sym_launches}")
+          f"K4 launches {svc_me_launches}; K6 launches {svc_sym_launches}, "
+          f"{svc_bm_launches} of them in the base-mode kind")
     me_shapes = sorted(tuple(c[2].shape[:2]) for c in svc_me)
     _require(svc_me_launches == 4 and me_shapes == [(1, nmb // 4), (1, nmb)],
              f"the SVC path launched K4 {svc_me_launches} times in its 2 P "
@@ -1568,7 +1643,8 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
              "selects on the card, not one per layer and frame")
     require_k7_k8(f"the SVC path's {SVC_FRAMES} frames", svc_me_launches,
                   LAUNCH_COUNTS["inter_residual"],
-                  LAUNCH_COUNTS["select_parallel"], n_k8)
+                  LAUNCH_COUNTS["select_parallel"], n_k8,
+                  base_mode_frames=2)
     residual["launches"]["svc"] = (LAUNCH_COUNTS["inter_residual"],
                                 LAUNCH_COUNTS["select_parallel"])
     del svc_k7, svc_k8
@@ -1612,7 +1688,14 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
                                         "deblocking inputs", label)
     k3_numbers["SVC base-mode"] = check_k3(
         svc_wf[1], "the SVC base-mode frame's base wavefront inputs", label)
-    del svc, vals, lens, p_calls, bm_calls, svc_wf, svc_me
+    # K6 in the base-mode kind and K7 with zero MVs on the base-mode
+    # frame's enhancement
+    bm_numbers["K6"] = check_k6(bm_sym, "the SVC base-mode frame's "
+                                "base-mode slice", label, ptxas["K6"])
+    bm_numbers["K7"] = check_residual(
+        "K7", bm_k7, "the SVC base-mode frame's TQ inputs", label,
+        trace=True)
+    del svc, vals, lens, p_calls, bm_calls, svc_wf, svc_me, bm_sym, bm_k7
     torch.cuda.empty_cache()
 
     # 13. SVC card bytes against CPU bytes at CIF, and both layers decoded
@@ -1650,18 +1733,20 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
           "of their symbolize calls")
     k7, k8 = (LAUNCH_COUNTS[k] - res_before[k]
               for k in ("inter_residual", "select_parallel"))
-    # P frames of two layers: 2 at speed 0, 1 at speed 2 (parallel select)
-    _require(k7 == 6 and cuda_calls(cif_k8) == 2, f"the CIF SVC card "
+    # P frames of two layers: 2 at speed 0, 1 at speed 2 (parallel
+    # select); one base-mode IDR (inter-layer prediction)
+    _require(k7 == 7 and cuda_calls(cif_k8) == 2, f"the CIF SVC card "
              f"encoders launched K7 {k7} times in 3 two-layer P frames and "
-             f"made {cuda_calls(cif_k8)} parallel selects")
+             f"a base-mode IDR and made {cuda_calls(cif_k8)} parallel "
+             "selects")
     require_k7_k8("the CIF SVC card encoders",
                   LAUNCH_COUNTS["me"] - res_before["me"], k7, k8,
-                  cuda_calls(cif_k8))
+                  cuda_calls(cif_k8), base_mode_frames=1)
     residual["launches"]["svc cif"] = (k7, k8)
     print(f"  CIF SVC comparisons and decodes {time.perf_counter() - t0:.1f}"
           " s")
     return (svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches,
-            svc_sym_launches, max_err)
+            svc_sym_launches, svc_bm_launches, max_err)
 
 
 def mesh_devices(n):
@@ -2369,11 +2454,11 @@ def main() -> int:
           f"{cli_sym_launches}")
 
     # 11 to 13. two-layer SVC
+    bm_numbers = {}             # K6 and K7 on the base-mode frame
     (svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches,
-     svc_sym_launches, err) = svc_phases(cfg, run, label, numbers,
-                                         k2_numbers, k3_numbers, me_calls,
-                                         sym_calls, residual, cif,
-                                         cif_frames)
+     svc_sym_launches, svc_bm_launches, err) = svc_phases(
+        cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
+        sym_calls, residual, cif, cif_frames, ptxas, bm_numbers)
     max_err = max(max_err, err)
 
     # 14. entry() on the card against the CPU
@@ -2456,7 +2541,7 @@ def main() -> int:
     # K4's kernel launches in one call on the 16-lane P step's inputs
     args = to_device(me_calls["16-lane P step"], "cuda")
     k4_kernels, taken = kernel_launches(
-        lambda: me.motion_search_tiles(*args))
+        lambda: me.motion_search_tiles(*args), traces=TRACE_TRIES)
     print(f"K4's kernel launches in one call {label}: "
           + ", ".join(f"{k} {us:.1f} us" for k, us in k4_kernels)
           + f" ({taken} profiler trace(s) taken)")
@@ -2472,7 +2557,8 @@ def main() -> int:
           f"bytes of shared memory a block, {k5_occ['blocks_per_sm']} "
           "resident blocks an SM")
     args = to_device(part_calls["speed-0 P frame"], "cuda")
-    k5_kernels, taken = kernel_launches(lambda: me.partition_tiles(*args))
+    k5_kernels, taken = kernel_launches(lambda: me.partition_tiles(*args),
+                                        traces=TRACE_TRIES)
     print(f"K5's kernel launches in one call {label}: "
           + ", ".join(f"{k} {us:.1f} us" for k, us in k5_kernels)
           + f" ({taken} profiler trace(s) taken)")
@@ -2509,7 +2595,7 @@ def main() -> int:
               f"{v['spill_loads']} B loaded")
     if not k6_build:
         print(f"K6 {label}: a cached build, no ptxas report")
-    k6_numbers = {}
+    k6_numbers = {"SVC base-mode frame": bm_numbers["K6"]}
     for what, call in sym_calls.items():
         k6_numbers[what] = check_k6(call, f"the {what}'s symbolize inputs",
                                     label, k6_ptxas)
@@ -2524,15 +2610,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the traces hold K6's kernels and no other, each at most once; the P
     # step's, whose device time goes into the kernels line, all three (a
-    # check whose fullest trace of six lacks one gives no device time)
-    k6_names = {"sym_records_kernel", "sym_scan_kernel", "sym_codes_kernel"}
+    # check whose fullest trace of ten lacks one gives no device time)
+    k6_names = {"sym_records_kernel", "sym_scan_kernel", "sym_codes_kernel",
+                "sym_records_kernel<true>", "sym_codes_kernel<true>"}
     seen = {k: [name for name, _ in v["kernels"]]
             for k, v in k6_numbers.items()}
     _require(all(set(v) <= k6_names and len(v) == len(set(v))
                  for v in seen.values())
-             and set(seen[f"{LANES}-lane P step"]) == k6_names,
+             and set(seen[f"{LANES}-lane P step"]) == {
+                 "sym_records_kernel", "sym_scan_kernel", "sym_codes_kernel"}
+             and set(seen["SVC base-mode frame"]) <= {
+                 "sym_records_kernel<true>", "sym_codes_kernel<true>"},
              f"K6's traced kernel launches: {seen}")
-    incomplete = [k for k, v in seen.items() if len(v) < 3]
+    incomplete = [k for k, v in seen.items()
+                  if len(v) < k6_numbers[k]["n_kernels"]]
     print(f"  K6 checks whose fullest trace lacks a kernel (no device "
           f"time): {incomplete}")
     print(f"  K6 checks {time.perf_counter() - t0:.1f} s")
@@ -2548,7 +2639,8 @@ def main() -> int:
                   f"{v['smem']} bytes of shared memory, {v['stack']} bytes "
                   f"of stack, spills {v['spill_stores']} B stored and "
                   f"{v['spill_loads']} B loaded")
-    k7_numbers, k8_numbers = {}, {}
+    k7_numbers = {"SVC base-mode frame": bm_numbers["K7"]}
+    k8_numbers = {}
     for kernel, name, numbers_of in (("K7", "inter_residual", k7_numbers),
                                      ("K8", "select_parallel", k8_numbers)):
         for what, call in residual["calls"][name].items():
@@ -2702,14 +2794,17 @@ def main() -> int:
         gop_launches=sym_launches, seq_launches=seq_sym_launches,
         svc_launches=svc_sym_launches, mesh_launches=mesh_sym_launches,
         entry_launches=entry_sym_launches, cif_launches=cif_sym_launches,
-        cli_launches=cli_sym_launches, ptxas=k6_ptxas, build=k6_build,
+        cli_launches=cli_sym_launches,
+        svc_base_mode_launches=svc_bm_launches, ptxas=k6_ptxas,
+        build=k6_build,
         kernel_launches_per_call=len(k6p["kernels"]),
         traced_kernels=[k for k, _ in k6p["kernels"]],
         traces_taken=k6p["traces"],
         device_us=k6p["device_us"],
         inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
                         plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
-                        device_us=v["device_us"])
+                        device_us=v["device_us"],
+                        kernels=[k for k, _ in v["kernels"]])
                 for k, v in k6_numbers.items()}))
     for kernel, name, numbers_of, replaces, source in (
             ("K7", "inter_residual", k7_numbers,
@@ -2731,6 +2826,7 @@ def main() -> int:
             bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
             grid="P step", host_us=main["host_us"],
             device_us=main["device_us"], path_launches=launches,
+            svc_base_mode_launches=svc_bm_launches if kernel == "K7" else 0,
             ptxas=ptxas[kernel], build=res_build[kernel],
             traced_kernels=[k for k, _ in main["kernels"]],
             inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],

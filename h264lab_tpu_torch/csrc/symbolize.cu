@@ -80,6 +80,16 @@
 // No launch reads a ticket or a look-back buffer, so the wrapper zeroes
 // nothing; the records and the scans' results go to one scratch tensor.
 //
+// SVC base-mode slices (`models/svc.py` `base_mode_symbols`) are a kind of
+// their own, chosen per call: passes A and C are instantiated for it
+// (`kBaseMode`), so the I and P slices' kernels compile as they were and
+// no warp branches on the kind. Every MB is inter and coded, none has an
+// MV, and K6 reads only lev_inter, cdc and cac (the other inputs may be
+// null): pass A skips the predictors and zeroes the slice's counts and
+// tail, pass B has no runs to scan and does not run, pass C writes the
+// header base_mode_flag 1, coded_block_pattern and mb_qp_delta se(0) in
+// slots 0-2 and an empty luma-DC unit (values too).
+//
 // The tables (coeff_token, total_zeros, run_before, the coded block
 // pattern's code numbers, the zig-zag and block scans, the partitions)
 // are K6_* macros in symbolize_tables.h, which `ops/symbolize.py` writes
@@ -260,6 +270,7 @@ __device__ __forceinline__ int cbp_bits(uint32_t m) {
          | (((m & 0x3300u) != 0) << 2) | (((m & 0xCC00u) != 0) << 3);
 }
 
+template <bool kBaseMode>
 __global__ void __launch_bounds__(kWarpsA * 32)
 sym_records_kernel(const Args a) {
   const int lane = threadIdx.x & 31;
@@ -268,7 +279,15 @@ sym_records_kernel(const Args a) {
   if (g >= a.n * nmb) return;
   const long long slice = g - g % nmb;
   const int m = (int)(g % nmb), r = m / a.mbw, c = m % a.mbw;
-  const int sel = a.sel[g];
+  // a base-mode MB is inter, coded and without MVs; pass B does not run,
+  // so the first MB of each row zeroes its row's count and the first of
+  // the slice the slice's count and tail, before pass C adds to them
+  if (kBaseMode && lane == 0 && c == 0) {
+    const long long s_i = g / nmb;
+    a.row_bits[s_i * a.mbh + r] = 0;
+    if (r == 0) a.total_bits[s_i] = a.tail_val[s_i] = a.tail_len[s_i] = 0;
+  }
+  const int sel = kBaseMode ? K6_SEL_INTER : a.sel[g];
   const bool is_inter = sel == K6_SEL_INTER, is_i4 = sel == K6_SEL_I4;
 
   // nonzero counts: lane 4b + j reads piece j of block b and of block 8 + b
@@ -294,7 +313,8 @@ sym_records_kernel(const Args a) {
   const int cbp_luma = is_i4 || is_inter ? cbp_bits(luma_m)
                                          : (cbpl_i16 ? 15 : 0);
   const int cbp = cbp_luma + (cbpc << 4);
-  const int shape = a.has_inter ? a.shape[g] : 0;
+  const bool has_inter = !kBaseMode && a.has_inter;
+  const int shape = has_inter ? a.shape[g] : 0;
 
   // MV predictors, side by side: lanes 0-3 the partitions of the MB's
   // shape, lane 4 the 16x16 one and P_Skip's (whose neighbours A and B
@@ -302,7 +322,7 @@ sym_records_kernel(const Args a) {
   int py = 0, px = 0, mvd_y = 0, mvd_x = 0, skip = 0;
   const bool part = lane < 4 && shape >= 0 && shape <= 3
                     && lane < K6_N_PARTS(shape);
-  if (a.has_inter && (part || lane == 4)) {
+  if (has_inter && (part || lane == 4)) {
     Nb na, nb;
     predict(a, slice, r, c, part ? part_spec(shape, lane) : part_spec(0, 0),
             py, px, na, nb);
@@ -574,6 +594,7 @@ __device__ __forceinline__ int nc_ctx(int nc) {
   return nc < 0 ? 4 : nc < 2 ? 0 : nc < 4 ? 1 : nc < 8 ? 2 : 3;
 }
 
+template <bool kBaseMode>
 __global__ void __launch_bounds__(kWarpsC * 32, 12)
 sym_codes_kernel(const Args a) {
   __shared__ int4 lev4[kWarpsC][kLevInts / 4 + 1];     // and a zero word
@@ -587,22 +608,23 @@ sym_codes_kernel(const Args a) {
   const int r = m / a.mbw, c = m - r * a.mbw;
   const bool has_left = c > 0, has_top = r > 0;
 
-  const int sel = a.sel[g];
+  const int sel = kBaseMode ? K6_SEL_INTER : a.sel[g];
   const bool is_inter = sel == K6_SEL_INTER, is_i16 = sel == K6_SEL_I16;
   const bool is_i4 = sel == K6_SEL_I4;
   // the MB's levels to shared memory in 16-byte pieces: its luma
-  // (lev_inter's if it is inter, else ac_lev's), chroma AC, luma DC and
-  // chroma DC, then a zero word
+  // (lev_inter's if it is inter, else ac_lev's), chroma AC, luma DC (zero
+  // in a base-mode slice) and chroma DC, then a zero word
   {
     const int4* luma = reinterpret_cast<const int4*>(
         (is_inter ? a.inter : a.ac) + g * 256);
     const int4* cac = reinterpret_cast<const int4*>(a.cac + g * 128);
     const int4 q0 = luma[lane], q1 = luma[lane + 32], q2 = cac[lane];
     int4 q3 = make_int4(0, 0, 0, 0);
-    if (lane < 4)
-      q3 = reinterpret_cast<const int4*>(a.dc + g * 16)[lane];
-    else if (lane < 6)
+    if (lane < 4) {
+      if (!kBaseMode) q3 = reinterpret_cast<const int4*>(a.dc + g * 16)[lane];
+    } else if (lane < 6) {
       q3 = reinterpret_cast<const int4*>(a.cdc + g * 8)[lane - 4];
+    }
     lev4[warp][lane] = q0;
     lev4[warp][lane + 32] = q1;
     lev4[warp][kCacAt / 4 + lane] = q2;
@@ -617,7 +639,7 @@ sym_codes_kernel(const Args a) {
         a.rec + src * kRecBytes)[w] : 0u;
   }
   const int cbp = a.cbp[g], cbpc = a.cbpc[g];
-  const bool coded = !a.skip[g];
+  const bool coded = kBaseMode || !a.skip[g];
   const bool cbpl_i16 = (cbp & 15) != 0;   // of MBs neither inter nor I4
   __syncwarp();
   const uint8_t* own = reinterpret_cast<const uint8_t*>(recs[warp]);
@@ -665,9 +687,20 @@ sym_codes_kernel(const Args a) {
   // the header (unit 0) with the whole warp, a slot a lane, and slots 32
   // and 33 on lanes 0 and 1: mb_skip_run, base_mode_flag, mb_type,
   // sub_mb_type, the partitions' MV differences (x, y), the Intra 4x4
-  // symbols, chroma mode, coded_block_pattern, mb_qp_delta
+  // symbols, chroma mode, coded_block_pattern, mb_qp_delta; in a
+  // base-mode slice base_mode_flag 1, coded_block_pattern (the inter
+  // column) and mb_qp_delta se(0) in slots 0-2, the others empty
   int bits = 0;
-  {
+  if (kBaseMode) {
+    const int s = lane;
+    const int code = kCbpCode[min(max(cbp, 0), 47) * 2 + 1];
+    const int n = s == 0 ? 1 : s == 1 ? ue_len(code) : s == 2 ? cbp != 0
+                                                               : 0;
+    stage[s] = s == 1 ? ue_val(code) : s == 0 || s == 2 ? 1 : 0;
+    stage[kPairSlots + s] = n;
+    bits += n;
+    if (s < 2) stage[32 + s] = stage[kPairSlots + 32 + s] = 0;
+  } else {
     const int s = lane, shape = a.shape[g];
     const int run = a.scan[2 * g], dqp_delta = a.scan[2 * g + 1];
     const int i16code = 1 + a.mode16[g] + 4 * cbpc + 12 * cbpl_i16;
@@ -743,7 +776,8 @@ sym_codes_kernel(const Args a) {
       const uint32_t ct = vlc[ctx * 17 * 4];
       const int n = i == 0 ? (int)(ct >> 16) & keep_mask : 0;
       if (u > 0) {
-        uv[i] = i == 0 ? (int)(ct & 0xffffu) : 0;
+        // a base-mode slice's luma-DC unit is empty, values too
+        uv[i] = i == 0 && !(kBaseMode && u == 1) ? (int)(ct & 0xffffu) : 0;
         ul[i] = n;
         uv[16 + i] = ul[16 + i] = 0;
         if (i < 2) uv[32 + i] = ul[32 + i] = 0;
@@ -863,7 +897,7 @@ extern "C" int h264lab_symbolize(
     void* tail_val, void* tail_len, void* total_bits, void* row_bits,
     void* skip, void* cbp, void* cbpc, void* mvd_py, void* mvd_px,
     void* qp_dec, void* scratch, long long n, int mbw, int mbh, int has_inter,
-    int base_mode_bit, void* stream) {
+    int base_mode_bit, int base_mode, void* stream) {
   if (n <= 0 || mbw <= 0 || mbh <= 0) return 0;
   const long long mbs = n * mbw * mbh;
   if (mbs * kMbSlots >= (1ll << 40) || n >= (1ll << 31)
@@ -881,11 +915,19 @@ extern "C" int h264lab_symbolize(
          (int32_t*)((uint8_t*)scratch + mbs * kRecBytes), n, mbw, mbh,
          has_inter, base_mode_bit, qp_rows != nullptr};
   cudaStream_t s = (cudaStream_t)stream;
-  sym_records_kernel<<<(unsigned)((mbs + kWarpsA - 1) / kWarpsA),
-                       kWarpsA * 32, 0, s>>>(a);
-  sym_scan_kernel<<<(unsigned)n, kScanThreads, 0, s>>>(a);
-  sym_codes_kernel<<<dim3((unsigned)n, (unsigned)((mbw * mbh + kWarpsC - 1)
-                                                 / kWarpsC)),
-                     kWarpsC * 32, 0, s>>>(a);
+  const unsigned blocks_a = (unsigned)((mbs + kWarpsA - 1) / kWarpsA);
+  const dim3 blocks_c((unsigned)n, (unsigned)((mbw * mbh + kWarpsC - 1)
+                                              / kWarpsC));
+  if (base_mode) {
+    // a base-mode slice: no skip runs, no row plan, so no slice scans
+    if (has_inter || base_mode_bit || qp_rows != nullptr)
+      return (int)cudaErrorInvalidValue;
+    sym_records_kernel<true><<<blocks_a, kWarpsA * 32, 0, s>>>(a);
+    sym_codes_kernel<true><<<blocks_c, kWarpsC * 32, 0, s>>>(a);
+  } else {
+    sym_records_kernel<false><<<blocks_a, kWarpsA * 32, 0, s>>>(a);
+    sym_scan_kernel<<<(unsigned)n, kScanThreads, 0, s>>>(a);
+    sym_codes_kernel<false><<<blocks_c, kWarpsC * 32, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }

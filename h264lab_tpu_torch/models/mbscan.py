@@ -61,7 +61,7 @@ from h264lab_tpu_torch.ops.tuning import (I4_PENALTY_BITS, INTER_DEADZONE_Q8,
                                           PART_8X8_PENALTY_BITS)
 
 SEL_INTER, SEL_I16, SEL_I4 = 0, 1, 2
-I32 = torch.int32
+I32, U8 = torch.int32, torch.uint8
 
 # packed per-MB edge-record layout (uint8): recon edges + i4 edge modes
 _E_BOT_Y = slice(0, 16)
@@ -267,24 +267,21 @@ def inter_residual_args(src_y_mb, src_u_mb, src_v_mb, u_pad, v_pad, lane,
     nmb MBs, the int32 ones 16-byte aligned) as a tuple, or None."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
-
-    def packed(x, dtype, trail=()):
-        return _packed(x, dtype, (N, nmb) + trail, dev)
-
+    mb = (N, nmb)
     q = torch.as_tensor(qp)
     qshape = (N, mb_height) if q.ndim == 2 else (N,)
     if parts is not None:
         parts = tuple(_packed(parts[name], dtype, (N * nmb,) + trail, dev)
                       for name, dtype, trail in residual.K7_PARTS)
-    return (packed(src_y_mb, torch.uint8, (16, 16)),
-            packed(src_u_mb, torch.uint8, (8, 8)),
-            packed(src_v_mb, torch.uint8, (8, 8)), u_pad.contiguous(),
+    return (_packed(src_y_mb, U8, mb + (16, 16), dev),
+            _packed(src_u_mb, U8, mb + (8, 8), dev),
+            _packed(src_v_mb, U8, mb + (8, 8), dev), u_pad.contiguous(),
             v_pad.contiguous(), _packed(lane, I32, (N,), dev),
             _packed(row0, I32, (N,), dev), _packed(qp, I32, qshape, dev),
             _packed(qpc, I32, qshape, dev),
-            *(packed(x, I32) for x in (mv_y, mv_x, full_my, full_mx,
-                                       cost16)),
-            packed(pred16, torch.uint8, (16, 16)), parts, mb_width,
+            *(_packed(x, I32, mb, dev) for x in (mv_y, mv_x, full_my,
+                                                 full_mx, cost16)),
+            _packed(pred16, U8, mb + (16, 16), dev), parts, mb_width,
             mb_height, zero_thr)
 
 
@@ -477,27 +474,25 @@ def select_parallel_args(src_y_mb, src_u_mb, src_v_mb, qp, qpc, avail_top,
     aligned); mb_width."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
-
-    def packed(x, dtype, trail=()):
-        return _packed(x, dtype, (N, nmb) + trail, dev)
-
+    mb = (N, nmb)
     q = torch.as_tensor(qp)
     qshape = (N, nmb // mb_width) if q.ndim == 2 else (N,)
-    return (packed(src_y_mb, torch.uint8, (16, 16)),
-            packed(src_u_mb, torch.uint8, (8, 8)),
-            packed(src_v_mb, torch.uint8, (8, 8)),
+    return (_packed(src_y_mb, U8, mb + (16, 16), dev),
+            _packed(src_u_mb, U8, mb + (8, 8), dev),
+            _packed(src_v_mb, U8, mb + (8, 8), dev),
             _packed(qp, I32, qshape, dev), _packed(qpc, I32, qshape, dev),
             _device_avail(avail_top, avail_left, nmb, dev),
-            packed(inter["inter_cost"], I32),
-            packed(inter["recon_y_inter"], torch.uint8, (16, 16)),
-            packed(inter["recon_u_inter"], torch.uint8, (8, 8)),
-            packed(inter["recon_v_inter"], torch.uint8, (8, 8)),
-            packed(inter["cdc_inter"], I32, (2, 2, 2)),
-            packed(inter["cac_inter"], I32, (2, 2, 2, 4, 4)),
-            packed(inter["mv_y"], I32), packed(inter["mv_x"], I32),
-            packed(inter["mv4_y"], I32, (4, 4)),
-            packed(inter["mv4_x"], I32, (4, 4)), packed(inter["shape"], I32),
-            mb_width)
+            _packed(inter["inter_cost"], I32, mb, dev),
+            _packed(inter["recon_y_inter"], U8, mb + (16, 16), dev),
+            _packed(inter["recon_u_inter"], U8, mb + (8, 8), dev),
+            _packed(inter["recon_v_inter"], U8, mb + (8, 8), dev),
+            _packed(inter["cdc_inter"], I32, mb + (2, 2, 2), dev),
+            _packed(inter["cac_inter"], I32, mb + (2, 2, 2, 4, 4), dev),
+            _packed(inter["mv_y"], I32, mb, dev),
+            _packed(inter["mv_x"], I32, mb, dev),
+            _packed(inter["mv4_y"], I32, mb + (4, 4), dev),
+            _packed(inter["mv4_x"], I32, mb + (4, 4), dev),
+            _packed(inter["shape"], I32, mb, dev), mb_width)
 
 
 def _device_avail(avail_top, avail_left, nmb: int, dev) -> torch.Tensor:
@@ -652,10 +647,7 @@ def select_wavefront_args(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
     records there, K3 treats them as unavailable."""
     N, nmb = src_y_mb.shape[:2]
     dev = src_y_mb.device
-
-    def packed(x, dtype, shape):
-        return _packed(x, dtype, shape, dev)
-
+    mb = (N, nmb)
     qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N).contiguous()
     qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N).contiguous()
     lam = lambda_me(qp).to(I32).contiguous()
@@ -670,13 +662,13 @@ def select_wavefront_args(src_y_mb, src_u_mb, src_v_mb, qp, qpc, steps,
     if inter is None:
         cand = (None,) * 4
     else:
-        cand = (packed(inter["inter_cost"], I32, (N, nmb)),
-                packed(inter["recon_y_inter"], torch.uint8, (N, nmb, 16, 16)),
-                packed(inter["recon_u_inter"], torch.uint8, (N, nmb, 8, 8)),
-                packed(inter["recon_v_inter"], torch.uint8, (N, nmb, 8, 8)))
-    return (packed(src_y_mb, torch.uint8, (N, nmb, 16, 16)),
-            packed(src_u_mb, torch.uint8, (N, nmb, 8, 8)),
-            packed(src_v_mb, torch.uint8, (N, nmb, 8, 8)),
+        cand = (_packed(inter["inter_cost"], I32, mb, dev),
+                _packed(inter["recon_y_inter"], U8, mb + (16, 16), dev),
+                _packed(inter["recon_u_inter"], U8, mb + (8, 8), dev),
+                _packed(inter["recon_v_inter"], U8, mb + (8, 8), dev))
+    return (_packed(src_y_mb, U8, mb + (16, 16), dev),
+            _packed(src_u_mb, U8, mb + (8, 8), dev),
+            _packed(src_v_mb, U8, mb + (8, 8), dev),
             qp, qpc, lam, pen, avail[0], avail[1], *cand, mb_width,
             INTRA_DEADZONE_Q8, I4_PENALTY_BITS)
 
@@ -872,10 +864,7 @@ def deblock_tiles_args(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y,
     the packing is one copy of the availability to the device."""
     N, nmb = sel.shape
     dev = recon_y.device
-
-    def packed(x, dtype, shape):
-        return _packed(x, dtype, shape, dev)
-
+    mb = (N, nmb)
     if any(isinstance(a, torch.Tensor) for a in (avail_top, avail_left)):
         avail = torch.stack([torch.as_tensor(a, device=dev).to(
             torch.uint8).expand(nmb) for a in (avail_top, avail_left)])
@@ -884,13 +873,13 @@ def deblock_tiles_args(recon_y, recon_u, recon_v, sel, nnz_blk, mv4_y,
             a, dtype=np.uint8), (nmb,)) for a in (avail_top, avail_left)])
         ).to(dev)
     qp_shape = (N, nmb) if torch.as_tensor(qp).ndim == 2 else (N,)
-    return (packed(recon_y, torch.uint8, (N, nmb, 16, 16)),
-            packed(recon_u, torch.uint8, (N, nmb, 8, 8)),
-            packed(recon_v, torch.uint8, (N, nmb, 8, 8)),
-            packed(sel, I32, (N, nmb)),
-            *(packed(x, I32, (N, nmb, 4, 4)) for x in (nnz_blk, mv4_y,
-                                                        mv4_x)),
-            packed(qp, I32, qp_shape), packed(qpc, I32, qp_shape),
+    return (_packed(recon_y, U8, mb + (16, 16), dev),
+            _packed(recon_u, U8, mb + (8, 8), dev),
+            _packed(recon_v, U8, mb + (8, 8), dev),
+            _packed(sel, I32, mb, dev),
+            *(_packed(x, I32, mb + (4, 4), dev) for x in (nnz_blk, mv4_y,
+                                                           mv4_x)),
+            _packed(qp, I32, qp_shape, dev), _packed(qpc, I32, qp_shape, dev),
             avail[0], avail[1], mb_width, mb_height)
 
 
@@ -1126,59 +1115,70 @@ _N_PARTS = (1, 2, 2, 4)
 def symbolize(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
               dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev, mb_width: int,
               mb_height: int, has_inter: bool, qp_rows=None,
-              svc_base_mode_bit: bool = False):
-    """CAVLC + syntax symbol assembly of N I or P slices: the outputs of
-    `symbolize_plain`, which says what they are.
+              svc_base_mode_bit: bool = False, base_mode: bool = False):
+    """CAVLC + syntax symbol assembly of N I, P or base-mode slices: the
+    outputs of `symbolize_plain`, which says what they are.
 
     The one entry of every encode path. On CUDA tensors: K6
     (`ops/symbolize.symbolize_tiles`, `csrc/symbolize.cu`, three launches
-    for the whole batch) on the arguments `symbolize_args` packs. On CPU
-    tensors: `symbolize_plain`."""
+    for the whole batch, two for base-mode slices) on the arguments
+    `symbolize_args` packs. On CPU tensors: `symbolize_plain`."""
     args = (sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
             dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev, mb_width,
-            mb_height, has_inter)
-    if sel.device.type == "cpu":
-        return symbolize_plain(*args, qp_rows=qp_rows,
-                               svc_base_mode_bit=svc_base_mode_bit)
-    return symbolize_k6.symbolize_tiles(*symbolize_args(
-        *args, qp_rows=qp_rows, svc_base_mode_bit=svc_base_mode_bit))
+            mb_height, has_inter, qp_rows, svc_base_mode_bit, base_mode)
+    if lev_inter.device.type == "cpu":
+        return symbolize_plain(*args)
+    return symbolize_k6.symbolize_tiles(*symbolize_args(*args))
 
 
 def symbolize_args(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
                    dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev,
                    mb_width: int, mb_height: int, has_inter: bool,
-                   qp_rows=None, svc_base_mode_bit: bool = False):
+                   qp_rows=None, svc_base_mode_bit: bool = False,
+                   base_mode: bool = False):
     """`symbolize`'s arguments in the form K6
-    (`symbolize_k6.symbolize_tiles`) takes them, on `sel`'s device: the 13
-    tensors as contiguous 16-byte aligned int32 of shape (N, nmb) + their
-    trailing shapes; qp_rows as (N, mb_height) int32, or None; mb_width
-    and mb_height; has_inter and svc_base_mode_bit as bools. On the
+    (`symbolize_k6.symbolize_tiles`) takes them, on `lev_inter`'s device:
+    the 13 tensors as contiguous 16-byte aligned int32 of shape (N, nmb) +
+    their trailing shapes (a None, the inputs a base-mode slice does not
+    read, stays None); qp_rows as (N, mb_height) int32, or None; mb_width and
+    mb_height; has_inter, svc_base_mode_bit and base_mode as bools. On the
     encode paths every tensor is in that form already, so nothing is
     copied."""
-    N, nmb = sel.shape
-    dev = sel.device
+    N, nmb = lev_inter.shape[:2]
+    dev = lev_inter.device
     tensors = (sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
                dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev)
-    packed = tuple(_packed(x, I32, (N, nmb) + trail, dev)
+    packed = tuple(None if x is None else _packed(x, I32, (N, nmb) + trail,
+                                                   dev)
                    for x, (_, trail) in zip(tensors, symbolize_k6.INPUTS))
     if qp_rows is not None:
         qp_rows = _packed(qp_rows, I32, (N, mb_height), dev)
     return (*packed, qp_rows, mb_width, mb_height, bool(has_inter),
-            bool(svc_base_mode_bit))
+            bool(svc_base_mode_bit), bool(base_mode))
 
 
 def symbolize_plain(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
                     shape, dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev,
                     mb_width: int, mb_height: int, has_inter: bool,
-                    qp_rows=None, svc_base_mode_bit: bool = False):
-    """CAVLC + syntax symbol assembly of N I or P slices in plain PyTorch,
-    on any device: the CPU path of `symbolize` and the version K6 is held
-    against.
+                    qp_rows=None, svc_base_mode_bit: bool = False,
+                    base_mode: bool = False):
+    """CAVLC + syntax symbol assembly of N I, P or base-mode slices in
+    plain PyTorch, on any device: the CPU path of `symbolize` and the
+    version K6 is held against.
 
     `svc_base_mode_bit`: the slices are scalable-extension slices with
     `adaptive_base_mode_flag=1`, so every coded macroblock_layer leads
-    with a base_mode_flag=0 bit (G.7.3.6.1; base-mode frames write
-    base_mode_flag=1 through `models/svc.py` instead).
+    with a base_mode_flag=0 bit (G.7.3.6.1).
+
+    `base_mode`: the slices are SVC base-mode slices (`models/svc.py`,
+    reference `src/h264-lab.h:5754-5764`): every MB is coded, none
+    skipped, with base_mode_flag=1 and its residual coded inter-style
+    from `lev_inter`, `cdc_lev` and `cac_lev`, the only inputs it takes
+    (the others None). Its header (unit 0) is slot 0 base_mode_flag `1`,
+    slot 1 the coded_block_pattern (ue, the inter column), slot 2
+    mb_qp_delta se(0) = `1` where the cbp is not 0, every other slot 0
+    with length 0; its luma-DC unit (unit 1) is empty, values too; there
+    is no slice tail; nC reads one slice of coded MBs.
 
     `qp_rows` ((N, mb_height) or None): a per-MB-row QP plan; every MB
     that carries `mb_qp_delta` codes the step from the running QP (spec
@@ -1194,9 +1194,25 @@ def symbolize_plain(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
     without `mb_qp_delta` keeps the running QP).
     The unit layout is the JAX module's: unit 0 = 34 MB-header slots,
     units 1..27 = the CAVLC blocks in decode order."""
-    N, nmb = sel.shape
-    dev = sel.device
+    N, nmb = lev_inter.shape[:2]
+    dev = lev_inter.device
     ns = cavlc.N_SLOTS
+    if base_mode:
+        given = [name for (name, _), x in zip(symbolize_k6.INPUTS, (
+            sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape, dc_lev,
+            ac_lev)) if x is not None]
+        if given or has_inter or qp_rows is not None or svc_base_mode_bit:
+            raise ValueError("a base-mode slice takes lev_inter, cdc_lev and "
+                             "cac_lev only, without has_inter, qp_rows or "
+                             f"svc_base_mode_bit (given: {given})")
+        # every MB inter, no MV, no intra levels
+        sel, mode16, cmode, shape = (torch.zeros((N, nmb), dtype=I32,
+                                                 device=dev)
+                                     for _ in range(4))
+        i4sym_v = i4sym_l = torch.zeros((N, nmb, 16), dtype=I32, device=dev)
+        mv4_y = mv4_x = dc_lev = torch.zeros((N, nmb, 4, 4), dtype=I32,
+                                             device=dev)
+        ac_lev = torch.zeros_like(lev_inter)
     zz = torch.as_tensor(tables.ZIGZAG_4x4, dtype=torch.long, device=dev)
     blk_scan = torch.as_tensor(tables.BLOCK_SCAN_4x4, dtype=torch.long,
                                device=dev)
@@ -1257,6 +1273,8 @@ def symbolize_plain(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
         dc_lev.reshape(N * nmb, 16)[:, zz], nc_luma[..., 0, 0].reshape(-1),
         16)
     dc_lens = torch.where(is_i16.reshape(-1, 1), dc_lens, 0)
+    if base_mode:
+        dc_vals = torch.zeros_like(dc_vals)
 
     # luma: i16 blocks code their AC-15 view, inter and i4 blocks all 16
     full_lev = torch.where(is_inter[..., None, None, None, None], lev_inter,
@@ -1362,17 +1380,24 @@ def symbolize_plain(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
         dqp_l = torch.where(dqp_needed, dqp_l, 0)
         qp_dec = running(run_idx)
 
-    bm_l = coded.to(I32)[..., None] if svc_base_mode_bit else zero1
-    hdr_vals = torch.cat([
-        sr_v[..., None], zero1, mt_v[..., None], one1.expand(N, nmb, 4),
-        mvd_vals, i4sym_v.to(I32), cm_v[..., None], cbpv[..., None],
-        dqp_v[..., None]], dim=2)
-    hdr_lens = torch.cat([
-        sr_l[..., None], bm_l, mt_l[..., None], sub_l, mvd_lens,
-        torch.where(is_i4[..., None], i4sym_l, 0).to(I32),
-        torch.where(coded & is_intra, cm_l, 0)[..., None],
-        torch.where(coded & (is_inter | is_i4), cbpl_, 0)[..., None],
-        dqp_l[..., None]], dim=2)
+    if base_mode:
+        # base_mode_flag, coded_block_pattern, mb_qp_delta
+        rest = torch.zeros((N, nmb, ns - 3), dtype=I32, device=dev)
+        hdr_vals = torch.cat([one1, cbpv[..., None], one1, rest], dim=2)
+        hdr_lens = torch.cat([one1, cbpl_[..., None],
+                              (cbp != 0).to(I32)[..., None], rest], dim=2)
+    else:
+        bm_l = coded.to(I32)[..., None] if svc_base_mode_bit else zero1
+        hdr_vals = torch.cat([
+            sr_v[..., None], zero1, mt_v[..., None], one1.expand(N, nmb, 4),
+            mvd_vals, i4sym_v.to(I32), cm_v[..., None], cbpv[..., None],
+            dqp_v[..., None]], dim=2)
+        hdr_lens = torch.cat([
+            sr_l[..., None], bm_l, mt_l[..., None], sub_l, mvd_lens,
+            torch.where(is_i4[..., None], i4sym_l, 0).to(I32),
+            torch.where(coded & is_intra, cm_l, 0)[..., None],
+            torch.where(coded & (is_inter | is_i4), cbpl_, 0)[..., None],
+            dqp_l[..., None]], dim=2)
 
     sym_vals = torch.cat([
         hdr_vals, dc_vals.reshape(N, nmb, ns),

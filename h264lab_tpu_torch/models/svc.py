@@ -18,9 +18,11 @@ layer's deblocked reconstruction is upsampled (`ops/resample.py`) and
 every MB predicts from its co-located block, `base_mode_flag=1`, residual
 coded inter-style with no prediction-mode syntax. Prediction has no
 neighbour dependency, so the frame's TQ and CAVLC run in one parallel
-batch (`base_mode_symbols`) with no wavefront, then the slope-1 deblock
-(`base_mode_deblock`); its symbol grid is packed by the bit-pack kernel
-K1. P frames keep inter coding, with the
+batch (`base_mode_symbols`) with no wavefront: the P step's inter
+residual with zero MVs (on the card K7) and CAVLC in its base-mode slice
+kind (K6), then the slope-1 deblock (`base_mode_deblock`, K2); its symbol
+grid is packed by the bit-pack kernel K1. P frames keep inter coding,
+with the
 scalable-extension slice-header tail and a base_mode_flag=0 bit per coded
 MB (`H264Encoder._svc_ext`).
 
@@ -35,7 +37,6 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from h264lab_tpu_torch.bitstream import BitWriter, headers
 from h264lab_tpu_torch.bitstream.nal import annexb_nal, split_annexb
@@ -44,8 +45,7 @@ from h264lab_tpu_torch.models import mbscan, refstate
 from h264lab_tpu_torch.models.encoder import (PIC_INIT_QP, H264Encoder,
                                               host_planes)
 from h264lab_tpu_torch.models.stages import StageTimer, pad_to
-from h264lab_tpu_torch.ops import bitpack, cavlc, resample, tables
-from h264lab_tpu_torch.ops.tuning import INTER_DEADZONE_Q8
+from h264lab_tpu_torch.ops import bitpack, qpel, resample, tables
 from h264lab_tpu_torch.utils.device import resolve_device
 
 I32 = torch.int32
@@ -127,6 +127,14 @@ def base_mode_symbols(src_y, src_u, src_v, pred_y, pred_u, pred_v, qp,
     QDQ_MODE_INTER `src/h264-lab.h:4426`), syntax per MB =
     base_mode_flag(1) + CBP (inter map) + dQP + residual.
 
+    It is the P step's two stage entries: the TQ is
+    `mbscan.inter_residual` with zero MVs, the luma prediction as the
+    16x16 search's winner and the chroma prediction as the reference
+    planes (the bilinear at a zero MV reads its sample: (64 A + 32) >> 6
+    = A), with `zero_thr` off; the CAVLC is `mbscan.symbolize` in its
+    base-mode slice kind. On the card that is one launch of K7 and K6's
+    two of that kind.
+
     src_*/pred_* (N, nmb, t, t) uint8 tiles; qp, qpc (N,). Returns
     sym_vals/sym_lens (N, nmb, 952) int32 (values as uint32 bit patterns)
     in `mbscan.symbolize`'s unit layout, whose luma-DC unit (unit 1) stays
@@ -136,85 +144,26 @@ def base_mode_symbols(src_y, src_u, src_v, pred_y, pred_u, pred_v, qp,
     what `base_mode_deblock` needs: nnz (N, nmb, 4, 4), qp and qpc (N,)."""
     N, nmb = src_y.shape[:2]
     dev = src_y.device
-    K = N * nmb
-    ns = cavlc.N_SLOTS
     qp = torch.as_tensor(qp, dtype=I32, device=dev).reshape(N)
     qpc = torch.as_tensor(qpc, dtype=I32, device=dev).reshape(N)
-    qpc_k = mbscan._per_item(qpc, nmb)
     # zero_thr off: inter-layer intra residual is structured (upsampling
     # error), not noise; block kills cost real texture here
-    lev, recon_y = mbscan._encode_inter_luma(
-        src_y.reshape(K, 16, 16), pred_y.reshape(K, 16, 16),
-        mbscan._per_item(qp, nmb), zero_thr=False)
-    cdc2, cac2, rec_uv = mbscan._encode_chroma(
-        torch.cat([src_u.reshape(K, 8, 8), src_v.reshape(K, 8, 8)]),
-        torch.cat([pred_u.reshape(K, 8, 8), pred_v.reshape(K, 8, 8)]),
-        torch.cat([qpc_k, qpc_k]), INTER_DEADZONE_Q8)
-    lev = lev.reshape(N, nmb, 4, 4, 4, 4)
-    cdc = torch.stack([cdc2[:K], cdc2[K:]], dim=1).reshape(N, nmb, 2, 2, 2)
-    cac = torch.stack([cac2[:K], cac2[K:]], dim=1).reshape(
-        N, nmb, 2, 2, 2, 4, 4)
-
-    # CBP
-    nnz = (lev != 0).sum((-2, -1), dtype=I32)                # (N, nmb, 4, 4)
-    cbp_luma = mbscan.cbp_luma_bits(nnz)
-    cac_nnz = (cac != 0).sum((-2, -1), dtype=I32)          # (N, nmb, 2, 2, 2)
-    cbpc = torch.where(cac_nnz.sum((2, 3, 4)) > 0, 2, torch.where(
-        (cdc != 0).sum((2, 3, 4)) > 0, 1, 0)).to(I32)
-    cbp = cbp_luma + (cbpc << 4)
-
-    # nC contexts: every MB is coded and the frame is one slice
-    nc_luma = mbscan._nc_grid(nnz, mb_height, mb_width, 4)
-    cac_nnz = torch.where((cbpc == 2)[..., None, None, None], cac_nnz, 0)
-    nc_chroma = torch.stack([
-        mbscan._nc_grid(cac_nnz[:, :, p], mb_height, mb_width, 2)
-        for p in range(2)], dim=2)                         # (N, nmb, 2, 2, 2)
-
-    # CAVLC
-    zz = torch.as_tensor(tables.ZIGZAG_4x4, dtype=torch.long, device=dev)
-    vv, ll, _ = cavlc.encode_blocks(lev.reshape(K * 16, 16)[:, zz],
-                                    nc_luma.reshape(-1), 16)
-    blk = torch.arange(16, device=dev)
-    bit = (cbp_luma[..., None] >> ((blk // 8) * 2 + (blk % 4) // 2)) & 1
-    luma_vals = vv.reshape(N, nmb, 16, ns)
-    luma_lens = torch.where((bit > 0)[..., None], ll.reshape(N, nmb, 16, ns),
-                            0)
-    cdc_vals, cdc_lens, _ = cavlc.encode_blocks(
-        F.pad(cdc.reshape(K * 2, 4), (0, 12)),
-        torch.full((K * 2,), -1, dtype=I32, device=dev), 4)
-    cdc_lens = torch.where((cbpc >= 1)[..., None, None],
-                           cdc_lens.reshape(N, nmb, 2, ns), 0)
-    cac_vals, cac_lens, _ = cavlc.encode_blocks(
-        F.pad(cac.reshape(K * 8, 16)[:, zz][:, 1:], (0, 1)),
-        nc_chroma.reshape(-1), 15)
-    cac_lens = torch.where((cbpc == 2)[..., None, None],
-                           cac_lens.reshape(N, nmb, 8, ns), 0)
-
-    # header symbols: base_mode_flag, cbp, dQP (se(0) = '1' when cbp != 0)
-    cbp_code = torch.as_tensor(tables.CBP_TO_CODENUM, device=dev)[
-        cbp.clamp(0, 47).long(), 1]
-    cbpv, cbpl = mbscan._ue_codes(cbp_code)
-    one = torch.ones((N, nmb, 1), dtype=I32, device=dev)
-    rest = torch.zeros((N, nmb, ns - 3), dtype=I32, device=dev)
-    empty = torch.zeros((N, nmb, ns), dtype=I32, device=dev)
-    blk_scan = torch.as_tensor(tables.BLOCK_SCAN_4x4, dtype=torch.long,
-                               device=dev)
-    sym_vals = torch.cat([
-        one, cbpv[..., None], one, rest, empty,
-        luma_vals[:, :, blk_scan].reshape(N, nmb, 16 * ns),
-        cdc_vals.reshape(N, nmb, 2 * ns), cac_vals.reshape(N, nmb, 8 * ns)],
-        dim=2)
-    sym_lens = torch.cat([
-        one, cbpl[..., None], (cbp != 0).to(I32)[..., None], rest, empty,
-        luma_lens[:, :, blk_scan].reshape(N, nmb, 16 * ns),
-        cdc_lens.reshape(N, nmb, 2 * ns), cac_lens.reshape(N, nmb, 8 * ns)],
-        dim=2)
-
-    return dict(sym_vals=sym_vals, sym_lens=sym_lens,
-                total_bits=sym_lens.sum((1, 2), dtype=I32),
-                recon_y=recon_y.reshape(N, nmb, 16, 16),
-                recon_u=rec_uv[:K].reshape(N, nmb, 8, 8),
-                recon_v=rec_uv[K:].reshape(N, nmb, 8, 8), cbp=cbp, nnz=nnz,
+    zero = torch.zeros((N, nmb), dtype=I32, device=dev)
+    lanes = torch.arange(N, dtype=I32, device=dev)
+    u_pad, v_pad = (qpel.pad_guard(refstate.tiles_to_planes(
+        p, mb_height, mb_width), qpel.GUARD // 2) for p in (pred_u, pred_v))
+    tq = mbscan.inter_residual(
+        src_y, src_u, src_v, u_pad, v_pad, lanes, lanes * 0, qp, qpc, zero,
+        zero, zero, zero, zero, pred_y, None, mb_width, mb_height,
+        zero_thr=False)
+    sym = mbscan.symbolize(
+        *(None,) * 10, tq["lev_inter"], tq["cdc_inter"], tq["cac_inter"],
+        mb_width, mb_height, False, base_mode=True)
+    return dict(sym_vals=sym["sym_vals"], sym_lens=sym["sym_lens"],
+                total_bits=sym["total_bits"], recon_y=tq["recon_y_inter"],
+                recon_u=tq["recon_u_inter"], recon_v=tq["recon_v_inter"],
+                cbp=sym["cbp"],
+                nnz=(tq["lev_inter"] != 0).sum((-2, -1), dtype=I32),
                 qp=qp, qpc=qpc)
 
 

@@ -105,7 +105,7 @@ def tables_header() -> str:
 
 
 _lib = cuda_build.Library(SRC, {"h264lab_symbolize": (
-    [_VP] * 27 + [ctypes.c_longlong, _CI, _CI, _CI, _CI, _VP], _CI)})
+    [_VP] * 27 + [ctypes.c_longlong, _CI, _CI, _CI, _CI, _CI, _VP], _CI)})
 
 # K6's inputs in order, and their trailing shapes after (n, nmb); the
 # levels, which K6 loads in 16-byte pieces, are 16-byte aligned
@@ -115,6 +115,8 @@ INPUTS = (("sel", ()), ("mode16", ()), ("cmode", ()), ("i4sym_v", (16,)),
           ("lev_inter", (4, 4, 4, 4)), ("cdc_lev", (2, 2, 2)),
           ("cac_lev", (2, 2, 2, 4, 4)))
 _ALIGNED = ("dc_lev", "ac_lev", "lev_inter", "cdc_lev", "cac_lev")
+# the inputs K6 reads in a base-mode slice (`symbolize_tiles`)
+BASE_MODE_INPUTS = ("lev_inter", "cdc_lev", "cac_lev")
 # the entry point's output pointers in order, after the inputs and qp_rows
 _OUTPUT_ARGS = ("sym_vals", "sym_lens", "tail_val", "tail_len", "total_bits",
                 "row_bits", "skip", "cbp", "cbpc", "mvd_py", "mvd_px",
@@ -155,11 +157,13 @@ def _plan(n: int, nmb: int, mbh: int, plan: bool):
 
 
 @functools.lru_cache(maxsize=64)
-def _checks(n: int, nmb: int, mbh: int, plan: bool):
+def _checks(n: int, nmb: int, mbh: int, plan: bool, base_mode: bool = False):
     """The inputs' checks for `cuda_build.pointers`: int32 of their shapes,
-    the levels 16-byte aligned."""
+    the levels 16-byte aligned; in a base-mode slice those of
+    `BASE_MODE_INPUTS` only."""
     return tuple((name, torch.int32, shape, mask) for name, shape, mask
-                 in zip(_NAMES, _plan(n, nmb, mbh, plan)[0], _ALIGN_MASK))
+                 in zip(_NAMES, _plan(n, nmb, mbh, plan)[0], _ALIGN_MASK)
+                 if not base_mode or name in BASE_MODE_INPUTS)
 
 
 _NAMES = tuple(name for name, _ in INPUTS) + ("qp_rows",)
@@ -169,16 +173,20 @@ _ALIGN_MASK = tuple(15 if name in _ALIGNED else 0 for name in _NAMES)
 def symbolize_tiles(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
                     shape, dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev,
                     qp_rows, mb_width: int, mb_height: int, has_inter: bool,
-                    svc_base_mode_bit: bool = False) -> dict:
+                    svc_base_mode_bit: bool = False,
+                    base_mode: bool = False) -> dict:
     """K6: `mbscan.symbolize` of n slices of mb_width x mb_height MBs on
     the card, three launches in stream order (records, slice scans,
+    codes); with `base_mode`, n SVC base-mode slices in two (records,
     codes). Takes `symbolize`'s arguments in the form
     `mbscan.symbolize_args` packs: every tensor int32, contiguous, of
     shape (n, nmb) + its trailing shape (`INPUTS`), on one CUDA device,
     the levels 16-byte aligned; qp_rows an (n, mb_height) int32 row plan
-    or None. Returns the plain version's dict (`symbolize_plain`), every
-    key with its dtype and shape, all of them views of one buffer. Raises
-    on any other input: the plain version is `mbscan.symbolize_plain`.
+    or None; in a base-mode slice the inputs of `BASE_MODE_INPUTS` and
+    None for the others, no row plan, P slice or base_mode_flag bit.
+    Returns the plain version's dict (`symbolize_plain`), every key with
+    its dtype and shape, all of them views of one buffer. Raises on any
+    other input: the plain version is `mbscan.symbolize_plain`.
 
     Its host time is kept short: the inputs are checked in one pass
     (`cuda_build.pointers`; `cuda_build.refuse` says what is wrong), the
@@ -186,23 +194,32 @@ def symbolize_tiles(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
     (`_plan`), and one allocation holds every output."""
     tensors = (sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x, shape,
                dc_lev, ac_lev, lev_inter, cdc_lev, cac_lev)
-    if qp_rows is not None:
-        tensors += (qp_rows,)
     what = "symbolize_tiles (K6)"
-    index = cuda_build.card_of(what, sel)
-    try:
-        n, nmb = sel.shape
-    except ValueError:
-        raise ValueError(f"{what}: sel of shape {tuple(sel.shape)}") \
-            from None
-    if nmb != mb_width * mb_height:
-        raise ValueError(f"{what}: {nmb} MBs are not {mb_width} x "
-                         f"{mb_height}")
+    if base_mode:
+        given = [name for (name, _), x in zip(INPUTS, tensors)
+                 if x is not None and name not in BASE_MODE_INPUTS]
+        if given or has_inter or svc_base_mode_bit or qp_rows is not None:
+            raise ValueError(f"{what}: a base-mode slice takes "
+                             f"{', '.join(BASE_MODE_INPUTS)} only, without "
+                             "has_inter, svc_base_mode_bit or qp_rows "
+                             f"(given: {given})")
+        tensors = (lev_inter, cdc_lev, cac_lev)
+    elif qp_rows is not None:
+        tensors += (qp_rows,)
+    lead = tensors[0]
+    index = cuda_build.card_of(what, lead)
+    if lead.ndim < 2 or lead.shape[1] != mb_width * mb_height:
+        raise ValueError(f"{what}: {'lev_inter' if base_mode else 'sel'} of "
+                         f"shape {tuple(lead.shape)}, not of {mb_width} x "
+                         f"{mb_height} MBs")
+    n, nmb = lead.shape[:2]
     plan = qp_rows is not None
     _, nbytes, views, offsets = _plan(n, nmb, mb_height, plan)
-    ptrs = cuda_build.pointers(what, tensors,
-                               _checks(n, nmb, mb_height, plan), index)
-    buf = torch.empty(nbytes, dtype=torch.uint8, device=sel.device)
+    ptrs = cuda_build.pointers(what, tensors, _checks(
+        n, nmb, mb_height, plan, bool(base_mode)), index)
+    if base_mode:
+        ptrs = [None] * 10 + ptrs
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=lead.device)
     out = cuda_build.buffer_views(buf, views)
     if n * nmb == 0:
         buf.zero_()
@@ -211,7 +228,8 @@ def symbolize_tiles(sel, mode16, cmode, i4sym_v, i4sym_l, mv4_y, mv4_x,
         args = (*ptrs[:13], ptrs[13] if qp_rows is not None else None,
                 *(None if o is None else base + o for o in offsets), n,
                 mb_width, mb_height, int(bool(has_inter)),
-                int(bool(svc_base_mode_bit)), cuda_build.stream_of(index))
+                int(bool(svc_base_mode_bit)), int(bool(base_mode)),
+                cuda_build.stream_of(index))
         if torch.cuda.current_device() == index:
             rc = _lib().h264lab_symbolize(*args)
         else:

@@ -95,6 +95,16 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   (IDR, P) and sequential frames encode to the CPU's bytes, one count per
   `symbolize` call. K6 refuses CPU tensors, other dtypes and shapes,
   non-contiguous and misaligned inputs;
+- the SVC base-mode frame: K6 in its base-mode slice kind equals
+  `symbolize_plain` of that kind on seeded levels (8 x 6 MBs with MBs of
+  cbp 0, 120 x 68 MBs, 1 x 6 and 6 x 1 MBs, a dense 120 x 68 slice), 20
+  launches each; `svc.base_mode_symbols` on the card (one K7 launch, one
+  K6 call) equals the same call on the CPU at 8 x 6, 120 x 68, 1 x 6 and
+  6 x 1 MBs (grid, bit counts, recon, cbp, nnz); a two-layer stream with
+  inter-layer prediction encodes to the CPU's bytes with the plain
+  symbolizer, the plain inter residual and `cavlc.encode_blocks` refused;
+  K6 refuses a base-mode call with an input it does not read, a row plan,
+  a P slice or the base_mode_flag bit, and bad levels;
 - K7 (the inter residual, `ops/residual.inter_tiles`, one launch a call)
   equals `inter_residual_plain` on the card, every output, on seeded
   `inter_residual_inputs`: 16 frames of 1080p over 16 lanes (16, 8160),
@@ -129,9 +139,11 @@ from h264lab_tpu_torch.decoder.decoder import H264Decoder
 from h264lab_tpu_torch.entry import dryrun_multichip, entry
 from h264lab_tpu_torch.models import mbscan
 from h264lab_tpu_torch.models.encoder import H264Encoder
-from h264lab_tpu_torch.models.svc import SvcEncoder, base_mode_frame_core
+from h264lab_tpu_torch.models.svc import (SvcEncoder, base_mode_frame_core,
+                                          base_mode_symbols)
 from h264lab_tpu_torch.models import wavefront as plan
-from h264lab_tpu_torch.ops import bitpack, deblock, me, residual, wavefront
+from h264lab_tpu_torch.ops import (bitpack, cavlc, deblock, me, residual,
+                                   tables, wavefront)
 from h264lab_tpu_torch.ops import symbolize as k6
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
@@ -1309,3 +1321,128 @@ def test_k7_k8_reject_bad_inputs(card):
             residual.select_tiles(*sargs[:i], bad, *sargs[i + 1:])
     with pytest.raises(ValueError):                         # rows of 5 MBs
         residual.select_tiles(*sargs[:17], 5)
+
+
+# ---------------------------------------------------------------------------
+# the SVC base-mode frame: K7 with zero MVs and K6's base-mode slice kind
+# ---------------------------------------------------------------------------
+
+# K6 on base-mode slices: (seed, slices, mb_width, mb_height, dense), the
+# levels of `sym_inputs`' P slices (their intra and quiet MBs have none:
+# coded MBs of cbp 0)
+K6_BASE_MODE_CASES = [(141, 1, 8, 6, False), (142, 1, 120, 68, False),
+                      (143, 2, 1, 6, False), (144, 3, 6, 1, False),
+                      (145, 1, 120, 68, True)]
+
+
+def _k6_base_mode_inputs(card, case):
+    seed, n, mbw, mbh, dense = case
+    d = sym_inputs(seed, n, mbw, mbh, True, dense=dense)
+    t = [None] * 10 + [torch.from_numpy(d[k]).to(card)
+                       for k in ("lev_inter", "cdc_lev", "cac_lev")]
+    return t, dict(mb_width=mbw, mb_height=mbh, has_inter=False,
+                   base_mode=True)
+
+
+@pytest.mark.parametrize("case", K6_BASE_MODE_CASES,
+                         ids=lambda c: f"{c[1]}x{c[2]}x{c[3]}"
+                         + ("-dense" if c[4] else ""))
+def test_k6_base_mode_matches_plain_symbolize(card, case):
+    t, kw = _k6_base_mode_inputs(card, case)
+    want = mbscan.symbolize_plain(*t, **kw)
+    assert (want["cbp"] == 0).any() != case[4]     # dense: no cbp 0
+    for _ in range(K6_REPEATS):
+        before = k6.LAUNCH_COUNTS["symbolize"]
+        got = mbscan.symbolize(*t, **kw)
+        torch.cuda.synchronize()
+        assert k6.LAUNCH_COUNTS["symbolize"] == before + 1
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("mbw,mbh,qp", [(8, 6, 26), (120, 68, 33),
+                                        (1, 6, 51), (6, 1, 10)])
+def test_base_mode_symbols_on_the_card_equal_cpu(card, mbw, mbh, qp):
+    """`svc.base_mode_symbols` on the card (one K7 launch, one K6 call)
+    gives the CPU's grid, bit counts, recon, cbp and nnz."""
+    rng = np.random.default_rng(mbw * mbh + qp)
+    tiles = []
+    for t in (16, 8, 8):
+        src = rng.integers(100, 156, (1, mbw * mbh, 1, 1)) + rng.integers(
+            -3, 4, (1, mbw * mbh, t, t))
+        amp = rng.choice([0, 2, 40], (1, mbw * mbh, 1, 1))
+        noise = rng.integers(-40, 41, src.shape).clip(-amp, amp)
+        tiles.append((src.astype(np.uint8),
+                       np.clip(src + noise, 0, 255).astype(np.uint8)))
+    ins = [torch.from_numpy(x[0]) for x in tiles] + [
+        torch.from_numpy(x[1]) for x in tiles]
+    qpc = int(tables.QPC_FROM_QPY[qp])
+    want = base_mode_symbols(*ins, [qp], [qpc], mbw, mbh)
+    before = dict(k6.LAUNCH_COUNTS)
+    got = base_mode_symbols(*(x.to(card) for x in ins), [qp], [qpc], mbw,
+                            mbh)
+    torch.cuda.synchronize()
+    assert k6.LAUNCH_COUNTS["symbolize"] == before["symbolize"] + 1
+    assert k6.LAUNCH_COUNTS["inter_residual"] == before["inter_residual"] + 1
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        assert torch.equal(got[k].cpu(), v), k
+    if (mbw, mbh) == (8, 6):
+        assert (want["cbp"] == 0).any() and (want["cbp"] != 0).any()
+
+
+def test_base_mode_frames_run_on_k6_and_k7(card, monkeypatch):
+    """A two-layer stream with inter-layer prediction encodes on the card
+    to the CPU's bytes with the plain symbolizer, the plain inter residual
+    and the plain block coder refused: its base-mode IDR runs on K7 and
+    K6."""
+    cfg = EncoderConfig(width=128, height=96, gop=10, qp=30, num_layers=2,
+                        inter_layer_pred_flag=True)
+    run = RunConfig(qp_min=30, qp_max=30, encode_speed=2)
+    frames = list(chessboard_sequence(128, 96, 2))
+    on_cpu = SvcEncoder(cfg, device="cpu")
+    want = [on_cpu.encode(*f, run).payload for f in frames]
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version on the card path")
+
+    for mod, name in ((mbscan, "symbolize_plain"),
+                      (mbscan, "inter_residual_plain"),
+                      (cavlc, "encode_blocks")):
+        monkeypatch.setattr(mod, name, refused)
+    before = dict(k6.LAUNCH_COUNTS)
+    on_card = SvcEncoder(cfg)
+    got = on_card.encode(*frames[0], run)          # the base-mode IDR
+    assert got.frame_type == "IDR" and got.payload == want[0]
+    # the base layer's IDR and the enhancement's base-mode slice
+    assert k6.LAUNCH_COUNTS["symbolize"] == before["symbolize"] + 2
+    assert k6.LAUNCH_COUNTS["inter_residual"] == before["inter_residual"] + 1
+    assert on_card.encode(*frames[1], run).payload == want[1]
+
+
+def test_k6_base_mode_rejects_bad_inputs(card):
+    t, kw = _k6_base_mode_inputs(card, K6_BASE_MODE_CASES[0])
+    args = list(mbscan.symbolize_args(*t, **kw))
+    k6.symbolize_tiles(*args)
+    shifted = torch.empty(args[12].numel() + 1, dtype=torch.int32,
+                          device=card)[1:].view(args[12].shape)
+    for i, bad, err in (
+            (0, torch.zeros(args[10].shape[:2], dtype=torch.int32,
+                            device=card), ValueError),   # an unread input
+            (9, args[10], ValueError),
+            (10, args[10].cpu(), ValueError),            # on the CPU
+            (11, args[11].long(), TypeError),            # dtype
+            (12, args[12][:, :, :1], ValueError),        # shape
+            (10, args[10].transpose(-1, -2), ValueError),  # not contiguous
+            (12, shifted, ValueError),                   # misaligned
+            (13, torch.zeros((1, 6), dtype=torch.int32, device=card),
+             ValueError),                                # a row plan
+            (16, True, ValueError),                      # a P slice
+            (17, True, ValueError)):                     # the flag bit
+        with pytest.raises(err):
+            k6.symbolize_tiles(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(ValueError):                      # nmb != 6 x 6
+        k6.symbolize_tiles(*args[:14], 6, 6, *args[16:])

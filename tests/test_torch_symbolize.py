@@ -12,7 +12,11 @@ nonzero predicted MV; cbpc 0, 1 and 2; blocks with 16 nonzeros, levels
 that take both escapes of the level code (28 and 30 bits) and nC >= 8;
 row QP plans with MBs that carry no mb_qp_delta; base_mode_flag slots;
 4 x 3, 6 x 1, 1 x 6 and 11 x 3 MBs. JAX runs each slice alone (its
-`symbolize` takes one), one trace per case shape.
+`symbolize` takes one), one trace per case shape. SVC base-mode slices
+(`base_mode=True`, on the levels of `sym_inputs`' P slices: MBs of cbp
+0 among them) code every MB with their own header and an empty luma-DC
+unit, and refuse the inputs they do not read; their residual units are
+held against JAX's base-mode frame in `test_torch_svc.py`.
 
 A CUDA kernel cannot run here, so `emulate_k6` does in Python what K6
 does: pass A, a warp per MB, counts each block's nonzeros, derives cbp,
@@ -35,13 +39,16 @@ suffixLength from an exclusive scan of the levels' transfer maps (8
 nibbles, composed with the kernel's byte permutes) over the half-warp in
 4 shuffle steps; every slot of the grid must be written exactly once.
 The tables are the ones the kernel includes (`csrc/symbolize_tables.h`).
-It equals the plain version on every case, and `code_unit` equals the
-port's `cavlc.encode_blocks` on random blocks (hypothesis). Six faults of
-the schedule each make it fail: nC read across a band's top (from the
-slice before), the slice scans' carry kept across a slice boundary, the
-luma units in raster order, the suffixLength scan taken inclusive,
-TrailingOnes not capped at 3, and a run_before written for the last
-coefficient. Tolerance: exact equality (integer arithmetic).
+It equals the plain version on every case, base-mode slices included
+(K6's two passes of that kind: no MV, no slice scans, the base-mode
+header), and `code_unit` equals the port's `cavlc.encode_blocks` on
+random blocks (hypothesis). Seven faults of the schedule each make it
+fail: nC read across a band's top (from the slice before), the slice
+scans' carry kept across a slice boundary, the luma units in raster
+order, the suffixLength scan taken inclusive, TrailingOnes not capped at
+3, a run_before written for the last coefficient, and a base-mode pass A
+that keeps the P slices' P_Skip rule. Tolerance: exact equality (integer
+arithmetic).
 """
 
 import re
@@ -78,6 +85,13 @@ CASES = [
 # and every block coding all its positions (`sym_inputs(dense=True)`)
 DENSE_CASES = [(109, 2, 11, 3, True, True, False, True),
                (110, 2, 4, 3, False, False, True, True)]
+# base-mode slices (`symbolize(..., base_mode=True)`): (seed, slices,
+# mb_width, mb_height, dense), their levels `sym_inputs`' of P slices, whose
+# intra and quiet MBs have none (coded base-mode MBs of cbp 0)
+BASE_MODE_CASES = [(111, 2, 4, 3, False), (112, 2, 6, 1, False),
+                   (113, 2, 1, 6, False), (114, 3, 11, 3, False),
+                   (115, 2, 4, 3, True)]
+BASE_MODE_KEYS = ("lev_inter", "cdc_lev", "cac_lev")
 SCAN_THREADS = 4                # pass B's threads in the emulation
 
 
@@ -100,6 +114,22 @@ def plain(d, c):
         *(torch.from_numpy(d[k]) for k in KEYS), mbw, mbh, has_inter,
         qp_rows=None if qp is None else torch.from_numpy(qp),
         svc_base_mode_bit=flag)
+
+
+def _bm_ids(c):
+    return f"{c[1]}x{c[2]}x{c[3]}" + ("-dense" if c[4] else "")
+
+
+def bm_case(c):
+    seed, n, mbw, mbh, dense = c
+    return sym_inputs(seed, n, mbw, mbh, True, dense=dense)
+
+
+def bm_plain(d, c):
+    """`symbolize_plain` of base-mode slices on a case's levels."""
+    return tmb.symbolize_plain(
+        *(None,) * 10, *(torch.from_numpy(d[k]) for k in BASE_MODE_KEYS),
+        c[2], c[3], False, base_mode=True)
 
 
 def _eq(want, got, what):
@@ -215,6 +245,57 @@ def test_dense_sym_inputs_code_every_position():
         # a level coded at suffixLength 6: 1 << 6 | suffix, 7 to 21 bits
         lv, vv = lens[..., 2:18], vals[..., 2:18]
         assert ((lv >= 7) & (lv <= 21) & (vv >> 6 == 1)).any()
+
+
+@pytest.mark.parametrize("c", BASE_MODE_CASES, ids=_bm_ids)
+def test_base_mode_slices(c):
+    """A base-mode slice codes every MB, those of cbp 0 too: unit 0 is
+    base_mode_flag `1`, the coded_block_pattern (the inter column) and
+    se(0) where the cbp is not 0, every other slot 0; unit 1 is empty,
+    values too; no tail; `total_bits` the sum of the lengths. (Its
+    residual units are held against the JAX package's base-mode frame in
+    `test_torch_svc.py`.)"""
+    d = bm_case(c)
+    _, n, mbw, mbh, _ = c
+    got = bm_plain(d, c)
+    cbp = got["cbp"]
+    assert (cbp != 0).any() and (cbp == 0).any() != c[4]   # dense: none
+    assert not got["skip"].any() and not got["tail_len"].any()
+    assert not got["tail_val"].any()
+    vals = got["sym_vals"].reshape(n, -1, 28, 34)
+    lens = got["sym_lens"].reshape(n, -1, 28, 34)
+    code = torch.as_tensor(tables.CBP_TO_CODENUM)[cbp.long(), 1]
+    bits = torch.floor(torch.log2(code.double() + 1)).long()
+    assert torch.equal(vals[..., 0, 0], torch.ones_like(cbp))
+    assert torch.equal(lens[..., 0, 0], torch.ones_like(cbp))
+    assert torch.equal(vals[..., 0, 1], (code + 1).int())
+    assert torch.equal(lens[..., 0, 1], (2 * bits + 1).int())
+    assert torch.equal(vals[..., 0, 2], torch.ones_like(cbp))
+    assert torch.equal(lens[..., 0, 2], (cbp != 0).int())
+    assert not vals[..., 0, 3:].any() and not lens[..., 0, 3:].any()
+    assert not vals[..., 1, :].any() and not lens[..., 1, :].any()
+    assert torch.equal(got["total_bits"], got["sym_lens"].sum(
+        (1, 2), dtype=torch.int32))
+
+
+def test_base_mode_slices_take_their_own_inputs():
+    c = BASE_MODE_CASES[0]
+    d = bm_case(c)
+    levels = [torch.from_numpy(d[k]) for k in BASE_MODE_KEYS]
+    for i, k in enumerate(KEYS[:10]):
+        given = [None] * 10
+        given[i] = torch.from_numpy(d[k])
+        with pytest.raises(ValueError, match=k):
+            tmb.symbolize(*given, *levels, c[2], c[3], False,
+                          base_mode=True)
+    for kw in (dict(qp_rows=torch.zeros((c[1], c[3]), dtype=torch.int32)),
+               dict(svc_base_mode_bit=True)):
+        with pytest.raises(ValueError):
+            tmb.symbolize(*(None,) * 10, *levels, c[2], c[3], False,
+                          base_mode=True, **kw)
+    with pytest.raises(ValueError):
+        tmb.symbolize(*(None,) * 10, *levels, c[2], c[3], True,
+                      base_mode=True)
 
 
 # ---------------------------------------------------------------------------
@@ -427,14 +508,27 @@ def median3(a, b, c):
     return max(min(max(a, b), c), min(a, b))
 
 
-def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
-    """K6's three passes in Python on `sym_inputs` arrays. `mutation`:
+def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None,
+               base_mode=False):
+    """K6's three passes in Python on `sym_inputs` arrays; with
+    `base_mode`, its two of a base-mode slice (passes A and C as the
+    kernel instantiates them for that kind, on lev_inter, cdc_lev and
+    cac_lev only: every MB inter and coded, no MV, no slice scans, the
+    base-mode header and an empty luma-DC unit). `mutation`:
     "nc_across_band_top" (pass C reads the upper records of a band's first
     row from the slice before it), "carry_across_slices" (pass B carries
     its scans from one slice into the next), "raster_luma" (luma units in
-    raster order), or one of `code_unit`'s. Returns the plain version's
-    dict as torch tensors, and whether pass C wrote every slot of the grid
-    exactly once."""
+    raster order), "p_skip_on" (a base-mode slice's pass A keeps the P
+    slices' P_Skip rule), or one of `code_unit`'s. Returns the plain
+    version's dict as torch tensors, and whether pass C wrote every slot
+    of the grid exactly once."""
+    if base_mode:
+        z = np.zeros_like
+        d = dict(d, sel=z(d["sel"]), mode16=z(d["mode16"]),
+                 cmode=z(d["cmode"]), shape=z(d["shape"]),
+                 i4sym_v=z(d["i4sym_v"]), i4sym_l=z(d["i4sym_l"]),
+                 mv4_y=z(d["mv4_y"]), mv4_x=z(d["mv4_x"]),
+                 dc_lev=z(d["dc_lev"]), ac_lev=z(d["ac_lev"]), qp_rows=None)
     sel, shape = d["sel"], d["shape"]
     n, nmb = sel.shape
     zz, scan = TAB["ZIGZAG"], TAB["BLOCK_SCAN"]
@@ -498,7 +592,7 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
                         else 15 * cbpl_i16)
             cbp = cbp_luma + (cbpc << 4)
             sk = False
-            if has_inter:
+            if has_inter or mutation == "p_skip_on":
                 if 0 <= s <= 3:
                     for p, (by, bx) in enumerate(PARTS[s]):   # lanes 0-3
                         py, px = predict(i, r, c, s, p)
@@ -524,7 +618,8 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
     scan_out = np.zeros((n, nmb, 2), np.int64)
     qp_dec = np.zeros((n, nmb), I32)
     tail_val, tail_len, total = (np.zeros(n, I32) for _ in range(3))
-    seqs = ([[(i, m) for i in range(n) for m in range(nmb)]]
+    seqs = ([] if base_mode     # no pass B: the counts and tails 0
+            else [[(i, m) for i in range(n) for m in range(nmb)]]
             if mutation == "carry_across_slices"
             else [[(i, m) for m in range(nmb)] for i in range(n)])
     for seq in seqs:
@@ -643,7 +738,12 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
             dqp = coded and (is_i16 or cbp != 0)
             for slot in range(34):
                 p = (slot - 7) >> 1
-                if slot == 0:
+                if base_mode:
+                    # base_mode_flag, coded_block_pattern, mb_qp_delta
+                    v, nb = ((1, 1) if slot == 0 else ue(code) if slot == 1
+                             else (1, 1) if slot == 2 else (0, 0))
+                    keep = slot != 2 or cbp != 0
+                elif slot == 0:
                     v, nb = ue(run) if has_inter else (0, 0)
                     keep = has_inter and coded
                 elif slot == 1:
@@ -691,6 +791,8 @@ def emulate_k6(d, mbw, mbh, has_inter, flag, mutation=None):
                         # both blocks empty: the coeff_token of
                         # TotalCoeff 0 on lane 0, every other slot 0
                         ct = TAB["COEFF_TOKEN"][ctx_of(nc) * 68]
+                        if base_mode and u == 1:   # luma DC, values too
+                            ct = 0
                         writes = [(0, ct & 0xFFFF, ct >> 16 if keep else 0)]
                         writes += [(j, 0, 0) for j in range(1, 34)]
                     else:
@@ -739,6 +841,26 @@ def test_k6_schedule_mutations_fail(mutation, c):
     got, once = emulate_k6(d, mbw, mbh, has_inter, flag, mutation)
     assert not once or any(not torch.equal(want[k], got[k])
                            for k in want), mutation
+
+
+@pytest.mark.parametrize("c", BASE_MODE_CASES, ids=_bm_ids)
+def test_k6_base_mode_schedule_equals_plain(c):
+    d = bm_case(c)
+    got, once = emulate_k6(d, c[2], c[3], False, False, base_mode=True)
+    assert once, "a slot of the grid not written exactly once"
+    _same(bm_plain(d, c), got, _bm_ids(c))
+
+
+def test_k6_base_mode_schedule_without_its_skip_rule_fails():
+    """A base-mode pass A that keeps the P slices' P_Skip rule skips the
+    MBs of cbp 0 (their MV, 0, is the predicted one)."""
+    c = BASE_MODE_CASES[0]
+    d = bm_case(c)
+    want = bm_plain(d, c)
+    got, once = emulate_k6(d, c[2], c[3], False, False, "p_skip_on",
+                           base_mode=True)
+    assert got["skip"].any()
+    assert not once or any(not torch.equal(want[k], got[k]) for k in want)
 
 
 def test_k6_suffix_maps_follow_the_recurrence():
@@ -858,7 +980,7 @@ def test_symbolize_args_pack_the_plain_arguments():
     for x, k in zip(args, KEYS):           # packed already: no copy
         assert x.data_ptr() == t[k].data_ptr() and x.dtype == torch.int32
     assert torch.equal(args[13], torch.from_numpy(d["qp_rows"]))
-    assert args[14:] == (mbw, mbh, True, True)
+    assert args[14:] == (mbw, mbh, True, True, False)
     # other dtypes, shapes and layouts come back int32, contiguous,
     # 16-byte aligned, of the kernel's shapes
     odd = dict(t, sel=t["sel"].long(), ac_lev=t["ac_lev"].reshape(
@@ -873,7 +995,7 @@ def test_symbolize_args_pack_the_plain_arguments():
             n, mbw * mbh) + trail, k
         assert torch.equal(x, t[k]), k
     assert args[13].dtype == torch.int32
-    assert args[14:] == (mbw, mbh, True, False)
+    assert args[14:] == (mbw, mbh, True, False, False)
     assert tmb.symbolize_args(*(t[k] for k in KEYS), mbw, mbh, False)[13] \
         is None
 

@@ -4,9 +4,16 @@ device time, its bound, in turns against an earlier build, and what the
 build holds.
 
     python tools/torch_k6_bench.py [--baseline DIR] [--sass DIR] [--reps N]
-                                   [--only WHAT]
+                                   [--only WHAT] [--no-real]
 
-The inputs are `chip_smoke.py`'s seeded K6 inputs (`K6_CASES`,
+The inputs are first the real ones of three encodes on the card, recorded
+at `mbscan.symbolize`: the first P step of 16 GOP lanes of 1920x1088 at
+QP 33, speed 2, and the first P frame of one lane of it (as
+`tools/torch_k78_bench.py` records them), and the base-mode slice of an
+SVC base-mode IDR (SvcEncoder at 1920x1088 over 960x544 with inter-layer
+prediction, QP 33, speed 2: K6's base-mode kind); then a seeded 1080p
+base-mode slice (`utils.synthetic.sym_inputs`' levels) and
+`chip_smoke.py`'s seeded K6 inputs (`K6_CASES`,
 `utils.synthetic.sym_inputs`): 16 slices of 1080p in P and I slices (the
 GOP lanes' steps), one 1080p slice with a row QP plan and with the
 base_mode_flag bit (the sequential and SVC enhancement frames), the SVC
@@ -36,7 +43,9 @@ opcodes that tell what holds it: local loads and stores (a stack frame),
 shuffles, votes, branches and the divergence barriers, shared and global
 loads and stores, byte permutes, population counts.
 
-`--only WHAT` measures only the inputs whose name holds WHAT.
+`--only WHAT` measures only the inputs whose name holds WHAT; `--no-real`
+skips the encodes. An earlier tree without the base-mode kind is timed on
+the other inputs only.
 
 Needs a CUDA device; every line names the card and its power limit.
 """
@@ -46,6 +55,7 @@ from __future__ import annotations
 import argparse
 import collections
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -93,6 +103,8 @@ def sass_counts(lib_path, out_dir, tag):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = next((k for k in KERNELS if k in m.group(1)), m.group(1))
+            if "ILb1E" in m.group(1):       # a base-mode instantiation
+                name += "<true>"
             counts[name] = collections.Counter()
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -133,23 +145,38 @@ def host_us(fn, reps):
     return 1e6 * t / reps
 
 
-def kernels_us(fn):
+def kernels_us(fn, want=3):
     """{kernel: device us} of one call of `fn`, from the fullest of up to
-    six traces of a second call (`chip_smoke.kernel_launches`)."""
-    kernels, _ = chip_smoke.kernel_launches(fn, traces=6, want=3)
+    six traces of a second call (`chip_smoke.kernel_launches`) that hold
+    `want` kernels."""
+    kernels, _ = chip_smoke.kernel_launches(fn, traces=6, want=want)
     return dict(kernels)
+
+
+def wrapper_call(mod, args):
+    """A call of `mod.symbolize_tiles` on `args`, the current
+    `symbolize_args`' packing, cut to the arguments that the tree's
+    wrapper takes (a tree before the base-mode kind takes no
+    `base_mode`; its value here is then False)."""
+    n = len(inspect.signature(mod.symbolize_tiles).parameters)
+    if any(args[n:]):
+        raise ValueError(f"{mod.__name__} does not take {args[n:]}")
+    return lambda: mod.symbolize_tiles(*args[:n])
 
 
 def measure(mods, args, reps):
     """K6 on one input's packed arguments: its bound, ms, host us and each
     kernel's device us; with an "old" module, the old wrapper's outputs
     against the new ones and the two timed in turns (old, new, new,
-    old)."""
-    fns = {tag: (lambda m=mod: m.symbolize_tiles(*args))
-           for tag, mod in mods.items()}
+    old). A base-mode slice (two kernels) is timed on the new K6 only."""
+    base_mode = bool(args[18])
+    if base_mode:
+        mods = {"new": mods["new"]}
+    fns = {tag: wrapper_call(mod, args) for tag, mod in mods.items()}
     got = fns["new"]()
+    want = 2 if base_mode else 3
     row = dict(bound_ms=chip_smoke.k6_bytes(args, got)
-               / chip_smoke.HBM_BYTES_PER_S * 1e3)
+               / chip_smoke.HBM_BYTES_PER_S * 1e3, n_kernels=want)
     if "old" in fns:
         old = fns["old"]()
         row["baseline_equal"] = set(old) == set(got) and all(
@@ -160,7 +187,7 @@ def measure(mods, args, reps):
             turns.append((tag, chip_smoke._cuda_ms(fns[tag], reps)))
             hosts.append((tag, host_us(fns[tag], reps)))
             if tag not in dev:
-                dev[tag] = kernels_us(fns[tag])
+                dev[tag] = kernels_us(fns[tag], want)
         row["kernels"], row["old_kernels"] = dev["new"], dev["old"]
         row["turns"], row["host_turns"] = turns, hosts
         row["ms"] = (turns[1][1] + turns[2][1]) / 2
@@ -170,15 +197,15 @@ def measure(mods, args, reps):
     else:
         row["ms"] = chip_smoke._cuda_ms(fns["new"], reps)
         row["host_us"] = host_us(fns["new"], reps)
-        row["kernels"] = kernels_us(fns["new"])
+        row["kernels"] = kernels_us(fns["new"], want)
     del got
     return row
 
 
-def _kernels(k):
+def _kernels(k, want=3):
     return ", ".join(f"{name.replace('sym_', '').replace('_kernel', '')} "
                      f"{us:.1f}" for name, us in k.items()) + (
-        f" (sum {sum(k.values()):.1f})" if len(k) == 3 else
+        f" (sum {sum(k.values()):.1f})" if len(k) == want else
         " (a trace lost a kernel)")
 
 
@@ -186,8 +213,8 @@ def report(what, row, label):
     line = (f"  K6 on {what} {tuple(row['shape'])} {label}: "
             f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({100 * row['bound_ms'] / row['ms']:.1f}%); device us "
-            f"{_kernels(row['kernels'])}; {row['host_us']:.1f} us of host "
-            "time a call")
+            f"{_kernels(row['kernels'], row['n_kernels'])}; "
+            f"{row['host_us']:.1f} us of host time a call")
     if "turns" in row:
         line += (f"; in turns old, new, new, old: " + ", ".join(
             f"{ms:.4f}" for _, ms in row["turns"])
@@ -200,12 +227,56 @@ def report(what, row, label):
     print(line, flush=True)
 
 
+def record_base_mode():
+    """The `symbolize` arguments of the base-mode slice of an SVC
+    base-mode IDR (1920x1088 over 960x544, inter-layer prediction, QP 33,
+    speed 2) on the card."""
+    from h264lab_tpu_torch.config import EncoderConfig, RunConfig
+    from h264lab_tpu_torch.models.svc import SvcEncoder
+    from h264lab_tpu_torch.utils.synthetic import chessboard_sequence
+
+    w, h, qp = chip_smoke.WIDTH, chip_smoke.HEIGHT, chip_smoke.QP
+    enc = SvcEncoder(EncoderConfig(width=w, height=h, gop=chip_smoke.GOP,
+                                   qp=qp, num_layers=2,
+                                   inter_layer_pred_flag=True))
+    calls = []
+    with chip_smoke.recorded_calls("symbolize", calls):
+        enc.encode(*next(iter(chessboard_sequence(w, h, 1))), RunConfig(
+            qp_min=qp, qp_max=qp, encode_speed=2))
+    torch.cuda.synchronize()
+    call, = [c for c in calls if c[18]]
+    return chip_smoke.to_device(call, "cpu")
+
+
+def real_cases():
+    """[(what, `symbolize` arguments)] of the real inputs."""
+    import torch_k78_bench
+
+    out = [(what, calls["symbolize"]) for what, calls in
+           torch_k78_bench.record_real().items()]
+    out.append(("SVC base-mode slice", record_base_mode()))
+    torch.cuda.empty_cache()
+    return out
+
+
+def seeded_base_mode_call(seed, n, mbw, mbh):
+    """`symbolize`'s arguments of seeded base-mode slices: the levels of
+    `sym_inputs`' P slices."""
+    from h264lab_tpu_torch.utils.synthetic import sym_inputs
+
+    d = sym_inputs(seed, n, mbw, mbh, True)
+    return (*(None,) * 10, *(torch.from_numpy(d[k]) for k in (
+        "lev_inter", "cdc_lev", "cac_lev")), mbw, mbh, False, None, False,
+        True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR")
     ap.add_argument("--sass", metavar="DIR")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", metavar="WHAT")
+    ap.add_argument("--no-real", action="store_true")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k6_bench: no CUDA device", file=sys.stderr)
@@ -227,16 +298,22 @@ def main() -> int:
             result["sass"][tag] = sass_counts(path, opts.sass, tag)
             for fn, c in result["sass"][tag].items():
                 print(f"  {tag} SASS {fn}: {c}")
+    calls = [] if opts.no_real else real_cases()
+    calls.append(("1080p base-mode slice, seeded",
+                  seeded_base_mode_call(73, 1, 120, 68)))
     cases = [c + (False,) for c in chip_smoke.K6_CASES]
     cases.append(chip_smoke.K6_DENSE_CASE + (True,))
     for what, seed, n, mbw, mbh, has_inter, plan, flag, dense in cases:
+        calls.append((what, (seed, n, mbw, mbh, has_inter, plan, flag,
+                             dense)))
+    for what, call in calls:
         if opts.only and opts.only not in what:
             continue
-        call = chip_smoke.k6_case_call(seed, n, mbw, mbh, has_inter, plan,
-                                       flag, dense=dense)
+        if len(call) == 8:            # a seeded K6_CASES input
+            call = chip_smoke.k6_case_call(*call[:7], dense=call[7])
         args = mbscan.symbolize_args(*chip_smoke.to_device(call, "cuda"))
         row = measure(mods, args, opts.reps)
-        row["shape"] = [n, mbw * mbh]
+        row["shape"] = list(args[10].shape[:2])
         result["inputs"][what] = row
         report(what, row, label)
         del call, args

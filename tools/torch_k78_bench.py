@@ -294,8 +294,7 @@ def k6_host_turns(mods, args, reps, label):
     """K6's wrapper host us a call on `args` in turns with the earlier
     tree's (`TURNS`), the median of each tree's four; its outputs
     equal."""
-    fns = {tag: (lambda m=mod: m.symbolize_tiles(*args))
-           for tag, mod in mods.items()}
+    fns = {tag: k6b.wrapper_call(mod, args) for tag, mod in mods.items()}
     a, b = fns["old"](), fns["new"]()
     equal = set(a) == set(b) and all(torch.equal(a[k], v)
                                      for k, v in b.items())
