@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; nothing is caught):
      (csrc/wavefront.cu), the motion search kernels K4 and K5
      (csrc/me.cu), the CAVLC symbolization kernel K6
      (csrc/symbolize.cu, with its tables in csrc/symbolize_tables.h), the
-     inter residual kernel K7 (csrc/inter.cu) and the parallel P select
+     inter residual kernel K7 (csrc/inter.cu), the parallel P select
      kernel K8 (csrc/select.cu; both with csrc/tq.h and its tables in
-     csrc/tq_tables.h), one nvcc each, started together, and print what
+     csrc/tq_tables.h), the SVC 2x down- and upsampling kernels K9 and
+     K10 (csrc/resample.cu) and the reference planes kernel K11
+     (csrc/refplanes.cu), one nvcc each, started together, and print what
      ptxas reports (registers, shared memory, spills);
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
@@ -30,7 +32,11 @@ Phases (any failure exits non-zero; nothing is caught):
      19, its K7 and K8 inputs for phase 20; the main path must have
      launched K1 and K2 on every step, K3 once on each of its three IDR
      steps, K4, K7 and K8 once on each of its five P steps (no K5 at speed
-     2) and K6 once on every step;
+     2), K6 and K11 (its `ref` stage) once on every step and no K9 or K10
+     (the steps' `ref` inputs of both stage steps kept for phase 21). From
+     here to phase 15 no `downsample2x`, `upsample2x_luma`,
+     `upsample2x_chroma`, `qpel.pad_guard` or `me.downsample4` call may
+     take a tensor on the card (`plain_stages_on_card`);
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
@@ -43,7 +49,7 @@ Phases (any failure exits non-zero; nothing is caught):
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1; then
      decode lane 0's stream of those two steps with the port's decoder
-     (numpy, on the host) in a worker process, beside phases 6 to 20:
+     (numpy, on the host) in a worker process, beside phases 6 to 21:
      both frames must equal the card's reconstruction; before the results
      the script waits for it and prints the decode seconds per 1080p
      frame (a host time, taken while the other phases run);
@@ -63,8 +69,9 @@ Phases (any failure exits non-zero; nothing is caught):
      (seconds per frame, frames/s) and one P frame with per-stage times
      (its motion search and partition search inputs kept for phase 18,
      its symbolize inputs for phase 19, its K7 inputs with K5's
-     partitions for phase 20); the path must have launched K1, K2, K3 and
-     K6 on every frame, K4, K5 and K7 on each P frame and K8 on none;
+     partitions for phase 20, its `ref` inputs for phase 21); the path
+     must have launched K1, K2, K3, K6 and K11 on every frame, K4, K5 and
+     K7 on each P frame and K8, K9 and K10 on none;
   8. hold K1 against the plain packer on that P frame's (1, 8160, 952)
      grid, at its capacity and at 1024 words, K2 against the plain
      filter on its deblocking inputs and K3 against the plain wavefront on
@@ -100,7 +107,12 @@ Phases (any failure exits non-zero; nothing is caught):
      K6's base-mode kind), counted by `cuda_build.count_launch`, and no
      `cavlc.encode_blocks` call (the stage P frame's symbolize inputs of
      both layers, the enhancement's with the base_mode_flag bit, kept for
-     phase 19);
+     phase 19); K9 once per frame (its `down`), K10 once per base-mode IDR
+     (its `up`: the prediction tiles and the guard-padded chroma planes
+     that `base_mode_symbols` takes) and K11 once per layer of every frame
+     (the stage P frame's `ref` inputs of both layers and the forced
+     base-mode IDR's `down`, `up` and enhancement `ref` inputs kept for
+     phase 21);
   12. hold K1 against the plain packer on the base-mode frame's (1, 8160,
      952) grid and on the base layer's P grid (1, 2040, 952), each at its
      capacity and at 1024 words, K2 against the plain filter on the
@@ -140,7 +152,11 @@ Phases (any failure exits non-zero; nothing is caught):
      configuration, whose lane 0 IDR and first P must equal a CPU encode;
      K1, K2 and K6 must have launched exactly once for every shard and
      step, K3 for every shard of the IDR step, K4, K7 and K8 for every
-     shard of the two P steps (a band-1 shard's motion search and K7
+     shard of the two P steps, K11 once per step, gop row and distinct
+     device of the row (the exchange, on the calling thread's stream; a
+     gop row's inputs of the first P step kept for phase 21), and no plain
+     resampling or padding call may have reached the card since phase 3
+     (a band-1 shard's motion search and K7
      inputs of the first P step kept for phases 18 and 20, a shard's
      symbolize and K8 inputs of that step for phases 19 and 20). Then a
      forced IDR step and a P step without
@@ -250,7 +266,24 @@ Phases (any failure exits non-zero; nothing is caught):
      speed 2, an IDR and two P frames) encoded on the card and on the CPU,
      equal bytes, decoded by the port's decoder to the card's
      reconstruction (`color_chroma_check`);
-  21. print the kernels line (JSON), then the result line (JSON).
+  21. hold K9 (`resample.downsample_k9` through
+     `resample.downsample_planes`), K10 (`resample.upsample_k10` through
+     `resample.upsample_tiles`) and K11 (`refplanes.planes_k11` through
+     `refstate.prepare_reference`) against their plain versions
+     (`downsample2x` of each plane, `upsample_tiles_plain`,
+     `prepare_reference_plain`), every output (keys, dtypes, shapes,
+     values), on the paths' real inputs: K11 on the 16-lane IDR and P
+     steps' `ref` tiles, the speed-0 P frame's, both SVC layers' P frame,
+     the SVC base-mode frame's enhancement and a mesh gop row's exchange;
+     K9 and K10 on the SVC base-mode frame's `down` and `up` inputs. Every
+     check launches the kernel 20 times, one count a call, each output
+     equal, and prints its wrapper ms (CUDA events over 20 calls), its
+     host us a call, the entry's ms, the plain version's ms (one call) and
+     the byte bound and its share (`stage_bytes`); K11 on the P step and
+     K9 and K10 on the base-mode frame also the device us of their kernel
+     from a trace; the phase prints each kernel's ptxas registers, shared
+     memory, stack and spills;
+  22. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -368,7 +401,8 @@ K6_REPEATS = 20                  # launches of K6 per check, all equal
 TRACE_MARGIN_S = 0.02            # host time in a trace before and after a
                                  # traced call (`trace_kernels`)
 TRACE_TRIES = 10                 # traces of a check until one holds all of
-                                 # its kernels (the profiler drops records)
+                                 # its kernels (the profiler drops records);
+                                 # each retry doubles the margin, up to 16x
 # phase 20: K7 (what, seed, frames, mb_width, mb_height, qp, lanes, lane
 # frame rows, row QP plan, partitions, quarter-pel, full-pel reach, noise
 # guard) and K8 (what, seed, frames, mb_width, mb_height, qp, row QP plan,
@@ -408,6 +442,7 @@ K8_CASES = (
     ("16 frames of 119 x 68 MBs", 99, LANES, 119, 68, QP, False, True),
 )
 RESIDUAL_REPEATS = 20            # launches of K7 and K8 per check, all equal
+RESAMPLE_REPEATS = 20            # launches of K9, K10, K11 per check
 
 
 def _require(ok: bool, what: str):
@@ -626,9 +661,9 @@ def check_k3(args, what, label):
 
 
 def to_device(args, device):
-    """Recorded arguments with their tensors, and those of a dict among
-    them, moved to `device` (the host keeps a path's inputs until phase
-    18)."""
+    """Recorded arguments with their tensors, and those of a dict or a
+    plain tuple among them (K10's base tiles), moved to `device` (the host
+    keeps a path's inputs until phase 18)."""
     import torch
 
     def move(x):
@@ -636,6 +671,8 @@ def to_device(args, device):
             return x.to(device)
         if isinstance(x, dict):
             return {k: move(v) for k, v in x.items()}
+        if type(x) is tuple:
+            return tuple(move(v) for v in x)
         return x
     return tuple(move(x) for x in args)
 
@@ -917,14 +954,15 @@ def trace_kernels(fn, margin=TRACE_MARGIN_S, warm=True):
     trace: ([(name, device us)], lead us). The call runs `margin` seconds
     after the trace starts and ends that long before it stops; with
     `warm`, a first call of `fn` runs inside the trace before it, and
-    only the kernels that start after the traced call's host start are
-    kept (`margin` seconds after the warm call's end, so that a device
-    clock a little ahead of the host's in the trace cannot move the warm
-    call's kernels past that start): once the encoder has run in a
-    process, the profiler drops the first hand-kernel record of most
-    traces (`tools/torch_profiler_drops.py`, PERF.md §6). Lead: the device
-    start of the first kernel kept less the host start of the traced
-    call, None without a kernel."""
+    only the kernels that start after the midpoint of the `margin`
+    seconds between the warm call's end (its synchronization) and the
+    traced call's host start are kept, so that a device clock up to
+    margin / 2 ahead of or behind the host's in the trace moves no kernel
+    across the cut: once the encoder has run in a process, the profiler
+    drops the first hand-kernel record of most traces
+    (`tools/torch_profiler_drops.py`, PERF.md §6). Lead: the device start
+    of the first kernel kept less the host start of the traced call,
+    None without a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -935,18 +973,24 @@ def trace_kernels(fn, margin=TRACE_MARGIN_S, warm=True):
         if warm:
             fn()
             torch.cuda.synchronize()
+            with record_function("warm call done"):
+                pass
             time.sleep(margin)
         with record_function("traced call"):
             fn()
             torch.cuda.synchronize()
         time.sleep(margin)
     events = prof.events()
-    start = min(e.time_range.start for e in events
-                if e.name == "traced call")
+
+    def host_start(name):
+        return min(e.time_range.start for e in events if e.name == name)
+    start = host_start("traced call")
+    cut = ((host_start("warm call done") + start) / 2 if warm
+           else start - 1e6 * margin / 2)
     kept = sorted((e for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and "anonymous namespace" in e.name
-                   and e.time_range.start >= start),
+                   and e.time_range.start >= cut),
                   key=lambda e: e.time_range.start)
     lead = kept[0].time_range.start - start if kept else None
     return [(kernel_name(e.name), e.time_range.end - e.time_range.start)
@@ -965,15 +1009,17 @@ def kernel_launches(fn, traces=3, want=1):
     """The device kernels of `csrc/*.cu` that one call of `fn` launches,
     from a trace of it after a warm-up call (`trace_kernels`): ([(name,
     device us)], the traces taken). A trace that holds fewer than `want`
-    of them is taken again, at most `traces` times in all, and the fullest
-    is returned."""
+    of them is taken again, its margin doubled each time up to 16
+    TRACE_MARGIN_S, at most `traces` times in all, and the fullest is
+    returned."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     best = []
     for taken in range(1, traces + 1):
-        kernels, _ = trace_kernels(fn)
+        kernels, _ = trace_kernels(
+            fn, margin=TRACE_MARGIN_S * 2 ** min(taken - 1, 4))
         if len(kernels) > len(best):
             best = kernels
         if len(best) >= want:
@@ -1254,6 +1300,181 @@ def color_chroma_check(label):
                  "the colour-chroma 3-band stream")
 
 
+def stage_record():
+    """What the paths keep of K9, K10 and K11 for phase 21 and the kernels
+    line: "calls", each kernel's real inputs by path (the arguments of its
+    stage entry, `resample.downsample_planes`, `resample.upsample_tiles`
+    and `refstate.prepare_reference`, on the host), and
+    "launches", (K9, K10, K11) launches by path."""
+    return {"calls": {"K9": {}, "K10": {}, "K11": {}}, "launches": {}}
+
+
+# the launch counts of K9, K10 and K11
+STAGE_KERNELS = (("K9", "resample_down"), ("K10", "resample_up"),
+                 ("K11", "refplanes"))
+# the plain functions K9, K10 and K11 replace on every encode path: none
+# may take a tensor on the card between phases 3 and 15
+PLAIN_STAGES = (("ops.resample", "downsample2x"),
+                ("ops.resample", "upsample2x_luma"),
+                ("ops.resample", "upsample2x_chroma"),
+                ("ops.qpel", "pad_guard"), ("ops.me", "downsample4"))
+
+
+def require_stage_launches(record, path, what, want):
+    """A path's K9, K10 and K11 launches (since the counts were set to 0)
+    must be `want`; they are kept in `record["launches"][path]`."""
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    got = tuple(LAUNCH_COUNTS[count] for _, count in STAGE_KERNELS)
+    _require(got == tuple(want), f"{what}: K9, K10 and K11 launched {got} "
+             f"times, not {tuple(want)}")
+    record["launches"][path] = got
+    print(f"  K9, K10 and K11 launches of {what}: {got}")
+
+
+@contextlib.contextmanager
+def plain_stages_on_card(seen):
+    """Append to `seen` the name of every `PLAIN_STAGES` function called
+    inside the block, by any thread, with a tensor on the card; nothing of
+    the calls is kept."""
+    import importlib
+
+    import torch
+
+    saved = []
+    try:
+        for module, name in PLAIN_STAGES:
+            mod = importlib.import_module(f"h264lab_tpu_torch.{module}")
+            fn = getattr(mod, name)
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in args):
+                    seen.append(_name)
+                return _fn(*args, **kwargs)
+            setattr(mod, name, counted)
+            saved.append((mod, name, fn))
+        yield seen
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def stage_bytes(kernel, args, outs):
+    """The bytes K9, K10 or K11 must move on its stage entry's arguments,
+    from what the data needs: each output byte written once; read once,
+    K9 the 2x2 boxes of its outputs (an odd last row or column is not
+    read), K10 the cropped base picture (not its padded MBs), K11 its
+    tiles."""
+    import torch
+
+    out = sum(o.numel() * o.element_size() for o in outs)
+    if kernel == "K9":
+        read = 4 * out
+    elif kernel == "K10":
+        read = sum(h * w for h, w in args[2])
+    else:
+        read = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor))
+    return read + out
+
+
+def check_stage(kernel, args, what, label, trace=False):
+    """K9, K10 or K11 (`kernel`) against its plain version on one call's
+    stage-entry arguments on the card (`downsample_planes`,
+    `upsample_tiles`, `prepare_reference`): the entry, run
+    RESAMPLE_REPEATS times, must give every output of the plain version
+    (keys in order, dtypes, shapes, values), one count a call. Returns its
+    numbers: ms (its wrapper, `downsample_k9`, `upsample_k10` or
+    `planes_k11`) and stage_ms (the entry), from CUDA events over 20
+    calls; host_us (the wrapper's host time a call, 20 calls issued
+    without a sync); plain_ms (the checked call); bound_ms (the bytes it
+    must move at 3.35 TB/s, `stage_bytes`); with `trace`, the kernels one
+    call launches and their device us (`kernel_launches`); max_abs_err."""
+    import torch
+    from h264lab_tpu_torch.models import refstate
+    from h264lab_tpu_torch.ops import refplanes, resample
+    from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    count = dict(STAGE_KERNELS)[kernel]
+    if kernel == "K9":
+        entry = resample.downsample_planes
+
+        def plain(*planes):
+            return tuple(resample.downsample2x(p) for p in planes)
+
+        def wrapper():
+            return resample.downsample_k9(*args)
+    elif kernel == "K10":
+        entry = resample.upsample_tiles
+        tiles = tuple(t.reshape((-1,) + t.shape[-2:]) for t in args[0])
+
+        def plain(_, *sizes):
+            return resample.upsample_tiles_plain(tiles, *sizes)
+
+        def wrapper():
+            return resample.upsample_k10(*tiles, *args[1:])
+    else:
+        entry = refstate.prepare_reference
+        plain = refstate.prepare_reference_plain
+
+        def wrapper():
+            return refplanes.planes_k11(*args)
+
+    def items(x):
+        return list(x.items()) if isinstance(x, dict) else list(enumerate(x))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = items(plain(*args))
+    end.record()
+    torch.cuda.synchronize()
+    err = 0
+    for _ in range(RESAMPLE_REPEATS):
+        before = LAUNCH_COUNTS[count]
+        got = items(entry(*args))
+        _require(LAUNCH_COUNTS[count] == before + 1,
+                 f"the entry did not launch {kernel} once on {what}")
+        _require([k for k, _ in got] == [k for k, _ in want] and all(
+            g.dtype == w.dtype and g.shape == w.shape and g.is_cuda
+            for (_, g), (_, w) in zip(got, want)),
+            f"{kernel}'s outputs differ in kind from the plain version's on "
+            f"{what}")
+        err = max([err] + [int((g.int() - w.int()).abs().max())
+                           for (_, g), (_, w) in zip(got, want)])
+        _require(err == 0, f"{kernel} differs from the plain version on "
+                 f"{what} (largest difference {err})")
+    out = dict(ms=_cuda_ms(wrapper, 20),
+               stage_ms=_cuda_ms(lambda: entry(*args), 20),
+               plain_ms=start.elapsed_time(end), max_abs_err=err)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        wrapper()
+    out["host_us"] = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
+    out["kernels"], out["device_us"] = [], None
+    if trace:
+        out["kernels"], _ = kernel_launches(wrapper, traces=TRACE_TRIES)
+        if len(out["kernels"]) == 1:
+            out["device_us"] = out["kernels"][0][1]
+    moved_bytes = stage_bytes(kernel, args, [w for _, w in want])
+    out["bound_ms"] = moved_bytes / HBM_BYTES_PER_S * 1e3
+    shapes = [tuple(w.shape) for _, w in want]
+    dev = ("" if out["device_us"] is None else
+           f"; device {out['device_us']:.1f} us: " + ", ".join(
+               f"{k} {us:.1f}" for k, us in out["kernels"]))
+    print(f"  {kernel} == plain on {what}, {RESAMPLE_REPEATS} launches "
+          f"{label}: {kernel} {out['ms']:.4f} ms, host {out['host_us']:.0f}"
+          f" us a call (the entry {out['stage_ms']:.4f} ms; plain "
+          f"{out['plain_ms']:.3f} ms; bound {out['bound_ms']:.4f} ms for "
+          f"{moved_bytes / 1e6:.2f} MB, "
+          f"{100 * out['bound_ms'] / out['ms']:.2f}% of it reached{dev}); "
+          f"outputs {shapes}")
+    return out
+
+
 def escape_loop(rbsp: bytes) -> bytes:
     """The port's `nal.escape_rbsp` before its numpy form: the same fast
     exit, then a Python loop over the bytes (kept to time against it)."""
@@ -1472,7 +1693,8 @@ def k1_numbers(vals, lens, cap, nk):
 
 
 def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
-               sym_calls, residual, cif, cif_frames, ptxas, bm_numbers):
+               sym_calls, residual, cif, cif_frames, ptxas, bm_numbers,
+               stages):
     """Phases 11 to 13: SvcEncoder at WIDTH x HEIGHT with inter-layer
     prediction (stage frames timed), K1 on its base-mode and base P grids,
     K2 on their deblocking inputs, K3 on the base-mode frame's base
@@ -1481,10 +1703,12 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     `k3_numbers` and `bm_numbers`, {"K6": ..., "K7": ...}; the stage P
     frame's K4 calls into `me_calls`, its two symbolize calls into
     `sym_calls` and its K7 and K8 calls and the path's launches into
-    `residual` (`residual_record`), on the host), and SVC card bytes
-    against CPU bytes at CIF. Returns (K1 launches of the SVC frames, K2
-    launches, K3 launches, K4 launches, K6 launches, K6 launches in the
-    base-mode kind, largest K1 error)."""
+    `residual` (`residual_record`), on the host; the stage P frame's two
+    `ref` stages and the base-mode IDR's `down`, `up` and enhancement
+    `ref` into `stages` (`stage_record`), with the path's K9, K10 and K11
+    launches), and SVC card bytes against CPU bytes at CIF. Returns (K1
+    launches of the SVC frames, K2 launches, K3 launches, K4 launches, K6
+    launches, K6 launches in the base-mode kind, largest K1 error)."""
     import torch
     from h264lab_tpu_torch.bitstream.nal import split_annexb
     from h264lab_tpu_torch.config import FrameType
@@ -1572,12 +1796,18 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
           f"enhancement {len(res.enh_payload)}")
     bitpack.pack_frames = recorded
     svc.stage_times = {}
-    p_calls, bm_calls, svc_me = [], [], []
+    p_calls, bm_calls, svc_me, refs = [], [], [], []
     n_sym = len(svc_sym)
     with recorded_calls("deblock_frame", p_calls), \
-            recorded_calls("motion_search_tiles", svc_me, "ops.me"):
+            recorded_calls("motion_search_tiles", svc_me, "ops.me"), \
+            recorded_calls("prepare_reference", refs, "models.refstate"):
         res, s = svc_frame(2, "P")
     svc_table("P", s, res)
+    _require(sorted(a[0].shape[1] for a in refs) == [nmb // 4, nmb],
+             f"the SVC P frame's {len(refs)} ref stages")
+    for a in refs:
+        layer = "base" if a[0].shape[1] == nmb // 4 else "enhancement"
+        stages["calls"]["K11"][f"SVC {layer} P frame"] = to_device(a, "cpu")
     _require(len(svc_k7) == len(svc_k8) == 2, f"the SVC P frame's "
              f"{len(svc_k7)} inter residuals, {len(svc_k8)} parallel selects")
     for name, calls in (("inter_residual", svc_k7),
@@ -1600,8 +1830,20 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
         sym_calls[f"SVC {layer} P frame"] = to_device(a, "cpu")
     svc.stage_times = {}
     before = dict(LAUNCH_COUNTS)
-    with recorded_calls("deblock_frame", bm_calls):
+    refs.clear()
+    down, up = [], []
+    with recorded_calls("deblock_frame", bm_calls), \
+            recorded_calls("prepare_reference", refs, "models.refstate"), \
+            recorded_calls("downsample_planes", down, "ops.resample"), \
+            recorded_calls("upsample_tiles", up, "ops.resample"):
         res, s = svc_frame(3, "IDR", key)
+    enh_refs = [a for a in refs if a[0].shape[1] == nmb]
+    _require(len(refs) == 2 and len(enh_refs) == len(down) == len(up) == 1,
+             f"the base-mode IDR's {len(refs)} ref stages, {len(down)} down "
+             f"and {len(up)} up stages")
+    for kernel, a in (("K9", down[0]), ("K10", up[0]), ("K11", enh_refs[0])):
+        stages["calls"][kernel]["SVC base-mode frame"] = to_device(a, "cpu")
+    del refs, enh_refs, down, up
     bm_launches = LAUNCH_COUNTS["deblock"] - before["deblock"]
     svc_table("IDR (base-mode)", s, res)
     bm_sym = base_mode_launches(before, "the forced SVC IDR (base-mode)")
@@ -1615,6 +1857,10 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     bitpack.pack_frames = k1
     print(f"  peak device memory of the SVC path "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # K9 once per frame, K10 once per base-mode IDR, K11 once per layer
+    # and frame (the base-mode frame's `ref` included)
+    require_stage_launches(stages, "svc", f"the SVC path's {SVC_FRAMES} "
+                           "frames", (SVC_FRAMES, 2, 2 * SVC_FRAMES))
     svc_launches = LAUNCH_COUNTS["bitpack"]
     svc_db_launches = LAUNCH_COUNTS["deblock"]
     svc_wf_launches = LAUNCH_COUNTS["wavefront"]
@@ -1775,7 +2021,7 @@ def issue_intervals(enc, label):
 
 
 def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
-                me_calls, sym_calls, residual):
+                me_calls, sym_calls, residual, stages):
     """Phase 15: the dryruns, then the 1080p mesh run against the unsharded
     card run (and that against the CPU), each step's shard issue
     intervals, a forced IDR and a P step and the pipelined loop in turns
@@ -1784,7 +2030,9 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
     numbers go into `numbers`, `k2_numbers` and `k3_numbers`; a band-1
     shard's K4 and K7 calls and a shard's symbolize and K8 calls of the
     first P step into `me_calls`, `sym_calls` and `residual`, on the host,
-    and the run's K7 and K8 launches into `residual`). Returns (K1 launches
+    and the run's K7 and K8 launches into `residual`; the first P step's
+    first `ref` stage (a gop row's, in the exchange) and the run's K9, K10
+    and K11 launches into `stages`). Returns (K1 launches
     of the
     mesh run, K2 launches, K3 launches, K4 launches, K6 launches, largest
     K1 error)."""
@@ -1812,7 +2060,7 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
           "issued at a time")
     reset_launches()
     mesh_res, db_calls, mesh_wf, mesh_me = [], [], [], []
-    mesh_sym, mesh_k7, mesh_k8 = [], [], []
+    mesh_sym, mesh_k7, mesh_k8, mesh_refs = [], [], [], []
     for t, kind in enumerate(MESH_STEPS):
         # the last step runs without stage syncs: the mesh's step time
         staged = t < len(MESH_STEPS) - 1
@@ -1826,7 +2074,10 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
                 recorded_calls("symbolize", mesh_sym), \
                 recorded_calls("inter_residual",
                                mesh_k7 if t == 1 else []), \
-                recorded_calls("select_parallel", mesh_k8):
+                recorded_calls("select_parallel", mesh_k8), \
+                recorded_calls("prepare_reference",
+                               mesh_refs if t == 1 else [],
+                               "models.refstate"):
             if t == 1:
                 n_sym = len(mesh_sym)
                 n_k8 = len(mesh_k8)
@@ -1913,6 +2164,18 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
     del mesh_sym, mesh_sym_p
     _require(len(db_calls) == len(enc.shards), f"{len(db_calls)} deblocking"
              f" calls in a mesh step over {len(enc.shards)} shards")
+    # K11 once per step, gop row and distinct device of the row (the
+    # exchange)
+    devs = [sh.stages.device for sh in enc.shards]
+    per_step = sum(len(set(devs[k:k + n_band]))
+                   for k in range(0, len(devs), n_band))
+    _require(len(mesh_refs) == per_step, f"the mesh P step's "
+             f"{len(mesh_refs)} ref stages, not {per_step}")
+    stages["calls"]["K11"]["mesh exchange (a gop row)"] = to_device(
+        mesh_refs[0], "cpu")
+    del mesh_refs
+    require_stage_launches(stages, "mesh", "the mesh run",
+                           (0, 0, per_step * len(MESH_STEPS)))
 
     flat = GopBandEncoder(mcfg, n_gop=n_gop)
     for t, kind in enumerate(MESH_STEPS):
@@ -2023,8 +2286,8 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # 2. build K1, K2, K3, K4 with K5 and K6, one nvcc each, started
-    # together
+    # 2. build K1, K2, K3, K4 with K5, K6, K7, K8, K9 with K10 and K11,
+    # one nvcc each, started together
     t0 = time.perf_counter()
     built = cuda_build.build_all([cuda_build.CSRC / "bitpack.cu",
                                   cuda_build.CSRC / "deblock.cu",
@@ -2032,11 +2295,14 @@ def main() -> int:
                                   cuda_build.CSRC / "me.cu",
                                   cuda_build.CSRC / "symbolize.cu",
                                   cuda_build.CSRC / "inter.cu",
-                                  cuda_build.CSRC / "select.cu"])
-    print(f"K1 to K8 built in {time.perf_counter() - t0:.1f} s")
+                                  cuda_build.CSRC / "select.cu",
+                                  cuda_build.CSRC / "resample.cu",
+                                  cuda_build.CSRC / "refplanes.cu"])
+    print(f"K1 to K11 built in {time.perf_counter() - t0:.1f} s")
     ptxas = {}
     for name, (lib_path, log) in zip(("K1", "K2", "K3", "K4 and K5", "K6",
-                                      "K7", "K8"), built):
+                                      "K7", "K8", "K9 and K10", "K11"),
+                                     built):
         print(f"  {name}: {os.path.relpath(lib_path, ROOT)}")
         ptxas[name] = ptxas_lines(log)
         for line in ptxas[name]:
@@ -2054,6 +2320,12 @@ def main() -> int:
     sym_calls = {}              # the paths' K6 inputs, for phase 19
     residual = residual_record()  # the paths' K7 and K8, for phase 20
     res_calls = {}              # the last step's K7 and K8 inputs
+    stages = stage_record()     # the paths' K9, K10 and K11, for phase 21
+    # no plain resampling or padding call may reach the card on any path
+    # of phases 3 to 15
+    plain_seen = []
+    plain_window = contextlib.ExitStack()
+    plain_window.enter_context(plain_stages_on_card(plain_seen))
 
     def step(t, kind, r=run, return_recon=False):
         """Step t; returns (its pending step, results, seconds, its
@@ -2102,19 +2374,24 @@ def main() -> int:
         """A step with per-stage times that keeps the RBSPs it escapes, the
         bit writers it packs and its deblocking inputs."""
         escape, to_bytes = nal.escape_rbsp, BitWriter.to_bytes
-        rbsps[kind], writers[kind], calls = [], [], []
+        rbsps[kind], writers[kind], calls, refs = [], [], [], []
         nal.escape_rbsp = lambda rbsp: rbsps[kind].append(rbsp) or escape(
             rbsp)
         BitWriter.to_bytes = lambda bw: writers[kind].append(bw) or to_bytes(
             bw)
         enc.stage_times = {}
         try:
-            with recorded_calls("deblock_frame", calls):
+            with recorded_calls("deblock_frame", calls), \
+                    recorded_calls("prepare_reference", refs,
+                                   "models.refstate"):
                 pending, res, s, sym = step(t, kind, r)
         finally:
             nal.escape_rbsp = escape
             BitWriter.to_bytes = to_bytes
         _require(len(calls) == 1, f"{len(calls)} deblocking calls in a step")
+        _require(len(refs) == 1, f"{len(refs)} ref stages in a step")
+        stages["calls"]["K11"][f"{LANES}-lane {kind} step"] = to_device(
+            refs[0], "cpu")
         _require(len(sym) == 1, f"{len(sym)} symbolize calls in a step")
         db_args[kind] = calls[0]
         sym_calls[f"{LANES}-lane {kind} step"] = to_device(sym[0], "cpu")
@@ -2171,6 +2448,9 @@ def main() -> int:
                   LAUNCH_COUNTS["select_parallel"], gop_k8[0])
     residual["launches"]["gop"] = (LAUNCH_COUNTS["inter_residual"],
                                 LAUNCH_COUNTS["select_parallel"])
+    # K11 once per step (its `ref` stage), no resampling
+    require_stage_launches(stages, "gop", f"the main path's {STEPS} steps",
+                           (0, 0, STEPS))
 
     # 4. K1 against the plain packer on the real IDR and P grids and on a
     # synthetic grid past the drop boundaries
@@ -2235,7 +2515,7 @@ def main() -> int:
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
     # the decode is host work: a worker process runs it beside phases 6 to
-    # 20 (at exit, even a failed one, the pool waits for it and stops it)
+    # 21 (at exit, even a failed one, the pool waits for it and stops it)
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
         "spawn"))
     decoding = pool.submit(decode_lane0, [r[0].payload for r in (first,
@@ -2284,14 +2564,18 @@ def main() -> int:
     print(f"sequential speed {SEQ_SPEED} P frame {label}: {t_seq:.3f} s per "
           f"frame, {1 / t_seq:.4f} frames/s ({len(res.payload)} B)")
     seq.stage_times = {}
-    seq_calls, seq_me, seq_part, seq_k7 = [], [], [], []
+    seq_calls, seq_me, seq_part, seq_k7, seq_refs = [], [], [], [], []
     n_sym = len(seq_sym)
     with recorded_calls("deblock_frame", seq_calls), \
             recorded_calls("_select_wavefront", seq_wf), \
             recorded_calls("motion_search_tiles", seq_me, "ops.me"), \
             recorded_calls("partition_tiles", seq_part, "ops.me"), \
-            recorded_calls("inter_residual", seq_k7):
+            recorded_calls("inter_residual", seq_k7), \
+            recorded_calls("prepare_reference", seq_refs, "models.refstate"):
         seq_pending, res, s = seq_frame(2, "P")
+    _require(len(seq_refs) == 1, f"{len(seq_refs)} ref stages in a frame")
+    stages["calls"]["K11"]["speed-0 P frame"] = to_device(seq_refs[0], "cpu")
+    del seq_refs
     _require(len(seq_k7) == 1 and seq_k7[0][15] is not None, "the speed-0 "
              "P frame's inter residual did not take K5's partitions")
     residual["calls"]["inter_residual"]["speed-0 P frame"] = to_device(
@@ -2328,6 +2612,8 @@ def main() -> int:
                   LAUNCH_COUNTS["select_parallel"], cuda_calls(seq_k8))
     residual["launches"]["seq"] = (LAUNCH_COUNTS["inter_residual"],
                                 LAUNCH_COUNTS["select_parallel"])
+    require_stage_launches(stages, "seq", "the sequential path's 3 frames",
+                           (0, 0, 3))
     me_calls["speed-0 P frame"] = to_device(seq_me[0], "cpu")
     part_calls = {"speed-0 P frame": to_device(seq_part[0], "cpu")}
     del seq_me, seq_part
@@ -2458,7 +2744,7 @@ def main() -> int:
     (svc_launches, svc_db_launches, svc_wf_launches, svc_me_launches,
      svc_sym_launches, svc_bm_launches, err) = svc_phases(
         cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
-        sym_calls, residual, cif, cif_frames, ptxas, bm_numbers)
+        sym_calls, residual, cif, cif_frames, ptxas, bm_numbers, stages)
     max_err = max(max_err, err)
 
     # 14. entry() on the card against the CPU
@@ -2489,9 +2775,16 @@ def main() -> int:
     (mesh_launches, mesh_db_launches, mesh_wf_launches, mesh_me_launches,
      mesh_sym_launches, err) = mesh_phases(cfg, run, frames, label, numbers,
                                            k2_numbers, k3_numbers, me_calls,
-                                           sym_calls, residual)
+                                           sym_calls, residual, stages)
     max_err = max(max_err, err)
     print(f"  mesh phase {time.perf_counter() - t0:.1f} s")
+    plain_window.close()
+    _require(not plain_seen, f"plain resampling or padding on the card in "
+             f"phases 3 to 15: {sorted(set(plain_seen))} "
+             f"({len(plain_seen)} calls)")
+    print("no downsample2x, upsample2x_luma, upsample2x_chroma, "
+          "qpel.pad_guard or me.downsample4 call took a tensor on the card "
+          "in phases 3 to 15")
 
     # 16. K2 against the plain filter on seeded inputs at the main paths'
     # shapes
@@ -2670,6 +2963,34 @@ def main() -> int:
                      f"{kernel}'s traced kernels on {what}: {seen}")
     print(f"  K7 and K8 checks {time.perf_counter() - t0:.1f} s")
 
+    # 21. K9, K10 and K11 against their plain versions on the paths' real
+    # inputs
+    t0 = time.perf_counter()
+    for kernel in ("K9 and K10", "K11"):
+        for name, v in ptxas_numbers(ptxas[kernel]).items():
+            print(f"{kernel} {name} {label}: {v['registers']} registers, "
+                  f"{v['smem']} bytes of shared memory, {v['stack']} bytes "
+                  f"of stack, spills {v['spill_stores']} B stored and "
+                  f"{v['spill_loads']} B loaded")
+    stage_numbers = {k: {} for k, _ in STAGE_KERNELS}
+    traced = {"K9": "SVC base-mode frame", "K10": "SVC base-mode frame",
+              "K11": f"{LANES}-lane P step"}
+    for kernel, calls in stages["calls"].items():
+        for what, args in calls.items():
+            stage_numbers[kernel][what] = check_stage(
+                kernel, to_device(args, "cuda"), f"the {what}'s inputs", label,
+                trace=what == traced[kernel])
+    stages["calls"].clear()
+    torch.cuda.empty_cache()
+    # the traces hold the kernel and no other
+    for kernel, name in (("K9", "downsample_kernel"),
+                         ("K10", "upsample_kernel"),
+                         ("K11", "reference_planes_kernel")):
+        seen = [k for k, _ in stage_numbers[kernel][traced[kernel]][
+            "kernels"]]
+        _require(seen in ([], [name]), f"{kernel}'s traced kernels: {seen}")
+    print(f"  K9, K10 and K11 checks {time.perf_counter() - t0:.1f} s")
+
     # phase 5's decode
     t0 = time.perf_counter()
     decode_s = decoding.result()
@@ -2677,12 +2998,13 @@ def main() -> int:
     print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon "
           f"(waited {time.perf_counter() - t0:.1f} s for the worker); decode "
           f"seconds per {WIDTH}x{HEIGHT} frame {label} (the port's numpy "
-          f"decoder, a host time beside phases 6 to 20): IDR "
+          f"decoder, a host time beside phases 6 to 21): IDR "
           f"{decode_s[0]:.2f}, P {decode_s[1]:.2f}")
 
-    # 21. results: K1's, K2's, K4's, K6's, K7's and K8's entries hold the
-    # GOP path's P step (19 of 20 frames of a GOP), K3's its IDR step, K5's
-    # the speed-0 P frame; their launches count every path
+    # 22. results: K1's, K2's, K4's, K6's, K7's, K8's and K11's entries
+    # hold the GOP path's P step (19 of 20 frames of a GOP), K3's its IDR
+    # step, K5's the speed-0 P frame, K9's and K10's the SVC base-mode
+    # frame; their launches count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
     m = numbers["mesh"]
@@ -2829,6 +3151,36 @@ def main() -> int:
             svc_base_mode_launches=svc_bm_launches if kernel == "K7" else 0,
             ptxas=ptxas[kernel], build=res_build[kernel],
             traced_kernels=[k for k, _ in main["kernels"]],
+            inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
+                            plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                            host_us=v["host_us"], device_us=v["device_us"])
+                    for k, v in numbers_of.items()}))
+    for kernel, name, source, replaces in (
+            ("K9", "resample_down", "h264lab_tpu_torch/csrc/resample.cu",
+             "h264lab_tpu/ops/resample.py:26 (XLA, no Pallas kernel)"),
+            ("K10", "resample_up", "h264lab_tpu_torch/csrc/resample.cu",
+             "h264lab_tpu/ops/resample.py:56 and :64 with h264lab_tpu/"
+             "models/svc.py:316-330 (XLA, no Pallas kernel)"),
+            ("K11", "refplanes", "h264lab_tpu_torch/csrc/refplanes.cu",
+             "h264lab_tpu/models/refstate.py:28-47 (XLA, no Pallas "
+             "kernel)")):
+        numbers_of = stage_numbers[kernel]
+        main = numbers_of[traced[kernel]]
+        i = [k for k, _ in STAGE_KERNELS].index(kernel)
+        launches = {path: v[i] for path, v in stages["launches"].items()}
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(launches.values()), equal=True,
+            max_abs_err=max(v["max_abs_err"] for v in numbers_of.values()),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
+            grid=traced[kernel], host_us=main["host_us"],
+            device_us=main["device_us"], path_launches=launches,
+            ptxas=[x for x in ptxas["K11" if kernel == "K11" else
+                                    "K9 and K10"]
+                   if x.startswith(("downsample" if kernel == "K9" else
+                                    "upsample" if kernel == "K10" else
+                                    "reference"))],
             inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
                             plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                             host_us=v["host_us"], device_us=v["device_us"])

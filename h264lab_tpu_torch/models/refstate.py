@@ -7,14 +7,18 @@ a replicated guard ring, and the 4x box pyramid of the luma plane is built
 for the coarse motion search. On a ("gop", "band") mesh the bands of a
 lane lie on several devices, and `exchange` gathers them first: the
 all-gather that XLA inserts in the JAX mesh.
+
+`prepare_reference` and `reference_chroma` dispatch on the tiles'
+device: on CUDA tensors one launch of K11 (`ops/refplanes.planes_k11`,
+`csrc/refplanes.cu`), on CPU tensors the plain version
+`prepare_reference_plain`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from h264lab_tpu_torch.ops import qpel
-from h264lab_tpu_torch.ops.me import downsample4
+from h264lab_tpu_torch.ops import me, qpel, refplanes
 
 
 def tiles_to_planes(tiles: torch.Tensor, mb_height: int, mb_width: int):
@@ -24,18 +28,51 @@ def tiles_to_planes(tiles: torch.Tensor, mb_height: int, mb_width: int):
             .permute(0, 1, 3, 2, 4).reshape(n, mb_height * t, mb_width * t))
 
 
+def _k11_tiles(tiles):
+    """Tiles in the form K11 takes: contiguous and 4-byte aligned; no copy
+    when they are."""
+    tiles = tiles.contiguous()
+    return tiles if tiles.data_ptr() % 4 == 0 else tiles.clone()
+
+
 def prepare_reference(recon_y_tiles, recon_u_tiles, recon_v_tiles,
                       mb_width: int, mb_height: int) -> dict:
     """Reference planes of L pictures from their (L, nmb, t, t) recon
     tiles: y_pad/u_pad/v_pad with a GUARD (chroma GUARD//2) replicated
     ring, and y4_pad, the 4x pyramid `(sum + 8) >> 4` with a GUARD//4
-    replicated ring. All uint8, leading axis L."""
+    replicated ring. All uint8, leading axis L. The `ref` stage of every
+    path: on CUDA tensors one launch of K11, on CPU tensors
+    `prepare_reference_plain`."""
+    tiles = (recon_y_tiles, recon_u_tiles, recon_v_tiles)
+    if recon_y_tiles.device.type == "cpu":
+        return prepare_reference_plain(*tiles, mb_width, mb_height)
+    return refplanes.planes_k11(*(_k11_tiles(t) for t in tiles), mb_width,
+                                mb_height)
+
+
+def prepare_reference_plain(recon_y_tiles, recon_u_tiles, recon_v_tiles,
+                            mb_width: int, mb_height: int) -> dict:
+    """`prepare_reference` in plain PyTorch, the reference K11 is held
+    against."""
     y, u, v = (tiles_to_planes(t, mb_height, mb_width)
                for t in (recon_y_tiles, recon_u_tiles, recon_v_tiles))
     return dict(y_pad=qpel.pad_guard(y, qpel.GUARD),
                 u_pad=qpel.pad_guard(u, qpel.GUARD // 2),
                 v_pad=qpel.pad_guard(v, qpel.GUARD // 2),
-                y4_pad=qpel.pad_guard(downsample4(y), qpel.GUARD // 4))
+                y4_pad=qpel.pad_guard(me.downsample4(y), qpel.GUARD // 4))
+
+
+def reference_chroma(u_tiles, v_tiles, mb_width: int, mb_height: int):
+    """`prepare_reference`'s u_pad and v_pad alone, from (L, nmb, 8, 8)
+    tiles: on CUDA tensors one launch of K11 without luma, on CPU tensors
+    `qpel.pad_guard` of the joined planes."""
+    if u_tiles.device.type == "cpu":
+        return tuple(qpel.pad_guard(tiles_to_planes(t, mb_height, mb_width),
+                                    qpel.GUARD // 2)
+                     for t in (u_tiles, v_tiles))
+    out = refplanes.planes_k11(None, _k11_tiles(u_tiles),
+                               _k11_tiles(v_tiles), mb_width, mb_height)
+    return out["u_pad"], out["v_pad"]
 
 
 def ref_stage(df_y, df_u, df_v, mv_y, mv_x, n_gop: int, mb_width: int,

@@ -27,8 +27,10 @@ scalable-extension slice-header tail and a base_mode_flag=0 bit per coded
 MB (`H264Encoder._svc_ext`).
 
 Both layers are `H264Encoder`s on one device; the input is uploaded once
-and downsampled there, and the base recon that the base-mode frame
-predicts from stays there.
+and downsampled there (`resample.downsample_planes`: on the card one
+launch of K9), and the base recon that the base-mode frame predicts from
+stays there (`resample.upsample_tiles`: on the card one launch of K10
+writes the prediction tiles and the guard-padded chroma planes).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from h264lab_tpu_torch.models import mbscan, refstate
 from h264lab_tpu_torch.models.encoder import (PIC_INIT_QP, H264Encoder,
                                               host_planes)
 from h264lab_tpu_torch.models.stages import StageTimer, pad_to
-from h264lab_tpu_torch.ops import bitpack, qpel, resample, tables
+from h264lab_tpu_torch.ops import bitpack, resample, tables
 from h264lab_tpu_torch.utils.device import resolve_device
 
 I32 = torch.int32
@@ -120,7 +122,8 @@ def base_mode_frame_core(src_y, src_u, src_v, pred_y, pred_u, pred_v, qp,
 
 
 def base_mode_symbols(src_y, src_u, src_v, pred_y, pred_u, pred_v, qp,
-                      qpc, mb_width: int, mb_height: int) -> dict:
+                      qpc, mb_width: int, mb_height: int, u_pad=None,
+                      v_pad=None) -> dict:
     """Encode N enhancement I/IDR frames whose MBs are all base-mode:
     prediction = the co-located upsampled base-layer recon (G.8.6.2),
     residual inter-style TQ without the zero-block kills (reference
@@ -135,7 +138,11 @@ def base_mode_symbols(src_y, src_u, src_v, pred_y, pred_u, pred_v, qp,
     base-mode slice kind. On the card that is one launch of K7 and K6's
     two of that kind.
 
-    src_*/pred_* (N, nmb, t, t) uint8 tiles; qp, qpc (N,). Returns
+    src_*/pred_* (N, nmb, t, t) uint8 tiles; qp, qpc (N,); u_pad and
+    v_pad the chroma prediction as planes guard-padded by GUARD // 2 (N,
+    8 mb_height + GUARD, 8 mb_width + GUARD), as `resample.upsample_tiles`
+    writes them, or None to build them from pred_u and pred_v
+    (`refstate.reference_chroma`: on the card a chroma-only K11). Returns
     sym_vals/sym_lens (N, nmb, 952) int32 (values as uint32 bit patterns)
     in `mbscan.symbolize`'s unit layout, whose luma-DC unit (unit 1) stays
     empty, so K1 packs it; JAX's grid is the 918 slots without that unit,
@@ -150,8 +157,9 @@ def base_mode_symbols(src_y, src_u, src_v, pred_y, pred_u, pred_v, qp,
     # error), not noise; block kills cost real texture here
     zero = torch.zeros((N, nmb), dtype=I32, device=dev)
     lanes = torch.arange(N, dtype=I32, device=dev)
-    u_pad, v_pad = (qpel.pad_guard(refstate.tiles_to_planes(
-        p, mb_height, mb_width), qpel.GUARD // 2) for p in (pred_u, pred_v))
+    if u_pad is None or v_pad is None:
+        u_pad, v_pad = refstate.reference_chroma(pred_u, pred_v, mb_width,
+                                                 mb_height)
     tq = mbscan.inter_residual(
         src_y, src_u, src_v, u_pad, v_pad, lanes, lanes * 0, qp, qpc, zero,
         zero, zero, zero, zero, pred_y, None, mb_width, mb_height,
@@ -249,7 +257,7 @@ class SvcEncoder:
                return_recon: bool = False) -> SvcFrameResult:
         with self.timer.stage("down"):
             full = tuple(self.enh._device_plane(p) for p in (y, u, v))
-            low = tuple(resample.downsample2x(p) for p in full)
+            low = resample.downsample_planes(*full)
         # with inter-layer prediction the base recon is always requested,
         # as the JAX package does
         base_res = self.base.encode(*low, run,
@@ -302,24 +310,20 @@ class SvcEncoder:
         sizes = ((16, ph, pw), (8, ph // 2, pw // 2), (8, ph // 2, pw // 2))
 
         # the base layer's deblocked recon, cropped to the base picture,
-        # upsampled and edge-padded to the enhancement's padded size
+        # upsampled and edge-padded to the enhancement's padded size, and
+        # its chroma planes guard-padded for the base-mode prediction
         with self.timer.stage("up"):
             bc = self.base.config
             crops = ((bc.height, bc.width),) + ((bc.height // 2,
                                                  bc.width // 2),) * 2
-            pred = []
-            for tiles, (h, w), (t, th, tw), up in zip(
-                    self.base._last_tiles, crops, sizes,
-                    (resample.upsample2x_luma, resample.upsample2x_chroma,
-                     resample.upsample2x_chroma)):
-                plane = refstate.tiles_to_planes(
-                    tiles[None], bc.mb_height, bc.mb_width)[0, :h, :w]
-                pred.append(_tiles(up(plane), t, th, tw))
+            *pred, u_pad, v_pad = resample.upsample_tiles(
+                self.base._last_tiles, bc.mb_width, crops, cfg.mb_width,
+                cfg.mb_height)
         with st.stage("pre"):
             src = [_tiles(p, t, th, tw) for p, (t, th, tw) in zip(full, sizes)]
         with st.stage("base_mode"):
             out = base_mode_symbols(*src, *pred, [qp], [qpc], cfg.mb_width,
-                                    cfg.mb_height)
+                                    cfg.mb_height, u_pad, v_pad)
         with st.stage("deblock"):
             df = base_mode_deblock(out, cfg.mb_width, cfg.mb_height)
         with st.stage("pack"):

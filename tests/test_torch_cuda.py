@@ -124,7 +124,23 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   steps at speeds 2 and 0 and sequential P frames at speeds 0 and 10
   encode to the CPU's bytes, one count per call. Both refuse CPU
   tensors, other dtypes and shapes, non-contiguous and misaligned
-  inputs.
+  inputs;
+- K9 (the SVC 2x downsampling, `resample.downsample_k9`) equals
+  `downsample2x` of each plane on 1080p planes, the base's, odd planes and
+  2 x 2 pixels; K10 (the base-mode frame's upsampled prediction,
+  `resample.upsample_k10`) equals `upsample_tiles_plain` on the 1080p
+  base, a cropped base (120x90 in 8 x 6 MBs), one MB, one MB wide and high
+  and a base of a few pixels; K11 (the reference planes,
+  `refplanes.planes_k11`) equals `prepare_reference_plain` on 16 lanes of
+  1080p, one frame, the SVC base, 3 pictures of 4 x 3 MBs, one MB, one MB
+  wide and high, and with no luma (`reference_chroma`); each input
+  launched 20 times, one count a call. K11 runs on the current stream. With
+  the plain resampling and padding refused, a two-layer stream, GOP lanes
+  and the sequential encoder encode to the CPU's bytes, launching K9 once
+  per SVC frame, K10 once per base-mode IDR and K11 once per `ref` stage,
+  and a (2, 2) mesh on cuda:0 launches K11 once per gop row and step. All
+  three refuse CPU tensors, other dtypes and shapes, non-contiguous inputs,
+  bad sizes, and K11 tiles that are not 4-byte aligned.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -137,13 +153,15 @@ import torch
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig
 from h264lab_tpu_torch.decoder.decoder import H264Decoder
 from h264lab_tpu_torch.entry import dryrun_multichip, entry
-from h264lab_tpu_torch.models import mbscan
+from h264lab_tpu_torch.models import mbscan, refstate
 from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import (SvcEncoder, base_mode_frame_core,
                                           base_mode_symbols)
 from h264lab_tpu_torch.models import wavefront as plan
-from h264lab_tpu_torch.ops import (bitpack, cavlc, deblock, me, residual,
-                                   tables, wavefront)
+from h264lab_tpu_torch.ops import (bitpack, cavlc, deblock, me, qpel,
+                                   refplanes, resample, residual, tables,
+                                   wavefront)
+from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 from h264lab_tpu_torch.ops import symbolize as k6
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
 from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
@@ -566,7 +584,8 @@ def test_card_mesh_launch_counts_are_exact(card, speed):
     """Four shards launching at once: K1, K2 and K6 once per shard and
     step, K3 once per shard on the IDR step (and at speed 0 on P steps), K4
     and K7 once per shard on P steps and, at speed 0, K5, at speed 2
-    K8."""
+    K8; K11 once per gop row and step (the exchange, one device a row),
+    no K9 or K10."""
     cfg, run, steps = _mesh_case(speed)
     mesh = GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(2, 2, ["cuda:0"] * 4))
     for t, lanes in enumerate(steps[:3]):
@@ -579,7 +598,8 @@ def test_card_mesh_launch_counts_are_exact(card, speed):
                             me=4 if p else 0,
                             partition=4 if p and speed == 0 else 0,
                             symbolize=4, inter_residual=4 if p else 0,
-                            select_parallel=4 if p and speed == 2 else 0), (
+                            select_parallel=4 if p and speed == 2 else 0,
+                            resample_down=0, resample_up=0, refplanes=2), (
                                 t, done)
 
 
@@ -1446,3 +1466,237 @@ def test_k6_base_mode_rejects_bad_inputs(card):
             k6.symbolize_tiles(*args[:i], bad, *args[i + 1:])
     with pytest.raises(ValueError):                      # nmb != 6 x 6
         k6.symbolize_tiles(*args[:14], 6, 6, *args[16:])
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10 (the SVC resampling) and K11 (the reference planes)
+# ---------------------------------------------------------------------------
+
+RESAMPLE_REPEATS = 20            # launches per check, all equal
+
+
+def _border_plane(rng, h, w):
+    """Seeded noise with 0 and 255 borders and a flat patch."""
+    p = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    p[0], p[-1] = 0, 255
+    p[:, 0], p[:, -1] = 255, 0
+    p[h // 3:h // 3 + 5, w // 4:w // 4 + 7] = 128
+    return p
+
+
+def _as_tiles(plane, t):
+    h, w = plane.shape
+    return (plane.reshape(h // t, t, w // t, t).transpose(0, 2, 1, 3)
+            .reshape(-1, t, t))
+
+
+def _outputs(x):
+    return list(x.items()) if isinstance(x, dict) else list(enumerate(x))
+
+
+def _launches_equal_plain(entry, plain, args, count):
+    """`entry` (one launch of its kernel a call) RESAMPLE_REPEATS times,
+    each output equal to the plain version's (keys, dtypes, shapes)."""
+    want = _outputs(plain(*args))
+    for _ in range(RESAMPLE_REPEATS):
+        before = LAUNCH_COUNTS[count]
+        got = _outputs(entry(*args))
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS[count] == before + 1
+        assert [k for k, _ in got] == [k for k, _ in want]
+        for (k, g), (_, w) in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, k
+            assert g.is_cuda and torch.equal(g, w), k
+
+
+@pytest.mark.parametrize("h,w", [(1088, 1920), (544, 960), (1081, 1921),
+                                 (37, 51), (3, 9), (2, 2)])
+def test_k9_matches_plain_downsample(card, h, w):
+    rng = np.random.default_rng(h + w)
+    ch, cw = max(h // 2, 2), max(w // 2, 2)
+    planes = [torch.from_numpy(_border_plane(rng, *s)).to(card)
+              for s in ((h, w), (ch, cw), (ch, cw))]
+    _launches_equal_plain(
+        resample.downsample_planes,
+        lambda *p: tuple(resample.downsample2x(x) for x in p), planes,
+        "resample_down")
+
+
+# (base width, base height): the 1080p base, a cropped base, one MB, one MB
+# wide and high, a few pixels
+K10_CASES = ((960, 544), (120, 90), (16, 16), (16, 40), (40, 16), (12, 10))
+
+
+def _k10_args(card, bw, bh, seed=5):
+    rng = np.random.default_rng(seed + bw + 3 * bh)
+    bmbw, bmbh = -(-bw // 16), -(-bh // 16)
+    tiles = tuple(torch.from_numpy(_as_tiles(_border_plane(
+        rng, bmbh * t, bmbw * t), t)).to(card) for t in (16, 8, 8))
+    crops = ((bh, bw), (bh // 2, bw // 2), (bh // 2, bw // 2))
+    return tiles, bmbw, crops, -(-2 * bw // 16), -(-2 * bh // 16)
+
+
+@pytest.mark.parametrize("bw,bh", K10_CASES)
+def test_k10_matches_plain_upsample(card, bw, bh):
+    _launches_equal_plain(resample.upsample_tiles,
+                          resample.upsample_tiles_plain,
+                          _k10_args(card, bw, bh), "resample_up")
+
+
+# (pictures, mb_width, mb_height): 16 lanes of 1080p, one frame, the SVC
+# base, 3 pictures of 4 x 3 MBs, one MB, one MB wide and high
+K11_CASES = ((16, 120, 68), (1, 120, 68), (1, 60, 34), (3, 4, 3), (1, 1, 1),
+             (2, 1, 6), (2, 6, 1))
+
+
+def _k11_tiles(card, n, mbw, mbh, seed=9):
+    rng = np.random.default_rng(seed + n * 1000 + mbw * 10 + mbh)
+    return tuple(torch.from_numpy(np.stack([_as_tiles(_border_plane(
+        rng, mbh * t, mbw * t), t) for _ in range(n)])).to(card)
+        for t in (16, 8, 8))
+
+
+@pytest.mark.parametrize("n,mbw,mbh", K11_CASES)
+def test_k11_matches_plain_reference_planes(card, n, mbw, mbh):
+    tiles = _k11_tiles(card, n, mbw, mbh)
+    _launches_equal_plain(refstate.prepare_reference,
+                          refstate.prepare_reference_plain,
+                          tiles + (mbw, mbh), "refplanes")
+    # the chroma planes alone (`reference_chroma`, K11 without luma)
+    _launches_equal_plain(
+        refstate.reference_chroma,
+        lambda u, v, w, h: tuple(
+            refstate.prepare_reference_plain(*tiles, w, h)[k]
+            for k in ("u_pad", "v_pad")),
+        tiles[1:] + (mbw, mbh), "refplanes")
+
+
+def test_k11_launches_on_the_current_stream(card):
+    """On a side stream (as a mesh shard's or another thread's), K11 reads
+    tiles written on that stream and its planes are ready when that stream
+    is."""
+    side = torch.cuda.Stream()
+    tiles = _k11_tiles(card, 4, 120, 68)
+    want = refstate.prepare_reference_plain(*tiles, 120, 68)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        fresh = tuple(torch.empty_like(t) for t in tiles)
+        for f, t in zip(fresh, tiles):
+            f.copy_(t)
+        got = refstate.prepare_reference(*fresh, 120, 68)
+    side.synchronize()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+def test_k9_k10_k11_reject_bad_inputs(card):
+    y, u, v = (torch.zeros(s, dtype=torch.uint8, device=card)
+               for s in ((16, 32), (8, 16), (8, 16)))
+    resample.downsample_k9(y, u, v)
+    for i, bad, err in ((0, y.cpu(), ValueError),               # on the CPU
+                        (1, u.int(), TypeError),                 # dtype
+                        (2, v[None], ValueError),                # shape
+                        (0, y.t(), ValueError)):                 # layout
+        args = [y, u, v]
+        args[i] = bad
+        with pytest.raises(err):
+            resample.downsample_k9(*args)
+    tiles, bmbw, crops, mbw, mbh = _k10_args(card, 120, 90)
+    resample.upsample_k10(*tiles, bmbw, crops, mbw, mbh)
+    for i, bad, err in ((0, tiles[0].cpu(), ValueError),
+                        (1, tiles[1].int(), TypeError),
+                        (2, tiles[2][:, :4], ValueError),
+                        (1, tiles[1][:-1].contiguous(), ValueError),
+                        (0, tiles[0].transpose(1, 2), ValueError)):
+        args = list(tiles)
+        args[i] = bad
+        with pytest.raises(err):
+            resample.upsample_k10(*args, bmbw, crops, mbw, mbh)
+    for b, c in ((7, crops), (bmbw, ((97, 120),) + crops[1:]),
+                 (bmbw, ((90, 0),) + crops[1:])):
+        with pytest.raises(ValueError):                  # sizes, crops
+            resample.upsample_k10(*tiles, b, c, mbw, mbh)
+    y, u, v = _k11_tiles(card, 2, 4, 3)
+    refplanes.planes_k11(y, u, v, 4, 3)
+    shifted = torch.empty(u.numel() + 1, dtype=torch.uint8,
+                          device=card)[1:].view(u.shape)
+    shifted.copy_(u)
+    for i, bad, err in ((0, y.cpu(), ValueError),
+                        (1, u.cpu(), ValueError),
+                        (0, y.int(), TypeError),
+                        (2, v[:1], ValueError),
+                        (1, u.transpose(2, 3), ValueError),
+                        (1, shifted, ValueError)):               # aligned 4
+        args = [y, u, v]
+        args[i] = bad
+        with pytest.raises(err):
+            refplanes.planes_k11(*args, 4, 3)
+    with pytest.raises(ValueError):                      # nmb != 3 x 3
+        refplanes.planes_k11(y, u, v, 3, 3)
+    with pytest.raises(ValueError):
+        refplanes.planes_k11(None, u.cpu(), v.cpu(), 4, 3)
+
+
+def test_k9_k10_k11_serve_the_encode_paths(card, monkeypatch):
+    """With the plain resampling and padding refused, the two-layer stream
+    (inter-layer prediction, a base-mode IDR and a P frame), the GOP lanes
+    and the sequential encoder encode on the card to the CPU's bytes: K9
+    once per SVC frame, K10 once per base-mode IDR, K11 once per `ref`
+    stage."""
+    svc_cfg = EncoderConfig(width=128, height=96, gop=10, qp=30,
+                            num_layers=2, inter_layer_pred_flag=True)
+    cfg = EncoderConfig(width=64, height=48, gop=10, qp=30)
+    run = RunConfig(qp_min=30, qp_max=30, encode_speed=2)
+    big = list(chessboard_sequence(128, 96, 2))
+    small = list(chessboard_sequence(64, 48, 3))
+    cpu_svc = SvcEncoder(svc_cfg, device="cpu")
+    want_svc = [cpu_svc.encode(*f, run).payload for f in big]
+    cpu_gop = GopBandEncoder(cfg, n_gop=2, device="cpu")
+    want_gop = [[a.payload for a in cpu_gop.encode_step(small[t:t + 2], run)]
+                for t in range(2)]
+    cpu_seq = H264Encoder(cfg, device="cpu")
+    want_seq = [cpu_seq.encode(*f, run).payload for f in small[:2]]
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version on the card path")
+    for mod, name in ((resample, "downsample2x"),
+                      (resample, "upsample2x_luma"),
+                      (resample, "upsample2x_chroma"),
+                      (resample, "upsample_tiles_plain"),
+                      (refstate, "prepare_reference_plain"),
+                      (qpel, "pad_guard"), (me, "downsample4")):
+        monkeypatch.setattr(mod, name, refused)
+    before = dict(LAUNCH_COUNTS)
+    on_card = SvcEncoder(svc_cfg)
+    assert [on_card.encode(*f, run).payload for f in big] == want_svc
+    got = {k: LAUNCH_COUNTS[k] - before[k]
+           for k in ("resample_down", "resample_up", "refplanes")}
+    # K11: the base layer's two frames, the enhancement's P frame and its
+    # base-mode IDR
+    assert got == {"resample_down": 2, "resample_up": 1, "refplanes": 4}
+    before = dict(LAUNCH_COUNTS)
+    gop = GopBandEncoder(cfg, n_gop=2)
+    assert [[a.payload for a in gop.encode_step(small[t:t + 2], run)]
+            for t in range(2)] == want_gop
+    seq = H264Encoder(cfg)
+    assert [seq.encode(*f, run).payload for f in small[:2]] == want_seq
+    assert LAUNCH_COUNTS["refplanes"] == before["refplanes"] + 4
+
+
+def test_k11_once_per_gop_row_on_the_mesh(card):
+    """A (2, 2) mesh of cuda:0 entries, two bands: the exchange runs K11
+    once per gop row and step (one device a row), on the calling thread's
+    stream, and the lanes' bytes equal the unsharded card run's."""
+    cfg = EncoderConfig(width=128, height=96, gop=10, qp=33, slice_bands=2)
+    run = RunConfig(qp_min=33, qp_max=33, encode_speed=2)
+    frames = list(chessboard_sequence(128, 96, 3))
+    flat = GopBandEncoder(cfg, n_gop=2)
+    want = [[a.payload for a in flat.encode_step(frames[t:t + 2], run)]
+            for t in range(2)]
+    mesh = GopBandEncoder(cfg, n_gop=2,
+                          mesh=make_mesh(2, 2, ["cuda:0"] * 4))
+    before = LAUNCH_COUNTS["refplanes"]
+    got = [[a.payload for a in mesh.encode_step(frames[t:t + 2], run)]
+           for t in range(2)]
+    assert got == want
+    assert LAUNCH_COUNTS["refplanes"] == before + 4

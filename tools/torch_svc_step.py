@@ -9,10 +9,11 @@ after an untimed IDR and a P frame, N forced FrameType.KEY frames, each a
 base-mode IDR (the enhancement layer predicted from the upsampled base
 layer), alternately with per-stage times (each stage between device
 synchronizations; `base_mode` is the enhancement's TQ and CAVLC, `up`
-and `down` the resampling) and without stage syncs (host wall time of
-`SvcEncoder.encode`). With the tree's kernel launch counts
-(`cuda_build.LAUNCH_COUNTS`), the launches of each timed frame. Every
-frame's bytes are hashed: two trees must print the same digest.
+and `down` the resampling, `ref` each layer's reference planes) and
+without stage syncs (host wall time of `SvcEncoder.encode`). With the
+tree's kernel launch counts (`cuda_build.LAUNCH_COUNTS`), the launches of
+each timed frame, and the peak device memory of the run. Every frame's
+bytes are hashed: two trees must print the same digest.
 
 The package is imported from --tree (default: this tree), so an earlier
 tree unpacked into a gitignored directory (`git archive <commit> | tar -x
@@ -67,6 +68,7 @@ def main() -> int:
     run = RunConfig(qp_min=QP, qp_max=QP, encode_speed=2)
     key = dataclasses.replace(run, frame_type=FrameType.KEY)
     frames = list(chessboard_sequence(WIDTH, HEIGHT, 2 + opts.frames))
+    torch.cuda.reset_peak_memory_stats()
     enc = SvcEncoder(cfg)
     digest = hashlib.sha256()
     for t in range(2):                          # first use: IDR, P
@@ -94,6 +96,8 @@ def main() -> int:
                 s=s, base_mode_ms=1e3 * times["enh"]["base_mode"],
                 up_ms=1e3 * times["svc"]["up"],
                 down_ms=1e3 * times["svc"]["down"],
+                ref_ms={layer: 1e3 * times[layer]["ref"]
+                        for layer in ("base", "enh")},
                 stages={layer: {k: 1e3 * v for k, v in st.items()}
                         for layer, st in times.items()}))
         else:
@@ -103,15 +107,20 @@ def main() -> int:
                   timed_s=timed, launches=launches,
                   base_mode_ms=[x["base_mode_ms"] for x in staged],
                   staged_s=[x["s"] for x in staged],
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                   bytes_sha256=digest.hexdigest())
     print(f"SVC base-mode IDR at {WIDTH}x{HEIGHT} [{card}], tree {tree}: "
           "with stage syncs " + ", ".join(
               f"{x['s']:.4f} s (base_mode {x['base_mode_ms']:.2f}, up "
-              f"{x['up_ms']:.2f}, down {x['down_ms']:.2f} ms)"
+              f"{x['up_ms']:.2f}, down {x['down_ms']:.2f}, ref base "
+              f"{x['ref_ms']['base']:.2f}, enhancement "
+              f"{x['ref_ms']['enh']:.2f} ms)"
               for x in staged)
           + "; without: " + ", ".join(f"{x:.4f}" for x in timed)
           + f" s (median {statistics.median(timed or [0]):.4f}); launches "
-          f"a frame {launches[0]}; bytes sha256 {digest.hexdigest()[:16]}")
+          f"a frame {launches[0]}; peak device memory "
+          f"{result['peak_gib']:.2f} GiB; bytes sha256 "
+          f"{digest.hexdigest()[:16]}")
     line = json.dumps(result)
     if opts.out:
         with open(opts.out, "w") as f:

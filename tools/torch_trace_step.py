@@ -3,6 +3,7 @@ the CUDA card.
 
     python tools/torch_trace_step.py [--k1-baseline SRC] [--k2-baseline SRC]
                                      [--sequential] [--escape] [--pack]
+                                     [--scaling] [--tree DIR]
 
 It runs `chip_smoke.py`'s main path (1920x1088 chessboard, IPPP with GOP
 20, QP 33, encode_speed 2, the same frame schedule): each measurement
@@ -11,9 +12,10 @@ encodes the IDR of step 0 untimed and measures the P step that follows
 line. Four measurements, the third one first:
 
 1. lane scaling: the P step at 1 lane and at 16 lanes, with per-stage wall
-   times (each stage between device synchronizations). A stage whose time
-   does not grow with the lanes is bound by kernel launches, not by device
-   work;
+   times (each stage between device synchronizations), the peak device
+   memory of each run and a SHA-256 digest of the P step's lane bytes. A
+   stage whose time does not grow with the lanes is bound by kernel
+   launches, not by device work;
 2. launches: one more 1-lane P step under one `torch.profiler` pass (CPU
    and CUDA activity), with every stage (`pre`, `inter`, `select`, `sym`,
    `deblock`, `pack`, `ref`, `host`) between device synchronizations. Per
@@ -67,6 +69,12 @@ per-bit); then it times the host copy of one more IDR step's K1 words,
 the whole capacity buffer against the used words that `finish_step`
 copies.
 
+With `--scaling` it measures only the lane scaling (measurement 1). With
+`--tree DIR` it imports the port and `chip_smoke.py` from DIR, an earlier
+tree unpacked into a gitignored directory (`git archive <commit> | tar -x
+-C _baseline/parent`), so that two trees run under the same script in
+turns in one call (parent, this, this, parent).
+
 Needs a CUDA device; every line names the card and its power limit.
 """
 
@@ -76,13 +84,17 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+# --tree is read before the imports below, which come from that tree
+TREE = os.path.abspath(sys.argv[sys.argv.index("--tree") + 1]
+                       if "--tree" in sys.argv[:-1] else ROOT)
+sys.path.insert(0, TREE)
 
 import torch  # noqa: E402
 
@@ -106,13 +118,19 @@ def _warm_encoder(lanes):
 def lane_scaling(lane_counts=(1, chip_smoke.LANES)):
     out = {}
     for lanes in lane_counts:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         enc, run, frames = _warm_encoder(lanes)
         enc.stage_times = {}
         t0 = time.perf_counter()
-        enc.encode_step(frames, run)
+        res = enc.encode_step(frames, run)
+        digest = hashlib.sha256(b"".join(r.payload for r in res))
         out[lanes] = dict(step_ms=1e3 * (time.perf_counter() - t0),
                           stages_ms={k: 1e3 * v for k, v in
-                                     enc.stage_times.items()})
+                                     enc.stage_times.items()},
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          bytes_sha256=digest.hexdigest())
+        del enc
     return out
 
 
@@ -138,10 +156,14 @@ KERNELS = {"K1": ("pack_kernel",), "K2": ("deblock_kernel",),
            "K6": ("sym_records_kernel", "sym_scan_kernel",
                   "sym_codes_kernel"),
            "K7": ("inter_residual_kernel",),
-           "K8": ("select_parallel_kernel",)}
+           "K8": ("select_parallel_kernel",),
+           "K9": ("downsample_kernel",), "K10": ("upsample_kernel",),
+           "K11": ("reference_planes_kernel",)}
 HAND_LAUNCHES = {"K1": "bitpack", "K2": "deblock", "K3": "wavefront",
                  "K4": "me", "K5": "partition", "K6": "symbolize",
-                 "K7": "inter_residual", "K8": "select_parallel"}
+                 "K7": "inter_residual", "K8": "select_parallel",
+                 "K9": "resample_down", "K10": "resample_up",
+                 "K11": "refplanes"}
 
 
 def _is(kernel, name):
@@ -542,6 +564,10 @@ def main() -> int:
     ap.add_argument("--pack", action="store_true",
                     help="time the GOP steps' host stage with the per-bit "
                          "and the word-level RBSP packer instead")
+    ap.add_argument("--scaling", action="store_true",
+                    help="measure only the lane scaling (measurement 1)")
+    ap.add_argument("--tree", default=ROOT,
+                    help="import the port and chip_smoke.py from this tree")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_trace_step: no CUDA device", file=sys.stderr)
@@ -581,13 +607,21 @@ def main() -> int:
         result.update(sequential_stage_ms=stage_ms, sequential=counts)
         print(json.dumps(result))
         return 0
-    k1, k2 = kernel_timing(args.k1_baseline,   # first: a fresh profiler
-                           args.k2_baseline)
+    result["tree"] = TREE
+    if not args.scaling:
+        k1, k2 = kernel_timing(args.k1_baseline,   # first: a fresh profiler
+                               args.k2_baseline)
     scaling = lane_scaling()
     for lanes, r in scaling.items():
-        print(f"{size} P step x {lanes:2d} lanes [{card}]: step "
-              f"{r['step_ms']:.1f} ms; " + ", ".join(
-                  f"{k} {v:.1f}" for k, v in r["stages_ms"].items()))
+        print(f"{size} P step x {lanes:2d} lanes [{card}], tree {TREE}: "
+              f"step {r['step_ms']:.1f} ms; " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in r["stages_ms"].items())
+              + f"; peak device memory {r['peak_gib']:.2f} GiB; bytes "
+              f"sha256 {r['bytes_sha256'][:16]}")
+    if args.scaling:
+        result.update(lane_scaling=scaling)
+        print(json.dumps(result))
+        return 0
     counts = launch_counts()
     for name, r in counts.items():
         untraced = scaling[1]["stages_ms"].get(name, 0.0)
