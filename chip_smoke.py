@@ -36,7 +36,9 @@ Phases (any failure exits non-zero; nothing is caught):
      (the steps' `ref` inputs of both stage steps kept for phase 21). From
      here to phase 15 no `downsample2x`, `upsample2x_luma`,
      `upsample2x_chroma`, `qpel.pad_guard` or `me.downsample4` call may
-     take a tensor on the card (`plain_stages_on_card`);
+     take a tensor on the card (`plain_stages_on_card`), and no `ref`
+     stage may copy its tiles before K11 (`k11_tile_copies`: every path
+     hands K11 fresh, 16-byte aligned tiles);
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
@@ -1360,6 +1362,28 @@ def plain_stages_on_card(seen):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def k11_tile_copies(seen):
+    """Count in `seen` ([calls, copies]) the calls of
+    `refstate._k11_tiles` inside the block, by any thread, and the copies
+    it makes (tiles K11 cannot take as they are: not contiguous or not
+    16-byte aligned)."""
+    from h264lab_tpu_torch.models import refstate
+
+    fn = refstate._k11_tiles
+
+    def counted(tiles):
+        out = fn(tiles)
+        seen[0] += 1
+        seen[1] += out is not tiles
+        return out
+    refstate._k11_tiles = counted
+    try:
+        yield seen
+    finally:
+        refstate._k11_tiles = fn
+
+
 def stage_bytes(kernel, args, outs):
     """The bytes K9, K10 or K11 must move on its stage entry's arguments,
     from what the data needs: each output byte written once; read once,
@@ -2326,6 +2350,9 @@ def main() -> int:
     plain_seen = []
     plain_window = contextlib.ExitStack()
     plain_window.enter_context(plain_stages_on_card(plain_seen))
+    # nor may a `ref` stage copy its tiles before K11
+    tile_copies = [0, 0]
+    plain_window.enter_context(k11_tile_copies(tile_copies))
 
     def step(t, kind, r=run, return_recon=False):
         """Step t; returns (its pending step, results, seconds, its
@@ -2782,6 +2809,11 @@ def main() -> int:
     _require(not plain_seen, f"plain resampling or padding on the card in "
              f"phases 3 to 15: {sorted(set(plain_seen))} "
              f"({len(plain_seen)} calls)")
+    _require(tile_copies[0] > 0 and tile_copies[1] == 0,
+             f"{tile_copies[1]} of the {tile_copies[0]} tile tensors of the "
+             "`ref` stages in phases 3 to 15 copied before K11")
+    print(f"the `ref` stages of phases 3 to 15 handed K11 their "
+          f"{tile_copies[0]} tile tensors without a copy")
     print("no downsample2x, upsample2x_luma, upsample2x_chroma, "
           "qpel.pad_guard or me.downsample4 call took a tensor on the card "
           "in phases 3 to 15")

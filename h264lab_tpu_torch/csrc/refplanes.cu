@@ -13,23 +13,36 @@
 //   - u_pad and v_pad (L, H/2 + G, W/2 + G), a ring of G / 2;
 //   - y4_pad (L, H/4 + G/2, W/4 + G/2): the 4x pyramid y4[r][c] = (the sum
 //     of the 4x4 box at (4r, 4c) + 8) >> 4, with a ring of G / 4.
-// Plane pixel (y, x) lies in MB (y / t) * mb_width + x / t at offset
-// (y % t) * t + x % t of its tile (t = 16, or 8 for chroma); a 4x4 box
-// never crosses an MB (16 % 4 == 0). With no luma tiles (chroma only,
-// `refstate.reference_chroma`) it writes u_pad and v_pad alone.
+// With no luma tiles (chroma only, `refstate.reference_chroma`) it writes
+// u_pad and v_pad alone.
+//
+// The four planes share one structure: a plane of t bytes an MB row and
+// column (t = 16 luma, 8 chroma, 4 the pyramid) has a ring of 4 t, a row
+// pitch of t (mbw + 8) and (mbh + 8) bands of t rows, the outer 4 bands
+// above and below the ring's copies of the edge row.
 //
 // Bound. Pure layout and a box sum, byte-bound: each tile byte read once
 // (384 B an MB) and each plane byte written once; 16 lanes of 1080p move
-// 50.1 MB in and 62.2 MB out, 34 us at 3.35 TB/s. Design: the padded
-// planes share one band structure, (mb_height + 8) bands of 16 luma, 8
-// chroma and 4 pyramid rows, the outer 4 bands the guard ring; a block
-// takes one band of one picture and writes all four planes' rows of it,
-// so the tiles of one MB row are read from device memory once and its
-// pyramid rows and guard bands read them again from L1 and L2. A thread
-// writes 4 bytes at a time (4-byte stores; every row width divides by 4,
-// the ring widths too): inside the plane one 4-byte load of a tile row
-// (the 4 pixels never cross a tile), on the ring each byte clamped; a
-// pyramid word is 16 4-byte loads summed with __vsadu4.
+// 50.1 MB in and 62.2 MB out, 34 us at 3.35 TB/s. Design:
+//   - a block takes a chunk of kChunk MBs of one MB row of one picture;
+//     one thread bulk-copies the chunk's luma and chroma tiles (contiguous
+//     in device memory: 256 and 64 bytes an MB) into shared memory on an
+//     mbarrier (csrc/tq.h), so every tile byte is read from device memory
+//     once, and shared memory does not grow with the frame;
+//   - every row of every plane is written from shared memory, in stores
+//     as wide as the plane's pitch allows (y_pad always 16 bytes; u_pad,
+//     v_pad and y4_pad 16, 8 or 4: the widest that divides their pitch,
+//     so no store crosses a row); the thread map is bit fields of the
+//     item index (no division by a run-time value), chosen so that a warp
+//     writes whole 32-byte sectors of 8 rows and its shared reads are free
+//     of bank conflicts;
+//   - the pyramid is summed from the shared luma into a row-major shared
+//     copy, then written like the other planes;
+//   - the ring columns are splats of the edge pixel, written by the first
+//     and last chunk of a row; the 4 guard bands above (below) are written
+//     by the blocks of the first (last) MB row from the same shared copy,
+//     and those blocks come first in the grid, so the heavier blocks do
+//     not form the tail.
 //
 // Plain C interface, loaded with ctypes; the entry point takes its
 // arguments as one array of 64-bit words (in the order
@@ -39,98 +52,312 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tq.h"
+
 namespace {
 
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x >> 1);
+}
+
 constexpr int kThreads = 256;
-constexpr int kBands = 8;      // the guard rings' bands, 4 above, 4 below
+constexpr int kChunk = 16;      // MBs a block: a power of 2, at least 4
+constexpr int kLogChunk = log2i(kChunk);
+static_assert(kChunk == 1 << kLogChunk && kChunk >= 4, "kChunk");
 
 struct Args {
-  const uint8_t* tiles[3];     // (L, nmb, t, t); tiles[0] null: chroma only
-  uint8_t* out[4];             // y_pad, u_pad, v_pad, y4_pad
+  const uint8_t* tiles[3];      // (L, nmb, t, t); tiles[0] null: chroma only
+  uint8_t* out[4];              // y_pad, u_pad, v_pad, y4_pad
   int mbw, mbh;
-  int guard;                   // G
+  int wc, w4;                   // the store bytes of u/v_pad and y4_pad
 };
 
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
-}
+struct __align__(16) Smem {
+  uint8_t y[kChunk * 256];      // the chunk's tiles, as in device memory
+  uint8_t c[2][kChunk * 64];
+  uint8_t y4[4 * 4 * kChunk];   // the chunk's 4 pyramid rows, row-major
+  unsigned long long bar;
+};
 
-// Rows [kT * b, kT * (b + 1)) of one picture's padded plane of tile size
-// kT (guard g = 4 kT: the band structure), from its tiles.
-template <int kT>
-__device__ __forceinline__ void pad_band(const uint8_t* __restrict__ tiles,
-                                         uint8_t* __restrict__ out, int b,
-                                         int mbw, int mbh) {
-  constexpr int kG = 4 * kT;
-  const int ph = mbh * kT, pw = mbw * kT;
-  const int words = (pw + 2 * kG) / 4;
-  for (int item = threadIdx.x; item < kT * words; item += kThreads) {
-    const int r = item / words, q = item - r * words;
-    const int pr = kT * b + r;
-    const int y = clampi(pr - kG, 0, ph - 1);
-    const int row = (y / kT) * mbw * kT * kT + (y % kT) * kT;
-    const int x = 4 * q - kG;
-    uint32_t word;
-    if (x >= 0 && x < pw) {     // 4 pixels of one tile row
-      word = *reinterpret_cast<const uint32_t*>(
-          tiles + row + (x / kT) * kT * kT + x % kT);
-    } else {                    // the ring: one clamped column
-      const int c = clampi(x, 0, pw - 1);
-      word = 0x01010101u * tiles[row + (c / kT) * kT * kT + c % kT];
-    }
-    *reinterpret_cast<uint32_t*>(out + (long long)pr * (pw + 2 * kG) +
-                                 4 * q) = word;
+template <int W> struct Vec;
+template <> struct Vec<16> { using T = uint4; };
+template <> struct Vec<8> { using T = uint2; };
+template <> struct Vec<4> { using T = uint32_t; };
+
+template <int W>
+__device__ __forceinline__ typename Vec<W>::T splat(uint32_t byte) {
+  const uint32_t w = 0x01010101u * byte;
+  if constexpr (W == 16) {
+    return make_uint4(w, w, w, w);
+  } else if constexpr (W == 8) {
+    return make_uint2(w, w);
+  } else {
+    return w;
   }
 }
 
+template <int W>
+__device__ __forceinline__ void put(uint8_t* dst, typename Vec<W>::T v) {
+  *reinterpret_cast<typename Vec<W>::T*>(dst) = v;
+}
+
+template <int W>
+__device__ __forceinline__ typename Vec<W>::T get(const uint8_t* src) {
+  return *reinterpret_cast<const typename Vec<W>::T*>(src);
+}
+
+// What a block writes: band b0 + bi of each plane for bi in [0, nb), band
+// b0 + ib the chunk's MB row; the bands before it copy its first row, the
+// bands after it its last.
+struct Bands {
+  int b0, nb, ib;
+  __device__ __forceinline__ int src(int bi, int row, int t) const {
+    return bi < ib ? 0 : bi == ib ? row : t - 1;
+  }
+};
+
+// The ring columns of the block's rows of a plane of t bytes an MB (ring
+// 4 t), W-byte splats of the edge pixels: source row s's left pixel at
+// left[s * sp], its right one at right[s * sp].
+template <int kT, int W>
+__device__ __forceinline__ void ring(uint8_t* plane, int pitch,
+                                     const Bands& bd, const uint8_t* left,
+                                     const uint8_t* right, int sp, bool first,
+                                     bool last, int mbw) {
+  constexpr int kRU = 4 * kT / W;           // units a side
+  constexpr int kLog = log2i(2 * kRU);
+  const unsigned items = (unsigned)bd.nb * kT * 2 * kRU;
+  for (unsigned q = threadIdx.x; q < items; q += kThreads) {
+    const int u = q & (2 * kRU - 1), row = q >> kLog;
+    const bool is_left = u < kRU;
+    if (is_left ? !first : !last) continue;
+    const int bi = row >> log2i(kT), s = bd.src(bi, row & (kT - 1), kT);
+    const uint32_t px = is_left ? left[s * sp] : right[s * sp];
+    put<W>(plane + (long long)(kT * bd.b0 + row) * pitch +
+               (is_left ? u * W : 4 * kT + kT * mbw + (u - kRU) * W),
+           splat<W>(px));
+  }
+}
+
+// The chunk's columns of the block's luma rows: 16-byte stores, a warp
+// 8 rows x 4 MBs (lanes: bits 0-2 the row, 3-4 the MB; then the row's
+// bit 3, then the MB's upper bits), each quarter-warp's shared reads 8
+// rows of one tile.
+__device__ __forceinline__ void luma_rows(uint8_t* plane, int pitch,
+                                          const Bands& bd, const uint8_t* sy,
+                                          int n, int col0) {
+  constexpr int kLogBand = 4 + kLogChunk;
+  const unsigned items = (unsigned)bd.nb << kLogBand;
+  for (unsigned q = threadIdx.x; q < items; q += kThreads) {
+    const int bi = q >> kLogBand, qq = q & ((1 << kLogBand) - 1);
+    const int row = (qq & 7) | ((qq >> 2) & 8);
+    const int j = ((qq >> 3) & 3) | ((qq >> 6) << 2);
+    if (j >= n) continue;
+    const uint4 v = get<16>(sy + 256 * j + 16 * bd.src(bi, row, 16));
+    put<16>(plane + (long long)(16 * (bd.b0 + bi) + row) * pitch + col0 +
+                16 * j,
+            v);
+  }
+}
+
+// The chunk's columns of the block's rows of one chroma plane. W = 16:
+// a store is one row of two MBs (lanes: bits 0-2 the row, then the MB
+// pair), the lanes of odd pairs reading their second MB first so that a
+// half-warp's 8-byte shared reads hit 16 distinct bank pairs; W = 8: a
+// store is one row of one MB.
+template <int W>
+__device__ __forceinline__ void chroma_rows(uint8_t* plane, int pitch,
+                                            const Bands& bd,
+                                            const uint8_t* sc, int n,
+                                            int col0) {
+  constexpr int kMbs = W / 8;                     // MBs a store
+  constexpr int kLogBand = 3 + kLogChunk - log2i(kMbs);
+  const unsigned items = (unsigned)bd.nb << kLogBand;
+  for (unsigned q = threadIdx.x; q < items; q += kThreads) {
+    const int bi = q >> kLogBand, qq = q & ((1 << kLogBand) - 1);
+    const int row = qq & 7, j = qq >> 3;
+    if (kMbs * j >= n) continue;
+    const uint8_t* src = sc + 8 * bd.src(bi, row, 8);
+    uint8_t* dst = plane + (long long)(8 * (bd.b0 + bi) + row) * pitch +
+                   col0 + W * j;
+    if constexpr (W == 16) {
+      const int e = j & 1;
+      const uint2 x = get<8>(src + 64 * (2 * j + e));
+      const uint2 y = get<8>(src + 64 * (2 * j + 1 - e));
+      const uint2 lo = e ? y : x, hi = e ? x : y;
+      put<16>(dst, make_uint4(lo.x, lo.y, hi.x, hi.y));
+    } else {
+      put<8>(dst, get<8>(src + 64 * j));
+    }
+  }
+}
+
+// The chunk's columns of the block's pyramid rows from the shared
+// row-major pyramid (4 kChunk bytes a row), W-byte stores.
+template <int W>
+__device__ __forceinline__ void pyramid_rows(uint8_t* plane, int pitch,
+                                             const Bands& bd,
+                                             const uint8_t* s4, int n,
+                                             int col0) {
+  constexpr int kLogU = log2i(4 * kChunk / W);     // units a row
+  constexpr int kLogBand = 2 + kLogU;
+  const unsigned items = (unsigned)bd.nb << kLogBand;
+  for (unsigned q = threadIdx.x; q < items; q += kThreads) {
+    const int bi = q >> kLogBand, qq = q & ((1 << kLogBand) - 1);
+    const int j = qq & ((1 << kLogU) - 1), row = qq >> kLogU;
+    if (W * j >= 4 * n) continue;
+    put<W>(plane + (long long)(4 * (bd.b0 + bi) + row) * pitch + col0 +
+               W * j,
+           get<W>(s4 + 4 * kChunk * bd.src(bi, row, 4) + W * j));
+  }
+}
+
+// The pyramid rows of the chunk into the shared row-major copy: a thread
+// per (pyramid row k, MB m), the 4 box rows of its 4 pixels as 16-byte
+// shared reads. Lanes: bit 0 k's bit 0, bits 1-2 m's bits 0-1, bit 3 k's
+// bit 1, then m; each thread starts at box row m & 3, so a quarter-warp's
+// reads hit 8 distinct 16-byte bank groups.
+__device__ __forceinline__ void pyramid(Smem& s, int n) {
+  for (unsigned q = threadIdx.x; q < 4 * kChunk; q += kThreads) {
+    const int k = (q & 1) | ((q >> 2) & 2);
+    const int m = ((q >> 1) & 3) | ((q >> 4) << 2);
+    if (m >= n) continue;
+    const uint8_t* box = s.y + 256 * m + 64 * k;
+    uint32_t sum[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint4 v = get<16>(box + 16 * ((i + m) & 3));
+      sum[0] = __vsadu4(v.x, 0u) + sum[0];
+      sum[1] = __vsadu4(v.y, 0u) + sum[1];
+      sum[2] = __vsadu4(v.z, 0u) + sum[2];
+      sum[3] = __vsadu4(v.w, 0u) + sum[3];
+    }
+    uint32_t word = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) word |= ((sum[c] + 8) >> 4) << (8 * c);
+    *reinterpret_cast<uint32_t*>(s.y4 + 4 * kChunk * k + 4 * m) = word;
+  }
+}
+
+template <int kT, int W>
+__device__ __forceinline__ void chroma_plane(uint8_t* plane, int pitch,
+                                             const Bands& bd,
+                                             const uint8_t* sc, int n,
+                                             int c0, bool first, bool last,
+                                             int mbw) {
+  chroma_rows<W>(plane, pitch, bd, sc, n, 4 * kT + kT * c0);
+  if (first || last)
+    ring<kT, W>(plane, pitch, bd, sc, sc + 64 * (n - 1) + 7, 8, first, last,
+                mbw);
+}
+
+template <int W>
+__device__ __forceinline__ void pyramid_plane(uint8_t* plane, int pitch,
+                                              const Bands& bd,
+                                              const uint8_t* s4, int n,
+                                              int c0, bool first, bool last,
+                                              int mbw) {
+  pyramid_rows<W>(plane, pitch, bd, s4, n, 16 + 4 * c0);
+  if (first || last)
+    ring<4, W>(plane, pitch, bd, s4, s4 + 4 * n - 1, 4 * kChunk, first, last,
+               mbw);
+}
+
+// One block's work: chunk `chunk` (MBs c0 .. c0 + n - 1) of MB row r of
+// picture pic.
+struct Chunk {
+  int c0, n, pic;
+  long long mb0;                // its first MB among all L pictures'
+  bool first, last;             // the first, the last chunk of its row
+  Bands bd;
+};
+
+__device__ __forceinline__ Chunk chunk_of(const Args& a, int chunk, int pic,
+                                          int r) {
+  const int c0 = chunk * kChunk, n = min(kChunk, a.mbw - c0);
+  const bool top = r == 0, bottom = r == a.mbh - 1;
+  return Chunk{c0, n, pic,
+               (long long)pic * a.mbw * a.mbh + (long long)r * a.mbw + c0,
+               chunk == 0, c0 + n == a.mbw,
+               Bands{top ? 0 : r + 4, 1 + (top ? 4 : 0) + (bottom ? 4 : 0),
+                     top ? 4 : 0}};
+}
+
+// The chunk's tiles into s by bulk copies on s.bar, their bytes expected
+// there (one thread).
+__device__ __forceinline__ void load_chunk(const Args& a, Smem& s,
+                                           const Chunk& c) {
+  const bool luma = a.tiles[0] != nullptr;
+  tq_mbar_expect(&s.bar, (luma ? 384 : 128) * c.n);
+  if (luma) tq_load(s.y, a.tiles[0] + 256 * c.mb0, 256 * c.n, &s.bar);
+  tq_load(s.c[0], a.tiles[1] + 64 * c.mb0, 64 * c.n, &s.bar);
+  tq_load(s.c[1], a.tiles[2] + 64 * c.mb0, 64 * c.n, &s.bar);
+}
+
+// Every plane's rows of the chunk from its tiles in s (the whole block).
+__device__ __forceinline__ void write_chunk(const Args& a, Smem& s,
+                                            const Chunk& c) {
+  const Bands& bd = c.bd;
+  const long long hc = 8ll * (a.mbh + 8), pc = 8 * (a.mbw + 8);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint8_t* plane = a.out[1 + p] + c.pic * hc * pc;
+    if (a.wc == 16)
+      chroma_plane<8, 16>(plane, (int)pc, bd, s.c[p], c.n, c.c0, c.first,
+                          c.last, a.mbw);
+    else
+      chroma_plane<8, 8>(plane, (int)pc, bd, s.c[p], c.n, c.c0, c.first,
+                         c.last, a.mbw);
+  }
+  if (a.tiles[0] == nullptr) return;
+  const long long py = 16ll * (a.mbw + 8);
+  uint8_t* y = a.out[0] + c.pic * (16ll * (a.mbh + 8)) * py;
+  luma_rows(y, (int)py, bd, s.y, c.n, 64 + 16 * c.c0);
+  if (c.first || c.last)
+    ring<16, 16>(y, (int)py, bd, s.y, s.y + 256 * (c.n - 1) + 15, 16,
+                 c.first, c.last, a.mbw);
+  pyramid(s, c.n);
+  __syncthreads();                  // the shared pyramid rows written
+  const long long p4 = 4 * (a.mbw + 8);
+  uint8_t* y4 = a.out[3] + c.pic * (4ll * (a.mbh + 8)) * p4;
+  if (a.w4 == 16)
+    pyramid_plane<16>(y4, (int)p4, bd, s.y4, c.n, c.c0, c.first, c.last,
+                      a.mbw);
+  else if (a.w4 == 8)
+    pyramid_plane<8>(y4, (int)p4, bd, s.y4, c.n, c.c0, c.first, c.last,
+                     a.mbw);
+  else
+    pyramid_plane<4>(y4, (int)p4, bd, s.y4, c.n, c.c0, c.first, c.last,
+                     a.mbw);
+}
+
+// grid (chunks of a row, L, mbh): blockIdx.z 0 the first MB row, 1 the
+// last, then the rows between (the heavier blocks first)
 __global__ void __launch_bounds__(kThreads)
 reference_planes_kernel(const Args a) {
-  const int bands = a.mbh + kBands;
-  const int pic = blockIdx.x / bands, b = blockIdx.x - pic * bands;
-  const long long nmb = (long long)a.mbw * a.mbh;
-  const int H = 16 * a.mbh, W = 16 * a.mbw;
-  const int g = a.guard;
-  if (a.tiles[0] != nullptr) {
-    const uint8_t* y = a.tiles[0] + pic * nmb * 256;
-    pad_band<16>(y, a.out[0] + pic * (long long)(H + 2 * g) * (W + 2 * g),
-                 b, a.mbw, a.mbh);
-    // the pyramid's rows [4 b, 4 b + 4), ring G / 4 = 16
-    const int h4 = H / 4, w4 = W / 4, g4 = g / 4;
-    const int words = (w4 + 2 * g4) / 4;
-    uint8_t* y4 = a.out[3] + pic * (long long)(h4 + 2 * g4) * (w4 + 2 * g4);
-    for (int item = threadIdx.x; item < 4 * words; item += kThreads) {
-      const int r = item / words, q = item - r * words;
-      const int pr = 4 * b + r;
-      const int r4 = clampi(pr - g4, 0, h4 - 1);
-      // the 4 box rows 4 r4 .. 4 r4 + 3 lie in MB row r4 / 4
-      const uint8_t* rows = y + (long long)(r4 >> 2) * a.mbw * 256 +
-                            (4 * (r4 & 3)) * 16;
-      uint32_t word = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c4 = clampi(4 * q + k - g4, 0, w4 - 1);
-        const uint8_t* box = rows + (c4 >> 2) * 256 + 4 * (c4 & 3);
-        unsigned s = 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          s += __vsadu4(*reinterpret_cast<const uint32_t*>(box + 16 * i), 0u);
-        word |= ((s + 8) >> 4) << (8 * k);
-      }
-      *reinterpret_cast<uint32_t*>(y4 + (long long)pr * (w4 + 2 * g4) +
-                                   4 * q) = word;
-    }
+  __shared__ Smem s;
+  const int z = blockIdx.z;
+  const Chunk c = chunk_of(a, blockIdx.x, blockIdx.y,
+                           z == 0 ? 0 : z == 1 ? a.mbh - 1 : z - 1);
+  if (threadIdx.x == 0) {
+    tq_mbar_init(&s.bar);
+    load_chunk(a, s, c);
   }
-  const long long cplane = (long long)(H / 2 + g) * (W / 2 + g);
-#pragma unroll
-  for (int p = 1; p < 3; ++p)
-    pad_band<8>(a.tiles[p] + pic * nmb * 64, a.out[p] + pic * cplane, b,
-                a.mbw, a.mbh);
+  __syncthreads();                  // the mbarrier's init before its waits
+  tq_mbar_wait(&s.bar);
+  write_chunk(a, s, c);
+}
+
+// The widest store, 16, 8 or 4 bytes, that divides a row pitch.
+int store_bytes(long long pitch) {
+  return pitch % 16 == 0 ? 16 : pitch % 8 == 0 ? 8 : 4;
 }
 
 }  // namespace
 
 // w: tiles_y (0 for chroma only), tiles_u, tiles_v, y_pad, u_pad, v_pad,
-// y4_pad, L, mbw, mbh, guard, the stream.
+// y4_pad, L, mbw, mbh, guard, the stream. Tiles and planes 16-byte
+// aligned.
 extern "C" int h264lab_reference_planes(const long long* w) {
   Args a;
   for (int p = 0; p < 3; ++p) a.tiles[p] = (const uint8_t*)w[p];
@@ -138,14 +365,19 @@ extern "C" int h264lab_reference_planes(const long long* w) {
   const long long n = w[7];
   a.mbw = (int)w[8];
   a.mbh = (int)w[9];
-  a.guard = (int)w[10];
   if (n <= 0) return 0;
+  const bool luma = a.tiles[0] != nullptr;
+  long long addr = 0;
+  for (int p = luma ? 0 : 1; p < 3; ++p) addr |= w[p] | w[3 + p];
+  if (luma) addr |= w[6];
   // the band structure needs the rings at 4 MB rows: G = 64
-  if (a.mbw <= 0 || a.mbh <= 0 || a.guard != 64 ||
-      n * (a.mbh + kBands) >= (1ll << 31) ||
+  if (a.mbw <= 0 || a.mbh <= 0 || w[10] != 64 || (addr & 15) ||
+      n > 65535 || a.mbh > 65535 ||
       (long long)(16 * a.mbh + 128) * (16 * a.mbw + 128) >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  reference_planes_kernel<<<(unsigned)(n * (a.mbh + kBands)), kThreads, 0,
-                            (cudaStream_t)w[11]>>>(a);
+  a.wc = store_bytes(8ll * (a.mbw + 8));
+  a.w4 = store_bytes(4ll * (a.mbw + 8));
+  const dim3 grid((a.mbw + kChunk - 1) / kChunk, (unsigned)n, a.mbh);
+  reference_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)w[11]>>>(a);
   return (int)cudaGetLastError();
 }

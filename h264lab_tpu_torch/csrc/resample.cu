@@ -38,13 +38,23 @@
 // Bound. Both are byte-bound integer stencils: K9 reads each input byte
 // once and writes a quarter as many (3.1 MB in, 0.8 MB out at 1080p, about
 // 1.2 us at 3.35 TB/s); K10 reads the 0.8 MB base picture and writes 3.1
-// MB of tiles and 1.2 MB of padded chroma (about 1.5 us). Design: a
-// thread per 4 consecutive output bytes, one 4-byte store; K9 a grid row
-// per plane, K10 a grid row per output (3 tile sets, 2 planes). A K10
-// thread's 4 pixels share their row and span at most 3 base columns, so
-// it sums the 4 filter rows over a window of 6 base columns once (24
-// byte loads through L1) and takes each pixel's horizontal taps from
-// there. Simple first: no shared memory, no bulk copies.
+// MB of tiles and 1.2 MB of padded chroma (about 1.5 us).
+//
+// K9's design: threads in two dimensions, an output row and 16 output
+// bytes of it, the plane on the grid's third axis (no division). Where a
+// plane's input width is a multiple of 32 and both its addresses are
+// 16-byte aligned (the 1080p planes and the 960x544 ones), a thread reads
+// two 32-byte runs of two input rows as four 16-byte loads, sums the
+// boxes two to a 32-bit word (16-bit lanes) and writes one 16-byte store;
+// any other plane takes a byte-wise path in the same kernel, with the same
+// results, so planes of any alignment are taken as they are.
+//
+// K10's design: a thread per 4 consecutive output bytes, one 4-byte
+// store, a grid row per output (3 tile sets, 2 planes). A K10 thread's 4
+// pixels share their row and span at most 3 base columns, so it sums the
+// 4 filter rows over a window of 6 base columns once (24 byte loads
+// through L1) and takes each pixel's horizontal taps from there. Simple
+// first: no shared memory, no bulk copies.
 //
 // Plain C interface, loaded with ctypes; each entry point takes its
 // arguments as one array of 64-bit words (in the order
@@ -76,38 +86,56 @@ struct DownArgs {
   uint8_t* out[3];
   int h[3], w[3];        // the output planes' sizes
   int in_w[3];           // the input planes' row widths
+  int vec[3];            // 1: the 16-byte path (see the entry point)
 };
 
-__global__ void __launch_bounds__(kThreads)
+// K9's block: 32 columns of 16 output bytes by 8 output rows
+constexpr int kDownX = 32, kDownY = 8;
+
+// The 2x2 boxes of one input word of two rows (a above b): the outputs
+// of bytes 0-1 and 2-3 at bits 0-7 and 16-23 (two 16-bit lanes, each sum
+// at most 1022, so no carry crosses them).
+__device__ __forceinline__ uint32_t down_pair(uint32_t a, uint32_t b) {
+  constexpr uint32_t kLo = 0x00ff00ffu;
+  const uint32_t s = (a & kLo) + ((a >> 8) & kLo) + (b & kLo) +
+                     ((b >> 8) & kLo) + 0x00020002u;
+  return (s >> 2) & kLo;
+}
+
+// 4 output bytes from input words x0 x1 (row 2r) and y0 y1 (row 2r + 1)
+__device__ __forceinline__ uint32_t down_word(uint32_t x0, uint32_t x1,
+                                              uint32_t y0, uint32_t y1) {
+  return __byte_perm(down_pair(x0, y0), down_pair(x1, y1), 0x6420);
+}
+
+// A thread per 16 output bytes of one row: (blockIdx.z the plane, row,
+// 16-byte column). On the 16-byte path two 32-byte runs of two input
+// rows as four 16-byte loads and one 16-byte store; else byte by byte.
+__global__ void __launch_bounds__(kDownX * kDownY)
 downsample_kernel(const DownArgs a) {
-  const int p = blockIdx.y;
+  const int p = blockIdx.z;
+  const int r = blockIdx.y * kDownY + threadIdx.y;
+  const int c = 16 * (blockIdx.x * kDownX + threadIdx.x);
   const int ow = pick(a.w, p);
-  const long long n = (long long)pick(a.h, p) * ow;
-  const long long o4 = 4ll * ((long long)blockIdx.x * kThreads + threadIdx.x);
-  if (o4 >= n) return;
-  const uint8_t* in = pick(a.in, p);
+  if (r >= pick(a.h, p) || c >= ow) return;
   const int iw = pick(a.in_w, p);
-  int r = (int)(o4 / ow), c = (int)(o4 - (long long)r * ow);
-  uint32_t word = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (o4 + k < n) {
-      const uint8_t* s = in + (long long)(2 * r) * iw + 2 * c;
-      const int sum = s[0] + s[1] + s[iw] + s[iw + 1];
-      word |= (uint32_t)((sum + 2) >> 2) << (8 * k);
-    }
-    if (++c == ow) {
-      c = 0;
-      ++r;
-    }
-  }
-  uint8_t* out = pick(a.out, p) + o4;
-  if (o4 + 4 <= n) {
-    *reinterpret_cast<uint32_t*>(out) = word;   // the planes are 4-aligned
+  const uint8_t* __restrict__ s = pick(a.in, p) + (long long)(2 * r) * iw +
+                                  2 * c;
+  uint8_t* __restrict__ out = pick(a.out, p) + (long long)r * ow + c;
+  if (pick(a.vec, p)) {
+    const uint4 x0 = *reinterpret_cast<const uint4*>(s);
+    const uint4 x1 = *reinterpret_cast<const uint4*>(s + 16);
+    const uint4 y0 = *reinterpret_cast<const uint4*>(s + iw);
+    const uint4 y1 = *reinterpret_cast<const uint4*>(s + iw + 16);
+    *reinterpret_cast<uint4*>(out) = make_uint4(
+        down_word(x0.x, x0.y, y0.x, y0.y), down_word(x0.z, x0.w, y0.z, y0.w),
+        down_word(x1.x, x1.y, y1.x, y1.y), down_word(x1.z, x1.w, y1.z, y1.w));
   } else {
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      if (o4 + k < n) out[k] = (uint8_t)(word >> (8 * k));
+    const int m = min(16, ow - c);
+    for (int k = 0; k < m; ++k) {
+      const uint8_t* b = s + 2 * k;
+      out[k] = (uint8_t)((b[0] + b[1] + b[iw] + b[iw + 1] + 2) >> 2);
+    }
   }
 }
 
@@ -231,10 +259,12 @@ unsigned blocks(long long items) {
 }  // namespace
 
 // w: in_y, in_u, in_v, out_y, out_u, out_v, then per plane its input's
-// height and width (6 words), then the stream.
+// height and width (6 words), then the stream. A plane takes the 16-byte
+// path where its input's width is a multiple of 32 (so its output's is
+// one of 16) and both its addresses are 16-byte aligned.
 extern "C" int h264lab_resample_down(const long long* w) {
   DownArgs a;
-  long long most = 0;
+  int rows = 0, groups = 0;
   for (int p = 0; p < 3; ++p) {
     a.in[p] = (const uint8_t*)w[p];
     a.out[p] = (uint8_t*)w[3 + p];
@@ -244,10 +274,17 @@ extern "C" int h264lab_resample_down(const long long* w) {
     a.h[p] = (int)(ih / 2);
     a.w[p] = (int)(iw / 2);
     a.in_w[p] = (int)iw;
-    most = std::max(most, (long long)a.h[p] * a.w[p]);
+    a.vec[p] = iw % 32 == 0 && ((w[p] | w[3 + p]) & 15) == 0;
+    if (a.h[p] > 0 && a.w[p] > 0) {
+      rows = std::max(rows, a.h[p]);
+      groups = std::max(groups, (a.w[p] + 15) / 16);
+    }
   }
-  if (most == 0) return 0;
-  downsample_kernel<<<dim3(blocks((most + 3) / 4), 3), kThreads, 0,
+  if (rows == 0) return 0;
+  const dim3 grid((groups + kDownX - 1) / kDownX,
+                  (rows + kDownY - 1) / kDownY, 3);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  downsample_kernel<<<grid, dim3(kDownX, kDownY), 0,
                       (cudaStream_t)w[12]>>>(a);
   return (int)cudaGetLastError();
 }

@@ -29,10 +29,12 @@ def tiles_to_planes(tiles: torch.Tensor, mb_height: int, mb_width: int):
 
 
 def _k11_tiles(tiles):
-    """Tiles in the form K11 takes: contiguous and 4-byte aligned; no copy
-    when they are."""
+    """Tiles in the form K11 takes: contiguous and 16-byte aligned (it
+    bulk-copies them); no copy when they are, as on every path's `ref`
+    stage (K2's outputs and the exchange's joins are fresh
+    allocations)."""
     tiles = tiles.contiguous()
-    return tiles if tiles.data_ptr() % 4 == 0 else tiles.clone()
+    return tiles if tiles.data_ptr() % 16 == 0 else tiles.clone()
 
 
 def prepare_reference(recon_y_tiles, recon_u_tiles, recon_v_tiles,

@@ -160,6 +160,7 @@ class Library:
 # --- the wrappers' host side ------------------------------------------------
 
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_current_card = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def stream_of(index: int) -> int:
@@ -263,7 +264,9 @@ def call(fn, words, what: str, index: int):
     one array of 64-bit words (addresses, sizes, flags, the stream); raise
     if it returned a CUDA error."""
     w = array.array("q", words)
-    if torch.cuda.current_device() == index:
+    here = (_current_card() if _current_card is not None
+            else torch.cuda.current_device())
+    if here == index:
         rc = fn(w.buffer_info()[0])
     else:
         with torch.cuda.device(index):

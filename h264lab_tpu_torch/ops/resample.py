@@ -115,30 +115,38 @@ def downsample_planes(y, u, v):
 
 @functools.lru_cache(maxsize=64)
 def _down_plan(shapes: tuple):
+    """The planes' checks (any address: K9 takes each plane on its 16-byte
+    path where it can, else byte by byte), the outputs' buffer, their byte
+    offsets in it and the kernel's size words, once per size."""
+    if any(len(s) != 2 for s in shapes):
+        raise ValueError(f"downsample_k9 (K9): planes of shapes "
+                         f"{tuple(tuple(s) for s in shapes)}, not (h, w)")
     specs = tuple((name, U8, torch.Size(shape), 0)
                   for name, shape in zip(("y", "u", "v"), shapes))
-    return specs, cuda_build.buffer_plan(tuple(
+    nbytes, views, offsets = cuda_build.buffer_plan(tuple(
         (name, U8, (h // 2, w // 2)) for name, (h, w) in zip("yuv", shapes)))
+    return (specs, nbytes, views, [offsets[name] for name in "yuv"],
+            [int(d) for shape in shapes for d in shape])
 
 
 def downsample_k9(y, u, v):
     """K9: `downsample2x` of three contiguous 2-D uint8 planes on one CUDA
-    device, one launch. Returns the three half-size planes, views of one
-    buffer. Raises on any other input."""
+    device, at any address, one launch. Returns the three half-size
+    planes, views of one buffer. Raises on any other input."""
     what = "downsample_k9 (K9)"
     index = cuda_build.card_of(what, y)
-    shapes = tuple(tuple(getattr(p, "shape", ())) for p in (y, u, v))
-    if any(len(s) != 2 for s in shapes):
-        raise ValueError(f"{what}: planes of shapes {shapes}, not (h, w)")
-    specs, (nbytes, views, offsets) = _down_plan(shapes)
+    try:
+        shapes = (y.shape, u.shape, v.shape)
+    except AttributeError:
+        shapes = tuple(tuple(getattr(p, "shape", ())) for p in (y, u, v))
+    specs, nbytes, views, offsets, sizes = _down_plan(shapes)
     ptrs = cuda_build.pointers(what, (y, u, v), specs, index)
     buf = torch.empty(nbytes, dtype=U8, device=y.device)
     out = cuda_build.buffer_views(buf, views)
     base = buf.data_ptr()
     cuda_build.call(_lib().h264lab_resample_down, ptrs + [
-        base + offsets[name] for name in "yuv"] + [
-        d for shape in shapes for d in shape] + [
-        cuda_build.stream_of(index)], "2x downsampling", index)
+        base + at for at in offsets] + sizes + [cuda_build.stream_of(index)],
+        "2x downsampling", index)
     cuda_build.count_launch("resample_down")
     return out["y"], out["u"], out["v"]
 

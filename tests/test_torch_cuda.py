@@ -127,20 +127,25 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   inputs;
 - K9 (the SVC 2x downsampling, `resample.downsample_k9`) equals
   `downsample2x` of each plane on 1080p planes, the base's, odd planes and
-  2 x 2 pixels; K10 (the base-mode frame's upsampled prediction,
+  2 x 2 pixels, and on 1920-, 960- and 64-wide planes at an odd address
+  (its byte-wise path, no copy); K10 (the base-mode frame's upsampled prediction,
   `resample.upsample_k10`) equals `upsample_tiles_plain` on the 1080p
   base, a cropped base (120x90 in 8 x 6 MBs), one MB, one MB wide and high
   and a base of a few pixels; K11 (the reference planes,
   `refplanes.planes_k11`) equals `prepare_reference_plain` on 16 lanes of
   1080p, one frame, the SVC base, 3 pictures of 4 x 3 MBs, one MB, one MB
-  wide and high, and with no luma (`reference_chroma`); each input
-  launched 20 times, one count a call. K11 runs on the current stream. With
+  wide and high, CIF, and with no luma (`reference_chroma`); each input
+  launched 20 times, one count a call. Tiles 4-byte but not 16-byte
+  aligned are refused by `planes_k11` and copied by the stage entries,
+  which then give the plain planes; the `ref` stage of a 1-lane and a
+  16-lane GOP step hands K11 its tiles without that copy. K11 runs on
+  the current stream. With
   the plain resampling and padding refused, a two-layer stream, GOP lanes
   and the sequential encoder encode to the CPU's bytes, launching K9 once
   per SVC frame, K10 once per base-mode IDR and K11 once per `ref` stage,
   and a (2, 2) mesh on cuda:0 launches K11 once per gop row and step. All
   three refuse CPU tensors, other dtypes and shapes, non-contiguous inputs,
-  bad sizes, and K11 tiles that are not 4-byte aligned.
+  bad sizes, and K11 tiles that are not 16-byte aligned.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -1544,9 +1549,9 @@ def test_k10_matches_plain_upsample(card, bw, bh):
 
 
 # (pictures, mb_width, mb_height): 16 lanes of 1080p, one frame, the SVC
-# base, 3 pictures of 4 x 3 MBs, one MB, one MB wide and high
+# base, 3 pictures of 4 x 3 MBs, one MB, one MB wide and high, CIF
 K11_CASES = ((16, 120, 68), (1, 120, 68), (1, 60, 34), (3, 4, 3), (1, 1, 1),
-             (2, 1, 6), (2, 6, 1))
+             (2, 1, 6), (2, 6, 1), (2, 22, 18))
 
 
 def _k11_tiles(card, n, mbw, mbh, seed=9):
@@ -1571,6 +1576,60 @@ def test_k11_matches_plain_reference_planes(card, n, mbw, mbh):
         tiles[1:] + (mbw, mbh), "refplanes")
 
 
+def _shifted(t, by):
+    """A copy of `t` at `by` bytes past a fresh allocation."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[by:by + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("n,mbw,mbh", [(2, 22, 18), (1, 7, 2)])
+def test_k11_copies_tiles_that_are_not_16_byte_aligned(card, n, mbw, mbh):
+    """Tiles 4-byte but not 16-byte aligned: `planes_k11` refuses them
+    (K11 bulk-copies its tiles), and the stage entries copy them first
+    (`refstate._k11_tiles`), then give the plain version's planes."""
+    tiles = _k11_tiles(card, n, mbw, mbh)
+    want = refstate.prepare_reference_plain(*tiles, mbw, mbh)
+    for by in (4, 8, 12):
+        odd = tuple(_shifted(t, by) for t in tiles)
+        assert all(t.data_ptr() % 16 == by for t in odd)
+        with pytest.raises(ValueError, match="16-byte"):
+            refplanes.planes_k11(*odd, mbw, mbh)
+        got = refstate.prepare_reference(*odd, mbw, mbh)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (by, k)
+        u_pad, v_pad = refstate.reference_chroma(*odd[1:], mbw, mbh)
+        assert torch.equal(u_pad, want["u_pad"])
+        assert torch.equal(v_pad, want["v_pad"])
+
+
+@pytest.mark.parametrize("lanes", [1, 16])
+def test_k11_takes_the_gop_steps_tiles_without_a_copy(card, monkeypatch,
+                                                      lanes):
+    """The `ref` stage of an IDR and a P step of `lanes` GOP lanes hands
+    K11 the deblocked tiles as they are: `refstate._k11_tiles` returns
+    every tile tensor itself, 16-byte aligned, and K11 launches once a
+    step."""
+    seen = []
+    keep = refstate._k11_tiles
+
+    def no_copy(tiles):
+        out = keep(tiles)
+        seen.append((out is tiles, tiles.data_ptr() % 16))
+        return out
+    monkeypatch.setattr(refstate, "_k11_tiles", no_copy)
+    cfg = EncoderConfig(width=64, height=48, gop=10, qp=33)
+    run = RunConfig(qp_min=33, qp_max=33, encode_speed=2)
+    frames = list(chessboard_sequence(64, 48, lanes + 1))
+    enc = GopBandEncoder(cfg, n_gop=lanes)
+    before = LAUNCH_COUNTS["refplanes"]
+    for t in range(2):
+        enc.encode_step(frames[t:t + lanes], run)
+    assert LAUNCH_COUNTS["refplanes"] == before + 2
+    assert seen == [(True, 0)] * 6
+
+
 def test_k11_launches_on_the_current_stream(card):
     """On a side stream (as a mesh shard's or another thread's), K11 reads
     tiles written on that stream and its planes are ready when that stream
@@ -1587,6 +1646,21 @@ def test_k11_launches_on_the_current_stream(card):
     side.synchronize()
     for k, v in want.items():
         assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("h,w", [(1088, 1920), (544, 960), (48, 64)])
+def test_k9_takes_planes_at_an_odd_address(card, h, w):
+    """Planes that are views of a larger buffer at offset 1 (K9's
+    byte-wise path; aligned, these take the 16-byte path) give
+    `downsample2x` of each plane, and are not copied."""
+    rng = np.random.default_rng(h * 7 + w)
+    planes = [_shifted(torch.from_numpy(_border_plane(rng, *s)).to(card), 1)
+              for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    assert all(p.data_ptr() % 2 == 1 for p in planes)
+    _launches_equal_plain(
+        resample.downsample_k9,
+        lambda *p: tuple(resample.downsample2x(x) for x in p), planes,
+        "resample_down")
 
 
 def test_k9_k10_k11_reject_bad_inputs(card):

@@ -229,7 +229,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files += [ROOT / "chip_smoke.py"]
     files += sorted((ROOT / "tools").glob("torch_*.py"))
     for name in ("torch_trace_step.py", "torch_mesh_cards.py",
-                 "torch_k3_bench.py", "torch_k4_bench.py"):
+                 "torch_k3_bench.py", "torch_k4_bench.py",
+                 "torch_ref_bench.py"):
         assert ROOT / "tools" / name in files, name
     assert len(files) >= 50
     pkg = ROOT / "h264lab_tpu_torch"

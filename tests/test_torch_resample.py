@@ -19,19 +19,26 @@ Inputs are seeded numpy planes with 0 and 255 borders and flat patches.
 
 A CUDA kernel cannot run here, so `emulate_k9`, `emulate_k10` and
 `emulate_k11` compute in numpy what the kernels compute, thread by
-thread in their layout: a thread per 4 output bytes; K9 walking its
-plane's output in flat order and reading each 2x2 box by the kernel's
-address; K10 clamping each of a thread's 4 pixels as the kernel does
-(into the padded enhancement plane for u_pad and v_pad, then to the
-upsampled plane of the cropped base), summing the filter's rows over
-its window of 6 base columns and each pixel's columns from there (the
-one 2-D tap sum), reading the base tiles by MB and offset; K11 per band
-of the padded planes ((mb_height + 8) bands of 16 luma, 8 chroma and 4
-pyramid rows; every row written by exactly one band), a tile row's word
-inside the plane and a clamped byte on the ring, the pyramid from 4-byte
-box rows. Each equals the JAX functions array for array; K10 clamped at
-the base's MB grid in place of its picture fails on a cropped base.
-Tolerance: exact equality (integer arithmetic).
+thread in their layout: K9 block by block, a thread per 16 output bytes
+of a row, on its 16-byte path (where the plane's width divides by 32 and
+its addresses by 16: four 16-byte loads as words, the boxes two to a
+word, a byte permute, one 16-byte store) or byte by byte, each output
+byte written once; K10 a thread per 4 output bytes, clamping each pixel
+as the kernel does (into the padded enhancement plane for u_pad and
+v_pad, then to the upsampled plane of the cropped base), summing the
+filter's rows over its window of 6 base columns and each pixel's columns
+from there (the one 2-D tap sum), reading the base tiles by MB and
+offset; K11 block by block, a chunk of 16 MBs of one MB row, its tiles
+bulk-copied (16-byte aligned, each tile byte once), its bands of every
+plane (the 4 guard bands on the first and last row's blocks, the ring on
+the first and last chunk) written item by item in the kernel's thread
+map, in stores of the width each pitch allows, none across a row, each
+output byte once, the pyramid through a shared row-major copy, every
+warp's shared reads free of bank conflicts. Each equals the JAX
+functions array for array; K10 clamped at the base's MB grid in place
+of its picture fails on a cropped base, K11's tiles at a 4-byte aligned
+address fail its bulk copies. Tolerance: exact equality (integer
+arithmetic).
 """
 
 import jax.numpy as jnp
@@ -79,26 +86,92 @@ def _eq(want, got, what=""):
 # emulations of the kernels' threads
 # ---------------------------------------------------------------------------
 
-def emulate_k9(plane):
-    """K9 on one (h, w) plane: a thread per 4 output bytes in flat order,
-    its row and column carried across the row end; one byte store past the
-    plane's last whole word."""
-    h, w = plane.shape
-    oh, ow = h // 2, w // 2
-    n = oh * ow
-    src = plane.reshape(-1).astype(np.int64)
-    out = np.full(n, 77, np.int64)
-    o4 = 4 * np.arange((n + 3) // 4)
-    r, c = o4 // ow, o4 % ow
-    for k in range(4):
-        ok = o4 + k < n
-        s = (2 * r * w + 2 * c)[ok]
-        out[(o4 + k)[ok]] = (src[s] + src[s + 1] + src[s + w]
-                             + src[s + w + 1] + 2) >> 2
-        c = c + 1
-        r = np.where(c == ow, r + 1, r)
-        c = np.where(c == ow, 0, c)
-    return out.astype(np.uint8).reshape(oh, ow)
+K9_BLOCK = (32, 8)               # K9's block: 16-byte columns x rows
+
+
+def _words(b):
+    """(..., 4 k) uint8 -> (..., k) little-endian uint32 words."""
+    b = b.astype(np.uint32).reshape(b.shape[:-1] + (b.shape[-1] // 4, 4))
+    return b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+
+
+def _down_pair(a, b):
+    """K9's `down_pair`: the 2x2 boxes of input words a (above) and b, two
+    16-bit lanes."""
+    lo = np.uint32(0x00ff00ff)
+    s = (a & lo) + ((a >> 8) & lo) + (b & lo) + ((b >> 8) & lo) + np.uint32(
+        0x00020002)
+    return (s >> 2) & lo
+
+
+def _byte_perm_6420(x, y):
+    """`__byte_perm(x, y, 0x6420)`: bytes 0 and 2 of x, then of y."""
+    return ((x & 0xff) | ((x >> 16) & 0xff) << 8 | (y & 0xff) << 16
+            | ((y >> 16) & 0xff) << 24)
+
+
+def emulate_k9(planes, addrs=((0, 0),) * 3):
+    """K9's launch on three (h, w) uint8 planes, block by block, thread by
+    thread: the grid the entry point sizes from the largest plane, a
+    thread per 16 output bytes of one row (plane on the grid's third
+    axis). A plane whose input width is a multiple of 32 and whose input
+    and output addresses (`addrs`, (in, out) per plane) are 16-byte
+    aligned takes the 16-byte path: four 16-byte loads of two 32-byte
+    runs of two rows as words, the boxes two to a word (`_down_pair`),
+    `__byte_perm` and one 16-byte store, each address asserted aligned;
+    any other plane the byte-wise path. Every output byte is asserted
+    written once. Returns (the three outputs, the paths taken)."""
+    sizes = [(h // 2, w // 2) for h, w in (p.shape for p in planes)]
+    live = [(oh, ow) for oh, ow in sizes if oh and ow]
+    rows = max(oh for oh, _ in live)
+    groups = max(-(-ow // 16) for _, ow in live)
+    bx_n, by_n = -(-groups // K9_BLOCK[0]), -(-rows // K9_BLOCK[1])
+    ty, tx = np.meshgrid(np.arange(K9_BLOCK[1]), np.arange(K9_BLOCK[0]),
+                         indexing="ij")
+    outs, paths = [], []
+    for plane, (oh, ow), (a_in, a_out) in zip(planes, sizes, addrs):
+        iw = plane.shape[1]
+        flat = plane.reshape(-1)
+        vec = iw % 32 == 0 and (a_in | a_out) % 16 == 0
+        paths.append("16-byte" if vec else "byte-wise")
+        out = np.full(oh * ow, -1, np.int64)
+        writes = np.zeros(oh * ow, np.int64)
+        for by in range(by_n):
+            for bx in range(bx_n):
+                r = (by * K9_BLOCK[1] + ty).ravel()
+                c = 16 * (bx * K9_BLOCK[0] + tx).ravel()
+                ok = (r < oh) & (c < ow)
+                r, c = r[ok], c[ok]
+                if not len(r):
+                    continue
+                s = 2 * r * iw + 2 * c
+                o = r * ow + c
+                if vec:
+                    assert ((a_in + s) % 16 == 0).all()
+                    assert ((a_out + o) % 16 == 0).all() and (c + 16 <= ow).all()
+                    x0, x1, y0, y1 = (_words(flat[(s + d)[:, None]
+                                                  + np.arange(16)])
+                                      for d in (0, 16, iw, iw + 16))
+                    word = np.stack([_byte_perm_6420(
+                        _down_pair(x[:, 2 * k], y[:, 2 * k]),
+                        _down_pair(x[:, 2 * k + 1], y[:, 2 * k + 1]))
+                        for x, y in ((x0, y0), (x1, y1)) for k in range(2)],
+                        axis=1)
+                    data = (word[..., None] >> (8 * np.arange(4))) & 0xff
+                    at = o[:, None] + np.arange(16)
+                    out[at] = data.reshape(len(o), 16)
+                    writes[at] += 1
+                else:
+                    src = flat.astype(np.int64)
+                    for k in range(16):
+                        m = c + k < ow
+                        b = (s + 2 * k)[m]
+                        out[(o + k)[m]] = (src[b] + src[b + 1] + src[b + iw]
+                                           + src[b + iw + 1] + 2) >> 2
+                        writes[(o + k)[m]] += 1
+        assert (writes == 1).all() and out.min(initial=0) >= 0
+        outs.append(out.astype(np.uint8).reshape(oh, ow))
+    return outs, paths
 
 
 def _up4(base, bmbw, h, w, y, x, luma):
@@ -171,74 +244,251 @@ def emulate_k10(base_tiles, bmbw, crops, mbw, mbh, mutation=None):
     return tuple(outs)
 
 
-def emulate_k11(tiles, mbw, mbh):
-    """K11's planes of L pictures from (L, nmb, t, t) tiles ((u, v) alone,
-    or (y, u, v)), band by band: band b writes rows [t b, t b + t) of each
-    padded plane of tile size t (4 b .. 4 b + 3 of the pyramid)."""
+K11_CHUNK, K11_THREADS = 16, 256    # MBs and threads a block
+
+
+def _store_bytes(pitch):
+    """K11's store width for a plane row pitch: 16, 8 or 4 bytes."""
+    return 16 if pitch % 16 == 0 else 8 if pitch % 8 == 0 else 4
+
+
+def _conflict_free(addrs, width):
+    """The shared reads of one warp instruction (lane-ordered addresses,
+    -1 for a lane that does not read) in phases of 128 // width lanes:
+    within a phase, distinct addresses hit distinct width-byte bank
+    groups."""
+    lanes = 128 // width
+    for ph in range(0, len(addrs), lanes):
+        a = np.unique(addrs[ph:ph + lanes])
+        a = a[a >= 0]
+        groups = (a % 128) // width
+        if len(np.unique(groups)) != len(groups):
+            return False
+    return True
+
+
+def _warps(q, addrs, width):
+    """Each warp instruction of an item loop (items q in order, every 256
+    a round of the block, 32 a warp) conflict-free (`_conflict_free`);
+    `addrs` -1 where a lane's item does not read."""
+    full = np.full(-(-(q.max(initial=-1) + 1) // 32) * 32, -1, np.int64)
+    full[q] = addrs
+    return all(_conflict_free(full[w:w + 32], width)
+               for w in range(0, len(full), 32))
+
+
+def emulate_k11(tiles, mbw, mbh, tile_addr=0):
+    """K11's launch on (L, nmb, t, t) tiles ((u, v) alone, or (y, u, v)),
+    block by block: a block per chunk of K11_CHUNK MBs of one MB row of
+    one picture, the grid (chunks, L, mbh) with blockIdx.z 0 the first MB
+    row, 1 the last, then the rows between. Each block bulk-copies its
+    chunk's tiles (asserted 16-byte aligned, 16-byte multiples, at
+    `tile_addr` + the tiles' offsets) into its shared copy, then writes,
+    item by item in the kernel's thread map: the chunk's columns of its
+    bands of each plane (its MB row's, and the 4 guard bands above or
+    below on the first and last row, copies of the edge row), the luma
+    in 16-byte stores (a warp 8 rows x 4 MBs), the chroma in stores of
+    the width their pitch allows (16: two MBs, the odd pairs' lanes
+    reading their second MB first; 8: one), the pyramid summed from the
+    shared luma into a row-major shared copy (poisoned until written),
+    then written like the others; the ring columns by the first and last
+    chunk, splats of the edge pixel. It asserts that every store is
+    aligned to its width and stays inside one row, that every output
+    byte is written exactly once, that every tile byte is copied once,
+    and that the shared reads of each warp instruction are free of bank
+    conflicts. The planes lie as the wrapper lays them out
+    (`refplanes._plan`). Returns {plane: (L, rows, pitch)}."""
     luma = len(tiles) == 3
     n = tiles[0].shape[0]
-    bands = mbh + 8
-    outs = {}
-    planes = (("y_pad", 0, 16), ("u_pad", 1, 8), ("v_pad", 2, 8))
-    for name, p, t in planes if luma else planes[1:]:
-        src = tiles[p - (0 if luma else 1)].reshape(n, -1).astype(np.int64)
-        g = 4 * t
-        ph, pw = mbh * t, mbw * t
-        words = (pw + 2 * g) // 4
-        out = np.full((n, bands * t, pw + 2 * g), -1, np.int64)
-        written = np.zeros(bands * t, np.int64)
-        for b in range(bands):
-            pr = t * b + np.arange(t)
-            written[pr] += 1
-            y = np.clip(pr - g, 0, ph - 1)
-            row = (y // t) * mbw * t * t + (y % t) * t
-            x = 4 * np.arange(words) - g
-            inside = (x >= 0) & (x < pw)
-            c = np.clip(x, 0, pw - 1)
-            at = np.where(inside[None, :, None],
-                          (row[:, None] + (x // t) * t * t + x % t)[..., None]
-                          + np.arange(4),
-                          (row[:, None] + (c // t) * t * t + c % t)[..., None]
-                          + 0 * np.arange(4))
-            out[:, pr] = src[:, at].reshape(n, t, -1)
-        assert (written == 1).all() and out.min() >= 0
-        outs[name] = out.astype(np.uint8)
-    if luma:
-        src = tiles[0].reshape(n, -1).astype(np.int64)
-        h4, w4, g4 = 4 * mbh, 4 * mbw, GUARD // 4
-        words = (w4 + 2 * g4) // 4
-        out = np.full((n, 4 * bands, w4 + 2 * g4), -1, np.int64)
-        for b in range(bands):
-            pr = 4 * b + np.arange(4)
-            r4 = np.clip(pr - g4, 0, h4 - 1)
-            rows = (r4 >> 2) * mbw * 256 + 4 * (r4 & 3) * 16
-            c4 = np.clip((4 * np.arange(words))[:, None] + np.arange(4) - g4,
-                         0, w4 - 1)
-            box = rows[:, None, None] + (c4 >> 2) * 256 + 4 * (c4 & 3)
-            s = sum(src[:, box + 16 * i + k] for i in range(4)
-                    for k in range(4))
-            out[:, pr] = ((s + 8) >> 4).reshape(n, 4, -1)
-        assert out.min() >= 0
-        outs["y4_pad"] = out.astype(np.uint8)
-    return outs
+    C = K11_CHUNK
+    names = ("y", "u", "v")[3 - len(tiles):]
+    src = {k: t.reshape(-1) for k, t in zip(names, tiles)}
+    reads = {k: np.zeros(t.size, np.int64) for k, t in src.items()}
+    _, nbytes, views, _, _ = refplanes._plan(n, mbw, mbh, luma)
+    offsets = {name: off for name, _, _, _, off in views}
+    buf = np.full(nbytes, -1, np.int64)
+    writes = np.zeros(nbytes, np.int64)
+    pitch = {t: t * (mbw + 8) for t in (16, 8, 4)}
+    height = {t: t * (mbh + 8) for t in (16, 8, 4)}
+    width = {16: 16, 8: _store_bytes(pitch[8]), 4: _store_bytes(pitch[4])}
+    base = {"y_pad": 16, "u_pad": 8, "v_pad": 8, "y4_pad": 4}
+
+    def store(plane, pic, row, col, data):
+        """W-byte stores of `data` (k, W) at rows and columns of picture
+        pic of a plane."""
+        t = base[plane]
+        w = data.shape[1]
+        assert w == (16 if t == 16 else width[t])
+        assert ((col % w) == 0).all() and (col >= 0).all()
+        assert (col + w <= pitch[t]).all() and (row < height[t]).all()
+        at = (offsets[plane] + pic * height[t] * pitch[t] + row * pitch[t]
+              + col)
+        assert (at % w == 0).all()
+        at = at[:, None] + np.arange(w)
+        buf[at] = data
+        writes[at] += 1
+
+    def ring(plane, pic, bd, t, left, right, first, last):
+        """Ring items: (rows, 2 x units a side); left[s] and right[s] the
+        edge pixels of source row s."""
+        w = 16 if t == 16 else width[t]
+        ru = 4 * t // w
+        q = np.arange(bd[1] * t * 2 * ru)
+        u, row = q & (2 * ru - 1), q // (2 * ru)
+        is_left = u < ru
+        keep = np.where(is_left, first, last)
+        u, row, is_left = u[keep], row[keep], is_left[keep]
+        srow = _src_row(bd, row // t, row % t, t)
+        px = np.where(is_left, left[srow], right[srow])
+        col = np.where(is_left, u * w, 4 * t + t * mbw + (u - ru) * w)
+        store(plane, pic, t * bd[0] + row, col, np.repeat(px[:, None], w, 1))
+
+    for z in range(mbh):
+        r = 0 if z == 0 else mbh - 1 if z == 1 else z - 1
+        for pic in range(n):
+            for chunk in range(-(-mbw // C)):
+                c0 = chunk * C
+                cnt = min(C, mbw - c0)
+                first, last = chunk == 0, c0 + cnt == mbw
+                top, bottom = r == 0, r == mbh - 1
+                bd = (0 if top else r + 4, 1 + 4 * top + 4 * bottom,
+                      4 if top else 0)
+                mb0 = pic * mbw * mbh + r * mbw + c0
+                smem = {}
+                for k in names:                          # the bulk copies
+                    size = 256 if k == "y" else 64
+                    assert (tile_addr + size * mb0) % 16 == 0
+                    assert size * cnt % 16 == 0
+                    span = slice(size * mb0, size * (mb0 + cnt))
+                    smem[k] = src[k][span].astype(np.int64)
+                    reads[k][span] += 1
+                for p, k in (("u_pad", "u"), ("v_pad", "v")):
+                    w = width[8]
+                    mbs = w // 8
+                    q = np.arange(bd[1] * 8 * C // mbs)
+                    per_band = 8 * C // mbs
+                    bi, qq = q // per_band, q % per_band
+                    row, j = qq & 7, qq >> 3
+                    act = mbs * j < cnt
+                    srow = _src_row(bd, bi, row, 8)
+                    if w == 16:
+                        e = j & 1
+                        a0 = 64 * (2 * j + e) + 8 * srow
+                        a1 = 64 * (2 * j + 1 - e) + 8 * srow
+                        for addr in (a0, a1):
+                            assert _warps(q, np.where(act, addr, -1), 8)
+                        x = smem[k][a0[act][:, None] + np.arange(8)]
+                        y = smem[k][a1[act][:, None] + np.arange(8)]
+                        odd = e[act][:, None] == 1
+                        data = np.concatenate([np.where(odd, y, x),
+                                               np.where(odd, x, y)], 1)
+                    else:
+                        addr = 64 * j + 8 * srow
+                        assert _warps(q, np.where(act, addr, -1), 8)
+                        data = smem[k][addr[act][:, None] + np.arange(8)]
+                    store(p, pic, 8 * (bd[0] + bi[act]) + row[act],
+                          32 + 8 * c0 + w * j[act], data)
+                    sc = smem[k]
+                    ring(p, pic, bd, 8, sc[8 * np.arange(8)],
+                         sc[64 * (cnt - 1) + 8 * np.arange(8) + 7], first,
+                         last)
+                if not luma:
+                    continue
+                sy = smem["y"]
+                q = np.arange(bd[1] * 16 * C)
+                bi, qq = q // (16 * C), q % (16 * C)
+                row = (qq & 7) | ((qq >> 2) & 8)
+                j = ((qq >> 3) & 3) | ((qq >> 6) << 2)
+                act = j < cnt
+                addr = 256 * j + 16 * _src_row(bd, bi, row, 16)
+                assert _warps(q, np.where(act, addr, -1), 16)
+                store("y_pad", pic, 16 * (bd[0] + bi[act]) + row[act],
+                      64 + 16 * c0 + 16 * j[act],
+                      sy[addr[act][:, None] + np.arange(16)])
+                ring("y_pad", pic, bd, 16, sy[16 * np.arange(16)],
+                     sy[256 * (cnt - 1) + 16 * np.arange(16) + 15], first,
+                     last)
+                # the pyramid into the shared row-major copy
+                s4 = np.full(16 * C, -1, np.int64)
+                q = np.arange(4 * C)
+                k4 = (q & 1) | ((q >> 2) & 2)
+                m = ((q >> 1) & 3) | ((q >> 4) << 2)
+                act = m < cnt
+                sums = np.zeros((4 * C, 4), np.int64)
+                for i in range(4):
+                    addr = 256 * m + 64 * k4 + 16 * ((i + m) & 3)
+                    assert _warps(q, np.where(act, addr, -1), 16)
+                    sums += sy[np.where(act, addr, 0)[:, None]
+                               + np.arange(16)].reshape(-1, 4, 4).sum(2)
+                for c in range(4):
+                    s4[(4 * C * k4 + 4 * m + c)[act]] = (sums[act, c] + 8) >> 4
+                w = width[4]
+                units = 4 * C // w
+                q = np.arange(bd[1] * 4 * units)
+                bi, qq = q // (4 * units), q % (4 * units)
+                j, row = qq % units, qq // units
+                act = w * j < 4 * cnt
+                addr = 4 * C * _src_row(bd, bi, row, 4) + w * j
+                data = s4[addr[act][:, None] + np.arange(w)]
+                assert data.min(initial=0) >= 0          # written before read
+                store("y4_pad", pic, 4 * (bd[0] + bi[act]) + row[act],
+                      16 + 4 * c0 + w * j[act], data)
+                ring("y4_pad", pic, bd, 4, s4[4 * C * np.arange(4)],
+                     s4[4 * C * np.arange(4) + 4 * cnt - 1], first, last)
+    for k, v in reads.items():
+        assert (v == 1).all(), f"{k} tiles copied {v.min()} to {v.max()} times"
+    out = {}
+    for name, _, shape, _, off in views:
+        size = int(np.prod(shape))
+        assert (writes[off:off + size] == 1).all(), name
+        out[name] = buf[off:off + size].astype(np.uint8).reshape(shape)
+    return out
+
+
+def _src_row(bd, bi, row, t):
+    """The source row of band bi's row `row` of a block's bands (b0, nb,
+    ib): the MB row's own in band ib, its first row before, its last
+    after."""
+    return np.where(bi < bd[2], 0, np.where(bi == bd[2], row, t - 1))
 
 
 # ---------------------------------------------------------------------------
 # the `down` stage
 # ---------------------------------------------------------------------------
 
+# (h, w) of the luma plane: 64 wide (every plane on the 16-byte path), 96
+# wide (luma 16-byte, chroma byte-wise), an odd row count on the 16-byte
+# path, odd and tiny planes (byte-wise)
 @pytest.mark.parametrize("h,w", [(48, 64), (90, 120), (37, 51), (3, 9),
-                                 (2, 2)])
+                                 (2, 2), (64, 96), (65, 64)])
 def test_downsample_planes_match_jax(h, w):
     rng = np.random.default_rng(h * 1000 + w)
     planes = [_plane(rng, h, w), _plane(rng, max(h // 2, 2), max(w // 2, 2)),
               _plane(rng, max(h // 2, 2), max(w // 2, 2))]
     got = resample.downsample_planes(*(torch.from_numpy(p) for p in planes))
-    for p, g in zip(planes, got):
+    emulated, paths = emulate_k9(planes)
+    assert paths == ["16-byte" if p.shape[1] % 32 == 0 else "byte-wise"
+                     for p in planes]
+    for p, g, e in zip(planes, got, emulated):
         want = np.asarray(jrs.downsample2x(jnp.asarray(p)))
         assert g.shape == (p.shape[0] // 2, p.shape[1] // 2)
         _eq(want, g, f"downsample_planes {p.shape}")
-        _eq(want, emulate_k9(p), f"emulate_k9 {p.shape}")
+        _eq(want, e, f"emulate_k9 {p.shape}")
+
+
+def test_k9_takes_planes_at_any_address():
+    """Planes 64 wide at an odd input or output address take K9's
+    byte-wise path and give the same outputs as the 16-byte path."""
+    rng = np.random.default_rng(64)
+    planes = [_plane(rng, 40, 64), _plane(rng, 20, 32), _plane(rng, 20, 32)]
+    aligned, paths = emulate_k9(planes)
+    assert paths == ["16-byte"] * 3
+    odd, paths = emulate_k9(planes, addrs=((1, 0), (0, 8), (4, 4)))
+    assert paths == ["byte-wise"] * 3
+    for p, a, o in zip(planes, aligned, odd):
+        want = np.asarray(jrs.downsample2x(jnp.asarray(p)))
+        _eq(want, a, "16-byte path")
+        _eq(want, o, "byte-wise path")
 
 
 # ---------------------------------------------------------------------------
@@ -329,8 +579,12 @@ def test_base_mode_symbols_take_the_planes():
 # the `ref` stage
 # ---------------------------------------------------------------------------
 
+# (L, mb_width, mb_height): K11's store widths (chroma, pyramid) are 16 and
+# 16 at 4 x 3, 16 and 8 at 6 x 1 and CIF's 22 x 18 (two chunks, the second
+# short), 8 and 4 at odd widths (1 x 6, 7 x 2, 33 x 3: three chunks)
 @pytest.mark.parametrize("L,mbw,mbh", [(1, 4, 3), (3, 4, 3), (1, 1, 6),
-                                       (3, 6, 1), (1, 7, 2)])
+                                       (3, 6, 1), (1, 7, 2), (2, 7, 2),
+                                       (1, 22, 18), (1, 33, 3)])
 def test_reference_planes_match_jax(L, mbw, mbh):
     rng = np.random.default_rng(L * 100 + mbw * 10 + mbh)
     tiles = [np.stack([_mb_tiles(_plane(rng, mbh * t, mbw * t), t)
@@ -358,6 +612,19 @@ def test_reference_planes_match_jax(L, mbw, mbh):
 # ---------------------------------------------------------------------------
 # the wrappers on the CPU
 # ---------------------------------------------------------------------------
+
+def test_k11_bulk_copies_need_16_byte_alignment():
+    """K11 bulk-copies its tiles: tiles at a 4-byte but not 16-byte
+    aligned address fail the emulation's check, which the wrapper's
+    16-byte alignment check and `refstate._k11_tiles`' copy keep from the
+    card."""
+    rng = np.random.default_rng(5)
+    tiles = [np.stack([_mb_tiles(_plane(rng, 3 * t, 4 * t), t)])
+             for t in (16, 8, 8)]
+    emulate_k11(tiles, 4, 3, tile_addr=16)
+    with pytest.raises(AssertionError):
+        emulate_k11(tiles, 4, 3, tile_addr=4)
+
 
 def test_cpu_tensors_never_reach_k9_k10_k11():
     """On the CPU the encode paths run the plain versions (no launch), and
