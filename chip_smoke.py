@@ -37,8 +37,9 @@ Phases (any failure exits non-zero; nothing is caught):
      here to phase 15 no `downsample2x`, `upsample2x_luma`,
      `upsample2x_chroma`, `qpel.pad_guard` or `me.downsample4` call may
      take a tensor on the card (`plain_stages_on_card`), and no `ref`
-     stage may copy its tiles before K11 (`k11_tile_copies`: every path
-     hands K11 fresh, 16-byte aligned tiles);
+     stage may copy its tiles before K11 nor an `up` stage before K10
+     (`tile_copies`: every path hands K11 and K10 fresh, 16-byte aligned
+     tiles);
   4. hold K1 against the plain PyTorch packer on the real (16, 1, 8160,
      952) symbol grids of the IDR step and of a P step, each at its
      capacity and at 1024 words, and on a synthetic 16 x 8160-MB grid with
@@ -1362,26 +1363,37 @@ def plain_stages_on_card(seen):
             setattr(mod, name, fn)
 
 
+# the functions that hand K11 and K10 their tiles, copying those the
+# kernel cannot take as they are (not contiguous or not 16-byte aligned)
+TILE_HANDLERS = (("K11", "models.refstate", "_k11_tiles"),
+                 ("K10", "ops.resample", "_k10_tiles"))
+
+
 @contextlib.contextmanager
-def k11_tile_copies(seen):
-    """Count in `seen` ([calls, copies]) the calls of
-    `refstate._k11_tiles` inside the block, by any thread, and the copies
-    it makes (tiles K11 cannot take as they are: not contiguous or not
-    16-byte aligned)."""
-    from h264lab_tpu_torch.models import refstate
+def tile_copies(seen):
+    """Count in `seen` ({kernel: [calls, copies]}) the calls of each of
+    `TILE_HANDLERS` inside the block, by any thread, and the copies they
+    make."""
+    import importlib
 
-    fn = refstate._k11_tiles
-
-    def counted(tiles):
-        out = fn(tiles)
-        seen[0] += 1
-        seen[1] += out is not tiles
-        return out
-    refstate._k11_tiles = counted
+    saved = []
     try:
+        for kernel, module, name in TILE_HANDLERS:
+            mod = importlib.import_module(f"h264lab_tpu_torch.{module}")
+            fn = getattr(mod, name)
+            count = seen.setdefault(kernel, [0, 0])
+
+            def counted(tiles, _fn=fn, _count=count):
+                out = _fn(tiles)
+                _count[0] += 1
+                _count[1] += out is not tiles
+                return out
+            setattr(mod, name, counted)
+            saved.append((mod, name, fn))
         yield seen
     finally:
-        refstate._k11_tiles = fn
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
 
 
 def stage_bytes(kernel, args, outs):
@@ -1487,8 +1499,10 @@ def check_stage(kernel, args, what, label, trace=False):
     out["bound_ms"] = moved_bytes / HBM_BYTES_PER_S * 1e3
     shapes = [tuple(w.shape) for _, w in want]
     dev = ("" if out["device_us"] is None else
-           f"; device {out['device_us']:.1f} us: " + ", ".join(
-               f"{k} {us:.1f}" for k, us in out["kernels"]))
+           f"; device {out['device_us']:.1f} us, "
+           f"{100e3 * out['bound_ms'] / out['device_us']:.1f}% of the bound "
+           "reached: " + ", ".join(f"{k} {us:.1f}" for k, us in
+                                   out["kernels"]))
     print(f"  {kernel} == plain on {what}, {RESAMPLE_REPEATS} launches "
           f"{label}: {kernel} {out['ms']:.4f} ms, host {out['host_us']:.0f}"
           f" us a call (the entry {out['stage_ms']:.4f} ms; plain "
@@ -2350,9 +2364,10 @@ def main() -> int:
     plain_seen = []
     plain_window = contextlib.ExitStack()
     plain_window.enter_context(plain_stages_on_card(plain_seen))
-    # nor may a `ref` stage copy its tiles before K11
-    tile_copies = [0, 0]
-    plain_window.enter_context(k11_tile_copies(tile_copies))
+    # nor may a `ref` stage copy its tiles before K11, or an `up` stage
+    # before K10
+    copies = {}
+    plain_window.enter_context(tile_copies(copies))
 
     def step(t, kind, r=run, return_recon=False):
         """Step t; returns (its pending step, results, seconds, its
@@ -2809,11 +2824,13 @@ def main() -> int:
     _require(not plain_seen, f"plain resampling or padding on the card in "
              f"phases 3 to 15: {sorted(set(plain_seen))} "
              f"({len(plain_seen)} calls)")
-    _require(tile_copies[0] > 0 and tile_copies[1] == 0,
-             f"{tile_copies[1]} of the {tile_copies[0]} tile tensors of the "
-             "`ref` stages in phases 3 to 15 copied before K11")
-    print(f"the `ref` stages of phases 3 to 15 handed K11 their "
-          f"{tile_copies[0]} tile tensors without a copy")
+    for kernel, stage in (("K11", "ref"), ("K10", "up")):
+        calls, made = copies[kernel]
+        _require(calls > 0 and made == 0,
+                 f"{made} of the {calls} tile tensors of the `{stage}` "
+                 f"stages in phases 3 to 15 copied before {kernel}")
+        print(f"the `{stage}` stages of phases 3 to 15 handed {kernel} "
+              f"their {calls} tile tensors without a copy")
     print("no downsample2x, upsample2x_luma, upsample2x_chroma, "
           "qpel.pad_guard or me.downsample4 call took a tensor on the card "
           "in phases 3 to 15")
@@ -3208,6 +3225,8 @@ def main() -> int:
             bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
             grid=traced[kernel], host_us=main["host_us"],
             device_us=main["device_us"], path_launches=launches,
+            tile_tensors=copies.get(kernel, [None])[0],
+            tile_copies=copies.get(kernel, [None, None])[1],
             ptxas=[x for x in ptxas["K11" if kernel == "K11" else
                                     "K9 and K10"]
                    if x.startswith(("downsample" if kernel == "K9" else

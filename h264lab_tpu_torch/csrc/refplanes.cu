@@ -43,6 +43,8 @@
 //     by the blocks of the first (last) MB row from the same shared copy,
 //     and those blocks come first in the grid, so the heavier blocks do
 //     not form the tail.
+// The chroma planes' writers and the ring (`chroma_plane`, `ring`) are
+// csrc/planes.h's, which K10 shares.
 //
 // Plain C interface, loaded with ctypes; the entry point takes its
 // arguments as one array of 64-bit words (in the order
@@ -52,13 +54,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "planes.h"
 #include "tq.h"
 
 namespace {
-
-__host__ __device__ constexpr int log2i(int x) {
-  return x <= 1 ? 0 : 1 + log2i(x >> 1);
-}
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 16;      // MBs a block: a power of 2, at least 4
@@ -79,66 +78,6 @@ struct __align__(16) Smem {
   unsigned long long bar;
 };
 
-template <int W> struct Vec;
-template <> struct Vec<16> { using T = uint4; };
-template <> struct Vec<8> { using T = uint2; };
-template <> struct Vec<4> { using T = uint32_t; };
-
-template <int W>
-__device__ __forceinline__ typename Vec<W>::T splat(uint32_t byte) {
-  const uint32_t w = 0x01010101u * byte;
-  if constexpr (W == 16) {
-    return make_uint4(w, w, w, w);
-  } else if constexpr (W == 8) {
-    return make_uint2(w, w);
-  } else {
-    return w;
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void put(uint8_t* dst, typename Vec<W>::T v) {
-  *reinterpret_cast<typename Vec<W>::T*>(dst) = v;
-}
-
-template <int W>
-__device__ __forceinline__ typename Vec<W>::T get(const uint8_t* src) {
-  return *reinterpret_cast<const typename Vec<W>::T*>(src);
-}
-
-// What a block writes: band b0 + bi of each plane for bi in [0, nb), band
-// b0 + ib the chunk's MB row; the bands before it copy its first row, the
-// bands after it its last.
-struct Bands {
-  int b0, nb, ib;
-  __device__ __forceinline__ int src(int bi, int row, int t) const {
-    return bi < ib ? 0 : bi == ib ? row : t - 1;
-  }
-};
-
-// The ring columns of the block's rows of a plane of t bytes an MB (ring
-// 4 t), W-byte splats of the edge pixels: source row s's left pixel at
-// left[s * sp], its right one at right[s * sp].
-template <int kT, int W>
-__device__ __forceinline__ void ring(uint8_t* plane, int pitch,
-                                     const Bands& bd, const uint8_t* left,
-                                     const uint8_t* right, int sp, bool first,
-                                     bool last, int mbw) {
-  constexpr int kRU = 4 * kT / W;           // units a side
-  constexpr int kLog = log2i(2 * kRU);
-  const unsigned items = (unsigned)bd.nb * kT * 2 * kRU;
-  for (unsigned q = threadIdx.x; q < items; q += kThreads) {
-    const int u = q & (2 * kRU - 1), row = q >> kLog;
-    const bool is_left = u < kRU;
-    if (is_left ? !first : !last) continue;
-    const int bi = row >> log2i(kT), s = bd.src(bi, row & (kT - 1), kT);
-    const uint32_t px = is_left ? left[s * sp] : right[s * sp];
-    put<W>(plane + (long long)(kT * bd.b0 + row) * pitch +
-               (is_left ? u * W : 4 * kT + kT * mbw + (u - kRU) * W),
-           splat<W>(px));
-  }
-}
-
 // The chunk's columns of the block's luma rows: 16-byte stores, a warp
 // 8 rows x 4 MBs (lanes: bits 0-2 the row, 3-4 the MB; then the row's
 // bit 3, then the MB's upper bits), each quarter-warp's shared reads 8
@@ -157,38 +96,6 @@ __device__ __forceinline__ void luma_rows(uint8_t* plane, int pitch,
     put<16>(plane + (long long)(16 * (bd.b0 + bi) + row) * pitch + col0 +
                 16 * j,
             v);
-  }
-}
-
-// The chunk's columns of the block's rows of one chroma plane. W = 16:
-// a store is one row of two MBs (lanes: bits 0-2 the row, then the MB
-// pair), the lanes of odd pairs reading their second MB first so that a
-// half-warp's 8-byte shared reads hit 16 distinct bank pairs; W = 8: a
-// store is one row of one MB.
-template <int W>
-__device__ __forceinline__ void chroma_rows(uint8_t* plane, int pitch,
-                                            const Bands& bd,
-                                            const uint8_t* sc, int n,
-                                            int col0) {
-  constexpr int kMbs = W / 8;                     // MBs a store
-  constexpr int kLogBand = 3 + kLogChunk - log2i(kMbs);
-  const unsigned items = (unsigned)bd.nb << kLogBand;
-  for (unsigned q = threadIdx.x; q < items; q += kThreads) {
-    const int bi = q >> kLogBand, qq = q & ((1 << kLogBand) - 1);
-    const int row = qq & 7, j = qq >> 3;
-    if (kMbs * j >= n) continue;
-    const uint8_t* src = sc + 8 * bd.src(bi, row, 8);
-    uint8_t* dst = plane + (long long)(8 * (bd.b0 + bi) + row) * pitch +
-                   col0 + W * j;
-    if constexpr (W == 16) {
-      const int e = j & 1;
-      const uint2 x = get<8>(src + 64 * (2 * j + e));
-      const uint2 y = get<8>(src + 64 * (2 * j + 1 - e));
-      const uint2 lo = e ? y : x, hi = e ? x : y;
-      put<16>(dst, make_uint4(lo.x, lo.y, hi.x, hi.y));
-    } else {
-      put<8>(dst, get<8>(src + 64 * j));
-    }
   }
 }
 
@@ -239,18 +146,6 @@ __device__ __forceinline__ void pyramid(Smem& s, int n) {
   }
 }
 
-template <int kT, int W>
-__device__ __forceinline__ void chroma_plane(uint8_t* plane, int pitch,
-                                             const Bands& bd,
-                                             const uint8_t* sc, int n,
-                                             int c0, bool first, bool last,
-                                             int mbw) {
-  chroma_rows<W>(plane, pitch, bd, sc, n, 4 * kT + kT * c0);
-  if (first || last)
-    ring<kT, W>(plane, pitch, bd, sc, sc + 64 * (n - 1) + 7, 8, first, last,
-                mbw);
-}
-
 template <int W>
 __device__ __forceinline__ void pyramid_plane(uint8_t* plane, int pitch,
                                               const Bands& bd,
@@ -259,8 +154,8 @@ __device__ __forceinline__ void pyramid_plane(uint8_t* plane, int pitch,
                                               int mbw) {
   pyramid_rows<W>(plane, pitch, bd, s4, n, 16 + 4 * c0);
   if (first || last)
-    ring<4, W>(plane, pitch, bd, s4, s4 + 4 * n - 1, 4 * kChunk, first, last,
-               mbw);
+    ring<4, W, kThreads>(plane, pitch, bd, s4, s4 + 4 * n - 1, 4 * kChunk,
+                         first, last, mbw, threadIdx.x);
 }
 
 // One block's work: chunk `chunk` (MBs c0 .. c0 + n - 1) of MB row r of
@@ -275,12 +170,9 @@ struct Chunk {
 __device__ __forceinline__ Chunk chunk_of(const Args& a, int chunk, int pic,
                                           int r) {
   const int c0 = chunk * kChunk, n = min(kChunk, a.mbw - c0);
-  const bool top = r == 0, bottom = r == a.mbh - 1;
   return Chunk{c0, n, pic,
                (long long)pic * a.mbw * a.mbh + (long long)r * a.mbw + c0,
-               chunk == 0, c0 + n == a.mbw,
-               Bands{top ? 0 : r + 4, 1 + (top ? 4 : 0) + (bottom ? 4 : 0),
-                     top ? 4 : 0}};
+               chunk == 0, c0 + n == a.mbw, bands_of(r, a.mbh)};
 }
 
 // The chunk's tiles into s by bulk copies on s.bar, their bytes expected
@@ -303,19 +195,21 @@ __device__ __forceinline__ void write_chunk(const Args& a, Smem& s,
   for (int p = 0; p < 2; ++p) {
     uint8_t* plane = a.out[1 + p] + c.pic * hc * pc;
     if (a.wc == 16)
-      chroma_plane<8, 16>(plane, (int)pc, bd, s.c[p], c.n, c.c0, c.first,
-                          c.last, a.mbw);
+      chroma_plane<16, kChunk, kThreads>(plane, (int)pc, bd, s.c[p], c.n,
+                                         c.c0, c.first, c.last, a.mbw,
+                                         threadIdx.x);
     else
-      chroma_plane<8, 8>(plane, (int)pc, bd, s.c[p], c.n, c.c0, c.first,
-                         c.last, a.mbw);
+      chroma_plane<8, kChunk, kThreads>(plane, (int)pc, bd, s.c[p], c.n,
+                                        c.c0, c.first, c.last, a.mbw,
+                                        threadIdx.x);
   }
   if (a.tiles[0] == nullptr) return;
   const long long py = 16ll * (a.mbw + 8);
   uint8_t* y = a.out[0] + c.pic * (16ll * (a.mbh + 8)) * py;
   luma_rows(y, (int)py, bd, s.y, c.n, 64 + 16 * c.c0);
   if (c.first || c.last)
-    ring<16, 16>(y, (int)py, bd, s.y, s.y + 256 * (c.n - 1) + 15, 16,
-                 c.first, c.last, a.mbw);
+    ring<16, 16, kThreads>(y, (int)py, bd, s.y, s.y + 256 * (c.n - 1) + 15,
+                           16, c.first, c.last, a.mbw, threadIdx.x);
   pyramid(s, c.n);
   __syncthreads();                  // the shared pyramid rows written
   const long long p4 = 4 * (a.mbw + 8);
@@ -346,11 +240,6 @@ reference_planes_kernel(const Args a) {
   __syncthreads();                  // the mbarrier's init before its waits
   tq_mbar_wait(&s.bar);
   write_chunk(a, s, c);
-}
-
-// The widest store, 16, 8 or 4 bytes, that divides a row pitch.
-int store_bytes(long long pitch) {
-  return pitch % 16 == 0 ? 16 : pitch % 8 == 0 ? 8 : 4;
 }
 
 }  // namespace

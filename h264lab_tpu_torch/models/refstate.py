@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from h264lab_tpu_torch.ops import me, qpel, refplanes
+from h264lab_tpu_torch.ops import cuda_build, me, qpel, refplanes
 
 
 def tiles_to_planes(tiles: torch.Tensor, mb_height: int, mb_width: int):
@@ -28,13 +28,10 @@ def tiles_to_planes(tiles: torch.Tensor, mb_height: int, mb_width: int):
             .permute(0, 1, 3, 2, 4).reshape(n, mb_height * t, mb_width * t))
 
 
-def _k11_tiles(tiles):
-    """Tiles in the form K11 takes: contiguous and 16-byte aligned (it
-    bulk-copies them); no copy when they are, as on every path's `ref`
-    stage (K2's outputs and the exchange's joins are fresh
-    allocations)."""
-    tiles = tiles.contiguous()
-    return tiles if tiles.data_ptr() % 16 == 0 else tiles.clone()
+# tiles in the form K11 takes (it bulk-copies them); no copy where they
+# are, as on every path's `ref` stage (K2's outputs and the exchange's
+# joins are fresh allocations)
+_k11_tiles = cuda_build.aligned16
 
 
 def prepare_reference(recon_y_tiles, recon_u_tiles, recon_v_tiles,

@@ -170,6 +170,14 @@ def stream_of(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
+def aligned16(tensor):
+    """`tensor` contiguous and 16-byte aligned, as the kernels that
+    bulk-copy their inputs take it (K10, K11): itself where it is, else a
+    copy."""
+    tensor = tensor.contiguous()
+    return tensor if tensor.data_ptr() % 16 == 0 else tensor.clone()
+
+
 def card_of(what: str, x) -> int:
     """The index of the CUDA device of `x`; raises for anything else."""
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":

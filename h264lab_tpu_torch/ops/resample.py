@@ -16,7 +16,8 @@ The stage entries of `models/svc.py` dispatch on the tensors' device:
 `downsample2x` on CPU tensors and K9 (`downsample_k9`, one launch) on
 CUDA tensors; `upsample_tiles` (the `up` stage: the base layer's deblocked
 tiles to the enhancement's prediction tiles and guard-padded chroma
-planes) runs `upsample_tiles_plain` or K10 (`upsample_k10`, one launch).
+planes) runs `upsample_tiles_plain` or K10 (`upsample_k10`, one launch on
+16-byte aligned tiles).
 The wrappers refuse CPU tensors; the plain versions are the references
 the kernels are held against.
 """
@@ -166,15 +167,22 @@ def upsample_tiles(base_tiles, base_mb_width: int, crops, mb_width: int,
     pred_v, u_pad, v_pad): the (1, nmb, t, t) tiles and the chroma planes
     guard-padded by GUARD // 2, (1, 8 mb_height + GUARD, 8 mb_width +
     GUARD), which the base-mode frame's chroma prediction reads. On CUDA
-    tensors one launch of K10 (`upsample_k10`); on CPU tensors
+    tensors one launch of K10 (`upsample_k10`; tiles that are not 16-byte
+    aligned copied first, `_k10_tiles`); on CPU tensors
     `upsample_tiles_plain`."""
     tiles = tuple(t.reshape((-1,) + t.shape[-2:]) for t in base_tiles)
     crops = tuple((int(h), int(w)) for h, w in crops)
     if tiles[0].device.type == "cpu":
         return upsample_tiles_plain(tiles, base_mb_width, crops, mb_width,
                                     mb_height)
-    return upsample_k10(*(t.contiguous() for t in tiles), base_mb_width,
+    return upsample_k10(*(_k10_tiles(t) for t in tiles), base_mb_width,
                         crops, mb_width, mb_height)
+
+
+# tiles in the form K10 takes (it bulk-copies them); no copy where they
+# are, as on the base-mode IDR's `up` stage (K2's outputs are fresh
+# allocations)
+_k10_tiles = cuda_build.aligned16
 
 
 def upsample_tiles_plain(base_tiles, base_mb_width: int, crops,
@@ -199,53 +207,64 @@ def upsample_tiles_plain(base_tiles, base_mb_width: int, crops,
     return (*pred, pads[1], pads[2])
 
 
+UP_OUTPUTS = ("pred_y", "pred_u", "pred_v", "u_pad", "v_pad")
+
+
 @functools.lru_cache(maxsize=64)
-def _up_plan(base_nmb: int, mb_width: int, mb_height: int):
+def _up_plan(base_nmb: int, base_mb_width: int, crops: tuple, mb_width: int,
+             mb_height: int):
+    """The sizes' and crops' checks, the tiles' specs (16-byte aligned: K10
+    bulk-copies them), the outputs' buffer, their byte offsets in it and
+    the kernel's size words, once per size."""
+    what = "upsample_k10 (K10)"
+    bmbh = base_nmb // base_mb_width if base_mb_width > 0 else 0
+    if (base_mb_width <= 0 or bmbh * base_mb_width != base_nmb
+            or mb_width <= 0 or mb_height <= 0 or len(crops) != 3):
+        raise ValueError(f"{what}: {base_nmb} base MBs are no whole rows of "
+                         f"{base_mb_width}, or {mb_width} x {mb_height} "
+                         f"enhancement MBs, or crops {crops}")
+    for (h, w), t in zip(crops, (16, 8, 8)):
+        if not (0 < h <= bmbh * t and 0 < w <= base_mb_width * t):
+            raise ValueError(f"{what}: crop {(h, w)} outside the base "
+                             f"planes of {bmbh} x {base_mb_width} MBs")
     nmb = mb_width * mb_height
     ch, cw = 8 * mb_height + GUARD, 8 * mb_width + GUARD
-    specs = tuple((name, U8, torch.Size((base_nmb, t, t)), 0)
+    specs = tuple((name, U8, torch.Size((base_nmb, t, t)), 15)
                   for name, t in (("base_y", 16), ("base_u", 8),
                                   ("base_v", 8)))
-    return specs, cuda_build.buffer_plan((
+    nbytes, views, offsets = cuda_build.buffer_plan((
         ("pred_y", U8, (1, nmb, 16, 16)), ("pred_u", U8, (1, nmb, 8, 8)),
         ("pred_v", U8, (1, nmb, 8, 8)), ("u_pad", U8, (1, ch, cw)),
         ("v_pad", U8, (1, ch, cw))))
-
-
-UP_OUTPUTS = ("pred_y", "pred_u", "pred_v", "u_pad", "v_pad")
+    return (specs, nbytes, views, [offsets[name] for name in UP_OUTPUTS],
+            [base_mb_width] + [d for crop in crops for d in crop]
+            + [mb_width, mb_height, GUARD // 2])
 
 
 def upsample_k10(base_y, base_u, base_v, base_mb_width: int, crops,
                  mb_width: int, mb_height: int):
     """K10: `upsample_tiles` on the card, one launch. base_y (bnmb, 16,
-    16), base_u and base_v (bnmb, 8, 8) uint8, contiguous on one CUDA
-    device, bnmb whole rows of base_mb_width MBs; crops ((h, w), (hc, wc),
-    (hc, wc)), each at least a pixel and within its base plane. Returns
-    (pred_y, pred_u, pred_v, u_pad, v_pad), views of one buffer. Raises on
-    any other input: the plain version is `upsample_tiles_plain`."""
+    16), base_u and base_v (bnmb, 8, 8) uint8, contiguous and 16-byte
+    aligned on one CUDA device, bnmb whole rows of base_mb_width MBs;
+    crops ((h, w), (hc, wc), (hc, wc)), each at least a pixel and within
+    its base plane. Returns (pred_y, pred_u, pred_v, u_pad, v_pad), views
+    of one buffer. Raises on any other input: the plain version is
+    `upsample_tiles_plain`."""
     what = "upsample_k10 (K10)"
     index = cuda_build.card_of(what, base_y)
     base_nmb = int(getattr(base_y, "shape", (0,))[0])
-    bmbh = base_nmb // base_mb_width if base_mb_width > 0 else 0
-    if (base_mb_width <= 0 or bmbh * base_mb_width != base_nmb
-            or mb_width <= 0 or mb_height <= 0):
-        raise ValueError(f"{what}: {base_nmb} base MBs are no whole rows of "
-                         f"{base_mb_width}, or {mb_width} x {mb_height} "
-                         "enhancement MBs")
-    for (h, w), t in zip(crops, (16, 8, 8)):
-        if not (0 < h <= bmbh * t and 0 < w <= base_mb_width * t):
-            raise ValueError(f"{what}: crop {(h, w)} outside the base "
-                             f"planes of {bmbh} x {base_mb_width} MBs")
-    specs, (nbytes, views, offsets) = _up_plan(base_nmb, mb_width,
-                                               mb_height)
+    try:
+        plan = _up_plan(base_nmb, base_mb_width, crops, mb_width, mb_height)
+    except TypeError:               # crops given as lists
+        plan = _up_plan(base_nmb, base_mb_width, tuple(
+            (int(h), int(w)) for h, w in crops), mb_width, mb_height)
+    specs, nbytes, views, offsets, sizes = plan
     ptrs = cuda_build.pointers(what, (base_y, base_u, base_v), specs, index)
     buf = torch.empty(nbytes, dtype=U8, device=base_y.device)
     out = cuda_build.buffer_views(buf, views)
     base = buf.data_ptr()
     cuda_build.call(_lib().h264lab_resample_up, ptrs + [
-        base + offsets[name] for name in UP_OUTPUTS] + [base_mb_width] + [
-        d for crop in crops for d in crop] + [
-        mb_width, mb_height, GUARD // 2, cuda_build.stream_of(index)],
+        base + at for at in offsets] + sizes + [cuda_build.stream_of(index)],
         "2x upsampling", index)
     cuda_build.count_launch("resample_up")
     return tuple(out[name] for name in UP_OUTPUTS)

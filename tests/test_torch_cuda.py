@@ -130,8 +130,13 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   2 x 2 pixels, and on 1920-, 960- and 64-wide planes at an odd address
   (its byte-wise path, no copy); K10 (the base-mode frame's upsampled prediction,
   `resample.upsample_k10`) equals `upsample_tiles_plain` on the 1080p
-  base, a cropped base (120x90 in 8 x 6 MBs), one MB, one MB wide and high
-  and a base of a few pixels; K11 (the reference planes,
+  base, a cropped base (120x90 in 8 x 6 MBs), one MB, one MB wide and high,
+  a base of a few pixels, 18 MBs wide (a short last chunk of 8 MBs), crops
+  that end inside a tile across (an odd width) and down, and an
+  enhancement past twice its base; K10 refuses base tiles that are not
+  16-byte aligned, which the stage entry copies (`resample._k10_tiles`),
+  and a base-mode IDR's `up` stage hands K10 its tiles without that copy;
+  K11 (the reference planes,
   `refplanes.planes_k11`) equals `prepare_reference_plain` on 16 lanes of
   1080p, one frame, the SVC base, 3 pictures of 4 x 3 MBs, one MB, one MB
   wide and high, CIF, and with no luma (`reference_chroma`); each input
@@ -1528,17 +1533,23 @@ def test_k9_matches_plain_downsample(card, h, w):
 
 
 # (base width, base height): the 1080p base, a cropped base, one MB, one MB
-# wide and high, a few pixels
-K10_CASES = ((960, 544), (120, 90), (16, 16), (16, 40), (40, 16), (12, 10))
+# wide and high, a few pixels; K10's chunks of 8 MBs cut short (18 MBs
+# wide), a crop that ends inside a tile across (an odd width: 8-byte
+# stores of the padded chroma rows) and down
+K10_CASES = ((960, 544), (120, 90), (16, 16), (16, 40), (40, 16), (12, 10),
+             (144, 32), (100, 32), (32, 70))
 
 
-def _k10_args(card, bw, bh, seed=5):
+def _k10_args(card, bw, bh, seed=5, size=None):
+    """Seeded base tiles of a bw x bh base picture on the card and the
+    sizes: the enhancement's MBs `size`, or as SvcEncoder sizes them."""
     rng = np.random.default_rng(seed + bw + 3 * bh)
     bmbw, bmbh = -(-bw // 16), -(-bh // 16)
     tiles = tuple(torch.from_numpy(_as_tiles(_border_plane(
         rng, bmbh * t, bmbw * t), t)).to(card) for t in (16, 8, 8))
     crops = ((bh, bw), (bh // 2, bw // 2), (bh // 2, bw // 2))
-    return tiles, bmbw, crops, -(-2 * bw // 16), -(-2 * bh // 16)
+    mbw, mbh = size or (-(-2 * bw // 16), -(-2 * bh // 16))
+    return tiles, bmbw, crops, mbw, mbh
 
 
 @pytest.mark.parametrize("bw,bh", K10_CASES)
@@ -1546,6 +1557,15 @@ def test_k10_matches_plain_upsample(card, bw, bh):
     _launches_equal_plain(resample.upsample_tiles,
                           resample.upsample_tiles_plain,
                           _k10_args(card, bw, bh), "resample_up")
+
+
+def test_k10_matches_plain_upsample_past_twice_the_base(card):
+    """An enhancement of 11 x 6 MBs over a 40x24 base: K10's last chunk and
+    MB rows lie wholly past twice the base and repeat its last pixels."""
+    _launches_equal_plain(resample.upsample_tiles,
+                          resample.upsample_tiles_plain,
+                          _k10_args(card, 40, 24, size=(11, 6)),
+                          "resample_up")
 
 
 # (pictures, mb_width, mb_height): 16 lanes of 1080p, one frame, the SVC
@@ -1602,6 +1622,47 @@ def test_k11_copies_tiles_that_are_not_16_byte_aligned(card, n, mbw, mbh):
         u_pad, v_pad = refstate.reference_chroma(*odd[1:], mbw, mbh)
         assert torch.equal(u_pad, want["u_pad"])
         assert torch.equal(v_pad, want["v_pad"])
+
+
+@pytest.mark.parametrize("bw,bh", [(960, 544), (120, 90)])
+def test_k10_copies_tiles_that_are_not_16_byte_aligned(card, bw, bh):
+    """Base tiles 4-byte but not 16-byte aligned: `upsample_k10` refuses
+    them (K10 bulk-copies its window of tiles), and the stage entry copies
+    them first (`resample._k10_tiles`), then gives the plain version's
+    outputs."""
+    tiles, bmbw, crops, mbw, mbh = _k10_args(card, bw, bh)
+    want = resample.upsample_tiles_plain(tiles, bmbw, crops, mbw, mbh)
+    for by in (4, 8, 12):
+        odd = tuple(_shifted(t, by) for t in tiles)
+        assert all(t.data_ptr() % 16 == by for t in odd)
+        with pytest.raises(ValueError, match="16-byte"):
+            resample.upsample_k10(*odd, bmbw, crops, mbw, mbh)
+        got = resample.upsample_tiles(odd, bmbw, crops, mbw, mbh)
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (by, k)
+
+
+def test_k10_takes_the_base_mode_idr_tiles_without_a_copy(card,
+                                                          monkeypatch):
+    """The `up` stage of a base-mode IDR hands K10 the base layer's
+    deblocked tiles as they are: `resample._k10_tiles` returns each tile
+    tensor itself, 16-byte aligned, and K10 launches once."""
+    seen = []
+    keep = resample._k10_tiles
+
+    def no_copy(tiles):
+        out = keep(tiles)
+        seen.append((out is tiles, tiles.data_ptr() % 16))
+        return out
+    monkeypatch.setattr(resample, "_k10_tiles", no_copy)
+    cfg = EncoderConfig(width=128, height=96, gop=10, qp=30, num_layers=2,
+                        inter_layer_pred_flag=True)
+    run = RunConfig(qp_min=30, qp_max=30, encode_speed=2)
+    before = LAUNCH_COUNTS["resample_up"]
+    SvcEncoder(cfg).encode(*next(iter(chessboard_sequence(128, 96, 1))),
+                           run)
+    assert LAUNCH_COUNTS["resample_up"] == before + 1
+    assert seen == [(True, 0)] * 3
 
 
 @pytest.mark.parametrize("lanes", [1, 16])

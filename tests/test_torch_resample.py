@@ -11,8 +11,10 @@ kernels are held against on the card:
   `upsample2x_luma` / `upsample2x_chroma`, `wavefront.pad_plane` to the
   enhancement's padded size, `mb_tiles`, and `qpel.pad_guard` by GUARD //
   2 of the padded chroma planes; on a base that fills its MBs, cropped
-  bases (120x90 in 8 x 6 MBs, one a few pixels wide and high), one MB
-  wide and one MB high;
+  bases (120x90 in 8 x 6 MBs, one a few pixels wide and high, crops that
+  end inside a tile across and down), one MB, one MB wide and one MB high,
+  18 MBs wide (K10's chunks of 8 cut short) and an enhancement past twice
+  its base;
 - `refstate.prepare_reference_plain` equals JAX's `prepare_reference` at
   L = 1 and 3 pictures, and `refstate.reference_chroma` its chroma planes.
 Inputs are seeded numpy planes with 0 and 255 borders and flat patches.
@@ -23,21 +25,24 @@ thread in their layout: K9 block by block, a thread per 16 output bytes
 of a row, on its 16-byte path (where the plane's width divides by 32 and
 its addresses by 16: four 16-byte loads as words, the boxes two to a
 word, a byte permute, one 16-byte store) or byte by byte, each output
-byte written once; K10 a thread per 4 output bytes, clamping each pixel
-as the kernel does (into the padded enhancement plane for u_pad and
-v_pad, then to the upsampled plane of the cropped base), summing the
-filter's rows over its window of 6 base columns and each pixel's columns
-from there (the one 2-D tap sum), reading the base tiles by MB and
-offset; K11 block by block, a chunk of 16 MBs of one MB row, its tiles
+byte written once; K10 block by block, a chunk of 8 enhancement MBs of
+one MB row, its bulk copies (16-byte aligned: at most two base MB rows
+of 6 tiles a plane, the halo included), its vertical pass into shared
+16-bit rows (a word of 4 columns of a pair of rows an item, the columns
+clamped into the cropped picture, the luma biased), each luma tile row
+one 16-byte store and each chroma tile row one 8-byte store, the pixels
+past the crop repeating the row's last, the padded chroma rows by K11's
+writers; K11 block by block, a chunk of 16 MBs of one MB row, its tiles
 bulk-copied (16-byte aligned, each tile byte once), its bands of every
 plane (the 4 guard bands on the first and last row's blocks, the ring on
 the first and last chunk) written item by item in the kernel's thread
 map, in stores of the width each pitch allows, none across a row, each
-output byte once, the pyramid through a shared row-major copy, every
-warp's shared reads free of bank conflicts. Each equals the JAX
-functions array for array; K10 clamped at the base's MB grid in place
-of its picture fails on a cropped base, K11's tiles at a 4-byte aligned
-address fail its bulk copies. Tolerance: exact equality (integer
+output byte once, the pyramid through a shared row-major copy. Every
+warp's shared reads (and K10's writes) are asserted free of bank
+conflicts. Each equals the JAX functions array for array; K10 clamped at
+the base's MB grid in place of its picture, or reading its halo past the
+crop, fails on a cropped base; K10's and K11's tiles at a 4-byte aligned
+address fail their bulk copies. Tolerance: exact equality (integer
 arithmetic).
 """
 
@@ -174,76 +179,6 @@ def emulate_k9(planes, addrs=((0, 0),) * 3):
     return outs, paths
 
 
-def _up4(base, bmbw, h, w, y, x, luma):
-    """K10's `up4` for a batch of threads: y (n,), x (n, 4) enhancement
-    coordinates, base the plane's flat tiles."""
-    t, ls = (16, 4) if luma else (8, 3)
-    taps, n_taps = (LUMA_TAPS, 4) if luma else (CHROMA_TAPS, 3)
-    rnd, shift = (512, 10) if luma else (8, 4)
-    yu = np.minimum(y, 2 * h - 1)
-    i, a = yu >> 1, yu & 1
-    xu = np.minimum(x, 2 * w - 1)
-    j0 = xu[:, 0] >> 1
-    rows = [(r >> ls) * bmbw * t * t + (r & (t - 1)) * t
-            for r in (np.clip(i - 1 + k, 0, h - 1) for k in range(n_taps))]
-    tap = np.asarray(taps)
-    v = []
-    for m in range(6):
-        c = np.clip(j0 - 1 + m, 0, w - 1)
-        col = (c >> ls) * t * t + (c & (t - 1))
-        v.append(sum(tap[a, k] * base[rows[k] + col] for k in range(n_taps)))
-    out = np.zeros(x.shape, np.int64)
-    for k in range(4):
-        d, b = (xu[:, k] >> 1) - j0, xu[:, k] & 1
-        assert d.min() >= 0 and d.max() <= 2
-        te = [sum(tap[b, l] * v[e + l] for l in range(n_taps))
-              for e in range(3)]
-        s = np.where(d == 0, te[0], np.where(d == 1, te[1], te[2]))
-        out[:, k] = np.clip((s + rnd) >> shift, 0, 255)
-    return out
-
-
-def emulate_k10(base_tiles, bmbw, crops, mbw, mbh, mutation=None):
-    """K10's five outputs from the (bnmb, t, t) base tiles: a thread per 4
-    output bytes of each (the tiles' rows, the padded planes' words).
-    `mutation="grid_clamp"` clamps at the base's MB grid in place of the
-    cropped picture."""
-    g = GUARD // 2
-    outs = []
-    for o in range(5):
-        p = o if o < 3 else o - 2
-        t = 16 if p == 0 else 8
-        ph, pw = mbh * t, mbw * t
-        if o < 3:
-            per_mb = t * t // 4
-            item = np.arange(mbw * mbh * per_mb)
-            mb, rem = item // per_mb, item % per_mb
-            row, cq = rem // (t // 4), rem % (t // 4)
-            y = (mb // mbw) * t + row
-            x = ((mb % mbw) * t + 4 * cq)[:, None] + np.arange(4)
-            addr = mb * t * t + row * t + 4 * cq
-            shape = (1, mbw * mbh, t, t)
-        else:
-            words = (pw + 2 * g) // 4
-            item = np.arange((ph + 2 * g) * words)
-            r, q = item // words, item % words
-            y = np.clip(r - g, 0, ph - 1)
-            x = np.clip((4 * q)[:, None] + np.arange(4) - g, 0, pw - 1)
-            addr = r * (pw + 2 * g) + 4 * q
-            shape = (1, ph + 2 * g, pw + 2 * g)
-        h, w = crops[p]
-        if mutation == "grid_clamp":
-            h = base_tiles[p].shape[0] // bmbw * t
-            w = bmbw * t
-        word = _up4(base_tiles[p].reshape(-1).astype(np.int64), bmbw, h, w,
-                    y, x, p == 0)
-        out = np.full(int(np.prod(shape)), -1, np.int64)
-        out[addr[:, None] + np.arange(4)] = word
-        assert out.min() >= 0                     # every byte written
-        outs.append(out.astype(np.uint8).reshape(shape))
-    return tuple(outs)
-
-
 K11_CHUNK, K11_THREADS = 16, 256    # MBs and threads a block
 
 
@@ -253,16 +188,16 @@ def _store_bytes(pitch):
 
 
 def _conflict_free(addrs, width):
-    """The shared reads of one warp instruction (lane-ordered addresses,
-    -1 for a lane that does not read) in phases of 128 // width lanes:
-    within a phase, distinct addresses hit distinct width-byte bank
-    groups."""
-    lanes = 128 // width
+    """The shared reads of one warp instruction (lane-ordered addresses of
+    `width`-byte reads, -1 for a lane that does not read) in phases of 128
+    // u lanes, u = max(width, 4): within a phase, distinct u-byte words
+    hit distinct bank groups (lanes that read one word share it)."""
+    unit = max(width, 4)
+    lanes = 128 // unit
     for ph in range(0, len(addrs), lanes):
-        a = np.unique(addrs[ph:ph + lanes])
-        a = a[a >= 0]
-        groups = (a % 128) // width
-        if len(np.unique(groups)) != len(groups):
+        a = addrs[ph:ph + lanes]
+        words = np.unique(a[a >= 0] // unit)
+        if len(np.unique(words % lanes)) != len(words):
             return False
     return True
 
@@ -329,19 +264,9 @@ def emulate_k11(tiles, mbw, mbh, tile_addr=0):
         writes[at] += 1
 
     def ring(plane, pic, bd, t, left, right, first, last):
-        """Ring items: (rows, 2 x units a side); left[s] and right[s] the
-        edge pixels of source row s."""
-        w = 16 if t == 16 else width[t]
-        ru = 4 * t // w
-        q = np.arange(bd[1] * t * 2 * ru)
-        u, row = q & (2 * ru - 1), q // (2 * ru)
-        is_left = u < ru
-        keep = np.where(is_left, first, last)
-        u, row, is_left = u[keep], row[keep], is_left[keep]
-        srow = _src_row(bd, row // t, row % t, t)
-        px = np.where(is_left, left[srow], right[srow])
-        col = np.where(is_left, u * w, 4 * t + t * mbw + (u - ru) * w)
-        store(plane, pic, t * bd[0] + row, col, np.repeat(px[:, None], w, 1))
+        store(plane, pic, *_ring_stores(
+            bd, t, 16 if t == 16 else width[t], left, right, first, last,
+            mbw))
 
     for z in range(mbh):
         r = 0 if z == 0 else mbh - 1 if z == 1 else z - 1
@@ -350,9 +275,7 @@ def emulate_k11(tiles, mbw, mbh, tile_addr=0):
                 c0 = chunk * C
                 cnt = min(C, mbw - c0)
                 first, last = chunk == 0, c0 + cnt == mbw
-                top, bottom = r == 0, r == mbh - 1
-                bd = (0 if top else r + 4, 1 + 4 * top + 4 * bottom,
-                      4 if top else 0)
+                bd = _bands_of(r, mbh)
                 mb0 = pic * mbw * mbh + r * mbw + c0
                 smem = {}
                 for k in names:                          # the bulk copies
@@ -363,35 +286,10 @@ def emulate_k11(tiles, mbw, mbh, tile_addr=0):
                     smem[k] = src[k][span].astype(np.int64)
                     reads[k][span] += 1
                 for p, k in (("u_pad", "u"), ("v_pad", "v")):
-                    w = width[8]
-                    mbs = w // 8
-                    q = np.arange(bd[1] * 8 * C // mbs)
-                    per_band = 8 * C // mbs
-                    bi, qq = q // per_band, q % per_band
-                    row, j = qq & 7, qq >> 3
-                    act = mbs * j < cnt
-                    srow = _src_row(bd, bi, row, 8)
-                    if w == 16:
-                        e = j & 1
-                        a0 = 64 * (2 * j + e) + 8 * srow
-                        a1 = 64 * (2 * j + 1 - e) + 8 * srow
-                        for addr in (a0, a1):
-                            assert _warps(q, np.where(act, addr, -1), 8)
-                        x = smem[k][a0[act][:, None] + np.arange(8)]
-                        y = smem[k][a1[act][:, None] + np.arange(8)]
-                        odd = e[act][:, None] == 1
-                        data = np.concatenate([np.where(odd, y, x),
-                                               np.where(odd, x, y)], 1)
-                    else:
-                        addr = 64 * j + 8 * srow
-                        assert _warps(q, np.where(act, addr, -1), 8)
-                        data = smem[k][addr[act][:, None] + np.arange(8)]
-                    store(p, pic, 8 * (bd[0] + bi[act]) + row[act],
-                          32 + 8 * c0 + w * j[act], data)
-                    sc = smem[k]
-                    ring(p, pic, bd, 8, sc[8 * np.arange(8)],
-                         sc[64 * (cnt - 1) + 8 * np.arange(8) + 7], first,
-                         last)
+                    for stores in _chroma_band_stores(
+                            smem[k], bd, cnt, c0, width[8], C, first, last,
+                            mbw):
+                        store(p, pic, *stores)
                 if not luma:
                     continue
                 sy = smem["y"]
@@ -452,6 +350,332 @@ def _src_row(bd, bi, row, t):
     return np.where(bi < bd[2], 0, np.where(bi == bd[2], row, t - 1))
 
 
+def _bands_of(r, mbh):
+    """csrc/planes.h's `bands_of`: the bands (b0, nb, ib) of MB row r."""
+    top, bottom = r == 0, r == mbh - 1
+    return (0 if top else r + 4, 1 + 4 * top + 4 * bottom, 4 if top else 0)
+
+
+def _ring_stores(bd, t, w, left, right, first, last, mbw):
+    """csrc/planes.h's `ring` of a plane of t bytes an MB: its W-byte
+    splats of the edge pixels, items (rows, 2 x units a side), as (rows,
+    columns, data); left[s] and right[s] the edge pixels of source row
+    s."""
+    ru = 4 * t // w
+    q = np.arange(bd[1] * t * 2 * ru)
+    u, row = q & (2 * ru - 1), q // (2 * ru)
+    is_left = u < ru
+    keep = np.where(is_left, first, last)
+    u, row, is_left = u[keep], row[keep], is_left[keep]
+    srow = _src_row(bd, row // t, row % t, t)
+    px = np.where(is_left, left[srow], right[srow])
+    col = np.where(is_left, u * w, 4 * t + t * mbw + (u - ru) * w)
+    return t * bd[0] + row, col, np.repeat(px[:, None], w, 1)
+
+
+def _chroma_band_stores(sc, bd, cnt, c0, w, chunk, first, last, mbw):
+    """csrc/planes.h's `chroma_plane` (K10's and K11's): the stores (rows,
+    columns, data) of the bands `bd` of a chunk of `cnt` MBs from c0 of a
+    chroma plane from its 8 x 8 tiles `sc` (shared memory), in the thread
+    map of a chunk of `chunk` MBs and stores of w bytes (16: a row of two
+    MBs, the odd pairs' lanes reading their second MB first; 8: one), and
+    the ring by the first and the last chunk; asserts the shared reads of
+    every warp instruction free of bank conflicts."""
+    mbs = w // 8
+    per_band = 8 * chunk // mbs
+    q = np.arange(bd[1] * per_band)
+    bi, qq = q // per_band, q % per_band
+    row, j = qq & 7, qq >> 3
+    act = mbs * j < cnt
+    srow = _src_row(bd, bi, row, 8)
+    if w == 16:
+        e = j & 1
+        a0 = 64 * (2 * j + e) + 8 * srow
+        a1 = 64 * (2 * j + 1 - e) + 8 * srow
+        for addr in (a0, a1):
+            assert _warps(q, np.where(act, addr, -1), 8)
+        x = sc[a0[act][:, None] + np.arange(8)]
+        y = sc[a1[act][:, None] + np.arange(8)]
+        odd = e[act][:, None] == 1
+        data = np.concatenate([np.where(odd, y, x), np.where(odd, x, y)], 1)
+    else:
+        addr = 64 * j + 8 * srow
+        assert _warps(q, np.where(act, addr, -1), 8)
+        data = sc[addr[act][:, None] + np.arange(8)]
+    return [(8 * (bd[0] + bi[act]) + row[act], 32 + 8 * c0 + w * j[act],
+             data),
+            _ring_stores(bd, 8, w, sc[8 * np.arange(8)],
+                         sc[64 * (cnt - 1) + 8 * np.arange(8) + 7], first,
+                         last, mbw)]
+
+
+K10_CHUNK, K10_THREADS = 8, 128     # enhancement MBs and threads a block
+K10_TILES = K10_CHUNK // 2 + 2      # base tiles a base MB row a block reads
+K10_VY, K10_VC = 8 * K10_CHUNK + 16, 4 * K10_CHUNK + 16   # sums a row
+K10_VYP, K10_VCP = K10_VY + 8, K10_VC + 8                 # their pitch
+K10_CPLANE = 2 * K10_TILES * 64 + 32   # the shared chroma planes' stride
+K10_BIAS = 1020                     # the luma sums' bias
+POISON = -(1 << 20)                 # shared memory not yet written
+
+
+def _k10_window(h, w, c0, r, t):
+    """K10's `window`: a plane's base window of the chunk of MBs c0 .. of
+    enhancement MB row r (t = 16 luma, 8 chroma)."""
+    kmax = (2 * w - 1) >> (4 if t == 16 else 3)
+    c0e = min(c0, kmax)
+    if t == 16:
+        vb = 8 * c0e - 8
+        t1 = min(vb + K10_VY - 1, w - 1) >> 4
+        s0 = max(min(8 * r, h - 1) - 1, 0) >> 4
+        s1 = min(8 * r + 9, h - 1) >> 4
+    else:
+        vb = (4 * c0e - 4) & ~7
+        t1 = min(vb + K10_VC - 1, w - 1) >> 3
+        s0 = max(min(4 * r, h - 1) - 1, 0) >> 3
+        s1 = min(4 * r + 4, h - 1) >> 3
+    return dict(h=h, w=w, kmax=kmax, c0e=c0e, vb=vb, t0=max(vb, 0) // t,
+                t1=t1, s0=s0, s1=s1)
+
+
+def _field(wins, p, key):
+    """Per lane, the window field `key` of its plane p (0 U, 1 V)."""
+    return np.where(p == 1, wins[1][key], wins[0][key])
+
+
+def _k10_vertical(smem, wins, p, pair, word, r, t, mutation):
+    """K10's vertical pass items: the words of 4 elements `word` of the
+    row pairs `pair` of planes p (indices into `wins`) from the shared
+    base tiles `smem` (poisoned where not copied; chroma planes
+    K10_CPLANE apart), each tap row one 4-byte read of the word that holds
+    the 4 columns clamped into the crop (`quad`: the byte of each column
+    picked from it). Returns (the items' 4-byte read addresses by tap,
+    the 4 columns' sums of phase 0 and 1, (n, 4) each); asserts every read
+    on copied bytes."""
+    luma = t == 16
+    taps = LUMA_TAPS if luma else CHROMA_TAPS
+    n_taps = 4 if luma else 3
+    h, w = _field(wins, p, "h"), _field(wins, p, "w")
+    t0, t1 = _field(wins, p, "t0"), _field(wins, p, "t1")
+    s0, s1 = _field(wins, p, "s0"), _field(wins, p, "s1")
+    lo, hi = w * 0, w - 1
+    if mutation == "halo_unclamped":        # clamped to the copied tiles
+        lo, hi = t * t0, t * t1 + t - 1
+    col0 = _field(wins, p, "vb") + 4 * word
+    cb = np.clip(col0, lo, hi & ~3)
+    b = np.clip(col0[:, None] + np.arange(4), lo[:, None],
+                hi[:, None]) - cb[:, None]
+    assert b.min() >= 0 and b.max() <= 3
+    src = p * K10_CPLANE + (cb // t - t0) * t * t + cb % t
+    per = 8 if luma else 4
+    i = np.minimum(per * r + pair, h - 1)
+    addrs, vals = [], []
+    for k in range(n_taps):
+        rlo, rhi = (0, h - 1)
+        if mutation == "halo_unclamped":
+            rlo, rhi = t * s0, t * s1 + t - 1
+        row = np.clip(i - 1 + k, rlo, rhi)
+        addr = src + (row // t - s0) * K10_TILES * t * t + (row % t) * t
+        assert addr.min() >= 0 and addr.max() + 4 <= len(smem)
+        addrs.append(addr)
+        vals.append(smem[addr[:, None] + b])
+    assert min(v.min() for v in vals) >= 0           # copied before read
+    ph = [sum(taps[a][k] * vals[k] for k in range(n_taps)) for a in (0, 1)]
+    return addrs, ph
+
+
+def _k10_luma_vertical(smem, g, r, mutation):
+    """K10's `luma_vertical`: the biased sums (16 rows, K10_VYP) of the
+    chunk's luma rows, a word of 4 elements of a pair of rows an item
+    (lanes: bits 0-1 the word, 2-4 the pair); asserts each warp's 4-byte
+    reads and 8-byte writes free of bank conflicts and every biased sum in
+    a 16-bit lane."""
+    q = np.arange(2 * K10_VY)
+    pair, word = (q >> 2) & 7, ((q >> 5) << 2) | (q & 3)
+    addrs, ph = _k10_vertical(smem, [g, g], q * 0, pair, word, r, 16,
+                              mutation)
+    for addr in addrs:
+        assert _warps(q, addr, 4)
+    ph = [v + K10_BIAS for v in ph]
+    assert min(v.min() for v in ph) >= 0 and max(v.max() for v in ph) < 1 << 15
+    sums = np.full((16, K10_VYP), POISON, np.int64)
+    cols = 4 * word[:, None] + np.arange(4)
+    sums[2 * pair[:, None], cols] = np.where(
+        (8 * r + pair < g["h"])[:, None], ph[0], ph[1])
+    sums[2 * pair[:, None] + 1, cols] = ph[1]
+    for a in (0, 1):
+        assert _warps(q, 2 * (K10_VYP * (2 * pair + a) + 4 * word), 8)
+    return sums
+
+
+def _k10_chroma_vertical(smem, wins, r, mutation):
+    """K10's `chroma_vertical`: the sums (2 planes, 8 rows, K10_VCP) of
+    the chunk's U and V rows (lanes: bit 0 the word's low bit, 1-2 the
+    pair, 3 the word's next bit, 4 the plane); asserts each warp's reads
+    and writes free of bank conflicts."""
+    q = np.arange(2 * K10_VC)
+    p, pair = (q >> 4) & 1, (q >> 1) & 3
+    word = ((q >> 5) << 2) | ((q >> 2) & 2) | (q & 1)
+    addrs, ph = _k10_vertical(smem, wins, p, pair, word, r, 8, mutation)
+    for addr in addrs:
+        assert _warps(q, addr, 4)
+    sums = np.full((2, 8, K10_VCP), POISON, np.int64)
+    cols = 4 * word[:, None] + np.arange(4)
+    h = _field(wins, p, "h")
+    sums[p[:, None], 2 * pair[:, None], cols] = np.where(
+        (4 * r + pair < h)[:, None], ph[0], ph[1])
+    sums[p[:, None], 2 * pair[:, None] + 1, cols] = ph[1]
+    for a in (0, 1):
+        assert _warps(q, 2 * (K10_VCP * (8 * p + 2 * pair + a) + 4 * word),
+                      8)
+    return sums
+
+
+def _repeat_last(u, e, cap):
+    """Bytes x >= e of the rows u (k, n) replaced by byte `cap`."""
+    x = np.arange(u.shape[1])
+    last = u[np.arange(len(u)), cap]
+    return np.where(x[None] < e[:, None], u, last[:, None])
+
+
+def emulate_k10(base_tiles, bmbw, crops, mbw, mbh, mutation=None,
+                tile_addr=0):
+    """K10's launch on the (bnmb, t, t) base tiles, block by block: a
+    block per chunk of K10_CHUNK enhancement MBs of one enhancement MB row,
+    the grid (chunks, mbh) with blockIdx.y 0 the first MB row, 1 the last,
+    then the rows between. Each block bulk-copies its window of each plane
+    (asserted 16-byte aligned at `tile_addr` + the tiles' offsets, at most
+    two base MB rows of at most K10_TILES tiles) into shared memory that is
+    poisoned until written; sums the vertical taps of its rows at every
+    element of its window (clamped into the crop) into shared 16-bit rows,
+    the luma biased, a word of 4 columns of a pair of rows an item
+    (`_k10_luma_vertical`, `_k10_chroma_vertical`); then writes, item by
+    item in the kernel's thread map, each luma tile row as one 16-byte
+    store (its sums from three 16-byte shared reads) and each chroma tile
+    row as one 8-byte store and into the shared tiles (two 16-byte reads,
+    the window at element 3 or 7), pixels past the crop repeating the
+    row's last; then the padded chroma rows of its bands
+    (`_chroma_band_stores`, csrc/planes.h). It asserts that every store is
+    aligned to its width, that every output byte is written once, that
+    every shared read hits written memory and that the shared reads and
+    writes of each warp instruction are free of bank conflicts. Returns
+    the five outputs. `mutation`: "grid_clamp" clamps at the base's MB
+    grid in place of the cropped picture; "halo_unclamped" reads the
+    window's halo at the copied tiles' edges in place of the crop's."""
+    N = K10_CHUNK
+    log_n = N.bit_length() - 1
+    if mutation == "grid_clamp":
+        bmbh = base_tiles[0].shape[0] // bmbw
+        crops = [(bmbh * t, bmbw * t) for t in (16, 8, 8)]
+    flat = [t.reshape(-1).astype(np.int64) for t in base_tiles]
+    _, nbytes, views, offsets, _ = resample._up_plan(
+        base_tiles[0].shape[0], bmbw, tuple(map(tuple, crops)), mbw, mbh)
+    off = dict(zip(resample.UP_OUTPUTS, offsets))
+    buf = np.full(nbytes, -1, np.int64)
+    writes = np.zeros(nbytes, np.int64)
+    pitch = 8 * (mbw + 8)
+    width = _store_bytes(pitch)
+
+    def store(name, at, data):
+        w = data.shape[1]
+        assert ((off[name] + at) % w == 0).all()
+        at = off[name] + at[:, None] + np.arange(w)
+        buf[at] = data
+        writes[at] += 1
+
+    def load(smem, at0, p, t, g):
+        """The bulk copies of plane p's window into smem from at0."""
+        assert g["t1"] - g["t0"] + 1 <= K10_TILES
+        assert g["s1"] - g["s0"] + 1 <= 2
+        size = (g["t1"] - g["t0"] + 1) * t * t
+        for s in range(g["s0"], g["s1"] + 1):
+            at = (s * bmbw + g["t0"]) * t * t
+            assert (tile_addr + at) % 16 == 0 and size % 16 == 0
+            assert at + size <= len(flat[p]) and at0 % 16 == 0
+            dst = at0 + (s - g["s0"]) * K10_TILES * t * t
+            smem[dst:dst + size] = flat[p][at:at + size]
+
+    for z in range(mbh):
+        r = 0 if z == 0 else mbh - 1 if z == 1 else z - 1
+        for c0 in range(0, mbw, N):
+            n = min(N, mbw - c0)
+            gy, gu, gv = (_k10_window(*crops[p], c0, r, t)
+                          for p, t in enumerate((16, 8, 8)))
+            ysm = np.full(2 * K10_TILES * 256, POISON, np.int64)
+            csm = np.full(2 * K10_CPLANE, POISON, np.int64)
+            load(ysm, 0, 0, 16, gy)
+            load(csm, 0, 1, 8, gu)
+            load(csm, K10_CPLANE, 2, 8, gv)
+            vy = _k10_luma_vertical(ysm, gy, r, mutation)
+            vc = _k10_chroma_vertical(csm, (gu, gv), r, mutation)
+            # luma tile rows
+            q = np.arange(16 * N)
+            m, row = q & (N - 1), q >> log_n
+            act = m < n
+            k = np.minimum(c0 + m, gy["kmax"])
+            el = 8 * (k - gy["c0e"])
+            for j in range(3):
+                addr = 2 * (K10_VYP * row + el) + 16 * j
+                assert _warps(q, np.where(act, addr, -1), 16)
+            win = vy[row[:, None], el[:, None] + 7 + np.arange(11)]
+            assert win[act].min() > POISON
+            u = np.zeros((len(q), 16), np.int64)
+            for x in range(16):
+                tap = LUMA_TAPS[x & 1]
+                u[:, x] = np.clip((512 - 32 * K10_BIAS + sum(
+                    tap[j] * win[:, (x >> 1) + j] for j in range(4))) >> 10,
+                    0, 255)
+            cap = 2 * gy["w"] - 1 - 16 * k
+            e = np.where(c0 + m > gy["kmax"], 0, cap + 1)
+            u = _repeat_last(u, e, np.minimum(cap, 15))
+            store("pred_y", ((r * mbw + c0 + m) * 256 + row * 16)[act],
+                  u[act])
+            # chroma tile rows, into the shared tiles too
+            out = np.full((2, N * 64), POISON, np.int64)
+            row = ((q & 3) << 1) | ((q >> 3) & 1)
+            m = ((q >> 2) & 1) | (((q >> 4) & (N // 2 - 1)) << 1)
+            p = q >> (3 + log_n)
+            act = m < n
+            kmax = _field((gu, gv), p, "kmax")
+            k = np.minimum(c0 + m, kmax)
+            st = 4 * k - 1 - _field((gu, gv), p, "vb")
+            assert set(np.unique(st[act] & 7)) <= {3, 7}
+            for j in range(2):
+                addr = 2 * K10_VCP * (8 * p + row) + 16 * (st >> 3) + 16 * j
+                assert _warps(q, np.where(act, addr, -1), 16)
+            win = vc[p[:, None], row[:, None], st[:, None] + np.arange(6)]
+            assert win[act].min() > POISON
+            u = np.zeros((len(q), 8), np.int64)
+            for x in range(8):
+                tap = CHROMA_TAPS[x & 1]
+                u[:, x] = (8 + sum(tap[j] * win[:, (x >> 1) + j]
+                                   for j in range(3))) >> 4
+            assert u.max() <= 255
+            cap = 2 * _field((gu, gv), p, "w") - 1 - 8 * k
+            e = np.where(c0 + m > kmax, 0, cap + 1)
+            u = _repeat_last(u, e, np.minimum(cap, 7))
+            assert _warps(q, np.where(act, 64 * (N * p + m) + 8 * row, -1),
+                          8)                 # the 8-byte shared writes
+            for pl, name in ((0, "pred_u"), (1, "pred_v")):
+                sel = act & (p == pl)
+                store(name, ((r * mbw + c0 + m) * 64 + row * 8)[sel], u[sel])
+                out[pl, (m * 64 + row * 8)[sel, None] + np.arange(8)] = u[sel]
+            # the padded chroma rows of the block's bands
+            bd = _bands_of(r, mbh)
+            for pl, name in ((0, "u_pad"), (1, "v_pad")):
+                for rows, cols, data in _chroma_band_stores(
+                        out[pl], bd, n, c0, width, N, c0 == 0,
+                        c0 + n == mbw, mbw):
+                    assert data.min(initial=0) >= 0  # written before read
+                    assert (cols + data.shape[1] <= pitch).all()
+                    store(name, rows * pitch + cols, data)
+    outs = []
+    for name, _, shape, _, at in views:
+        size = int(np.prod(shape))
+        assert (writes[at:at + size] == 1).all(), name
+        outs.append(buf[at:at + size].astype(np.uint8).reshape(shape))
+    return tuple(outs)
+
+
 # ---------------------------------------------------------------------------
 # the `down` stage
 # ---------------------------------------------------------------------------
@@ -495,26 +719,34 @@ def test_k9_takes_planes_at_any_address():
 # the `up` stage
 # ---------------------------------------------------------------------------
 
-# (what, base width, base height): the base picture; its MB grid and the
-# enhancement's padded size follow as SvcEncoder sizes them
+# (what, base width, base height[, (mb_width, mb_height)]): the base
+# picture; its MB grid and, unless given, the enhancement's padded size
+# follow as SvcEncoder sizes them. K10's chunks of 8 MBs end short at 15,
+# 18 and 13 MBs; its padded chroma rows take 8-byte stores at odd widths
 UP_CASES = (("a base that fills its MBs", 64, 48),
             ("120x90 in 8 x 6 MBs", 120, 90),
             ("one MB wide", 16, 40),
             ("one MB high", 40, 16),
-            ("a few pixels, cropped", 12, 10))
+            ("a few pixels, cropped", 12, 10),
+            ("one MB", 16, 16),
+            ("18 MBs wide, a short last chunk", 144, 32),
+            ("a crop inside a tile across, an odd width", 100, 32),
+            ("a crop inside a tile down", 32, 70),
+            ("an enhancement past twice the base", 40, 24, (11, 6)))
 
 
 def _up_case(case, seed=3):
     """Seeded base tiles and the sizes of one case: (tiles (3 numpy
     (bnmb, t, t)), bmbw, crops, mbw, mbh, the cropped base planes)."""
-    _, bw, bh = case
+    bw, bh = case[1:3]
     rng = np.random.default_rng(seed + bw * 7 + bh)
     bmbw, bmbh = -(-bw // 16), -(-bh // 16)
     grids = [_plane(rng, bmbh * 16, bmbw * 16)] + [
         _plane(rng, bmbh * 8, bmbw * 8) for _ in range(2)]
     crops = ((bh, bw), (bh // 2, bw // 2), (bh // 2, bw // 2))
     tiles = [_mb_tiles(g, t) for g, t in zip(grids, (16, 8, 8))]
-    mbw, mbh = -(-2 * bw // 16), -(-2 * bh // 16)
+    mbw, mbh = case[3] if len(case) > 3 else (-(-2 * bw // 16),
+                                              -(-2 * bh // 16))
     cropped = [g[:h, :w] for g, (h, w) in zip(grids, crops)]
     return tiles, bmbw, crops, mbw, mbh, cropped
 
@@ -554,6 +786,19 @@ def test_k10_clamps_at_the_cropped_picture():
     tiles, bmbw, crops, mbw, mbh, cropped = _up_case(UP_CASES[1])
     want = _up_jax(cropped, mbw, mbh)
     bad = emulate_k10(tiles, bmbw, crops, mbw, mbh, mutation="grid_clamp")
+    assert not all(np.array_equal(w, b) for w, b in zip(want, bad))
+
+
+@pytest.mark.parametrize("case", UP_CASES[7:9], ids=lambda c: c[0])
+def test_k10_clamps_its_halo_into_the_crop(case):
+    """A block's vertical pass reads its window's halo clamped into the
+    cropped picture: read to the edge of its copied tiles instead, it
+    takes the MB grid's padding past a crop that ends inside a tile, and
+    the emulation with that fault differs from JAX."""
+    tiles, bmbw, crops, mbw, mbh, cropped = _up_case(case)
+    want = _up_jax(cropped, mbw, mbh)
+    bad = emulate_k10(tiles, bmbw, crops, mbw, mbh,
+                      mutation="halo_unclamped")
     assert not all(np.array_equal(w, b) for w, b in zip(want, bad))
 
 
@@ -624,6 +869,37 @@ def test_k11_bulk_copies_need_16_byte_alignment():
     emulate_k11(tiles, 4, 3, tile_addr=16)
     with pytest.raises(AssertionError):
         emulate_k11(tiles, 4, 3, tile_addr=4)
+
+
+def test_k10_bulk_copies_need_16_byte_alignment():
+    """K10 bulk-copies its window of base tiles: tiles at a 4-byte but not
+    16-byte aligned address fail the emulation's check, which the
+    wrapper's 16-byte alignment check and `resample._k10_tiles`' copy keep
+    from the card."""
+    tiles, bmbw, crops, mbw, mbh, cropped = _up_case(UP_CASES[1])
+    want = _up_jax(cropped, mbw, mbh)
+    for w, e in zip(want, emulate_k10(tiles, bmbw, crops, mbw, mbh,
+                                      tile_addr=16)):
+        _eq(w, e)
+    with pytest.raises(AssertionError):
+        emulate_k10(tiles, bmbw, crops, mbw, mbh, tile_addr=4)
+
+
+def test_k10_plan_is_cached_per_size():
+    """`upsample_k10` takes its checks, buffer layout and size words from
+    `_up_plan`, once per size: the same tuple object for the same sizes,
+    crops given as lists taking the same plan; bad sizes and crops
+    raise."""
+    crops = ((90, 120), (45, 60), (45, 60))
+    plan = resample._up_plan(48, 8, crops, 15, 12)
+    assert resample._up_plan(48, 8, crops, 15, 12) is plan
+    assert plan[4] == [8, 90, 120, 45, 60, 45, 60, 15, 12, GUARD // 2]
+    for bad in ((48, 7, crops, 15, 12), (48, 8, crops, 0, 12),
+                (48, 8, ((97, 120),) + crops[1:], 15, 12),
+                (48, 8, ((90, 0),) + crops[1:], 15, 12),
+                (48, 8, crops[:2], 15, 12)):
+        with pytest.raises(ValueError):
+            resample._up_plan(*bad)
 
 
 def test_cpu_tensors_never_reach_k9_k10_k11():

@@ -1,30 +1,37 @@
 """K11, the reference planes (`h264lab_tpu_torch/csrc/refplanes.cu`), and
-K9, the SVC 2x downsampling (`csrc/resample.cu` `downsample_kernel`), on
-the CUDA card: each wrapper's time and host time, its kernel's device
-time, its byte bound and its share, in turns against an earlier build,
-beside the card's achievable byte rate.
+K9 and K10, the SVC 2x down- and upsampling (`csrc/resample.cu`
+`downsample_kernel`, `upsample_kernel`), on the CUDA card: each wrapper's
+time and host time, its kernel's device time, its byte bound and its
+share, in turns against an earlier build, beside the card's achievable
+byte rate.
 
     python tools/torch_ref_bench.py [--baseline DIR] [--reps N]
                                     [--host-parts] [--variants]
+                                    [--phases] [--sass DIR]
 
 The inputs are the real ones of encodes on the card, recorded at the
 stage entries: K11's (`refstate.prepare_reference`) of the first P step
 of 16 GOP lanes of 1920x1088 at QP 33, speed 2 (lane g on frames g, g +
 1, as `chip_smoke.py`'s main path) and of one lane of the same (one
 frame, where the wrapper's host time sets the call); K9's
-(`resample.downsample_planes`) of a two-layer SVC frame at 1920x1088
-over 960x544 with inter-layer prediction (the three 1080p planes). For
-each it prints the wrapper's ms (`refplanes.planes_k11`,
-`resample.downsample_k9`; CUDA events over `--reps` calls after a
-warm-up), its host us a call (`torch_k78_bench.host_us`: the median of 5
-x `--reps` calls issued back to back), its kernel's device us (a trace of
-a second call, `chip_smoke.kernel_launches`), the byte bound
-(`chip_smoke.stage_bytes` at `chip_smoke.HBM_BYTES_PER_S`) and the share
-of it reached, and checks the outputs against the plain version
-(`refstate.prepare_reference_plain`, `resample.downsample2x`). As a
+(`resample.downsample_planes`, the three 1080p planes) and K10's
+(`resample.upsample_tiles`: the 960x544 base layer's deblocked tiles to
+(1, 8160) tiles and (1, 608, 1024) padded chroma planes) of a two-layer
+SVC IDR at 1920x1088 over 960x544 with inter-layer prediction, a
+base-mode frame. For each it prints the wrapper's ms
+(`refplanes.planes_k11`, `resample.downsample_k9`, `upsample_k10`; CUDA
+events over `--reps` calls after a warm-up), its host us a call
+(`torch_k78_bench.host_us`: the median of 5 x `--reps` calls issued
+back to back), its kernel's device us (a trace of a second call,
+`chip_smoke.kernel_launches`), the byte bound (`chip_smoke.stage_bytes`
+at `chip_smoke.HBM_BYTES_PER_S`) and the share of it reached, and checks
+the outputs against the plain version (`refstate.prepare_reference_plain`,
+`resample.downsample2x`, `resample.upsample_tiles_plain`). As a
 yardstick, a device-to-device `copy_` of a buffer half the bound's bytes
 (it reads and writes them: the same bytes moved) is timed on each input
-in the same call: the byte rate this card reaches there.
+in the same call: by CUDA events (the byte rate this card reaches there;
+at a few MB the host's issue sets it) and by its memcpy's device time in
+a trace, which the kernel's device time is set against.
 
 `--baseline DIR` names an earlier tree of the repository (the parent
 commit, unpacked into a gitignored directory with `git archive`). The
@@ -38,8 +45,8 @@ tree's four, all of them before the first profiler trace of the process
 (a trace slows the host calls that follow it).
 
 `--host-parts` splits the current wrappers' host time a call on the
-one-frame step (K11) and the SVC frame (K9): the whole call, the call
-without its launch (`cuda_build.call` stubbed), the input checks
+one-frame step (K11) and the SVC frame (K9, K10): the whole call, the
+call without its launch (`cuda_build.call` stubbed), the input checks
 (`cuda_build.pointers`), the allocation, the output views
 (`cuda_build.buffer_views`) beside the same views cut by one
 `split_with_sizes` and a `view` each and by one
@@ -47,14 +54,25 @@ without its launch (`cuda_build.call` stubbed), the input checks
 launch alone (`cuda_build.call` on the call's words) and the bare ctypes
 call of the entry point on a prepared word array.
 
-`--variants` times K11's design variants (`VARIANTS`: a ring of two
-stages, a persistent grid whose blocks keep the next chunk's bulk copies
-in flight while they write the current one; other chunk and block sizes,
-the source's `kChunk` and `kThreads` replaced;
-each written from the current source into the gitignored
-`h264lab_tpu_torch/_build/variants/` with the headers beside it) in
-turns with the source's build on both K11 inputs (current, variant,
-variant, current), outputs equal, with each build's ptxas line.
+`--variants` times K10's design variants (`VARIANTS`: other chunk widths
+and block sizes, the source's `kUpChunk` and `kUpThreads` replaced, and
+a kernel without the shared vertical pass, each thread summing the
+vertical taps of its window from the shared base tiles itself; each
+written from the current source into the gitignored
+`h264lab_tpu_torch/_build/variants/` with the headers beside it) in turns
+with the source's build on K10's input (current, variant, variant,
+current), outputs equal, with each build's ptxas line.
+
+`--phases` times K10 cut short after or without each of its phases
+(`PHASES`: the launch of the grid alone, the bulk copies alone, the
+copies and the vertical pass, and the kernel without its vertical pass,
+luma rows, chroma rows or padded planes; builds of the current source,
+written like the variants, their outputs not checked) on K10's input,
+each build's device us twice in turns, the source's first and last.
+
+`--sass DIR` disassembles each build of `resample.cu` and `refplanes.cu`
+(`cuobjdump -sass`) into DIR and prints each kernel's instruction and
+opcode counts (`torch_k6_bench.sass_counts`).
 
 Every build's ptxas registers, shared memory, stack and spills are
 printed. Needs a CUDA device; every line names the card and its power
@@ -79,6 +97,7 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+import torch_k6_bench as k6b  # noqa: E402
 from torch_k78_bench import TURNS, host_us  # noqa: E402
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig  # noqa: E402
 from h264lab_tpu_torch.models import refstate  # noqa: E402
@@ -89,79 +108,98 @@ from h264lab_tpu_torch.utils.device import card_label  # noqa: E402
 from h264lab_tpu_torch.utils.synthetic import chessboard_sequence  # noqa: E402
 
 VARIANTS_DIR = cuda_build.BUILD_DIR / "variants"
-SIZES = ("constexpr int kThreads = 256;\n"
-         "constexpr int kChunk = 16;      // MBs a block: a power of 2, at "
-         "least 4\n")
-KERNEL = ("// grid (chunks of a row, L, mbh): blockIdx.z 0 the first MB row, "
-          "1 the\n")
-KERNEL_END = "// The widest store, 16, 8 or 4 bytes, that divides a row pitch."
-LAUNCH = ("  const dim3 grid((a.mbw + kChunk - 1) / kChunk, (unsigned)n, "
-          "a.mbh);\n  reference_planes_kernel<<<grid, kThreads, 0, "
-          "(cudaStream_t)w[11]>>>(a);\n")
-# the ring of two stages: a persistent grid (as many blocks as fit on the
-# card, at least 6 an SM), each block walking the chunks in the kernel's
-# order with the next chunk's bulk copies in flight in a second shared
-# copy while it writes the current one
-TWO_STAGES = r"""// Wait until the mbarrier's phase of `parity` has completed.
-__device__ __forceinline__ void wait_parity(unsigned long long* bar,
-                                            unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(tq_smem(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// chunk w in the one-stage grid's order
-__device__ __forceinline__ Chunk work_of(const Args& a, int w, int pics) {
-  const int chunks = (a.mbw + kChunk - 1) / kChunk;
-  const int z = w / (chunks * pics), rem = w - z * chunks * pics;
-  const int pic = rem / chunks;
-  return chunk_of(a, rem - pic * chunks, pic,
-                  z == 0 ? 0 : z == 1 ? a.mbh - 1 : z - 1);
-}
-
-__global__ void __launch_bounds__(kThreads, 6)
-reference_planes_kernel(const Args a, int pics, int works) {
-  __shared__ Smem s[2];
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < 2; ++st) {
-      tq_mbar_init(&s[st].bar);
-      const int w = blockIdx.x + st * gridDim.x;
-      if (w < works) load_chunk(a, s[st], work_of(a, w, pics));
-    }
-  }
-  __syncthreads();
-  int i = 0;
-  for (int w = blockIdx.x; w < works; w += gridDim.x, ++i) {
-    const int st = i & 1;
-    wait_parity(&s[st].bar, (i >> 1) & 1);
-    write_chunk(a, s[st], work_of(a, w, pics));
-    __syncthreads();                // stage st read by every thread
-    const int next = w + 2 * gridDim.x;
-    if (threadIdx.x == 0 && next < works)
-      load_chunk(a, s[st], work_of(a, next, pics));
-  }
-}
-
+SIZES = ("constexpr int kUpChunk = 8;        // enhancement MBs a block: "
+         "4, 8 or 16\nconstexpr int kUpThreads = 128;\n")
+# K10 without the shared vertical pass: each thread sums the vertical taps
+# of its window from the shared base tiles (`direct_luma`,
+# `direct_chroma`, put before the luma rows)
+LUMA_ROWS = "// The chunk's luma tile rows: a thread per (row, MB)"
+VERTICAL = ("  vertical(s, gy, gu, gv, r);\n"
+            "  __syncthreads();                  // the vertical sums "
+            "written\n")
+LUMA_WINDOW = """    // win[t] is element 7 + t of the 24 sums read
+    const uint4* v = reinterpret_cast<const uint4*>(
+        &s.vy[row][8 * (k - g.c0e)]);
+    const uint4 x = v[0], y = v[1], z = v[2];
+    const uint32_t wd[6] = {x.w, y.x, y.y, y.z, y.w, z.x};
+    uint32_t pr[10];
+#pragma unroll
+    for (int t = 0; t < 10; ++t)
+      pr[t] = t & 1 ? wd[(t + 1) >> 1]
+                    : __byte_perm(wd[t >> 1], wd[(t >> 1) + 1], 0x5432);
 """
-TWO_STAGES_LAUNCH = r"""  const long long works =
-      (long long)((a.mbw + kChunk - 1) / kChunk) * n * a.mbh;
-  static int cap = 0;
-  if (cap == 0) {
-    int dev = 0, sms = 0, per = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, reference_planes_kernel, kThreads, 0);
-    cap = sms * per;
+LUMA_DIRECT = """    int win[11];
+    direct_luma(s, g, r, row, k, win);
+    uint32_t pr[10];
+#pragma unroll
+    for (int t = 0; t < 10; ++t)
+      pr[t] = __byte_perm(win[t] + 1020, win[t + 1] + 1020, 0x5410);
+"""
+CHROMA_WINDOW = """    const int st = 4 * k - 1 - (p ? gv.vb : gu.vb);
+    const uint4* v = reinterpret_cast<const uint4*>(
+        &s.vc[p][row][8 * (st >> 3)]);
+    const uint4 x = v[0], y = v[1];
+    // the window's elements from st & 7 (3 or 7) on: words 1 .. 4 or 3 .. 6
+    const bool at3 = (st & 7) == 3;
+    const uint32_t wd[4] = {at3 ? x.y : x.w, at3 ? x.z : y.x,
+                            at3 ? x.w : y.y, at3 ? y.x : y.z};
+    uint32_t pr[5];
+#pragma unroll
+    for (int t = 0; t < 5; ++t)
+      pr[t] = t & 1 ? wd[(t + 1) >> 1]
+                    : __byte_perm(wd[t >> 1], wd[(t >> 1) + 1], 0x5432);
+"""
+CHROMA_DIRECT = """    int win[6];
+    direct_chroma(s, p ? gv : gu, p, r, row, k, win);
+    uint32_t pr[5];
+#pragma unroll
+    for (int t = 0; t < 5; ++t)
+      pr[t] = __byte_perm(win[t], win[t + 1], 0x5410);
+"""
+DIRECT = r"""// The vertical sums of row `row` of the chunk at base columns clamp(8 k
+// - 1 + t), t = 0 .. 10, from the shared base tiles.
+__device__ __forceinline__ void direct_luma(const UpSmem& s, const Win& g,
+                                            int r, int row, int k,
+                                            int* win) {
+  const int pair = row >> 1, i = min(8 * r + pair, g.h - 1);
+  const bool even = (row & 1) == 0 && 8 * r + pair < g.h;
+  int at[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int rr = clampi(i - 1 + kk, 0, g.h - 1);
+    at[kk] = ((rr >> 4) - g.s0) * (kUpTiles * 256) + (rr & 15) * 16;
   }
-  const int blocks = works < cap ? (int)works : cap;
-  reference_planes_kernel<<<blocks, kThreads, 0, (cudaStream_t)w[11]>>>(
-      a, (int)n, (int)works);
+#pragma unroll
+  for (int t = 0; t < 11; ++t) {
+    const int col = clampi(8 * k - 1 + t, 0, g.w - 1);
+    const uint8_t* src = s.y[0] + ((col >> 4) - g.t0) * 256 + (col & 15);
+    const int x0 = src[at[0]], x1 = src[at[1]], x2 = src[at[2]],
+              x3 = src[at[3]];
+    win[t] = even ? -3 * x0 + 28 * x1 + 8 * x2 - x3
+                  : -x0 + 8 * x1 + 28 * x2 - 3 * x3;
+  }
+}
+
+// The same of a chroma row at base columns clamp(4 k - 1 + t), t = 0 .. 5.
+__device__ __forceinline__ void direct_chroma(const UpSmem& s, const Win& g,
+                                              int p, int r, int row, int k,
+                                              int* win) {
+  const int pair = row >> 1, i = min(4 * r + pair, g.h - 1);
+  const bool even = (row & 1) == 0 && 4 * r + pair < g.h;
+  int at[3];
+#pragma unroll
+  for (int kk = 0; kk < 3; ++kk) {
+    const int rr = clampi(i - 1 + kk, 0, g.h - 1);
+    at[kk] = ((rr >> 3) - g.s0) * (kUpTiles * 64) + (rr & 7) * 8;
+  }
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    const int col = clampi(4 * k - 1 + t, 0, g.w - 1);
+    const uint8_t* src = s.c[p] + ((col >> 3) - g.t0) * 64 + (col & 7);
+    win[t] = even ? src[at[0]] + 3 * src[at[1]] : 3 * src[at[1]] + src[at[2]];
+  }
+}
+
 """
 
 
@@ -172,22 +210,57 @@ def _sub(text, old, new):
 
 
 def sizes(chunk, threads):
-    """K11 with `chunk` MBs and `threads` threads a block."""
+    """K10 with chunks of `chunk` MBs and `threads` threads a block."""
     return lambda src: _sub(src, SIZES, (
-        f"constexpr int kThreads = {threads};\n"
-        f"constexpr int kChunk = {chunk};\n"))
+        f"constexpr int kUpChunk = {chunk};\n"
+        f"constexpr int kUpThreads = {threads};\n"))
 
 
-def two_stages(src):
-    """K11 with a ring of two stages (`TWO_STAGES`)."""
-    a, b = src.index(KERNEL), src.index(KERNEL_END)
-    return _sub(src[:a] + TWO_STAGES + src[b:], LAUNCH, TWO_STAGES_LAUNCH)
+def direct(src):
+    """K10 without the shared vertical pass (`DIRECT`)."""
+    src = _sub(src, LUMA_ROWS, DIRECT + LUMA_ROWS)
+    src = _sub(src, VERTICAL, "")
+    src = _sub(src, LUMA_WINDOW, LUMA_DIRECT)
+    return _sub(src, CHROMA_WINDOW, CHROMA_DIRECT)
 
 
-# K11 variants: (name, the source's transform)
-VARIANTS = (("two stages, persistent", two_stages),
-            ("chunk 32, 256 threads", sizes(32, 256)),
-            ("chunk 8, 128 threads", sizes(8, 128)))
+# K10 cut short after or without its phases, for where its time goes:
+# (name, the source's transform); `if (a.mbw > 0) return;` ends the
+# kernel there without the compiler knowing it
+BODY = "upsample_kernel(const UpArgs a) {\n  __shared__ UpSmem s;\n"
+CALLS = {"vertical": "  vertical(s, gy, gu, gv, r);\n",
+         "luma": "  luma_rows(a, s, gy, r, c0, n);\n",
+         "chroma": "  chroma_rows_up(a, s, gu, gv, r, c0, n);\n",
+         "pad": "  // U by the first half of the threads, V by the second\n"}
+RETURN = "  if (a.mbw > 0) return;\n"
+
+
+def cut_before(key):
+    return lambda src: _sub(src, CALLS[key], RETURN + CALLS[key])
+
+
+def without(key):
+    return lambda src: _sub(src, CALLS[key], "")
+
+
+PHASES = (("the launch of the grid alone",
+           lambda src: _sub(src, BODY, BODY + RETURN)),
+          ("the bulk copies alone", cut_before("vertical")),
+          ("the copies and the vertical pass", cut_before("luma")),
+          ("without the vertical pass", without("vertical")),
+          ("without the luma rows", without("luma")),
+          ("without the chroma rows", without("chroma")),
+          ("without the padded planes", cut_before("pad")))
+
+
+# K10 variants: (name, the source's transform)
+VARIANTS = (("chunk 4, 64 threads", sizes(4, 64)),
+            ("chunk 4, 128 threads", sizes(4, 128)),
+            ("chunk 8, 64 threads", sizes(8, 64)),
+            ("chunk 8, 256 threads", sizes(8, 256)),
+            ("chunk 16, 128 threads", sizes(16, 128)),
+            ("chunk 16, 256 threads", sizes(16, 256)),
+            ("no shared vertical pass", direct))
 
 
 def record_real():
@@ -216,13 +289,16 @@ def record_real():
     svc = SvcEncoder(EncoderConfig(width=w, height=h, gop=chip_smoke.GOP,
                                    qp=chip_smoke.QP, num_layers=2,
                                    inter_layer_pred_flag=True))
-    down = []
+    down, up = [], []
     with chip_smoke.recorded_calls("downsample_planes", down,
-                                   "ops.resample"):
+                                   "ops.resample"), \
+            chip_smoke.recorded_calls("upsample_tiles", up, "ops.resample"):
         svc.encode(*frames[0], run)
     torch.cuda.synchronize()
     out[f"{w}x{h} SVC frame"] = ("K9", chip_smoke.to_device(down[0], "cpu"))
-    del svc, down
+    out[f"{w}x{h} SVC base-mode frame"] = (
+        "K10", chip_smoke.to_device(up[0], "cpu"))
+    del svc, down, up
     torch.cuda.empty_cache()
     return out
 
@@ -235,31 +311,42 @@ def load_module(path, name):
 
 
 def baseline_modules(tree):
-    """An earlier tree's K11 and K9 wrapper modules, loaded beside the
-    current ones, with that tree's kernels built and loaded under them.
-    Returns ({kernel: module}, {kernel: (library path, build log)})."""
+    """An earlier tree's K11 and K9 / K10 wrapper modules, loaded beside
+    the current ones, with that tree's kernels built and loaded under
+    them. Returns ({kernel: module}, {source: (library path, build
+    log)})."""
     ops = os.path.join(tree, "h264lab_tpu_torch", "ops")
     csrc = os.path.join(tree, "h264lab_tpu_torch", "csrc")
-    mods = {"K11": load_module(os.path.join(ops, "refplanes.py"),
-                               "baseline_refplanes"),
-            "K9": load_module(os.path.join(ops, "resample.py"),
-                              "baseline_resample")}
+    ref = load_module(os.path.join(ops, "refplanes.py"),
+                      "baseline_refplanes")
+    res = load_module(os.path.join(ops, "resample.py"), "baseline_resample")
     built = cuda_build.build_all([os.path.join(csrc, "refplanes.cu"),
                                   os.path.join(csrc, "resample.cu")])
-    mods["K11"]._lib.use(built[0][0])
-    mods["K9"]._lib.use(built[1][0])
-    return mods, {"K11": built[0], "K9": built[1]}
+    ref._lib.use(built[0][0])
+    res._lib.use(built[1][0])
+    return ({"K11": ref, "K9": res, "K10": res},
+            {"refplanes": built[0], "resample": built[1]})
+
+
+def tiles_of(args):
+    """K10's base tiles, (bnmb, t, t), from `upsample_tiles`' arguments."""
+    return tuple(t.reshape((-1,) + t.shape[-2:]) for t in args[0])
 
 
 def wrapper_of(kernel, mod, args):
     if kernel == "K11":
         return lambda: mod.planes_k11(*args)
+    if kernel == "K10":
+        tiles = tiles_of(args)
+        return lambda: mod.upsample_k10(*tiles, *args[1:])
     return lambda: mod.downsample_k9(*args)
 
 
 def plain_of(kernel, args):
     if kernel == "K11":
         return refstate.prepare_reference_plain(*args)
+    if kernel == "K10":
+        return resample.upsample_tiles_plain(tiles_of(args), *args[1:])
     return tuple(resample.downsample2x(p) for p in args)
 
 
@@ -274,11 +361,11 @@ def equal(a, b):
         for (_, x), (_, y) in zip(a, b))
 
 
-def ptxas_report(tag, kernel, log, label):
+def ptxas_report(tag, source, log, label):
     lines = chip_smoke.ptxas_lines(log)
     numbers = chip_smoke.ptxas_numbers(lines)
     for name, v in numbers.items():
-        print(f"  {tag} {kernel} {name} {label}: {v['registers']} "
+        print(f"  {tag} {source} {name} {label}: {v['registers']} "
               f"registers, {v['smem']} bytes of shared memory, {v['stack']} "
               f"bytes of stack, spills {v['spill_stores']} B stored and "
               f"{v['spill_loads']} B loaded", flush=True)
@@ -286,13 +373,27 @@ def ptxas_report(tag, kernel, log, label):
 
 
 def copy_yardstick(nbytes, reps):
-    """ms of a device-to-device `copy_` that moves `nbytes` (reads and
-    writes nbytes / 2), and its byte rate in TB/s."""
+    """A device-to-device `copy_` that moves `nbytes` (reads and writes
+    nbytes / 2): its ms (CUDA events over `reps` calls; at a few MB the
+    host's issue sets it), its byte rate in TB/s from that, and the least
+    and the median device us of its memcpy in a trace of `reps` copies,
+    each waited for alone."""
+    from torch.profiler import ProfilerActivity, profile
+
     src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
     dst = torch.empty_like(src)
     ms = chip_smoke._cuda_ms(lambda: dst.copy_(src), reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            dst.copy_(src)
+            torch.cuda.synchronize()
+    us = sorted(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Memcpy" in e.name)
     del src, dst
-    return ms, 2 * (nbytes // 2) / ms / 1e9
+    return (ms, 2 * (nbytes // 2) / ms / 1e9, us[0] if us else None,
+            statistics.median(us) if us else None)
 
 
 def host_parts(kernel, args, reps):
@@ -303,6 +404,10 @@ def host_parts(kernel, args, reps):
         specs, nbytes, views, _, _ = refplanes._plan(u.shape[0], mbw, mbh,
                                                      True)
         tensors = (y, u, v)
+    elif kernel == "K10":
+        tensors = tiles_of(args)
+        specs, nbytes, views, _, _ = resample._up_plan(
+            tensors[0].shape[0], *args[1:])
     else:
         tensors = tuple(args)
         specs, nbytes, views, _, _ = resample._down_plan(
@@ -345,7 +450,7 @@ def host_parts(kernel, args, reps):
     cuda_build.call, launch = (lambda fn, w, what, index: words.append(
         (fn, list(w))), cuda_build.call)
     try:
-        kept = wrapper()            # the planes the launches below write
+        kept = wrapper()            # the outputs the launches below write
     finally:
         cuda_build.call = launch
     fn, w = words[0]
@@ -360,21 +465,22 @@ def host_parts(kernel, args, reps):
     return out
 
 
-def variant_builds(label):
-    """K11 built with each of `VARIANTS`: {name: library path}."""
-    src = refplanes.SRC.read_text()
+def variant_builds(label, variants, tag):
+    """K10 built with each of `variants` ((name, transform), ...):
+    {name: library path}."""
+    src = resample.SRC.read_text()
     VARIANTS_DIR.mkdir(parents=True, exist_ok=True)
-    for header in refplanes.SRC.parent.glob("*.h"):
+    for header in resample.SRC.parent.glob("*.h"):
         shutil.copy(header, VARIANTS_DIR / header.name)
     paths = []
-    for k, (name, transform) in enumerate(VARIANTS):
-        path = VARIANTS_DIR / f"refplanes_variant{k}.cu"
+    for k, (name, transform) in enumerate(variants):
+        path = VARIANTS_DIR / f"resample_{tag}{k}.cu"
         path.write_text(transform(src))
         paths.append(path)
     built = cuda_build.build_all(paths)
     out = {}
-    for (name, _), (path, log) in zip(VARIANTS, built):
-        ptxas_report("variant", f"K11 ({name})", log, label)
+    for (name, _), (path, log) in zip(variants, built):
+        ptxas_report(tag, f"K10 ({name})", log, label)
         out[name] = path
     return out
 
@@ -385,6 +491,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--host-parts", action="store_true")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--sass", metavar="DIR")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_ref_bench: no CUDA device", file=sys.stderr)
@@ -393,19 +501,29 @@ def main() -> int:
     print(label, flush=True)
     t_start = time.perf_counter()
     built = cuda_build.build_all([refplanes.SRC, resample.SRC])
+    builds = {"new": {"refplanes": built[0], "resample": built[1]}}
     result = dict(card=label, ptxas={"new": {}}, inputs={})
-    mods = {"K11": {"new": refplanes}, "K9": {"new": resample}}
-    for kernel, (_, log) in zip(("K11", "K9"), built):
-        result["ptxas"]["new"][kernel] = ptxas_report("new", kernel, log,
-                                                      label)
+    mods = {"K11": {"new": refplanes}, "K9": {"new": resample},
+            "K10": {"new": resample}}
     if opts.baseline:
-        old, old_built = baseline_modules(opts.baseline)
-        result["ptxas"]["old"] = {}
-        for kernel, (_, log) in old_built.items():
-            mods[kernel]["old"] = old[kernel]
-            result["ptxas"]["old"][kernel] = ptxas_report("old", kernel, log,
-                                                          label)
-    variants = variant_builds(label) if opts.variants else {}
+        old, builds["old"] = baseline_modules(opts.baseline)
+        for kernel, mod in old.items():
+            mods[kernel]["old"] = mod
+    for tag, by_source in builds.items():
+        result["ptxas"][tag] = {
+            source: ptxas_report(tag, source, log, label)
+            for source, (_, log) in by_source.items()}
+    if opts.sass:
+        result["sass"] = {}
+        for tag, by_source in builds.items():
+            for source, (path, _) in by_source.items():
+                counts = k6b.sass_counts(path, opts.sass, f"{tag}_{source}")
+                result["sass"][f"{tag} {source}"] = counts
+                for fn, c in counts.items():
+                    print(f"  {tag} {source} SASS {fn}: {c}", flush=True)
+    variants = (variant_builds(label, VARIANTS, "variant") if opts.variants
+                else {})
+    phases = variant_builds(label, PHASES, "phase") if opts.phases else {}
     real = record_real()
     prepared = []
     for what, (kernel, args) in real.items():
@@ -434,7 +552,7 @@ def main() -> int:
                 [us for t, us in hosts if t == "old"])
         else:
             row["host_us"] = host_us(fns["new"], 5 * opts.reps)
-        if opts.host_parts and (kernel == "K9" or what.startswith("one")):
+        if opts.host_parts and (kernel != "K11" or what.startswith("one")):
             row["host_parts"] = host_parts(kernel, args, opts.reps)
             print(f"  {kernel} wrapper host us a call on the {what} {label}, "
                   "medians: " + ", ".join(
@@ -450,11 +568,14 @@ def main() -> int:
             row["old_ms"] = (turns[0][1] + turns[3][1]) / 2
         else:
             row["ms"] = chip_smoke._cuda_ms(fns["new"], opts.reps)
-        row["copy_ms"], row["copy_tb_s"] = copy_yardstick(row["bytes"],
-                                                          opts.reps)
-        for tag, fn in fns.items():
-            k, _ = chip_smoke.kernel_launches(fn, traces=6)
-            row[f"{tag}_device"] = k
+        (row["copy_ms"], row["copy_tb_s"], row["copy_device_us"],
+         row["copy_device_median_us"]) = copy_yardstick(row["bytes"],
+                                                        opts.reps)
+        for tag in TURNS[:4] if "old" in fns else ("new",):
+            k, _ = chip_smoke.kernel_launches(fns[tag], traces=6)
+            row.setdefault(f"{tag}_device_turns", []).append(k)
+        for tag in fns:
+            row[f"{tag}_device"] = row[f"{tag}_device_turns"][0]
         result["inputs"][what] = row
         dev = {tag: sum(us for _, us in row[f"{tag}_device"])
                for tag in fns}
@@ -471,13 +592,22 @@ def main() -> int:
                 f" ({row['copy_tb_s']:.2f} TB/s"
                 + (f", the kernel at {100 * row['copy_ms'] * 1e3 / dev['new']:.1f}%"
                    " of its rate" if dev["new"] else "")
+                + ("" if row["copy_device_us"] is None else
+                   f"; its memcpy's device time {row['copy_device_us']:.2f} "
+                   f"us least, {row['copy_device_median_us']:.2f} median"
+                   + (f", the kernel's device time "
+                      f"{dev['new'] / row['copy_device_us']:.3f} of the least"
+                      if dev["new"] else ""))
                 + f"); equal to the plain version: {row['plain_equal']}")
         if "old" in fns:
             line += (f"; in turns old, new, new, old: " + ", ".join(
                 f"{ms:.4f}" for _, ms in row["turns"])
-                + f" ms, new / old {row['ms'] / row['old_ms']:.3f}; old "
-                "device " + ", ".join(f"{n} {us:.1f} us" for n, us in
-                                      row["old_device"])
+                + f" ms, new / old {row['ms'] / row['old_ms']:.3f}; device "
+                "us in turns old, new, new, old: " + ", ".join(
+                    f"{sum(us for _, us in k):.1f}"
+                    for k in row["old_device_turns"][:1]
+                    + row["new_device_turns"]
+                    + row["old_device_turns"][1:])
                 + (f" (new / old {dev['new'] / dev['old']:.3f})"
                    if dev["new"] and dev["old"] else "")
                 + "; host us a call in turns: " + ", ".join(
@@ -487,24 +617,44 @@ def main() -> int:
                 f"to the old build's: {row['old_equal']}")
         print(line, flush=True)
     for name, path in variants.items():
-        mod = load_module(refplanes.__file__, "variant_refplanes")
+        mod = load_module(resample.__file__, "variant_resample")
         mod._lib.use(path)
         for what, kernel, args, fns, row in prepared:
-            if kernel != "K11":
+            if kernel != "K10":
                 continue
-            var = wrapper_of("K11", mod, args)
+            var = wrapper_of("K10", mod, args)
             same = equal(var(), fns["new"]())
             turns = [(tag, chip_smoke._cuda_ms(
                 fns["new"] if tag == "current" else var, opts.reps))
                 for tag in ("current", "variant", "variant", "current")]
-            k, _ = chip_smoke.kernel_launches(var, traces=6)
+            dev = [(tag, chip_smoke.kernel_launches(
+                fns["new"] if tag == "current" else var, traces=6)[0])
+                for tag in ("current", "variant", "variant", "current")]
             result["inputs"][f"{what}, {name}"] = dict(
-                turns=turns, device=k, equal=same)
-            print(f"  K11 {name} on the {what} {label}: in turns current, "
+                turns=turns, device=dev, equal=same)
+            print(f"  K10 {name} on the {what} {label}: in turns current, "
                   "variant, variant, current: " + ", ".join(
-                      f"{ms:.4f}" for _, ms in turns) + " ms; device "
-                  + ", ".join(f"{n} {us:.1f} us" for n, us in k)
+                      f"{ms:.4f}" for _, ms in turns) + " ms; device us "
+                  + ", ".join(f"{sum(us for _, us in k):.1f}"
+                              for _, k in dev)
                   + f"; outputs equal: {same}", flush=True)
+    k10 = [(args, fns) for _, kernel, args, fns, _ in prepared
+           if kernel == "K10"]
+    if phases and k10:
+        args, fns = k10[0]
+        builds = {"the source": fns["new"]}
+        for name, path in phases.items():
+            mod = load_module(resample.__file__, "phase_resample")
+            mod._lib.use(path)
+            builds[name] = wrapper_of("K10", mod, args)
+        times = {}
+        for name in list(builds) * 2 + ["the source"]:
+            k, _ = chip_smoke.kernel_launches(builds[name], traces=6)
+            times.setdefault(name, []).append(sum(us for _, us in k))
+        result["phases"] = times
+        for name, us in times.items():
+            print(f"  K10 phases, {name} {label}: device us "
+                  + ", ".join(f"{v:.2f}" for v in us), flush=True)
     print(f"torch_ref_bench {time.perf_counter() - t_start:.1f} s {label}")
     print(json.dumps(result, default=str))
     ok = all(all(r["plain_equal"].values()) and r.get("old_equal", True)
