@@ -13,8 +13,10 @@ Phases (any failure exits non-zero; nothing is caught):
      inter residual kernel K7 (csrc/inter.cu), the parallel P select
      kernel K8 (csrc/select.cu; both with csrc/tq.h and its tables in
      csrc/tq_tables.h), the SVC 2x down- and upsampling kernels K9 and
-     K10 (csrc/resample.cu) and the reference planes kernel K11
-     (csrc/refplanes.cu), one nvcc each, started together, and print what
+     K10 (csrc/resample.cu), the reference planes kernel K11
+     (csrc/refplanes.cu), the padding and tiling kernel K12
+     (csrc/pretile.cu) and the temporal denoise kernel K13
+     (csrc/denoise.cu), one nvcc each, started together, and print what
      ptxas reports (registers, shared memory, spills);
   3. the main path, the bench configuration: 1920x1088 chessboard input,
      IPPP with GOP 20, 16 GOP lanes in one dispatch at QP 33,
@@ -32,11 +34,13 @@ Phases (any failure exits non-zero; nothing is caught):
      19, its K7 and K8 inputs for phase 20; the main path must have
      launched K1 and K2 on every step, K3 once on each of its three IDR
      steps, K4, K7 and K8 once on each of its five P steps (no K5 at speed
-     2), K6 and K11 (its `ref` stage) once on every step and no K9 or K10
-     (the steps' `ref` inputs of both stage steps kept for phase 21). From
-     here to phase 15 no `downsample2x`, `upsample2x_luma`,
-     `upsample2x_chroma`, `qpel.pad_guard` or `me.downsample4` call may
-     take a tensor on the card (`plain_stages_on_card`), and no `ref`
+     2), K6, K11 (its `ref` stage) and K12 (its `pre`) once on every step
+     and no K9, K10 or K13 (the steps' `ref` inputs of both stage steps
+     and the P stage step's `pre` inputs kept for phase 21). From here to
+     phase 15 no `downsample2x`, `upsample2x_luma`, `upsample2x_chroma`,
+     `qpel.pad_guard`, `me.downsample4`, `stages.pad_to` or
+     `denoise.denoise_plane` call may take a tensor on the card
+     (`plain_stages_on_card`), and no `ref`
      stage may copy its tiles before K11 nor an `up` stage before K10
      (`tile_copies`: every path hands K11 and K10 fresh, 16-byte aligned
      tiles);
@@ -52,7 +56,7 @@ Phases (any failure exits non-zero; nothing is caught):
   5. encode lane 0's first two frames (IDR, P) with the port on the CPU:
      their bytes must equal lane 0 of the card's steps 0 and 1; then
      decode lane 0's stream of those two steps with the port's decoder
-     (numpy, on the host) in a worker process, beside phases 6 to 21:
+     (numpy, on the host) in a worker process, beside phases 6 to 22:
      both frames must equal the card's reconstruction; before the results
      the script waits for it and prints the decode seconds per 1080p
      frame (a host time, taken while the other phases run);
@@ -73,19 +77,21 @@ Phases (any failure exits non-zero; nothing is caught):
      (its motion search and partition search inputs kept for phase 18,
      its symbolize inputs for phase 19, its K7 inputs with K5's
      partitions for phase 20, its `ref` inputs for phase 21); the path
-     must have launched K1, K2, K3, K6 and K11 on every frame, K4, K5 and
-     K7 on each P frame and K8, K9 and K10 on none;
+     must have launched K1, K2, K3, K6, K11 and K12 on every frame, K4, K5
+     and K7 on each P frame and K8, K9, K10 and K13 on none;
   8. hold K1 against the plain packer on that P frame's (1, 8160, 952)
      grid, at its capacity and at 1024 words, K2 against the plain
      filter on its deblocking inputs and K3 against the plain wavefront on
      its wavefront inputs (with the inter candidate);
   9. card bytes against CPU bytes at 352x288 (CIF): H264Encoder at speed
-     0 (IDR, P, P) and at speed 10 (full-pel, deblocking off: IDR, P), and
-     a 2-lane GopBandEncoder at speed 1 (IDR, P); each card stream (both
-     lanes) decodes bit-exactly to the card's reconstruction; the card
-     encoders must have launched K4 and K7 on each of their four P frames
-     or steps, K5 on the two at speed 0, K8 on the one at speed 10 and K6
-     once for each of their symbolize calls;
+     0 (IDR, P, P), at speed 10 (full-pel, deblocking off: IDR, P) and at
+     speed 1 with `temporal_denoise_flag` on a sub-pel noise pan (IDR, P,
+     P: K13 once on each P frame), and a 2-lane GopBandEncoder at speed 1
+     (IDR, P); each card stream (both lanes) decodes bit-exactly to the
+     card's reconstruction; the card encoders must have launched K4 and K7
+     on each of their six P frames or steps, K5 on the two at speed 0, K8
+     on the one at speed 10 and K6 once for each of their symbolize
+     calls;
   10. the CLI on the card (`h264lab_tpu_torch.cli.main`, --gen 352x288,
      3 frames, --psnr): it must return 0, write a stream that starts with
      an SPS and decodes to 3 frames of 352x288, and launch K6 once for
@@ -112,10 +118,10 @@ Phases (any failure exits non-zero; nothing is caught):
      both layers, the enhancement's with the base_mode_flag bit, kept for
      phase 19); K9 once per frame (its `down`), K10 once per base-mode IDR
      (its `up`: the prediction tiles and the guard-padded chroma planes
-     that `base_mode_symbols` takes) and K11 once per layer of every frame
-     (the stage P frame's `ref` inputs of both layers and the forced
-     base-mode IDR's `down`, `up` and enhancement `ref` inputs kept for
-     phase 21);
+     that `base_mode_symbols` takes), K11 and K12 once per layer of every
+     frame (the stage P frame's `ref` inputs of both layers and the forced
+     base-mode IDR's `down`, `up` and enhancement `ref` and `pre` inputs
+     kept for phase 21);
   12. hold K1 against the plain packer on the base-mode frame's (1, 8160,
      952) grid and on the base layer's P grid (1, 2040, 952), each at its
      capacity and at 1024 words, K2 against the plain filter on the
@@ -157,7 +163,9 @@ Phases (any failure exits non-zero; nothing is caught):
      step, K3 for every shard of the IDR step, K4, K7 and K8 for every
      shard of the two P steps, K11 once per step, gop row and distinct
      device of the row (the exchange, on the calling thread's stream; a
-     gop row's inputs of the first P step kept for phase 21), and no plain
+     gop row's inputs of the first P step kept for phase 21), K12 once for
+     every shard and step (a shard's `pre` inputs, its lanes' block rows,
+     of the first P step kept for phase 21), and no plain
      resampling or padding call may have reached the card since phase 3
      (a band-1 shard's motion search and K7
      inputs of the first P step kept for phases 18 and 20, a shard's
@@ -271,22 +279,40 @@ Phases (any failure exits non-zero; nothing is caught):
      reconstruction (`color_chroma_check`);
   21. hold K9 (`resample.downsample_k9` through
      `resample.downsample_planes`), K10 (`resample.upsample_k10` through
-     `resample.upsample_tiles`) and K11 (`refplanes.planes_k11` through
-     `refstate.prepare_reference`) against their plain versions
-     (`downsample2x` of each plane, `upsample_tiles_plain`,
-     `prepare_reference_plain`), every output (keys, dtypes, shapes,
-     values), on the paths' real inputs: K11 on the 16-lane IDR and P
-     steps' `ref` tiles, the speed-0 P frame's, both SVC layers' P frame,
-     the SVC base-mode frame's enhancement and a mesh gop row's exchange;
-     K9 and K10 on the SVC base-mode frame's `down` and `up` inputs. Every
+     `resample.upsample_tiles`), K11 (`refplanes.planes_k11` through
+     `refstate.prepare_reference`) and K12 (`pretile.tiles_k12` through
+     `stages.source_tiles`) against their plain versions (`downsample2x`
+     of each plane, `upsample_tiles_plain`, `prepare_reference_plain`,
+     `source_tiles_plain`), every output (keys, dtypes, shapes, values),
+     on the paths' real inputs: K11 on the 16-lane IDR and P steps' `ref`
+     tiles, the speed-0 P frame's, both SVC layers' P frame, the SVC
+     base-mode frame's enhancement and a mesh gop row's exchange; K9 and
+     K10 on the SVC base-mode frame's `down` and `up` inputs; K12 on the
+     16-lane P step's uploaded planes, the SVC base-mode frame's
+     enhancement planes, a mesh shard's block rows, and two cropped
+     1917x1079 frames at an odd address (its byte-wise loads). Every
      check launches the kernel 20 times, one count a call, each output
      equal, and prints its wrapper ms (CUDA events over 20 calls), its
      host us a call, the entry's ms, the plain version's ms (one call) and
-     the byte bound and its share (`stage_bytes`); K11 on the P step and
-     K9 and K10 on the base-mode frame also the device us of their kernel
-     from a trace; the phase prints each kernel's ptxas registers, shared
-     memory, stack and spills;
-  22. print the kernels line (JSON), then the result line (JSON).
+     the byte bound and its share (`stage_bytes`); K11 on the P step, K9
+     and K10 on the base-mode frame and K12 on every input also the device
+     us of their kernel from a trace; the phase prints each kernel's
+     ptxas registers, shared memory, stack and spills; then `pre`'s parts
+     on the 16-lane P step's frames (`pre_parts`): the host copy into the
+     pinned staging, the upload and K12, beside a pinned `copy_` of the
+     same bytes (the host link's rate, the upload's bound) and the `pre`
+     the port had before K12;
+  22. the denoise path: H264Encoder at 1920x1088, speed 0, QP 33,
+     `temporal_denoise_flag` on `utils.synthetic.noise_pan_sequence` (a
+     sub-pel pan, so that the gains between 0 and 192 all occur): an IDR
+     and two P frames (the last with per-stage times, `denoise` among
+     them); K11 and K12 must launch once per frame, K13 once on each frame
+     after the first, and no `PLAIN_STAGES` function may take a tensor on
+     the card; then K13 (`denoise.denoise_k13` through
+     `denoise.denoise_planes`) against `denoise_plane` of each plane on
+     the last frame's real planes, 20 launches, as the checks of phase
+     21, with its device us from a trace;
+  23. print the kernels line (JSON), then the result line (JSON).
 
 It imports torch, numpy and the port, nothing of JAX. Without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
@@ -1304,35 +1330,40 @@ def color_chroma_check(label):
 
 
 def stage_record():
-    """What the paths keep of K9, K10 and K11 for phase 21 and the kernels
-    line: "calls", each kernel's real inputs by path (the arguments of its
-    stage entry, `resample.downsample_planes`, `resample.upsample_tiles`
-    and `refstate.prepare_reference`, on the host), and
-    "launches", (K9, K10, K11) launches by path."""
-    return {"calls": {"K9": {}, "K10": {}, "K11": {}}, "launches": {}}
+    """What the paths keep of K9 to K13 for phases 21 and 22 and the
+    kernels line: "calls", each kernel's real inputs by path (the
+    arguments of its stage entry, `resample.downsample_planes`,
+    `resample.upsample_tiles`, `refstate.prepare_reference`,
+    `stages.source_tiles` and `denoise.denoise_planes`, on the host), and
+    "launches", (K9, K10, K11, K12, K13) launches by path."""
+    return {"calls": {k: {} for k, _ in STAGE_KERNELS}, "launches": {}}
 
 
-# the launch counts of K9, K10 and K11
+# the launch counts of K9 to K13
 STAGE_KERNELS = (("K9", "resample_down"), ("K10", "resample_up"),
-                 ("K11", "refplanes"))
-# the plain functions K9, K10 and K11 replace on every encode path: none
-# may take a tensor on the card between phases 3 and 15
+                 ("K11", "refplanes"), ("K12", "pad_tiles"),
+                 ("K13", "denoise"))
+# the plain functions K9 to K13 replace on every encode path: none may
+# take a tensor on the card between phases 3 and 15, nor in phase 22's
+# encode
 PLAIN_STAGES = (("ops.resample", "downsample2x"),
                 ("ops.resample", "upsample2x_luma"),
                 ("ops.resample", "upsample2x_chroma"),
-                ("ops.qpel", "pad_guard"), ("ops.me", "downsample4"))
+                ("ops.qpel", "pad_guard"), ("ops.me", "downsample4"),
+                ("models.stages", "pad_to"),
+                ("ops.denoise", "denoise_plane"))
 
 
 def require_stage_launches(record, path, what, want):
-    """A path's K9, K10 and K11 launches (since the counts were set to 0)
-    must be `want`; they are kept in `record["launches"][path]`."""
+    """A path's K9 to K13 launches (since the counts were set to 0) must
+    be `want`; they are kept in `record["launches"][path]`."""
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 
     got = tuple(LAUNCH_COUNTS[count] for _, count in STAGE_KERNELS)
-    _require(got == tuple(want), f"{what}: K9, K10 and K11 launched {got} "
+    _require(got == tuple(want), f"{what}: K9 to K13 launched {got} "
              f"times, not {tuple(want)}")
     record["launches"][path] = got
-    print(f"  K9, K10 and K11 launches of {what}: {got}")
+    print(f"  K9, K10, K11, K12 and K13 launches of {what}: {got}")
 
 
 @contextlib.contextmanager
@@ -1397,11 +1428,12 @@ def tile_copies(seen):
 
 
 def stage_bytes(kernel, args, outs):
-    """The bytes K9, K10 or K11 must move on its stage entry's arguments,
-    from what the data needs: each output byte written once; read once,
-    K9 the 2x2 boxes of its outputs (an odd last row or column is not
-    read), K10 the cropped base picture (not its padded MBs), K11 its
-    tiles."""
+    """The bytes K9 to K13 must move on its stage entry's arguments, from
+    what the data needs: each output byte written once; read once, K9 the
+    2x2 boxes of its outputs (an odd last row or column is not read), K10
+    the cropped base picture (not its padded MBs), K11 its tiles, K12 the
+    source planes' pixels within the padded picture, K13 the current and
+    previous planes."""
     import torch
 
     out = sum(o.numel() * o.element_size() for o in outs)
@@ -1409,6 +1441,12 @@ def stage_bytes(kernel, args, outs):
         read = 4 * out
     elif kernel == "K10":
         read = sum(h * w for h, w in args[2])
+    elif kernel == "K12":
+        planes, mbw, mbh = args
+        read = sum(min(x.shape[0], mbh * t) * min(x.shape[1], mbw * t)
+                   for lanes, t in zip(planes, (16, 8, 8)) for x in lanes)
+    elif kernel == "K13":
+        read = sum(x.numel() for frame in args for x in frame)
     else:
         read = sum(a.numel() * a.element_size() for a in args
                    if isinstance(a, torch.Tensor))
@@ -1416,24 +1454,40 @@ def stage_bytes(kernel, args, outs):
 
 
 def check_stage(kernel, args, what, label, trace=False):
-    """K9, K10 or K11 (`kernel`) against its plain version on one call's
+    """K9 to K13 (`kernel`) against its plain version on one call's
     stage-entry arguments on the card (`downsample_planes`,
-    `upsample_tiles`, `prepare_reference`): the entry, run
-    RESAMPLE_REPEATS times, must give every output of the plain version
-    (keys in order, dtypes, shapes, values), one count a call. Returns its
-    numbers: ms (its wrapper, `downsample_k9`, `upsample_k10` or
-    `planes_k11`) and stage_ms (the entry), from CUDA events over 20
+    `upsample_tiles`, `prepare_reference`, `stages.source_tiles`,
+    `denoise.denoise_planes`): the entry, run RESAMPLE_REPEATS times, must
+    give every output of the plain version (keys in order, dtypes, shapes,
+    values), one count a call. Returns its numbers: ms (its wrapper,
+    `downsample_k9`, `upsample_k10`, `planes_k11`, `tiles_k12` or
+    `denoise_k13`) and stage_ms (the entry), from CUDA events over 20
     calls; host_us (the wrapper's host time a call, 20 calls issued
     without a sync); plain_ms (the checked call); bound_ms (the bytes it
     must move at 3.35 TB/s, `stage_bytes`); with `trace`, the kernels one
     call launches and their device us (`kernel_launches`); max_abs_err."""
     import torch
-    from h264lab_tpu_torch.models import refstate
-    from h264lab_tpu_torch.ops import refplanes, resample
+    from h264lab_tpu_torch.models import refstate, stages
+    from h264lab_tpu_torch.ops import denoise, pretile, refplanes, resample
     from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 
     count = dict(STAGE_KERNELS)[kernel]
-    if kernel == "K9":
+    if kernel == "K12":
+        entry = stages.source_tiles
+        plain = stages.source_tiles_plain
+
+        def wrapper():
+            return pretile.tiles_k12(*args)
+    elif kernel == "K13":
+        entry = denoise.denoise_planes
+
+        def plain(cur, prev):
+            return tuple(denoise.denoise_plane(c, p)
+                         for c, p in zip(cur, prev))
+
+        def wrapper():
+            return denoise.denoise_k13(*args[0], *args[1])
+    elif kernel == "K9":
         entry = resample.downsample_planes
 
         def plain(*planes):
@@ -1511,6 +1565,132 @@ def check_stage(kernel, args, what, label, trace=False):
           f"{100 * out['bound_ms'] / out['ms']:.2f}% of it reached{dev}); "
           f"outputs {shapes}")
     return out
+
+
+def pre_parts(frames, mbw, mbh, label, reps=5):
+    """The `pre` stage of G lanes' numpy frames in its three parts, each
+    timed apart over `reps` calls after a warm one (medians): the host
+    copy into the pinned staging buffer (`Staging.fill`, host ms; on the
+    staging's threads, and on one thread in turns with them: 1, N, N, 1),
+    the upload (`Staging.send`: its one non-blocking `copy_`, CUDA events)
+    and K12 (`stages.source_tiles`, CUDA events); beside them, the host
+    link's
+    rate from a pinned `copy_` of the same bytes into a card buffer (the
+    bound of the upload), and the `pre` the port had before K12 (the
+    lanes stacked on the host, a pageable `.to`, `pad_to` and the tiling).
+    Returns the numbers."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from h264lab_tpu_torch.models import stages
+
+    card = torch.device("cuda", 0)
+    staging = stages.Staging(card)
+    nbytes = sum(np.asarray(p).nbytes for f in frames for p in f)
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    stages.source_tiles(tuple(zip(*staging.upload(frames))), mbw, mbh)
+    torch.cuda.synchronize()
+    threads = staging.threads
+    host, upload, k12, whole, turns = [], [], [], [], []
+    for n in (1, threads, threads, 1):
+        staging.threads = n
+        for i in range(reps + 1):
+            e = events()
+            t0 = time.perf_counter()
+            filled = staging.fill(frames)
+            t1 = time.perf_counter()
+            e[0].record()
+            planes = staging.send(filled)
+            e[1].record()
+            stages.source_tiles(tuple(zip(*planes)), mbw, mbh)
+            e[2].record()
+            torch.cuda.synchronize()
+            if i == 0:
+                continue
+            turns.append((n, 1e3 * (t1 - t0)))
+            if n == threads:
+                whole.append(time.perf_counter() - t0)
+                host.append(1e3 * (t1 - t0))
+                upload.append(e[0].elapsed_time(e[1]))
+                k12.append(e[1].elapsed_time(e[2]))
+    staging.threads = threads
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=card)
+    link = []
+    for _ in range(reps + 1):
+        e = events()
+        e[0].record()
+        dst.copy_(pinned, non_blocking=True)
+        e[1].record()
+        torch.cuda.synchronize()
+        link.append(e[0].elapsed_time(e[1]))
+    del pinned, dst
+
+    def old_pre():
+        out = []
+        for i, t in enumerate((16, 8, 8)):
+            p = torch.stack([torch.from_numpy(np.ascontiguousarray(
+                f[i], np.uint8)) for f in frames]).to(card)
+            p = stages.pad_to(p, mbh * t, mbw * t)
+            out.append(p.reshape(len(frames), mbh, t, mbw, t)
+                       .permute(0, 1, 3, 2, 4).reshape(len(frames), -1, t, t))
+        torch.cuda.synchronize()
+        return out
+    old_pre()
+    old = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        old_pre()
+        old.append(1e3 * (time.perf_counter() - t0))
+    med = statistics.median
+    out = dict(bytes=nbytes, threads=threads, host_copy_ms=med(host),
+               host_copy_1_thread_ms=med([ms for n, ms in turns if n == 1]),
+               upload_ms=med(upload), k12_ms=med(k12),
+               pre_ms=1e3 * med(whole), link_ms=med(link[1:]),
+               old_pre_ms=med(old))
+    out["link_gb_s"] = nbytes / out["link_ms"] / 1e6
+    out["host_copy_gb_s"] = nbytes / out["host_copy_ms"] / 1e6
+    out["bound_ms"] = out["link_ms"]
+    print(f"  pre of {len(frames)} lanes ({nbytes / 1e6:.2f} MB of numpy "
+          f"planes) {label}, medians: host copy into the pinned staging "
+          f"{out['host_copy_ms']:.3f} ms on {threads} threads "
+          f"({out['host_copy_gb_s']:.2f} GB/s; on one thread "
+          f"{out['host_copy_1_thread_ms']:.3f} ms, in turns 1, {threads}, "
+          f"{threads}, 1 threads: " + ", ".join(
+              f"{statistics.median([ms for k, ms in turns[j:j + reps]]):.3f}"
+              for j in range(0, len(turns), reps)) + " ms), upload "
+          f"{out['upload_ms']:.3f} ms, K12 {out['k12_ms']:.4f} ms; the "
+          f"three {out['pre_ms']:.3f} ms (host wall, synchronized); a pinned "
+          f"copy_ of the same bytes {out['link_ms']:.3f} ms "
+          f"({out['link_gb_s']:.2f} GB/s: the upload's bound), the upload "
+          f"at {100 * out['link_ms'] / out['upload_ms']:.1f}% of it; the "
+          f"pre before K12 (stack, pageable .to, pad_to, tiling) "
+          f"{out['old_pre_ms']:.3f} ms")
+    return out
+
+
+def odd_planes(shapes, lanes, seed):
+    """Seeded planes on the card, each at an odd address (one byte past a
+    fresh allocation): (Y, U, V), each `lanes` 2-D uint8 planes."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        row = []
+        for _ in range(lanes):
+            buf = torch.empty(shape[0] * shape[1] + 16, dtype=torch.uint8,
+                              device="cuda")
+            p = buf[1:1 + shape[0] * shape[1]].view(shape)
+            p.copy_(torch.from_numpy(rng.integers(0, 256, shape,
+                                                  dtype=np.uint8)))
+            row.append(p)
+        out.append(tuple(row))
+    return tuple(out)
 
 
 def escape_loop(rbsp: bytes) -> bytes:
@@ -1869,19 +2049,24 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     svc.stage_times = {}
     before = dict(LAUNCH_COUNTS)
     refs.clear()
-    down, up = [], []
+    down, up, pre = [], [], []
     with recorded_calls("deblock_frame", bm_calls), \
             recorded_calls("prepare_reference", refs, "models.refstate"), \
             recorded_calls("downsample_planes", down, "ops.resample"), \
-            recorded_calls("upsample_tiles", up, "ops.resample"):
+            recorded_calls("upsample_tiles", up, "ops.resample"), \
+            recorded_calls("source_tiles", pre, "models.stages"):
         res, s = svc_frame(3, "IDR", key)
     enh_refs = [a for a in refs if a[0].shape[1] == nmb]
-    _require(len(refs) == 2 and len(enh_refs) == len(down) == len(up) == 1,
+    # the enhancement's `pre`: the 1080p planes of its base-mode frame
+    enh_pre = [a for a in pre if a[1] * a[2] == nmb]
+    _require(len(refs) == 2 and len(enh_refs) == len(down) == len(up) == 1
+             and len(pre) == 2 and len(enh_pre) == 1,
              f"the base-mode IDR's {len(refs)} ref stages, {len(down)} down "
-             f"and {len(up)} up stages")
-    for kernel, a in (("K9", down[0]), ("K10", up[0]), ("K11", enh_refs[0])):
+             f"and {len(up)} up stages, {len(pre)} pre stages")
+    for kernel, a in (("K9", down[0]), ("K10", up[0]), ("K11", enh_refs[0]),
+                      ("K12", enh_pre[0])):
         stages["calls"][kernel]["SVC base-mode frame"] = to_device(a, "cpu")
-    del refs, enh_refs, down, up
+    del refs, enh_refs, down, up, pre, enh_pre
     bm_launches = LAUNCH_COUNTS["deblock"] - before["deblock"]
     svc_table("IDR (base-mode)", s, res)
     bm_sym = base_mode_launches(before, "the forced SVC IDR (base-mode)")
@@ -1895,10 +2080,11 @@ def svc_phases(cfg, run, label, numbers, k2_numbers, k3_numbers, me_calls,
     bitpack.pack_frames = k1
     print(f"  peak device memory of the SVC path "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    # K9 once per frame, K10 once per base-mode IDR, K11 once per layer
-    # and frame (the base-mode frame's `ref` included)
+    # K9 once per frame, K10 once per base-mode IDR, K11 and K12 once per
+    # layer and frame (the base-mode frame's `ref` and `pre` included)
     require_stage_launches(stages, "svc", f"the SVC path's {SVC_FRAMES} "
-                           "frames", (SVC_FRAMES, 2, 2 * SVC_FRAMES))
+                           "frames", (SVC_FRAMES, 2, 2 * SVC_FRAMES,
+                                      2 * SVC_FRAMES, 0))
     svc_launches = LAUNCH_COUNTS["bitpack"]
     svc_db_launches = LAUNCH_COUNTS["deblock"]
     svc_wf_launches = LAUNCH_COUNTS["wavefront"]
@@ -2098,7 +2284,7 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
           "issued at a time")
     reset_launches()
     mesh_res, db_calls, mesh_wf, mesh_me = [], [], [], []
-    mesh_sym, mesh_k7, mesh_k8, mesh_refs = [], [], [], []
+    mesh_sym, mesh_k7, mesh_k8, mesh_refs, mesh_pre = [], [], [], [], []
     for t, kind in enumerate(MESH_STEPS):
         # the last step runs without stage syncs: the mesh's step time
         staged = t < len(MESH_STEPS) - 1
@@ -2115,7 +2301,9 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
                 recorded_calls("select_parallel", mesh_k8), \
                 recorded_calls("prepare_reference",
                                mesh_refs if t == 1 else [],
-                               "models.refstate"):
+                               "models.refstate"), \
+                recorded_calls("source_tiles", mesh_pre if t == 1 else [],
+                               "models.stages"):
             if t == 1:
                 n_sym = len(mesh_sym)
                 n_k8 = len(mesh_k8)
@@ -2212,8 +2400,19 @@ def mesh_phases(cfg, run, frames, label, numbers, k2_numbers, k3_numbers,
     stages["calls"]["K11"]["mesh exchange (a gop row)"] = to_device(
         mesh_refs[0], "cpu")
     del mesh_refs
+    # each shard's `pre`: its lanes' block rows
+    _require(len(mesh_pre) == len(enc.shards) and all(
+        (len(a[0][0]), a[1], a[2]) == (n_gop // MESH[0], WIDTH // 16,
+                                       HEIGHT // 16 // MESH[1])
+        for a in mesh_pre), f"the mesh P step's {len(mesh_pre)} pre stages")
+    stages["calls"]["K12"]["mesh shard's block rows"] = to_device(
+        mesh_pre[0], "cpu")
+    del mesh_pre
+    # K11 once per step, gop row and distinct device, K12 once per shard
+    # and step
     require_stage_launches(stages, "mesh", "the mesh run",
-                           (0, 0, per_step * len(MESH_STEPS)))
+                           (0, 0, per_step * len(MESH_STEPS),
+                            len(enc.shards) * len(MESH_STEPS), 0))
 
     flat = GopBandEncoder(mcfg, n_gop=n_gop)
     for t, kind in enumerate(MESH_STEPS):
@@ -2313,7 +2512,8 @@ def main() -> int:
     from h264lab_tpu_torch.parallel.gop import GopBandEncoder
     from h264lab_tpu_torch.utils.device import card_label
     from h264lab_tpu_torch.utils.synthetic import (chessboard_sequence,
-                                                   deblock_inputs)
+                                                   deblock_inputs,
+                                                   noise_pan_sequence)
 
     t_start = time.perf_counter()
 
@@ -2324,8 +2524,8 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # 2. build K1, K2, K3, K4 with K5, K6, K7, K8, K9 with K10 and K11,
-    # one nvcc each, started together
+    # 2. build K1, K2, K3, K4 with K5, K6, K7, K8, K9 with K10, K11, K12
+    # and K13, one nvcc each, started together
     t0 = time.perf_counter()
     built = cuda_build.build_all([cuda_build.CSRC / "bitpack.cu",
                                   cuda_build.CSRC / "deblock.cu",
@@ -2335,12 +2535,14 @@ def main() -> int:
                                   cuda_build.CSRC / "inter.cu",
                                   cuda_build.CSRC / "select.cu",
                                   cuda_build.CSRC / "resample.cu",
-                                  cuda_build.CSRC / "refplanes.cu"])
-    print(f"K1 to K11 built in {time.perf_counter() - t0:.1f} s")
+                                  cuda_build.CSRC / "refplanes.cu",
+                                  cuda_build.CSRC / "pretile.cu",
+                                  cuda_build.CSRC / "denoise.cu"])
+    print(f"K1 to K13 built in {time.perf_counter() - t0:.1f} s")
     ptxas = {}
     for name, (lib_path, log) in zip(("K1", "K2", "K3", "K4 and K5", "K6",
-                                      "K7", "K8", "K9 and K10", "K11"),
-                                     built):
+                                      "K7", "K8", "K9 and K10", "K11", "K12",
+                                      "K13"), built):
         print(f"  {name}: {os.path.relpath(lib_path, ROOT)}")
         ptxas[name] = ptxas_lines(log)
         for line in ptxas[name]:
@@ -2358,7 +2560,7 @@ def main() -> int:
     sym_calls = {}              # the paths' K6 inputs, for phase 19
     residual = residual_record()  # the paths' K7 and K8, for phase 20
     res_calls = {}              # the last step's K7 and K8 inputs
-    stages = stage_record()     # the paths' K9, K10 and K11, for phase 21
+    stages = stage_record()     # the paths' K9 to K13, for phases 21, 22
     # no plain resampling or padding call may reach the card on any path
     # of phases 3 to 15
     plain_seen = []
@@ -2416,7 +2618,7 @@ def main() -> int:
         """A step with per-stage times that keeps the RBSPs it escapes, the
         bit writers it packs and its deblocking inputs."""
         escape, to_bytes = nal.escape_rbsp, BitWriter.to_bytes
-        rbsps[kind], writers[kind], calls, refs = [], [], [], []
+        rbsps[kind], writers[kind], calls, refs, pre = [], [], [], [], []
         nal.escape_rbsp = lambda rbsp: rbsps[kind].append(rbsp) or escape(
             rbsp)
         BitWriter.to_bytes = lambda bw: writers[kind].append(bw) or to_bytes(
@@ -2425,7 +2627,8 @@ def main() -> int:
         try:
             with recorded_calls("deblock_frame", calls), \
                     recorded_calls("prepare_reference", refs,
-                                   "models.refstate"):
+                                   "models.refstate"), \
+                    recorded_calls("source_tiles", pre, "models.stages"):
                 pending, res, s, sym = step(t, kind, r)
         finally:
             nal.escape_rbsp = escape
@@ -2434,6 +2637,12 @@ def main() -> int:
         _require(len(refs) == 1, f"{len(refs)} ref stages in a step")
         stages["calls"]["K11"][f"{LANES}-lane {kind} step"] = to_device(
             refs[0], "cpu")
+        _require(len(pre) == 1 and len(pre[0][0][0]) == LANES,
+                 f"{len(pre)} pre stages in a step")
+        if kind == "P":
+            stages["calls"]["K12"][f"{LANES}-lane P step"] = to_device(
+                pre[0], "cpu")
+        del pre
         _require(len(sym) == 1, f"{len(sym)} symbolize calls in a step")
         db_args[kind] = calls[0]
         sym_calls[f"{LANES}-lane {kind} step"] = to_device(sym[0], "cpu")
@@ -2490,9 +2699,10 @@ def main() -> int:
                   LAUNCH_COUNTS["select_parallel"], gop_k8[0])
     residual["launches"]["gop"] = (LAUNCH_COUNTS["inter_residual"],
                                 LAUNCH_COUNTS["select_parallel"])
-    # K11 once per step (its `ref` stage), no resampling
+    # K11 once per step (its `ref` stage), K12 once per step (its `pre`),
+    # no resampling and no denoise
     require_stage_launches(stages, "gop", f"the main path's {STEPS} steps",
-                           (0, 0, STEPS))
+                           (0, 0, STEPS, STEPS, 0))
 
     # 4. K1 against the plain packer on the real IDR and P grids and on a
     # synthetic grid past the drop boundaries
@@ -2557,7 +2767,7 @@ def main() -> int:
               f"bytes ({len(got[0].payload)} B)")
     print(f"  CPU encode {time.perf_counter() - t0:.1f} s")
     # the decode is host work: a worker process runs it beside phases 6 to
-    # 21 (at exit, even a failed one, the pool waits for it and stops it)
+    # 22 (at exit, even a failed one, the pool waits for it and stops it)
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
         "spawn"))
     decoding = pool.submit(decode_lane0, [r[0].payload for r in (first,
@@ -2655,7 +2865,7 @@ def main() -> int:
     residual["launches"]["seq"] = (LAUNCH_COUNTS["inter_residual"],
                                 LAUNCH_COUNTS["select_parallel"])
     require_stage_launches(stages, "seq", "the sequential path's 3 frames",
-                           (0, 0, 3))
+                           (0, 0, 3, 3, 0))
     me_calls["speed-0 P frame"] = to_device(seq_me[0], "cpu")
     part_calls = {"speed-0 P frame": to_device(seq_part[0], "cpu")}
     del seq_me, seq_part
@@ -2694,23 +2904,33 @@ def main() -> int:
     cif_k8 = []                 # and parallel selects
     cif_frames = list(chessboard_sequence(*CIF, 3))
     cif = EncoderConfig(width=CIF[0], height=CIF[1], gop=GOP, qp=QP)
-    for speed, n_frames in ((0, 3), (10, 2)):
+    # speed 1 with the temporal denoise on a sub-pel noise pan (the
+    # chessboard's large temporal differences mostly take gain 0)
+    noise_frames = list(noise_pan_sequence(*CIF, 3))
+    for speed, n_frames, dn in ((0, 3, False), (10, 2, False),
+                                (1, 3, True)):
         r = dataclasses.replace(run, encode_speed=speed)
-        on_card, on_cpu = H264Encoder(cif), H264Encoder(cif, device="cpu")
+        c = dataclasses.replace(cif, temporal_denoise_flag=dn)
+        what = f"speed {speed}" + (" with the denoise" if dn else "")
+        src = noise_frames if dn else cif_frames
+        on_card, on_cpu = H264Encoder(c), H264Encoder(c, device="cpu")
         card_res = []
         for t in range(n_frames):
             with recorded_calls("symbolize", cif_sym), \
                     recorded_calls("select_parallel", cif_k8):
-                a = on_card.encode(*cif_frames[t], r, return_recon=True)
-            b = on_cpu.encode(*cif_frames[t], r)
-            _require(a.payload == b.payload, f"CIF speed {speed} frame {t}: "
+                a = on_card.encode(*src[t], r, return_recon=True)
+            b = on_cpu.encode(*src[t], r)
+            _require(a.payload == b.payload, f"CIF {what} frame {t}: "
                      "card bytes differ from CPU bytes")
-            print(f"CIF H264Encoder speed {speed} frame {t} ({a.frame_type}):"
+            print(f"CIF H264Encoder {what} frame {t} ({a.frame_type}):"
                   f" card bytes == CPU bytes ({len(a.payload)} B)")
             card_res.append(a)
         decode_check(b"".join(a.payload for a in card_res),
-                     [a.recon for a in card_res],
-                     f"CIF H264Encoder speed {speed}")
+                     [a.recon for a in card_res], f"CIF H264Encoder {what}")
+    _require(LAUNCH_COUNTS["denoise"] == 2, f"the CIF denoise encoder "
+             f"launched K13 {LAUNCH_COUNTS['denoise']} times in its 2 P "
+             "frames")
+    cif_k13 = LAUNCH_COUNTS["denoise"]
     r = dataclasses.replace(run, encode_speed=1)
     on_card = GopBandEncoder(cif, n_gop=2)
     on_cpu = GopBandEncoder(cif, n_gop=2, device="cpu")
@@ -2737,8 +2957,9 @@ def main() -> int:
           "for each of their symbolize calls on the card")
     cif_me = (LAUNCH_COUNTS["me"], LAUNCH_COUNTS["partition"])
     print(f"K4 and K5 launches of the CIF card encoders (P frames: 2 at "
-          f"speed 0, 1 at speed 10, a 2-lane step at speed 1): {cif_me}")
-    _require(cif_me == (4, 2), "the CIF card encoders did not launch K4 on "
+          f"speed 0, 1 at speed 10, 2 denoised at speed 1, a 2-lane step at "
+          f"speed 1): {cif_me}; K13 launches {cif_k13}")
+    _require(cif_me == (6, 2), "the CIF card encoders did not launch K4 on "
              "every P frame or step and K5 on every speed-0 P frame")
     _require(cuda_calls(cif_k8) == 1, f"the CIF card encoders made "
              f"{cuda_calls(cif_k8)} parallel selects, not 1 (speed 10's P)")
@@ -2821,8 +3042,8 @@ def main() -> int:
     max_err = max(max_err, err)
     print(f"  mesh phase {time.perf_counter() - t0:.1f} s")
     plain_window.close()
-    _require(not plain_seen, f"plain resampling or padding on the card in "
-             f"phases 3 to 15: {sorted(set(plain_seen))} "
+    _require(not plain_seen, f"plain resampling, padding or denoise on the "
+             f"card in phases 3 to 15: {sorted(set(plain_seen))} "
              f"({len(plain_seen)} calls)")
     for kernel, stage in (("K11", "ref"), ("K10", "up")):
         calls, made = copies[kernel]
@@ -2831,9 +3052,8 @@ def main() -> int:
                  f"stages in phases 3 to 15 copied before {kernel}")
         print(f"the `{stage}` stages of phases 3 to 15 handed {kernel} "
               f"their {calls} tile tensors without a copy")
-    print("no downsample2x, upsample2x_luma, upsample2x_chroma, "
-          "qpel.pad_guard or me.downsample4 call took a tensor on the card "
-          "in phases 3 to 15")
+    print("no " + ", ".join(f"{m}.{n}" for m, n in PLAIN_STAGES) + " call "
+          "took a tensor on the card in phases 3 to 15")
 
     # 16. K2 against the plain filter on seeded inputs at the main paths'
     # shapes
@@ -3012,10 +3232,11 @@ def main() -> int:
                      f"{kernel}'s traced kernels on {what}: {seen}")
     print(f"  K7 and K8 checks {time.perf_counter() - t0:.1f} s")
 
-    # 21. K9, K10 and K11 against their plain versions on the paths' real
-    # inputs
+    # 21. K9 to K12 against their plain versions on the paths' real
+    # inputs (K12 also on a cropped frame at an odd address), and `pre`'s
+    # parts on the 16-lane P step's frames
     t0 = time.perf_counter()
-    for kernel in ("K9 and K10", "K11"):
+    for kernel in ("K9 and K10", "K11", "K12", "K13"):
         for name, v in ptxas_numbers(ptxas[kernel]).items():
             print(f"{kernel} {name} {label}: {v['registers']} registers, "
                   f"{v['smem']} bytes of shared memory, {v['stack']} bytes "
@@ -3023,22 +3244,76 @@ def main() -> int:
                   f"{v['spill_loads']} B loaded")
     stage_numbers = {k: {} for k, _ in STAGE_KERNELS}
     traced = {"K9": "SVC base-mode frame", "K10": "SVC base-mode frame",
-              "K11": f"{LANES}-lane P step"}
+              "K11": f"{LANES}-lane P step", "K12": f"{LANES}-lane P step",
+              "K13": "denoise path P frame"}
     for kernel, calls in stages["calls"].items():
         for what, args in calls.items():
             stage_numbers[kernel][what] = check_stage(
                 kernel, to_device(args, "cuda"), f"the {what}'s inputs", label,
-                trace=what == traced[kernel])
+                trace=what == traced[kernel] or kernel == "K12")
     stages["calls"].clear()
+    odd = ("cropped 1917x1079 frames at an odd address (2 lanes)",
+           odd_planes(((1079, 1917), (539, 958), (539, 958)), 2, 13))
+    stage_numbers["K12"][odd[0]] = check_stage(
+        "K12", (odd[1], WIDTH // 16, HEIGHT // 16), f"{odd[0]}", label,
+        trace=True)
+    del odd
+    torch.cuda.empty_cache()
+    pre_numbers = pre_parts(lane_frames(frames, 2 + TIMED_STEPS),
+                            WIDTH // 16, HEIGHT // 16, label)
+    torch.cuda.empty_cache()
+    print(f"  K9 to K12 checks {time.perf_counter() - t0:.1f} s")
+
+    # 22. the denoise path: H264Encoder at 1080p, speed 0, QP 33, the
+    # temporal denoise on a sub-pel noise pan: IDR, P, P
+    t0 = time.perf_counter()
+    dn = H264Encoder(dataclasses.replace(cfg, temporal_denoise_flag=True))
+    dn_run = dataclasses.replace(run, encode_speed=SEQ_SPEED)
+    dn_frames = list(noise_pan_sequence(WIDTH, HEIGHT, 3))
+    dn_seen, dn_calls = [], []
+    reset_launches()
+    with plain_stages_on_card(dn_seen), \
+            recorded_calls("denoise_planes", dn_calls, "ops.denoise"):
+        for t, kind in enumerate(("IDR", "P", "P")):
+            if t == 2:
+                dn.stage_times = {}
+            t1 = time.perf_counter()
+            res = dn.encode(*dn_frames[t], dn_run)
+            s = time.perf_counter() - t1
+            _require(res.frame_type == kind and len(res.payload) > 0,
+                     f"denoise path frame {t} is {res.frame_type}, not "
+                     f"{kind}")
+            print(f"denoise path frame {t} ({kind}) {label}: {s:.3f} s"
+                  + (", stage syncs inside" if t == 2 else
+                     " (first use)" if t < 2 else "")
+                  + f"; {len(res.payload)} B")
+    for k, v in dn.stage_times.items():
+        print(f"  stage {k:8s} {1e3 * v:10.2f} ms {label}")
+    dn.stage_times = None
+    _require(not dn_seen, f"plain padding or denoise on the card in the "
+             f"denoise path: {sorted(set(dn_seen))}")
+    _require(len(dn_calls) == 2 and all(
+        a[0][0].is_cuda for a in dn_calls), f"the denoise path's "
+        f"{len(dn_calls)} denoise calls")
+    # K11 and K12 once per frame, K13 once per frame after the first
+    require_stage_launches(stages, "denoise", "the denoise path's 3 frames",
+                           (0, 0, 3, 3, 2))
+    stage_numbers["K13"][traced["K13"]] = check_stage(
+        "K13", dn_calls[-1], "the 1080p denoise path's second P frame's "
+        "planes", label, trace=True)
+    del dn, dn_frames, dn_calls
     torch.cuda.empty_cache()
     # the traces hold the kernel and no other
     for kernel, name in (("K9", "downsample_kernel"),
                          ("K10", "upsample_kernel"),
-                         ("K11", "reference_planes_kernel")):
-        seen = [k for k, _ in stage_numbers[kernel][traced[kernel]][
-            "kernels"]]
-        _require(seen in ([], [name]), f"{kernel}'s traced kernels: {seen}")
-    print(f"  K9, K10 and K11 checks {time.perf_counter() - t0:.1f} s")
+                         ("K11", "reference_planes_kernel"),
+                         ("K12", "pad_tiles_kernel"),
+                         ("K13", "denoise_kernel")):
+        for what, v in stage_numbers[kernel].items():
+            seen = [k for k, _ in v["kernels"]]
+            _require(seen in ([], [name]), f"{kernel}'s traced kernels on "
+                     f"{what}: {seen}")
+    print(f"  the denoise path and K13 {time.perf_counter() - t0:.1f} s")
 
     # phase 5's decode
     t0 = time.perf_counter()
@@ -3047,13 +3322,14 @@ def main() -> int:
     print(f"lane 0 steps 0 and 1 decode bit-exactly to the card's recon "
           f"(waited {time.perf_counter() - t0:.1f} s for the worker); decode "
           f"seconds per {WIDTH}x{HEIGHT} frame {label} (the port's numpy "
-          f"decoder, a host time beside phases 6 to 21): IDR "
+          f"decoder, a host time beside phases 6 to 22): IDR "
           f"{decode_s[0]:.2f}, P {decode_s[1]:.2f}")
 
-    # 22. results: K1's, K2's, K4's, K6's, K7's, K8's and K11's entries
-    # hold the GOP path's P step (19 of 20 frames of a GOP), K3's its IDR
-    # step, K5's the speed-0 P frame, K9's and K10's the SVC base-mode
-    # frame; their launches count every path
+    # 23. results: K1's, K2's, K4's, K6's, K7's, K8's, K11's and K12's
+    # entries hold the GOP path's P step (19 of 20 frames of a GOP), K3's
+    # its IDR step, K5's the speed-0 P frame, K9's and K10's the SVC
+    # base-mode frame, K13's the denoise path's P frame; their launches
+    # count every path
     p, i, q = numbers["P"], numbers["IDR"], numbers["seq"]
     bm, bp = numbers["SVC base-mode"], numbers["SVC base P"]
     m = numbers["mesh"]
@@ -3212,7 +3488,13 @@ def main() -> int:
              "models/svc.py:316-330 (XLA, no Pallas kernel)"),
             ("K11", "refplanes", "h264lab_tpu_torch/csrc/refplanes.cu",
              "h264lab_tpu/models/refstate.py:28-47 (XLA, no Pallas "
-             "kernel)")):
+             "kernel)"),
+            ("K12", "pad_tiles", "h264lab_tpu_torch/csrc/pretile.cu",
+             "h264lab_tpu/models/wavefront.py:70-75 (numpy on the host) "
+             "with h264lab_tpu/parallel/gop.py:94-106 (XLA, no Pallas "
+             "kernel)"),
+            ("K13", "denoise", "h264lab_tpu_torch/csrc/denoise.cu",
+             "h264lab_tpu/ops/denoise.py:23-41 (XLA, no Pallas kernel)")):
         numbers_of = stage_numbers[kernel]
         main = numbers_of[traced[kernel]]
         i = [k for k, _ in STAGE_KERNELS].index(kernel)
@@ -3227,11 +3509,12 @@ def main() -> int:
             device_us=main["device_us"], path_launches=launches,
             tile_tensors=copies.get(kernel, [None])[0],
             tile_copies=copies.get(kernel, [None, None])[1],
-            ptxas=[x for x in ptxas["K11" if kernel == "K11" else
-                                    "K9 and K10"]
+            ptxas=[x for x in ptxas["K9 and K10" if kernel in ("K9", "K10")
+                                    else kernel]
                    if x.startswith(("downsample" if kernel == "K9" else
                                     "upsample" if kernel == "K10" else
-                                    "reference"))],
+                                    ""))],
+            pre_parts=pre_numbers if kernel == "K12" else None,
             inputs={k: dict(ms=v["ms"], stage_ms=v["stage_ms"],
                             plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                             host_us=v["host_us"], device_us=v["device_us"])

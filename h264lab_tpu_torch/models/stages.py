@@ -4,7 +4,9 @@
 (G lanes of one frame each, every frame cut into B bands) run the same
 stages over a leading axis of N = G * B bands:
 
-  pre      upload the padded planes and tile them into band MB tiles;
+  pre      upload the planes (numpy ones through pinned memory,
+           `Staging`) and pad and tile them into band MB tiles
+           (`source_tiles`: on the card one launch of K12);
   inter    P frames: motion search, partitions, chroma MC, inter TQ
            (`mbscan.inter_stage_core`);
   select   mode selection and intra TQ (`mbscan.select_stage_core`);
@@ -21,6 +23,7 @@ and add its wall seconds under its name.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import time
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from h264lab_tpu_torch.models import mbscan, refstate, wavefront
-from h264lab_tpu_torch.ops import bitpack, tables
+from h264lab_tpu_torch.ops import bitpack, pretile, tables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +59,158 @@ def pad_to(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
     iy = torch.arange(h, device=dev).clamp(max=h0 - 1)
     ix = torch.arange(w, device=dev).clamp(max=w0 - 1)
     return planes.index_select(-2, iy).index_select(-1, ix)
+
+
+def source_tiles(planes, mb_width: int, mb_height: int):
+    """The `pre` stage's tiling: planes (Y, U, V), each G 2-D uint8 planes
+    of one shape on one device (at most the padded size, else cropped),
+    edge-replicated to the padded (mb_height t, mb_width t) and cut into
+    (G, mb_width mb_height, t, t) MB tiles in raster order (t = 16, 8, 8).
+    On CUDA tensors one launch of K12 (`pretile.tiles_k12`; a plane whose
+    rows are not contiguous copied first); on CPU tensors
+    `source_tiles_plain`."""
+    if planes[0][0].device.type == "cpu":
+        return source_tiles_plain(planes, mb_width, mb_height)
+    return pretile.tiles_k12(tuple(tuple(_rows(x) for x in lanes)
+                                   for lanes in planes), mb_width, mb_height)
+
+
+def _rows(plane):
+    """A plane as K12 takes it: itself where its rows are contiguous (any
+    pitch), else a contiguous copy."""
+    h, w = plane.shape
+    if (w > 1 and plane.stride(1) != 1) or (h > 1 and plane.stride(0) < w):
+        return plane.contiguous()
+    return plane
+
+
+def source_tiles_plain(planes, mb_width: int, mb_height: int):
+    """`source_tiles` in plain PyTorch, the reference K12 is held against:
+    the lanes stacked, `pad_to` and the tiling."""
+    out = []
+    for lanes, t in zip(planes, (16, 8, 8)):
+        p = pad_to(torch.stack(list(lanes)), mb_height * t, mb_width * t)
+        out.append(p.reshape(len(lanes), mb_height, t, mb_width, t)
+                   .permute(0, 1, 3, 2, 4).reshape(len(lanes), -1, t, t))
+    return tuple(out)
+
+
+class Staging:
+    """Uploads of frames' planes to `device`, the one way numpy planes
+    reach it (`FrameStages.tiles`, `H264Encoder._device_planes`).
+
+    `upload(frames)` takes G (y, u, v) planes, numpy arrays or tensors,
+    and returns them as 2-D uint8 tensors on the device: a tensor there as
+    it is, one on another card copied, and every numpy plane (or CPU
+    tensor) copied once on the host, straight into its lane's slot of a
+    staging buffer, then, on a card, sent with one non-blocking `copy_`
+    on the current stream into a fresh device buffer that the returned
+    planes are views of (contiguous, each 16-byte aligned). On a card the
+    staging buffers are pinned host memory: two that alternate, each with
+    a CUDA event recorded after its copy, which the host waits for before
+    it writes into that buffer again, so that a step dispatched before
+    the last one is finished (`encode_step_async`) never overwrites bytes
+    still in flight. The buffers grow together (each waited for first),
+    so that the step after the first does not pin memory again. A failed
+    pin, copy or event raises; there is no pageable fallback. On the CPU
+    the staging buffers are plain memory and the returned planes a copy of
+    them (the same slots and layout). The host copies of a fill of at
+    least `PARALLEL_BYTES` run on `threads` threads of the staging's own
+    pool (numpy releases the interpreter lock while it copies).
+
+    `fill` (the host copy) and `send` (the device buffer and its copy)
+    are `upload`'s two halves, timed apart by `chip_smoke.py`. One
+    `Staging` serves one thread (each mesh entry's `FrameStages` has its
+    own, on its own stream)."""
+
+    SLOTS = 2
+    PARALLEL_BYTES = 8 << 20
+    threads = 4
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._pool = None
+        self._host = [None] * self.SLOTS
+        self._events = [None] * self.SLOTS
+        self._next = 0
+
+    def upload(self, frames) -> list:
+        """G (y, u, v) planes on the device (class docstring)."""
+        return self.send(self.fill(frames))
+
+    def fill(self, frames):
+        """The host half of `upload`: the planes to stage copied into the
+        next staging buffer (after waiting for its last copy). Returns
+        what `send` takes."""
+        dev = self.device
+        out = [list(f) for f in frames]
+        jobs, at = [], 0
+        for g, f in enumerate(frames):
+            for p, x in enumerate(f):
+                if isinstance(x, torch.Tensor):
+                    if x.device.type != "cpu" or dev.type == "cpu":
+                        out[g][p] = x.to(dev)   # itself where it is
+                        continue
+                    x = x.numpy()
+                a = np.asarray(x)
+                if a.ndim != 2:
+                    raise ValueError(f"lane {g} plane {p} of shape "
+                                     f"{a.shape}, not (h, w)")
+                jobs.append((g, p, a, at))
+                at += -(-a.size // 16) * 16
+        if not jobs:
+            return out, None, []
+        k = self._next
+        self._next = (k + 1) % self.SLOTS
+        self._wait(k)
+        if self._host[k] is None or self._host[k].numel() < at:
+            size = -(-at // (1 << 20)) << 20
+            for j in range(self.SLOTS):
+                self._wait(j)
+                self._host[j] = None
+                self._host[j] = torch.empty(size, dtype=torch.uint8,
+                                            pin_memory=dev.type == "cuda")
+        h = self._host[k].numpy()
+
+        def copy(job):
+            _, _, a, off = job
+            np.copyto(h[off:off + a.size].reshape(a.shape), a,
+                      casting="unsafe")
+        if self.threads > 1 and len(jobs) > 1 and at >= self.PARALLEL_BYTES:
+            if self._pool is None:
+                self._pool = concurrent.futures.ThreadPoolExecutor(
+                    self.threads, thread_name_prefix="staging")
+            list(self._pool.map(copy, jobs))
+        else:
+            for job in jobs:
+                copy(job)
+        return out, (k, at), jobs
+
+    def _wait(self, k: int):
+        """Wait for staging buffer k's last copy."""
+        if self._events[k] is not None:
+            self._events[k].synchronize()
+            self._events[k] = None
+
+    def send(self, filled) -> list:
+        """The device half of `upload`: the staged bytes into a fresh
+        device buffer (one non-blocking copy on the current stream, its
+        event recorded), and the planes as views of it."""
+        out, slot, jobs = filled
+        if slot is not None:
+            k, at = slot
+            host = self._host[k][:at]
+            if self.device.type == "cuda":
+                buf = torch.empty(at, dtype=torch.uint8, device=self.device)
+                buf.copy_(host, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(buf.device))
+                self._events[k] = event
+            else:
+                buf = host.clone()
+            for g, p, a, off in jobs:
+                out[g][p] = buf[off:off + a.size].view(a.shape)
+        return [tuple(f) for f in out]
 
 
 class StageTimer:
@@ -109,6 +264,15 @@ class FrameStages(StageTimer):
         self.mb_width = mb_width
         self.mb_height = mb_height
         self._plans = {}
+        self.staging = Staging(device)
+
+    def tiles(self, frames):
+        """The `pre` stage of G frames (`run`'s frames): their planes
+        uploaded (`Staging`) and cut into (G, nmb, t, t) tiles of the
+        padded picture (`source_tiles`: on a card one launch of K12)."""
+        planes = self.staging.upload(frames)
+        return source_tiles(tuple(zip(*planes)), self.mb_width,
+                            self.mb_height)
 
     def plan(self, band_rows: int):
         """(steps, avail_top, avail_left) of a band: the slope-2 wavefront
@@ -161,16 +325,10 @@ class FrameStages(StageTimer):
         qp_np = np.asarray(qp, np.int32)
 
         with self.stage("pre"):
-            src = []
-            for i, t in ((0, 16), (1, 8), (2, 8)):
-                p = torch.stack([
-                    f[i] if isinstance(f[i], torch.Tensor) else
-                    torch.from_numpy(np.ascontiguousarray(f[i], np.uint8))
-                    for f in frames]).to(dev)
-                p = pad_to(p, self.mb_height * t, mbw * t)
-                # (G, H, W) -> (G*B, nmb, t, t): band rows are contiguous
-                src.append(p.reshape(G, B * rows, t, mbw, t)
-                           .permute(0, 1, 3, 2, 4).reshape(N, nmb, t, t))
+            # (G, H / t * W / t, t, t) -> (G*B, nmb, t, t): band rows are
+            # contiguous
+            src = [x.reshape(N, nmb, t, t) for x, t in
+                   zip(self.tiles(frames), (16, 8, 8))]
             qpt = torch.as_tensor(qp_np, device=dev)
             qpc = torch.as_tensor(tables.QPC_FROM_QPY[qp_np], device=dev)
             lane = torch.arange(G, device=dev).repeat_interleave(B)

@@ -46,7 +46,7 @@ from h264lab_tpu_torch.config import EncoderConfig, RunConfig
 from h264lab_tpu_torch.models import mbscan, refstate
 from h264lab_tpu_torch.models.encoder import (PIC_INIT_QP, H264Encoder,
                                               host_planes)
-from h264lab_tpu_torch.models.stages import StageTimer, pad_to
+from h264lab_tpu_torch.models.stages import StageTimer
 from h264lab_tpu_torch.ops import bitpack, resample, tables
 from h264lab_tpu_torch.utils.device import resolve_device
 
@@ -97,13 +97,6 @@ def _with_prefix_nals(payload: bytes, is_idr: bool) -> bytes:
             out += _prefix_nal(is_idr)
         out += START + nal
     return out
-
-
-def _tiles(plane: torch.Tensor, t: int, h: int, w: int) -> torch.Tensor:
-    """A (h0, w0) plane edge-replicated to (h, w) -> (1, nmb, t, t) tiles."""
-    p = pad_to(plane[None], h, w)
-    return (p.reshape(1, h // t, t, w // t, t).permute(0, 1, 3, 2, 4)
-            .reshape(1, -1, t, t))
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +249,7 @@ class SvcEncoder:
     def encode(self, y, u, v, run: RunConfig | None = None,
                return_recon: bool = False) -> SvcFrameResult:
         with self.timer.stage("down"):
-            full = tuple(self.enh._device_plane(p) for p in (y, u, v))
+            full = self.enh._device_planes(y, u, v)
             low = resample.downsample_planes(*full)
         # with inter-layer prediction the base recon is always requested,
         # as the JAX package does
@@ -306,8 +299,6 @@ class SvcEncoder:
             int(np.clip(run.qp_min, 10, 51)),
             int(np.clip(run.qp_max, 10, 51)))
         qpc = int(tables.QPC_FROM_QPY[qp])
-        ph, pw = cfg.padded_height, cfg.padded_width
-        sizes = ((16, ph, pw), (8, ph // 2, pw // 2), (8, ph // 2, pw // 2))
 
         # the base layer's deblocked recon, cropped to the base picture,
         # upsampled and edge-padded to the enhancement's padded size, and
@@ -320,7 +311,7 @@ class SvcEncoder:
                 self.base._last_tiles, bc.mb_width, crops, cfg.mb_width,
                 cfg.mb_height)
         with st.stage("pre"):
-            src = [_tiles(p, t, th, tw) for p, (t, th, tw) in zip(full, sizes)]
+            src = st.tiles([full])
         with st.stage("base_mode"):
             out = base_mode_symbols(*src, *pred, [qp], [qpc], cfg.mb_width,
                                     cfg.mb_height, u_pad, v_pad)

@@ -6,7 +6,8 @@ at first use, once per version of the source, and loaded with ctypes by
 its wrapper's `Library` (`ops/bitpack.py` for K1, `ops/deblock.py` for
 K2, `ops/wavefront.py` for K3, `ops/me.py` for K4 and K5,
 `ops/symbolize.py` for K6, `ops/residual.py` for K7 and K8,
-`ops/resample.py` for K9 and K10, `ops/refplanes.py` for K11). A source
+`ops/resample.py` for K9 and K10, `ops/refplanes.py` for K11,
+`ops/pretile.py` for K12, `ops/denoise.py` for K13). A source
 may include the headers beside it (`csrc/*.h`); the digest covers them.
 Nothing is built when a module is imported: the CPU paths never need nvcc.
 
@@ -15,7 +16,7 @@ The mesh's shards launch the kernels from one worker thread each
 once: `Library` builds and loads under a lock, and `count_launch` counts
 under one.
 
-The wrappers of K6 to K11 share their host-side code here, which sets
+The wrappers of K6 to K13 share their host-side code here, which sets
 their host time a call on one frame: `pointers` checks the inputs in one
 pass against specs worked out once per size (and `refuse` says what is
 wrong), `buffer_plan` lays the outputs out in one buffer once per size,
@@ -46,7 +47,8 @@ BUILD_DIR = PKG / "_build"
 LAUNCH_COUNTS = {"bitpack": 0, "deblock": 0, "wavefront": 0, "me": 0,
                  "partition": 0, "symbolize": 0, "inter_residual": 0,
                  "select_parallel": 0, "resample_down": 0,
-                 "resample_up": 0, "refplanes": 0}
+                 "resample_up": 0, "refplanes": 0, "pad_tiles": 0,
+                 "denoise": 0}
 _COUNT_LOCK = threading.Lock()
 
 

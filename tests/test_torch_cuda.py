@@ -150,7 +150,26 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   per SVC frame, K10 once per base-mode IDR and K11 once per `ref` stage,
   and a (2, 2) mesh on cuda:0 launches K11 once per gop row and step. All
   three refuse CPU tensors, other dtypes and shapes, non-contiguous inputs,
-  bad sizes, and K11 tiles that are not 16-byte aligned.
+  bad sizes, and K11 tiles that are not 16-byte aligned;
+- K12 (the `pre` stage's padding and tiling, `pretile.tiles_k12` through
+  `stages.source_tiles`) equals `source_tiles_plain` on 16 lanes of
+  1080p uploaded through the pinned staging, 1080-row crops (1920 and
+  1912 wide), a mesh block's rows, planes whose rows are a column crop
+  of a wider card tensor (their pitch past their width), planes at an odd
+  address and rows that are not contiguous (copied by the entry), 20
+  launches each, one count a call; the stage of a GOP step, a sequential
+  frame, a two-layer stream and a (2, 2) mesh reaches it with the plain
+  padding refused (once per `pre`: per step, per layer and frame, per
+  shard and step), and a pipelined loop (step t + 1 dispatched before
+  step t is finished, the staging buffers reused) gives the bytes of the
+  same steps finished one by one. K13 (the temporal denoise,
+  `denoise.denoise_k13` through `denoise.denoise_planes`) equals
+  `denoise_plane` of each plane at 1080p and at odd sizes (1 x 1, 2 x 3,
+  37 x 51, 9 x 130, planes at an odd address), 20 launches each; the
+  sequential encoder with `temporal_denoise_flag` at speeds 0 and 1
+  encodes on the card to the CPU's bytes with `denoise_plane` refused,
+  one K13 launch a frame after the first. Both refuse CPU tensors, other
+  dtypes, shapes and bad sizes.
 Tolerance: exact equality (integer arithmetic).
 """
 
@@ -163,14 +182,14 @@ import torch
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig
 from h264lab_tpu_torch.decoder.decoder import H264Decoder
 from h264lab_tpu_torch.entry import dryrun_multichip, entry
-from h264lab_tpu_torch.models import mbscan, refstate
+from h264lab_tpu_torch.models import mbscan, refstate, stages
 from h264lab_tpu_torch.models.encoder import H264Encoder
 from h264lab_tpu_torch.models.svc import (SvcEncoder, base_mode_frame_core,
                                           base_mode_symbols)
 from h264lab_tpu_torch.models import wavefront as plan
-from h264lab_tpu_torch.ops import (bitpack, cavlc, deblock, me, qpel,
-                                   refplanes, resample, residual, tables,
-                                   wavefront)
+from h264lab_tpu_torch.ops import (bitpack, cavlc, deblock, denoise, me,
+                                   pretile, qpel, refplanes, resample,
+                                   residual, tables, wavefront)
 from h264lab_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 from h264lab_tpu_torch.ops import symbolize as k6
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder, make_mesh
@@ -595,7 +614,7 @@ def test_card_mesh_launch_counts_are_exact(card, speed):
     step, K3 once per shard on the IDR step (and at speed 0 on P steps), K4
     and K7 once per shard on P steps and, at speed 0, K5, at speed 2
     K8; K11 once per gop row and step (the exchange, one device a row),
-    no K9 or K10."""
+    K12 once per shard and step (its `pre`), no K9, K10 or K13."""
     cfg, run, steps = _mesh_case(speed)
     mesh = GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(2, 2, ["cuda:0"] * 4))
     for t, lanes in enumerate(steps[:3]):
@@ -609,8 +628,8 @@ def test_card_mesh_launch_counts_are_exact(card, speed):
                             partition=4 if p and speed == 0 else 0,
                             symbolize=4, inter_residual=4 if p else 0,
                             select_parallel=4 if p and speed == 2 else 0,
-                            resample_down=0, resample_up=0, refplanes=2), (
-                                t, done)
+                            resample_down=0, resample_up=0, refplanes=2,
+                            pad_tiles=4, denoise=0), (t, done)
 
 
 def test_card_mesh_over_distinct_cards(card):
@@ -1835,3 +1854,206 @@ def test_k11_once_per_gop_row_on_the_mesh(card):
            for t in range(2)]
     assert got == want
     assert LAUNCH_COUNTS["refplanes"] == before + 4
+
+
+# ---------------------------------------------------------------------------
+# K12 (the `pre` stage's padding and tiling) and K13 (the temporal denoise)
+# ---------------------------------------------------------------------------
+
+def _k12_planes(card, lanes, shapes, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(tuple(torch.from_numpy(_border_plane(rng, *s)).to(card)
+                       for _ in range(lanes)) for s in shapes)
+
+
+def _k12_check(planes, mbw, mbh):
+    _launches_equal_plain(
+        lambda p: stages.source_tiles(p, mbw, mbh),
+        lambda p: stages.source_tiles_plain(p, mbw, mbh), (planes,),
+        "pad_tiles")
+
+
+def test_k12_matches_plain_on_16_staged_lanes_of_1080p(card):
+    frames = list(chessboard_sequence(1920, 1088, 16))
+    staging = stages.Staging(card)
+    planes = tuple(zip(*staging.upload(frames)))
+    assert all(p.is_cuda for lanes in planes for p in lanes)
+    _k12_check(planes, 120, 68)
+
+
+@pytest.mark.parametrize("w,h,lanes", [(1920, 1080, 2), (1912, 1080, 1),
+                                       (352, 288, 3), (70, 40, 2),
+                                       (16, 16, 66)])
+def test_k12_matches_plain_on_crops(card, w, h, lanes):
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    _k12_check(_k12_planes(card, lanes, shapes, w + h), -(-w // 16),
+               -(-h // 16))
+
+
+def test_k12_matches_plain_on_a_mesh_block(card):
+    """The second block of two of a 1080-row frame: its rows are views of
+    the card planes at a row offset, fewer than the block's MB rows."""
+    planes = _k12_planes(card, 2, ((1080, 1920), (540, 960), (540, 960)),
+                         11)
+    block = tuple(tuple(p[34 * t:68 * t] for p in lanes)
+                  for lanes, t in zip(planes, (16, 8, 8)))
+    _k12_check(block, 120, 34)
+
+
+def test_k12_takes_column_crops_and_odd_addresses(card):
+    """Planes cut from wider card tensors (their pitch past their width)
+    and planes at an odd address are read where they lie; planes whose
+    rows are not contiguous are copied by the entry."""
+    wide = _k12_planes(card, 2, ((50, 100), (25, 50), (25, 50)), 12)
+    crops = tuple(tuple(p[:, 3:3 + p.shape[1] // 2 + 1] for p in lanes)
+                  for lanes in wide)
+    assert all(not p.is_contiguous() for lanes in crops for p in lanes)
+    _k12_check(crops, 4, 4)
+    odd = tuple(tuple(_shifted(p, 1) for p in lanes) for lanes in wide)
+    assert all(p.data_ptr() % 2 == 1 for lanes in odd for p in lanes)
+    _k12_check(odd, 7, 4)
+    cols = tuple(tuple(p.t() for p in lanes) for lanes in wide)
+    _k12_check(cols, 4, 7)
+
+
+def test_k12_serves_the_encode_paths(card, monkeypatch):
+    """With the plain padding refused, GOP steps, sequential frames, a
+    two-layer stream and a (2, 2) mesh encode on the card to the CPU's
+    bytes, K12 once per `pre`."""
+    cfg = EncoderConfig(width=64, height=48, gop=10, qp=30)
+    svc_cfg = EncoderConfig(width=128, height=96, gop=10, qp=30,
+                            num_layers=2, inter_layer_pred_flag=True)
+    mesh_cfg = EncoderConfig(width=128, height=96, gop=10, qp=33,
+                             slice_bands=2)
+    run = RunConfig(qp_min=30, qp_max=30, encode_speed=2)
+    small = list(chessboard_sequence(64, 48, 3))
+    big = list(chessboard_sequence(128, 96, 3))
+    want_gop = [[a.payload for a in GopBandEncoder(cfg, n_gop=2,
+                                                   device="cpu")
+                 .encode_step(small[:2], run)]]
+    cpu_seq = H264Encoder(cfg, device="cpu")
+    want_seq = [cpu_seq.encode(*f, run).payload for f in small[:2]]
+    cpu_svc = SvcEncoder(svc_cfg, device="cpu")
+    want_svc = [cpu_svc.encode(*f, run).payload for f in big[:2]]
+    cpu_mesh = GopBandEncoder(mesh_cfg, n_gop=2, device="cpu")
+    want_mesh = [[a.payload for a in cpu_mesh.encode_step(big[t:t + 2], run)]
+                 for t in range(2)]
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version on the card path")
+    monkeypatch.setattr(stages, "pad_to", refused)
+    monkeypatch.setattr(stages, "source_tiles_plain", refused)
+    before = LAUNCH_COUNTS["pad_tiles"]
+    got = [[a.payload for a in GopBandEncoder(cfg, n_gop=2)
+            .encode_step(small[:2], run)]]
+    assert got == want_gop and LAUNCH_COUNTS["pad_tiles"] == before + 1
+    seq = H264Encoder(cfg)
+    assert [seq.encode(*f, run).payload for f in small[:2]] == want_seq
+    assert LAUNCH_COUNTS["pad_tiles"] == before + 3
+    on_card = SvcEncoder(svc_cfg)
+    assert [on_card.encode(*f, run).payload for f in big[:2]] == want_svc
+    assert LAUNCH_COUNTS["pad_tiles"] == before + 7
+    mesh = GopBandEncoder(mesh_cfg, n_gop=2,
+                          mesh=make_mesh(2, 2, ["cuda:0"] * 4))
+    assert [[a.payload for a in mesh.encode_step(big[t:t + 2], run)]
+            for t in range(2)] == want_mesh
+    assert LAUNCH_COUNTS["pad_tiles"] == before + 15
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_pipelined_loop_reuses_the_staging(card, mesh):
+    """Step t + 1 dispatched before step t is finished, over five steps
+    of differing frames (the two pinned staging buffers each reused):
+    the lanes' bytes equal those of the same steps finished one by one."""
+    cfg = EncoderConfig(width=352, height=288, gop=10, qp=33,
+                        slice_bands=2)
+    run = RunConfig(qp_min=33, qp_max=33, encode_speed=2)
+    frames = list(noise_pan_sequence(352, 288, 7))
+
+    def encoder():
+        return GopBandEncoder(cfg, n_gop=2, mesh=make_mesh(
+            2, 2, ["cuda:0"] * 4) if mesh else None)
+    one = encoder()
+    want = [[a.payload for a in one.encode_step(frames[t:t + 2], run)]
+            for t in range(5)]
+    enc = encoder()
+    got = []
+    pending = enc.encode_step_async(frames[0:2], run)
+    for t in range(1, 5):
+        nxt = enc.encode_step_async(frames[t:t + 2], run)
+        got.append([a.payload for a in enc.finish_step(pending)])
+        pending = nxt
+    got.append([a.payload for a in enc.finish_step(pending)])
+    assert got == want
+
+
+@pytest.mark.parametrize("h,w", [(1088, 1920), (1080, 1920), (37, 51),
+                                 (1, 1), (2, 3), (9, 130)])
+def test_k13_matches_plain_denoise(card, h, w):
+    rng = np.random.default_rng(h * 3 + w)
+    shapes = ((h, w), (max(h // 2, 1), max(w // 2, 1)),
+              (max(h // 2, 1), max(w // 2, 1)))
+    prev = [rng.integers(0, 256, s, dtype=np.int64) for s in shapes]
+    cur = [np.clip(p + rng.integers(-40, 41, p.shape), 0, 255)
+           for p in prev]
+    cur = tuple(torch.from_numpy(c.astype(np.uint8)).to(card) for c in cur)
+    prev = tuple(torch.from_numpy(p.astype(np.uint8)).to(card)
+                 for p in prev)
+    _launches_equal_plain(
+        denoise.denoise_planes,
+        lambda c, p: tuple(denoise.denoise_plane(x, y)
+                           for x, y in zip(c, p)), (cur, prev), "denoise")
+    odd = tuple(_shifted(p, 1) for p in cur)
+    _launches_equal_plain(
+        lambda c, p: denoise.denoise_k13(*c, *p),
+        lambda c, p: tuple(denoise.denoise_plane(x, y)
+                           for x, y in zip(c, p)), (odd, prev), "denoise")
+
+
+@pytest.mark.parametrize("speed", [0, 1])
+def test_k13_serves_the_denoise_path(card, monkeypatch, speed):
+    """H264Encoder with temporal_denoise_flag at speeds 0 and 1 encodes on
+    the card to the CPU's bytes with `denoise_plane` refused: one K13
+    launch a frame after the first."""
+    cfg = EncoderConfig(width=96, height=64, gop=10, qp=30,
+                        temporal_denoise_flag=True)
+    run = RunConfig(qp_min=30, qp_max=30, encode_speed=speed)
+    frames = list(noise_pan_sequence(96, 64, 4))
+    cpu = H264Encoder(cfg, device="cpu")
+    want = [cpu.encode(*f, run).payload for f in frames]
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version on the card path")
+    monkeypatch.setattr(denoise, "denoise_plane", refused)
+    monkeypatch.setattr(stages, "pad_to", refused)
+    before = LAUNCH_COUNTS["denoise"]
+    enc = H264Encoder(cfg)
+    assert [enc.encode(*f, run).payload for f in frames] == want
+    assert LAUNCH_COUNTS["denoise"] == before + len(frames) - 1
+
+
+def test_k12_k13_reject_bad_inputs(card):
+    planes = _k12_planes(card, 2, ((16, 32), (8, 16), (8, 16)), 3)
+    pretile.tiles_k12(planes, 2, 1)
+    y, u, v = planes
+    for bad, err in (((tuple(p.cpu() for p in y), u, v), ValueError),
+                     (((y[0].int(), y[1]), u, v), TypeError),
+                     (((y[0], y[1][:8]), u, v), ValueError),   # shapes
+                     ((y[:1], u, v), ValueError),              # lanes
+                     (((y[0][None], y[1][None]), u, v), ValueError),
+                     (((y[0].t(), y[1].t()), u, v), ValueError)):
+        with pytest.raises(err):
+            pretile.tiles_k12(bad, 2, 1)
+    for mbw, mbh in ((0, 1), (2, -1)):
+        with pytest.raises(ValueError):
+            pretile.tiles_k12(planes, mbw, mbh)
+    c = (y[0], u[0], v[0])
+    denoise.denoise_k13(*c, *c)
+    for i, bad, err in ((0, y[0].cpu(), ValueError),
+                        (1, u[0].int(), TypeError),
+                        (4, u[0][:4], ValueError),
+                        (2, v[0].t(), ValueError)):
+        args = list(c + c)
+        args[i] = bad
+        with pytest.raises(err):
+            denoise.denoise_k13(*args)

@@ -1,9 +1,11 @@
-"""K11, the reference planes (`h264lab_tpu_torch/csrc/refplanes.cu`), and
+"""K11, the reference planes (`h264lab_tpu_torch/csrc/refplanes.cu`),
 K9 and K10, the SVC 2x down- and upsampling (`csrc/resample.cu`
-`downsample_kernel`, `upsample_kernel`), on the CUDA card: each wrapper's
-time and host time, its kernel's device time, its byte bound and its
-share, in turns against an earlier build, beside the card's achievable
-byte rate.
+`downsample_kernel`, `upsample_kernel`), K12, the `pre` stage's padding
+and tiling (`csrc/pretile.cu`), and K13, the temporal denoise
+(`csrc/denoise.cu`), on the CUDA card: each wrapper's time and host time,
+its kernel's device time, its byte bound and its share, in turns against
+an earlier build (K12 and K13 against their plain versions), beside the
+card's achievable byte rate.
 
     python tools/torch_ref_bench.py [--baseline DIR] [--reps N]
                                     [--host-parts] [--variants]
@@ -18,15 +20,22 @@ frame, where the wrapper's host time sets the call); K9's
 (`resample.upsample_tiles`: the 960x544 base layer's deblocked tiles to
 (1, 8160) tiles and (1, 608, 1024) padded chroma planes) of a two-layer
 SVC IDR at 1920x1088 over 960x544 with inter-layer prediction, a
-base-mode frame. For each it prints the wrapper's ms
-(`refplanes.planes_k11`, `resample.downsample_k9`, `upsample_k10`; CUDA
+base-mode frame; K12's (`stages.source_tiles`: the uploaded planes) of the
+same 16-lane and one-lane P steps; K13's (`denoise.denoise_planes`) of
+the second P frame of `H264Encoder` at 1920x1088, speed 0, with
+`temporal_denoise_flag` on a sub-pel noise pan. For each it prints the
+wrapper's ms (`refplanes.planes_k11`, `resample.downsample_k9`,
+`upsample_k10`, `pretile.tiles_k12`, `denoise.denoise_k13`; CUDA
 events over `--reps` calls after a warm-up), its host us a call
 (`torch_k78_bench.host_us`: the median of 5 x `--reps` calls issued
 back to back), its kernel's device us (a trace of a second call,
 `chip_smoke.kernel_launches`), the byte bound (`chip_smoke.stage_bytes`
 at `chip_smoke.HBM_BYTES_PER_S`) and the share of it reached, and checks
 the outputs against the plain version (`refstate.prepare_reference_plain`,
-`resample.downsample2x`, `resample.upsample_tiles_plain`). As a
+`resample.downsample2x`, `resample.upsample_tiles_plain`,
+`stages.source_tiles_plain`, `denoise.denoise_plane`); K12 and K13 are
+timed in turns with their plain versions (kernel, plain, plain, kernel;
+the parent tree has neither kernel). As a
 yardstick, a device-to-device `copy_` of a buffer half the bound's bytes
 (it reads and writes them: the same bytes moved) is timed on each input
 in the same call: by CUDA events (the byte rate this card reaches there;
@@ -82,6 +91,7 @@ limit. It imports no JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -100,12 +110,15 @@ import chip_smoke  # noqa: E402
 import torch_k6_bench as k6b  # noqa: E402
 from torch_k78_bench import TURNS, host_us  # noqa: E402
 from h264lab_tpu_torch.config import EncoderConfig, RunConfig  # noqa: E402
-from h264lab_tpu_torch.models import refstate  # noqa: E402
+from h264lab_tpu_torch.models import refstate, stages  # noqa: E402
+from h264lab_tpu_torch.models.encoder import H264Encoder  # noqa: E402
 from h264lab_tpu_torch.models.svc import SvcEncoder  # noqa: E402
-from h264lab_tpu_torch.ops import cuda_build, refplanes, resample  # noqa: E402
+from h264lab_tpu_torch.ops import (cuda_build, denoise, pretile,  # noqa: E402
+                                   refplanes, resample)
 from h264lab_tpu_torch.parallel.gop import GopBandEncoder  # noqa: E402
 from h264lab_tpu_torch.utils.device import card_label  # noqa: E402
-from h264lab_tpu_torch.utils.synthetic import chessboard_sequence  # noqa: E402
+from h264lab_tpu_torch.utils.synthetic import (  # noqa: E402
+    chessboard_sequence, noise_pan_sequence)
 
 VARIANTS_DIR = cuda_build.BUILD_DIR / "variants"
 SIZES = ("constexpr int kUpChunk = 8;        // enhancement MBs a block: "
@@ -278,13 +291,16 @@ def record_real():
                     ("one-frame P step", 1)):
         enc = GopBandEncoder(cfg, n_gop=n)
         enc.encode_step(frames[:n], run)
-        refs = []
+        refs, pre = [], []
         with chip_smoke.recorded_calls("prepare_reference", refs,
-                                       "models.refstate"):
+                                       "models.refstate"), \
+                chip_smoke.recorded_calls("source_tiles", pre,
+                                          "models.stages"):
             enc.encode_step(frames[1:n + 1], run)
         torch.cuda.synchronize()
         out[what] = ("K11", chip_smoke.to_device(refs[0], "cpu"))
-        del enc, refs
+        out[f"{what}'s pre"] = ("K12", chip_smoke.to_device(pre[0], "cpu"))
+        del enc, refs, pre
         torch.cuda.empty_cache()
     svc = SvcEncoder(EncoderConfig(width=w, height=h, gop=chip_smoke.GOP,
                                    qp=chip_smoke.QP, num_layers=2,
@@ -299,6 +315,15 @@ def record_real():
     out[f"{w}x{h} SVC base-mode frame"] = (
         "K10", chip_smoke.to_device(up[0], "cpu"))
     del svc, down, up
+    dn = H264Encoder(dataclasses.replace(cfg, temporal_denoise_flag=True))
+    calls = []
+    with chip_smoke.recorded_calls("denoise_planes", calls, "ops.denoise"):
+        for f in noise_pan_sequence(w, h, 3):
+            dn.encode(*f, dataclasses.replace(run, encode_speed=0))
+    torch.cuda.synchronize()
+    out[f"{w}x{h} denoise P frame"] = ("K13", chip_smoke.to_device(
+        calls[-1], "cpu"))
+    del dn, calls
     torch.cuda.empty_cache()
     return out
 
@@ -334,6 +359,10 @@ def tiles_of(args):
 
 
 def wrapper_of(kernel, mod, args):
+    if kernel == "K12":
+        return lambda: mod.tiles_k12(*args)
+    if kernel == "K13":
+        return lambda: mod.denoise_k13(*args[0], *args[1])
     if kernel == "K11":
         return lambda: mod.planes_k11(*args)
     if kernel == "K10":
@@ -343,6 +372,10 @@ def wrapper_of(kernel, mod, args):
 
 
 def plain_of(kernel, args):
+    if kernel == "K12":
+        return stages.source_tiles_plain(*args)
+    if kernel == "K13":
+        return tuple(denoise.denoise_plane(c, p) for c, p in zip(*args))
     if kernel == "K11":
         return refstate.prepare_reference_plain(*args)
     if kernel == "K10":
@@ -500,11 +533,14 @@ def main() -> int:
     label = f"[{card_label()}]"
     print(label, flush=True)
     t_start = time.perf_counter()
-    built = cuda_build.build_all([refplanes.SRC, resample.SRC])
-    builds = {"new": {"refplanes": built[0], "resample": built[1]}}
+    built = cuda_build.build_all([refplanes.SRC, resample.SRC, pretile.SRC,
+                                  denoise.SRC])
+    builds = {"new": {"refplanes": built[0], "resample": built[1],
+                      "pretile": built[2], "denoise": built[3]}}
     result = dict(card=label, ptxas={"new": {}}, inputs={})
     mods = {"K11": {"new": refplanes}, "K9": {"new": resample},
-            "K10": {"new": resample}}
+            "K10": {"new": resample}, "K12": {"new": pretile},
+            "K13": {"new": denoise}}
     if opts.baseline:
         old, builds["old"] = baseline_modules(opts.baseline)
         for kernel, mod in old.items():
@@ -552,7 +588,8 @@ def main() -> int:
                 [us for t, us in hosts if t == "old"])
         else:
             row["host_us"] = host_us(fns["new"], 5 * opts.reps)
-        if opts.host_parts and (kernel != "K11" or what.startswith("one")):
+        if opts.host_parts and kernel in ("K9", "K10", "K11") and (
+                kernel != "K11" or what.startswith("one")):
             row["host_parts"] = host_parts(kernel, args, opts.reps)
             print(f"  {kernel} wrapper host us a call on the {what} {label}, "
                   "medians: " + ", ".join(
@@ -568,6 +605,13 @@ def main() -> int:
             row["old_ms"] = (turns[0][1] + turns[3][1]) / 2
         else:
             row["ms"] = chip_smoke._cuda_ms(fns["new"], opts.reps)
+        if kernel in ("K12", "K13"):
+            plain = [(tag, chip_smoke._cuda_ms(
+                fns["new"] if tag == "kernel" else
+                (lambda: plain_of(kernel, args)), opts.reps))
+                for tag in ("kernel", "plain", "plain", "kernel")]
+            row["plain_turns"] = plain
+            row["plain_ms"] = (plain[1][1] + plain[2][1]) / 2
         (row["copy_ms"], row["copy_tb_s"], row["copy_device_us"],
          row["copy_device_median_us"]) = copy_yardstick(row["bytes"],
                                                         opts.reps)
@@ -598,7 +642,12 @@ def main() -> int:
                    + (f", the kernel's device time "
                       f"{dev['new'] / row['copy_device_us']:.3f} of the least"
                       if dev["new"] else ""))
-                + f"); equal to the plain version: {row['plain_equal']}")
+                + f"); equal to the plain version: {row['plain_equal']}"
+                + ("" if "plain_turns" not in row else
+                   "; in turns kernel, plain, plain, kernel: " + ", ".join(
+                       f"{ms:.4f}" for _, ms in row["plain_turns"])
+                   + f" ms, plain / kernel "
+                   f"{row['plain_ms'] / row['ms']:.1f}x"))
         if "old" in fns:
             line += (f"; in turns old, new, new, old: " + ", ".join(
                 f"{ms:.4f}" for _, ms in row["turns"])
