@@ -165,7 +165,9 @@ elsewhere). They import no JAX, so they also run where JAX is absent:
   same steps finished one by one. K13 (the temporal denoise,
   `denoise.denoise_k13` through `denoise.denoise_planes`) equals
   `denoise_plane` of each plane at 1080p and at odd sizes (1 x 1, 2 x 3,
-  37 x 51, 9 x 130, planes at an odd address), 20 launches each; the
+  37 x 51, 9 x 130, 1 x 17, 33 x 1000, 1079 x 1917, planes at an odd
+  address), a 1080p frame whose cur and prev lie at four pairs of
+  offsets past 16-byte boundaries, 20 launches each; the
   sequential encoder with `temporal_denoise_flag` at speeds 0 and 1
   encodes on the card to the CPU's bytes with `denoise_plane` refused,
   one K13 launch a frame after the first. Both refuse CPU tensors, other
@@ -1987,18 +1989,29 @@ def test_pipelined_loop_reuses_the_staging(card, mesh):
     assert got == want
 
 
-@pytest.mark.parametrize("h,w", [(1088, 1920), (1080, 1920), (37, 51),
-                                 (1, 1), (2, 3), (9, 130)])
-def test_k13_matches_plain_denoise(card, h, w):
+def _k13_frame(card, h, w, spread=40):
+    """Seeded (cur, prev) planes of a frame on the card, |cur - prev| up to
+    `spread`."""
     rng = np.random.default_rng(h * 3 + w)
     shapes = ((h, w), (max(h // 2, 1), max(w // 2, 1)),
               (max(h // 2, 1), max(w // 2, 1)))
     prev = [rng.integers(0, 256, s, dtype=np.int64) for s in shapes]
-    cur = [np.clip(p + rng.integers(-40, 41, p.shape), 0, 255)
+    cur = [np.clip(p + rng.integers(-spread, spread + 1, p.shape), 0, 255)
            for p in prev]
-    cur = tuple(torch.from_numpy(c.astype(np.uint8)).to(card) for c in cur)
-    prev = tuple(torch.from_numpy(p.astype(np.uint8)).to(card)
-                 for p in prev)
+    return (tuple(torch.from_numpy(c.astype(np.uint8)).to(card) for c in cur),
+            tuple(torch.from_numpy(p.astype(np.uint8)).to(card)
+                  for p in prev))
+
+
+def _k13_plain(c, p):
+    return tuple(denoise.denoise_plane(x, y) for x, y in zip(c, p))
+
+
+@pytest.mark.parametrize("h,w", [(1088, 1920), (1080, 1920), (37, 51),
+                                 (1, 1), (2, 3), (9, 130), (1079, 1917),
+                                 (33, 1000), (1, 17)])
+def test_k13_matches_plain_denoise(card, h, w):
+    cur, prev = _k13_frame(card, h, w)
     _launches_equal_plain(
         denoise.denoise_planes,
         lambda c, p: tuple(denoise.denoise_plane(x, y)
@@ -2008,6 +2021,19 @@ def test_k13_matches_plain_denoise(card, h, w):
         lambda c, p: denoise.denoise_k13(*c, *p),
         lambda c, p: tuple(denoise.denoise_plane(x, y)
                            for x, y in zip(c, p)), (odd, prev), "denoise")
+
+
+@pytest.mark.parametrize("by", [(1, 1), (8, 0), (0, 3), (5, 12)])
+def test_k13_at_odd_addresses_of_1080p(card, by):
+    """A 1080p frame whose cur and prev planes lie `by` bytes past 16-byte
+    boundaries (the byte path of every strip they touch), with small
+    differences, so that the activity sets most gains."""
+    cur, prev = _k13_frame(card, 1088, 1920, spread=6)
+    cur = tuple(_shifted(x, by[0]) for x in cur)
+    prev = tuple(_shifted(x, by[1]) for x in prev)
+    assert all(x.data_ptr() % 16 == by[0] for x in cur)
+    _launches_equal_plain(lambda c, p: denoise.denoise_k13(*c, *p),
+                          _k13_plain, (cur, prev), "denoise")
 
 
 @pytest.mark.parametrize("speed", [0, 1])

@@ -15,8 +15,8 @@ emulated on the CPU, against the JAX package.
   untouched, alternates its two staging buffers and grows them together,
   with its host copies on one thread and on three;
 - `denoise.denoise_planes` equals JAX's `denoise_plane` of each plane on
-  1 x 1, 2 x 3 and odd planes whose |cur - prev| covers 0 to 40, and the
-  gains K13 is handed are GAIN_Q8.
+  1 x 1, 2 x 3, 1 x 17 and odd planes up to 33 x 1000 whose
+  |cur - prev| covers 0 to 40, and the gains K13 is handed are GAIN_Q8.
 
 A CUDA kernel cannot run here, so `emulate_k12` and `emulate_k13`
 compute in numpy what the kernels compute, thread by thread in their
@@ -25,11 +25,15 @@ threads, a thread a tile row (16 luma rows x 16 MBs, or U and V each 8
 rows x 16 MBs), each row loaded as 16-, 8- or 4-byte words where its
 source address allows and it lies inside the plane, else byte by byte
 with clamped columns, and stored in one 16- or 8-byte aligned store,
-each tile byte written once; K13's blocks of 8 x 128 pixels of one
-plane, d of the tile and its clamped ring in shared memory, a thread 4
-pixels of a row, stored as one aligned word or bytes, each pixel written
-once. Both equal the plain versions. Tolerance: exact equality (integer
-arithmetic).
+each tile byte written once; K13's one grid over the three planes' live
+tiles (a warp a tile of 4 rows x 512 columns, four warps a block, no
+block without a tile), a lane a strip of 16 columns marching down the
+tile's rows with a one-row halo, 16-byte loads and stores where the
+addresses and the width allow, else bytes, the horizontal neighbours by
+shuffles and the edge lanes' loads of the columns beside the tile; every
+pixel written once, and each byte of cur and prev loaded once by each
+tile that covers it (halo included) and by no other. Both equal the
+plain versions. Tolerance: exact equality (integer arithmetic).
 """
 
 import numpy as np
@@ -275,72 +279,260 @@ def test_k12_and_k13_refuse_cpu_tensors():
 # the temporal denoise and K13's index math
 # ---------------------------------------------------------------------------
 
-K13_THREADS, K13_TH, K13_TW = 256, 8, 128
+# K13's schedule, as `csrc/denoise.cu` sets it (checked against the source)
+K13_ROWS, K13_WARPS, K13_STRIP = 4, 4, 16
+K13_TILE_W = 32 * K13_STRIP
 
 
-def _denoise_pair(seed, h, w):
-    """A seeded (cur, prev) pair whose |cur - prev| covers 0 to 40, with
-    saturated pixels."""
+def _denoise_pair(seed, h, w, spread=40):
+    """A seeded (cur, prev) pair whose |cur - prev| covers 0 to `spread`
+    (and 0 to 40), with saturated pixels."""
     rng = np.random.default_rng(seed)
     prev = rng.integers(0, 256, (h, w), dtype=np.int64)
-    d = rng.integers(-40, 41, (h, w))
+    d = rng.integers(-spread, spread + 1, (h, w))
     d.flat[:min(41, d.size)] = np.arange(min(41, d.size))
     cur = np.clip(prev + d, 0, 255)
     cur.flat[-1:] = 255
     return cur.astype(np.uint8), prev.astype(np.uint8)
 
 
-def emulate_k13(cur, prev):
-    """K13 on one plane: its blocks of 8 x 128 pixels, d of the tile and
-    its ring (clamped into the plane) as the shared 16-bit tile, each
-    thread's 4 pixels of a row from it, one aligned 4-byte store or bytes;
-    every pixel written once. Returns (the plane, the store kinds)."""
-    h, w = cur.shape
-    c16, p16 = cur.astype(np.int64), prev.astype(np.int64)
-    out = np.full(h * w, -1, np.int64)
-    writes = np.zeros(h * w, np.int64)
-    gain = np.asarray(denoise.gain_words())
+def _frame_pairs(seed, h, w, spread=40):
+    """(cur, prev) pairs of a frame's three planes: (h, w) and two chroma
+    planes of half its size."""
+    ch, cw = max(h // 2, 1), max(w // 2, 1)
+    return [_denoise_pair(seed + k, *s, spread)
+            for k, s in enumerate(((h, w), (ch, cw), (ch, cw)))]
+
+
+def k13_grid(shapes):
+    """K13's one grid over the three planes' live tiles (a warp a tile of
+    K13_ROWS x 512 pixels, K13_WARPS a block), as its entry point sets it:
+    each plane's tile columns, the prefix sum of the tiles, the blocks."""
+    cols, first = [], [0]
+    for h, w in shapes:
+        c = -(-w // K13_TILE_W)
+        cols.append(max(c, 1))
+        first.append(first[-1] + (c * -(-h // K13_ROWS) if h and w else 0))
+    return cols, first, -(-first[3] // K13_WARPS)
+
+
+def _strip_load(plane, addr, o, n, counts, kinds):
+    """`load_strip`: a strip's 16 bytes at element o of a flat plane whose
+    first byte lies at `addr`, n of them inside the row: one 16-byte load
+    where aligned and n is 16, else the n bytes one by one, the rest
+    repeating the last."""
+    if n == K13_STRIP and (addr + o) % 16 == 0:
+        kinds.add("load16")
+        counts[o:o + 16] += 1
+        return plane[o:o + 16].copy()
+    kinds.add("load bytes")
+    counts[o:o + n] += 1
+    v = plane[o:o + n]
+    return np.concatenate([v, np.full(K13_STRIP - n, v[-1])])
+
+
+def _u32(x):
+    return (np.asarray(x, np.int64) & 0xffffffff).astype(np.uint32)
+
+
+def _byte_perm(x, y, s):
+    """CUDA's `__byte_perm`: byte j of the result is byte (s >> 4 j) & 7
+    of the eight bytes of (y, x), x's first."""
+    b = (_u32(y).astype(np.uint64) << np.uint64(32)) | _u32(x)
+    out = np.zeros(np.shape(b), np.uint64)
+    for j in range(4):
+        sel = np.uint64(8 * ((s >> (4 * j)) & 7))
+        out |= ((b >> sel) & np.uint64(0xff)) << np.uint64(8 * j)
+    return out.astype(np.uint32)
+
+
+def _lanes(x, width, n):
+    """x's n unsigned lanes of `width` bits, low first (last axis)."""
+    x = np.asarray(x, np.int64)
+    return np.stack([(x >> (width * j)) & ((1 << width) - 1)
+                     for j in range(n)], axis=-1)
+
+
+def _join(v, width):
+    return _u32(sum(v[..., j] << (width * j) for j in range(v.shape[-1])))
+
+
+def _vabsdiffu4(a, b):
+    return _join(np.abs(_lanes(a, 8, 4) - _lanes(b, 8, 4)), 8)
+
+
+def _vmaxu2(a, b):
+    return _join(np.maximum(_lanes(a, 16, 2), _lanes(b, 16, 2)), 16)
+
+
+def _vminu2(a, b):
+    return _join(np.minimum(_lanes(a, 16, 2), _lanes(b, 16, 2)), 16)
+
+
+def _dp2a(a, b, hi):
+    """PTX `dp2a.lo` / `.hi` with `.s32.u32` and an addend of 255: a's two
+    signed 16-bit halves times b's bytes 0, 1 (lo) or 2, 3 (hi)."""
+    h = _lanes(a, 16, 2)
+    h = np.where(h >= 1 << 15, h - (1 << 16), h)
+    bb = _lanes(b, 8, 4)
+    return _u32(h[..., 0] * bb[..., 2 * hi] + h[..., 1] * bb[..., 2 * hi + 1]
+                + 255)
+
+
+def _words(b):
+    """(..., 16) bytes as (..., 4) little-endian words."""
+    return _join(np.asarray(b, np.int64).reshape(b.shape[:-1] + (4, 4)), 8)
+
+
+def _bytes(w):
+    return _lanes(w, 8, 4).reshape(w.shape[:-1] + (16,))
+
+
+def _shfl(v, src):
+    """A warp's `__shfl_up_sync` / `__shfl_down_sync` by one: each lane
+    reads lane `src`, or its own value where that lies past the warp."""
+    src = np.where((src < 0) | (src > 31), np.arange(32), src)
+    return v[src].copy()
+
+
+def emulate_k13(curs, prevs, addrs=(0,) * 9):
+    """K13 on a frame's three planes, warp by warp in its schedule: the 1-D
+    grid over the planes' live tiles (`k13_grid`; no block without one),
+    a lane a strip of 16 columns of a tile's K13_ROWS rows and the
+    one-row halo above and below (rows inside the plane), all by 16-byte
+    loads where the strip's every row is aligned (`addrs`: the byte
+    address mod 16 of cur Y, U, V, prev Y, U, V, out Y, U, V), else row by
+    row (`_strip_load`); lane 0 the byte left of the tile and lane 31 the
+    one right of it; a missing row's |d| the nearest row's; the march with
+    the strip's horizontal neighbours from the next lanes (a shuffle up
+    and down: a lane past the warp's end reads its own) and the gain from
+    the lane that holds it; the 16 pixels in one 16-byte store or byte by
+    byte. Every pixel is written once; each byte of cur and prev is
+    loaded once by each tile whose rows and columns, halo and edge
+    columns included, cover it, and by no other. Returns (the three
+    planes, the load and store kinds)."""
+    shapes = [c.shape for c in curs]
+    cols, first, blocks = k13_grid(shapes)
+    gain = np.asarray(denoise.gain_words(), np.int64)
+    assert ((gain >= 0) & (gain <= 256)).all()  # the entry point's range
+    pairs = _u32((256 - gain) | gain << 16)     # lane i's gain pair
+    flat = [[x.reshape(-1).astype(np.int64) for x in xs]
+            for xs in (curs, prevs)]
+    outs = [np.full(c.size, -1, np.int64) for c in curs]
+    writes = [np.zeros(c.size, np.int64) for c in curs]
+    loads = [[np.zeros(c.size, np.int64) for c in curs] for _ in range(2)]
+    expect = [np.zeros(c.shape, np.int64) for c in curs]
     kinds = set()
-    for by in range(-(-h // K13_TH)):
-        for bx in range(-(-w // K13_TW)):
-            y0, x0 = by * K13_TH, bx * K13_TW
-            i = np.arange((K13_TH + 2) * (K13_TW + 2))
-            r, c = i // (K13_TW + 2), i % (K13_TW + 2)
-            gy = np.clip(y0 - 1 + r, 0, h - 1)
-            gx = np.clip(x0 - 1 + c, 0, w - 1)
-            sd = (c16[gy, gx] - p16[gy, gx]).reshape(K13_TH + 2, K13_TW + 2)
-            assert np.abs(sd).max() < 1 << 15          # int16 holds it
-            for tid in range(K13_THREADS):
-                ty, tx = tid >> 5, 4 * (tid & 31)
-                y, x = y0 + ty, x0 + tx
-                if y >= h or x >= w:
-                    continue
-                n = min(4, w - x)
-                for k in range(n):
-                    rr, cc = ty + 1, tx + k + 1
-                    d = sd[rr, cc]
-                    act = (abs(sd[rr - 1, cc]) + abs(sd[rr + 1, cc])
-                           + abs(sd[rr, cc - 1]) + abs(sd[rr, cc + 1])
-                           + 2) >> 2
-                    g = gain[min(max(abs(d), act), 31)]
-                    o = y * w + x + k
-                    out[o] = min(max(c16[y, x + k] - ((d * g) >> 8), 0), 255)
-                    writes[o] += 1
-                kinds.add("word" if n == 4 and (y * w + x) % 4 == 0
-                          else "bytes")
-    assert (writes == 1).all()
-    return out.reshape(h, w).astype(np.uint8), kinds
+    lanes = np.arange(32)
+    for b in range(blocks):
+        live = [t for t in range(b * K13_WARPS, (b + 1) * K13_WARPS)
+                if t < first[3]]
+        assert live, f"block {b} holds no tile"
+        for t in live:
+            p = 0 if t < first[1] else 1 if t < first[2] else 2
+            h, w = shapes[p]
+            ty, tx = divmod(t - first[p], cols[p])
+            y0 = ty * K13_ROWS
+            x0 = tx * K13_TILE_W + K13_STRIP * lanes
+            n = np.minimum(K13_STRIP, w - x0)
+            expect[p][max(y0 - 1, 0):y0 + K13_ROWS + 1,
+                      max(tx * K13_TILE_W - 1, 0):
+                      (tx + 1) * K13_TILE_W + 1] += 1
+            ex = np.where(lanes == 0, x0 - 1, x0 + K13_STRIP)
+            edge = ((lanes == 0) | (lanes == 31)) & (ex >= 0) & (ex < w)
+            rows = K13_ROWS + 2
+            c = np.zeros((rows, 32, K13_STRIP), np.int64)
+            q = np.zeros_like(c)
+            ec = np.zeros((rows, 32), np.int64)
+            eq = np.zeros_like(ec)
+            for lane in range(32):
+                wide = (n[lane] == K13_STRIP and w % 16 == 0
+                        and (addrs[p] + x0[lane]) % 16 == 0
+                        and (addrs[3 + p] + x0[lane]) % 16 == 0)
+                for i in range(rows):
+                    y = y0 - 1 + i
+                    if not 0 <= y < h:
+                        continue
+                    o = y * w + x0[lane]
+                    if wide:
+                        kinds.add("load16")
+                        for src, cnt, dst in ((flat[0][p], loads[0][p], c),
+                                              (flat[1][p], loads[1][p], q)):
+                            dst[i, lane] = src[o:o + 16]
+                            cnt[o:o + 16] += 1
+                    elif n[lane] > 0:
+                        c[i, lane] = _strip_load(flat[0][p], addrs[p], o,
+                                                 n[lane], loads[0][p], kinds)
+                        q[i, lane] = _strip_load(flat[1][p], addrs[3 + p], o,
+                                                 n[lane], loads[1][p], kinds)
+                    if edge[lane]:
+                        e = y * w + ex[lane]
+                        ec[i, lane], eq[i, lane] = flat[0][p][e], flat[1][p][e]
+                        loads[0][p][e] += 1
+                        loads[1][p][e] += 1
+            # the march in 16-bit pairs, as the kernel writes it; a row
+            # above or below the plane takes the nearest row's |d|
+            cw, qw = _words(c), _words(q)
+            ad = _vabsdiffu4(cw, qw)
+            lo, hi = _byte_perm(ad, 0, 0x4240), _byte_perm(ad, 0, 0x4341)
+            for i in range(1, K13_ROWS + 1):
+                y = y0 - 1 + i
+                if y >= h:
+                    break
+                up = i if y == 0 else i - 1
+                dn = i if y + 1 >= h else i + 1
+                ulo, uhi, mlo, mhi = lo[up], hi[up], lo[i], hi[i]
+                dlo, dhi = lo[dn], hi[dn]
+                left = _shfl(mhi[:, 3], lanes - 1)
+                right = _shfl(mlo[:, 0], lanes + 1)
+                e = np.abs(ec[i] - eq[i]).astype(np.uint32)
+                left[0] = (e[0] if edge[0] else mlo[0, 0] & 0xffff) << 16
+                right[31] = e[31]
+                right = np.where(x0 + K13_STRIP >= w, mhi[:, 3] >> 16, right)
+                wd = np.zeros((32, 4), np.uint32)
+                for k in range(4):
+                    lft = _byte_perm(mhi[:, k - 1] if k else left, mhi[:, k],
+                                     0x5432)
+                    rgt = _byte_perm(mlo[:, k], mlo[:, k + 1] if k < 3
+                                     else right, 0x5432)
+                    act_lo = _u32((ulo[:, k] + dlo[:, k] + lft + mhi[:, k]
+                                   + 0x00020002) >> 2) & 0x3fff3fff
+                    act_hi = _u32((uhi[:, k] + dhi[:, k] + mlo[:, k] + rgt
+                                   + 0x00020002) >> 2) & 0x3fff3fff
+                    i_lo = _vminu2(_vmaxu2(mlo[:, k], act_lo), 0x001f001f)
+                    i_hi = _vminu2(_vmaxu2(mhi[:, k], act_hi), 0x001f001f)
+                    g = [pairs[x & 31] for x in (i_lo, i_hi, i_lo >> 16,
+                                                 i_hi >> 16)]   # shuffles
+                    b01 = _byte_perm(cw[i, :, k], qw[i, :, k], 0x5140)
+                    b23 = _byte_perm(cw[i, :, k], qw[i, :, k], 0x7362)
+                    t01 = _byte_perm(_dp2a(g[0], b01, 0), _dp2a(g[1], b01, 1),
+                                     0x0051)
+                    t23 = _byte_perm(_dp2a(g[2], b23, 0), _dp2a(g[3], b23, 1),
+                                     0x5100)
+                    wd[:, k] = _byte_perm(t01, t23, 0x7610)
+                v = _bytes(wd)
+                for lane in np.flatnonzero(n > 0):
+                    o, m = y * w + x0[lane], n[lane]
+                    kinds.add("store16" if m == K13_STRIP
+                              and (addrs[6 + p] + o) % 16 == 0
+                              else "store bytes")
+                    outs[p][o:o + m] = v[lane, :m]
+                    writes[p][o:o + m] += 1
+    for p, (h, w) in enumerate(shapes):
+        assert (writes[p] == 1).all()
+        for cnt in loads:
+            np.testing.assert_array_equal(cnt[p].reshape(h, w), expect[p])
+        assert expect[p].max() <= 4          # one halo row and column a side
+    return [o.reshape(s).astype(np.uint8) for o, s in zip(outs, shapes)], kinds
 
 
 DENOISE_SIZES = ((1, 1), (2, 3), (3, 2), (9, 130), (17, 33), (37, 51),
-                 (20, 256))
+                 (20, 256), (1, 17), (33, 1000))
 
 
 @pytest.mark.parametrize("h,w", DENOISE_SIZES)
 def test_denoise_planes_equal_jax(h, w):
-    ch, cw = max(h // 2, 1), max(w // 2, 1)
-    pairs = [_denoise_pair(h * 100 + w + k, *s)
-             for k, s in enumerate(((h, w), (ch, cw), (ch, cw)))]
+    pairs = _frame_pairs(h * 100 + w, h, w)
     got = denoise.denoise_planes(
         tuple(torch.from_numpy(c) for c, _ in pairs),
         tuple(torch.from_numpy(p) for _, p in pairs))
@@ -355,15 +547,75 @@ def test_denoise_planes_equal_jax(h, w):
         assert moved.any() and (~moved & (c != p)).any()
 
 
+def _plain_frame(pairs):
+    return [denoise.denoise_plane(torch.from_numpy(c),
+                                  torch.from_numpy(p)).numpy()
+            for c, p in pairs]
+
+
 @pytest.mark.parametrize("h,w", DENOISE_SIZES)
 def test_emulate_k13_equals_plain(h, w):
-    cur, prev = _denoise_pair(h * 7 + w, h, w)
-    got, kinds = emulate_k13(cur, prev)
-    want = denoise.denoise_plane(torch.from_numpy(cur),
-                                 torch.from_numpy(prev)).numpy()
-    np.testing.assert_array_equal(got, want)
-    if w % 4 == 0:
-        assert kinds == {"word"}
+    pairs = _frame_pairs(h * 7 + w, h, w)
+    got, kinds = emulate_k13([c for c, _ in pairs], [p for _, p in pairs])
+    for g, want in zip(got, _plain_frame(pairs)):
+        np.testing.assert_array_equal(g, want)
+    if w % 32 == 0:                      # every plane's width divides by 16
+        assert kinds == {"load16", "store16"}
+    if w % 16:
+        assert {"load bytes", "store bytes"} <= kinds
+
+
+@pytest.mark.parametrize("h,w", [(17, 1536), (24, 1100)])
+def test_emulate_k13_across_tile_edges(h, w):
+    """Planes of two and three tile columns whose |cur - prev| is mostly
+    below 6, so that the activity across a tile's left and right edges
+    (the edge lanes' loads) sets many gains."""
+    pairs = _frame_pairs(h + w, h, w, spread=5)
+    got, _ = emulate_k13([c for c, _ in pairs], [p for _, p in pairs])
+    for g, want in zip(got, _plain_frame(pairs)):
+        np.testing.assert_array_equal(g, want)
+
+
+@pytest.mark.parametrize("addrs", [(1, 0, 0, 0, 0, 0, 0, 0, 0),
+                                   (0, 8, 0, 3, 0, 0, 0, 0, 0),
+                                   (0, 0, 0, 0, 0, 0, 0, 5, 0)])
+def test_emulate_k13_takes_bytes_at_unaligned_addresses(addrs):
+    """A plane at an address that is no multiple of 16 takes the byte path
+    for its loads (cur or prev) or its stores (out) and is still right;
+    the other planes keep their 16-byte loads and stores."""
+    pairs = _frame_pairs(5, 18, 64)
+    got, kinds = emulate_k13([c for c, _ in pairs], [p for _, p in pairs],
+                             addrs)
+    for g, want in zip(got, _plain_frame(pairs)):
+        np.testing.assert_array_equal(g, want)
+    assert {"load16", "store16"} <= kinds
+    assert ("load bytes" in kinds) == any(addrs[:6])
+    assert ("store bytes" in kinds) == any(addrs[6:])
+
+
+@pytest.mark.parametrize("h,w,tiles", [(1088, 1920, (1088, 272, 272)),
+                                       (1080, 1920, (1080, 270, 270)),
+                                       (288, 352, (72, 36, 36)),
+                                       (64, 96, (16, 8, 8))])
+def test_k13_grid_holds_only_live_tiles(h, w, tiles):
+    """K13's grid at 1080p, CIF and the card tests' 96 x 64: the planes'
+    tiles back to back, every block a live tile, at most the last block's
+    spare warps idle (a grid sized by the luma plane for all three would
+    leave about half its blocks empty)."""
+    cols, first, blocks = k13_grid(((h, w), (h // 2, w // 2),
+                                    (h // 2, w // 2)))
+    assert tuple(np.diff(first)) == tiles
+    assert 0 <= blocks * K13_WARPS - first[3] < K13_WARPS
+
+
+def test_k13_emulation_follows_the_source():
+    """The emulation's tile sizes are the kernel's."""
+    import re
+    src = denoise.SRC.read_text()
+    assert re.search(rf"constexpr int kRows = {K13_ROWS}, "
+                     rf"kWarps = {K13_WARPS};", src)
+    assert f"constexpr int kStrip = {K13_STRIP};" in src
+    assert "constexpr int kTileW = 32 * kStrip;" in src
 
 
 def test_k13_gains_are_gain_q8():

@@ -4,12 +4,13 @@ K9 and K10, the SVC 2x down- and upsampling (`csrc/resample.cu`
 and tiling (`csrc/pretile.cu`), and K13, the temporal denoise
 (`csrc/denoise.cu`), on the CUDA card: each wrapper's time and host time,
 its kernel's device time, its byte bound and its share, in turns against
-an earlier build (K12 and K13 against their plain versions), beside the
-card's achievable byte rate.
+an earlier build (K12 and K13 also against their plain versions), beside
+the card's achievable byte rate.
 
     python tools/torch_ref_bench.py [--baseline DIR] [--reps N]
                                     [--host-parts] [--variants]
                                     [--phases] [--sass DIR]
+                                    [--kernels K9,K10,K11,K12,K13]
 
 The inputs are the real ones of encodes on the card, recorded at the
 stage entries: K11's (`refstate.prepare_reference`) of the first P step
@@ -34,8 +35,9 @@ at `chip_smoke.HBM_BYTES_PER_S`) and the share of it reached, and checks
 the outputs against the plain version (`refstate.prepare_reference_plain`,
 `resample.downsample2x`, `resample.upsample_tiles_plain`,
 `stages.source_tiles_plain`, `denoise.denoise_plane`); K12 and K13 are
-timed in turns with their plain versions (kernel, plain, plain, kernel;
-the parent tree has neither kernel). As a
+also timed in turns with their plain versions (kernel, plain, plain,
+kernel). `--kernels` names the kernels to time (the others' inputs are
+not recorded). As a
 yardstick, a device-to-device `copy_` of a buffer half the bound's bytes
 (it reads and writes them: the same bytes moved) is timed on each input
 in the same call: by CUDA events (the byte rate this card reaches there;
@@ -44,17 +46,19 @@ a trace, which the kernel's device time is set against.
 
 `--baseline DIR` names an earlier tree of the repository (the parent
 commit, unpacked into a gitignored directory with `git archive`). The
-script loads its wrappers (`DIR/h264lab_tpu_torch/ops/refplanes.py` and
-`resample.py`, beside the current ones) with its kernels
-(`DIR/h264lab_tpu_torch/csrc/refplanes.cu` and `resample.cu`, built
-too), checks on every input that its outputs equal the current ones, and
+script loads its wrappers (`DIR/h264lab_tpu_torch/ops/refplanes.py`,
+`resample.py` and `denoise.py`, those it has, beside the current ones)
+with its kernels (`DIR/h264lab_tpu_torch/csrc/refplanes.cu`,
+`resample.cu` and `denoise.cu`, built too), checks on every input that
+its outputs equal the current ones, and
 times the two in turns: wrapper ms old, new, new, old, and host us a call
 old, new, new, old twice (`torch_k78_bench.TURNS`), the medians of each
 tree's four, all of them before the first profiler trace of the process
 (a trace slows the host calls that follow it).
 
 `--host-parts` splits the current wrappers' host time a call on the
-one-frame step (K11) and the SVC frame (K9, K10): the whole call, the
+one-frame step (K11), the SVC frame (K9, K10) and the denoise frame
+(K13): the whole call, the
 call without its launch (`cuda_build.call` stubbed), the input checks
 (`cuda_build.pointers`), the allocation, the output views
 (`cuda_build.buffer_views`) beside the same views cut by one
@@ -63,25 +67,32 @@ call without its launch (`cuda_build.call` stubbed), the input checks
 launch alone (`cuda_build.call` on the call's words) and the bare ctypes
 call of the entry point on a prepared word array.
 
-`--variants` times K10's design variants (`VARIANTS`: other chunk widths
-and block sizes, the source's `kUpChunk` and `kUpThreads` replaced, and
-a kernel without the shared vertical pass, each thread summing the
-vertical taps of its window from the shared base tiles itself; each
-written from the current source into the gitignored
+`--variants` times K10's and K13's design variants (`VARIANTS`: for K10
+other chunk widths and block sizes, the source's `kUpChunk` and
+`kUpThreads` replaced, and a kernel without the shared vertical pass,
+each thread summing the vertical taps of its window from the shared base
+tiles itself; for K13 tiles of 4 and 16 rows, 1 to 8 warps a block, the
+gain pairs in shared memory, the tiles' rows bulk-copied into shared
+memory on an mbarrier, and the rows copied by cp.async with a wait a
+row; each written from the current source into the gitignored
 `h264lab_tpu_torch/_build/variants/` with the headers beside it) in turns
-with the source's build on K10's input (current, variant, variant,
-current), outputs equal, with each build's ptxas line.
+with the source's build on the kernel's input (current, variant,
+variant, current), outputs equal, with each build's ptxas line.
 
-`--phases` times K10 cut short after or without each of its phases
-(`PHASES`: the launch of the grid alone, the bulk copies alone, the
-copies and the vertical pass, and the kernel without its vertical pass,
-luma rows, chroma rows or padded planes; builds of the current source,
-written like the variants, their outputs not checked) on K10's input,
-each build's device us twice in turns, the source's first and last.
+`--phases` times K10 and K13 cut short after or without each of their
+phases (`PHASES`: K10's launch of the grid alone, its bulk copies alone,
+the copies and the vertical pass, and the kernel without its vertical
+pass, luma rows, chroma rows or padded planes; K13's launch of the grid
+alone, its loads alone, its loads and stores without the arithmetic,
+and the kernel without the gain shuffles or without the stores; builds
+of the current source, written like the variants, their outputs not
+checked) on the kernel's input, each build's device us twice in turns,
+the source's first and last.
 
-`--sass DIR` disassembles each build of `resample.cu` and `refplanes.cu`
-(`cuobjdump -sass`) into DIR and prints each kernel's instruction and
-opcode counts (`torch_k6_bench.sass_counts`).
+`--sass DIR` disassembles each build of `resample.cu`, `refplanes.cu`,
+`pretile.cu` and `denoise.cu` (`cuobjdump -sass`) into DIR and prints
+each kernel's instruction and opcode counts
+(`torch_k6_bench.sass_counts`).
 
 Every build's ptxas registers, shared memory, stack and spills are
 printed. Needs a CUDA device; every line names the card and its power
@@ -95,6 +106,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import shutil
 import statistics
 import sys
@@ -121,6 +133,11 @@ from h264lab_tpu_torch.utils.synthetic import (  # noqa: E402
     chessboard_sequence, noise_pan_sequence)
 
 VARIANTS_DIR = cuda_build.BUILD_DIR / "variants"
+# the kernels of each wrapper module the tool times, and back
+MODULE_KERNELS = {"refplanes": ("K11",), "resample": ("K9", "K10"),
+                  "pretile": ("K12",), "denoise": ("K13",)}
+KERNEL_MODULES = {"K9": resample, "K10": resample, "K11": refplanes,
+                  "K12": pretile, "K13": denoise}
 SIZES = ("constexpr int kUpChunk = 8;        // enhancement MBs a block: "
          "4, 8 or 16\nconstexpr int kUpThreads = 128;\n")
 # K10 without the shared vertical pass: each thread sums the vertical taps
@@ -256,36 +273,229 @@ def without(key):
     return lambda src: _sub(src, CALLS[key], "")
 
 
-PHASES = (("the launch of the grid alone",
+# K13's tile (rows a warp marches down, warps a block), its gains and its
+# phases, as transforms of `csrc/denoise.cu`
+K13_SIZES = ("constexpr int kRows = 4, kWarps = 4;   // a tile's rows; "
+             "warps a block\n")
+K13_BODY = "denoise_kernel(const __grid_constant__ Args a) {\n"
+K13_SHUFFLE = re.compile(r"__shfl_sync\(kAll, gain, ([^;]*)\);")
+K13_PIXEL = re.compile(r"      const uint32_t lft = .*?      wd\[k\] = [^;]*;\n",
+                       re.S)
+K13_MARCH = "  // the march down the tile's rows"
+K13_LOADS_ALONE = """  if (a.h[0] >= 0) {                   // the loads alone
+    uint32_t x = 0;
+#pragma unroll
+    for (int i = 0; i < kRows + 2; ++i)
+      x ^= c[i].x ^ c[i].y ^ c[i].z ^ c[i].w ^ q[i].x ^ q[i].y ^ q[i].z ^
+           q[i].w ^ ec[i] ^ eq[i];
+    if (x == 0x9e3779b9u) a.out[p][0] = 1;
+    return;
+  }
+"""
+K13_STORE = """    if (wide_out)
+      *reinterpret_cast<uint4*>(out + o) = v;
+    else if (n > 0)
+      store_strip(out + o, v, n);
+"""
+SMEM_GAINS = """  __shared__ uint32_t sgain[32];
+  if (threadIdx.x < 32) sgain[threadIdx.x] = a.gain[threadIdx.x];
+  __syncthreads();
+"""
+
+
+K13_INCLUDE = "#include <cuda_runtime.h>\n"
+K13_WIDE = "  if (wide) {\n"
+# K13 with each tile's rows bulk-copied into shared memory on an mbarrier
+# (`csrc/tq.h`'s helpers, as K10 and K11 copy theirs) where the plane's
+# width divides by 16 and cur and prev are 16-byte aligned, each lane's
+# strip then read from there; other planes as the source
+K13_BULK = """  const bool bulk = (W & 15) == 0 &&
+      (((uintptr_t)cur | (uintptr_t)prev) & 15) == 0;
+  if (bulk) {
+    __shared__ __align__(128) uint8_t rows_s[kWarps][2][kRows + 2][kTileW];
+    __shared__ unsigned long long bar_s[kWarps];
+    const int wp = threadIdx.x >> 5;
+    const int xt = x0 - kStrip * lane;
+    const unsigned bytes = (unsigned)min(kTileW, W - xt);
+    const int r0 = max(y0 - 1, 0), r1 = min(y0 + kRows, H - 1);
+    if (lane == 0) {
+      tq_mbar_init(&bar_s[wp]);
+      tq_mbar_expect(&bar_s[wp], 2u * (unsigned)(r1 - r0 + 1) * bytes);
+      for (int y = r0; y <= r1; ++y) {
+        const long long o = (long long)y * W + xt;
+        tq_load(rows_s[wp][0][y - y0 + 1], cur + o, bytes, &bar_s[wp]);
+        tq_load(rows_s[wp][1][y - y0 + 1], prev + o, bytes, &bar_s[wp]);
+      }
+    }
+    __syncwarp();
+    tq_mbar_wait(&bar_s[wp]);
+#pragma unroll
+    for (int i = 0; i < kRows + 2; ++i) {
+      c[i] = q[i] = make_uint4(0, 0, 0, 0);
+      const int y = y0 - 1 + i;
+      if (y < 0 || y >= H || n <= 0) continue;
+      c[i] = *reinterpret_cast<const uint4*>(&rows_s[wp][0][i][kStrip * lane]);
+      q[i] = *reinterpret_cast<const uint4*>(&rows_s[wp][1][i][kStrip * lane]);
+    }
+  } else if (wide) {
+"""
+
+
+def k13_bulk(src):
+    """K13 with its tiles' rows bulk-copied into shared memory
+    (`K13_BULK`)."""
+    src = _sub(src, K13_INCLUDE, K13_INCLUDE + '#include "tq.h"\n')
+    return _sub(src, K13_WIDE, K13_BULK)
+
+
+# K13 with each wide strip's rows copied into shared memory by cp.async,
+# a commit group a row, and each row waited for just before the march
+# needs it (`cp.async.wait_group`), so that the arithmetic of a row
+# overlaps the loads of the rows below it
+K13_WAIT_ROWS = """__device__ __forceinline__ void wait_rows(int pending) {
+  switch (pending) {
+#define K13_WAIT(n) case n: asm volatile("cp.async.wait_group " #n ";"); break;
+    K13_WAIT(0) K13_WAIT(1) K13_WAIT(2) K13_WAIT(3) K13_WAIT(4) K13_WAIT(5)
+    K13_WAIT(6) K13_WAIT(7) K13_WAIT(8) K13_WAIT(9) K13_WAIT(10)
+    K13_WAIT(11) K13_WAIT(12) K13_WAIT(13) K13_WAIT(14) K13_WAIT(15)
+    K13_WAIT(16) K13_WAIT(17)
+#undef K13_WAIT
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src));
+}
+
+"""
+K13_LOAD_LOOP = """      const long long o = (long long)y * W + x0;
+      c[i] = __ldg(reinterpret_cast<const uint4*>(cur + o));
+      q[i] = __ldg(reinterpret_cast<const uint4*>(prev + o));
+    }
+"""
+K13_CP_LOOP = """      const long long o = (long long)y * W + x0;
+      cp_async16(&rows_s[wp][i][0][lane], cur + o);
+      cp_async16(&rows_s[wp][i][1][lane], prev + o);
+    }
+"""
+K13_SMEM = """  __shared__ __align__(16) uint4 rows_s[kWarps][kRows + 2][2][32];
+  const int wp = threadIdx.x >> 5;
+"""
+
+
+def _k13_fetch(j):
+    return (f"if (wide) {{ wait_rows(kRows + 1 - ({j})); "
+            f"c[{j}] = rows_s[wp][{j}][0][lane]; "
+            f"q[{j}] = rows_s[wp][{j}][1][lane]; }}\n    ")
+
+
+def k13_cp_async(src):
+    """K13 with a wait a row (`K13_WAIT_ROWS`): each wide strip's rows by
+    cp.async into shared memory, a commit group a row (empty for rows
+    outside the plane)."""
+    src = _sub(src, "namespace {\n", "namespace {\n" + K13_WAIT_ROWS)
+    src = _sub(src, K13_BODY, K13_BODY + K13_SMEM)
+    src = _sub(src, "      if (y < 0 || y >= H) continue;\n" + K13_LOAD_LOOP,
+               "      if (y >= 0 && y < H) {\n" + K13_CP_LOOP.replace(
+                   "\n      ", "\n        ").replace("    }\n", "      }\n")
+               + '      asm volatile("cp.async.commit_group;");\n    }\n')
+    for j, call in (("1", "  abs_pairs(c[1], q[1], mlo, mhi);\n"),
+                    ("0", "    abs_pairs(c[0], q[0], ulo, uhi);\n"),
+                    ("i + 1", "      abs_pairs(c[i + 1], q[i + 1], dlo, dhi);\n")):
+        indent = call[:len(call) - len(call.lstrip())]
+        src = _sub(src, call, indent + _k13_fetch(j).rstrip() + "\n" + call)
+    return src
+
+
+def k13_sizes(rows, warps):
+    """K13 with tiles of `rows` rows and `warps` warps a block."""
+    return lambda src: _sub(src, K13_SIZES, (
+        f"constexpr int kRows = {rows}, kWarps = {warps};\n"))
+
+
+def _resub(src, pattern, new, count):
+    out, n = pattern.subn(new, src)
+    if n != count:
+        raise RuntimeError(f"variant anchor found {n} times, not {count}: "
+                           f"{pattern.pattern[:60]!r}")
+    return out
+
+
+def k13_shared_gains(src):
+    """K13 with the gain pairs copied into shared memory once a block and
+    read from there, not by a shuffle from the lane that holds them."""
+    src = _sub(src, K13_BODY, K13_BODY + SMEM_GAINS)
+    return _resub(src, K13_SHUFFLE, r"sgain[(\1) & 31];", 4)
+
+
+PHASES = (("K10", "the launch of the grid alone",
            lambda src: _sub(src, BODY, BODY + RETURN)),
-          ("the bulk copies alone", cut_before("vertical")),
-          ("the copies and the vertical pass", cut_before("luma")),
-          ("without the vertical pass", without("vertical")),
-          ("without the luma rows", without("luma")),
-          ("without the chroma rows", without("chroma")),
-          ("without the padded planes", cut_before("pad")))
+          ("K10", "the bulk copies alone", cut_before("vertical")),
+          ("K10", "the copies and the vertical pass", cut_before("luma")),
+          ("K10", "without the vertical pass", without("vertical")),
+          ("K10", "without the luma rows", without("luma")),
+          ("K10", "without the chroma rows", without("chroma")),
+          ("K10", "without the padded planes", cut_before("pad")),
+          ("K13", "the launch of the grid alone",
+           lambda src: _sub(src, K13_BODY,
+                            K13_BODY + "  if (a.h[0] >= 0) return;\n")),
+          ("K13", "the loads alone",
+           lambda src: _sub(src, K13_MARCH, K13_LOADS_ALONE + K13_MARCH)),
+          ("K13", "loads and stores, no arithmetic",
+           lambda src: _resub(src, K13_PIXEL, "      wd[k] = word_of(c[i], k) "
+                              "^ word_of(q[i], k);\n", 1)),
+          ("K13", "without the gain shuffle",
+           lambda src: _resub(src, K13_SHUFFLE, r"gain ^ (\1);", 4)),
+          ("K13", "without the stores",
+           lambda src: _sub(src, K13_STORE, "    if (a.h[0] < 0) "
+                            "store_strip(out + o, v, n);\n")))
 
 
-# K10 variants: (name, the source's transform)
-VARIANTS = (("chunk 4, 64 threads", sizes(4, 64)),
-            ("chunk 4, 128 threads", sizes(4, 128)),
-            ("chunk 8, 64 threads", sizes(8, 64)),
-            ("chunk 8, 256 threads", sizes(8, 256)),
-            ("chunk 16, 128 threads", sizes(16, 128)),
-            ("chunk 16, 256 threads", sizes(16, 256)),
-            ("no shared vertical pass", direct))
+# design variants: (kernel, name, the source's transform)
+VARIANTS = (("K10", "chunk 4, 64 threads", sizes(4, 64)),
+            ("K10", "chunk 4, 128 threads", sizes(4, 128)),
+            ("K10", "chunk 8, 64 threads", sizes(8, 64)),
+            ("K10", "chunk 8, 256 threads", sizes(8, 256)),
+            ("K10", "chunk 16, 128 threads", sizes(16, 128)),
+            ("K10", "chunk 16, 256 threads", sizes(16, 256)),
+            ("K10", "no shared vertical pass", direct),
+            ("K13", "2 rows, 4 warps a block", k13_sizes(2, 4)),
+            ("K13", "8 rows, 2 warps a block", k13_sizes(8, 2)),
+            ("K13", "8 rows, 4 warps a block", k13_sizes(8, 4)),
+            ("K13", "16 rows, 2 warps a block", k13_sizes(16, 2)),
+            ("K13", "4 rows, 1 warp a block", k13_sizes(4, 1)),
+            ("K13", "4 rows, 2 warps a block", k13_sizes(4, 2)),
+            ("K13", "4 rows, 8 warps a block", k13_sizes(4, 8)),
+            ("K13", "gains in shared memory", k13_shared_gains),
+            ("K13", "rows bulk-copied into shared memory", k13_bulk),
+            ("K13", "rows by cp.async, a wait a row", k13_cp_async),
+            ("K13", "rows by cp.async, 8 rows, 2 warps a block",
+             lambda src: k13_cp_async(k13_sizes(8, 2)(src))))
 
 
-def record_real():
-    """The stage entries' arguments of the real inputs, on the host:
-    {what: (kernel, args)}."""
-    w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
-    lanes = chip_smoke.LANES
-    frames = list(chessboard_sequence(w, h, lanes + 1))
+def record_real(kernels):
+    """The stage entries' arguments of the real inputs of `kernels`, on
+    the host: {what: (kernel, args)}."""
     run = RunConfig(qp_min=chip_smoke.QP, qp_max=chip_smoke.QP,
                     encode_speed=2)
-    cfg = EncoderConfig(width=w, height=h, gop=chip_smoke.GOP,
-                        qp=chip_smoke.QP)
+    cfg = EncoderConfig(width=chip_smoke.WIDTH, height=chip_smoke.HEIGHT,
+                        gop=chip_smoke.GOP, qp=chip_smoke.QP)
+    out = {}
+    if kernels & {"K11", "K12"}:
+        out.update(record_gop(cfg, run, kernels))
+    if kernels & {"K9", "K10"}:
+        out.update(record_svc(cfg, run, kernels))
+    if "K13" in kernels:
+        out.update(record_denoise(cfg, run))
+    return out
+
+
+def record_gop(cfg, run, kernels):
+    """K11's and K12's inputs: the first P step of 16 GOP lanes and of
+    one."""
+    lanes = chip_smoke.LANES
+    frames = list(chessboard_sequence(cfg.width, cfg.height, lanes + 1))
     out = {}
     for what, n in ((f"{lanes}-lane P step", lanes),
                     ("one-frame P step", 1)):
@@ -298,31 +508,49 @@ def record_real():
                                           "models.stages"):
             enc.encode_step(frames[1:n + 1], run)
         torch.cuda.synchronize()
-        out[what] = ("K11", chip_smoke.to_device(refs[0], "cpu"))
-        out[f"{what}'s pre"] = ("K12", chip_smoke.to_device(pre[0], "cpu"))
+        if "K11" in kernels:
+            out[what] = ("K11", chip_smoke.to_device(refs[0], "cpu"))
+        if "K12" in kernels:
+            out[f"{what}'s pre"] = ("K12", chip_smoke.to_device(pre[0],
+                                                                "cpu"))
         del enc, refs, pre
         torch.cuda.empty_cache()
-    svc = SvcEncoder(EncoderConfig(width=w, height=h, gop=chip_smoke.GOP,
-                                   qp=chip_smoke.QP, num_layers=2,
-                                   inter_layer_pred_flag=True))
+    return out
+
+
+def record_svc(cfg, run, kernels):
+    """K9's and K10's inputs: a two-layer SVC base-mode IDR."""
+    w, h = cfg.width, cfg.height
+    svc = SvcEncoder(dataclasses.replace(cfg, num_layers=2,
+                                         inter_layer_pred_flag=True))
     down, up = [], []
     with chip_smoke.recorded_calls("downsample_planes", down,
                                    "ops.resample"), \
             chip_smoke.recorded_calls("upsample_tiles", up, "ops.resample"):
-        svc.encode(*frames[0], run)
+        svc.encode(*next(iter(chessboard_sequence(w, h, 1))), run)
     torch.cuda.synchronize()
-    out[f"{w}x{h} SVC frame"] = ("K9", chip_smoke.to_device(down[0], "cpu"))
-    out[f"{w}x{h} SVC base-mode frame"] = (
-        "K10", chip_smoke.to_device(up[0], "cpu"))
+    out = {}
+    if "K9" in kernels:
+        out[f"{w}x{h} SVC frame"] = ("K9", chip_smoke.to_device(down[0],
+                                                               "cpu"))
+    if "K10" in kernels:
+        out[f"{w}x{h} SVC base-mode frame"] = (
+            "K10", chip_smoke.to_device(up[0], "cpu"))
     del svc, down, up
+    torch.cuda.empty_cache()
+    return out
+
+
+def record_denoise(cfg, run):
+    """K13's input: the second P frame of the 1080p denoise path."""
     dn = H264Encoder(dataclasses.replace(cfg, temporal_denoise_flag=True))
     calls = []
     with chip_smoke.recorded_calls("denoise_planes", calls, "ops.denoise"):
-        for f in noise_pan_sequence(w, h, 3):
+        for f in noise_pan_sequence(cfg.width, cfg.height, 3):
             dn.encode(*f, dataclasses.replace(run, encode_speed=0))
     torch.cuda.synchronize()
-    out[f"{w}x{h} denoise P frame"] = ("K13", chip_smoke.to_device(
-        calls[-1], "cpu"))
+    out = {f"{cfg.width}x{cfg.height} denoise P frame": (
+        "K13", chip_smoke.to_device(calls[-1], "cpu"))}
     del dn, calls
     torch.cuda.empty_cache()
     return out
@@ -336,21 +564,23 @@ def load_module(path, name):
 
 
 def baseline_modules(tree):
-    """An earlier tree's K11 and K9 / K10 wrapper modules, loaded beside
-    the current ones, with that tree's kernels built and loaded under
-    them. Returns ({kernel: module}, {source: (library path, build
-    log)})."""
+    """An earlier tree's K11, K9 / K10 and K13 wrapper modules (those it
+    has), loaded beside the current ones, with that tree's kernels built
+    and loaded under them. Returns ({kernel: module}, {source: (library
+    path, build log)})."""
     ops = os.path.join(tree, "h264lab_tpu_torch", "ops")
     csrc = os.path.join(tree, "h264lab_tpu_torch", "csrc")
-    ref = load_module(os.path.join(ops, "refplanes.py"),
-                      "baseline_refplanes")
-    res = load_module(os.path.join(ops, "resample.py"), "baseline_resample")
-    built = cuda_build.build_all([os.path.join(csrc, "refplanes.cu"),
-                                  os.path.join(csrc, "resample.cu")])
-    ref._lib.use(built[0][0])
-    res._lib.use(built[1][0])
-    return ({"K11": ref, "K9": res, "K10": res},
-            {"refplanes": built[0], "resample": built[1]})
+    names = [name for name in ("refplanes", "resample", "denoise")
+             if os.path.exists(os.path.join(csrc, f"{name}.cu"))]
+    built = cuda_build.build_all([os.path.join(csrc, f"{name}.cu")
+                                  for name in names])
+    mods = {}
+    for name, (path, _) in zip(names, built):
+        mod = load_module(os.path.join(ops, f"{name}.py"), f"baseline_{name}")
+        mod._lib.use(path)
+        for kernel in MODULE_KERNELS[name]:
+            mods[kernel] = mod
+    return mods, dict(zip(names, built))
 
 
 def tiles_of(args):
@@ -441,12 +671,15 @@ def host_parts(kernel, args, reps):
         tensors = tiles_of(args)
         specs, nbytes, views, _, _ = resample._up_plan(
             tensors[0].shape[0], *args[1:])
+    elif kernel == "K13":
+        tensors = tuple(args[0]) + tuple(args[1])
+        specs, nbytes, views, _, _ = denoise._plan(
+            tuple(p.shape for p in args[0]))
     else:
         tensors = tuple(args)
         specs, nbytes, views, _, _ = resample._down_plan(
             tuple(p.shape for p in args))
-    wrapper = wrapper_of(kernel, refplanes if kernel == "K11" else resample,
-                         args)
+    wrapper = wrapper_of(kernel, KERNEL_MODULES[kernel], args)
     index, dev = tensors[0].get_device(), tensors[0].device
     reps *= 5
     out = dict(call=host_us(wrapper, reps))
@@ -499,22 +732,23 @@ def host_parts(kernel, args, reps):
 
 
 def variant_builds(label, variants, tag):
-    """K10 built with each of `variants` ((name, transform), ...):
-    {name: library path}."""
-    src = resample.SRC.read_text()
+    """Each of `variants` ((kernel, name, transform), ...) built from the
+    kernel's current source (`KERNEL_MODULES[kernel].SRC`) with the
+    headers beside it: {(kernel, name): library path}."""
     VARIANTS_DIR.mkdir(parents=True, exist_ok=True)
-    for header in resample.SRC.parent.glob("*.h"):
+    for header in cuda_build.CSRC.glob("*.h"):
         shutil.copy(header, VARIANTS_DIR / header.name)
     paths = []
-    for k, (name, transform) in enumerate(variants):
-        path = VARIANTS_DIR / f"resample_{tag}{k}.cu"
-        path.write_text(transform(src))
+    for k, (kernel, name, transform) in enumerate(variants):
+        src = KERNEL_MODULES[kernel].SRC
+        path = VARIANTS_DIR / f"{src.stem}_{tag}{k}.cu"
+        path.write_text(transform(src.read_text()))
         paths.append(path)
     built = cuda_build.build_all(paths)
     out = {}
-    for (name, _), (path, log) in zip(variants, built):
-        ptxas_report(tag, f"K10 ({name})", log, label)
-        out[name] = path
+    for (kernel, name, _), (path, log) in zip(variants, built):
+        ptxas_report(tag, f"{kernel} ({name})", log, label)
+        out[(kernel, name)] = path
     return out
 
 
@@ -526,7 +760,13 @@ def main() -> int:
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--sass", metavar="DIR")
+    ap.add_argument("--kernels", default=",".join(KERNEL_MODULES),
+                    help="the kernels to time, comma-separated "
+                    "(default: all)")
     opts = ap.parse_args()
+    kernels = set(opts.kernels.split(","))
+    if not kernels <= set(KERNEL_MODULES):
+        ap.error(f"--kernels: not among {sorted(KERNEL_MODULES)}")
     if not torch.cuda.is_available():
         print("torch_ref_bench: no CUDA device", file=sys.stderr)
         return 2
@@ -557,10 +797,12 @@ def main() -> int:
                 result["sass"][f"{tag} {source}"] = counts
                 for fn, c in counts.items():
                     print(f"  {tag} {source} SASS {fn}: {c}", flush=True)
-    variants = (variant_builds(label, VARIANTS, "variant") if opts.variants
-                else {})
-    phases = variant_builds(label, PHASES, "phase") if opts.phases else {}
-    real = record_real()
+    variants = (variant_builds(label, [v for v in VARIANTS
+                                       if v[0] in kernels], "variant")
+                if opts.variants else {})
+    phases = (variant_builds(label, [v for v in PHASES if v[0] in kernels],
+                             "phase") if opts.phases else {})
+    real = record_real(kernels)
     prepared = []
     for what, (kernel, args) in real.items():
         args = chip_smoke.to_device(args, "cuda")
@@ -588,7 +830,7 @@ def main() -> int:
                 [us for t, us in hosts if t == "old"])
         else:
             row["host_us"] = host_us(fns["new"], 5 * opts.reps)
-        if opts.host_parts and kernel in ("K9", "K10", "K11") and (
+        if opts.host_parts and kernel in ("K9", "K10", "K11", "K13") and (
                 kernel != "K11" or what.startswith("one")):
             row["host_parts"] = host_parts(kernel, args, opts.reps)
             print(f"  {kernel} wrapper host us a call on the {what} {label}, "
@@ -665,13 +907,13 @@ def main() -> int:
                 f"{row['host_us'] / row['old_host_us']:.3f}); outputs equal "
                 f"to the old build's: {row['old_equal']}")
         print(line, flush=True)
-    for name, path in variants.items():
-        mod = load_module(resample.__file__, "variant_resample")
+    for (kernel, name), path in variants.items():
+        mod = load_module(KERNEL_MODULES[kernel].__file__, "variant_module")
         mod._lib.use(path)
-        for what, kernel, args, fns, row in prepared:
-            if kernel != "K10":
+        for what, k, args, fns, row in prepared:
+            if k != kernel:
                 continue
-            var = wrapper_of("K10", mod, args)
+            var = wrapper_of(kernel, mod, args)
             same = equal(var(), fns["new"]())
             turns = [(tag, chip_smoke._cuda_ms(
                 fns["new"] if tag == "current" else var, opts.reps))
@@ -681,28 +923,33 @@ def main() -> int:
                 for tag in ("current", "variant", "variant", "current")]
             result["inputs"][f"{what}, {name}"] = dict(
                 turns=turns, device=dev, equal=same)
-            print(f"  K10 {name} on the {what} {label}: in turns current, "
-                  "variant, variant, current: " + ", ".join(
+            print(f"  {kernel} {name} on the {what} {label}: in turns "
+                  "current, variant, variant, current: " + ", ".join(
                       f"{ms:.4f}" for _, ms in turns) + " ms; device us "
                   + ", ".join(f"{sum(us for _, us in k):.1f}"
                               for _, k in dev)
                   + f"; outputs equal: {same}", flush=True)
-    k10 = [(args, fns) for _, kernel, args, fns, _ in prepared
-           if kernel == "K10"]
-    if phases and k10:
-        args, fns = k10[0]
+    result["phases"] = {}
+    for kernel in sorted({k for k, _ in phases}):
+        inputs = [(args, fns) for _, k, args, fns, _ in prepared
+                  if k == kernel]
+        if not inputs:
+            continue
+        args, fns = inputs[0]
         builds = {"the source": fns["new"]}
-        for name, path in phases.items():
-            mod = load_module(resample.__file__, "phase_resample")
-            mod._lib.use(path)
-            builds[name] = wrapper_of("K10", mod, args)
+        for (k, name), path in phases.items():
+            if k == kernel:
+                mod = load_module(KERNEL_MODULES[kernel].__file__,
+                                  "phase_module")
+                mod._lib.use(path)
+                builds[name] = wrapper_of(kernel, mod, args)
         times = {}
         for name in list(builds) * 2 + ["the source"]:
             k, _ = chip_smoke.kernel_launches(builds[name], traces=6)
             times.setdefault(name, []).append(sum(us for _, us in k))
-        result["phases"] = times
+        result["phases"][kernel] = times
         for name, us in times.items():
-            print(f"  K10 phases, {name} {label}: device us "
+            print(f"  {kernel} phases, {name} {label}: device us "
                   + ", ".join(f"{v:.2f}" for v in us), flush=True)
     print(f"torch_ref_bench {time.perf_counter() - t_start:.1f} s {label}")
     print(json.dumps(result, default=str))
